@@ -1,0 +1,126 @@
+"""PyTorch port vs JAX package: the uint32 sampler is bit-exact, the warps
+agree to float32 rounding.
+
+Inputs are made with numpy from a fixed seed and fed to both packages.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from halogen_tpu.sampler import mappings as jmap
+from halogen_tpu.sampler import sobol as jsob
+from halogen_tpu_torch.sampler import mappings as tmap
+from halogen_tpu_torch.sampler import sobol as tsob
+
+N = 4096
+
+
+@pytest.fixture(scope="module")
+def draws():
+    rng = np.random.default_rng(1234)
+    index = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+    # the full uint32 range plus the small indices renders actually use
+    index[:256] = np.arange(256, dtype=np.uint32)
+    dim = rng.integers(0, 64, N, dtype=np.uint32)
+    seed = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+    return index, dim, seed
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a.astype(np.int64))
+
+
+def _same_u32(jax_out, torch_out):
+    np.testing.assert_array_equal(
+        np.asarray(jax_out).astype(np.uint32),
+        torch_out.numpy().astype(np.uint32))
+    assert int(torch_out.min()) >= 0 and int(torch_out.max()) <= 0xFFFFFFFF
+
+
+def _same_f32(jax_out, torch_out):
+    np.testing.assert_array_equal(np.asarray(jax_out, np.float32),
+                                  torch_out.numpy())
+
+
+@pytest.mark.parametrize("fn", ["u32_hash", "reverse_bits_u32", "pixel_seed"])
+def test_unary_u32_bit_exact(fn, draws):
+    index, _, _ = draws
+    _same_u32(getattr(jsob, fn)(jnp.asarray(index)),
+              getattr(tsob, fn)(_t(index)))
+
+
+@pytest.mark.parametrize("fn", ["owen_scramble", "hash_combine"])
+def test_binary_u32_bit_exact(fn, draws):
+    index, _, seed = draws
+    _same_u32(getattr(jsob, fn)(jnp.asarray(index), jnp.asarray(seed)),
+              getattr(tsob, fn)(_t(index), _t(seed)))
+
+
+@pytest.mark.parametrize("dim", [0, 1, 2, 3])
+def test_sobol1d_bit_exact(dim, draws):
+    index, _, _ = draws
+    _same_u32(jsob.sobol1d(jnp.asarray(index), dim),
+              tsob.sobol1d(_t(index), dim))
+
+
+@pytest.mark.parametrize("fn", ["u32_owen_scrambled_sobol_1d",
+                                "u32_owen_scrambled_sobol_2d",
+                                "u32_owen_scrambled_sobol_4d"])
+def test_scrambled_sobol_u32_bit_exact(fn, draws):
+    index, dim, seed = draws
+    j = getattr(jsob, fn)(jnp.asarray(index), jnp.asarray(dim),
+                          jnp.asarray(seed))
+    t = getattr(tsob, fn)(_t(index), _t(dim), _t(seed))
+    for a, b in zip(j if isinstance(j, tuple) else (j,),
+                    t if isinstance(t, tuple) else (t,)):
+        _same_u32(a, b)
+
+
+@pytest.mark.parametrize("fn", ["ld_sample_1d", "ld_sample_2d",
+                                "ld_sample_4d", "prng_sample_1d",
+                                "prng_sample_2d"])
+def test_float_samples_bit_exact(fn, draws):
+    """The uint32 -> float32 conversion rounds to nearest in both."""
+    index, dim, seed = draws
+    j = getattr(jsob, fn)(jnp.asarray(index), jnp.asarray(dim),
+                          jnp.asarray(seed))
+    t = getattr(tsob, fn)(_t(index), _t(dim), _t(seed))
+    for a, b in zip(j if isinstance(j, tuple) else (j,),
+                    t if isinstance(t, tuple) else (t,)):
+        assert b.dtype == torch.float32
+        _same_f32(a, b)
+
+
+def test_scalar_dims_and_sample_index(draws):
+    """Python-int dimensions broadcast like the JAX weak-typed scalars, and
+    sample_index wraps frame * spp + lane at 2^32."""
+    index, _, seed = draws
+    for dim in (0, 7, 4 + 5 * 11):
+        ja, jb = jsob.ld_sample_2d(jnp.asarray(index), dim, jnp.asarray(seed))
+        ta, tb = tsob.ld_sample_2d(_t(index), dim, _t(seed))
+        _same_f32(ja, ta)
+        _same_f32(jb, tb)
+    frames = np.array([0, 1, 7, 2**31, 2**32 - 1], np.uint32)
+    for frame in frames:
+        _same_u32(jsob.sample_index(jnp.uint32(frame), jnp.asarray(index), 32),
+                  tsob.sample_index(int(frame), _t(index), 32))
+
+
+def test_mappings_match():
+    rng = np.random.default_rng(7)
+    u = rng.random(N, dtype=np.float32)
+    v = rng.random(N, dtype=np.float32)
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    np.testing.assert_allclose(
+        np.asarray(jmap.unit_vector_from_2d(jnp.asarray(u), jnp.asarray(v))),
+        tmap.unit_vector_from_2d(tu, tv).numpy(), atol=1e-6, rtol=0)
+    jx, jy = jmap.point_in_circle(np.float32(0.3), jnp.asarray(u),
+                                  jnp.asarray(v))
+    tx, ty = tmap.point_in_circle(torch.tensor(0.3), tu, tv)
+    np.testing.assert_allclose(np.asarray(jx), tx.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(np.asarray(jy), ty.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        np.asarray(jmap.inverse_blackman_harris_cdf(jnp.asarray(u))),
+        tmap.inverse_blackman_harris_cdf(tu).numpy(), atol=1e-6, rtol=0)
