@@ -2,12 +2,13 @@
 
 The JAX package `halogen_tpu` is the reference; this package mirrors its
 module paths and public names. Plain tensor code is PyTorch; the fused
-path-tracing kernel is hand-written CUDA C++ (`csrc/megakernel.cu`),
-built with nvcc at first use. On the CPU every kernel's plain PyTorch
-version runs instead.
+path-tracing kernel and its adjoint are hand-written CUDA C++
+(`csrc/megakernel.cu`, `csrc/adjoint.cu`), built with nvcc at first use.
+On the CPU every kernel's plain PyTorch version runs instead.
 
 The port so far covers the forward render of opaque scenes without
-envmaps, next-event estimation or debug views (see ROADMAP.md).
+envmaps, next-event estimation or debug views, and its material
+gradients and fitting loop (`halogen_tpu_torch.diff`; see ROADMAP.md).
 """
 
 from halogen_tpu_torch.config import (

@@ -4,10 +4,11 @@
 `trace_rays` is the lockstep integrator: every ray of the pool advances
 one bounce per step, with per-ray active masks, as a Python loop over
 bounces. It is the port's CPU oracle and the plain version of the CUDA
-megakernel (`kernels/megakernel.py`). `render_frame` walks the pixels in
+megakernel (`kernels/megakernel.py`); autograd through it is the
+detached-sampling gradient estimator. `render_frame` walks the pixels in
 Morton order, in chunks, and folds the spp lanes pixel-major into the ray
-axis; eligible scenes run the whole path loop in the megakernel on a CUDA
-device.
+axis; on a CUDA device the whole path loop runs in the megakernel, and
+its backward in the adjoint kernel (`kernels/adjoint.py`).
 
 Semantics preserved (trace_ray, HalgoenCompute.compute:876-950):
 - per-ray-type bounce limits checked at loop top with `>` (compute:869-871)
@@ -191,9 +192,14 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
     miss_attenuation = torch.where(miss[:, None], carry.attenuation,
                                    carry.miss_attenuation)
 
+    # Detached-sampling gradient estimator (trace.py:504-512 of the JAX
+    # package): path geometry is fixed in the backward pass, so parameter
+    # gradients flow only through throughput weights and emission. Without
+    # it roughness would reach the image through the next direction, the
+    # next hit's t and Beer-Lambert absorption on exiting hits.
     return carry._replace(
-        origin=new_origin,
-        direction=new_dir,
+        origin=new_origin.detach(),
+        direction=new_dir.detach(),
         attenuation=atten,
         color=color,
         acc_roughness=acc_roughness,
@@ -270,8 +276,9 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         o, d = generate_rays(camera, pxb, pyb, w, h, settings.filter_radius,
                              sidx, seedb, _sampler_2d(settings))
         if use_kernel:
-            col = mk.trace_color_fused(scene, o, d, camera.far, sidx, seedb,
-                                       settings, tables=tables)
+            # megakernel forward, adjoint-kernel backward
+            col = mk.trace_color_fused_diff(scene, o, d, camera.far, sidx,
+                                            seedb, settings, tables=tables)
         else:
             col = trace_rays(scene, o, d, farb, sidx, seedb, settings).color
         acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)

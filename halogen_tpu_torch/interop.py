@@ -3,8 +3,9 @@
 `scene_to_numpy` reads the leaves of a `SceneData` by field name (from
 this package, or any object with the same field names, such as the JAX
 package's `SceneData`) into numpy; `scene_from_numpy` builds this
-package's `SceneData` from them. The same pair exists for cameras. The
-tests feed one scene to both packages through these.
+package's `SceneData` from them. The same pair exists for cameras, and
+`material_table_to_numpy` reads material gradients. The tests feed one
+scene to both packages, and compare their gradients, through these.
 """
 
 from __future__ import annotations
@@ -29,12 +30,18 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def material_table_to_numpy(table) -> dict:
+    """MaterialTable leaves as numpy, by field name: a scene's materials,
+    or the gradients `render_loss_grad` returns for them (either
+    package's)."""
+    return {name: _np(getattr(table, name)) for name in _MATERIAL_FIELDS}
+
+
 def scene_to_numpy(scene) -> dict:
     """SceneData leaves as numpy: one entry per tensor field, `materials`
     as a dict of the material fields, and `any_transmissive`."""
     out = {name: _np(getattr(scene, name)) for name in _SCENE_FIELDS}
-    out["materials"] = {name: _np(getattr(scene.materials, name))
-                        for name in _MATERIAL_FIELDS}
+    out["materials"] = material_table_to_numpy(scene.materials)
     out["any_transmissive"] = bool(scene.any_transmissive)
     return out
 

@@ -4,13 +4,17 @@ tier).
 
 The kernel is hand-written CUDA C++ for Hopper (`csrc/megakernel.cu`).
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
-this package, from the source in the repository (rebuilt when the
-source's hash changes), and bound through ctypes.
+this package, from the sources in the repository (rebuilt when the hash
+of any of them changes), and bound through ctypes. `load_library` builds
+the adjoint kernel's library (`csrc/adjoint.cu`, `kernels/adjoint.py`)
+in the same step.
 
 `trace_color_fused` takes rays on a CUDA device to the kernel and rays on
 the CPU to the plain PyTorch version, `trace_color_fused_reference`,
 which runs the lockstep integrator. A CUDA launch that fails raises; there
 is no fallback. `LAUNCHES` counts kernel launches.
+`trace_color_fused_diff` is the differentiable form: this kernel forward,
+the adjoint kernel backward.
 
 Scope (`fused_supported`): opaque scenes without envmap, next-event
 estimation or debug views, with at most MAX_TRIS triangles, MAX_SPHERES
@@ -42,52 +46,84 @@ N_OUTPUTS = 10  # color rgb, miss attenuation rgb, acc roughness, dir xyz
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "megakernel.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# One shared library per kernel source, each with one C entry point:
+# (function, pointer arguments, int arguments, then the stream). Both
+# sources include the bounce body in path_common.cuh.
+LIBRARIES = {
+    "megakernel": ("halogen_megakernel_launch", 10, 10),
+    "adjoint": ("halogen_adjoint_launch", 14, 10),
+}
+_HEADERS = ("path_common.cuh",)
 
-_lib = None
-BUILD_SECONDS = None  # wall time of the nvcc build in this process
+_libs = {}
+BUILD_SECONDS = None  # wall time of this process's nvcc builds (in parallel)
 BUILD_LOG = ""  # nvcc's output (registers, shared memory, spills)
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the megakernel needs the CUDA "
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit to build")
     return path
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel's shared library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so_path = os.path.join(_BUILD_DIR, f"megakernel_{digest}.so")
-    if not os.path.exists(so_path):
+def _digest() -> str:
+    """Hash of every file the build reads, and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted([f"{lib}.cu" for lib in LIBRARIES] + list(_HEADERS)):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def load_library(name: str = "megakernel") -> ctypes.CDLL:
+    """Build (if needed) and load one kernel's shared library. A build
+    compiles every library that is missing at once, one nvcc process per
+    source, all started together."""
+    global BUILD_SECONDS, BUILD_LOG
+    if name in _libs:
+        return _libs[name]
+    digest = _digest()
+    paths = {lib: os.path.join(_BUILD_DIR, f"{lib}_{digest}.so")
+             for lib in LIBRARIES}
+    todo = [lib for lib in LIBRARIES if not os.path.exists(paths[lib])]
+    if todo:
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                              capture_output=True, text=True)
+        jobs = []
+        for lib in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            src = os.path.join(_CSRC, f"{lib}.cu")
+            jobs.append((lib, src, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for lib, src, tmp, proc in jobs:
+            log = proc.communicate()[0]
+            BUILD_LOG += f"[{lib}.cu]\n{log}"
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(src)
+            else:
+                os.replace(tmp, paths[lib])  # atomic: no half-written library
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, so_path)  # atomic: no half-written library
-    lib = ctypes.CDLL(so_path)
-    fn = lib.halogen_megakernel_launch
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+    lib = ctypes.CDLL(paths[name])
+    entry, n_ptr, n_int = LIBRARIES[name]
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
-    _lib = lib
+    _libs[name] = lib
     return lib
 
 
@@ -146,10 +182,12 @@ def _as_i32(u: torch.Tensor) -> torch.Tensor:
     return (((u & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
-def _launch(scene, origin, direction, far, sample_idx, seed,
-            settings: RenderSettings, tables) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns [N, 10]."""
-    global LAUNCHES
+def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
+                  settings: RenderSettings, tables):
+    """Check rays and scene for a launch of the megakernel or its adjoint;
+    returns (sample_idx, seed, far, tables, scalars) as the kernels take
+    them: int32 bit views, a [1] far, contiguous float32 tables, and the
+    trailing int arguments of both C entry points."""
     if not fused_supported(scene, settings):
         raise NotImplementedError(
             "the CUDA megakernel covers opaque scenes without envmap, NEE "
@@ -172,25 +210,34 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
                              f"{dev}")
     sidx = _as_i32(torch.as_tensor(sample_idx, device=dev).expand(n))
     sd = _as_i32(torch.as_tensor(seed, device=dev).expand(n))
-    sidx, sd = sidx.contiguous(), sd.contiguous()
     far_t = torch.as_tensor(far, dtype=torch.float32,
                             device=dev).reshape(-1)[:1].contiguous()
-    out = torch.empty((n, N_OUTPUTS), dtype=torch.float32, device=dev)
-    tri_tab, trin_tab, sph_tab, mat_tab = tables
+    scalars = (n, scene.num_triangles, scene.num_spheres,
+               scene.materials.count, settings.max_bounces,
+               settings.max_diffuse_bounces, settings.max_glossy_bounces,
+               settings.max_transmission_bounces,
+               int(settings.sampler == SamplerKind.SOBOL),
+               int(settings.russian_roulette))
+    return sidx.contiguous(), sd.contiguous(), far_t, tables, scalars
 
-    lib = load_library()
+
+def _launch(scene, origin, direction, far, sample_idx, seed,
+            settings: RenderSettings, tables) -> torch.Tensor:
+    """Launch the kernel on the current stream; returns [N, 10]."""
+    global LAUNCHES
+    sidx, sd, far_t, tables, scalars = kernel_inputs(
+        scene, origin, direction, far, sample_idx, seed, settings, tables)
+    dev = origin.device
+    out = torch.empty((origin.shape[0], N_OUTPUTS), dtype=torch.float32,
+                      device=dev)
+    lib = load_library("megakernel")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.halogen_megakernel_launch(
             origin.data_ptr(), direction.data_ptr(), far_t.data_ptr(),
-            sidx.data_ptr(), sd.data_ptr(), tri_tab.data_ptr(),
-            trin_tab.data_ptr(), sph_tab.data_ptr(), mat_tab.data_ptr(),
-            out.data_ptr(), n, scene.num_triangles, scene.num_spheres,
-            scene.materials.count, settings.max_bounces,
-            settings.max_diffuse_bounces, settings.max_glossy_bounces,
-            settings.max_transmission_bounces,
-            int(settings.sampler == SamplerKind.SOBOL),
-            int(settings.russian_roulette), stream)
+            sidx.data_ptr(), sd.data_ptr(),
+            *(t.data_ptr() for t in tables), out.data_ptr(), *scalars,
+            stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -236,3 +283,61 @@ def trace_color_fused(scene: SceneData, origin, direction, far, sample_idx,
     envmap (whose deferred-miss sky pass would follow here) raise."""
     return trace_fused_outputs(scene, origin, direction, far, sample_idx,
                                seed, settings, tables)[:, :3]
+
+
+class _FusedDiff(torch.autograd.Function):
+    """Megakernel forward, adjoint-kernel backward: the port of the JAX
+    package's custom_vjp (`megakernel.py:1904-1978`) on its fused-adjoint
+    route. Only the material table gets a cotangent; geometry, camera
+    rays and far get none (use `Fused.OFF` to differentiate geometry)."""
+
+    @staticmethod
+    def forward(ctx, scene, settings, tri_tab, trin_tab, sph_tab, mat_tab,
+                origin, direction, far, sample_idx, seed):
+        tables = (tri_tab, trin_tab, sph_tab, mat_tab)
+        ctx.scene, ctx.settings = scene, settings
+        # the rays of this launch, not a graph of its bounces
+        ctx.save_for_backward(*tables, origin, direction, far, sample_idx,
+                              seed)
+        return trace_color_fused(scene, origin, direction, far, sample_idx,
+                                 seed, settings, tables)
+
+    @staticmethod
+    def backward(ctx, grad_color):
+        from halogen_tpu_torch.kernels import adjoint as adj
+
+        *tables, origin, direction, far, sample_idx, seed = ctx.saved_tensors
+        mat_tab = tables[3]
+        d_mat = None
+        if ctx.needs_input_grad[5]:
+            # grad_color may be an expanded view (stride 0) of the
+            # per-pixel cotangent: the kernel reads a dense [N, 3]
+            dmat12 = adj.trace_grad_fused_materials(
+                ctx.scene, origin, direction, far, sample_idx, seed,
+                grad_color.contiguous(), ctx.settings, tables=tuple(tables))
+            # [K, 12] columns onto _scene_tables' [K, 17] layout; autograd
+            # chains col 9:12 through the rgb * intensity product
+            d_mat = torch.zeros_like(mat_tab)
+            d_mat[:, 9:12] = dmat12[:, 0:3]   # emission, premultiplied
+            d_mat[:, 0:3] = dmat12[:, 3:6]    # albedo rgb
+            d_mat[:, 4:7] = dmat12[:, 6:9]    # specular
+            d_mat[:, 13:16] = dmat12[:, 9:12]  # absorption
+        return (None, None, None, None, None, d_mat, None, None, None, None,
+                None)
+
+
+def trace_color_fused_diff(scene: SceneData, origin, direction, far,
+                           sample_idx, seed, settings: RenderSettings,
+                           tables=None) -> torch.Tensor:
+    """Differentiable fused tracer (port of the JAX
+    `trace_color_fused_diff`, `megakernel.py:1981-1993`): [N, 3] radiance
+    from `trace_color_fused`, whose backward is the adjoint kernel
+    (`kernels/adjoint.py`), or its plain version on the CPU. Gradients
+    reach the scene's material table through `_scene_tables(scene)`."""
+    dev = origin.device
+    tables = tables if tables is not None else _scene_tables(scene)
+    far = torch.as_tensor(far, dtype=torch.float32, device=dev)
+    sample_idx = torch.as_tensor(sample_idx, device=dev)
+    seed = torch.as_tensor(seed, device=dev)
+    return _FusedDiff.apply(scene, settings, *tables, origin, direction, far,
+                            sample_idx, seed)

@@ -1,14 +1,19 @@
-"""Where the time of one main-path frame goes, on one CUDA device.
+"""Where the time of one main-path frame, or one gradient step, goes, on
+one CUDA device.
 
 Run from the root of a checkout:
 
-    python3 -m halogen_tpu_torch.profile_frame [--frames 10] [--out FILE]
+    python3 -m halogen_tpu_torch.profile_frame [--grad] [--frames 10] [--out FILE]
 
 The frame is the main path of `chip_smoke.py`: Cornell glossy, 512x512,
 32 spp, 6 bounces, 262144-ray chunks, so 32 groups of 262144 rays, each a
-`generate_rays` call and one megakernel launch. Printed:
+`generate_rays` call and one megakernel launch. With `--grad` the step is
+`diff.render_loss_grad` at `bench.py`'s forward-plus-backward
+configuration instead: 256x256, 256 spp, so 64 groups, each a
+`generate_rays` call, one megakernel launch and, in the backward, one
+adjoint launch. Printed:
 
-  - the host-clock time of each of `--frames` frames (no profiler), with
+  - the host-clock time of each of `--frames` steps (no profiler), with
     `torch.cuda.synchronize()` around each;
   - one group's `generate_rays`: host time to issue it, and its time to
     complete (host clock, synchronized), and one kernel launch's device time
@@ -17,9 +22,9 @@ The frame is the main path of `chip_smoke.py`: Cornell glossy, 512x512,
     profiler, device busy time (the sum of the device-side rows' times:
     one stream, so they do not overlap), the idle share of the profiled
     frame and of the median unprofiled frame, the number of
-    `cudaLaunchKernel` calls and `aten::` op calls, the megakernel's
-    launches and device time, and the device kernels that take the most
-    time.
+    `cudaLaunchKernel` calls and `aten::` op calls, the megakernel's and
+    the adjoint's launches and device time, and the device kernels that
+    take the most time.
 
 The last line is one JSON object of these numbers; `--out` also writes it
 to a file.
@@ -39,6 +44,7 @@ import torch
 from torch.autograd import DeviceType
 
 import halogen_tpu_torch as ht
+from halogen_tpu_torch.diff import render_loss_grad
 from halogen_tpu_torch.integrator.camera import generate_rays
 from halogen_tpu_torch.integrator.trace import _morton_pixel_order, _sampler_2d
 from halogen_tpu_torch.kernels import megakernel as mk
@@ -48,6 +54,7 @@ from halogen_tpu_torch.scene import cornell
 CAM = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0), fov_deg=40.0)
 SETTINGS = dict(width=512, height=512, samples_per_pixel=32, max_bounces=6,
                 ray_chunk_size=262144)
+GRAD_SETTINGS = dict(SETTINGS, width=256, height=256, samples_per_pixel=256)
 
 
 def _self_device_us(evt) -> float:
@@ -64,6 +71,8 @@ def _self_device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--grad", action="store_true",
+                    help="profile a render_loss_grad step, not a frame")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -78,14 +87,20 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     scene = cornell.cornell_box(glossy=True).build(device=dev)
     cam = ht.make_camera(**CAM, device=dev)
-    st = ht.RenderSettings(**SETTINGS)
+    st = ht.RenderSettings(**(GRAD_SETTINGS if args.grad else SETTINGS))
+    if args.grad:
+        zeros = torch.zeros((st.height, st.width, 3), device=dev)
+        step = lambda f: render_loss_grad({"materials": scene.materials},
+                                          scene, cam, st, zeros, f)
+    else:
+        step = lambda f: ht.render_frame(scene, cam, st, f)
 
-    ht.render_frame(scene, cam, st, 0)  # build, warm-up
+    step(0)  # build, warm-up
     torch.cuda.synchronize()
     frame_ms = []
     for f in range(args.frames):
         t0 = time.perf_counter()
-        ht.render_frame(scene, cam, st, f + 1)
+        step(f + 1)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -124,7 +139,7 @@ def main(argv=None) -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        ht.render_frame(scene, cam, st, args.frames + 1)
+        step(args.frames + 1)
         torch.cuda.synchronize()
         prof_frame_ms = (time.perf_counter() - t0) * 1e3
     rows = prof.key_averages()
@@ -133,11 +148,14 @@ def main(argv=None) -> int:
     aten_calls = sum(r.count for r in rows if r.key.startswith("aten::"))
     top = sorted((r for r in rows if _self_device_us(r) > 0),
                  key=_self_device_us, reverse=True)[:8]
-    mega = [r for r in rows if _self_device_us(r) > 0
-            and "megakernel(" in r.key]
+    kernel_rows = lambda name: [r for r in rows if _self_device_us(r) > 0
+                                and f"{name}(" in r.key]
+    mega, adjoint = kernel_rows("megakernel"), kernel_rows("adjoint_kernel")
 
     result = {
         "card": card,
+        "step": "render_loss_grad" if args.grad else "render_frame",
+        "settings": GRAD_SETTINGS if args.grad else SETTINGS,
         "frames_ms": frame_ms,
         "frame_ms_min": min(frame_ms),
         "frame_ms_median": statistics.median(frame_ms),
@@ -153,6 +171,8 @@ def main(argv=None) -> int:
         "device_idle_share": 1.0 - busy_ms / statistics.median(frame_ms),
         "megakernel_launches": sum(r.count for r in mega),
         "megakernel_ms": sum(_self_device_us(r) for r in mega) / 1e3,
+        "adjoint_launches": sum(r.count for r in adjoint),
+        "adjoint_ms": sum(_self_device_us(r) for r in adjoint) / 1e3,
         "cuda_launch_kernel_calls": launches,
         "aten_op_calls": aten_calls,
         "top_device_kernels": [
@@ -160,7 +180,8 @@ def main(argv=None) -> int:
              "total_ms": _self_device_us(r) / 1e3} for r in top],
     }
     print(f"card: {card}")
-    print(f"frames (host clock, ms): {frame_ms}")
+    print(f"{result['step']} {st.width}x{st.height} {st.samples_per_pixel} "
+          f"spp, steps (host clock, ms): {frame_ms}")
     print(f"generate_rays per group: issue {result['gen_rays_issue_ms']:.3f} "
           f"ms, done {result['gen_rays_done_ms']:.3f} ms; kernel launch "
           f"{kernel_ms:.4f} ms (CUDA events)")
@@ -170,7 +191,9 @@ def main(argv=None) -> int:
           f"({result['device_idle_share']:.3f} of the median frame), "
           f"{launches} cudaLaunchKernel, {aten_calls} aten op calls; "
           f"megakernel {result['megakernel_launches']} launches, "
-          f"{result['megakernel_ms']:.3f} ms")
+          f"{result['megakernel_ms']:.3f} ms; adjoint "
+          f"{result['adjoint_launches']} launches, "
+          f"{result['adjoint_ms']:.3f} ms")
     for r in result["top_device_kernels"]:
         print(f"  {r['total_ms']:9.3f} ms  {r['count']:6d}x  {r['name']}")
     line = json.dumps(result)
