@@ -39,15 +39,44 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      albedo's distance to the truth is printed, not asserted: the
      detached estimator's gradient uses the same samples as the image,
      and at 16 spp that bias moves the albedo away from the truth in the
-     JAX package as well (PERF.md).
-The last lines are a JSON record of both kernels, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+     JAX package as well (PERF.md);
+ 11. the glass and sky variants vs their plain versions, 64x64 pixels x 4
+     lanes: the glass-in-glass box at 8 bounces (medium stack) in four
+     cases (Sobol+RR, Sobol, PRNG+RR, a transmission limit of 2), Cornell
+     glossy under the gradient sky with the mip bias (deferred miss), and
+     the material spheres and the glass box under the sky with env NEE at
+     mip level 0:
+     outputs 0-9 and the color after the sky pass at atol = rtol = 1e-4,
+     at most 0.1% of rays outside; with env NEE the miss flag (output 11)
+     at the same bound and the continuation pdf (output 10) at rtol 1e-2
+     (a near-mirror glossy pdf, up to ~1e3, amplifies ulp-level direction
+     differences);
+ 12. the `glass_box` and `envmap_nee` goldens rendered through the
+     kernels, at `tests/test_golden.py`'s bounds;
+ 13. the registers and spill bytes of every variant, and their and their
+     plain versions' times at the launch shape (262144 rays): B1a at 6
+     bounces, the glass variant at 8, the env-NEE variant at 4;
+ 14. the forward paths at full size: the glass box (512x512, 32 spp, 8
+     bounces, one warm-up and 4 timed frames) and the `envmap_1024` preset
+     (material spheres under the sky, 1024x1024, 16 spp, 4 bounces, env
+     NEE, mip level 0; one warm-up and 2 timed frames), each with its
+     launch count and Mrays/s; then one 256x256 frame of each against the
+     plain route, mean radiance within 2%;
+ 15. the glass adjoint: vs its plain version in phase 11's four glass
+     cases (phase 7's tolerance), bitwise repeatable, its replay equal to
+     the glass forward bit for bit; its time at the launch shape; the
+     glass fwd+bwd step (`render_loss_grad`, 256x256, 256 spp, 8 bounces,
+     64 + 64 launches per step) and its grads vs `Fused.OFF` at 64x64, 16
+     spp; a backward on an envmap scene raises NotImplementedError.
+The last lines are a JSON record of the five kernel variants, the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,7 +84,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CAM = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0), fov_deg=40.0)
+# the envmap_nee golden's camera (scripts/gen_goldens.py:66-67)
+SKY_CAM = dict(position=(0.0, 1.0, 6.0), target=(0.0, 0.5, 0.0),
+               fov_deg=40.0)
 PARITY_TOL = 1e-4
+PDF_RTOL = 1e-2  # env NEE's continuation pdf at the miss (output 10)
 PARITY_MAX_OUTSIDE = 1e-3  # share of rays
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6  # per column, of the column's max
 
@@ -79,6 +112,27 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _resources(log: str) -> dict:
+    """Registers and spill-store bytes of every kernel variant, from
+    nvcc's `-Xptxas -v` output: {name: (registers, spill bytes)}."""
+    names = {"megakernelILb0ELb0E": "B1a", "megakernelILb1ELb0E": "B1b",
+             "megakernelILb0ELb1E": "B1c", "megakernelILb1ELb1E": "B1b+c",
+             "adjoint_kernelILb0E": "B2", "adjoint_kernelILb1E": "B2b"}
+    out, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = next((v for k, v in names.items() if k in m.group(1)),
+                       None)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), spill)
+    return out
 
 
 def _grad_compare(got, ref) -> tuple:
@@ -140,12 +194,13 @@ def main() -> int:
     scene = cornell.cornell_box(glossy=True).build(device=dev)
     cam = ht.make_camera(**CAM, device=dev)
 
-    def rays(pix, lanes, spp, st, frame):
+    def rays(pix, lanes, spp, st, frame, camera=None):
+        camera = cam if camera is None else camera
         pixb = pix.repeat_interleave(lanes)
         lane = torch.arange(lanes, device=dev).repeat(pix.shape[0])
         sidx = sob.sample_index(frame, lane, spp)
         seed = sob.pixel_seed(pixb)
-        o, d = generate_rays(cam, pixb % st.width, pixb // st.width,
+        o, d = generate_rays(camera, pixb % st.width, pixb // st.width,
                              st.width, st.height, st.filter_radius, sidx,
                              seed, _sampler_2d(st))
         return o, d, sidx, seed
@@ -387,41 +442,326 @@ def main() -> int:
     assert np.isfinite(losses).all(), "fit losses not finite"
     assert held["fitted"] < held["perturbed"], "the fit did not lower the loss"
 
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
-        "source": "halogen_tpu_torch/csrc/megakernel.cu",
-        "replaces": "halogen_tpu/kernels/megakernel.py:945",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "rays_outside_tol": int(n_bad),
-        "rays": n,
-        "parity_max_abs_err": parity,
-        "frame_ms": dt / 4 * 1000.0,
-        "plain_frame_ms": plain_frame_s * 1000.0,
-        "mrays_per_s": mrays,
-        "build_s": build_s,
-    }, {
-        "name": "adjoint",
-        "route": "cuda",
-        "source": "halogen_tpu_torch/csrc/adjoint.cu",
-        "replaces": "halogen_tpu/kernels/adjoint.py:80",
-        "launches": fb_launches[1],
-        "max_abs_err": adj_err,
-        "ms": a_ms,
-        "plain_ms": ap_ms,
-        "rays": n,
-        "parity_max_abs_err": adj_parity,
-        "fwd_bwd_mrays_per_s": fb_mrays,
-        "fwd_bwd_step_ms": dt9 / 2 * 1000.0,
-        "fwd_bwd_megakernel_launches": fb_launches[0],
-        "fit_s_per_step_median": fit_s,
-        "fit_loss_first_last": [losses[0], losses[-1]],
-        "fit_albedo_err_before_after": [err0, err1],
-        "fit_held_out_loss": held,
-    }]}))
+    # --- 11. the glass and sky variants vs plain on the card
+    from halogen_tpu_torch.integrator.trace import deferred_sky
+    from halogen_tpu_torch.scene.envmap import Envmap
+
+    sky = Envmap.gradient_sky()
+    glass = cornell.glass_sphere_box().build(device=dev)
+    sky_cornell = cornell.cornell_box(glossy=True).build(envmap=sky,
+                                                         device=dev)
+    spheres = cornell.material_demo_spheres().build(envmap=sky, device=dev)
+    glass_sky = cornell.glass_sphere_box().build(envmap=sky, device=dev)
+    sky_cam = ht.make_camera(**SKY_CAM, device=dev)
+    gbase = dict(width=64, height=64, samples_per_pixel=4, max_bounces=8,
+                 max_transmission_bounces=8)
+    glass_cases = {
+        "glass_sobol_rr": ht.RenderSettings(**gbase),
+        "glass_sobol_no_rr": ht.RenderSettings(**gbase,
+                                               russian_roulette=False),
+        "glass_prng_rr": ht.RenderSettings(**gbase,
+                                           sampler=ht.SamplerKind.PRNG),
+        "glass_transmission_2": ht.RenderSettings(
+            **{**gbase, "max_transmission_bounces": 2}),
+    }
+    sky_cases = {
+        "sky_cornell": (sky_cornell, cam, ht.RenderSettings(
+            width=64, height=64, samples_per_pixel=4, max_bounces=4,
+            use_envmap=True)),
+        "sky_spheres_nee": (spheres, sky_cam, ht.RenderSettings(
+            width=64, height=64, samples_per_pixel=4, max_bounces=4,
+            use_envmap=True, env_importance_sampling=True, env_mip_level=0)),
+        # the stack and env NEE together (variant B1b+c)
+        "sky_glass_nee": (glass_sky, cam, ht.RenderSettings(
+            **gbase, use_envmap=True, env_importance_sampling=True,
+            env_mip_level=0)),
+    }
+    cases11 = {**{k: (glass, cam, v) for k, v in glass_cases.items()},
+               **sky_cases}
+    parity11 = {}
+    for name, (sc, cm, st11) in cases11.items():
+        pix = torch.arange(st11.num_pixels, device=dev)
+        o11, d11, sidx11, seed11 = rays(pix, 4, 4, st11, 1, cm)
+        got = mk.trace_fused_outputs(sc, o11, d11, cm.far, sidx11, seed11,
+                                     st11)
+        ref = mk.trace_color_fused_reference(sc, o11, d11, cm.far, sidx11,
+                                             seed11, st11)
+        col = mk.trace_color_fused(sc, o11, d11, cm.far, sidx11, seed11,
+                                   st11)
+        ref_col = deferred_sky(sc, st11, ref)
+        torch.cuda.synchronize()
+        n11 = got.shape[0]
+        keep = [c for c in range(got.shape[1]) if c != 10]
+        n_bad, max_out = compare(got[:, keep], ref[:, keep])
+        n_bad_col, max_col = compare(col, ref_col)
+        msg = ""
+        if got.shape[1] > 10:
+            pdf, pdf_ref = got[:, 10].cpu().numpy(), ref[:, 10].cpu().numpy()
+            bad_pdf = int((np.abs(pdf - pdf_ref) > PARITY_TOL
+                           + PDF_RTOL * np.abs(pdf_ref)).sum())
+            rel_pdf = float((np.abs(pdf - pdf_ref)
+                             / np.maximum(np.abs(pdf_ref), 1e-6)).max())
+            msg = (f"; output 10 (continuation pdf) max rel diff "
+                   f"{rel_pdf:.3e}, {bad_pdf} rays outside rtol {PDF_RTOL};"
+                   f" NEE-covered misses {int((got[:, 11] > 0.5).sum())}")
+            assert bad_pdf <= PARITY_MAX_OUTSIDE * n11, f"{name} pdf"
+        parity11[name] = max(max_out, max_col)
+        print(f"[11] {name}: {n11} rays, {got.shape[1]} outputs; outputs "
+              f"max |diff| {max_out:.3e}, {n_bad} rays outside {PARITY_TOL};"
+              f" color after the sky max |diff| {max_col:.3e}, {n_bad_col} "
+              f"rays outside{msg}", flush=True)
+        assert n_bad <= PARITY_MAX_OUTSIDE * n11, f"parity {name} failed"
+        assert n_bad_col <= PARITY_MAX_OUTSIDE * n11, f"color {name} failed"
+        assert np.isfinite(col.cpu().numpy()).all()
+
+    # --- 12. the glass_box and envmap_nee goldens through the kernels
+    goldens12 = {
+        "glass_box": (glass, cam, ht.RenderSettings(
+            width=64, height=64, samples_per_pixel=8, max_bounces=8,
+            max_transmission_bounces=8, ray_chunk_size=4096)),
+        "envmap_nee": (spheres, sky_cam, ht.RenderSettings(
+            width=64, height=64, samples_per_pixel=8, max_bounces=4,
+            use_envmap=True, env_importance_sampling=True,
+            ray_chunk_size=4096)),
+    }
+    for name, (sc, cm, st12) in goldens12.items():
+        golden = np.load(ROOT / "tests" / "golden" / f"{name}.npz")["image"]
+        before = mk.LAUNCHES
+        img = ht.Renderer(sc, cm, st12).step()
+        assert mk.LAUNCHES > before, f"{name} did not run the kernel"
+        assert img.shape == golden.shape and np.isfinite(img).all()
+        mae = float(np.abs(img - golden).mean())
+        worst = float(np.abs(img - golden).max())
+        print(f"[12] golden {name}: {mk.LAUNCHES - before} launches, MAE "
+              f"{mae:.3e} (< 5e-3), worst pixel {worst:.3e} (< 0.15)",
+              flush=True)
+        assert mae < 5e-3 and worst < 0.15, f"golden {name} failed"
+
+    # --- 13. registers, spills and times at the launch shape
+    res = _resources(mk.BUILD_LOG)
+    print(f"[13] registers, spill-store bytes per variant: {res}",
+          flush=True)
+    assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B2", "B2b"}, res
+    st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
+                             max_bounces=8, max_transmission_bounces=8,
+                             ray_chunk_size=262144)
+    pix_g = torch.from_numpy(perm.astype(np.int64)).to(dev)  # 512x512
+    o_g, d_g, sidx_g, seed_g = rays(pix_g, 1, 32, st_g, 1)
+    st_e = ht.RenderSettings(width=1024, height=1024, samples_per_pixel=16,
+                             max_bounces=4, use_envmap=True,
+                             env_importance_sampling=True, env_mip_level=0,
+                             ray_chunk_size=262144)
+    perm_e, _ = _morton_pixel_order(1024, 1024)
+    pix_e = torch.from_numpy(perm_e[:262144].astype(np.int64)).to(dev)
+    o_e, d_e, sidx_e, seed_e = rays(pix_e, 1, 16, st_e, 1, sky_cam)
+    env_tab = mk.env_table(spheres)
+    st_a = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
+                             max_bounces=6, ray_chunk_size=262144)
+    shapes13 = {  # phase 5's rays for B1a
+        "B1a": (scene, cam, st_a, o, d, sidx, seed, None),
+        "B1b": (glass, cam, st_g, o_g, d_g, sidx_g, seed_g, None),
+        "B1c": (spheres, sky_cam, st_e, o_e, d_e, sidx_e, seed_e, env_tab),
+    }
+    times13, err13 = {}, {}
+    for name, (sc, cm, st13, o13, d13, s13, e13, et) in shapes13.items():
+        tab13 = mk._scene_tables(sc)
+        kernel = lambda: mk.trace_fused_outputs(sc, o13, d13, cm.far, s13,
+                                                e13, st13, tab13, et)
+        plain = lambda: mk.trace_color_fused_reference(sc, o13, d13, cm.far,
+                                                       s13, e13, st13)
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        n_bad, err13[name] = compare(got[:, :10], ref[:, :10])
+        assert n_bad <= PARITY_MAX_OUTSIDE * got.shape[0], name
+        p_ms = [_cuda_ms(plain, 1)]
+        k_ms = [_cuda_ms(kernel, 10), _cuda_ms(kernel, 10)]
+        p_ms.append(_cuda_ms(plain, 1))
+        times13[name] = (k_ms, p_ms)
+        print(f"[13] {name}: one launch of {got.shape[0]} rays, "
+              f"{st13.max_bounces} bounces: kernel {k_ms} ms, plain {p_ms} "
+              f"ms;"
+              f" outputs 0-9 max |diff| {err13[name]:.3e}, {n_bad} rays "
+              f"outside {PARITY_TOL} | {card}", flush=True)
+
+    # --- 14. the glass and envmap_1024 forward paths at full size
+    paths14 = {"glass": (glass, cam, st_g, 4),
+               "envmap_1024": (spheres, sky_cam, st_e, 2)}
+    main14 = {}
+    for name, (sc, cm, st14, n_frames) in paths14.items():
+        mk.LAUNCHES = adj.LAUNCHES = 0
+        ht.render_frame(sc, cm, st14, 0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames14 = [ht.render_frame(sc, cm, st14, f + 1)
+                    for f in range(n_frames)]
+        torch.cuda.synchronize()
+        dt14 = time.perf_counter() - t0
+        launches14 = mk.LAUNCHES
+        assert launches14 > 0, f"the {name} path did not launch the kernel"
+        assert adj.LAUNCHES == 0
+        for img in frames14:
+            assert img.shape == (st14.height, st14.width, 3)
+            assert bool(torch.isfinite(img).all()), f"{name} not finite"
+        mr14 = (st14.samples_per_pixel * st14.num_pixels * n_frames / dt14
+                / 1e6)
+        small = st14.replace(width=256, height=256)
+        k_img = ht.render_frame(sc, cm, small, 1)
+        p_img = ht.render_frame(sc, cm, small.replace(fused=ht.Fused.OFF), 1)
+        rel14 = abs(float(k_img.mean()) - float(p_img.mean())) / abs(
+            float(p_img.mean()))
+        main14[name] = (launches14, mr14, dt14 / n_frames, rel14)
+        print(f"[14] {name} {st14.width}x{st14.height} "
+              f"{st14.samples_per_pixel} spp {st14.max_bounces} bounces: "
+              f"{launches14} kernel launches in "
+              f"{n_frames + 1} frames; {n_frames} frames in {dt14:.4f} s = "
+              f"{mr14:.3f} Mrays/s; 256x256 mean radiance kernel vs plain "
+              f"rel {rel14:.2e} (< 2e-2) | {card}", flush=True)
+        assert rel14 < 2e-2, f"{name} mean radiance disagrees with plain"
+
+    # --- 15. the glass adjoint (B2b)
+    adj15 = {}
+    for name, st15 in glass_cases.items():
+        pix = torch.arange(st15.num_pixels, device=dev)
+        o15, d15, sidx15, seed15 = rays(pix, 4, 4, st15, 1)
+        ct15 = torch.rand((o15.shape[0], 3),
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+        replay = torch.empty_like(o15)
+        got = adj._launch(glass, o15, d15, cam.far, sidx15, seed15, ct15,
+                          st15, None, replay)
+        again = adj.trace_grad_fused_materials(glass, o15, d15, cam.far,
+                                               sidx15, seed15, ct15, st15)
+        fwd = mk.trace_color_fused(glass, o15, d15, cam.far, sidx15, seed15,
+                                   st15)
+        ref = adj.trace_grad_fused_materials_reference(
+            glass, o15, d15, cam.far, sidx15, seed15, ct15, st15)
+        torch.cuda.synchronize()
+        max_diff, ratio = _grad_compare(got, ref)
+        adj15[name] = max_diff
+        repeat, replay_ok = torch.equal(got, again), torch.equal(replay, fwd)
+        print(f"[15] adjoint {name}: {o15.shape[0]} rays, [K, 12] max |diff|"
+              f" {max_diff:.3e}, worst diff/bound {ratio:.3e} (<= 1); "
+              f"absorption column max {float(ref[:, 9:].abs().max()):.3e};"
+              f" bitwise repeatable {repeat}; replay color == forward "
+              f"{replay_ok}", flush=True)
+        assert ratio <= 1.0, f"adjoint parity {name} failed"
+        assert repeat, f"adjoint {name} is not bitwise repeatable"
+        assert replay_ok, f"adjoint {name} replayed another path"
+
+    ct_g = torch.rand((o_g.shape[0], 3),
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    tab_g = mk._scene_tables(glass)
+    b2b_kernel = lambda: adj.trace_grad_fused_materials(
+        glass, o_g, d_g, cam.far, sidx_g, seed_g, ct_g, st_g, tab_g)
+    b2b_plain = lambda: adj.trace_grad_fused_materials_reference(
+        glass, o_g, d_g, cam.far, sidx_g, seed_g, ct_g, st_g)
+    got, ref = b2b_kernel(), b2b_plain()
+    torch.cuda.synchronize()
+    b2b_err, b2b_ratio = _grad_compare(got, ref)
+    assert b2b_ratio <= 1.0, "glass adjoint main-shape parity failed"
+    b2b_p = [_cuda_ms(b2b_plain, 1)]
+    b2b_k = [_cuda_ms(b2b_kernel, 10), _cuda_ms(b2b_kernel, 10)]
+    b2b_p.append(_cuda_ms(b2b_plain, 1))
+    print(f"[15] glass adjoint, one launch of {o_g.shape[0]} rays, 8 "
+          f"bounces: kernel {b2b_k} ms, plain {b2b_p} ms; [K, 12] max "
+          f"|diff| {b2b_err:.3e}, worst diff/bound {b2b_ratio:.3e} | {card}",
+          flush=True)
+
+    st15 = ht.RenderSettings(width=256, height=256, samples_per_pixel=256,
+                             max_bounces=8, max_transmission_bounces=8,
+                             ray_chunk_size=262144)
+    params15 = {"materials": glass.materials}
+    zeros15 = torch.zeros((256, 256, 3), device=dev)
+    mk.LAUNCHES = adj.LAUNCHES = 0
+    render_loss_grad(params15, glass, cam, st15, zeros15, 0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps15 = [render_loss_grad(params15, glass, cam, st15, zeros15, f)
+               for f in (1, 2)]
+    torch.cuda.synchronize()
+    dt15 = time.perf_counter() - t0
+    fb15 = (mk.LAUNCHES, adj.LAUNCHES)
+    assert fb15 == (3 * 64, 3 * 64), fb15
+    for loss, grads in steps15:
+        assert bool(torch.isfinite(loss)), "glass fwd+bwd loss not finite"
+        for f in dataclasses.fields(grads["materials"]):
+            g = getattr(grads["materials"], f.name)
+            assert bool(torch.isfinite(g.float()).all()), f.name
+    fb15_mrays = st15.samples_per_pixel * st15.num_pixels * 2 / dt15 / 1e6
+    print(f"[15] glass fwd+bwd {st15.width}x{st15.height} "
+          f"{st15.samples_per_pixel} spp {st15.max_bounces} bounces: "
+          f"launches (megakernel, adjoint) {fb15} in 3 steps; 2 steps in "
+          f"{dt15:.4f} s = {fb15_mrays:.3f} Mrays/s (fwd+bwd) | {card}",
+          flush=True)
+    st15s = st15.replace(width=64, height=64, samples_per_pixel=16)
+    zeros15s = torch.zeros((64, 64, 3), device=dev)
+    _, g_k = render_loss_grad(params15, glass, cam, st15s, zeros15s, 1)
+    _, g_p = render_loss_grad(params15, glass, cam,
+                              st15s.replace(fused=ht.Fused.OFF), zeros15s, 1)
+    fb15_err = {}
+    for f in ("albedo", "specular", "metallic", "roughness", "emissive",
+              "ior", "absorption"):
+        fb15_err[f], ratio = _grad_compare(getattr(g_k["materials"], f),
+                                           getattr(g_p["materials"], f))
+        assert ratio <= 1.0, f"glass render_loss_grad {f} disagrees"
+    print(f"[15] glass render_loss_grad 64x64 16 spp, kernels vs Fused.OFF, "
+          f"max |diff| per field {fb15_err}", flush=True)
+    st_sky = ht.RenderSettings(width=8, height=8, samples_per_pixel=2,
+                               max_bounces=2, use_envmap=True)
+    try:
+        render_loss_grad({"materials": sky_cornell.materials}, sky_cornell,
+                         cam, st_sky, torch.zeros((8, 8, 3), device=dev), 1)
+    except NotImplementedError as e:
+        print(f"[15] envmap backward raises NotImplementedError: {e}",
+              flush=True)
+    else:
+        raise AssertionError("an envmap backward did not raise")
+
+    # --- 16. the record of every kernel variant
+    def entry(name, replaces, launches, err, times, extra):
+        k_ms, p_ms = times
+        return {"name": name, "route": "cuda", "source": extra.pop("source"),
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": float(np.mean(k_ms)),
+                "plain_ms": float(np.mean(p_ms)), "registers": res[name][0],
+                "spill_store_bytes": res[name][1], **extra}
+
+    mega = "halogen_tpu_torch/csrc/megakernel.cu"
+    adjs = "halogen_tpu_torch/csrc/adjoint.cu"
+    print(json.dumps({"kernels": [
+        entry("B1a", "halogen_tpu/kernels/megakernel.py:945", launches,
+              max_err, (kernel_ms, plain_ms), dict(
+                  source=mega, rays_outside_tol=int(n_bad), rays=n,
+                  parity_max_abs_err=parity, frame_ms=dt / 4 * 1000.0,
+                  plain_frame_ms=plain_frame_s * 1000.0, mrays_per_s=mrays,
+                  build_s=build_s, ms_again=float(np.mean(
+                      times13["B1a"][0])))),
+        entry("B1b", "halogen_tpu/kernels/megakernel.py:225", main14[
+            "glass"][0], err13["B1b"], times13["B1b"], dict(
+                source=mega, parity_max_abs_err={
+                    k: v for k, v in parity11.items() if "glass" in k},
+                frame_ms=main14["glass"][2] * 1000.0,
+                mrays_per_s=main14["glass"][1])),
+        entry("B1c", "halogen_tpu/kernels/megakernel.py:1380",
+              main14["envmap_1024"][0], err13["B1c"], times13["B1c"], dict(
+                  source=mega, parity_max_abs_err={
+                      k: v for k, v in parity11.items() if "sky" in k},
+                  frame_ms=main14["envmap_1024"][2] * 1000.0,
+                  mrays_per_s=main14["envmap_1024"][1])),
+        entry("B2", "halogen_tpu/kernels/adjoint.py:80", fb_launches[1],
+              adj_err, (adj_ms, adj_plain_ms), dict(
+                  source=adjs, parity_max_abs_err=adj_parity,
+                  fwd_bwd_mrays_per_s=fb_mrays,
+                  fwd_bwd_step_ms=dt9 / 2 * 1000.0,
+                  fit_s_per_step_median=fit_s,
+                  fit_loss_first_last=[losses[0], losses[-1]],
+                  fit_albedo_err_before_after=[err0, err1],
+                  fit_held_out_loss=held)),
+        entry("B2b", "halogen_tpu/kernels/adjoint.py:244", fb15[1], b2b_err,
+              (b2b_k, b2b_p), dict(
+                  source=adjs, parity_max_abs_err=adj15,
+                  fwd_bwd_mrays_per_s=fb15_mrays,
+                  fwd_bwd_step_ms=dt15 / 2 * 1000.0)),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

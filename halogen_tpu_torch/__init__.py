@@ -6,9 +6,12 @@ path-tracing kernel and its adjoint are hand-written CUDA C++
 (`csrc/megakernel.cu`, `csrc/adjoint.cu`), built with nvcc at first use.
 On the CPU every kernel's plain PyTorch version runs instead.
 
-The port so far covers the forward render of opaque scenes without
-envmaps, next-event estimation or debug views, and its material
-gradients and fitting loop (`halogen_tpu_torch.diff`; see ROADMAP.md).
+The port so far covers the forward render of opaque and nested-dielectric
+(glass) scenes, with or without an environment map and its next-event
+estimation, and their material gradients and fitting loop
+(`halogen_tpu_torch.diff`; on the card, envmap scenes have no gradient
+yet; see ROADMAP.md). Area-light next-event estimation and debug views
+raise.
 """
 
 from halogen_tpu_torch.config import (
@@ -18,6 +21,7 @@ from halogen_tpu_torch.config import (
     RenderSettings,
     SamplerKind,
 )
+from halogen_tpu_torch.scene.envmap import Envmap
 from halogen_tpu_torch.scene.material import Material
 from halogen_tpu_torch.scene.scene import Scene
 from halogen_tpu_torch.integrator.camera import Camera, make_camera
@@ -34,6 +38,7 @@ __all__ = [
     "SamplerKind",
     "Material",
     "Scene",
+    "Envmap",
     "Camera",
     "make_camera",
     "render_frame",

@@ -147,6 +147,42 @@ def schlick_adjusted_specular(n1, n2, normal, incident, min_spec, max_spec):
     return torch.where(tir, max_spec, out)
 
 
+def procedural_glossy_pdf(omega: torch.Tensor, mirror: torch.Tensor,
+                          alpha: torch.Tensor,
+                          normal: torch.Tensor) -> torch.Tensor:
+    """Solid-angle pdf of the reference's procedural glossy lobe
+    `normalize(lerp(reflect(d, n), dd, a))`, dd cosine-distributed about n
+    (HalgoenCompute.compute:691-704). With a = roughness^2 the point
+    (1 - a) * mirror + a * dd lies on a sphere of radius a; its density
+    projects to the direction omega with the sphere-to-solid-angle
+    Jacobian, summed over the positive roots t of |omega t - c| = a:
+
+        pdf(omega) = sum cos(dd_i . n) / pi * t_i^2 / (a^2 |omega . dd_i|)
+
+    A delta lobe (a = 0) gets 0. Port of the JAX `procedural_glossy_pdf`."""
+    a1 = alpha
+    b = (1.0 - a1) * dot(omega, mirror)
+    c = (1.0 - a1) * (1.0 - a1) - a1 * a1
+    disc = b * b - c
+    eps = float(np.float32(1e-6))
+    exists = (a1 > eps) & (disc >= 0.0)
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    a_safe = torch.clamp_min(a1, eps)
+    total = torch.zeros_like(b)
+    for t in (b - sq, b + sq):
+        valid = exists & (t > eps)
+        t_safe = torch.where(valid, t, 1.0)
+        dd = (omega * t_safe[..., None]
+              - (1.0 - a_safe)[..., None] * mirror) / a_safe[..., None]
+        cos_dd = torch.clamp_min(dot(dd, normal), 0.0)
+        dens = (cos_dd * float(np.float32(1.0 / np.pi))
+                * t_safe * t_safe
+                / (a_safe * a_safe
+                   * torch.clamp_min(torch.abs(dot(omega, dd)), eps)))
+        total = total + torch.where(valid, dens, 0.0)
+    return total
+
+
 def lambertian_scatter(normal: torch.Tensor,
                        random_unit: torch.Tensor) -> torch.Tensor:
     """normalize(normal + uniform unit vector), guarding the degenerate

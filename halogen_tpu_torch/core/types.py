@@ -2,9 +2,9 @@
 
 Dataclasses of tensors on one device, SoA and flat like the JAX pytrees
 (the reference's packed ComputeBuffers, `HalogenRenderPass.cs:10-76`).
-`.to(device)` returns a copy on another device. The BVH node arrays, the
-light table and the envmap of the JAX `SceneData` are not part of the
-port's brute-force slice and have no fields here.
+`.to(device)` returns a copy on another device. The BVH node arrays and
+the light table of the JAX `SceneData` are not part of the port's
+brute-force slice and have no fields here.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ def _to(obj, device):
     kw = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v):
+        if isinstance(v, tuple) and not hasattr(v, "_fields"):
+            v = tuple(t.to(device) for t in v)  # a tuple of tensors
+        elif hasattr(v, "to"):  # a tensor, a tensor dataclass or NamedTuple
             v = v.to(device)
         kw[f.name] = v
     return type(obj)(**kw)
@@ -56,8 +58,8 @@ class MaterialTable:
 class SceneData:
     """Flattened render-ready scene: world-space triangle copies for the
     brute-force intersector, local-space copies and per-mesh transforms,
-    spheres, materials. `any_transmissive` is a build-time fact: False
-    means every material is opaque."""
+    spheres, materials and the envmap. `any_transmissive` is a build-time
+    fact: False means every material is opaque."""
 
     tri_verts_world: torch.Tensor  # [T, 3, 3]
     tri_normals_world: torch.Tensor  # [T, 3, 3] inverse-transpose, unnormalized
@@ -73,6 +75,12 @@ class SceneData:
     sphere_radius: torch.Tensor  # [S]
     sphere_material: torch.Tensor  # [S] int32
     materials: MaterialTable
+    # Environment map mip pyramid (equirectangular, linear RGB), finest
+    # first; the empty tuple is a black sky.
+    env_mips: tuple = ()
+    # Its luminance alias tables (scene/envmap.EnvCDF) for next-event
+    # estimation, or None.
+    env_cdf: object = None
     any_transmissive: bool = True
 
     @property

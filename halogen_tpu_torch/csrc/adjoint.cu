@@ -2,21 +2,27 @@
 // cotangents of the traced color, the backward of megakernel.cu.
 //
 // Replaces `halogen_tpu/kernels/adjoint.py::_make_adjoint_kernel` (the
-// Pallas TPU kernel) in its opaque branch (any_transmissive=False). For
+// Pallas TPU kernel) in its opaque branch (B2, any_transmissive=False)
+// and its nested-dielectric branch (B2b, any_transmissive=True; Pallas
+// :244-247, :273-297, :342-403, :499-521), two compile-time variants. For
 // every path it
 //   1. replays the forward kernel's path through the same `path_bounce`
-//      (path_common.cuh), so the replay rounds as the forward does and
-//      takes its Russian-roulette and lobe decisions bit for bit, and
+//      (path_common.cuh; B2b through its medium-stack variant, B1b's), so
+//      the replay rounds as the forward does and takes its Fresnel,
+//      refraction and Russian-roulette decisions bit for bit, and
 //      records a transcript per shaded bounce (`adjoint.py:447-456`):
 //      attenuation before the bounce, hit material, mask code (shade,
-//      spec, absorbing, survive), hit distance and Beer material;
+//      spec, absorbing, survive, true hit, refraction), hit distance and
+//      the material of the medium the ray came through (the current
+//      medium, whose absorption Beer-Lambert applied; -1 elsewhere);
 //   2. sweeps the bounces in reverse (`adjoint.py:480-583`): the
 //      attenuation cotangent gA flows back through the RR division
 //      1/max(atten) (the max's cotangent split evenly over argmax ties,
 //      gated by the 1e-20 clamp) and the throughput product, and each
 //      bounce routes d emission (premultiplied), d albedo or d specular
-//      (by lobe) and d absorption (Beer-Lambert on exiting hits) to its
-//      material;
+//      (by lobe; none on refraction and false hits, whose scatter color
+//      is 1) to its hit material and d absorption to the current
+//      medium's material;
 //   3. sums those per material in a fixed order, so two calls give the
 //      same bits: per bounce, the block's 128 threads put their 12 values
 //      and material ids in shared memory and thread t sums accumulators
@@ -37,6 +43,10 @@
 // 128 shared-memory reads per accumulator per bounce that any path of the
 // block reached; rows are padded to 129 floats so that the threads of a
 // warp, which read one column of different rows, hit different banks.
+//
+// B2b adds the stack's registers to the replay and a second material id
+// per bounce to the sums (already there for B2's exiting hits); the
+// transcript keeps its 7 rows, 66 MB at 8 bounces and 262144 rays.
 //
 // Build with -fmad=false and without fast math, as megakernel.cu.
 
@@ -68,6 +78,7 @@ struct Params {
   PathConfig cfg;
 };
 
+template <bool kTransmissive>
 __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
   extern __shared__ float smem[];
   const SceneView sc = load_scene(p.scene, smem);
@@ -95,21 +106,25 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
            p.direction[3 * i + 2]};
     const uint32_t sidx = p.sample_idx[i];
     const uint32_t seed = p.seed[i];
+    if constexpr (kTransmissive) s.stack.init();
     BounceRecord rec;
     for (int k = 0; k <= cfg.max_bounces; ++k) {
-      const int r = path_bounce(sc, cfg, sidx, seed, k, s, rec);
+      const int r = path_bounce<kTransmissive, false>(sc, cfg, sidx, seed, k,
+                                                      s, rec);
       if (r == kEnded) break;
       float* row = p.transcript + static_cast<size_t>(k) * kRec * n + i;
       const float code = 1.0f + (rec.spec ? 2.0f : 0.0f) +
                          (rec.absorbing ? 4.0f : 0.0f) +
-                         (rec.survive ? 8.0f : 0.0f);
+                         (rec.survive ? 8.0f : 0.0f) +
+                         (rec.is_true ? 16.0f : 0.0f) +
+                         (rec.refr ? 32.0f : 0.0f);
       row[0] = rec.a_prev.x;
       row[n] = rec.a_prev.y;
       row[2 * n] = rec.a_prev.z;
       row[3 * n] = static_cast<float>(rec.mat);
       row[4 * n] = code;
       row[5 * n] = rec.t_safe;
-      row[6 * n] = rec.absorbing ? static_cast<float>(rec.mat) : -1.0f;
+      row[6 * n] = rec.absorbing ? static_cast<float>(rec.ab_mat) : -1.0f;
       n_shaded = k + 1;
       if (r != kShadedGoesOn) break;
     }
@@ -148,12 +163,18 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
       const bool spec = (code & 2) != 0;
       const bool absorbing = (code & 4) != 0;
       const bool survive = (code & 8) != 0;
+      // a refraction or a false hit scatters with color 1
+      // (adjoint.py:512-516); opaque bounces never do
+      const bool surf =
+          !kTransmissive || ((code & 16) != 0 && (code & 32) == 0);
 
-      // recompute the bounce's scatter factor (adjoint.py:499-524)
+      // recompute the bounce's scatter factor (adjoint.py:499-524); the
+      // absorption is the current medium's material row
       const float* m = sc.mat + mat * kMatStride;
-      const V3 base = lobe_color(m, spec);
+      const V3 base = surf ? lobe_color(m, spec) : V3{1.0f, 1.0f, 1.0f};
       const V3 beer = beer_factor(
-          sc.mat + (absorbing ? ab_mat : mat) * kMatStride, absorbing, t_safe);
+          mat_absorption(sc.mat + (absorbing ? ab_mat : mat) * kMatStride),
+          absorbing, t_safe);
       const V3 scf = mul3(base, beer);
       const V3 a_post = mul3(a_prev, scf);
 
@@ -185,11 +206,11 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
       g[0] = ct.x * a_prev.x;
       g[1] = ct.y * a_prev.y;
       g[2] = ct.z * a_prev.z;
-      if (spec) {
+      if (surf && spec) {
         g[6] = g_base.x;
         g[7] = g_base.y;
         g[8] = g_base.z;
-      } else {
+      } else if (surf) {
         g[3] = g_base.x;
         g[4] = g_base.y;
         g[5] = g_base.z;
@@ -259,7 +280,8 @@ extern "C" int halogen_adjoint_launch(
     const float* tri, const float* trin, const float* sph, const float* mat,
     float* transcript, float* partial, float* out, float* color, int n,
     int num_tris, int num_spheres, int num_materials, int max_bounces,
-    int lim_d, int lim_g, int lim_t, int sobol, int use_rr, void* stream) {
+    int lim_d, int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
+    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_acc = num_materials * kNGrad;
   if (num_materials > kMaxMaterials)
@@ -284,7 +306,11 @@ extern "C" int halogen_adjoint_launch(
       sizeof(float) * (scene_smem_floats(num_tris, num_spheres, num_materials) +
                        (kNGrad + 2) * kPad);
   const int blocks = (n + kThreads - 1) / kThreads;
-  adjoint_kernel<<<blocks, kThreads, smem, st>>>(p);
+  if (transmissive) {
+    adjoint_kernel<true><<<blocks, kThreads, smem, st>>>(p);
+  } else {
+    adjoint_kernel<false><<<blocks, kThreads, smem, st>>>(p);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_blocks<<<n_acc, kReduceThreads, 0, st>>>(partial, blocks, n_acc, out);

@@ -1,19 +1,37 @@
 // Fused-bounce path-tracing megakernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces `halogen_tpu/kernels/megakernel.py::_make_kernel` (the Pallas
-// TPU kernel) in its brute-force, opaque, no-NEE specialization
-// (treelet_k=None, raylet_f=None, any_transmissive=False, env_nee=False):
+// TPU kernel) in its brute-force tier (treelet_k=None, raylet_f=None):
 // the whole path of one ray -- sampler draws, closest hit against every
-// sphere and triangle, emission, the opaque BRDF, per-type bounce limits,
+// sphere and triangle, emission, the BRDF, per-type bounce limits,
 // Russian roulette and the deferred-miss record -- in one launch. The
 // bounce body is `path_bounce` in path_common.cuh, shared with the
-// adjoint kernel (adjoint.cu), which replays this path.
+// adjoint kernel (adjoint.cu), which replays this path. Four
+// compile-time variants, chosen by the entry point as the Pallas kernel
+// is specialized statically:
+//   B1a opaque, no NEE (any_transmissive=False, env_nee=False);
+//   B1b nested dielectrics: a per-thread medium stack of 8 slots
+//       (any_transmissive=True);
+//   B1c env NEE: an envmap draw and a shadow ray per bounce, 12 outputs
+//       (env_nee=True), alone or with B1b.
+// The sky itself is shaded after the kernel, once per ray, from the miss
+// record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
 // What bounds it on this card: FP32 issue and warp divergence. Each
 // ray-bounce runs about 14 primitive tests (12 triangles and 2 spheres of
 // the Cornell box), one material lookup and ~600 integer ops of the
 // Owen-scrambled Sobol sampler, while a ray moves only 72 bytes through
-// device memory (32 in: origin, direction, sample index, seed; 40 out).
+// device memory (32 in: origin, direction, sample index, seed; 40 out,
+// 48 with env NEE). B1b adds the stack's unrolled selects (8 slots x 6
+// values) and the registers to hold them; glass paths run longer (8
+// bounces) and diverge more, since a warp's rays refract, reflect and
+// pass through false hits on different bounces. B1c adds a second Sobol
+// draw, one 40-byte row read from the [H*W, 10] draw table (cached in L1
+// and L2), the sin/cos of the draw and a shadow ray per bounce, i.e.
+// roughly twice the primitive tests. The TPU kernel took its env draws
+// precomputed as a [7, K, N] table, because gathers are costly there;
+// here the draw runs in the kernel, which saves the host the K Sobol
+// evaluations per group and the ~37 MB buffer.
 // The design keeps everything else on chip:
 //   - one thread per ray, blocks of 128 threads, no padding of the ray
 //     count (a bounds check masks the ragged edge);
@@ -39,11 +57,12 @@ struct Params {
   const uint32_t* sample_idx;  // [N]
   const uint32_t* seed;        // [N]
   SceneView scene;             // global-memory tables
-  float* out;                  // [N, 10]
+  float* out;                  // [N, 10], or [N, 12] with env NEE
   int n;
   PathConfig cfg;
 };
 
+template <bool kTransmissive, bool kEnvNee>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
   const SceneView sc = load_scene(p.scene, smem);
@@ -59,13 +78,17 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   s.d = {p.direction[3 * i], p.direction[3 * i + 1], p.direction[3 * i + 2]};
   const uint32_t sidx = p.sample_idx[i];
   const uint32_t seed = p.seed[i];
+  if constexpr (kTransmissive) s.stack.init();
 
   BounceRecord rec;
   for (int k = 0; k <= cfg.max_bounces; ++k) {
-    if (path_bounce(sc, cfg, sidx, seed, k, s, rec) != kShadedGoesOn) break;
+    if (path_bounce<kTransmissive, kEnvNee>(sc, cfg, sidx, seed, k, s,
+                                            rec) != kShadedGoesOn)
+      break;
   }
 
-  float* out = p.out + 10 * static_cast<size_t>(i);
+  constexpr int kOut = kEnvNee ? 12 : 10;
+  float* out = p.out + kOut * static_cast<size_t>(i);
   out[0] = s.color.x;
   out[1] = s.color.y;
   out[2] = s.color.z;
@@ -76,6 +99,10 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   out[7] = s.d.x;
   out[8] = s.d.y;
   out[9] = s.d.z;
+  if constexpr (kEnvNee) {
+    out[10] = s.m_pcos;
+    out[11] = s.m_nee ? 1.0f : 0.0f;
+  }
 }
 
 }  // namespace
@@ -83,10 +110,14 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 extern "C" int halogen_megakernel_launch(
     const float* origin, const float* direction, const float* far,
     const int* sample_idx, const int* seed, const float* tri,
-    const float* trin, const float* sph, const float* mat, float* out, int n,
-    int num_tris, int num_spheres, int num_materials, int max_bounces,
-    int lim_d, int lim_g, int lim_t, int sobol, int use_rr, void* stream) {
+    const float* trin, const float* sph, const float* mat,
+    const float* env_tab, float* out, int n, int num_tris, int num_spheres,
+    int num_materials, int max_bounces, int lim_d, int lim_g, int lim_t,
+    int sobol, int use_rr, int transmissive, int env_nee, int env_h,
+    int env_w, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (env_nee && (env_tab == nullptr || env_h <= 0 || env_w <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.origin = origin;
   p.direction = direction;
@@ -96,10 +127,20 @@ extern "C" int halogen_megakernel_launch(
   p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials};
   p.out = out;
   p.n = n;
-  p.cfg = {0.0f, max_bounces, lim_d, lim_g, lim_t, sobol != 0, use_rr != 0};
+  p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,
+           use_rr != 0, env_tab,   env_h, env_w};
   const size_t smem =
       sizeof(float) * scene_smem_floats(num_tris, num_spheres, num_materials);
   const int blocks = (n + kThreads - 1) / kThreads;
-  megakernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (transmissive && env_nee) {
+    megakernel<true, true><<<blocks, kThreads, smem, st>>>(p);
+  } else if (transmissive) {
+    megakernel<true, false><<<blocks, kThreads, smem, st>>>(p);
+  } else if (env_nee) {
+    megakernel<false, true><<<blocks, kThreads, smem, st>>>(p);
+  } else {
+    megakernel<false, false><<<blocks, kThreads, smem, st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,13 +2,24 @@
 // and its adjoint (adjoint.cu).
 //
 // Both kernels trace a ray through `path_bounce`, the bounce body of the
-// brute-force, opaque, no-NEE tier of the Pallas megakernel
+// brute-force tier of the Pallas megakernel
 // (`halogen_tpu/kernels/megakernel.py:1073-1554`): sampler draws, closest
-// hit against every sphere and triangle, emission, the opaque BRDF,
-// per-type bounce limits, Russian roulette and the deferred-miss record.
-// Because the code is one, and both files are built with the same flags
-// (-fmad=false, no fast math), the adjoint's replay takes the forward
-// kernel's path bit for bit; a copy that drifted by one ulp could flip a
+// hit against every sphere and triangle, emission, the BRDF, per-type
+// bounce limits, Russian roulette and the deferred-miss record. Two
+// compile-time switches select the variant, as the Pallas kernel is
+// specialized statically:
+//   kTransmissive (B1b, replaces `_Stack` :225-358 and the branches at
+//     :1241-1263, :1311-1365): a per-thread nested-dielectric medium
+//     stack, refraction with TIR, false hits that pass through, the
+//     bandaid pop and Beer-Lambert through the current medium;
+//   kEnvNee (B1c, replaces :1380-1504, :1547-1553): an envmap NEE draw
+//     per bounce from the alias table, a shadow ray against the scene
+//     tables, the balance heuristic against the continuation pdf, and
+//     the MIS state the deferred sky pass reads at the miss.
+// With both off the body is B1a's, op for op. Because the code is one,
+// and both files are built with the same flags (-fmad=false, no fast
+// math), the adjoint's replay takes the forward kernel's path bit for
+// bit; a copy that drifted by one ulp could flip a Fresnel, refraction or
 // Russian-roulette decision and give the gradient of another path.
 //
 // Float ops follow the Pallas body op for op: the same formulas, the same
@@ -34,6 +45,8 @@ constexpr float kHitEps = 1e-4f;
 constexpr float kOffsetEps = 1e-4f;
 constexpr float kDetEps = 1e-8f;
 constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kInvPi = 0.318309886183790671538f;  // float32(1 / pi)
 constexpr float kInvU32 = 1.0f / 4294967296.0f;
 
 // Sobol direction numbers of dimension 1 (dimension 0 is bit reversal).
@@ -195,6 +208,136 @@ __device__ __forceinline__ SceneView load_scene(const SceneView& g,
 }
 
 // ---------------------------------------------------------------------
+// nested-dielectric medium stack (core/medium.py, megakernel.py:225-358)
+// ---------------------------------------------------------------------
+
+constexpr int kStackDepth = 8;           // participatingMediumStack[8]
+constexpr int kEmptyPrio = 0x7FFFFFFF;   // the empty medium's priority
+constexpr int kNoMedium = -1;            // the empty medium's id
+
+struct Medium {
+  float ior;
+  V3 ab;  // absorption
+  int prio, mid;
+};
+
+__device__ __forceinline__ Medium empty_medium() {
+  return {1.0f, {0.0f, 0.0f, 0.0f}, kEmptyPrio, kNoMedium};
+}
+
+// Field by field, so that no address is selected and the media stay in
+// registers.
+__device__ __forceinline__ Medium sel_medium(bool c, const Medium& a,
+                                             const Medium& b) {
+  return {c ? a.ior : b.ior, sel3(c, a.ab, b.ab), c ? a.prio : b.prio,
+          c ? a.mid : b.mid};
+}
+
+// One ray's stack, sorted by descending priority from slot 0 up; the top
+// is slot size - 1. It is kept field by field (per-slot arrays, as the
+// Pallas `_Stack` keeps per-slot lists), every loop is unrolled over the
+// 8 slots, and every update is a select between values at constant
+// indices, so the slots can live in registers. Push and pop are the
+// masked shifts of `_Stack`, slot for slot (slots at or above `size` hold
+// whatever the shifts leave there and are never read).
+struct MediumStack {
+  float ior[kStackDepth], abx[kStackDepth], aby[kStackDepth],
+      abz[kStackDepth];
+  int prio[kStackDepth], mid[kStackDepth];
+  int size;
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int k = 0; k < kStackDepth; ++k) {
+      ior[k] = 1.0f;
+      abx[k] = aby[k] = abz[k] = 0.0f;
+      prio[k] = kEmptyPrio;
+      mid[k] = kNoMedium;
+    }
+    size = 0;
+  }
+
+  // get_top_ray_medium (compute:647-654)
+  __device__ __forceinline__ Medium top() const {
+    Medium out = empty_medium();
+    const int idx = size - 1;
+#pragma unroll
+    for (int k = 0; k < kStackDepth; ++k) {
+      const bool sel = idx == k;
+      out.ior = sel ? ior[k] : out.ior;
+      out.ab.x = sel ? abx[k] : out.ab.x;
+      out.ab.y = sel ? aby[k] : out.ab.y;
+      out.ab.z = sel ? abz[k] : out.ab.z;
+      out.prio = sel ? prio[k] : out.prio;
+      out.mid = sel ? mid[k] : out.mid;
+    }
+    return out;
+  }
+
+  // determine_true_medium_hit (compute:656-665)
+  __device__ __forceinline__ bool is_true_hit(int p) const {
+    return size == 0 || p <= top().prio;
+  }
+
+  // add_to_medium_stack (compute:582-622): at the top when prio <= the
+  // top's (the empty stack's top is 2^31 - 1), else at the count of
+  // strictly greater entries; a full stack drops the push.
+  __device__ __forceinline__ void push(const Medium& m, bool mask) {
+    const bool can = mask && size < kStackDepth;
+    int idx = 0;
+#pragma unroll
+    for (int k = 0; k < kStackDepth; ++k) {
+      idx += (k < size && prio[k] > m.prio) ? 1 : 0;
+    }
+    idx = m.prio <= top().prio ? size : idx;
+    // top down, so slot k - 1 still holds its old value
+#pragma unroll
+    for (int k = kStackDepth - 1; k >= 0; --k) {
+      const bool wr = can && k == idx;
+      const bool up = can && k > idx;
+      const int j = k > 0 ? k - 1 : 0;
+      ior[k] = wr ? m.ior : (up ? ior[j] : ior[k]);
+      abx[k] = wr ? m.ab.x : (up ? abx[j] : abx[k]);
+      aby[k] = wr ? m.ab.y : (up ? aby[j] : aby[k]);
+      abz[k] = wr ? m.ab.z : (up ? abz[j] : abz[k]);
+      prio[k] = wr ? m.prio : (up ? prio[j] : prio[k]);
+      mid[k] = wr ? m.mid : (up ? mid[j] : mid[k]);
+    }
+    size += can ? 1 : 0;
+  }
+
+  // pop_from_medium_stack (compute:627-642): remove the lowest slot with
+  // id `id`, shifting the ones above it down (the last slot takes the
+  // old slot 0, as the wrapping shift does); a missing id is a no-op.
+  __device__ __forceinline__ void pop_id(int id, bool mask) {
+    int first = kStackDepth;
+#pragma unroll
+    for (int k = kStackDepth - 1; k >= 0; --k) {
+      first = (k < size && mid[k] == id) ? k : first;
+    }
+    const bool found = first < kStackDepth;
+    const bool go = mask && found;
+    const float ior0 = ior[0], abx0 = abx[0], aby0 = aby[0], abz0 = abz[0];
+    const int prio0 = prio[0], mid0 = mid[0];
+    // bottom up, so slot k + 1 still holds its old value
+#pragma unroll
+    for (int k = 0; k < kStackDepth; ++k) {
+      const bool dead = go && k == size - 1;
+      const bool down = go && k >= first;
+      const bool last = k == kStackDepth - 1;
+      const int j = last ? k : k + 1;
+      ior[k] = dead ? 1.0f : (down ? (last ? ior0 : ior[j]) : ior[k]);
+      abx[k] = dead ? 0.0f : (down ? (last ? abx0 : abx[j]) : abx[k]);
+      aby[k] = dead ? 0.0f : (down ? (last ? aby0 : aby[j]) : aby[k]);
+      abz[k] = dead ? 0.0f : (down ? (last ? abz0 : abz[j]) : abz[k]);
+      prio[k] = dead ? kEmptyPrio : (down ? (last ? prio0 : prio[j]) : prio[k]);
+      mid[k] = dead ? kNoMedium : (down ? (last ? mid0 : mid[j]) : mid[k]);
+    }
+    size -= go ? 1 : 0;
+  }
+};
+
+// ---------------------------------------------------------------------
 // one bounce of one path
 // ---------------------------------------------------------------------
 
@@ -202,26 +345,39 @@ struct PathConfig {
   float far;
   int max_bounces, lim_d, lim_g, lim_t;
   bool sobol, use_rr;
+  // env NEE: [H * W, 10] draw table (alias_p, alias_j, pdf, alias pdf,
+  // texel radiance rgb, alias radiance rgb) of an H x W map
+  const float* env_tab = nullptr;
+  int env_h = 0, env_w = 0;
 };
+
+constexpr uint32_t kDimEnvNeeBase = 1u << 16;  // sobol.DIM_ENV_NEE_BASE
 
 struct PathState {
   V3 o, d;
   V3 color = {0.0f, 0.0f, 0.0f};
   V3 atten = {1.0f, 1.0f, 1.0f};
   V3 matten = {0.0f, 0.0f, 0.0f};  // attenuation at the miss (deferred sky)
-  int n_diffuse = 0, n_glossy = 0;
+  int n_diffuse = 0, n_glossy = 0, n_transmit = 0;
   float acc_rough = 0.0f;
+  MediumStack stack;  // transmissive variants only
+  // env NEE: the previous bounce's continuation pdf and NEE flag, and
+  // their values at the miss (read by the deferred sky pass)
+  float prev_pcos = 0.0f, m_pcos = 0.0f;
+  bool prev_nee = false, m_nee = false;
 };
 
 // What a shaded bounce leaves for the adjoint's reverse sweep
 // (`adjoint.py:447-456`): the attenuation before the bounce, the hit
-// material, the lobe, whether Beer-Lambert applied (an exiting hit), the
-// hit distance and whether Russian roulette let the path go on.
+// material, the lobe, whether the bounce refracted or passed through a
+// false hit (its scatter color is 1), whether Beer-Lambert applied and
+// the material of the medium it came from, the hit distance and whether
+// Russian roulette let the path go on.
 struct BounceRecord {
   V3 a_prev;
-  int mat;
+  int mat, ab_mat;
   float t_safe;
-  bool spec, absorbing, survive;
+  bool spec, refr, is_true, absorbing, survive;
 };
 
 enum BounceResult {
@@ -230,13 +386,16 @@ enum BounceResult {
   kShadedGoesOn = 2,  // shaded, the path goes on
 };
 
-// Beer-Lambert factor of a bounce: exp(-absorption * t) on exiting hits,
-// 1 elsewhere. `m` is the material row.
-__device__ __forceinline__ V3 beer_factor(const float* m, bool absorbing,
+// Beer-Lambert factor of a bounce: exp(-absorption * t) on absorbing
+// lanes, 1 elsewhere. `ab` is the absorbing medium's absorption.
+__device__ __forceinline__ V3 beer_factor(V3 ab, bool absorbing,
                                           float t_safe) {
   if (!absorbing) return {1.0f, 1.0f, 1.0f};
-  return {expf(-m[13] * t_safe), expf(-m[14] * t_safe),
-          expf(-m[15] * t_safe)};
+  return {expf(-ab.x * t_safe), expf(-ab.y * t_safe), expf(-ab.z * t_safe)};
+}
+
+__device__ __forceinline__ V3 mat_absorption(const float* m) {
+  return {m[13], m[14], m[15]};
 }
 
 // The lobe's color: specular or albedo (compute:691-704).
@@ -244,17 +403,120 @@ __device__ __forceinline__ V3 lobe_color(const float* m, bool spec) {
   return spec ? V3{m[4], m[5], m[6]} : V3{m[0], m[1], m[2]};
 }
 
+// Solid-angle pdf of the procedural glossy lobe normalize(lerp(mirror,
+// dd, a1)), dd cosine-distributed (core.math.procedural_glossy_pdf;
+// megakernel.py:918-943).
+__device__ __forceinline__ float glossy_pdf(V3 w, V3 mr, float a1, V3 n) {
+  const float eps = 1e-6f;
+  const float b = (1.0f - a1) * (w.x * mr.x + w.y * mr.y + w.z * mr.z);
+  const float c = (1.0f - a1) * (1.0f - a1) - a1 * a1;
+  const float disc = b * b - c;
+  const bool exists = a1 > eps && disc >= 0.0f;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float a_safe = fmaxf(a1, eps);
+  float total = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float t = r == 0 ? b - sq : b + sq;
+    const bool valid = exists && t > eps;
+    const float ts = valid ? t : 1.0f;
+    const V3 dd = {(w.x * ts - (1.0f - a_safe) * mr.x) / a_safe,
+                   (w.y * ts - (1.0f - a_safe) * mr.y) / a_safe,
+                   (w.z * ts - (1.0f - a_safe) * mr.z) / a_safe};
+    const float cos_dd = fmaxf(dot3(dd, n), 0.0f);
+    const float dens = cos_dd * kInvPi * ts * ts /
+                       (a_safe * a_safe * fmaxf(fabsf(dot3(w, dd)), eps));
+    total = total + (valid ? dens : 0.0f);
+  }
+  return total;
+}
+
+// Distance along the ray to sphere `sp` (center, radius), or INFINITY:
+// the AABB pre-test against `far`, then the nearer root past HIT_EPS, or
+// the farther one when the ray starts inside (`inside`).
+__device__ __forceinline__ float sphere_t(const float* sp, V3 o, V3 d,
+                                          V3 inv_d, float far,
+                                          bool& inside) {
+  const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
+  const float t1x = (cx - r - o.x) * inv_d.x;
+  const float t2x = (cx + r - o.x) * inv_d.x;
+  const float t1y = (cy - r - o.y) * inv_d.y;
+  const float t2y = (cy + r - o.y) * inv_d.y;
+  const float t1z = (cz - r - o.z) * inv_d.z;
+  const float t2z = (cz + r - o.z) * inv_d.z;
+  const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                           fminf(t1z, t2z));
+  const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                           fmaxf(t1z, t2z));
+  const float aabb_t = tmax > fmaxf(0.0f, tmin) ? tmin : INFINITY;
+  const float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
+  const float b = 2.0f * (ocx * d.x + ocy * d.y + ocz * d.z);
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+  const float disc = b * b - 4.0f * cq;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t_near = (-b - sq) * 0.5f;
+  const float t_far = (-b + sq) * 0.5f;
+  inside = t_near < 0.0f;
+  float t = inside ? t_far : t_near;
+  t = disc >= 0.0f ? t : INFINITY;
+  return (aabb_t < far && t > kHitEps) ? t : INFINITY;
+}
+
+// Möller-Trumbore against triangle `tv` (v0, e1, e2): whether the ray
+// hits it past HIT_EPS, with the distance, barycentrics and determinant.
+__device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
+                                             float& t, float& u, float& v,
+                                             float& det) {
+  const V3 v0 = {tv[0], tv[1], tv[2]};
+  const V3 e1 = {tv[3], tv[4], tv[5]};
+  const V3 e2 = {tv[6], tv[7], tv[8]};
+  const V3 pvec = cross3(d, e2);
+  det = dot3(pvec, e1);
+  const bool parallel = fabsf(det) < kDetEps;
+  const float inv_det = 1.0f / (parallel ? 1.0f : det);
+  const V3 tvec = {o.x - v0.x, o.y - v0.y, o.z - v0.z};
+  u = dot3(tvec, pvec) * inv_det;
+  const V3 qvec = cross3(tvec, e1);
+  v = dot3(d, qvec) * inv_det;
+  t = dot3(e2, qvec) * inv_det;
+  return !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
+         t > 0.0f && t > kHitEps;
+}
+
+// Closest-hit distance of a shadow ray (megakernel.py:1405-1474): the
+// closest hit's tests without its payload, and the
+// mesh-beats-sphere-by-HIT_EPS rule.
+__device__ __forceinline__ float shadow_t(const SceneView& sc, V3 o, V3 d,
+                                          float far) {
+  const V3 inv_d = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  float ssp_t = INFINITY;
+  for (int si = 0; si < sc.num_spheres; ++si) {
+    bool inside;
+    ssp_t = fminf(ssp_t,
+                  sphere_t(sc.sph + si * kSphStride, o, d, inv_d, far, inside));
+  }
+  float str_t = INFINITY;
+  for (int ti = 0; ti < sc.num_tris; ++ti) {
+    float t, u, v, det;
+    if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
+        t < str_t)
+      str_t = t;
+  }
+  return (str_t < ssp_t - kHitEps && str_t < far) ? str_t : ssp_t;
+}
+
 // Advances `s` by bounce k of the path (trace_ray compute:876-950) and
 // fills `rec` when the bounce shades. The caller stops at any result but
 // kShadedGoesOn: every later update of the Pallas body is masked for a
 // dead ray, so its state is frozen and leaving the loop is exact.
+template <bool kTransmissive, bool kEnvNee>
 __device__ __forceinline__ int path_bounce(const SceneView& sc,
                                            const PathConfig& cfg,
                                            uint32_t sidx, uint32_t seed,
                                            int k, PathState& s,
                                            BounceRecord& rec) {
   // --- per-type termination (compute:869-871, `>` semantics)
-  const int n_transmit = 0;  // opaque scenes never refract
+  const int n_transmit = kTransmissive ? s.n_transmit : 0;  // opaque: 0
   if (s.n_diffuse > cfg.lim_d || s.n_glossy > cfg.lim_g ||
       n_transmit > cfg.lim_t)
     return kEnded;
@@ -269,34 +531,12 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   float sp_mat = 0.0f;
   for (int si = 0; si < sc.num_spheres; ++si) {
     const float* sp = sc.sph + si * kSphStride;
-    const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-    const float t1x = (cx - r - o.x) * inv_d.x;
-    const float t2x = (cx + r - o.x) * inv_d.x;
-    const float t1y = (cy - r - o.y) * inv_d.y;
-    const float t2y = (cy + r - o.y) * inv_d.y;
-    const float t1z = (cz - r - o.z) * inv_d.z;
-    const float t2z = (cz + r - o.z) * inv_d.z;
-    const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                             fminf(t1z, t2z));
-    const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                             fmaxf(t1z, t2z));
-    const float aabb_t = tmax > fmaxf(0.0f, tmin) ? tmin : INFINITY;
-    const float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
-    const float b = 2.0f * (ocx * d.x + ocy * d.y + ocz * d.z);
-    const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-    const float disc = b * b - 4.0f * cq;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float t_near = (-b - sq) * 0.5f;
-    const float t_far = (-b + sq) * 0.5f;
-    const bool inside = t_near < 0.0f;
-    float t = inside ? t_far : t_near;
-    const float orient = inside ? -1.0f : 1.0f;
-    t = disc >= 0.0f ? t : INFINITY;
-    t = (aabb_t < far && t > kHitEps) ? t : INFINITY;
+    bool inside;
+    const float t = sphere_t(sp, o, d, inv_d, far, inside);
     if (t < sp_t) {
       sp_t = t;
-      sp_orient = orient;
-      sp_c = {cx, cy, cz};
+      sp_orient = inside ? -1.0f : 1.0f;
+      sp_c = {sp[0], sp[1], sp[2]};
       sp_mat = sp[4];
     }
   }
@@ -305,22 +545,9 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   float tr_t = INFINITY, tr_s = 0.0f, tr_mat = 0.0f;
   V3 tr_n = {0.0f, 0.0f, 0.0f};
   for (int ti = 0; ti < sc.num_tris; ++ti) {
-    const float* tv = sc.tri + ti * kTriStride;
-    const V3 v0 = {tv[0], tv[1], tv[2]};
-    const V3 e1 = {tv[3], tv[4], tv[5]};
-    const V3 e2 = {tv[6], tv[7], tv[8]};
-    const V3 pvec = cross3(d, e2);
-    const float det = dot3(pvec, e1);
-    const bool parallel = fabsf(det) < kDetEps;
-    const float inv_det = 1.0f / (parallel ? 1.0f : det);
-    const V3 tvec = {o.x - v0.x, o.y - v0.y, o.z - v0.z};
-    const float u = dot3(tvec, pvec) * inv_det;
-    const V3 qvec = cross3(tvec, e1);
-    const float v = dot3(d, qvec) * inv_det;
-    const float t = dot3(e2, qvec) * inv_det;
-    const bool ok = !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                    u + v <= 1.0f && t > 0.0f && t > kHitEps && t < tr_t;
-    if (ok) {
+    float t, u, v, det;
+    if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
+        t < tr_t) {
       const float* tn = sc.trin + ti * kTrinStride;
       tr_t = t;
       tr_s = sign_of(det);
@@ -351,9 +578,14 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   const V3 em = {m[9], m[10], m[11]};
   const float ior = m[12];
 
-  // --- miss: record the deferred-sky attenuation, the ray dies
+  // --- miss: record the deferred-sky attenuation (and with env NEE the
+  // previous bounce's MIS state, megakernel.py:1547-1553); the ray dies
   if (!is_hit) {
     s.matten = s.atten;
+    if constexpr (kEnvNee) {
+      s.m_pcos = s.prev_pcos;
+      s.m_nee = s.prev_nee;
+    }
     return kEnded;
   }
 
@@ -367,11 +599,34 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   sample_2d(cfg.sobol, sidx, 2u + stride, seed, &r1u, &r1v);
   sample_2d(cfg.sobol, sidx, 3u + stride, seed, &p1u, &p1v);
   const float rr = sample_1d(cfg.sobol, sidx, 4u + stride, seed);
-  (void)p1u;  // refraction draw: never taken in opaque scenes
 
   const bool entering = orient > 0.0f;
-  const float cur_ior = entering ? 1.0f : ior;
-  const float hit_ior = entering ? ior : 1.0f;
+  float cur_ior, hit_ior;
+  Medium cur;       // the medium the ray travelled through (transmissive)
+  bool true_hit = true;
+  if constexpr (kTransmissive) {
+    // interface tracking (evaluate_material_hit, compute:743-817)
+    const int prio = static_cast<int>(m[16]);
+    const Medium internal = {ior, mat_absorption(m), prio, mat_id};
+    const bool uses_tracking = prio >= 0;  // compute:758
+    true_hit = !uses_tracking || s.stack.is_true_hit(prio);
+    const Medium top0 = s.stack.top();
+    const bool empty0 = s.stack.size == 0;
+    s.stack.pop_id(mat_id, uses_tracking && !entering);
+    const Medium top_ap = s.stack.top();
+    cur = sel_medium(entering, top0,
+                     sel_medium(uses_tracking,
+                                sel_medium(empty0, internal, top0),
+                                internal));
+    const Medium hitm = sel_medium(entering, internal,
+                                   sel_medium(uses_tracking, top_ap, top0));
+    s.stack.push(internal, uses_tracking && entering);
+    cur_ior = cur.ior;
+    hit_ior = hitm.ior;
+  } else {
+    cur_ior = entering ? 1.0f : ior;
+    hit_ior = entering ? ior : 1.0f;
+  }
 
   // uniform unit vector (HalogenRandom.hlsl:282-298)
   const float theta = r1u * kTwoPi;
@@ -408,31 +663,147 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   const V3 spec_dir = {refl.x + (diffuse_dir.x - refl.x) * r2,
                        refl.y + (diffuse_dir.y - refl.y) * r2,
                        refl.z + (diffuse_dir.z - refl.z) * r2};
-  const V3 new_dir = normalize3(sel3(do_spec, spec_dir, diffuse_dir),
-                                1e-20f);
-  const V3 new_org = {pos.x + normal.x * kOffsetEps,
-                      pos.y + normal.y * kOffsetEps,
-                      pos.z + normal.z * kOffsetEps};
-  // lobe color times Beer-Lambert on exiting lanes (compute:810-813); x*1
-  // is exact, so entering lanes keep the lobe color unchanged
-  const bool absorbing = !entering;
-  const V3 sc_at = mul3(lobe_color(m, do_spec),
-                        beer_factor(m, absorbing, t_safe));
+  const V3 refl_org = {pos.x + normal.x * kOffsetEps,
+                       pos.y + normal.y * kOffsetEps,
+                       pos.z + normal.z * kOffsetEps};
+
+  V3 new_dir, new_org, sc_at;
+  int bounce_type;  // 0 diffuse, 1 glossy, 2 transmissive
+  bool absorbing, do_refr = false;
+  int ab_mat = mat_id;  // material of the absorbing medium
+  if constexpr (kTransmissive) {
+    // --- refraction branch (material_BRDF, compute:711-734)
+    do_refr = p1u > m[3];  // alpha
+    const float cos_t = fminf(-dn, 1.0f);
+    const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+    const float eta = cur_ior / hit_ior;
+    const bool tir_r = eta * sin_t > 1.0f;
+    const V3 rp = {eta * (d.x + cos_t * normal.x),
+                   eta * (d.y + cos_t * normal.y),
+                   eta * (d.z + cos_t * normal.z)};
+    const float par = -sqrtf(fabsf(1.0f - dot3(rp, rp)));
+    V3 refr = {rp.x + par * normal.x, rp.y + par * normal.y,
+               rp.z + par * normal.z};
+    refr = sel3(tir_r, refl, refr);
+    const V3 flip_n = sel3(tir_r, normal, V3{-normal.x, -normal.y, -normal.z});
+    V3 sdir_r = {flip_n.x + rv.x, flip_n.y + rv.y, flip_n.z + rv.z};
+    if (dot3(sdir_r, sdir_r) < 1e-16f) sdir_r = flip_n;
+    const V3 diff_refr = normalize3(sdir_r, 0.0f);
+    const V3 refr_dir = {refr.x + (diff_refr.x - refr.x) * r2,
+                         refr.y + (diff_refr.y - refr.y) * r2,
+                         refr.z + (diff_refr.z - refr.z) * r2};
+    const V3 refr_org = {pos.x - normal.x * kOffsetEps,
+                         pos.y - normal.y * kOffsetEps,
+                         pos.z - normal.z * kOffsetEps};
+    const V3 one = {1.0f, 1.0f, 1.0f};
+    if (true_hit) {
+      new_dir = normalize3(
+          sel3(do_refr, refr_dir, sel3(do_spec, spec_dir, diffuse_dir)),
+          1e-20f);
+      new_org = sel3(do_refr, refr_org, refl_org);
+      sc_at = do_refr ? one : lobe_color(m, do_spec);
+      bounce_type = do_refr ? 2 : (do_spec ? 1 : 0);
+    } else {
+      // false hit: pass through behind the surface, counts as
+      // transmissive (compute:803-808)
+      new_dir = d;
+      new_org = refr_org;
+      sc_at = one;
+      bounce_type = 2;
+    }
+    // bandaid pop (compute:799-802)
+    s.stack.pop_id(mat_id, true_hit && entering && bounce_type != 2);
+    // Beer-Lambert through the current medium (compute:810-813)
+    absorbing = cur.mid != kNoMedium;
+    ab_mat = cur.mid;
+    sc_at = mul3(sc_at, beer_factor(cur.ab, absorbing, t_safe));
+  } else {
+    new_dir = normalize3(sel3(do_spec, spec_dir, diffuse_dir), 1e-20f);
+    new_org = refl_org;
+    bounce_type = do_spec ? 1 : 0;
+    // lobe color times Beer-Lambert on exiting lanes (compute:810-813);
+    // x*1 is exact, so entering lanes keep the lobe color unchanged
+    absorbing = !entering;
+    sc_at = mul3(lobe_color(m, do_spec),
+                 beer_factor(mat_absorption(m), absorbing, t_safe));
+  }
+
+  if constexpr (kEnvNee) {
+    // --- envmap next-event estimation + MIS (megakernel.py:1380-1504)
+    // on opaque lobes. The draw: sampler dims DIM_ENV_NEE_BASE + 5k, the
+    // alias step on one row of the draw table (envmap.sample_env_draw).
+    float nu, nv;
+    sample_2d(cfg.sobol, sidx, kDimEnvNeeBase + stride, seed, &nu, &nv);
+    const int n_tex = cfg.env_h * cfg.env_w;
+    const float rn = fminf(fmaxf(nu, 0.0f), 0.99999988f) *
+                     static_cast<float>(n_tex);
+    const int idx = min(max(static_cast<int>(rn), 0), n_tex - 1);
+    const float* row = cfg.env_tab + 10 * static_cast<size_t>(idx);
+    const bool stay = nv < __ldg(row);
+    const float* alt = row + 3;  // alias pdf at [3], its radiance at [7:10]
+    const int texel = stay ? idx : static_cast<int>(__ldg(row + 1));
+    const float lpdf = __ldg(stay ? row + 2 : alt);
+    const V3 rad = {__ldg((stay ? row : alt) + 4), __ldg((stay ? row : alt) + 5),
+                    __ldg((stay ? row : alt) + 6)};
+    const int rowi = texel / cfg.env_w;
+    const int col = texel - rowi * cfg.env_w;
+    const float th = (static_cast<float>(rowi) + 0.5f) /
+                     static_cast<float>(cfg.env_h) * kPi;
+    const float ph = ((static_cast<float>(col) + 0.5f) /
+                          static_cast<float>(cfg.env_w) -
+                      0.5f) * 2.0f * kPi;
+    const float sin_th = sinf(th);
+    const V3 ld = {sin_th * sinf(ph), cosf(th), -sin_th * cosf(ph)};
+
+    const float ps = spec_prob;
+    const bool surf = m[3] >= 1.0f;
+    const float cos_l = dot3(normal, ld);
+    const bool cand = surf && cos_l > 0.0f && lpdf > 1e-12f;
+    if (cand) {
+      const V3 sh_o = {pos.x + normal.x * 1e-4f, pos.y + normal.y * 1e-4f,
+                       pos.z + normal.z * 1e-4f};
+      if (shadow_t(sc, sh_o, ld, far) >= far) {  // visible
+        const float p_gl_l = glossy_pdf(ld, refl, r2, normal);
+        const float p_mix_l =
+            (1.0f - ps) * fmaxf(cos_l, 0.0f) * kInvPi + ps * p_gl_l;
+        const float w_fac = lpdf / (lpdf + p_mix_l) / fmaxf(lpdf, 1e-12f);
+        const float dterm = (1.0f - ps) * cos_l * kInvPi;
+        const float gterm = ps * p_gl_l;
+        s.color = {
+            s.color.x + s.atten.x * (m[0] * dterm + m[4] * gterm) * rad.x * w_fac,
+            s.color.y + s.atten.y * (m[1] * dterm + m[5] * gterm) * rad.y * w_fac,
+            s.color.z + s.atten.z * (m[2] * dterm + m[6] * gterm) * rad.z * w_fac};
+      }
+    }
+    // continuation-strategy pdf for the next bounce's MIS
+    const float cos_nd = dot3(normal, new_dir);
+    const bool covered = surf && cos_nd > 0.0f && bounce_type != 2 &&
+                         !(bounce_type == 1 && r2 <= 1e-6f);
+    s.prev_pcos = covered ? (1.0f - ps) * fmaxf(cos_nd, 0.0f) * kInvPi +
+                                ps * glossy_pdf(new_dir, refl, r2, normal)
+                          : 0.0f;
+    s.prev_nee = covered;
+  }
 
   rec.a_prev = s.atten;
   rec.mat = mat_id;
+  rec.ab_mat = ab_mat;
   rec.t_safe = t_safe;
-  rec.spec = do_spec;
+  rec.spec = do_spec && !do_refr;
+  rec.refr = bounce_type == 2;
+  rec.is_true = true_hit;
   rec.absorbing = absorbing;
   rec.survive = true;
 
   s.o = new_org;
   s.d = new_dir;
   s.atten = mul3(s.atten, sc_at);
-  if (do_spec) {
+  if (bounce_type == 0) {
+    ++s.n_diffuse;
+  } else if (bounce_type == 1) {
     ++s.n_glossy;
   } else {
-    ++s.n_diffuse;
+    ++s.n_transmit;
   }
   // roughness accumulator quirk: scalar += roughness * atten.x
   s.acc_rough = s.acc_rough + roughness * s.atten.x;

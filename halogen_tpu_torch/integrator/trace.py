@@ -14,14 +14,19 @@ Semantics preserved (trace_ray, HalgoenCompute.compute:876-950):
 - per-ray-type bounce limits checked at loop top with `>` (compute:869-871)
 - emission accumulated before BRDF evaluation (compute:901-902)
 - Russian roulette with 1/p compensation after every hit (compute:923-936)
+- nested dielectrics through the per-ray medium stack (core/medium.py,
+  integrator/shade.py)
 - miss -> sky lookup with the accumulated-roughness mip bias, including
   the float3->float truncation quirk of the roughness accumulator
-  (compute:911 adds `roughness * lightAttenuation` to a scalar: .x wins)
+  (compute:911 adds `roughness * lightAttenuation` to a scalar: .x wins),
+  shaded once per ray after the loop (`deferred_sky`), as the megakernel
+  route does
+- envmap next-event estimation with MIS, a capability beyond the
+  reference (its MIS TODO, compute:19)
 - sampler dimensions advance by 5 per bounce (compute:921)
 
-The port's slice is opaque scenes with no envmap, no next-event
-estimation and no debug views; those settings raise NotImplementedError
-naming the ROADMAP item that brings them.
+Area-light next-event estimation and debug views raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import numpy as np
 import torch
 
 from halogen_tpu_torch.config import DebugMode, Fused, RenderSettings, SamplerKind
+from halogen_tpu_torch.core.math import dot, procedural_glossy_pdf, reflect
+from halogen_tpu_torch.core.medium import MediumStack
 from halogen_tpu_torch.core.types import SceneData
 from halogen_tpu_torch.integrator.camera import Camera, generate_rays
 from halogen_tpu_torch.integrator.intersect import intersect_scene
@@ -41,6 +48,11 @@ from halogen_tpu_torch.integrator.shade import (
     gather_materials,
 )
 from halogen_tpu_torch.sampler import sobol as sob
+from halogen_tpu_torch.scene.envmap import (
+    env_pdf,
+    sample_env_draw,
+    sample_env_packed,
+)
 
 
 def _sampler_2d(settings: RenderSettings):
@@ -55,15 +67,18 @@ def _sampler_1d(settings: RenderSettings):
     return sob.ld_sample_1d
 
 
+def _use_nee(scene: SceneData, settings: RenderSettings) -> bool:
+    """Envmap NEE is on only when the flag, the map and its alias tables
+    are all present (JAX `trace.py:78-86`)."""
+    return (settings.use_envmap and settings.env_importance_sampling
+            and scene.env_cdf is not None and bool(scene.env_mips))
+
+
 def check_slice(scene: SceneData, settings: RenderSettings) -> None:
     """Raise NotImplementedError for what the port does not have yet."""
     missing = []
-    if scene.any_transmissive:
-        missing.append("transmissive materials (ROADMAP A8)")
-    if settings.use_envmap:
-        missing.append("envmaps (ROADMAP A8)")
-    if settings.env_importance_sampling or settings.light_importance_sampling:
-        missing.append("next-event estimation (ROADMAP A8)")
+    if settings.light_importance_sampling:
+        missing.append("area-light next-event estimation (ROADMAP A8)")
     if settings.debug_mode != DebugMode.NONE:
         missing.append("debug views (ROADMAP A8)")
     if missing:
@@ -72,11 +87,44 @@ def check_slice(scene: SceneData, settings: RenderSettings) -> None:
 
 def sample_sky(scene: SceneData, direction: torch.Tensor, level,
                settings: RenderSettings) -> torch.Tensor:
-    """Environment lookup (sample_sky, compute:196-204): black without an
-    envmap, which is the only case the port has."""
-    if settings.use_envmap:
-        raise NotImplementedError("envmaps are not ported yet (ROADMAP A8)")
-    return torch.zeros(direction.shape[:-1] + (3,), device=direction.device)
+    """Environment lookup (sample_sky, compute:196-204): black when no
+    envmap is bound."""
+    if not settings.use_envmap or not scene.env_mips:
+        return torch.zeros(direction.shape[:-1] + (3,),
+                           device=direction.device)
+    return sample_env_packed(scene.env_mips, direction, level)
+
+
+def deferred_sky(scene: SceneData, settings: RenderSettings,
+                 outputs: torch.Tensor) -> torch.Tensor:
+    """[N, 3] radiance from the per-ray outputs of a path (`TraceOut`'s
+    and the megakernel's layout): the path's color plus the sky at the
+    miss (trace_ray compute:938-946), looked up at the recorded direction
+    with the accumulated-roughness mip bias and, with env NEE, weighted by
+    the balance heuristic against the recorded continuation pdf.
+
+    A ray misses at most once, at its death, so the sky is shaded once
+    per ray after the loop: the same operations on the same values as the
+    JAX lockstep's in-loop lookup (`trace.py:460-482`: direction, level,
+    attenuation and weight at the miss; nothing is added to a dead
+    ray)."""
+    color = outputs[:, 0:3]
+    if not settings.use_envmap or not scene.env_mips:
+        return color
+    matten, rough, m_dir = outputs[:, 3:6], outputs[:, 6], outputs[:, 7:10]
+    if settings.mip_importance_bias:
+        # float level -> trilinear inter-mip blend (compute:940-945)
+        level = settings.env_mip_level + rough * settings.mip_importance_range
+    else:
+        level = torch.full_like(rough, float(settings.env_mip_level))
+    sky = sample_sky(scene, m_dir, level, settings) * matten
+    if _use_nee(scene, settings):
+        m_pcos, m_nee = outputs[:, 10], outputs[:, 11]
+        pe = env_pdf(scene.env_cdf, m_dir)
+        w = torch.where(m_nee > 0.5,
+                        m_pcos / torch.clamp_min(m_pcos + pe, 1e-12), 1.0)
+        sky = sky * w[:, None]
+    return color + sky
 
 
 class Pool(NamedTuple):
@@ -85,43 +133,63 @@ class Pool(NamedTuple):
     origin: torch.Tensor  # [N, 3]
     direction: torch.Tensor  # [N, 3]
     attenuation: torch.Tensor  # [N, 3]
-    color: torch.Tensor  # [N, 3]
+    color: torch.Tensor  # [N, 3] gathered along the path, sky excluded
     acc_roughness: torch.Tensor  # [N]
     counts: torch.Tensor  # [N, 3] bounce-type counts
+    stack: MediumStack | None  # None in opaque scenes
     active: torch.Tensor  # [N] bool
-    # Attenuation at the bounce where the ray missed (0 if it never did):
-    # the deferred-sky record the megakernel also returns.
+    # MIS state for env NEE: was the previous scatter an NEE-covered lobe,
+    # and its continuation pdf for the direction it took
+    prev_nee: torch.Tensor  # [N] bool
+    prev_pcos: torch.Tensor  # [N]
+    # The miss record the megakernel also returns: the attenuation at
+    # the bounce where the ray missed (0 if it never did), and with env
+    # NEE the MIS state it carried there.
     miss_attenuation: torch.Tensor  # [N, 3]
+    miss_pcos: torch.Tensor  # [N]
+    miss_nee: torch.Tensor  # [N] bool
     sample_idx: torch.Tensor  # [N] uint32 in int64
     seed: torch.Tensor  # [N] uint32 in int64
     far: torch.Tensor  # [N]
 
 
-def _make_pool(origin, direction, far, sample_idx, seed) -> Pool:
+def _make_pool(origin, direction, far, sample_idx, seed,
+               any_transmissive: bool) -> Pool:
     n = origin.shape[0]
     dev = origin.device
+    zeros = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
+                                                        device=dev)
     return Pool(
         origin=origin,
         direction=direction,
         attenuation=torch.ones((n, 3), device=dev),
-        color=torch.zeros((n, 3), device=dev),
-        acc_roughness=torch.zeros((n,), device=dev),
-        counts=torch.zeros((n, 3), dtype=torch.int32, device=dev),
+        color=zeros(n, 3),
+        acc_roughness=zeros(n),
+        counts=zeros(n, 3, dtype=torch.int32),
+        stack=MediumStack.create(n, device=dev) if any_transmissive else None,
         active=torch.ones((n,), dtype=torch.bool, device=dev),
-        miss_attenuation=torch.zeros((n, 3), device=dev),
+        prev_nee=zeros(n, dtype=torch.bool),
+        prev_pcos=zeros(n),
+        miss_attenuation=zeros(n, 3),
+        miss_pcos=zeros(n),
+        miss_nee=zeros(n, dtype=torch.bool),
         sample_idx=sob._u32(sample_idx).to(dev).expand(n),
         seed=sob._u32(seed).to(dev).expand(n),
         far=torch.as_tensor(far, dtype=torch.float32, device=dev).expand(n),
     )
 
 
+_INV_PI = float(np.float32(1.0 / np.pi))
+
+
 def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
                  k: int) -> Pool:
-    """One bounce of every ray in `carry` (trace_ray compute:876-950), the
-    opaque, no-NEE subset of the JAX `_pool_bounce`."""
-    n = carry.origin.shape[0]
+    """One bounce of every ray in `carry` (trace_ray compute:876-950): the
+    JAX `_pool_bounce` without area-light NEE and debug views, and with
+    the sky deferred to `deferred_sky`."""
     s2 = _sampler_2d(settings)
     s1 = _sampler_1d(settings)
+    use_nee = _use_nee(scene, settings)
     sample_idx, seed, far = carry.sample_idx, carry.seed, carry.far
 
     # --- per-type termination check at loop top (compute:891-893)
@@ -150,14 +218,56 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
 
     shade_mask = active & is_hit
     shaded = evaluate_material_hit(
-        carry.direction, hit, mat, shade_mask, refl_rand, prop_rand,
-        any_transmissive=scene.any_transmissive)
+        carry.direction, hit, mat, carry.stack, shade_mask, refl_rand,
+        prop_rand, any_transmissive=scene.any_transmissive)
 
     sm = shade_mask[:, None]
     new_origin = torch.where(sm, shaded.origin, carry.origin)
     new_dir = torch.where(sm, shaded.direction, carry.direction)
     atten = torch.where(sm, carry.attenuation * shaded.attenuation,
                         carry.attenuation)
+
+    # --- envmap next-event estimation + MIS (JAX trace.py:257-330) on
+    # opaque lobes: the continuation's solid-angle density is
+    # (1 - ps) cos / pi for the diffuse branch plus ps times the
+    # procedural glossy lobe's pdf. Mirrors (roughness 0) are a delta:
+    # no NEE, continuation weight 1. Pdfs and MIS weights are detached.
+    prev_nee, prev_pcos = carry.prev_nee, carry.prev_pcos
+    if use_nee:
+        surf_lane = shade_mask & (mat.alpha >= 1.0)
+        ps = shaded.spec_prob.detach()
+        a2 = (mat.roughness * mat.roughness).detach()
+        mirror = reflect(carry.direction, hit.normal).detach()
+
+        def mix_pdf(wdir, cos_w):
+            p_gl = procedural_glossy_pdf(wdir, mirror, a2, hit.normal)
+            return ((1.0 - ps) * torch.clamp_min(cos_w, 0.0) * _INV_PI
+                    + ps * p_gl).detach(), p_gl.detach()
+
+        cos_nd = dot(hit.normal, new_dir)
+        covered = (surf_lane & (cos_nd > 0.0) & (shaded.bounce_type != 2)
+                   & ~((shaded.bounce_type == 1)
+                       & (a2 <= float(np.float32(1e-6)))))
+        prev_pcos = torch.where(covered, mix_pdf(new_dir, cos_nd)[0], 0.0)
+        prev_nee = covered
+
+        nu, nv = s2(sample_idx, sob.DIM_ENV_NEE_BASE + stride, seed)
+        ldir, lpdf, radiance = sample_env_draw(
+            scene.env_cdf, scene.env_mips[0], nu, nv)
+        cos_l = dot(hit.normal, ldir)
+        cand = surf_lane & (cos_l > 0.0) & (lpdf > float(np.float32(1e-12)))
+        sh_origin = hit.pos + hit.normal * 1e-4
+        sh_hit = intersect_scene(scene, sh_origin, ldir, far_eff, settings)
+        visible = sh_hit.t >= far
+        # the radiance is the exact texel the pdf tables describe
+        # (trace.py:306-311), never a filtered mip
+        p_mix_l, p_gl_l = mix_pdf(ldir, cos_l)
+        f_cos = (mat.albedo * ((1.0 - ps) * cos_l * _INV_PI)[:, None]
+                 + mat.specular * (ps * p_gl_l)[:, None])
+        w_nee = lpdf / (lpdf + p_mix_l)
+        contrib = (carry.attenuation * f_cos * radiance
+                   * (w_nee / torch.clamp_min(lpdf, 1e-12))[:, None])
+        color = color + torch.where((cand & visible)[:, None], contrib, 0.0)
 
     # Bounce-type counts (compute:796,807)
     onehot = (torch.arange(3, device=shade_mask.device)[None, :]
@@ -179,24 +289,20 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
     else:
         killed = torch.zeros_like(shade_mask)
 
-    # --- miss: sky emission, ray dies (compute:938-946)
+    # --- miss: the ray dies; record what the sky pass needs
     miss = active & (~is_hit)
-    if settings.mip_importance_bias:
-        level = (settings.env_mip_level
-                 + carry.acc_roughness * settings.mip_importance_range)
-    else:
-        level = torch.full((n,), float(settings.env_mip_level),
-                           device=color.device)
-    sky = sample_sky(scene, carry.direction, level, settings)
-    color = color + torch.where(miss[:, None], sky * carry.attenuation, 0.0)
     miss_attenuation = torch.where(miss[:, None], carry.attenuation,
                                    carry.miss_attenuation)
+    miss_pcos = torch.where(miss, carry.prev_pcos, carry.miss_pcos)
+    miss_nee = torch.where(miss, carry.prev_nee, carry.miss_nee)
 
     # Detached-sampling gradient estimator (trace.py:504-512 of the JAX
     # package): path geometry is fixed in the backward pass, so parameter
     # gradients flow only through throughput weights and emission. Without
     # it roughness would reach the image through the next direction, the
-    # next hit's t and Beer-Lambert absorption on exiting hits.
+    # next hit's t and Beer-Lambert absorption on exiting hits. The medium
+    # stack is not detached: its absorption slots carry d absorption to
+    # the medium's material.
     return carry._replace(
         origin=new_origin.detach(),
         direction=new_dir.detach(),
@@ -204,28 +310,46 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
         color=color,
         acc_roughness=acc_roughness,
         counts=counts,
+        stack=shaded.stack,
         active=active & is_hit & (~killed),
+        prev_nee=prev_nee,
+        prev_pcos=prev_pcos,
         miss_attenuation=miss_attenuation,
+        miss_pcos=miss_pcos,
+        miss_nee=miss_nee,
     )
 
 
 class TraceOut(NamedTuple):
-    color: torch.Tensor  # [N, 3]
-    miss_attenuation: torch.Tensor  # [N, 3]
-    acc_roughness: torch.Tensor  # [N]
-    direction: torch.Tensor  # [N, 3] direction after the last bounce
+    color: torch.Tensor  # [N, 3] radiance, the sky included
+    # [N, 10] per-ray outputs of the megakernel's layout: path color
+    # before the sky | miss attenuation | accumulated roughness | final
+    # direction; with env NEE [N, 12]: | miss continuation pdf | miss
+    # NEE flag
+    outputs: torch.Tensor
+
+    @property
+    def direction(self) -> torch.Tensor:  # [N, 3] after the last bounce
+        return self.outputs[:, 7:10]
 
 
 def trace_rays(scene: SceneData, origin: torch.Tensor,
                direction: torch.Tensor, far, sample_idx, seed,
                settings: RenderSettings) -> TraceOut:
-    """Lockstep scheduler: a loop over bounces on the full ray pool."""
+    """Lockstep scheduler: a loop over bounces on the full ray pool, then
+    the sky pass."""
     check_slice(scene, settings)
-    pool = _make_pool(origin, direction, far, sample_idx, seed)
+    pool = _make_pool(origin, direction, far, sample_idx, seed,
+                      scene.any_transmissive)
     for k in range(settings.max_bounces + 1):
         pool = _pool_bounce(scene, settings, pool, k)
-    return TraceOut(pool.color, pool.miss_attenuation, pool.acc_roughness,
-                    pool.direction)
+    cols = [pool.color, pool.miss_attenuation, pool.acc_roughness[:, None],
+            pool.direction]
+    if _use_nee(scene, settings):
+        cols += [pool.miss_pcos[:, None],
+                 pool.miss_nee.to(torch.float32)[:, None]]
+    outputs = torch.cat(cols, dim=1)
+    return TraceOut(deferred_sky(scene, settings, outputs), outputs)
 
 
 def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
@@ -252,6 +376,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         raise NotImplementedError(
             "the wavefront scheduler is not ported yet (ROADMAP A12)")
     tables = mk._scene_tables(scene) if use_kernel else None
+    env_tab = (mk.env_table(scene) if use_kernel and _use_nee(scene, settings)
+               else None)
 
     # Fold spp lanes into the ray axis, pixel-major (all lanes of a pixel
     # adjacent); per-ray results do not depend on the slot.
@@ -278,7 +404,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         if use_kernel:
             # megakernel forward, adjoint-kernel backward
             col = mk.trace_color_fused_diff(scene, o, d, camera.far, sidx,
-                                            seedb, settings, tables=tables)
+                                            seedb, settings, tables=tables,
+                                            env_tab=env_tab)
         else:
             col = trace_rays(scene, o, d, farb, sidx, seedb, settings).color
         acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)

@@ -17,10 +17,14 @@ import torch
 
 from halogen_tpu_torch.core.types import MaterialTable, SceneData
 from halogen_tpu_torch.integrator.camera import Camera
+from halogen_tpu_torch.scene.envmap import EnvCDF
 
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
+# the tensor fields; the envmap's mips (a tuple) and alias tables (a
+# NamedTuple, or None) are carried on their own
 _SCENE_FIELDS = [f.name for f in dataclasses.fields(SceneData)
-                 if f.name not in ("materials", "any_transmissive")]
+                 if f.name not in ("materials", "env_mips", "env_cdf",
+                                   "any_transmissive")]
 _CAMERA_FIELDS = [f.name for f in dataclasses.fields(Camera)]
 
 
@@ -39,9 +43,15 @@ def material_table_to_numpy(table) -> dict:
 
 def scene_to_numpy(scene) -> dict:
     """SceneData leaves as numpy: one entry per tensor field, `materials`
-    as a dict of the material fields, and `any_transmissive`."""
+    as a dict of the material fields, `env_mips` as a tuple of arrays,
+    `env_cdf` as a dict of the alias-table fields (or None), and
+    `any_transmissive`."""
     out = {name: _np(getattr(scene, name)) for name in _SCENE_FIELDS}
     out["materials"] = material_table_to_numpy(scene.materials)
+    out["env_mips"] = tuple(_np(m) for m in scene.env_mips)
+    cdf = scene.env_cdf
+    out["env_cdf"] = None if cdf is None else {
+        name: _np(getattr(cdf, name)) for name in EnvCDF._fields}
     out["any_transmissive"] = bool(scene.any_transmissive)
     return out
 
@@ -51,9 +61,13 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
     t = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)
     mats = MaterialTable(**{name: t(arrays["materials"][name])
                             for name in _MATERIAL_FIELDS})
+    cdf = arrays["env_cdf"]
     return SceneData(
         **{name: t(arrays[name]) for name in _SCENE_FIELDS},
         materials=mats,
+        env_mips=tuple(t(m) for m in arrays["env_mips"]),
+        env_cdf=None if cdf is None else EnvCDF(
+            **{name: t(cdf[name]) for name in EnvCDF._fields}),
         any_transmissive=bool(arrays["any_transmissive"]),
     )
 

@@ -1,13 +1,15 @@
 """Fused path-replay adjoint: per-material cotangents of the traced color
-in one CUDA launch (port of `halogen_tpu/kernels/adjoint.py`, opaque
-branch).
+in one CUDA launch (port of `halogen_tpu/kernels/adjoint.py`: its opaque
+branch, B2, and its nested-dielectric branch, B2b).
 
 The kernel is hand-written CUDA C++ for Hopper (`csrc/adjoint.cu`), built
 with the megakernel's library step (`megakernel.load_library`). It replays
 every path through the forward kernel's own bounce code
 (`csrc/path_common.cuh`), records a transcript per bounce, sweeps the
 bounces in reverse and sums the cotangents per material in a fixed order,
-so two calls give the same bits.
+so two calls give the same bits. In glass scenes the replay carries the
+medium stack, and d absorption goes to the material of the medium the
+ray travelled through.
 
 `trace_grad_fused_materials` takes rays on a CUDA device to the kernel and
 rays on the CPU to the plain PyTorch version,
@@ -19,8 +21,10 @@ result onto a `MaterialTable`.
 The gradient is the detached-sampling estimator of the lockstep tracer:
 emission, albedo and specular attenuation, Beer-Lambert absorption and
 Russian roulette's 1/max(attenuation); roughness, metallic and IOR act
-only through sampling decisions and get zero. Scope (`adjoint_supported`)
-is the megakernel's; transmissive scenes (B2b) come with ROADMAP A8.
+only through sampling decisions and get zero. Scope (`adjoint_supported`,
+the JAX predicate): the megakernel's opaque and transmissive scenes
+without an envmap in use, NEE or debug views; envmap gradients come with
+ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -42,8 +46,18 @@ LAUNCHES = 0  # kernel launches since the count was last set to 0
 
 def adjoint_supported(scene: SceneData, settings: RenderSettings) -> bool:
     """Static eligibility for the fused adjoint (the JAX `adjoint_supported`,
-    `adjoint.py:66-77`, on the port's megakernel scope)."""
-    return mk.fused_supported(scene, settings)
+    `adjoint.py:66-77`): the megakernel's opaque or transmissive scenes
+    (which have no area-light NEE or debug view) without an envmap in use,
+    and so without env NEE."""
+    return (mk.fused_supported(scene, settings)
+            and not (settings.use_envmap and bool(scene.env_mips)))
+
+
+def _check_supported(scene: SceneData, settings: RenderSettings) -> None:
+    if not adjoint_supported(scene, settings):
+        raise NotImplementedError(
+            "the fused adjoint covers the megakernel's scenes without an "
+            "envmap in use (envmap gradients: ROADMAP A8)")
 
 
 def _launch(scene, origin, direction, far, sample_idx, seed, ct,
@@ -55,6 +69,7 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
     global LAUNCHES
     sidx, sd, far_t, tables, scalars = mk.kernel_inputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables)
+    _check_supported(scene, settings)
     n = origin.shape[0]
     dev = origin.device
     buffers = {"ct": ct, "replay_color": replay_color}
@@ -142,10 +157,7 @@ def trace_grad_fused_materials(scene: SceneData, origin, direction, far,
                        settings, tables)
     if origin.device.type != "cpu":
         raise ValueError(f"no adjoint kernel for device {origin.device}")
-    if not adjoint_supported(scene, settings):
-        raise NotImplementedError(
-            "the fused adjoint covers the megakernel's scenes (transmissive "
-            "scenes: ROADMAP A8)")
+    _check_supported(scene, settings)
     return trace_grad_fused_materials_reference(
         scene, origin, direction, far, sample_idx, seed, ct, settings)
 

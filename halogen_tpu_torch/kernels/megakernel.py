@@ -1,24 +1,30 @@
 """Fused-bounce megakernel: the whole path loop of every ray in one CUDA
-launch (port of `halogen_tpu/kernels/megakernel.py`, brute-force opaque
-tier).
+launch (port of `halogen_tpu/kernels/megakernel.py`, brute-force tier).
 
-The kernel is hand-written CUDA C++ for Hopper (`csrc/megakernel.cu`).
+The kernel is hand-written CUDA C++ for Hopper (`csrc/megakernel.cu`), in
+four compile-time variants of one bounce body (`csrc/path_common.cuh`):
+opaque (B1a), nested dielectrics with a per-thread medium stack (B1b),
+and envmap next-event estimation (B1c) alone or with the stack.
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
 the adjoint kernel's library (`csrc/adjoint.cu`, `kernels/adjoint.py`)
 in the same step.
 
-`trace_color_fused` takes rays on a CUDA device to the kernel and rays on
-the CPU to the plain PyTorch version, `trace_color_fused_reference`,
-which runs the lockstep integrator. A CUDA launch that fails raises; there
-is no fallback. `LAUNCHES` counts kernel launches.
-`trace_color_fused_diff` is the differentiable form: this kernel forward,
-the adjoint kernel backward.
+`trace_fused_outputs` takes rays on a CUDA device to the kernel and rays
+on the CPU to the plain PyTorch version, `trace_color_fused_reference`,
+which runs the lockstep integrator; both give the same per-ray outputs.
+A CUDA launch that fails raises; there is no fallback. `LAUNCHES` counts
+kernel launches. `trace_color_fused` adds the sky from those outputs
+(`integrator.trace.deferred_sky`: one lookup per ray, after the kernel,
+as the Pallas wrapper does). `trace_color_fused_diff` is the
+differentiable form: this kernel forward, the adjoint kernel backward
+(envmap scenes have no backward on this route yet, ROADMAP A8).
 
-Scope (`fused_supported`): opaque scenes without envmap, next-event
-estimation or debug views, with at most MAX_TRIS triangles, MAX_SPHERES
-spheres and MAX_MATERIALS materials.
+Scope (`fused_supported`, the JAX predicate's brute tier): opaque and
+transmissive scenes, with or without an envmap and its next-event
+estimation, without area-light NEE or debug views, with at most MAX_TRIS
+triangles, MAX_SPHERES spheres and MAX_MATERIALS materials.
 """
 
 from __future__ import annotations
@@ -35,13 +41,18 @@ import torch
 
 from halogen_tpu_torch.config import DebugMode, RenderSettings, SamplerKind
 from halogen_tpu_torch.core.types import SceneData
+from halogen_tpu_torch.integrator.trace import _use_nee, deferred_sky
+from halogen_tpu_torch.scene.envmap import env_draw_table
 
 # Caps of the brute tier: the scene tables live in shared memory.
 MAX_TRIS = 128
 MAX_SPHERES = 32
 MAX_MATERIALS = 64
 
-N_OUTPUTS = 10  # color rgb, miss attenuation rgb, acc roughness, dir xyz
+# color rgb, miss attenuation rgb, acc roughness, dir xyz; with env NEE
+# also the continuation pdf and NEE flag at the miss
+N_OUTPUTS = 10
+N_OUTPUTS_NEE = 12
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 
@@ -55,8 +66,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (function, pointer arguments, int arguments, then the stream). Both
 # sources include the bounce body in path_common.cuh.
 LIBRARIES = {
-    "megakernel": ("halogen_megakernel_launch", 10, 10),
-    "adjoint": ("halogen_adjoint_launch", 14, 10),
+    "megakernel": ("halogen_megakernel_launch", 11, 14),
+    "adjoint": ("halogen_adjoint_launch", 14, 11),
 }
 _HEADERS = ("path_common.cuh",)
 
@@ -128,20 +139,27 @@ def load_library(name: str = "megakernel") -> ctypes.CDLL:
 
 
 def fused_supported(scene: SceneData, settings: RenderSettings) -> bool:
-    """Static eligibility for the port's fused megakernel (the JAX
-    `fused_supported` restricted to its brute, opaque, no-NEE tier)."""
+    """Static eligibility for the port's fused megakernel: the JAX
+    `fused_supported` (`megakernel.py:1608-1641`) on its brute tier.
+    Transmissive scenes, envmaps and env NEE are in; area-light NEE,
+    debug views and scenes over the caps are out."""
     return (
         settings.debug_mode == DebugMode.NONE
-        and not settings.use_envmap
-        and not settings.env_importance_sampling
         and not settings.light_importance_sampling
-        and not scene.any_transmissive
         and scene.num_triangles <= MAX_TRIS
         and scene.num_spheres <= MAX_SPHERES
         and scene.materials.count <= MAX_MATERIALS
         and (scene.num_triangles + scene.num_spheres) > 0
         and settings.sampler in (SamplerKind.SOBOL, SamplerKind.PRNG)
     )
+
+
+def env_table(scene: SceneData) -> torch.Tensor | None:
+    """The env-NEE draw table [H * W, 10] the kernel reads one row of per
+    draw (`envmap.env_draw_table`), or None without alias tables."""
+    if scene.env_cdf is None or not scene.env_mips:
+        return None
+    return env_draw_table(scene.env_cdf, scene.env_mips[0]).contiguous()
 
 
 def _scene_tables(scene: SceneData):
@@ -187,11 +205,12 @@ def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
     """Check rays and scene for a launch of the megakernel or its adjoint;
     returns (sample_idx, seed, far, tables, scalars) as the kernels take
     them: int32 bit views, a [1] far, contiguous float32 tables, and the
-    trailing int arguments of both C entry points."""
+    int arguments both C entry points share (the megakernel's env-NEE
+    ints follow them)."""
     if not fused_supported(scene, settings):
         raise NotImplementedError(
-            "the CUDA megakernel covers opaque scenes without envmap, NEE "
-            f"or debug views, with <= {MAX_TRIS} triangles, <= "
+            "the CUDA megakernel covers scenes without area-light NEE or "
+            f"debug views, with <= {MAX_TRIS} triangles, <= "
             f"{MAX_SPHERES} spheres and <= {MAX_MATERIALS} materials "
             "(wider tiers: ROADMAP A8, A9)")
     n = origin.shape[0]
@@ -217,27 +236,40 @@ def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
                settings.max_diffuse_bounces, settings.max_glossy_bounces,
                settings.max_transmission_bounces,
                int(settings.sampler == SamplerKind.SOBOL),
-               int(settings.russian_roulette))
+               int(settings.russian_roulette), int(scene.any_transmissive))
     return sidx.contiguous(), sd.contiguous(), far_t, tables, scalars
 
 
 def _launch(scene, origin, direction, far, sample_idx, seed,
-            settings: RenderSettings, tables) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns [N, 10]."""
+            settings: RenderSettings, tables, env_tab=None) -> torch.Tensor:
+    """Launch the kernel variant the scene and settings select, on the
+    current stream; returns [N, 10], or [N, 12] with env NEE."""
     global LAUNCHES
     sidx, sd, far_t, tables, scalars = kernel_inputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables)
     dev = origin.device
-    out = torch.empty((origin.shape[0], N_OUTPUTS), dtype=torch.float32,
-                      device=dev)
+    env_nee = _use_nee(scene, settings)
+    env_h = env_w = 0
+    if env_nee:
+        env_tab = env_tab if env_tab is not None else env_table(scene)
+        env_h, env_w = scene.env_cdf.pdf.shape
+        if (env_tab.shape != (env_h * env_w, 10) or env_tab.device != dev
+                or env_tab.dtype != torch.float32
+                or not env_tab.is_contiguous()):
+            raise ValueError("the env draw table must be a contiguous "
+                             f"float32 [{env_h * env_w}, 10] on {dev}")
+    out = torch.empty(
+        (origin.shape[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
+        dtype=torch.float32, device=dev)
     lib = load_library("megakernel")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.halogen_megakernel_launch(
             origin.data_ptr(), direction.data_ptr(), far_t.data_ptr(),
             sidx.data_ptr(), sd.data_ptr(),
-            *(t.data_ptr() for t in tables), out.data_ptr(), *scalars,
-            stream)
+            *(t.data_ptr() for t in tables),
+            env_tab.data_ptr() if env_nee else None, out.data_ptr(),
+            *scalars, int(env_nee), env_h, env_w, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -247,28 +279,28 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
 def trace_color_fused_reference(scene: SceneData, origin, direction, far,
                                 sample_idx, seed,
                                 settings: RenderSettings) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same [N, 10] outputs from
-    the lockstep integrator."""
+    """Plain PyTorch version of the kernel: the same [N, 10] (or, with env
+    NEE, [N, 12]) outputs from the lockstep integrator."""
     from halogen_tpu_torch.integrator.trace import trace_rays
 
     n = origin.shape[0]
     far_b = torch.as_tensor(far, dtype=torch.float32,
                             device=origin.device).reshape(-1)[0].expand(n)
-    out = trace_rays(scene, origin, direction, far_b, sample_idx, seed,
-                     settings)
-    return torch.cat([out.color, out.miss_attenuation,
-                      out.acc_roughness[:, None], out.direction], dim=1)
+    return trace_rays(scene, origin, direction, far_b, sample_idx, seed,
+                      settings).outputs
 
 
 def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
-                        seed, settings: RenderSettings,
-                        tables=None) -> torch.Tensor:
-    """[N, 10] per-ray outputs: color rgb, miss attenuation rgb,
-    accumulated roughness, final direction xyz. The kernel on a CUDA
-    device, its plain version on the CPU."""
+                        seed, settings: RenderSettings, tables=None,
+                        env_tab=None) -> torch.Tensor:
+    """[N, 10] per-ray outputs: color rgb gathered along the path (the sky
+    excluded), miss attenuation rgb, accumulated roughness, final
+    direction xyz; with env NEE [N, 12], adding the continuation pdf and
+    NEE flag at the miss. The kernel on a CUDA device, its plain version
+    on the CPU."""
     if origin.device.type == "cuda":
         return _launch(scene, origin, direction, far, sample_idx, seed,
-                       settings, tables)
+                       settings, tables, env_tab)
     if origin.device.type != "cpu":
         raise ValueError(f"no megakernel for device {origin.device}")
     return trace_color_fused_reference(scene, origin, direction, far,
@@ -276,40 +308,50 @@ def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
 
 
 def trace_color_fused(scene: SceneData, origin, direction, far, sample_idx,
-                      seed, settings: RenderSettings,
-                      tables=None) -> torch.Tensor:
-    """Fused megakernel forward: [N, 3] radiance. `tables` may carry
-    `_scene_tables(scene)` computed once for many calls. Scenes with an
-    envmap (whose deferred-miss sky pass would follow here) raise."""
-    return trace_fused_outputs(scene, origin, direction, far, sample_idx,
-                               seed, settings, tables)[:, :3]
+                      seed, settings: RenderSettings, tables=None,
+                      env_tab=None) -> torch.Tensor:
+    """Fused megakernel forward: [N, 3] radiance, the kernel's path color
+    plus the deferred sky (JAX `megakernel.py:1868-1900`). `tables` and
+    `env_tab` may carry `_scene_tables(scene)` and `env_table(scene)`
+    computed once for many calls."""
+    return deferred_sky(scene, settings, trace_fused_outputs(
+        scene, origin, direction, far, sample_idx, seed, settings, tables,
+        env_tab))
 
 
 class _FusedDiff(torch.autograd.Function):
     """Megakernel forward, adjoint-kernel backward: the port of the JAX
     package's custom_vjp (`megakernel.py:1904-1978`) on its fused-adjoint
     route. Only the material table gets a cotangent; geometry, camera
-    rays and far get none (use `Fused.OFF` to differentiate geometry)."""
+    rays and far get none (use `Fused.OFF` to differentiate geometry).
+    Scenes outside `adjoint_supported` (an envmap in use) have no backward
+    here yet: the JAX package replays them with the lockstep vjp
+    (`megakernel.py:1953-1975`), which the port brings with the envmap
+    gradients (ROADMAP A8)."""
 
     @staticmethod
-    def forward(ctx, scene, settings, tri_tab, trin_tab, sph_tab, mat_tab,
-                origin, direction, far, sample_idx, seed):
+    def forward(ctx, scene, settings, env_tab, tri_tab, trin_tab, sph_tab,
+                mat_tab, origin, direction, far, sample_idx, seed):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
         ctx.scene, ctx.settings = scene, settings
         # the rays of this launch, not a graph of its bounces
         ctx.save_for_backward(*tables, origin, direction, far, sample_idx,
                               seed)
         return trace_color_fused(scene, origin, direction, far, sample_idx,
-                                 seed, settings, tables)
+                                 seed, settings, tables, env_tab)
 
     @staticmethod
     def backward(ctx, grad_color):
         from halogen_tpu_torch.kernels import adjoint as adj
 
+        if not adj.adjoint_supported(ctx.scene, ctx.settings):
+            raise NotImplementedError(
+                "envmap gradients are not ported yet: the backward of an "
+                "envmap scene (ROADMAP A8)")
         *tables, origin, direction, far, sample_idx, seed = ctx.saved_tensors
         mat_tab = tables[3]
         d_mat = None
-        if ctx.needs_input_grad[5]:
+        if ctx.needs_input_grad[6]:  # mat_tab
             # grad_color may be an expanded view (stride 0) of the
             # per-pixel cotangent: the kernel reads a dense [N, 3]
             dmat12 = adj.trace_grad_fused_materials(
@@ -322,13 +364,13 @@ class _FusedDiff(torch.autograd.Function):
             d_mat[:, 0:3] = dmat12[:, 3:6]    # albedo rgb
             d_mat[:, 4:7] = dmat12[:, 6:9]    # specular
             d_mat[:, 13:16] = dmat12[:, 9:12]  # absorption
-        return (None, None, None, None, None, d_mat, None, None, None, None,
-                None)
+        return (None, None, None, None, None, None, d_mat, None, None, None,
+                None, None)
 
 
 def trace_color_fused_diff(scene: SceneData, origin, direction, far,
                            sample_idx, seed, settings: RenderSettings,
-                           tables=None) -> torch.Tensor:
+                           tables=None, env_tab=None) -> torch.Tensor:
     """Differentiable fused tracer (port of the JAX
     `trace_color_fused_diff`, `megakernel.py:1981-1993`): [N, 3] radiance
     from `trace_color_fused`, whose backward is the adjoint kernel
@@ -339,5 +381,5 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
     far = torch.as_tensor(far, dtype=torch.float32, device=dev)
     sample_idx = torch.as_tensor(sample_idx, device=dev)
     seed = torch.as_tensor(seed, device=dev)
-    return _FusedDiff.apply(scene, settings, *tables, origin, direction, far,
-                            sample_idx, seed)
+    return _FusedDiff.apply(scene, settings, env_tab, *tables, origin,
+                            direction, far, sample_idx, seed)

@@ -3,15 +3,20 @@ one CUDA device.
 
 Run from the root of a checkout:
 
-    python3 -m halogen_tpu_torch.profile_frame [--grad] [--frames 10] [--out FILE]
+    python3 -m halogen_tpu_torch.profile_frame [--scene cornell|glass|envmap_1024]
+        [--grad] [--frames 10] [--out FILE]
 
-The frame is the main path of `chip_smoke.py`: Cornell glossy, 512x512,
-32 spp, 6 bounces, 262144-ray chunks, so 32 groups of 262144 rays, each a
-`generate_rays` call and one megakernel launch. With `--grad` the step is
-`diff.render_loss_grad` at `bench.py`'s forward-plus-backward
-configuration instead: 256x256, 256 spp, so 64 groups, each a
-`generate_rays` call, one megakernel launch and, in the backward, one
-adjoint launch. Printed:
+The frame is a forward path of `chip_smoke.py`: by default the main path,
+Cornell glossy, 512x512, 32 spp, 6 bounces, 262144-ray chunks, so 32
+groups of 262144 rays, each a `generate_rays` call and one megakernel
+launch; `--scene glass` the glass-in-glass box at 512x512, 32 spp, 8
+bounces (the medium-stack variant); `--scene envmap_1024` the JAX CLI
+preset, material spheres under the gradient sky at 1024x1024, 16 spp, 4
+bounces with env NEE (64 groups, each also a sky pass after the kernel).
+With `--grad` the step is `diff.render_loss_grad` at `bench.py`'s
+forward-plus-backward configuration instead: 256x256, 256 spp, so 64
+groups, each a `generate_rays` call, one megakernel launch and, in the
+backward, one adjoint launch (Cornell or glass). Printed:
 
   - the host-clock time of each of `--frames` steps (no profiler), with
     `torch.cuda.synchronize()` around each;
@@ -52,9 +57,26 @@ from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene import cornell
 
 CAM = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0), fov_deg=40.0)
+SKY_CAM = dict(position=(0.0, 1.0, 6.0), target=(0.0, 0.5, 0.0),
+               fov_deg=40.0)
 SETTINGS = dict(width=512, height=512, samples_per_pixel=32, max_bounces=6,
                 ray_chunk_size=262144)
-GRAD_SETTINGS = dict(SETTINGS, width=256, height=256, samples_per_pixel=256)
+GLASS = dict(max_bounces=8, max_transmission_bounces=8)
+# scene -> (build, camera, frame settings, step settings for --grad)
+SCENES = {
+    "cornell": (lambda dev: cornell.cornell_box(glossy=True).build(
+        device=dev), CAM, SETTINGS,
+        dict(SETTINGS, width=256, height=256, samples_per_pixel=256)),
+    "glass": (lambda dev: cornell.glass_sphere_box().build(device=dev), CAM,
+              dict(SETTINGS, **GLASS),
+              dict(SETTINGS, **GLASS, width=256, height=256,
+                   samples_per_pixel=256)),
+    "envmap_1024": (lambda dev: cornell.material_demo_spheres().build(
+        envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM,
+        dict(width=1024, height=1024, samples_per_pixel=16, max_bounces=4,
+             use_envmap=True, env_importance_sampling=True,
+             env_mip_level=0, ray_chunk_size=262144), None),
+}
 
 
 def _self_device_us(evt) -> float:
@@ -71,6 +93,7 @@ def _self_device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=sorted(SCENES), default="cornell")
     ap.add_argument("--grad", action="store_true",
                     help="profile a render_loss_grad step, not a frame")
     ap.add_argument("--frames", type=int, default=10)
@@ -79,15 +102,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
+    build, cam_kw, frame_kw, grad_kw = SCENES[args.scene]
+    if args.grad and grad_kw is None:
+        print(f"profile_frame: {args.scene} has no gradient step yet "
+              "(envmap gradients, ROADMAP A8)", file=sys.stderr)
+        return 1
+    kw = grad_kw if args.grad else frame_kw
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    scene = cornell.cornell_box(glossy=True).build(device=dev)
-    cam = ht.make_camera(**CAM, device=dev)
-    st = ht.RenderSettings(**(GRAD_SETTINGS if args.grad else SETTINGS))
+    scene = build(dev)
+    cam = ht.make_camera(**cam_kw, device=dev)
+    st = ht.RenderSettings(**kw)
     if args.grad:
         zeros = torch.zeros((st.height, st.width, 3), device=dev)
         step = lambda f: render_loss_grad({"materials": scene.materials},
@@ -148,14 +177,16 @@ def main(argv=None) -> int:
     aten_calls = sum(r.count for r in rows if r.key.startswith("aten::"))
     top = sorted((r for r in rows if _self_device_us(r) > 0),
                  key=_self_device_us, reverse=True)[:8]
+    # the kernels are templates: megakernel<false, false>(...) and so on
     kernel_rows = lambda name: [r for r in rows if _self_device_us(r) > 0
-                                and f"{name}(" in r.key]
+                                and f"{name}<" in r.key]
     mega, adjoint = kernel_rows("megakernel"), kernel_rows("adjoint_kernel")
 
     result = {
         "card": card,
         "step": "render_loss_grad" if args.grad else "render_frame",
-        "settings": GRAD_SETTINGS if args.grad else SETTINGS,
+        "scene": args.scene,
+        "settings": kw,
         "frames_ms": frame_ms,
         "frame_ms_min": min(frame_ms),
         "frame_ms_median": statistics.median(frame_ms),
@@ -180,8 +211,8 @@ def main(argv=None) -> int:
              "total_ms": _self_device_us(r) / 1e3} for r in top],
     }
     print(f"card: {card}")
-    print(f"{result['step']} {st.width}x{st.height} {st.samples_per_pixel} "
-          f"spp, steps (host clock, ms): {frame_ms}")
+    print(f"{result['step']} {args.scene} {st.width}x{st.height} "
+          f"{st.samples_per_pixel} spp, steps (host clock, ms): {frame_ms}")
     print(f"generate_rays per group: issue {result['gen_rays_issue_ms']:.3f} "
           f"ms, done {result['gen_rays_done_ms']:.3f} ms; kernel launch "
           f"{kernel_ms:.4f} ms (CUDA events)")

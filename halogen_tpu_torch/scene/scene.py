@@ -1,11 +1,12 @@
 """Scene registry and tensor packing (PyTorch port of
-`halogen_tpu/scene/scene.py`, without the BVH, the traversal packers,
-the light table and the envmap).
+`halogen_tpu/scene/scene.py`, without the BVH, the traversal packers and
+the light table).
 
 `build()` flattens the registered spheres and meshes into a `SceneData`:
 materials deduplicated by value (`PackMaterialToList`,
 HalogenRenderPass.cs:524-537), triangles concatenated with per-mesh
-offsets, and world-space triangle copies for the brute-force intersector.
+offsets, world-space triangle copies for the brute-force intersector,
+and the envmap's mips and alias tables.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from halogen_tpu_torch.core.types import MaterialTable, SceneData
+from halogen_tpu_torch.scene.envmap import Envmap, build_env_cdf
 from halogen_tpu_torch.scene.material import Material
 
 # The JAX package's BVH construction keeps the given triangle order for a mesh
@@ -79,11 +81,10 @@ class Scene:
         )
         return len(self.meshes) - 1
 
-    def build(self, envmap: Optional[object] = None,
+    def build(self, envmap: Optional[Envmap] = None,
               device="cpu") -> SceneData:
-        if envmap is not None:
-            raise NotImplementedError(
-                "envmaps are not ported yet (ROADMAP A8)")
+        if envmap is not None and not isinstance(envmap, Envmap):
+            raise TypeError(f"envmap must be an Envmap, not {type(envmap)}")
         materials: List[Material] = []
 
         def material_index(m: Material) -> int:
@@ -145,6 +146,10 @@ class Scene:
 
         mat_table = _pack_materials(materials, device)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        env_mips, env_cdf = (), None
+        if envmap is not None:
+            env_mips = tuple(t(m) for m in envmap.mips)
+            env_cdf = build_env_cdf(envmap.mips[0], device)
         return SceneData(
             tri_verts_world=t(cat(tv_world, (0, 3, 3))),
             tri_normals_world=t(cat(tn_world, (0, 3, 3))),
@@ -160,6 +165,8 @@ class Scene:
             sphere_radius=t(s_radius),
             sphere_material=t(s_mat),
             materials=mat_table,
+            env_mips=env_mips,
+            env_cdf=env_cdf,
             # any material that can refract (transmission alpha < 1)?
             any_transmissive=bool(mat_table.albedo[:, 3].min().item() < 1.0),
         )

@@ -4,11 +4,12 @@ fused tracer (`megakernel.trace_color_fused_diff`) vs the JAX package.
 The plain version of the adjoint kernel is autograd through the port's
 lockstep integrator; through `material_cotangents` it must equal
 `jax.grad` through the JAX lockstep tracer on the rays of
-`tests/test_megakernel.py:33-43` (8x8, Cornell glossy), with Russian
-roulette on and off, at atol = rtol = 1e-6: the two integrators are
-bit-identical on these rays and their backward passes differ only in the
-order of a few float sums. The CUDA kernel is held to this plain version
-in `tests/test_torch_adjoint_cuda.py`.
+`tests/test_megakernel.py:33-43` (8x8, Cornell glossy, and the
+glass-in-glass box of its glass case, `:79-118`), with Russian roulette on
+and off, at atol = rtol = 1e-6: the two integrators are bit-identical on
+these rays and their backward passes differ only in the order of a few
+float sums. The CUDA kernel is held to this plain version in
+`tests/test_torch_adjoint_cuda.py`.
 """
 
 import dataclasses
@@ -24,6 +25,7 @@ from halogen_tpu.integrator.camera import generate_rays as j_generate_rays
 from halogen_tpu.integrator.trace import trace_rays as j_trace_rays
 from halogen_tpu.sampler import sobol as jsob
 from halogen_tpu.scene import cornell as jcornell
+from halogen_tpu.scene.envmap import Envmap as JEnvmap
 from halogen_tpu_torch import interop
 from halogen_tpu_torch.config import RenderSettings
 from halogen_tpu_torch.diff.grad import FLOAT_MATERIAL_FIELDS
@@ -40,11 +42,9 @@ def _settings(rr):
     return dict(width=W, height=W, max_bounces=3, russian_roulette=rr)
 
 
-@pytest.fixture(scope="module")
-def fixture():
+def _fixture(jscene):
     """JAX scene, its port, and the 8x8 rays of test_megakernel._rays as
     numpy, with a cotangent drawn from a numpy seed."""
-    jscene = jcornell.cornell_box(glossy=True).build()
     cam = jht.make_camera(**CAM)
     n = W * W
     pix = jnp.arange(n, dtype=jnp.int32)
@@ -59,6 +59,16 @@ def fixture():
                     np.float32))
     scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
     return jscene, scene, rays
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    return _fixture(jcornell.cornell_box(glossy=True).build())
+
+
+@pytest.fixture(scope="module")
+def glass():
+    return _fixture(jcornell.glass_sphere_box().build())
 
 
 def _port_rays(rays, requires_grad=False):
@@ -113,6 +123,24 @@ def test_plain_adjoint_matches_jax_grad(fixture, rr):
         assert not got[f].any(), f
 
 
+@pytest.mark.parametrize("rr", [True, False])
+def test_plain_adjoint_matches_jax_grad_on_glass(glass, rr):
+    """The nested-dielectric case: the stack's absorption slots carry d
+    absorption to the medium's material, as JAX's lockstep does."""
+    jscene, scene, rays = glass
+    st = RenderSettings(**_settings(rr))
+    assert scene.any_transmissive and adj.adjoint_supported(scene, st)
+    o, d, far, sidx, seed, ct = _port_rays(rays)
+    got = interop.material_table_to_numpy(adj.material_cotangents(
+        scene, adj.trace_grad_fused_materials(scene, o, d, far, sidx, seed,
+                                              ct, st)))
+    ref = _jax_grads(jscene, rays, rr)
+    assert np.abs(ref["absorption"]).max() > 0
+    _assert_fields_close(got, ref)
+    for f in ("metallic", "roughness", "ior"):
+        assert not got[f].any(), f
+
+
 def _loss_through(fn, scene, rays, st):
     """Material leaves, and the loss (color * ct).sum() of `fn`."""
     mats = scene.materials
@@ -125,10 +153,11 @@ def _loss_through(fn, scene, rays, st):
 
 
 @pytest.mark.parametrize("rr", [True, False])
-def test_fused_diff_matches_lockstep_autograd(fixture, rr):
+@pytest.mark.parametrize("case", ["cornell", "glass"])
+def test_fused_diff_matches_lockstep_autograd(fixture, glass, case, rr):
     """trace_color_fused_diff on CPU tensors (plain forward, plain adjoint
     backward) gives the gradients of autograd through trace_rays."""
-    _, scene, rays = fixture
+    _, scene, rays = fixture if case == "cornell" else glass
     st = RenderSettings(**_settings(rr))
     n = rays["o"].shape[0]
     fused = lambda sc, o, d, far, sidx, seed, st: mk.trace_color_fused_diff(
@@ -173,14 +202,35 @@ def test_fused_diff_gives_geometry_and_rays_no_gradient(fixture):
 
 
 def test_adjoint_out_of_slice_raises(fixture):
+    """Envmap scenes have no fused adjoint yet (ROADMAP A8), with or
+    without env NEE; glass scenes do. A scene that carries an envmap it
+    does not use is in."""
     _, _, rays = fixture
+    sky = interop.scene_from_numpy(interop.scene_to_numpy(
+        jcornell.cornell_box(glossy=True).build(
+            envmap=JEnvmap.gradient_sky())))
     glass = interop.scene_from_numpy(interop.scene_to_numpy(
         jcornell.glass_sphere_box().build()))
     o, d, far, sidx, seed, ct = _port_rays(rays)
     st = RenderSettings(**_settings(True))
-    assert not adj.adjoint_supported(glass, st)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        adj.trace_grad_fused_materials(glass, o, d, far, sidx, seed, ct, st)
+    assert adj.adjoint_supported(glass, st)
+    assert adj.adjoint_supported(sky, st)
+    for env in (dict(use_envmap=True),
+                dict(use_envmap=True, env_importance_sampling=True)):
+        st_env = st.replace(**env)
+        assert not adj.adjoint_supported(sky, st_env)
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            adj.trace_grad_fused_materials(sky, o, d, far, sidx, seed, ct,
+                                           st_env)
+        # the forward runs; its backward raises
+        mats = dataclasses.replace(
+            sky.materials,
+            albedo=sky.materials.albedo.clone().requires_grad_(True))
+        col = mk.trace_color_fused_diff(
+            dataclasses.replace(sky, materials=mats), o, d, far, sidx, seed,
+            st_env)
+        with pytest.raises(NotImplementedError, match="envmap gradients"):
+            (col * ct).sum().backward()
 
 
 @pytest.mark.slow

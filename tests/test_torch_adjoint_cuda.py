@@ -1,5 +1,6 @@
-"""The CUDA adjoint kernel vs its plain PyTorch version on the card, and
-the gradient route through both kernels.
+"""The CUDA adjoint kernel vs its plain PyTorch version on the card (B2 on
+Cornell glossy, B2b on the glass-in-glass box), and the gradient route
+through both kernels.
 
 Needs an NVIDIA GPU with nvcc; skips without one. Imports no JAX, so it
 also runs on a machine that has only the port's dependencies:
@@ -28,6 +29,7 @@ from halogen_tpu_torch.kernels import adjoint as adj
 from halogen_tpu_torch.kernels import megakernel as mk
 from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene import cornell
+from halogen_tpu_torch.scene.envmap import Envmap
 
 CASES = {
     "sobol_rr": dict(max_bounces=4),
@@ -36,7 +38,19 @@ CASES = {
     "bounce_limits": dict(max_bounces=6, max_diffuse_bounces=1,
                           max_glossy_bounces=2, russian_roulette=False),
 }
+GLASS_CASES = {
+    "sobol_rr": dict(),
+    "sobol_no_rr": dict(russian_roulette=False),
+    "prng_rr": dict(sampler=ht.SamplerKind.PRNG),
+    "transmission_limit": dict(max_transmission_bounces=2),
+}
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
+
+
+def _glass_settings(case):
+    return ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                             max_bounces=8, **{"max_transmission_bounces": 8,
+                                               **GLASS_CASES[case]})
 
 
 @pytest.fixture
@@ -86,12 +100,35 @@ def test_adjoint_matches_plain_on_card(case, cuda_device):
 
 
 @pytest.mark.cuda
-def test_adjoint_is_bitwise_repeatable_and_replays_forward(cuda_device):
+@pytest.mark.parametrize("case", sorted(GLASS_CASES))
+def test_glass_adjoint_matches_plain_on_card(case, cuda_device):
+    """B2b: the medium stack in the replay, absorption routed to the
+    current medium's material."""
+    st = _glass_settings(case)
+    scene = cornell.glass_sphere_box().build(device=cuda_device)
+    assert adj.adjoint_supported(scene, st)
+    cam, o, d, sidx, seed, ct = _rays(cuda_device, st)
+    before = adj.LAUNCHES
+    got = adj.trace_grad_fused_materials(scene, o, d, cam.far, sidx, seed,
+                                         ct, st)
+    assert adj.LAUNCHES == before + 1
+    ref = adj.trace_grad_fused_materials_reference(scene, o, d, cam.far,
+                                                   sidx, seed, ct, st)
+    torch.cuda.synchronize()
+    assert float(ref[:, 9:12].abs().max()) > 0  # absorption is exercised
+    assert_columns_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("glass", [False, True])
+def test_adjoint_is_bitwise_repeatable_and_replays_forward(glass,
+                                                           cuda_device):
     """Two calls give the same bits, and the replay's color is the forward
     kernel's, bit for bit (both run path_common.cuh's bounce)."""
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
                            max_bounces=6)
-    scene = cornell.cornell_box(glossy=True).build(device=cuda_device)
+    scene = (cornell.glass_sphere_box() if glass
+             else cornell.cornell_box(glossy=True)).build(device=cuda_device)
     cam, o, d, sidx, seed, ct = _rays(cuda_device, st)
     replay = torch.empty_like(o)
     a = adj._launch(scene, o, d, cam.far, sidx, seed, ct, st, None, replay)
@@ -152,3 +189,21 @@ def test_gradient_over_kernel_caps_raises_on_card(cuda_device):
         render_loss_grad({"materials": scene.materials}, scene, cam, st,
                          torch.zeros((8, 8, 3), device=cuda_device), 1)
     assert (mk.LAUNCHES, adj.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_envmap_backward_raises_on_card(cuda_device):
+    """An envmap scene renders through the kernel on the card, but its
+    backward (the JAX package's lockstep-vjp route) is not ported: the
+    backward raises, naming the ROADMAP item."""
+    st = ht.RenderSettings(width=8, height=8, samples_per_pixel=2,
+                           max_bounces=2, use_envmap=True)
+    scene = cornell.cornell_box(glossy=True).build(
+        envmap=Envmap.gradient_sky(), device=cuda_device)
+    cam = ht.make_camera(**CAM, device=cuda_device)
+    assert not adj.adjoint_supported(scene, st)
+    before = adj.LAUNCHES
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        render_loss_grad({"materials": scene.materials}, scene, cam, st,
+                         torch.zeros((8, 8, 3), device=cuda_device), 1)
+    assert adj.LAUNCHES == before

@@ -64,6 +64,7 @@ def _enclosed_sphere_scene():
 
 
 SCENES = {
+    "glass": (lambda: jcornell.glass_sphere_box(), CAM),
     "cornell": (lambda: jcornell.cornell_box(), CAM),
     "glossy_sphere": (_glossy_sphere_box, CAM),
     "enclosed": (_enclosed_sphere_scene,
@@ -92,11 +93,11 @@ def _grads_both(name, **kw):
     js, jc, ts, tc = _both(name)
     target = _target()
     jl, jg = _j_loss_grad({"materials": js.materials}, js, jc,
-                          jht.RenderSettings(**ST, **kw),
+                          jht.RenderSettings(**{**ST, **kw}),
                           jnp.asarray(target), 1)
     tl, tg = tgrad.render_loss_grad({"materials": ts.materials}, ts, tc,
-                                    tht.RenderSettings(**ST, **kw), target,
-                                    1)
+                                    tht.RenderSettings(**{**ST, **kw}),
+                                    target, 1)
     return (float(jl), interop.material_table_to_numpy(jg["materials"]),
             tl, tg["materials"])
 
@@ -114,6 +115,43 @@ def test_render_loss_grad_matches_jax(name, rr):
         assert got[f].shape == jg[f].shape
         np.testing.assert_allclose(got[f], jg[f], atol=ATOL, rtol=RTOL,
                                    err_msg=f)
+
+
+GLASS = dict(max_bounces=8, max_transmission_bounces=8)
+
+
+@pytest.mark.parametrize("rr", [True, False])
+def test_glass_render_loss_grad_matches_jax(rr):
+    """The glass-in-glass box at 8 bounces: the medium stack in the
+    forward and its absorption in the gradient, per float field."""
+    jl, jg, tl, tg = _grads_both("glass", russian_roulette=rr, **GLASS)
+    np.testing.assert_allclose(float(tl), jl, rtol=RTOL)
+    got = interop.material_table_to_numpy(tg)
+    assert np.abs(jg["absorption"]).max() > 0
+    for f in FIELDS:
+        np.testing.assert_allclose(got[f], jg[f], atol=ATOL, rtol=RTOL,
+                                   err_msg=f)
+    for f in ("roughness", "metallic", "ior"):
+        assert not got[f].any(), f
+
+
+def test_glass_absorption_routes_to_the_current_medium():
+    """Beer-Lambert acts through the medium a segment travels in: the
+    outer glass (material 0, absorbing) takes the segments inside it and
+    outside the bubble, including those that end on the bubble; the air
+    bubble (material 1, absorption 0, higher precedence) takes the
+    segments inside it, where d exp(-0 * t) / d absorption = -t, so its
+    gradient is not 0. Both rows equal JAX's."""
+    _, jg, _, tg = _grads_both("glass", russian_roulette=False, **GLASS)
+    got = interop.material_table_to_numpy(tg)
+    mats = _both("glass")[2].materials
+    assert mats.absorption[0].min() > 0 and not mats.absorption[1].any()
+    assert int(mats.priority[1]) < int(mats.priority[0])
+    for row in (0, 1):
+        assert np.abs(got["absorption"][row]).max() > 0
+        np.testing.assert_allclose(got["absorption"][row],
+                                   jg["absorption"][row], atol=ATOL,
+                                   rtol=RTOL)
 
 
 def test_roughness_metallic_ior_grads_exactly_zero():

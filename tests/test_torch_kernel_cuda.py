@@ -1,4 +1,7 @@
-"""The CUDA megakernel vs its plain PyTorch version on the card.
+"""The CUDA megakernel vs its plain PyTorch version on the card: the
+opaque variant (B1a) on Cornell glossy, the medium-stack variant (B1b) on
+the glass-in-glass box, and the envmap variants (B1c) with the sky shaded
+after the kernel, with and without env NEE.
 
 Needs an NVIDIA GPU with nvcc; skips without one. Imports no JAX, so it
 also runs on a machine that has only the port's dependencies:
@@ -9,7 +12,10 @@ Tolerance: the kernel is built with -fmad=false and follows the Pallas
 body op for op, the plain version the lockstep integrator; the two differ
 in the rounding of a few ops (v * (1/x) vs v / x, sin/cos/exp), which can
 flip a rare Russian-roulette or edge decision. So atol = rtol = 1e-4 per
-ray, with at most 0.1% of rays outside.
+ray, with at most 0.1% of rays outside. Glass adds `expf` in
+Beer-Lambert and env NEE `sinf`/`cosf` in the draw, which round as torch's
+within an ulp; the same bound holds, except for env NEE's continuation
+pdf at the miss (output 10), held at rtol 1e-2 (see below).
 """
 
 import numpy as np
@@ -18,10 +24,11 @@ import torch
 
 import halogen_tpu_torch as ht
 from halogen_tpu_torch.integrator.camera import generate_rays
-from halogen_tpu_torch.integrator.trace import _sampler_2d
+from halogen_tpu_torch.integrator.trace import _sampler_2d, deferred_sky
 from halogen_tpu_torch.kernels import megakernel as mk
 from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene import cornell
+from halogen_tpu_torch.scene.envmap import Envmap
 
 CASES = {
     "sobol_rr": dict(max_bounces=4),
@@ -32,11 +39,56 @@ CASES = {
 }
 
 
+GLASS_CASES = {
+    "sobol_rr": dict(),
+    "sobol_no_rr": dict(russian_roulette=False),
+    "prng_rr": dict(sampler=ht.SamplerKind.PRNG),
+    "transmission_limit": dict(max_transmission_bounces=2),
+}
+CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
+SKY_CAM = dict(position=(0, 1, 6), target=(0, 0.5, 0), fov_deg=40)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _check_kernel_vs_plain(scene, cam_kw, st, dev):
+    """Kernel vs plain on 2 lanes of every pixel: the per-ray outputs and
+    the color after the sky pass, one launch each way."""
+    cam = ht.make_camera(**cam_kw, device=dev)
+    pix = torch.arange(st.num_pixels, device=dev).repeat_interleave(2)
+    lane = torch.arange(2, device=dev).repeat(st.num_pixels)
+    sidx = sob.sample_index(1, lane, st.samples_per_pixel)
+    seed = sob.pixel_seed(pix)
+    o, d = generate_rays(cam, pix % st.width, pix // st.width, st.width,
+                         st.height, st.filter_radius, sidx, seed,
+                         _sampler_2d(st))
+    before = mk.LAUNCHES
+    got = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
+    color = mk.trace_color_fused(scene, o, d, cam.far, sidx, seed, st)
+    assert mk.LAUNCHES == before + 2
+    ref = mk.trace_color_fused_reference(scene, o, d, cam.far, sidx, seed, st)
+    ref_color = deferred_sky(scene, st, ref)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (pix.shape[0], ref.shape[1])
+    # outputs 0-9 and 11, and the color after the sky pass, at 1e-4
+    # (output 11 is a flag); output 10, the continuation pdf at the miss,
+    # at rtol 1e-2: a near-mirror glossy lobe's pdf (up to ~1e3) turns the
+    # ~1e-6 direction differences into ~1e-3 relative ones
+    cols = [c for c in range(got.shape[1]) if c != 10]
+    pairs = [(got[:, cols], ref[:, cols], 1e-4), (color, ref_color, 1e-4)]
+    if got.shape[1] > 10:
+        pairs.append((got[:, 10:11], ref[:, 10:11], 1e-2))
+    for a, b, rtol in pairs:
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.isfinite(a).all()
+        bad = (np.abs(a - b) > 1e-4 + rtol * np.abs(b)).any(axis=1)
+        assert bad.sum() <= max(1, a.shape[0] // 1000)
+    return got
 
 
 @pytest.mark.cuda
@@ -45,37 +97,82 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
                            **CASES[case])
     scene = cornell.cornell_box(glossy=True).build(device=cuda_device)
-    cam = ht.make_camera(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40,
-                         device=cuda_device)
-    pix = torch.arange(st.num_pixels, device=cuda_device).repeat_interleave(2)
-    lane = torch.arange(2, device=cuda_device).repeat(st.num_pixels)
-    sidx = sob.sample_index(1, lane, st.samples_per_pixel)
-    seed = sob.pixel_seed(pix)
-    o, d = generate_rays(cam, pix % st.width, pix // st.width, st.width,
-                         st.height, st.filter_radius, sidx, seed,
-                         _sampler_2d(st))
-    before = mk.LAUNCHES
-    got = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
-    assert mk.LAUNCHES == before + 1
-    ref = mk.trace_color_fused_reference(scene, o, d, cam.far, sidx, seed, st)
-    torch.cuda.synchronize()
-    got, ref = got.cpu().numpy(), ref.cpu().numpy()
-    assert got.shape == (pix.shape[0], mk.N_OUTPUTS)
-    assert np.isfinite(got).all()
-    bad = (np.abs(got - ref) > 1e-4 + 1e-4 * np.abs(ref)).any(axis=1)
-    assert bad.sum() <= max(1, got.shape[0] // 1000)
+    got = _check_kernel_vs_plain(scene, CAM, st, cuda_device)
+    assert got.shape[1] == mk.N_OUTPUTS
 
 
 @pytest.mark.cuda
-def test_render_frame_launches_kernel(cuda_device):
+@pytest.mark.parametrize("case", sorted(GLASS_CASES))
+def test_glass_kernel_matches_plain_on_card(case, cuda_device):
+    """B1b: the glass-in-glass box at 8 bounces."""
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                           max_bounces=8, **{"max_transmission_bounces": 8,
+                                             **GLASS_CASES[case]})
+    scene = cornell.glass_sphere_box().build(device=cuda_device)
+    assert scene.any_transmissive and mk.fused_supported(scene, st)
+    _check_kernel_vs_plain(scene, CAM, st, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee", [False, True])
+def test_envmap_kernel_matches_plain_on_card(nee, cuda_device):
+    """B1c: Cornell glossy under the sky with the mip bias (the kernel
+    records the miss, the sky is shaded after it), and the material demo
+    spheres with env NEE at mip level 0 (12 outputs)."""
+    sky = Envmap.gradient_sky()
+    if nee:
+        scene = cornell.material_demo_spheres().build(envmap=sky,
+                                                      device=cuda_device)
+        st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                               max_bounces=4, use_envmap=True,
+                               env_importance_sampling=True, env_mip_level=0)
+        cam = SKY_CAM
+    else:
+        scene = cornell.cornell_box(glossy=True).build(envmap=sky,
+                                                       device=cuda_device)
+        st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                               max_bounces=3, use_envmap=True)
+        cam = CAM
+    got = _check_kernel_vs_plain(scene, cam, st, cuda_device)
+    assert got.shape[1] == (mk.N_OUTPUTS_NEE if nee else mk.N_OUTPUTS)
+    if nee:
+        assert bool((got[:, 11] > 0.5).any())  # NEE-covered misses occur
+
+
+@pytest.mark.cuda
+def test_glass_env_nee_kernel_matches_plain_on_card(cuda_device):
+    """B1b and B1c together: the glass-in-glass box under the sky with env
+    NEE."""
+    scene = cornell.glass_sphere_box().build(envmap=Envmap.gradient_sky(),
+                                             device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                           max_bounces=8, max_transmission_bounces=8,
+                           use_envmap=True, env_importance_sampling=True,
+                           env_mip_level=0)
+    got = _check_kernel_vs_plain(scene, CAM, st, cuda_device)
+    assert got.shape[1] == mk.N_OUTPUTS_NEE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "glass", "sky_nee"])
+def test_render_frame_launches_kernel(name, cuda_device):
     """render_frame on a CUDA scene goes through the kernel: one launch
     per spp group, and the frame agrees with the plain version's (at most
     one pixel outside 1e-4, for the reason above)."""
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
                            max_bounces=4, ray_chunk_size=2048)
-    scene = cornell.cornell_box(glossy=True).build(device=cuda_device)
-    cam = ht.make_camera(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40,
-                         device=cuda_device)
+    cam_kw = CAM
+    if name == "cornell":
+        scene = cornell.cornell_box(glossy=True).build(device=cuda_device)
+    elif name == "glass":
+        scene = cornell.glass_sphere_box().build(device=cuda_device)
+    else:
+        scene = cornell.material_demo_spheres().build(
+            envmap=Envmap.gradient_sky(), device=cuda_device)
+        st = st.replace(use_envmap=True, env_importance_sampling=True,
+                        env_mip_level=0)
+        cam_kw = SKY_CAM
+    cam = ht.make_camera(**cam_kw, device=cuda_device)
     before = mk.LAUNCHES
     img = ht.render_frame(scene, cam, st, 1)
     assert mk.LAUNCHES - before == 2  # 1024 pixels x 2 lanes per launch

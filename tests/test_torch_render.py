@@ -1,6 +1,8 @@
-"""PyTorch port vs JAX package: whole frames, the two Cornell goldens,
-and the progressive `Renderer` (blend, camera reset, done latch,
-checkpoints), as `tests/test_render_state.py` checks the JAX package.
+"""PyTorch port vs JAX package: whole frames (Cornell, glass, envmap with
+NEE), the four core goldens (the two Cornell ones, `glass_box` and
+`envmap_nee`), and the progressive `Renderer` (blend, camera reset, done
+latch, checkpoints), as `tests/test_render_state.py` checks the JAX
+package.
 
 Frames: per pixel atol = rtol = 1e-5, with at most 1 pixel in 256
 outside (a rare Russian-roulette or edge decision flipped by an ulp of
@@ -18,6 +20,7 @@ import torch
 import halogen_tpu as jht
 import halogen_tpu_torch as tht
 from halogen_tpu.scene import cornell as jcornell
+from halogen_tpu.scene.envmap import Envmap as JEnvmap
 from halogen_tpu_torch import interop
 from halogen_tpu_torch.integrator.trace import _morton_pixel_order
 from halogen_tpu_torch.kernels import megakernel as mk
@@ -25,6 +28,7 @@ from halogen_tpu_torch.scene import cornell as tcornell
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
+SKY_CAM = dict(position=(0, 1.0, 6.0), target=(0, 0.5, 0), fov_deg=40)
 
 _j_render = jax.jit(jht.render_frame, static_argnames=("settings",))
 
@@ -43,6 +47,32 @@ def test_render_frame_matches_jax(glossy, spp, chunk):
     assert got.shape == ref.shape == (16, 16, 3)
     bad = (np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).any(axis=-1)
     assert bad.sum() <= bad.size // 256, (
+        f"{bad.sum()} pixels outside 1e-5; max {np.abs(got - ref).max()}")
+
+
+@pytest.mark.parametrize("name", ["glass", "env_nee"])
+def test_slice_render_frame_matches_jax(name):
+    """render_frame on the glass box (8 bounces, the stack) and on the
+    material spheres under the sky with env NEE, in both packages."""
+    kw = dict(width=16, height=16, samples_per_pixel=2, ray_chunk_size=128)
+    if name == "glass":
+        jscene = jcornell.glass_sphere_box().build()
+        cam_kw = CAM
+        kw.update(max_bounces=8, max_transmission_bounces=8)
+    else:
+        jscene = jcornell.material_demo_spheres().build(
+            envmap=JEnvmap.gradient_sky())
+        cam_kw = SKY_CAM
+        kw.update(max_bounces=4, use_envmap=True,
+                  env_importance_sampling=True)
+    ref = np.asarray(_j_render(jscene, jht.make_camera(**cam_kw),
+                               jht.RenderSettings(**kw), 2))
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    got = tht.render_frame(scene, tht.make_camera(**cam_kw),
+                           tht.RenderSettings(**kw), 2).numpy()
+    assert got.shape == ref.shape == (16, 16, 3)
+    bad = (np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).any(axis=-1)
+    assert bad.sum() <= max(1, bad.size // 256), (
         f"{bad.sum()} pixels outside 1e-5; max {np.abs(got - ref).max()}")
 
 
@@ -79,10 +109,23 @@ def test_morton_order_is_a_permutation():
 
 
 def _golden_configs():
-    """The port's own build of `scripts/gen_goldens.py`'s two Cornell
-    fixtures."""
+    """The port's own build of `scripts/gen_goldens.py`'s four core
+    fixtures (ladder 1-4)."""
     cam = tht.make_camera(**CAM)
     return {
+        "envmap_nee": (
+            tcornell.material_demo_spheres().build(
+                envmap=tht.Envmap.gradient_sky()),
+            tht.make_camera(**SKY_CAM),
+            tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
+                               max_bounces=4, use_envmap=True,
+                               env_importance_sampling=True,
+                               ray_chunk_size=4096), 1),
+        "glass_box": (
+            tcornell.glass_sphere_box().build(), cam,
+            tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
+                               max_bounces=8, max_transmission_bounces=8,
+                               ray_chunk_size=4096), 1),
         "cornell_diffuse": (
             tcornell.cornell_box().build(), cam,
             tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
@@ -95,7 +138,8 @@ def _golden_configs():
     }
 
 
-@pytest.mark.parametrize("name", ["cornell_diffuse", "cornell_glossy_dof"])
+@pytest.mark.parametrize("name", ["cornell_diffuse", "cornell_glossy_dof",
+                                  "envmap_nee", "glass_box"])
 def test_golden_image(name):
     """The JAX package's golden frames, at `tests/test_golden.py`'s bounds."""
     golden = np.load(GOLDEN_DIR / f"{name}.npz")["image"]

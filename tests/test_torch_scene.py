@@ -59,12 +59,13 @@ def test_scene_from_numpy_round_trip():
 
 
 def test_out_of_slice_raises():
-    """A mesh the JAX build would reorder through its BVH, and envmaps,
-    are not ported yet."""
+    """A mesh the JAX build would reorder through its BVH is not ported
+    yet. Envmaps are (`tests/test_torch_envmap.py`); anything but an
+    `Envmap` is refused."""
     s = tcornell.Scene()
     v = np.random.default_rng(0).random((8, 3)).astype(np.float32)
     s.add_mesh(v, np.arange(18).reshape(6, 3) % 8, tcornell.Material())
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         s.build()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="Envmap"):
         tcornell.cornell_box().build(envmap=object())
