@@ -6,8 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; the first that fails ends the run with a non-zero exit
 (no phase is caught):
   1. require a CUDA device; print the card's name and power limit;
-  2. build both kernels (the megakernel and its adjoint) from
-     `halogen_tpu_torch/csrc/`, one nvcc process per source, in parallel;
+  2. build the three kernel libraries (the megakernel, its adjoint and
+     the world-BVH traversal) from `halogen_tpu_torch/csrc/`, one nvcc
+     process per source, in parallel;
   3. kernel vs its plain PyTorch version on the card (Cornell glossy,
      64x64 pixels x 4 spp lanes, 4 bounces; Sobol+RR, Sobol, PRNG+RR and
      per-type bounce limits): atol = rtol = 1e-4 per ray, at most 0.1% of
@@ -67,9 +68,61 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      the glass forward bit for bit; its time at the launch shape; the
      glass fwd+bwd step (`render_loss_grad`, 256x256, 256 spp, 8 bounces,
      64 + 64 launches per step) and its grads vs `Fused.OFF` at 64x64, 16
-     spp; a backward on an envmap scene raises NotImplementedError.
-The last lines are a JSON record of the five kernel variants, the card's
-name and power limit, and {"ok": true, "device": {...}}.
+     spp; a backward on an envmap scene raises NotImplementedError;
+ 16. the world-BVH traversal kernel (B3) vs its plain version (a brute
+     force over the same triangles) on the glass dragon's BVH (8,724
+     triangles): 65536 rays, half camera rays and half numpy-seeded points
+     and directions inside its box, seeds +inf, finite (0.2-3) and < 0:
+     t, u and v at atol = rtol = 1e-5, the triangle equal except at ties
+     (t within 1e-6), at most 0.1% of rays; then Intersector.PALLAS,
+     TREELET, FLATLET and RAYLET (the routes of B3-B6) each on a 64x64
+     lockstep frame (Fused.OFF, 12 bounces): the kernel's launch count
+     moves (and stays at 0 under BRUTE), and the frame agrees with
+     BRUTE's (phase 11's tolerance per pixel);
+ 17. the BVH-tier variants (B1d) vs their plain version (the lockstep
+     with brute-force hits), 64x64 pixels x 4 lanes: the glass dragon at
+     12 bounces in phase 11's four cases, a 1,280-triangle dragon under
+     the sky with and without env NEE, and the glass dragon under the sky
+     with env NEE, each at frames 1, 2 and 3, at phase 11's tolerance
+     with the final direction and the continuation pdf held where and as
+     the sky pass reads them: on rays that reached the sky (a killed
+     ray's last direction and pdf are never read; through 12 bounces of
+     curved glass the direction drifts by up to ~1e-2 from ulp-level
+     differences), and the pdf through the balance-heuristic weight it
+     gives the sky, at rtol 1e-2 (the pdf grows without bound toward the
+     rim of a 0.05-roughness lobe's support and is 0 past it, so an ulp
+     of direction moves it by far more than 1e-2 while its weight stays
+     near 1); the color after the sky pass on every ray; the raw pdf's
+     outside count and the unread rays' largest difference are printed;
+ 18. the `testing_active` and `testing_composite` goldens (77,364 and
+     78,678 triangles) through B1d, at `tests/test_golden.py`'s bounds
+     (MAE and worst pixel), against the world-space lockstep on the card
+     (B3's hits): the frame's rays through B1d agree with the lockstep's
+     on the same rays at phase 17's per-ray tolerance, and a pixel past
+     the worst-pixel bound passes only where the lockstep's frame
+     (`Fused.OFF`) is past it too and within 1e-4 of B1d's: the goldens
+     were rendered by the JAX package's walk of each mesh's BVH in local
+     space, and in `testing_active` one path meets a triangle at
+     t = 1.03e-4, an ulp from HIT_EPS, where the two spaces round apart;
+ 19. times at the launch shape (262144 rays): B3 on the glass dragon's
+     camera rays and on one bounce's rays, by CUDA events and profiler
+     device time, with the triangle and box tests the walks made; each
+     B1d variant (events and
+     device time), with the work its rays need (from the lockstep on the
+     same rays) and its bound; the plain versions at 16384 rays (a brute
+     force over 8.7k triangles: not for speed);
+ 20. the glass dragon at `bench.py`'s configuration (512x512, 32 spp, 12
+     bounces, 262144-ray chunks): one warm-up and 2 timed frames through
+     `render_frame`, 32 B1d launches per frame, Mrays/s and the device's
+     idle share (profiler); then one 256x256 frame through `Fused.OFF`
+     (lockstep + B3 on the card), mean radiance within 2% of the kernel
+     route's;
+ 21. the work each launch shape of B1a-c, B2 and B2b needs, for their
+     bounds.
+The last lines are a JSON record of every kernel (B1a-d, B2, B2b, B3, and
+the routes B4-B6 that B3's kernel serves) with its launches on its main
+path, error, times, plain time, bound and library call, the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -91,6 +144,18 @@ PARITY_TOL = 1e-4
 PDF_RTOL = 1e-2  # env NEE's continuation pdf at the miss (output 10)
 PARITY_MAX_OUTSIDE = 1e-3  # share of rays
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6  # per column, of the column's max
+DRAGON_CAM = dict(position=(0.0, 1.5, 5.0), target=(0.0, -0.3, 0.0),
+                  fov_deg=45.0)  # bench.py's glass_dragon camera
+# fp32 operations of one primitive test and of one shaded bounce, counted
+# from csrc/geometry.cuh (triangle_hit, sphere_t), bvh_traverse.cuh
+# (node_entry) and path_common.cuh (path_bounce; sinf, cosf, expf and
+# sqrtf as ~20 each; the sampler's integer work is not counted)
+OPS_TRI, OPS_SPHERE, OPS_BOX = 55, 55, 27
+OPS_SHADE = 230  # an opaque hit: normals, draws, Fresnel, lobes, RR
+OPS_GLASS = 50  # + the refraction branch and Beer-Lambert
+OPS_NEE = 190  # + the env draw, two glossy pdfs and the MIS weight
+OPS_ADJ = 100  # + the adjoint's reverse sweep of the bounce
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32, HBM3
 
 
 def _card() -> str:
@@ -117,9 +182,13 @@ def _cuda_ms(fn, reps: int) -> float:
 def _resources(log: str) -> dict:
     """Registers and spill-store bytes of every kernel variant, from
     nvcc's `-Xptxas -v` output: {name: (registers, spill bytes)}."""
-    names = {"megakernelILb0ELb0E": "B1a", "megakernelILb1ELb0E": "B1b",
-             "megakernelILb0ELb1E": "B1c", "megakernelILb1ELb1E": "B1b+c",
-             "adjoint_kernelILb0E": "B2", "adjoint_kernelILb1E": "B2b"}
+    names = {"megakernelILb0ELb0ELb0E": "B1a", "megakernelILb1ELb0ELb0E": "B1b",
+             "megakernelILb0ELb1ELb0E": "B1c", "megakernelILb1ELb1ELb0E": "B1b+c",
+             "megakernelILb0ELb0ELb1E": "B1d", "megakernelILb1ELb0ELb1E": "B1b+d",
+             "megakernelILb0ELb1ELb1E": "B1c+d",
+             "megakernelILb1ELb1ELb1E": "B1b+c+d",
+             "adjoint_kernelILb0E": "B2", "adjoint_kernelILb1E": "B2b",
+             "traverse_kernel": "B3"}
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -133,6 +202,83 @@ def _resources(log: str) -> dict:
         if m and cur:
             out[cur] = (int(m.group(1)), spill)
     return out
+
+
+def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
+    """What the kernel's path needs on these rays, counted by the lockstep
+    on the card with its closest hits brute-forced (or, for a BVH-tier
+    scene, walked by B3, whose counters give the walk's tests): ray-bounce
+    intersections, shaded bounces, env-NEE shadow rays (the lanes whose
+    draw faces an opaque surface, as the kernel's), and the triangle, box
+    and sphere tests. A shadow ray's walk is counted as a closest-hit walk,
+    an upper bound on the kernel's any-hit walk."""
+    import halogen_tpu_torch.integrator.trace as tr
+    from halogen_tpu_torch.config import Intersector
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import traverse
+
+    bvh, nee = mk.uses_bvh(scene), tr._use_nee(scene, st)
+    w = dict(rays=0, shaded=0, shadow=0, tri=0, box=0)
+    state = {"calls": 0}
+    isect0, walk0 = tr.intersect_scene, traverse.traverse_world
+
+    def walk(wbvh, origin, direction, seed_):
+        out = walk0(wbvh, origin, direction, seed_)
+        w["tri"] += int(out[5][state["mask"]].sum())
+        w["box"] += int(out[6][state["mask"]].sum())
+        return out
+
+    def isect(sc, origin, direction, far_, settings):
+        shadow = nee and state["calls"] % 2 == 1
+        state["calls"] += 1
+        if shadow:  # the lanes that cast one (trace._pool_bounce's cand)
+            h = state["hit"]
+            opaque = sc.materials.albedo[h.material, 3] >= 1.0
+            mask = state["shaded"] & opaque & (
+                (h.normal * direction).sum(dim=1) > 0.0)
+        else:
+            mask = far_ > 0.0
+        state["mask"] = mask
+        hit = isect0(sc, origin, direction, far_, settings)
+        n = int(mask.sum())
+        w["shadow" if shadow else "rays"] += n
+        if not shadow:
+            state["hit"], state["shaded"] = hit, mask & (hit.t < far_)
+            w["shaded"] += int(state["shaded"].sum())
+        if not bvh:
+            w["tri"] += n * sc.num_triangles
+        return hit
+
+    kind = Intersector.PALLAS if bvh else Intersector.BRUTE
+    tr.intersect_scene, traverse.traverse_world = isect, walk
+    try:
+        tr.trace_rays(scene, o, d, far.expand(o.shape[0]), sidx, seed,
+                      st.replace(intersector=kind))
+    finally:
+        tr.intersect_scene, traverse.traverse_world = isect0, walk0
+    w["sphere"] = (w["rays"] + w["shadow"]) * scene.num_spheres
+    return w
+
+
+def _bound(n_bytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the least time of the work on an H100 SXM,
+    the larger of its bytes over 3.35 TB/s and its fp32 operations over
+    67 TFLOP/s (the H100 SXM's peak memory rate and fp32 rate)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def _path_ops(w: dict, glass: bool, nee: bool, adjoint: bool = False):
+    shade = (OPS_SHADE + (OPS_GLASS if glass else 0) + (OPS_NEE if nee
+             else 0) + (OPS_ADJ if adjoint else 0))
+    return (w["tri"] * OPS_TRI + w["box"] * OPS_BOX
+            + w["sphere"] * OPS_SPHERE + w["shaded"] * shade)
+
+
+def _table_bytes(tables) -> int:
+    return sum(t.numel() * t.element_size() for t in tables
+               if t is not None)
 
 
 def _grad_compare(got, ref) -> tuple:
@@ -541,7 +687,8 @@ def main() -> int:
     res = _resources(mk.BUILD_LOG)
     print(f"[13] registers, spill-store bytes per variant: {res}",
           flush=True)
-    assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B2", "B2b"}, res
+    assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
+                        "B1c+d", "B1b+c+d", "B2", "B2b", "B3"}, res
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -716,52 +863,476 @@ def main() -> int:
     else:
         raise AssertionError("an envmap backward did not raise")
 
-    # --- 16. the record of every kernel variant
-    def entry(name, replaces, launches, err, times, extra):
-        k_ms, p_ms = times
-        return {"name": name, "route": "cuda", "source": extra.pop("source"),
+    # --- 16. B3 against its plain version, and the four world routes
+    import halogen_tpu_torch.integrator.trace as tr
+    from halogen_tpu_torch.integrator.trace import (
+        _make_pool,
+        _pool_bounce,
+        env_mis_weight,
+    )
+    from halogen_tpu_torch.kernels import traverse
+    from halogen_tpu_torch.profile_frame import _self_device_us
+    from halogen_tpu_torch.scene import meshes, testing_scene
+
+    dragon = meshes.glass_dragon_scene().build(device=dev)
+    dcam = ht.make_camera(**DRAGON_CAM, device=dev)
+    wb = dragon.wbvh
+    st_d = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
+                             max_bounces=12, ray_chunk_size=262144)
+    o_cam, d_cam, sidx_cam, seed_cam = rays(pix_g, 1, 32, st_d, 1, dcam)
+    rng = np.random.default_rng(0)
+    half = 32768
+    lo, hi = (wb.nodes[0, a:a + 3].cpu().numpy() for a in (0, 3))
+    o_r = (lo + rng.random((half, 3)) * (hi - lo)).astype(np.float32)
+    d_r = rng.normal(size=(half, 3)).astype(np.float32)
+    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
+    o16 = torch.cat([o_cam[:half], torch.from_numpy(o_r).to(dev)])
+    d16 = torch.cat([d_cam[:half], torch.from_numpy(d_r).to(dev)])
+    kinds = rng.integers(0, 5, 2 * half)  # 2/5 inf, 2/5 finite, 1/5 < 0
+    s16 = np.where(kinds < 2, np.inf, np.where(
+        kinds < 4, rng.uniform(0.2, 3.0, 2 * half), -1.0)).astype(np.float32)
+    s16 = torch.from_numpy(s16).to(dev)
+    got = [x.cpu().numpy() for x in traverse.traverse_world(wb, o16, d16,
+                                                            s16)]
+    ref = [x.cpu().numpy() for x in traverse.traverse_world_reference(
+        wb, o16, d16, s16)]
+    n16 = o16.shape[0]
+    assert np.array_equal(np.isinf(got[0]), np.isinf(ref[0])), "B3 hits"
+    hit = np.isfinite(ref[0])
+    assert not hit[s16.cpu().numpy() < 0].any(), "a negative seed hit"
+    other = hit & (got[1] != ref[1])
+    same = hit & ~other
+    t_err = float(np.abs(got[0][hit] - ref[0][hit]).max())
+    uv_err = float(max(np.abs(got[i][same] - ref[i][same]).max()
+                       for i in (2, 3)))
+    assert np.allclose(got[0][hit], ref[0][hit], atol=PARITY_TOL / 10,
+                       rtol=PARITY_TOL / 10), "B3 t"
+    for i in (2, 3):
+        assert np.allclose(got[i][same], ref[i][same], atol=PARITY_TOL / 10,
+                           rtol=PARITY_TOL / 10), "B3 u, v"
+    ties = np.abs(got[0][other] - ref[0][other]) <= 1e-6
+    assert ties.all() and other.sum() <= PARITY_MAX_OUTSIDE * n16, "B3 tri"
+    b3_err = max(t_err, uv_err)
+    print(f"[16] B3 vs plain, glass dragon ({wb.num_nodes} nodes, "
+          f"{dragon.num_triangles} triangles): {n16} rays, {int(hit.sum())}"
+          f" hits; t max |diff| {t_err:.3e}, u/v {uv_err:.3e} (<= 1e-5); "
+          f"{int(other.sum())} other triangles, all ties within 1e-6; mean "
+          f"tests per walked ray: {got[5][got[5] > 0].mean():.1f} triangles,"
+          f" {got[6][got[5] > 0].mean():.1f} boxes", flush=True)
+
+    st16 = ht.RenderSettings(width=64, height=64, samples_per_pixel=2,
+                             max_bounces=12, fused=ht.Fused.OFF,
+                             ray_chunk_size=8192)
+    traverse.LAUNCHES = 0
+    brute16 = ht.render_frame(dragon, dcam, st16.replace(
+        intersector=ht.Intersector.BRUTE), 1).cpu().numpy()
+    routes16 = {}
+    assert traverse.LAUNCHES == 0, "BRUTE launched the traversal kernel"
+    for route in ("PALLAS", "TREELET", "FLATLET", "RAYLET"):
+        traverse.LAUNCHES = 0
+        img = ht.render_frame(dragon, dcam, st16.replace(
+            intersector=ht.Intersector[route]), 1).cpu().numpy()
+        assert traverse.LAUNCHES > 0, route
+        bad = (np.abs(img - brute16) > PARITY_TOL + PARITY_TOL
+               * np.abs(brute16)).any(axis=-1)
+        routes16[route] = (traverse.LAUNCHES,
+                           float(np.abs(img - brute16).max()))
+        print(f"[16] Intersector.{route}: {routes16[route][0]} launches of "
+              f"the traversal kernel in a 64x64 lockstep frame, 12 bounces; vs "
+              f"BRUTE max |diff| {routes16[route][1]:.3e}, {int(bad.sum())} "
+              f"pixels outside {PARITY_TOL}", flush=True)
+        assert bad.sum() <= PARITY_MAX_OUTSIDE * bad.size, route
+
+    # --- 17. the BVH-tier variants (B1d) vs plain
+    sky_hero = meshes.dragons_hero_scene(1, tris=1280).build(envmap=sky,
+                                                             device=dev)
+    dragon_sky = meshes.glass_dragon_scene().build(envmap=sky, device=dev)
+    dbase = dict(width=64, height=64, samples_per_pixel=4, max_bounces=12)
+    sbase = dict(width=64, height=64, samples_per_pixel=4, max_bounces=4,
+                 use_envmap=True, env_mip_level=0)
+    cases17 = {
+        "dragon_sobol_rr": (dragon, ht.RenderSettings(**dbase)),
+        "dragon_sobol_no_rr": (dragon, ht.RenderSettings(
+            **dbase, russian_roulette=False)),
+        "dragon_prng_rr": (dragon, ht.RenderSettings(
+            **dbase, sampler=ht.SamplerKind.PRNG)),
+        "dragon_transmission_2": (dragon, ht.RenderSettings(
+            **dbase, max_transmission_bounces=2)),
+        "hero_sky": (sky_hero, ht.RenderSettings(**sbase)),
+        "hero_sky_nee": (sky_hero, ht.RenderSettings(
+            **sbase, env_importance_sampling=True)),
+        # the stack and env NEE together on the BVH tier (B1b+c+d)
+        "dragon_sky_nee": (dragon_sky, ht.RenderSettings(
+            **dbase, use_envmap=True, env_importance_sampling=True,
+            env_mip_level=0)),
+    }
+
+    def compare_as_read(sc, got, ref):
+        """Phase 11's check, with the final direction (7-9) held where the
+        sky pass reads it, on rays that reached the sky, and the pdf (10)
+        as the sky pass reads it: through the balance-heuristic weight
+        `env_mis_weight`, on those rays, at rtol 1e-2. Returns the rays
+        outside (the other outputs, the direction, the weight), the
+        largest difference, the sky rays, and for the record the rays
+        whose raw pdf is outside rtol 1e-2 (on the sky rays and on every
+        ray), their pdf range, and the unread rays' largest difference in
+        7-10 with its column."""
+        sky_rays = (ref[:, 3:6] != 0).any(dim=1)
+        keep = [c for c in range(got.shape[1]) if c not in (7, 8, 9, 10)]
+        n_bad, err = compare(got[:, keep], ref[:, keep])
+        n_dir, err_dir = compare(got[sky_rays, 7:10], ref[sky_rays, 7:10])
+        pdf_rec = (0, 0, None)
+        bad_w = 0
+        if got.shape[1] > 10:
+            w, w_ref = (env_mis_weight(sc, x)[sky_rays].cpu().numpy()
+                        for x in (got, ref))
+            bad_w = int((np.abs(w - w_ref) > PARITY_TOL + PDF_RTOL
+                         * np.abs(w_ref)).sum())
+            pdf, pdf_ref = got[:, 10].cpu().numpy(), ref[:, 10].cpu().numpy()
+            out = (np.abs(pdf - pdf_ref) > PARITY_TOL + PDF_RTOL
+                   * np.abs(pdf_ref))
+            sky_out = out & sky_rays.cpu().numpy()
+            pdf_rec = (int(sky_out.sum()), int(out.sum()),
+                       (float(np.abs(pdf_ref[sky_out]).min()),
+                        float(np.abs(pdf_ref[sky_out]).max()))
+                       if sky_out.any() else None)
+        unread = (got[~sky_rays, 7:11] - ref[~sky_rays, 7:11]).abs()
+        unread = ((float(unread.max()), 7 + int(unread.max(dim=0).values
+                                                .argmax()))
+                  if unread.numel() else (0.0, None))
+        return (n_bad, n_dir, bad_w, max(err, err_dir), int(sky_rays.sum()),
+                pdf_rec, unread)
+
+    parity17 = {}
+    for name, (sc, st17) in cases17.items():
+        pix = torch.arange(st17.num_pixels, device=dev)
+        for frame in (1, 2, 3):
+            o17, d17, sidx17, seed17 = rays(pix, 4, 4, st17, frame, dcam)
+            got = mk.trace_fused_outputs(sc, o17, d17, dcam.far, sidx17,
+                                         seed17, st17)
+            ref = mk.trace_color_fused_reference(sc, o17, d17, dcam.far,
+                                                 sidx17, seed17, st17)
+            col = mk.trace_color_fused(sc, o17, d17, dcam.far, sidx17,
+                                       seed17, st17)
+            torch.cuda.synchronize()
+            n17 = got.shape[0]
+            (n_bad, n_dir, bad_w, err, n_sky, pdf_rec,
+             unread) = compare_as_read(sc, got, ref)
+            n_col, err_col = compare(col, deferred_sky(sc, st17, ref))
+            parity17[name] = max(parity17.get(name, 0.0), err, err_col)
+            print(f"[17] {name}, frame {frame}: {n17} rays, "
+                  f"{st17.max_bounces} bounces; outputs (but 7-10) max "
+                  f"|diff| {err:.3e}, {n_bad} rays outside {PARITY_TOL}; "
+                  f"on the {n_sky} rays that reached the sky: final "
+                  f"direction {n_dir} outside, MIS weight {bad_w} outside "
+                  f"rtol {PDF_RTOL} (raw pdf: {pdf_rec[0]} outside, at "
+                  f"plain pdfs {pdf_rec[2]}; {pdf_rec[1]} over every ray); "
+                  f"unread rays' max |diff| {unread[0]:.3e} in output "
+                  f"{unread[1]}; color after the sky max |diff| "
+                  f"{err_col:.3e}, {n_col} rays outside", flush=True)
+            assert max(n_bad, n_dir, bad_w, n_col) <= (
+                PARITY_MAX_OUTSIDE * n17), (name, frame)
+            assert np.isfinite(col.cpu().numpy()).all(), name
+
+    # --- 18. the Testing-Scene goldens through B1d
+    goldens18 = {
+        "testing_active": (
+            testing_scene.testing_scene(False).build(envmap=sky, device=dev),
+            testing_scene.testing_scene_camera(device=dev),
+            ht.RenderSettings(width=64, height=64, samples_per_pixel=8,
+                              max_bounces=4, use_envmap=True,
+                              ray_chunk_size=4096), (5e-3, 1.0)),
+        "testing_composite": (
+            testing_scene.testing_scene(True).build(envmap=sky, device=dev),
+            ht.make_camera(position=(3.48, 1.8, 12.2),
+                           target=(3.48, 1.0, 17.55), fov_deg=60, near=0.6,
+                           far=1000, device=dev),
+            ht.RenderSettings(width=128, height=128, samples_per_pixel=4,
+                              max_bounces=5, use_envmap=True,
+                              ray_chunk_size=16384), (2e-2, 16.0)),
+    }
+    for name, (sc, cm, st18, (mae_tol, worst_tol)) in goldens18.items():
+        golden = np.load(ROOT / "tests" / "golden" / f"{name}.npz")["image"]
+        assert mk.uses_bvh(sc), name
+        before = mk.LAUNCHES
+        img = ht.Renderer(sc, cm, st18).step()
+        assert mk.LAUNCHES > before, f"{name} did not run the kernel"
+        launches18 = mk.LAUNCHES - before
+        assert img.shape == golden.shape and np.isfinite(img).all()
+        traverse.LAUNCHES = 0
+        lock = ht.Renderer(sc, cm, st18.replace(fused=ht.Fused.OFF)).step()
+        assert traverse.LAUNCHES > 0 and mk.LAUNCHES == before + launches18
+        lock_launches = traverse.LAUNCHES
+        # per ray, phase 17's check: the frame's rays through B1d against
+        # the world-space lockstep on the same rays (B3's hits, equal to
+        # BRUTE's in phase 16; BRUTE over ~78k triangles is too slow here)
+        spp = st18.samples_per_pixel
+        o18, d18, sidx18, seed18 = rays(
+            torch.arange(st18.num_pixels, device=dev), spp, spp, st18, 1, cm)
+        n18 = o18.shape[0]
+        got = mk.trace_fused_outputs(sc, o18, d18, cm.far, sidx18, seed18,
+                                     st18)
+        ref = tr.trace_rays(sc, o18, d18, cm.far.expand(n18), sidx18, seed18,
+                            st18.replace(intersector=ht.Intersector.PALLAS)
+                            ).outputs
+        col = mk.trace_color_fused(sc, o18, d18, cm.far, sidx18, seed18,
+                                   st18)
+        n_bad, n_dir, bad_w, err, n_sky, _, _ = compare_as_read(sc, got, ref)
+        n_col, err_col = compare(col, deferred_sky(sc, st18, ref))
+        apart = (np.abs(img - lock) > PARITY_TOL + PARITY_TOL
+                 * np.abs(lock)).any(axis=-1)
+        diff = np.abs(img - golden).max(axis=-1)
+        diff_lock = np.abs(lock - golden).max(axis=-1)
+        mae = float(np.abs(img - golden).mean())
+        over = diff >= worst_tol
+        shared = over & (diff_lock >= worst_tol) & ~apart
+        print(f"[18] golden {name} ({sc.num_triangles} triangles, "
+              f"{sc.num_spheres} spheres): {launches18} launches, MAE "
+              f"{mae:.3e} (< {mae_tol}), worst pixel {diff.max():.3e} "
+              f"(< {worst_tol}); pixels at or over it: "
+              f"{np.argwhere(over).tolist()}, of which the world-space "
+              f"lockstep frame ({lock_launches} B3 launches) reproduces "
+              f"{np.argwhere(shared).tolist()}; frame vs that lockstep max "
+              f"|diff| {float(np.abs(img - lock).max()):.3e}, "
+              f"{int(apart.sum())} pixels outside {PARITY_TOL}; per ray "
+              f"({n18} rays) vs that lockstep: outputs (but 7-10) max |diff|"
+              f" {err:.3e}, {n_bad} outside; on the {n_sky} sky rays final "
+              f"direction {n_dir}, MIS weight {bad_w} outside; color after "
+              f"the sky max |diff| {err_col:.3e}, {n_col} rays outside",
+              flush=True)
+        assert max(n_bad, n_dir, bad_w, n_col) <= PARITY_MAX_OUTSIDE * n18, (
+            name)
+        assert mae < mae_tol, f"golden {name} failed"
+        assert not (over & ~shared).any(), f"golden {name} worst pixel"
+
+    # --- 19. times at the launch shape (262144 rays)
+    far_cam = dcam.far.expand(o_cam.shape[0]).contiguous()
+    pool = _pool_bounce(dragon, st_d, _make_pool(
+        o_cam, d_cam, dcam.far, sidx_cam, seed_cam, True), 0)
+    o_b, d_b = pool.origin.contiguous(), pool.direction.contiguous()
+    seed_b = torch.where(pool.active, far_cam, -1.0)
+
+    def profiled_ms(fn, key, reps=10):
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages() if key in r.key]
+        return sum(_self_device_us(r) for r in rows) / 1e3 / reps
+
+    b3_rays = {"camera": (o_cam, d_cam, far_cam),
+               "bounce": (o_b, d_b, seed_b)}
+    times19, work19 = {}, {}
+    for name, (o19, d19, s19) in b3_rays.items():
+        fn = lambda: traverse.traverse_world(wb, o19, d19, s19)
+        out = fn()
+        torch.cuda.synchronize()
+        work19[name] = (int(out[5].sum()), int(out[6].sum()),
+                        int((s19 > 0).sum()))
+        k_ms = [_cuda_ms(fn, 10), _cuda_ms(fn, 10)]
+        times19[name] = (k_ms, profiled_ms(fn, "traverse_kernel"))
+        print(f"[19] B3 on the glass dragon's {name} rays ({o19.shape[0]}, "
+              f"{work19[name][2]} walked): {k_ms} ms (events), "
+              f"{times19[name][1]:.4f} ms (device); {work19[name][0]} "
+              f"triangle and {work19[name][1]} box tests | {card}",
+              flush=True)
+    small = slice(0, 16384)
+    b3_plain = lambda: traverse.traverse_world_reference(
+        wb, o_cam[small], d_cam[small], far_cam[small])
+    b3_plain_ms = [_cuda_ms(b3_plain, 1), _cuda_ms(b3_plain, 1)]
+    print(f"[19] the traversal kernel's plain version (brute force over "
+          f"{dragon.num_triangles} "
+          f"triangles, not for speed) at 16384 rays: {b3_plain_ms} ms",
+          flush=True)
+
+    shapes19 = {  # B1d variant: (scene, settings); the dragon camera's rays
+        "B1b+d": (dragon, st_d),
+        "B1d": (sky_hero, st_d.replace(max_bounces=4, use_envmap=True,
+                                       env_mip_level=0)),
+        "B1c+d": (sky_hero, st_d.replace(max_bounces=4, use_envmap=True,
+                                         env_importance_sampling=True,
+                                         env_mip_level=0)),
+        "B1b+c+d": (dragon_sky, st_d.replace(use_envmap=True,
+                                             env_importance_sampling=True,
+                                             env_mip_level=0)),
+    }
+    b1d = {}
+    for name, (sc, st19) in shapes19.items():
+        tab19, et19 = mk._scene_tables(sc), mk.env_table(sc)
+        kernel = lambda: mk.trace_fused_outputs(
+            sc, o_cam, d_cam, dcam.far, sidx_cam, seed_cam, st19, tab19, et19)
+        plain = lambda: mk.trace_color_fused_reference(
+            sc, o_cam[small], d_cam[small], dcam.far, sidx_cam[small],
+            seed_cam[small], st19)
+        got = kernel()
+        torch.cuda.synchronize()
+        assert np.isfinite(got.cpu().numpy()).all(), name
+        k_ms = [_cuda_ms(kernel, 5), _cuda_ms(kernel, 5)]
+        dev_ms = profiled_ms(kernel, "megakernel<", reps=5)
+        p_ms = [_cuda_ms(plain, 1), _cuda_ms(plain, 1)]
+        w = _path_work(sc, o_cam, d_cam, dcam.far, sidx_cam, seed_cam, st19)
+        ops = _path_ops(w, sc.any_transmissive, "c" in name)
+        nbytes = (o_cam.shape[0] * (32 + 4 * got.shape[1])
+                  + _table_bytes((*tab19, sc.wbvh.nodes, et19)))
+        b1d[name] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, work=w,
+                         bound=_bound(nbytes, ops), res=res[name])
+        print(f"[19] {name}: one launch of {o_cam.shape[0]} rays, "
+              f"{st19.max_bounces} bounces: {k_ms} ms (events), {dev_ms:.4f}"
+              f" ms (device); registers, spill bytes {res[name]}; plain "
+              f"(lockstep, brute force) at 16384 rays {p_ms} ms; work {w}; "
+              f"bound {b1d[name]['bound'][0]:.4f} ms by "
+              f"{b1d[name]['bound'][1]} | {card}", flush=True)
+
+    # --- 20. the glass dragon at bench.py's configuration
+    mk.LAUNCHES = adj.LAUNCHES = 0
+    traverse.LAUNCHES = 0
+    ht.render_frame(dragon, dcam, st_d, 0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames20 = [ht.render_frame(dragon, dcam, st_d, f + 1) for f in range(2)]
+    torch.cuda.synchronize()
+    dt20 = time.perf_counter() - t0
+    launches20 = (mk.LAUNCHES, adj.LAUNCHES, traverse.LAUNCHES)
+    assert launches20 == (3 * 32, 0, 0), launches20
+    for img in frames20:
+        assert img.shape == (512, 512, 3)
+        assert bool(torch.isfinite(img).all()), "glass dragon not finite"
+    mrays20 = st_d.samples_per_pixel * st_d.num_pixels * 2 / dt20 / 1e6
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ht.render_frame(dragon, dcam, st_d, 3)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy_ms = sum(_self_device_us(r) for r in prof.key_averages()) / 1e3
+    idle20 = 1.0 - busy_ms / (dt20 / 2 * 1e3)
+    st20s = st_d.replace(width=256, height=256)
+    k_img = ht.render_frame(dragon, dcam, st20s, 1)
+    traverse.LAUNCHES = 0
+    before = mk.LAUNCHES
+    p_img = ht.render_frame(dragon, dcam, st20s.replace(fused=ht.Fused.OFF),
+                            1)
+    torch.cuda.synchronize()
+    b3_launches = traverse.LAUNCHES
+    assert b3_launches > 0 and mk.LAUNCHES == before, "Fused.OFF route"
+    rel20 = abs(float(k_img.mean()) - float(p_img.mean())) / abs(
+        float(p_img.mean()))
+    print(f"[20] glass dragon {st_d.width}x{st_d.height} "
+          f"{st_d.samples_per_pixel} spp {st_d.max_bounces} bounces: "
+          f"{launches20[0]} B1d launches in 3 frames; 2 frames in "
+          f"{dt20:.4f} s = {mrays20:.3f} Mrays/s; device busy {busy_ms:.1f} "
+          f"ms of a frame (profiled frame {prof_s * 1e3:.1f} ms), idle share"
+          f" {idle20:.3f} of the timed frames' mean; 256x256 Fused.OFF "
+          f"frame ({b3_launches} launches of the traversal kernel) mean "
+          f"radiance vs the kernel route rel {rel20:.2e} (< 2e-2) | {card}",
+          flush=True)
+    assert rel20 < 2e-2, "glass dragon mean radiance disagrees with plain"
+
+    # --- 21. the record of every kernel: bounds from the work each
+    # launch shape needs on these inputs
+    w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
+    w_b = _path_work(glass, o_g, d_g, cam.far, sidx_g, seed_g, st_g)
+    w_c = _path_work(spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, st_e)
+    n = o.shape[0]
+    tab_a, tab_b, tab_c = (mk._scene_tables(x) for x in (scene, glass,
+                                                         spheres))
+    k_mat = 12 * 4 * scene.materials.count
+    bounds = {
+        "B1a": _bound(n * 72 + _table_bytes(tab_a),
+                      _path_ops(w_a, False, False)),
+        "B1b": _bound(n * 72 + _table_bytes(tab_b),
+                      _path_ops(w_b, True, False)),
+        "B1c": _bound(n * 80 + _table_bytes((*tab_c, env_tab)),
+                      _path_ops(w_c, False, True)),
+        "B1d": b1d["B1b+d"]["bound"],
+        "B2": _bound(n * 44 + _table_bytes(tab_a) + k_mat,
+                     _path_ops(w_a, False, False, adjoint=True)),
+        "B2b": _bound(n * 44 + _table_bytes(tab_b) + 12 * 4
+                      * glass.materials.count, _path_ops(w_b, True, False,
+                                                         adjoint=True)),
+    }
+    b3_bytes = (n * 56 + _table_bytes((wb.nodes, wb.tris, wb.tri_map)))
+    tt, bt, _ = work19["camera"]
+    bounds["B3"] = _bound(b3_bytes, tt * OPS_TRI + bt * OPS_BOX)
+    print(f"[21] path work at the launch shapes: B1a {w_a}, B1b {w_b}, B1c "
+          f"{w_c}; bounds (ms, by) {bounds}", flush=True)
+
+    def entry(name, replaces, source, launches, err, k_ms, p_ms, **extra):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": float(np.mean(k_ms)),
-                "plain_ms": float(np.mean(p_ms)), "registers": res[name][0],
-                "spill_store_bytes": res[name][1], **extra}
+                "plain_ms": float(np.mean(p_ms)),
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": None, **extra}
 
     mega = "halogen_tpu_torch/csrc/megakernel.cu"
     adjs = "halogen_tpu_torch/csrc/adjoint.cu"
-    print(json.dumps({"kernels": [
-        entry("B1a", "halogen_tpu/kernels/megakernel.py:945", launches,
-              max_err, (kernel_ms, plain_ms), dict(
-                  source=mega, rays_outside_tol=int(n_bad), rays=n,
-                  parity_max_abs_err=parity, frame_ms=dt / 4 * 1000.0,
-                  plain_frame_ms=plain_frame_s * 1000.0, mrays_per_s=mrays,
-                  build_s=build_s, ms_again=float(np.mean(
-                      times13["B1a"][0])))),
-        entry("B1b", "halogen_tpu/kernels/megakernel.py:225", main14[
-            "glass"][0], err13["B1b"], times13["B1b"], dict(
-                source=mega, parity_max_abs_err={
-                    k: v for k, v in parity11.items() if "glass" in k},
-                frame_ms=main14["glass"][2] * 1000.0,
-                mrays_per_s=main14["glass"][1])),
-        entry("B1c", "halogen_tpu/kernels/megakernel.py:1380",
-              main14["envmap_1024"][0], err13["B1c"], times13["B1c"], dict(
-                  source=mega, parity_max_abs_err={
-                      k: v for k, v in parity11.items() if "sky" in k},
-                  frame_ms=main14["envmap_1024"][2] * 1000.0,
-                  mrays_per_s=main14["envmap_1024"][1])),
-        entry("B2", "halogen_tpu/kernels/adjoint.py:80", fb_launches[1],
-              adj_err, (adj_ms, adj_plain_ms), dict(
-                  source=adjs, parity_max_abs_err=adj_parity,
-                  fwd_bwd_mrays_per_s=fb_mrays,
-                  fwd_bwd_step_ms=dt9 / 2 * 1000.0,
-                  fit_s_per_step_median=fit_s,
-                  fit_loss_first_last=[losses[0], losses[-1]],
-                  fit_albedo_err_before_after=[err0, err1],
-                  fit_held_out_loss=held)),
-        entry("B2b", "halogen_tpu/kernels/adjoint.py:244", fb15[1], b2b_err,
-              (b2b_k, b2b_p), dict(
-                  source=adjs, parity_max_abs_err=adj15,
-                  fwd_bwd_mrays_per_s=fb15_mrays,
-                  fwd_bwd_step_ms=dt15 / 2 * 1000.0)),
-    ]}))
+    trav = "halogen_tpu_torch/csrc/traverse.cu"
+    reg = lambda name: dict(registers=res[name][0],
+                            spill_store_bytes=res[name][1])
+    dmain = b1d["B1b+d"]
+    kernels = [
+        entry("B1a", "halogen_tpu/kernels/megakernel.py:945", mega, launches,
+              max_err, kernel_ms, plain_ms, **reg("B1a"),
+              rays_outside_tol=int(n_bad), rays=n, parity_max_abs_err=parity,
+              frame_ms=dt / 4 * 1000.0,
+              plain_frame_ms=plain_frame_s * 1000.0, mrays_per_s=mrays,
+              build_s=build_s, ms_again=float(np.mean(times13["B1a"][0]))),
+        entry("B1b", "halogen_tpu/kernels/megakernel.py:225", mega,
+              main14["glass"][0], err13["B1b"], *times13["B1b"],
+              **reg("B1b"), parity_max_abs_err={
+                  k: v for k, v in parity11.items() if "glass" in k},
+              frame_ms=main14["glass"][2] * 1000.0,
+              mrays_per_s=main14["glass"][1]),
+        entry("B1c", "halogen_tpu/kernels/megakernel.py:1380", mega,
+              main14["envmap_1024"][0], err13["B1c"], *times13["B1c"],
+              **reg("B1c"), parity_max_abs_err={
+                  k: v for k, v in parity11.items() if "sky" in k},
+              frame_ms=main14["envmap_1024"][2] * 1000.0,
+              mrays_per_s=main14["envmap_1024"][1]),
+        entry("B1d", "halogen_tpu/kernels/megakernel.py:523", mega,
+              launches20[0], max(parity17.values()), dmain["ms"],
+              dmain["plain_ms"], **reg("B1b+d"), plain_rays=16384,
+              device_ms=dmain["device_ms"], parity_max_abs_err=parity17,
+              variants={k: dict(ms=v["ms"], device_ms=v["device_ms"],
+                                plain_ms=v["plain_ms"],
+                                bound_ms=v["bound"][0],
+                                registers=v["res"][0],
+                                spill_store_bytes=v["res"][1])
+                        for k, v in b1d.items()},
+              frame_ms=dt20 / 2 * 1000.0, mrays_per_s=mrays20,
+              device_idle_share=idle20),
+        entry("B2", "halogen_tpu/kernels/adjoint.py:80", adjs,
+              fb_launches[1], adj_err, adj_ms, adj_plain_ms, **reg("B2"),
+              parity_max_abs_err=adj_parity, fwd_bwd_mrays_per_s=fb_mrays,
+              fwd_bwd_step_ms=dt9 / 2 * 1000.0,
+              fit_s_per_step_median=fit_s,
+              fit_loss_first_last=[losses[0], losses[-1]],
+              fit_albedo_err_before_after=[err0, err1],
+              fit_held_out_loss=held),
+        entry("B2b", "halogen_tpu/kernels/adjoint.py:244", adjs, fb15[1],
+              b2b_err, b2b_k, b2b_p, **reg("B2b"),
+              parity_max_abs_err=adj15, fwd_bwd_mrays_per_s=fb15_mrays,
+              fwd_bwd_step_ms=dt15 / 2 * 1000.0),
+        entry("B3", "halogen_tpu/kernels/bvh_pallas.py:142", trav,
+              b3_launches, b3_err, times19["camera"][0], b3_plain_ms,
+              **reg("B3"), plain_rays=16384,
+              device_ms=times19["camera"][1],
+              bounce_rays_ms=times19["bounce"][0],
+              bounce_rays_device_ms=times19["bounce"][1]),
+    ]
+    for name, route, replaces in (
+            ("B4", "TREELET", "halogen_tpu/kernels/treelet_bvh.py:192"),
+            ("B5", "FLATLET", "halogen_tpu/kernels/flatlet.py:199"),
+            ("B6", "RAYLET", "halogen_tpu/kernels/raylet.py:208")):
+        bounds[name] = bounds["B3"]
+        kernels.append(entry(
+            name, replaces, trav, routes16[route][0], routes16[route][1],
+            times19["camera"][0], b3_plain_ms, plain_rays=16384,
+            served_by="B3", intersector=route))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,10 +8,13 @@ On the CPU every kernel's plain PyTorch version runs instead.
 
 The port so far covers the forward render of opaque and nested-dielectric
 (glass) scenes, with or without an environment map and its next-event
-estimation, and their material gradients and fitting loop
+estimation, up to 200,000 triangles (per-mesh and world BVHs, a
+world-BVH traversal kernel and the megakernel's BVH tier), and the
+material gradients and fitting loop of scenes of up to 128 triangles
 (`halogen_tpu_torch.diff`; on the card, envmap scenes have no gradient
 yet; see ROADMAP.md). Area-light next-event estimation and debug views
-raise.
+raise. The entry points build on the card unless the caller passes
+`device="cpu"`.
 """
 
 from halogen_tpu_torch.config import (

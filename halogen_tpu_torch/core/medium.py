@@ -49,7 +49,7 @@ class Medium:
     material_id: torch.Tensor  # [N] int32
 
     @staticmethod
-    def empty(n: int, device="cpu") -> "Medium":
+    def empty(n: int, device) -> "Medium":
         return Medium(
             ior=torch.full((n,), _EMPTY_IOR, device=device),
             absorption=torch.zeros((n, 3), device=device),
@@ -75,8 +75,8 @@ class MediumStack:
     size: torch.Tensor  # [N] int32
 
     @staticmethod
-    def create(n: int, depth: int = STACK_DEPTH,
-               device="cpu") -> "MediumStack":
+    def create(n: int, depth: int = STACK_DEPTH, *,
+               device) -> "MediumStack":
         return MediumStack(
             ior=torch.full((n, depth), _EMPTY_IOR, device=device),
             absorption=torch.zeros((n, depth, 3), device=device),

@@ -2,9 +2,10 @@
 
 Dataclasses of tensors on one device, SoA and flat like the JAX pytrees
 (the reference's packed ComputeBuffers, `HalogenRenderPass.cs:10-76`).
-`.to(device)` returns a copy on another device. The BVH node arrays and
-the light table of the JAX `SceneData` are not part of the port's
-brute-force slice and have no fields here.
+`.to(device)` returns a copy on another device. The light table of the
+JAX `SceneData` is not ported yet (ROADMAP A8), and its TPU packings of
+the world BVH (`wbvh`'s [R, 128] rows, the treelet, flatlet and raylet
+tables) are replaced by one `WorldBVH` of the port's own layout.
 """
 
 from __future__ import annotations
@@ -15,6 +16,19 @@ import torch
 
 NO_MEDIUM_ID = -1  # empty-medium materialID (HalgoenCompute.compute:84)
 EMPTY_PRIORITY = 2**31 - 1  # empty-medium priority ~ +inf (compute:85)
+
+
+def target_device(device) -> torch.device:
+    """The device a public entry point builds on: the card unless the
+    caller asks for the CPU. Raises rather than fall back to the CPU when
+    the card is asked for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points build on the card by "
+            "default; pass device='cpu' to run the plain versions on the "
+            "CPU")
+    return device
 
 
 def _to(obj, device):
@@ -55,11 +69,35 @@ class MaterialTable:
 
 
 @dataclasses.dataclass(frozen=True)
+class WorldBVH:
+    """One BVH over every world-space triangle of the scene, for the
+    traversal kernels (`kernels/traverse.py`, the megakernel's BVH tier).
+    Triangles sit in the tree's leaf order ("slots"); `tri_map` maps a
+    slot to the scene's global triangle id. A node is 8 floats, two
+    16-byte loads: lo.xyz, hi.xyz, index_a, count (ints as exact floats;
+    count > 0 marks a leaf of triangles index_a.., else the children are
+    nodes index_a and index_a + 1). Node 0 is the root."""
+
+    nodes: torch.Tensor  # [Nn, 8] float32
+    tris: torch.Tensor  # [T, 9] float32 in slot order: v0, e1, e2
+    trin: torch.Tensor  # [T, 10] float32 in slot order: n0, n1-n0, n2-n0, mat
+    tri_map: torch.Tensor  # [T] int32: slot -> global triangle id
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    def to(self, device) -> "WorldBVH":
+        return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneData:
     """Flattened render-ready scene: world-space triangle copies for the
-    brute-force intersector, local-space copies and per-mesh transforms,
-    spheres, materials and the envmap. `any_transmissive` is a build-time
-    fact: False means every material is opaque."""
+    brute-force intersector, local-space copies and per-mesh transforms
+    and BVHs for the lockstep traversal, the world BVH, spheres, materials
+    and the envmap. `any_transmissive` is a build-time fact: False means
+    every material is opaque."""
 
     tri_verts_world: torch.Tensor  # [T, 3, 3]
     tri_normals_world: torch.Tensor  # [T, 3, 3] inverse-transpose, unnormalized
@@ -67,7 +105,13 @@ class SceneData:
     tri_mesh: torch.Tensor  # [T] int32 owning mesh id
     tri_verts_local: torch.Tensor  # [T, 3, 3]
     tri_normals_local: torch.Tensor  # [T, 3, 3]
+    # Per-mesh BVH nodes concatenated (indices local to the mesh)
+    bvh_lo: torch.Tensor  # [B, 3]
+    bvh_hi: torch.Tensor  # [B, 3]
+    bvh_index_a: torch.Tensor  # [B] int32
+    bvh_count: torch.Tensor  # [B] int32
     mesh_tri_offset: torch.Tensor  # [M] int32
+    mesh_bvh_offset: torch.Tensor  # [M] int32
     mesh_material: torch.Tensor  # [M] int32
     mesh_world_to_local: torch.Tensor  # [M, 4, 4]
     mesh_local_to_world: torch.Tensor  # [M, 4, 4]
@@ -82,6 +126,8 @@ class SceneData:
     # estimation, or None.
     env_cdf: object = None
     any_transmissive: bool = True
+    # The world BVH (None for a scene without triangles)
+    wbvh: WorldBVH | None = None
 
     @property
     def num_triangles(self) -> int:

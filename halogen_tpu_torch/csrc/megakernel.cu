@@ -13,7 +13,11 @@
 //   B1b nested dielectrics: a per-thread medium stack of 8 slots
 //       (any_transmissive=True);
 //   B1c env NEE: an envmap draw and a shadow ray per bounce, 12 outputs
-//       (env_nee=True), alone or with B1b.
+//       (env_nee=True), alone or with B1b;
+//   B1d the BVH tier (scenes over the brute tier's 128 triangles): each of
+//       the above with the closest hit and the shadow ray walking the
+//       world BVH (bvh_traverse.cuh) in global memory, in place of the
+//       Pallas kernel's raylet tier (`_make_raylet_traversal`, :523).
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
@@ -32,6 +36,10 @@
 // precomputed as a [7, K, N] table, because gathers are costly there;
 // here the draw runs in the kernel, which saves the host the K Sobol
 // evaluations per group and the ~37 MB buffer.
+// B1d is bound by the walk instead: a dependent node or leaf load per step
+// (latency; the ~1 MB of nodes and triangles of an 8.7k-triangle scene
+// stay in L2) and the divergence of a warp's rays through the tree,
+// which grows after the first bounce as glass rays refract and reflect.
 // The design keeps everything else on chip:
 //   - one thread per ray, blocks of 128 threads, no padding of the ray
 //     count (a bounds check masks the ragged edge);
@@ -62,10 +70,10 @@ struct Params {
   PathConfig cfg;
 };
 
-template <bool kTransmissive, bool kEnvNee>
+template <bool kTransmissive, bool kEnvNee, bool kBvh>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
-  const SceneView sc = load_scene(p.scene, smem);
+  const SceneView sc = load_scene<kBvh>(p.scene, smem);
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -82,8 +90,8 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 
   BounceRecord rec;
   for (int k = 0; k <= cfg.max_bounces; ++k) {
-    if (path_bounce<kTransmissive, kEnvNee>(sc, cfg, sidx, seed, k, s,
-                                            rec) != kShadedGoesOn)
+    if (path_bounce<kTransmissive, kEnvNee, kBvh>(sc, cfg, sidx, seed, k, s,
+                                                  rec) != kShadedGoesOn)
       break;
   }
 
@@ -105,16 +113,31 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   }
 }
 
+template <bool kBvh>
+void launch_variant(const Params& p, bool transmissive, bool env_nee,
+                    int blocks, size_t smem, cudaStream_t st) {
+  if (transmissive && env_nee) {
+    megakernel<true, true, kBvh><<<blocks, kThreads, smem, st>>>(p);
+  } else if (transmissive) {
+    megakernel<true, false, kBvh><<<blocks, kThreads, smem, st>>>(p);
+  } else if (env_nee) {
+    megakernel<false, true, kBvh><<<blocks, kThreads, smem, st>>>(p);
+  } else {
+    megakernel<false, false, kBvh><<<blocks, kThreads, smem, st>>>(p);
+  }
+}
+
 }  // namespace
 
 extern "C" int halogen_megakernel_launch(
     const float* origin, const float* direction, const float* far,
     const int* sample_idx, const int* seed, const float* tri,
     const float* trin, const float* sph, const float* mat,
-    const float* env_tab, float* out, int n, int num_tris, int num_spheres,
+    const float* nodes, const float* env_tab, float* out, int n,
+    int num_tris, int num_spheres,
     int num_materials, int max_bounces, int lim_d, int lim_g, int lim_t,
     int sobol, int use_rr, int transmissive, int env_nee, int env_h,
-    int env_w, void* stream) {
+    int env_w, int use_bvh, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (env_nee && (env_tab == nullptr || env_h <= 0 || env_w <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -124,23 +147,23 @@ extern "C" int halogen_megakernel_launch(
   p.far = far;
   p.sample_idx = reinterpret_cast<const uint32_t*>(sample_idx);
   p.seed = reinterpret_cast<const uint32_t*>(seed);
-  p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials};
+  if (use_bvh && nodes == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials,
+             {reinterpret_cast<const float4*>(nodes), tri, trin}};
   p.out = out;
   p.n = n;
   p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,
            use_rr != 0, env_tab,   env_h, env_w};
-  const size_t smem =
-      sizeof(float) * scene_smem_floats(num_tris, num_spheres, num_materials);
+  const size_t smem = sizeof(float) * scene_smem_floats(
+                                          use_bvh ? 0 : num_tris, num_spheres,
+                                          num_materials);
   const int blocks = (n + kThreads - 1) / kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (transmissive && env_nee) {
-    megakernel<true, true><<<blocks, kThreads, smem, st>>>(p);
-  } else if (transmissive) {
-    megakernel<true, false><<<blocks, kThreads, smem, st>>>(p);
-  } else if (env_nee) {
-    megakernel<false, true><<<blocks, kThreads, smem, st>>>(p);
+  if (use_bvh) {
+    launch_variant<true>(p, transmissive, env_nee, blocks, smem, st);
   } else {
-    megakernel<false, false><<<blocks, kThreads, smem, st>>>(p);
+    launch_variant<false>(p, transmissive, env_nee, blocks, smem, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,7 @@
 // brute-force tier of the Pallas megakernel
 // (`halogen_tpu/kernels/megakernel.py:1073-1554`): sampler draws, closest
 // hit against every sphere and triangle, emission, the BRDF, per-type
-// bounce limits, Russian roulette and the deferred-miss record. Two
+// bounce limits, Russian roulette and the deferred-miss record. Three
 // compile-time switches select the variant, as the Pallas kernel is
 // specialized statically:
 //   kTransmissive (B1b, replaces `_Stack` :225-358 and the branches at
@@ -15,8 +15,13 @@
 //   kEnvNee (B1c, replaces :1380-1504, :1547-1553): an envmap NEE draw
 //     per bounce from the alias table, a shadow ray against the scene
 //     tables, the balance heuristic against the continuation pdf, and
-//     the MIS state the deferred sky pass reads at the miss.
-// With both off the body is B1a's, op for op. Because the code is one,
+//     the MIS state the deferred sky pass reads at the miss;
+//   kBvh (B1d, replaces the raylet tier `_make_raylet_traversal` :523 and
+//     its occlusion mode :749-752, :1443-1450): the closest hit walks the
+//     world BVH (bvh_traverse.cuh) instead of scanning every triangle,
+//     and the env-NEE shadow ray is an any-hit walk; the triangles stay
+//     in global memory. Only the forward kernel has it.
+// With all three off the body is B1a's, op for op. Because the code is one,
 // and both files are built with the same flags (-fmad=false, no fast
 // math), the adjoint's replay takes the forward kernel's path bit for
 // bit; a copy that drifted by one ulp could flip a Fresnel, refraction or
@@ -34,16 +39,15 @@
 
 #include <cmath>
 
+#include "bvh_traverse.cuh"
+#include "geometry.cuh"
+
 namespace halogen {
 
 constexpr int kThreads = 128;
-constexpr int kTriStride = 9;    // v0, e1, e2
-constexpr int kTrinStride = 10;  // n0, n1 - n0, n2 - n0, material
 constexpr int kSphStride = 5;    // center, radius, material
 constexpr int kMatStride = 17;   // see megakernel.py::_scene_tables
-constexpr float kHitEps = 1e-4f;
 constexpr float kOffsetEps = 1e-4f;
-constexpr float kDetEps = 1e-8f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.318309886183790671538f;  // float32(1 / pi)
@@ -124,44 +128,6 @@ __device__ __forceinline__ float sample_1d(bool sobol, uint32_t index,
 }
 
 // ---------------------------------------------------------------------
-// float helpers (megakernel.py:188-211)
-// ---------------------------------------------------------------------
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-
-__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-          a.x * b.y - a.y * b.x};
-}
-
-__device__ __forceinline__ V3 mul3(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-
-__device__ __forceinline__ V3 normalize3(V3 v, float eps) {
-  float n = sqrtf(dot3(v, v));
-  float inv = 1.0f / fmaxf(n, eps);
-  return {v.x * inv, v.y * inv, v.z * inv};
-}
-
-__device__ __forceinline__ V3 sel3(bool c, V3 a, V3 b) { return c ? a : b; }
-
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-__device__ __forceinline__ float safe_inv(float c) {
-  const float tiny = 1e-30f;
-  return 1.0f / (fabsf(c) < tiny ? tiny : c);
-}
-
-// ---------------------------------------------------------------------
 // scene tables in shared memory
 // ---------------------------------------------------------------------
 
@@ -171,6 +137,9 @@ struct SceneView {
   const float* sph;   // [S, 5]
   const float* mat;   // [K, 17]
   int num_tris, num_spheres, num_materials;
+  // The BVH tier's world BVH; `tri` and `trin` are then its slot-order
+  // tables, left in global memory
+  BvhView bvh;
 };
 
 __host__ __device__ __forceinline__ size_t scene_smem_floats(
@@ -182,26 +151,32 @@ __host__ __device__ __forceinline__ size_t scene_smem_floats(
 
 // Copies the tables from global memory into `smem` once per block (at
 // most ~15 KB at the caps); every thread of a warp then reads the same
-// address, which the shared-memory crossbar broadcasts. The caller
+// address, which the shared-memory crossbar broadcasts. The BVH tier
+// copies the spheres and materials only: its triangles stay in global
+// memory (L2), where the walk reads the few it needs. The caller
 // synchronises the block before reading them.
+template <bool kBvh = false>
 __device__ __forceinline__ SceneView load_scene(const SceneView& g,
                                                 float* smem) {
   SceneView s = g;
+  const int smem_tris = kBvh ? 0 : g.num_tris;
   float* tri = smem;
-  float* trin = tri + g.num_tris * kTriStride;
-  float* sph = trin + g.num_tris * kTrinStride;
+  float* trin = tri + smem_tris * kTriStride;
+  float* sph = trin + smem_tris * kTrinStride;
   float* mat = sph + g.num_spheres * kSphStride;
-  for (int j = threadIdx.x; j < g.num_tris * kTriStride; j += blockDim.x)
+  for (int j = threadIdx.x; j < smem_tris * kTriStride; j += blockDim.x)
     tri[j] = g.tri[j];
-  for (int j = threadIdx.x; j < g.num_tris * kTrinStride; j += blockDim.x)
+  for (int j = threadIdx.x; j < smem_tris * kTrinStride; j += blockDim.x)
     trin[j] = g.trin[j];
   for (int j = threadIdx.x; j < g.num_spheres * kSphStride; j += blockDim.x)
     sph[j] = g.sph[j];
   for (int j = threadIdx.x; j < g.num_materials * kMatStride;
        j += blockDim.x)
     mat[j] = g.mat[j];
-  s.tri = tri;
-  s.trin = trin;
+  if constexpr (!kBvh) {
+    s.tri = tri;
+    s.trin = trin;
+  }
   s.sph = sph;
   s.mat = mat;
   return s;
@@ -431,63 +406,18 @@ __device__ __forceinline__ float glossy_pdf(V3 w, V3 mr, float a1, V3 n) {
   return total;
 }
 
-// Distance along the ray to sphere `sp` (center, radius), or INFINITY:
-// the AABB pre-test against `far`, then the nearer root past HIT_EPS, or
-// the farther one when the ray starts inside (`inside`).
-__device__ __forceinline__ float sphere_t(const float* sp, V3 o, V3 d,
-                                          V3 inv_d, float far,
-                                          bool& inside) {
-  const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-  const float t1x = (cx - r - o.x) * inv_d.x;
-  const float t2x = (cx + r - o.x) * inv_d.x;
-  const float t1y = (cy - r - o.y) * inv_d.y;
-  const float t2y = (cy + r - o.y) * inv_d.y;
-  const float t1z = (cz - r - o.z) * inv_d.z;
-  const float t2z = (cz + r - o.z) * inv_d.z;
-  const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                           fminf(t1z, t2z));
-  const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                           fmaxf(t1z, t2z));
-  const float aabb_t = tmax > fmaxf(0.0f, tmin) ? tmin : INFINITY;
-  const float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
-  const float b = 2.0f * (ocx * d.x + ocy * d.y + ocz * d.z);
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-  const float disc = b * b - 4.0f * cq;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float t_near = (-b - sq) * 0.5f;
-  const float t_far = (-b + sq) * 0.5f;
-  inside = t_near < 0.0f;
-  float t = inside ? t_far : t_near;
-  t = disc >= 0.0f ? t : INFINITY;
-  return (aabb_t < far && t > kHitEps) ? t : INFINITY;
-}
-
-// Möller-Trumbore against triangle `tv` (v0, e1, e2): whether the ray
-// hits it past HIT_EPS, with the distance, barycentrics and determinant.
-__device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
-                                             float& t, float& u, float& v,
-                                             float& det) {
-  const V3 v0 = {tv[0], tv[1], tv[2]};
-  const V3 e1 = {tv[3], tv[4], tv[5]};
-  const V3 e2 = {tv[6], tv[7], tv[8]};
-  const V3 pvec = cross3(d, e2);
-  det = dot3(pvec, e1);
-  const bool parallel = fabsf(det) < kDetEps;
-  const float inv_det = 1.0f / (parallel ? 1.0f : det);
-  const V3 tvec = {o.x - v0.x, o.y - v0.y, o.z - v0.z};
-  u = dot3(tvec, pvec) * inv_det;
-  const V3 qvec = cross3(tvec, e1);
-  v = dot3(d, qvec) * inv_det;
-  t = dot3(e2, qvec) * inv_det;
-  return !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t > 0.0f && t > kHitEps;
-}
-
-// Closest-hit distance of a shadow ray (megakernel.py:1405-1474): the
-// closest hit's tests without its payload, and the
-// mesh-beats-sphere-by-HIT_EPS rule.
-__device__ __forceinline__ float shadow_t(const SceneView& sc, V3 o, V3 d,
-                                          float far) {
+// Whether a shadow ray reaches `far` unoccluded (megakernel.py:1405-1474):
+// the closest hit's tests without its payload, and the
+// mesh-beats-sphere-by-HIT_EPS rule, sh_t >= far with sh_t the mesh hit
+// if it beats the sphere hit by HIT_EPS inside far, else the sphere hit.
+// A sphere hit inside far occludes either way; past it, a triangle
+// occludes iff its t < min(far, sphere t - HIT_EPS). So the BVH tier
+// stops at the first triangle under that bound (an any-hit walk, the
+// raylet tier's occlusion mode, megakernel.py:749-752, :1449), which
+// gives the brute tier's decision.
+template <bool kBvh>
+__device__ __forceinline__ bool shadow_visible(const SceneView& sc, V3 o,
+                                               V3 d, float far) {
   const V3 inv_d = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
   float ssp_t = INFINITY;
   for (int si = 0; si < sc.num_spheres; ++si) {
@@ -495,21 +425,29 @@ __device__ __forceinline__ float shadow_t(const SceneView& sc, V3 o, V3 d,
     ssp_t = fminf(ssp_t,
                   sphere_t(sc.sph + si * kSphStride, o, d, inv_d, far, inside));
   }
-  float str_t = INFINITY;
-  for (int ti = 0; ti < sc.num_tris; ++ti) {
-    float t, u, v, det;
-    if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
-        t < str_t)
-      str_t = t;
+  if constexpr (kBvh) {
+    if (ssp_t < far) return false;
+    BvhHit h = {fminf(far, ssp_t - kHitEps), 0.0f, 0.0f, 0.0f, -1, 0, 0};
+    return !bvh_walk<true, false>(sc.bvh, o, d, h);
+  } else {
+    float str_t = INFINITY;
+    for (int ti = 0; ti < sc.num_tris; ++ti) {
+      float t, u, v, det;
+      if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
+          t < str_t)
+        str_t = t;
+    }
+    const float sh_t =
+        (str_t < ssp_t - kHitEps && str_t < far) ? str_t : ssp_t;
+    return sh_t >= far;
   }
-  return (str_t < ssp_t - kHitEps && str_t < far) ? str_t : ssp_t;
 }
 
 // Advances `s` by bounce k of the path (trace_ray compute:876-950) and
 // fills `rec` when the bounce shades. The caller stops at any result but
 // kShadedGoesOn: every later update of the Pallas body is masked for a
 // dead ray, so its state is frozen and leaving the loop is exact.
-template <bool kTransmissive, bool kEnvNee>
+template <bool kTransmissive, bool kEnvNee, bool kBvh = false>
 __device__ __forceinline__ int path_bounce(const SceneView& sc,
                                            const PathConfig& cfg,
                                            uint32_t sidx, uint32_t seed,
@@ -544,16 +482,32 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   // --- triangles: Möller-Trumbore with inline winner payload
   float tr_t = INFINITY, tr_s = 0.0f, tr_mat = 0.0f;
   V3 tr_n = {0.0f, 0.0f, 0.0f};
-  for (int ti = 0; ti < sc.num_tris; ++ti) {
-    float t, u, v, det;
-    if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
-        t < tr_t) {
-      const float* tn = sc.trin + ti * kTrinStride;
-      tr_t = t;
-      tr_s = sign_of(det);
-      tr_n = {tn[0] + tn[3] * u + tn[6] * v, tn[1] + tn[4] * u + tn[7] * v,
-              tn[2] + tn[5] * u + tn[8] * v};
-      tr_mat = tn[9];
+  if constexpr (kBvh) {
+    // B1d: the world-BVH walk, its best t seeded with min(far, sphere hit
+    // - HIT_EPS) (megakernel.py:1138-1139): a triangle that wins there is
+    // the one the brute scan's mesh-beats-sphere rule would take
+    BvhHit h = {fminf(far, sp_t - kHitEps), 0.0f, 0.0f, 0.0f, -1, 0, 0};
+    if (bvh_walk<false, false>(sc.bvh, o, d, h)) {
+      const float* tn = sc.trin + static_cast<size_t>(h.slot) * kTrinStride;
+      tr_t = h.t;
+      tr_s = sign_of(h.det);
+      tr_n = {__ldg(tn) + __ldg(tn + 3) * h.u + __ldg(tn + 6) * h.v,
+              __ldg(tn + 1) + __ldg(tn + 4) * h.u + __ldg(tn + 7) * h.v,
+              __ldg(tn + 2) + __ldg(tn + 5) * h.u + __ldg(tn + 8) * h.v};
+      tr_mat = __ldg(tn + 9);
+    }
+  } else {
+    for (int ti = 0; ti < sc.num_tris; ++ti) {
+      float t, u, v, det;
+      if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
+          t < tr_t) {
+        const float* tn = sc.trin + ti * kTrinStride;
+        tr_t = t;
+        tr_s = sign_of(det);
+        tr_n = {tn[0] + tn[3] * u + tn[6] * v, tn[1] + tn[4] * u + tn[7] * v,
+                tn[2] + tn[5] * u + tn[8] * v};
+        tr_mat = tn[9];
+      }
     }
   }
 
@@ -762,7 +716,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
     if (cand) {
       const V3 sh_o = {pos.x + normal.x * 1e-4f, pos.y + normal.y * 1e-4f,
                        pos.z + normal.z * 1e-4f};
-      if (shadow_t(sc, sh_o, ld, far) >= far) {  // visible
+      if (shadow_visible<kBvh>(sc, sh_o, ld, far)) {
         const float p_gl_l = glossy_pdf(ld, refl, r2, normal);
         const float p_mix_l =
             (1.0f - ps) * fmaxf(cos_l, 0.0f) * kInvPi + ps * p_gl_l;

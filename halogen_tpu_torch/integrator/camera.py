@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from halogen_tpu_torch.core.math import normalize, transform_dir, transform_point
+from halogen_tpu_torch.core.types import target_device
 from halogen_tpu_torch.sampler.mappings import (
     inverse_blackman_harris_cdf,
     point_in_circle,
@@ -68,10 +69,12 @@ def make_camera(
     far: float = 5000.0,
     focal_distance: float | None = None,
     aperture_deg: float = 0.0,
-    device="cpu",
+    device="cuda",
 ) -> Camera:
-    """Build a Camera. Defaults mirror the shipped URP settings (fov 60,
-    near 0.1, far 5000, aperture 0)."""
+    """Build a Camera on `device` (the card unless the caller asks for the
+    CPU). Defaults mirror the shipped URP settings (fov 60, near 0.1, far
+    5000, aperture 0)."""
+    device = target_device(device)
     half_h = float(np.tan(np.deg2rad(fov_deg) * 0.5) * near)
     half_w = aspect * half_h
     if focal_distance is None:

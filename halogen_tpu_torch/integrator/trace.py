@@ -119,12 +119,19 @@ def deferred_sky(scene: SceneData, settings: RenderSettings,
         level = torch.full_like(rough, float(settings.env_mip_level))
     sky = sample_sky(scene, m_dir, level, settings) * matten
     if _use_nee(scene, settings):
-        m_pcos, m_nee = outputs[:, 10], outputs[:, 11]
-        pe = env_pdf(scene.env_cdf, m_dir)
-        w = torch.where(m_nee > 0.5,
-                        m_pcos / torch.clamp_min(m_pcos + pe, 1e-12), 1.0)
-        sky = sky * w[:, None]
+        sky = sky * env_mis_weight(scene, outputs)[:, None]
     return color + sky
+
+
+def env_mis_weight(scene: SceneData, outputs: torch.Tensor) -> torch.Tensor:
+    """[N] balance-heuristic weight of the sky at the miss, with env NEE:
+    the recorded continuation pdf (output 10) against the env draw's pdf
+    of the recorded direction, where the last scatter was a lobe that NEE
+    covers (output 11), else 1."""
+    m_pcos, m_nee = outputs[:, 10], outputs[:, 11]
+    pe = env_pdf(scene.env_cdf, outputs[:, 7:10])
+    return torch.where(m_nee > 0.5,
+                       m_pcos / torch.clamp_min(m_pcos + pe, 1e-12), 1.0)
 
 
 class Pool(NamedTuple):

@@ -3,7 +3,12 @@
 `scene_to_numpy` reads the leaves of a `SceneData` by field name (from
 this package, or any object with the same field names, such as the JAX
 package's `SceneData`) into numpy; `scene_from_numpy` builds this
-package's `SceneData` from them. The same pair exists for cameras, and
+package's `SceneData` from them, on the card unless the caller asks for
+the CPU. The per-mesh BVH arrays travel with the triangles; the world BVH
+is derived data in another layout in each package (`WorldBVH` here, the
+TPU's [R, 128] rows there), so `scene_from_numpy` builds it anew from the
+world triangles with the JAX package's own `build_bvh` call, which gives
+the same tree. The same pair exists for cameras, and
 `material_table_to_numpy` reads material gradients. The tests feed one
 scene to both packages, and compare their gradients, through these.
 """
@@ -15,16 +20,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from halogen_tpu_torch.core.types import MaterialTable, SceneData
+from halogen_tpu_torch.core.types import MaterialTable, SceneData, target_device
 from halogen_tpu_torch.integrator.camera import Camera
 from halogen_tpu_torch.scene.envmap import EnvCDF
+from halogen_tpu_torch.scene.scene import pack_world_bvh
 
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
 # the tensor fields; the envmap's mips (a tuple) and alias tables (a
-# NamedTuple, or None) are carried on their own
+# NamedTuple, or None) are carried on their own, the world BVH is rebuilt
 _SCENE_FIELDS = [f.name for f in dataclasses.fields(SceneData)
                  if f.name not in ("materials", "env_mips", "env_cdf",
-                                   "any_transmissive")]
+                                   "any_transmissive", "wbvh")]
 _CAMERA_FIELDS = [f.name for f in dataclasses.fields(Camera)]
 
 
@@ -56,8 +62,10 @@ def scene_to_numpy(scene) -> dict:
     return out
 
 
-def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
-    """Build a `SceneData` on `device` from `scene_to_numpy`'s layout."""
+def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
+    """Build a `SceneData` on `device` from `scene_to_numpy`'s layout,
+    with its world BVH (the default `max_leaf`)."""
+    device = target_device(device)
     t = lambda a: torch.from_numpy(np.array(a, order="C")).to(device)
     mats = MaterialTable(**{name: t(arrays["materials"][name])
                             for name in _MATERIAL_FIELDS})
@@ -69,6 +77,10 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
         env_cdf=None if cdf is None else EnvCDF(
             **{name: t(cdf[name]) for name in EnvCDF._fields}),
         any_transmissive=bool(arrays["any_transmissive"]),
+        wbvh=pack_world_bvh(arrays["tri_verts_world"],
+                            arrays["tri_normals_world"],
+                            arrays["tri_material"], device=device)
+        if len(arrays["tri_verts_world"]) else None,
     )
 
 
@@ -77,8 +89,9 @@ def camera_to_numpy(camera) -> dict:
     return {name: _np(getattr(camera, name)) for name in _CAMERA_FIELDS}
 
 
-def camera_from_numpy(arrays: dict, device="cpu") -> Camera:
+def camera_from_numpy(arrays: dict, device="cuda") -> Camera:
     """Build a `Camera` on `device` from `camera_to_numpy`'s layout."""
+    device = target_device(device)
     return Camera(**{
         name: torch.from_numpy(
             np.array(arrays[name], np.float32, order="C")).to(device)

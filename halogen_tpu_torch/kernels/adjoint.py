@@ -22,9 +22,9 @@ The gradient is the detached-sampling estimator of the lockstep tracer:
 emission, albedo and specular attenuation, Beer-Lambert absorption and
 Russian roulette's 1/max(attenuation); roughness, metallic and IOR act
 only through sampling decisions and get zero. Scope (`adjoint_supported`,
-the JAX predicate): the megakernel's opaque and transmissive scenes
-without an envmap in use, NEE or debug views; envmap gradients come with
-ROADMAP A8.
+the JAX predicate): the megakernel's opaque and transmissive scenes of at
+most MAX_TRIS triangles without an envmap in use, NEE or debug views;
+envmap gradients come with ROADMAP A8, big scenes with A9.
 """
 
 from __future__ import annotations
@@ -47,17 +47,19 @@ LAUNCHES = 0  # kernel launches since the count was last set to 0
 def adjoint_supported(scene: SceneData, settings: RenderSettings) -> bool:
     """Static eligibility for the fused adjoint (the JAX `adjoint_supported`,
     `adjoint.py:66-77`): the megakernel's opaque or transmissive scenes
-    (which have no area-light NEE or debug view) without an envmap in use,
-    and so without env NEE."""
+    (which have no area-light NEE or debug view) of at most MAX_TRIS
+    triangles, without an envmap in use, and so without env NEE."""
     return (mk.fused_supported(scene, settings)
+            and scene.num_triangles <= mk.MAX_TRIS
             and not (settings.use_envmap and bool(scene.env_mips)))
 
 
 def _check_supported(scene: SceneData, settings: RenderSettings) -> None:
     if not adjoint_supported(scene, settings):
         raise NotImplementedError(
-            "the fused adjoint covers the megakernel's scenes without an "
-            "envmap in use (envmap gradients: ROADMAP A8)")
+            "the fused adjoint covers the megakernel's scenes of at most "
+            f"{mk.MAX_TRIS} triangles without an envmap in use (envmap "
+            "gradients: ROADMAP A8; big scenes: A9)")
 
 
 def _launch(scene, origin, direction, far, sample_idx, seed, ct,

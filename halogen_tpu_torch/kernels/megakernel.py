@@ -1,15 +1,20 @@
 """Fused-bounce megakernel: the whole path loop of every ray in one CUDA
-launch (port of `halogen_tpu/kernels/megakernel.py`, brute-force tier).
+launch (port of `halogen_tpu/kernels/megakernel.py`: its brute-force tier
+and its big-scene raylet tier).
 
 The kernel is hand-written CUDA C++ for Hopper (`csrc/megakernel.cu`), in
-four compile-time variants of one bounce body (`csrc/path_common.cuh`):
+compile-time variants of one bounce body (`csrc/path_common.cuh`):
 opaque (B1a), nested dielectrics with a per-thread medium stack (B1b),
-and envmap next-event estimation (B1c) alone or with the stack.
+and envmap next-event estimation (B1c) alone or with the stack; each of
+those in the brute tier (every triangle tested, tables in shared memory)
+and in the BVH tier (B1d: the closest hit and the shadow ray walk the
+scene's world BVH, `csrc/bvh_traverse.cuh`, in global memory).
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
 the adjoint kernel's library (`csrc/adjoint.cu`, `kernels/adjoint.py`)
-in the same step.
+and the world-BVH traversal kernel's (`csrc/traverse.cu`,
+`kernels/traverse.py`) in the same step, one nvcc process per source.
 
 `trace_fused_outputs` takes rays on a CUDA device to the kernel and rays
 on the CPU to the plain PyTorch version, `trace_color_fused_reference`,
@@ -19,12 +24,18 @@ kernel launches. `trace_color_fused` adds the sky from those outputs
 (`integrator.trace.deferred_sky`: one lookup per ray, after the kernel,
 as the Pallas wrapper does). `trace_color_fused_diff` is the
 differentiable form: this kernel forward, the adjoint kernel backward
-(envmap scenes have no backward on this route yet, ROADMAP A8).
+(envmap scenes and scenes over MAX_TRIS triangles have no backward on
+this route yet, ROADMAP A8 and A9).
 
-Scope (`fused_supported`, the JAX predicate's brute tier): opaque and
-transmissive scenes, with or without an envmap and its next-event
-estimation, without area-light NEE or debug views, with at most MAX_TRIS
-triangles, MAX_SPHERES spheres and MAX_MATERIALS materials.
+Scope (`fused_supported`, the JAX predicate): opaque and transmissive
+scenes, with or without an envmap and its next-event estimation, without
+area-light NEE or debug views, with at most MAX_SPHERES spheres and
+MAX_MATERIALS materials; up to MAX_TRIS triangles on the brute tier, and
+up to MAX_BVH_TRIS on the BVH tier, through the scene's world BVH.
+MAX_BVH_TRIS is the JAX raylet tier's cap (`raylet.py:67`), which the
+TPU's VMEM set (the whole triangle table resident in it); the BVH tier
+keeps its tables in device memory and keeps the cap only to admit the
+same scenes as the reference.
 """
 
 from __future__ import annotations
@@ -48,6 +59,8 @@ from halogen_tpu_torch.scene.envmap import env_draw_table
 MAX_TRIS = 128
 MAX_SPHERES = 32
 MAX_MATERIALS = 64
+# Triangle cap of the BVH tier (B1d): the JAX raylet tier's
+MAX_BVH_TRIS = 200_000
 
 # color rgb, miss attenuation rgb, acc roughness, dir xyz; with env NEE
 # also the continuation pdf and NEE flag at the miss
@@ -63,13 +76,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # One shared library per kernel source, each with one C entry point:
-# (function, pointer arguments, int arguments, then the stream). Both
-# sources include the bounce body in path_common.cuh.
+# (function, pointer arguments, int arguments, then the stream). The
+# megakernel and the adjoint include the bounce body in path_common.cuh;
+# it and the traversal kernel include the walk in bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": ("halogen_megakernel_launch", 11, 14),
+    "megakernel": ("halogen_megakernel_launch", 12, 15),
     "adjoint": ("halogen_adjoint_launch", 14, 11),
+    "traverse": ("halogen_traverse_launch", 13, 1),
 }
-_HEADERS = ("path_common.cuh",)
+_HEADERS = ("path_common.cuh", "geometry.cuh", "bvh_traverse.cuh")
 
 _libs = {}
 BUILD_SECONDS = None  # wall time of this process's nvcc builds (in parallel)
@@ -138,15 +153,22 @@ def load_library(name: str = "megakernel") -> ctypes.CDLL:
     return lib
 
 
+def uses_bvh(scene: SceneData) -> bool:
+    """Whether the kernel takes the BVH tier (B1d) for `scene`: over the
+    brute tier's triangle cap, as the JAX wrapper picks its raylet tier
+    (`megakernel.py:1708-1712`)."""
+    return scene.num_triangles > MAX_TRIS
+
+
 def fused_supported(scene: SceneData, settings: RenderSettings) -> bool:
     """Static eligibility for the port's fused megakernel: the JAX
-    `fused_supported` (`megakernel.py:1608-1641`) on its brute tier.
-    Transmissive scenes, envmaps and env NEE are in; area-light NEE,
-    debug views and scenes over the caps are out."""
+    `fused_supported` (`megakernel.py:1608-1641`) on its brute and raylet
+    tiers. Transmissive scenes, envmaps and env NEE are in; area-light
+    NEE, debug views and scenes over the caps are out."""
     return (
         settings.debug_mode == DebugMode.NONE
         and not settings.light_importance_sampling
-        and scene.num_triangles <= MAX_TRIS
+        and scene.num_triangles <= MAX_BVH_TRIS
         and scene.num_spheres <= MAX_SPHERES
         and scene.materials.count <= MAX_MATERIALS
         and (scene.num_triangles + scene.num_spheres) > 0
@@ -165,7 +187,8 @@ def env_table(scene: SceneData) -> torch.Tensor | None:
 def _scene_tables(scene: SceneData):
     """Pack the scene into the kernel's tables: tri [T, 9] (v0, e1, e2),
     trin [T, 10] (n0, n1 - n0, n2 - n0, material), sph [S, 5] (center,
-    radius, material) and mat [K, 17], all float32 and contiguous."""
+    radius, material) and mat [K, 17], all float32 and contiguous. On the
+    BVH tier tri and trin are the world BVH's own, in its slot order."""
     mats = scene.materials
     f32 = torch.float32
     mat_tab = torch.cat(
@@ -181,14 +204,18 @@ def _scene_tables(scene: SceneData):
         ],
         dim=1,
     ).to(f32).contiguous()
-    tv = scene.tri_verts_world
-    v0 = tv[:, 0]
-    tri_tab = torch.cat([v0, tv[:, 1] - v0, tv[:, 2] - v0], dim=1).contiguous()
-    tn = scene.tri_normals_world
-    n0 = tn[:, 0]
-    trin_tab = torch.cat([n0, tn[:, 1] - n0, tn[:, 2] - n0,
-                          scene.tri_material.to(f32)[:, None]],
-                         dim=1).contiguous()
+    if uses_bvh(scene):
+        tri_tab, trin_tab = scene.wbvh.tris, scene.wbvh.trin
+    else:
+        tv = scene.tri_verts_world
+        v0 = tv[:, 0]
+        tri_tab = torch.cat([v0, tv[:, 1] - v0, tv[:, 2] - v0],
+                            dim=1).contiguous()
+        tn = scene.tri_normals_world
+        n0 = tn[:, 0]
+        trin_tab = torch.cat([n0, tn[:, 1] - n0, tn[:, 2] - n0,
+                              scene.tri_material.to(f32)[:, None]],
+                             dim=1).contiguous()
     sph_tab = torch.cat([scene.sphere_center, scene.sphere_radius[:, None],
                          scene.sphere_material.to(f32)[:, None]],
                         dim=1).contiguous()
@@ -210,8 +237,8 @@ def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
     if not fused_supported(scene, settings):
         raise NotImplementedError(
             "the CUDA megakernel covers scenes without area-light NEE or "
-            f"debug views, with <= {MAX_TRIS} triangles, <= "
-            f"{MAX_SPHERES} spheres and <= {MAX_MATERIALS} materials "
+            f"debug views, with <= {MAX_SPHERES} spheres, <= "
+            f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles "
             "(wider tiers: ROADMAP A8, A9)")
     n = origin.shape[0]
     dev = origin.device
@@ -248,6 +275,13 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
     sidx, sd, far_t, tables, scalars = kernel_inputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables)
     dev = origin.device
+    bvh = uses_bvh(scene)
+    nodes = scene.wbvh.nodes if bvh else None
+    if bvh and (nodes.device != dev or nodes.dtype != torch.float32
+                or not nodes.is_contiguous() or nodes.data_ptr() % 16
+                or nodes.ndim != 2 or nodes.shape[1] != 8):
+        raise ValueError("the world BVH's nodes must be a contiguous, "
+                         f"16-byte aligned float32 [Nn, 8] tensor on {dev}")
     env_nee = _use_nee(scene, settings)
     env_h = env_w = 0
     if env_nee:
@@ -268,8 +302,9 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             origin.data_ptr(), direction.data_ptr(), far_t.data_ptr(),
             sidx.data_ptr(), sd.data_ptr(),
             *(t.data_ptr() for t in tables),
+            nodes.data_ptr() if bvh else None,
             env_tab.data_ptr() if env_nee else None, out.data_ptr(),
-            *scalars, int(env_nee), env_h, env_w, stream)
+            *scalars, int(env_nee), env_h, env_w, int(bvh), stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -280,14 +315,18 @@ def trace_color_fused_reference(scene: SceneData, origin, direction, far,
                                 sample_idx, seed,
                                 settings: RenderSettings) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same [N, 10] (or, with env
-    NEE, [N, 12]) outputs from the lockstep integrator."""
+    NEE, [N, 12]) outputs from the lockstep integrator, its closest hits
+    by brute force whatever the scene's size (independent of the BVH that
+    the kernel's BVH tier walks)."""
+    from halogen_tpu_torch.config import Intersector
     from halogen_tpu_torch.integrator.trace import trace_rays
 
     n = origin.shape[0]
     far_b = torch.as_tensor(far, dtype=torch.float32,
                             device=origin.device).reshape(-1)[0].expand(n)
     return trace_rays(scene, origin, direction, far_b, sample_idx, seed,
-                      settings).outputs
+                      settings.replace(intersector=Intersector.BRUTE)
+                      ).outputs
 
 
 def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
@@ -324,10 +363,11 @@ class _FusedDiff(torch.autograd.Function):
     package's custom_vjp (`megakernel.py:1904-1978`) on its fused-adjoint
     route. Only the material table gets a cotangent; geometry, camera
     rays and far get none (use `Fused.OFF` to differentiate geometry).
-    Scenes outside `adjoint_supported` (an envmap in use) have no backward
-    here yet: the JAX package replays them with the lockstep vjp
-    (`megakernel.py:1953-1975`), which the port brings with the envmap
-    gradients (ROADMAP A8)."""
+    Scenes outside `adjoint_supported` (an envmap in use, or more than
+    MAX_TRIS triangles) have no backward here yet: the JAX package replays
+    them with the lockstep vjp (`megakernel.py:1953-1975`), which the port
+    brings with the envmap gradients (ROADMAP A8) and the big-scene
+    backward (ROADMAP A9)."""
 
     @staticmethod
     def forward(ctx, scene, settings, env_tab, tri_tab, trin_tab, sph_tab,
@@ -345,6 +385,10 @@ class _FusedDiff(torch.autograd.Function):
         from halogen_tpu_torch.kernels import adjoint as adj
 
         if not adj.adjoint_supported(ctx.scene, ctx.settings):
+            if ctx.scene.num_triangles > MAX_TRIS:
+                raise NotImplementedError(
+                    "not ported yet: the backward of a scene over "
+                    f"MAX_TRIS = {MAX_TRIS} triangles (ROADMAP A9)")
             raise NotImplementedError(
                 "envmap gradients are not ported yet: the backward of an "
                 "envmap scene (ROADMAP A8)")

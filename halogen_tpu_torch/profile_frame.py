@@ -3,8 +3,10 @@ one CUDA device.
 
 Run from the root of a checkout:
 
-    python3 -m halogen_tpu_torch.profile_frame [--scene cornell|glass|envmap_1024]
-        [--grad] [--frames 10] [--out FILE]
+    python3 -m halogen_tpu_torch.profile_frame [--scene S] [--grad]
+        [--frames 10] [--out FILE]
+
+with S one of cornell, glass, envmap_1024, glass_dragon.
 
 The frame is a forward path of `chip_smoke.py`: by default the main path,
 Cornell glossy, 512x512, 32 spp, 6 bounces, 262144-ray chunks, so 32
@@ -12,7 +14,11 @@ groups of 262144 rays, each a `generate_rays` call and one megakernel
 launch; `--scene glass` the glass-in-glass box at 512x512, 32 spp, 8
 bounces (the medium-stack variant); `--scene envmap_1024` the JAX CLI
 preset, material spheres under the gradient sky at 1024x1024, 16 spp, 4
-bounces with env NEE (64 groups, each also a sky pass after the kernel).
+bounces with env NEE (64 groups, each also a sky pass after the kernel);
+`--scene glass_dragon` `bench.py`'s glass dragon (the reference's
+Dragon_8k in glass around an air bubble, in the Cornell shell: 8,724
+triangles) at 512x512, 32 spp, 12 bounces, through the megakernel's BVH
+tier (B1d).
 With `--grad` the step is `diff.render_loss_grad` at `bench.py`'s
 forward-plus-backward configuration instead: 256x256, 256 spp, so 64
 groups, each a `generate_rays` call, one megakernel launch and, in the
@@ -54,11 +60,14 @@ from halogen_tpu_torch.integrator.camera import generate_rays
 from halogen_tpu_torch.integrator.trace import _morton_pixel_order, _sampler_2d
 from halogen_tpu_torch.kernels import megakernel as mk
 from halogen_tpu_torch.sampler import sobol as sob
-from halogen_tpu_torch.scene import cornell
+from halogen_tpu_torch.scene import cornell, meshes
 
 CAM = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0), fov_deg=40.0)
 SKY_CAM = dict(position=(0.0, 1.0, 6.0), target=(0.0, 0.5, 0.0),
                fov_deg=40.0)
+# bench.py's glass_dragon camera
+DRAGON_CAM = dict(position=(0.0, 1.5, 5.0), target=(0.0, -0.3, 0.0),
+                  fov_deg=45.0)
 SETTINGS = dict(width=512, height=512, samples_per_pixel=32, max_bounces=6,
                 ray_chunk_size=262144)
 GLASS = dict(max_bounces=8, max_transmission_bounces=8)
@@ -71,6 +80,8 @@ SCENES = {
               dict(SETTINGS, **GLASS),
               dict(SETTINGS, **GLASS, width=256, height=256,
                    samples_per_pixel=256)),
+    "glass_dragon": (lambda dev: meshes.glass_dragon_scene().build(
+        device=dev), DRAGON_CAM, dict(SETTINGS, max_bounces=12), None),
     "envmap_1024": (lambda dev: cornell.material_demo_spheres().build(
         envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM,
         dict(width=1024, height=1024, samples_per_pixel=16, max_bounces=4,
@@ -105,7 +116,8 @@ def main(argv=None) -> int:
     build, cam_kw, frame_kw, grad_kw = SCENES[args.scene]
     if args.grad and grad_kw is None:
         print(f"profile_frame: {args.scene} has no gradient step yet "
-              "(envmap gradients, ROADMAP A8)", file=sys.stderr)
+              "(envmap gradients, ROADMAP A8; big scenes, A9)",
+              file=sys.stderr)
         return 1
     kw = grad_kw if args.grad else frame_kw
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from halogen_tpu_torch.config import RenderSettings
-from halogen_tpu_torch.core.types import SceneData
+from halogen_tpu_torch.core.types import SceneData, target_device
 from halogen_tpu_torch.integrator.camera import Camera
 from halogen_tpu_torch.integrator.trace import render_frame
 
@@ -30,7 +30,10 @@ class RenderState:
     frame_count: torch.Tensor  # 0-dim int32 on the CPU, starts at 1
 
     @staticmethod
-    def create(settings: RenderSettings, device="cpu") -> "RenderState":
+    def create(settings: RenderSettings, device="cuda") -> "RenderState":
+        """A fresh state on `device` (the card unless the caller asks for
+        the CPU)."""
+        device = target_device(device)
         return RenderState(
             accum=torch.zeros((settings.height, settings.width, 3),
                               device=device),

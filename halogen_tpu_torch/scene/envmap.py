@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from halogen_tpu_torch.core.math import normalize
+from halogen_tpu_torch.core.types import target_device
 
 _PI = float(np.float32(np.pi))
 
@@ -88,9 +89,11 @@ class EnvCDF(NamedTuple):
         return EnvCDF(*(t.to(device) for t in self))
 
 
-def build_env_cdf(env: np.ndarray, device="cpu") -> EnvCDF:
+def build_env_cdf(env: np.ndarray, device="cuda") -> EnvCDF:
     """Alias tables + pdf over solid-angle-weighted luminance of an
-    equirect map [H, W, 3]; pdf is w.r.t. solid angle."""
+    equirect map [H, W, 3]; pdf is w.r.t. solid angle. On the card unless
+    the caller asks for the CPU."""
+    device = target_device(device)
     h, w = env.shape[:2]
     lum = np.asarray(env, np.float32) @ np.asarray(
         [0.2126, 0.7152, 0.0722], np.float32)

@@ -1,12 +1,14 @@
 """Scene registry and tensor packing (PyTorch port of
-`halogen_tpu/scene/scene.py`, without the BVH, the traversal packers and
-the light table).
+`halogen_tpu/scene/scene.py`, without the light table).
 
 `build()` flattens the registered spheres and meshes into a `SceneData`:
 materials deduplicated by value (`PackMaterialToList`,
-HalogenRenderPass.cs:524-537), triangles concatenated with per-mesh
-offsets, world-space triangle copies for the brute-force intersector,
-and the envmap's mips and alias tables.
+HalogenRenderPass.cs:524-537), a BVH per mesh (which reorders the mesh's
+triangles), triangles and BVH nodes concatenated with per-mesh offsets,
+world-space triangle copies for the brute-force intersector, the world
+BVH over every world-space triangle for the traversal kernels, and the
+envmap's mips and alias tables. It builds on the card unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -17,14 +19,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from halogen_tpu_torch.core.types import MaterialTable, SceneData
+from halogen_tpu_torch.accel.bvh import MAX_DEPTH, MAX_LEAF_TRIS, build_bvh
+from halogen_tpu_torch.core.types import (
+    MaterialTable,
+    SceneData,
+    WorldBVH,
+    target_device,
+)
 from halogen_tpu_torch.scene.envmap import Envmap, build_env_cdf
 from halogen_tpu_torch.scene.material import Material
-
-# The JAX package's BVH construction keeps the given triangle order for a mesh
-# of at most this many triangles (one leaf, `accel/bvh.py:32`). Larger
-# meshes are reordered by the BVH build, which the port does not have yet.
-MAX_LEAF_TRIS = 5
 
 
 @dataclasses.dataclass
@@ -33,6 +36,7 @@ class MeshEntry:
     tri_normals: np.ndarray  # [T, 3, 3] local space
     transform: np.ndarray  # [4, 4] local->world
     material: Material
+    max_depth: int = MAX_DEPTH
 
 
 @dataclasses.dataclass
@@ -63,6 +67,7 @@ class Scene:
         material: Material,
         normals: Optional[np.ndarray] = None,
         transform: Optional[np.ndarray] = None,
+        max_depth: int = MAX_DEPTH,
     ) -> int:
         """Register a triangle mesh: vertices [V, 3], indices [F, 3] (or
         flat [3F]), optional per-vertex normals [V, 3] (default:
@@ -77,14 +82,18 @@ class Scene:
             transform = np.eye(4, dtype=np.float32)
         self.meshes.append(
             MeshEntry(vertices[indices], normals[indices],
-                      np.asarray(transform, np.float32), material)
+                      np.asarray(transform, np.float32), material, max_depth)
         )
         return len(self.meshes) - 1
 
     def build(self, envmap: Optional[Envmap] = None,
-              device="cpu") -> SceneData:
+              max_leaf: int = MAX_LEAF_TRIS, device="cuda") -> SceneData:
+        """Pack the scene on `device` (the card unless the caller asks
+        for the CPU), with the world BVH of any scene that has
+        triangles."""
         if envmap is not None and not isinstance(envmap, Envmap):
             raise TypeError(f"envmap must be an Envmap, not {type(envmap)}")
+        device = target_device(device)
         materials: List[Material] = []
 
         def material_index(m: Material) -> int:
@@ -103,17 +112,17 @@ class Scene:
             s_radius[i] = s.radius
             s_mat[i] = material_index(s.material)
 
+        # Meshes: build BVHs (reorders triangles), then concatenate
         tv_local, tn_local, tv_world, tn_world = [], [], [], []
         tri_mat, tri_mesh = [], []
-        m_tri_off, m_mat, m_w2l, m_l2w = [], [], [], []
-        tri_cursor = 0
+        bvh_lo, bvh_hi, bvh_ia, bvh_ct = [], [], [], []
+        m_tri_off, m_bvh_off, m_mat, m_w2l, m_l2w = [], [], [], [], []
+        tri_cursor = node_cursor = 0
         for mi, m in enumerate(self.meshes):
-            t = m.tri_verts.shape[0]
-            if t > MAX_LEAF_TRIS:
-                raise NotImplementedError(
-                    f"mesh {mi} has {t} triangles; meshes of more than "
-                    f"{MAX_LEAF_TRIS} need the BVH build (ROADMAP A9)")
-            verts, norms = m.tri_verts, m.tri_normals
+            bvh = build_bvh(m.tri_verts.copy(), max_leaf=max_leaf,
+                            max_depth=m.max_depth)
+            verts = m.tri_verts[bvh.tri_order]
+            norms = m.tri_normals[bvh.tri_order]
             mat_idx = material_index(m.material)
 
             l2w = m.transform
@@ -124,17 +133,24 @@ class Scene:
             vw = verts @ l2w[:3, :3].T + l2w[:3, 3]
             nw = norms @ w2l[:3, :3]
 
+            t = verts.shape[0]
             tv_local.append(verts)
             tn_local.append(norms)
             tv_world.append(vw.astype(np.float32))
             tn_world.append(nw.astype(np.float32))
             tri_mat.append(np.full(t, mat_idx, np.int32))
             tri_mesh.append(np.full(t, mi, np.int32))
+            bvh_lo.append(bvh.lo)
+            bvh_hi.append(bvh.hi)
+            bvh_ia.append(bvh.index_a)
+            bvh_ct.append(bvh.count)
             m_tri_off.append(tri_cursor)
+            m_bvh_off.append(node_cursor)
             m_mat.append(mat_idx)
             m_w2l.append(w2l)
             m_l2w.append(l2w)
             tri_cursor += t
+            node_cursor += bvh.num_nodes
 
         def cat(parts, empty_shape, dtype=np.float32):
             if parts:
@@ -144,20 +160,32 @@ class Scene:
         def stack44(parts):
             return np.stack(parts) if parts else np.zeros((0, 4, 4), np.float32)
 
+        tv_world_cat = cat(tv_world, (0, 3, 3))
+        tn_world_cat = cat(tn_world, (0, 3, 3))
+        tri_mat_cat = cat(tri_mat, (0,), np.int32)
         mat_table = _pack_materials(materials, device)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         env_mips, env_cdf = (), None
         if envmap is not None:
             env_mips = tuple(t(m) for m in envmap.mips)
             env_cdf = build_env_cdf(envmap.mips[0], device)
+        wbvh = None
+        if tv_world_cat.shape[0] > 0:
+            wbvh = pack_world_bvh(tv_world_cat, tn_world_cat, tri_mat_cat,
+                                  max_leaf, device)
         return SceneData(
-            tri_verts_world=t(cat(tv_world, (0, 3, 3))),
-            tri_normals_world=t(cat(tn_world, (0, 3, 3))),
-            tri_material=t(cat(tri_mat, (0,), np.int32)),
+            tri_verts_world=t(tv_world_cat),
+            tri_normals_world=t(tn_world_cat),
+            tri_material=t(tri_mat_cat),
             tri_mesh=t(cat(tri_mesh, (0,), np.int32)),
             tri_verts_local=t(cat(tv_local, (0, 3, 3))),
             tri_normals_local=t(cat(tn_local, (0, 3, 3))),
+            bvh_lo=t(cat(bvh_lo, (0, 3))),
+            bvh_hi=t(cat(bvh_hi, (0, 3))),
+            bvh_index_a=t(cat(bvh_ia, (0,), np.int32)),
+            bvh_count=t(cat(bvh_ct, (0,), np.int32)),
             mesh_tri_offset=t(np.asarray(m_tri_off, np.int32)),
+            mesh_bvh_offset=t(np.asarray(m_bvh_off, np.int32)),
             mesh_material=t(np.asarray(m_mat, np.int32)),
             mesh_world_to_local=t(stack44(m_w2l)),
             mesh_local_to_world=t(stack44(m_l2w)),
@@ -169,7 +197,36 @@ class Scene:
             env_cdf=env_cdf,
             # any material that can refract (transmission alpha < 1)?
             any_transmissive=bool(mat_table.albedo[:, 3].min().item() < 1.0),
+            wbvh=wbvh,
         )
+
+
+def pack_world_bvh(tri_verts_world: np.ndarray, tri_normals_world: np.ndarray,
+                   tri_material: np.ndarray, max_leaf: int = MAX_LEAF_TRIS,
+                   device="cuda") -> WorldBVH:
+    """The world BVH over [T, 3, 3] world-space triangles, built by the
+    same `build_bvh` call as the JAX package's `pack_world_bvh`
+    (`kernels/bvh_pallas.py:96-111`), so its nodes, slots and `tri_map`
+    equal the JAX package's; laid out for the port's kernels (see
+    `WorldBVH`) instead of the TPU's [R, 128] rows."""
+    tv = np.asarray(tri_verts_world, np.float32)
+    bvh = build_bvh(tv.copy(), max_leaf=max_leaf, max_depth=MAX_DEPTH)
+    order = bvh.tri_order
+    nodes = np.concatenate(
+        [bvh.lo, bvh.hi, bvh.index_a[:, None].astype(np.float32),
+         bvh.count[:, None].astype(np.float32)], axis=1)
+    v = tv[order]
+    n = np.asarray(tri_normals_world, np.float32)[order]
+    tris = np.concatenate([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]],
+                          axis=1)
+    trin = np.concatenate(
+        [n[:, 0], n[:, 1] - n[:, 0], n[:, 2] - n[:, 0],
+         np.asarray(tri_material, np.float32)[order][:, None]], axis=1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return WorldBVH(nodes=t(nodes.astype(np.float32)),
+                    tris=t(tris.astype(np.float32)),
+                    trin=t(trin.astype(np.float32)),
+                    tri_map=t(order.astype(np.int32)))
 
 
 def _vertex_normals(vertices: np.ndarray, indices: np.ndarray) -> np.ndarray:

@@ -33,6 +33,8 @@ from halogen_tpu_torch.integrator.trace import trace_rays
 from halogen_tpu_torch.kernels import adjoint as adj
 from halogen_tpu_torch.kernels import megakernel as mk
 
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
+
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
 W = 8
 TOL = 1e-6
@@ -57,7 +59,7 @@ def _fixture(jscene):
                 seed=np.asarray(seed), far=np.float32(np.asarray(cam.far)),
                 ct=np.random.default_rng(0).normal(size=(n, 3)).astype(
                     np.float32))
-    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
     return jscene, scene, rays
 
 
@@ -208,9 +210,9 @@ def test_adjoint_out_of_slice_raises(fixture):
     _, _, rays = fixture
     sky = interop.scene_from_numpy(interop.scene_to_numpy(
         jcornell.cornell_box(glossy=True).build(
-            envmap=JEnvmap.gradient_sky())))
+            envmap=JEnvmap.gradient_sky())), device=CPU)
     glass = interop.scene_from_numpy(interop.scene_to_numpy(
-        jcornell.glass_sphere_box().build()))
+        jcornell.glass_sphere_box().build()), device=CPU)
     o, d, far, sidx, seed, ct = _port_rays(rays)
     st = RenderSettings(**_settings(True))
     assert adj.adjoint_supported(glass, st)

@@ -19,6 +19,8 @@ from halogen_tpu_torch.integrator.camera import (
 )
 from halogen_tpu_torch.sampler import sobol as tsob
 
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
+
 CAMERAS = {
     "pinhole": dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40),
     "aperture": dict(position=(0.3, 0.2, 3.2), target=(0, 0, 0), fov_deg=40,
@@ -29,7 +31,7 @@ CAMERAS = {
 @pytest.mark.parametrize("name", sorted(CAMERAS))
 def test_make_camera_matches_jax(name):
     ref = interop.camera_to_numpy(jht.make_camera(**CAMERAS[name]))
-    got = interop.camera_to_numpy(t_make_camera(**CAMERAS[name]))
+    got = interop.camera_to_numpy(t_make_camera(**CAMERAS[name], device=CPU))
     for key in ref:
         np.testing.assert_array_equal(np.asarray(ref[key], np.float32),
                                       got[key], err_msg=key)
@@ -43,7 +45,7 @@ def test_generate_rays_matches_jax(name, sampler):
     pix = rng.integers(0, w * h, n).astype(np.int32)
     sidx = rng.integers(0, 1 << 20, n).astype(np.uint32)
     jcam = jht.make_camera(**CAMERAS[name], aspect=w / h)
-    tcam = interop.camera_from_numpy(interop.camera_to_numpy(jcam))
+    tcam = interop.camera_from_numpy(interop.camera_to_numpy(jcam), device=CPU)
 
     jo, jd = j_generate_rays(
         jcam, jnp.asarray(pix % w), jnp.asarray(pix // w), w, h, 1.0,

@@ -20,6 +20,8 @@ from halogen_tpu_torch import interop
 from halogen_tpu_torch.scene import cornell as tcornell
 from halogen_tpu_torch.scene import envmap as tenv
 
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
+
 ATOL = 1e-6
 N = 4096
 
@@ -42,7 +44,7 @@ def maps(request):
     """(name, JAX envmap + cdf, port envmap + cdf)."""
     jm, tm = MAPS[request.param](jenv), MAPS[request.param](tenv)
     return (request.param, jm, jenv.build_env_cdf(jm.mips[0]), tm,
-            tenv.build_env_cdf(tm.mips[0]))
+            tenv.build_env_cdf(tm.mips[0], "cpu"))
 
 
 def _dirs(seed=0):
@@ -129,13 +131,13 @@ def test_scene_build_carries_the_envmap():
     """`Scene.build(envmap=...)` fills env_mips and env_cdf as the JAX
     build does, `interop` carries both across, and `.to` moves them."""
     js = jcornell.cornell_box().build(envmap=jenv.Envmap.gradient_sky())
-    ts = tcornell.cornell_box().build(envmap=tenv.Envmap.gradient_sky())
+    ts = tcornell.cornell_box().build(envmap=tenv.Envmap.gradient_sky(), device=CPU)
     for a, b in zip(js.env_mips, ts.env_mips):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     for f in tenv.EnvCDF._fields:
         np.testing.assert_array_equal(np.asarray(getattr(js.env_cdf, f)),
                                       getattr(ts.env_cdf, f).numpy())
-    carried = interop.scene_from_numpy(interop.scene_to_numpy(js))
+    carried = interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU)
     assert len(carried.env_mips) == len(js.env_mips) == 6
     for f in tenv.EnvCDF._fields:
         assert torch.equal(getattr(carried.env_cdf, f),
@@ -144,7 +146,7 @@ def test_scene_build_carries_the_envmap():
     assert isinstance(moved.env_cdf, tenv.EnvCDF)
     assert isinstance(moved.env_mips, tuple)
     plain = interop.scene_from_numpy(interop.scene_to_numpy(
-        jcornell.cornell_box().build()))
+        jcornell.cornell_box().build()), device=CPU)
     assert plain.env_mips == () and plain.env_cdf is None
 
 

@@ -32,6 +32,8 @@ from halogen_tpu_torch.diff import grad as tgrad
 from halogen_tpu_torch.kernels import adjoint as adj
 from halogen_tpu_torch.kernels import megakernel as mk
 
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
+
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
 # tests/test_grad.py:20-26
 ST = dict(width=16, height=16, samples_per_pixel=4, max_bounces=3,
@@ -76,8 +78,10 @@ def _both(name):
     """(JAX scene, JAX camera, port scene, port camera)."""
     make, cam_kw = SCENES[name]
     js, jc = make().build(), jht.make_camera(**cam_kw)
-    return (js, jc, interop.scene_from_numpy(interop.scene_to_numpy(js)),
-            interop.camera_from_numpy(interop.camera_to_numpy(jc)))
+    return (js, jc,
+            interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU),
+            interop.camera_from_numpy(interop.camera_to_numpy(jc),
+                                      device=CPU))
 
 
 def _target(seed=0):
@@ -263,8 +267,10 @@ def _fit_fixture():
     jc = jht.make_camera(**CAM)
     target = np.asarray(jht.render_frame(js, jc, jht.RenderSettings(**FIT_ST),
                                          1)) * 2.0
-    return (js, jc, interop.scene_from_numpy(interop.scene_to_numpy(js)),
-            interop.camera_from_numpy(interop.camera_to_numpy(jc)), target)
+    return (js, jc,
+            interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU),
+            interop.camera_from_numpy(interop.camera_to_numpy(jc),
+                                      device=CPU), target)
 
 
 @pytest.fixture(scope="module")
@@ -374,9 +380,10 @@ def test_gradient_route_imports_no_jax():
         "from halogen_tpu_torch.diff import render_loss_grad\n"
         "from halogen_tpu_torch.kernels import adjoint\n"
         "from halogen_tpu_torch.scene import cornell\n"
-        "s = cornell.cornell_box().build()\n"
+        "s = cornell.cornell_box().build(device='cpu')\n"
         "st = ht.RenderSettings(width=4, height=4, max_bounces=1)\n"
-        "render_loss_grad({'materials': s.materials}, s, ht.make_camera(),"
+        "render_loss_grad({'materials': s.materials}, s,"
+        " ht.make_camera(device='cpu'),"
         " st, [[[0.0] * 3] * 4] * 4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'halogen_tpu', 'optax')]\n"

@@ -45,7 +45,7 @@ def test_random_push_pop_matches_jax(seed):
     ids that are not on a stack must be no-ops."""
     rng = np.random.default_rng(seed)
     n = 16
-    port, ref = MediumStack.create(n), JStack.create(n)
+    port, ref = MediumStack.create(n, device="cpu"), JStack.create(n)
     next_id = 0
     for _ in range(200):
         mask = rng.random(n) < 0.7
@@ -73,7 +73,7 @@ def test_random_push_pop_matches_jax(seed):
 
 def test_overflow_drops_the_push():
     rng = np.random.default_rng(0)
-    port, ref = MediumStack.create(2), JStack.create(2)
+    port, ref = MediumStack.create(2, device="cpu"), JStack.create(2)
     for i in range(STACK_DEPTH + 3):
         pm, rm = _media([1, 3 - i % 4], [i, 100 + i], rng)
         port = port.push(pm, torch.tensor([True, True]))
@@ -84,7 +84,7 @@ def test_overflow_drops_the_push():
 
 def test_masked_ops_are_noops():
     rng = np.random.default_rng(1)
-    port = MediumStack.create(3)
+    port = MediumStack.create(3, device="cpu")
     pm, _ = _media([1, 1, 1], [7, 7, 7], rng)
     port = port.push(pm, torch.tensor([True, False, True]))
     assert port.size.tolist() == [1, 0, 1]
@@ -107,7 +107,7 @@ def test_priority_order_and_true_hits():
     medium; a push lands at the top when its priority <= the top's, else
     below every entry of a strictly greater value (so below its equals)."""
     rng = np.random.default_rng(2)
-    s = MediumStack.create(1)
+    s = MediumStack.create(1, device="cpu")
     for prio, mid in ((2, 0), (0, 1), (2, 2), (1, 3)):
         pm, _ = _media([prio], [mid], rng)
         s = s.push(pm, torch.tensor([True]))

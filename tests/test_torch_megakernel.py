@@ -25,11 +25,19 @@ from halogen_tpu.integrator.camera import generate_rays as j_generate_rays
 from halogen_tpu.integrator.trace import trace_rays as j_trace_rays
 from halogen_tpu.sampler import sobol as jsob
 from halogen_tpu.scene import cornell as jcornell
+from halogen_tpu.scene import meshes as jmeshes
 from halogen_tpu.scene.envmap import Envmap as JEnvmap
 from halogen_tpu_torch import interop
-from halogen_tpu_torch.config import DebugMode, RenderSettings, SamplerKind
+from halogen_tpu_torch.config import (
+    DebugMode,
+    Intersector,
+    RenderSettings,
+    SamplerKind,
+)
 from halogen_tpu_torch.integrator.trace import trace_rays
 from halogen_tpu_torch.kernels import megakernel as mk
+
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
 
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
 ATOL = RTOL = 1e-5
@@ -100,7 +108,7 @@ def test_lockstep_and_fused_plain_match_jax(case):
         jnp.full((n,), inp["far"]), jnp.asarray(inp["sidx"]),
         jnp.asarray(inp["seed"]), _jax_settings(kw)).color)
 
-    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
     st = RenderSettings(**kw)
     assert mk.fused_supported(scene, st)
     o, d, sidx, seed = _port_args(inp)
@@ -156,7 +164,7 @@ SLICE = {
 def _slice_case(name):
     make, cam_kw, kw = SLICE[name]
     jscene, _, inp = _inputs(kw, make(), cam_kw)
-    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
     return jscene, scene, kw, inp
 
 
@@ -196,6 +204,55 @@ def test_slice_lockstep_matches_jax(name):
         assert (outputs[:, 11] > 0.5).any()
 
 
+# Big scenes (tests/test_megakernel.py:195-257): the glass dragon, and a
+# 1,280-triangle dragon under the sky with and without env NEE, at 12x12.
+DRAGON_CAM = dict(position=(0, 1.5, 5.0), target=(0, -0.3, 0), fov_deg=45)
+BIG = {
+    "glass_dragon": (lambda: jmeshes.glass_dragon_scene().build(
+        world_bvh=False), dict(width=12, height=12, max_bounces=3)),
+    "dragon_sky": (lambda: jmeshes.dragons_hero_scene(1, tris=1280).build(
+        envmap=JEnvmap.gradient_sky(), world_bvh=False),
+        dict(width=12, height=12, max_bounces=3, use_envmap=True)),
+    "dragon_sky_nee": (lambda: jmeshes.dragons_hero_scene(
+        1, tris=1280).build(envmap=JEnvmap.gradient_sky(), world_bvh=False),
+        dict(width=12, height=12, max_bounces=3, use_envmap=True,
+             env_importance_sampling=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BIG))
+def test_big_scene_lockstep_matches_jax(name):
+    """Scenes over the brute tier's cap: the port's lockstep (on the CPU
+    AUTO walks each mesh's BVH, as the JAX lockstep does) against the JAX
+    lockstep at the tolerance above; the kernel module's plain route
+    (brute-force hits) and the world-BVH route give the same colors."""
+    make, kw = BIG[name]
+    jscene, _, inp = _inputs(kw, make(), DRAGON_CAM)
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene),
+                                     device=CPU)
+    n = inp["o"].shape[0]
+    ref = np.asarray(_j_trace(
+        jscene, jnp.asarray(inp["o"]), jnp.asarray(inp["d"]),
+        jnp.full((n,), inp["far"]), jnp.asarray(inp["sidx"]),
+        jnp.asarray(inp["seed"]), _jax_settings(kw)).color)
+    st = RenderSettings(**kw)
+    assert mk.uses_bvh(scene) and mk.fused_supported(scene, st)
+    o, d, sidx, seed = _port_args(inp)
+    far = torch.full((n,), float(inp["far"]))
+    lock = trace_rays(scene, o, d, far, sidx, seed, st).color.numpy()
+    assert np.isfinite(lock).all() and lock.max() > 0.0
+    outside = _outside(ref, lock)
+    assert outside.sum() <= max(1, n // 256), (
+        f"{outside.sum()} of {n} rays outside 1e-5; max abs diff "
+        f"{np.abs(lock - ref).max()}")
+    plain = mk.trace_color_fused(scene, o, d, torch.tensor(inp["far"]),
+                                 sidx, seed, st).numpy()
+    world = trace_rays(scene, o, d, far, sidx, seed, st.replace(
+        intersector=Intersector.RAYLET)).color.numpy()
+    for got in (plain, world):
+        assert _outside(lock, got).sum() <= max(1, n // 256)
+
+
 def test_glass_transmission_limit():
     """On the glass box transmissive bounces are counted: a transmission
     limit of 0 changes the image."""
@@ -217,7 +274,7 @@ def test_deferred_miss_record():
     directions."""
     kw = CASES["sobol_no_rr"]
     jscene, _, inp = _inputs(kw)
-    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
     o, d, sidx, seed = _port_args(inp)
     out = mk.trace_fused_outputs(scene, o, d, torch.tensor(inp["far"]),
                                  sidx, seed, RenderSettings(**kw))
@@ -235,7 +292,7 @@ def test_out_of_slice_raises():
     """Area-light NEE and debug views are not ported yet; glass, envmaps
     and env NEE are."""
     glass = interop.scene_from_numpy(interop.scene_to_numpy(
-        jcornell.glass_sphere_box().build()))
+        jcornell.glass_sphere_box().build()), device=CPU)
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)
     for st in (RenderSettings(light_importance_sampling=True),
@@ -246,7 +303,7 @@ def test_out_of_slice_raises():
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             mk.trace_color_fused(glass, o, d, torch.tensor(10.0), 0, 1, st)
     sky = interop.scene_from_numpy(interop.scene_to_numpy(
-        jcornell.cornell_box().build(envmap=JEnvmap.gradient_sky())))
+        jcornell.cornell_box().build(envmap=JEnvmap.gradient_sky())), device=CPU)
     st = RenderSettings(use_envmap=True, env_importance_sampling=True)
     assert mk.fused_supported(sky, st) and mk.fused_supported(glass, st)
     col = mk.trace_color_fused(sky, o, d, torch.tensor(10.0), 0, 1, st)

@@ -26,6 +26,8 @@ from halogen_tpu_torch.integrator.trace import _morton_pixel_order
 from halogen_tpu_torch.kernels import megakernel as mk
 from halogen_tpu_torch.scene import cornell as tcornell
 
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
+
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
 SKY_CAM = dict(position=(0, 1.0, 6.0), target=(0, 0.5, 0), fov_deg=40)
@@ -41,8 +43,8 @@ def test_render_frame_matches_jax(glossy, spp, chunk):
     jcam = jht.make_camera(**CAM)
     ref = np.asarray(_j_render(jscene, jcam, jht.RenderSettings(**kw), 3))
 
-    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
-    cam = interop.camera_from_numpy(interop.camera_to_numpy(jcam))
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
+    cam = interop.camera_from_numpy(interop.camera_to_numpy(jcam), device=CPU)
     got = tht.render_frame(scene, cam, tht.RenderSettings(**kw), 3).numpy()
     assert got.shape == ref.shape == (16, 16, 3)
     bad = (np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).any(axis=-1)
@@ -67,8 +69,8 @@ def test_slice_render_frame_matches_jax(name):
                   env_importance_sampling=True)
     ref = np.asarray(_j_render(jscene, jht.make_camera(**cam_kw),
                                jht.RenderSettings(**kw), 2))
-    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene))
-    got = tht.render_frame(scene, tht.make_camera(**cam_kw),
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
+    got = tht.render_frame(scene, tht.make_camera(**cam_kw, device=CPU),
                            tht.RenderSettings(**kw), 2).numpy()
     assert got.shape == ref.shape == (16, 16, 3)
     bad = (np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).any(axis=-1)
@@ -90,11 +92,11 @@ def test_scene_over_kernel_caps_renders_on_cpu(fused):
         jht.RenderSettings(**kw, fused=jht.Fused.OFF,
                            intersector=jht.Intersector.BRUTE), 2))
 
-    scene = tcornell.material_demo_spheres(rows=6, cols=6).build()
+    scene = tcornell.material_demo_spheres(rows=6, cols=6).build(device=CPU)
     assert scene.num_spheres == 36
     assert not mk.fused_supported(scene, tht.RenderSettings(**kw))
     before = mk.LAUNCHES
-    got = tht.render_frame(scene, tht.make_camera(**cam_kw),
+    got = tht.render_frame(scene, tht.make_camera(**cam_kw, device=CPU),
                            tht.RenderSettings(**kw, fused=tht.Fused[fused]),
                            2).numpy()
     assert mk.LAUNCHES == before
@@ -111,28 +113,28 @@ def test_morton_order_is_a_permutation():
 def _golden_configs():
     """The port's own build of `scripts/gen_goldens.py`'s four core
     fixtures (ladder 1-4)."""
-    cam = tht.make_camera(**CAM)
+    cam = tht.make_camera(**CAM, device=CPU)
     return {
         "envmap_nee": (
             tcornell.material_demo_spheres().build(
-                envmap=tht.Envmap.gradient_sky()),
-            tht.make_camera(**SKY_CAM),
+                envmap=tht.Envmap.gradient_sky(), device=CPU),
+            tht.make_camera(**SKY_CAM, device=CPU),
             tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
                                max_bounces=4, use_envmap=True,
                                env_importance_sampling=True,
                                ray_chunk_size=4096), 1),
         "glass_box": (
-            tcornell.glass_sphere_box().build(), cam,
+            tcornell.glass_sphere_box().build(device=CPU), cam,
             tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
                                max_bounces=8, max_transmission_bounces=8,
                                ray_chunk_size=4096), 1),
         "cornell_diffuse": (
-            tcornell.cornell_box().build(), cam,
+            tcornell.cornell_box().build(device=CPU), cam,
             tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
                                max_bounces=2, ray_chunk_size=4096), 1),
         "cornell_glossy_dof": (
-            tcornell.cornell_box(glossy=True).build(),
-            tht.make_camera(**CAM, aperture_deg=2.0, focal_distance=3.2),
+            tcornell.cornell_box(glossy=True).build(device=CPU),
+            tht.make_camera(**CAM, aperture_deg=2.0, focal_distance=3.2, device=CPU),
             tht.RenderSettings(width=64, height=64, samples_per_pixel=8,
                                max_bounces=4, ray_chunk_size=4096), 1),
     }
@@ -158,11 +160,11 @@ ST = tht.RenderSettings(width=16, height=16, samples_per_pixel=2,
 
 @pytest.fixture(scope="module")
 def scene():
-    return tcornell.cornell_box().build()
+    return tcornell.cornell_box().build(device=CPU)
 
 
 def test_blend_is_running_mean(scene):
-    cam = tht.make_camera(**CAM)
+    cam = tht.make_camera(**CAM, device=CPU)
     r = tht.Renderer(scene, cam, ST)
     r.render(3)
     frames = [tht.render_frame(scene, cam, ST, f).numpy() for f in (1, 2, 3)]
@@ -172,7 +174,7 @@ def test_blend_is_running_mean(scene):
 
 
 def test_done_latch_stops_accumulation(scene):
-    r = tht.Renderer(scene, tht.make_camera(**CAM), ST)
+    r = tht.Renderer(scene, tht.make_camera(**CAM, device=CPU), ST)
     for _ in range(10):
         r.step()
     assert r.done
@@ -183,12 +185,12 @@ def test_done_latch_stops_accumulation(scene):
 
 
 def test_camera_move_resets(scene):
-    r = tht.Renderer(scene, tht.make_camera(**CAM), ST)
+    r = tht.Renderer(scene, tht.make_camera(**CAM, device=CPU), ST)
     r.step()
     r.step()
     assert int(r.state.frame_count) == 3
     moved = tht.make_camera(position=(0.1, 0, 3.2), target=(0, 0, 0),
-                            fov_deg=40)
+                            fov_deg=40, device=CPU)
     r.set_camera(moved)
     assert int(r.state.frame_count) == 1
     r.set_camera(moved)  # same camera: no reset
@@ -197,7 +199,7 @@ def test_camera_move_resets(scene):
 
 
 def test_checkpoint_roundtrip(scene, tmp_path):
-    cam = tht.make_camera(**CAM)
+    cam = tht.make_camera(**CAM, device=CPU)
     r = tht.Renderer(scene, cam, ST)
     r.step()
     r.step()
@@ -213,7 +215,7 @@ def test_checkpoint_roundtrip(scene, tmp_path):
 
 
 def test_unlimited_and_accumulate_off(scene):
-    cam = tht.make_camera(**CAM)
+    cam = tht.make_camera(**CAM, device=CPU)
     r = tht.Renderer(scene, cam, ST.replace(unlimited_sampling=True))
     for _ in range(ST.max_accumulated_frames + 2):
         r.step()
@@ -231,8 +233,8 @@ def test_renderer_matches_jax_renderer():
               ray_chunk_size=512)
     jr = jht.Renderer(jcornell.cornell_box(glossy=True).build(),
                       jht.make_camera(**CAM), jht.RenderSettings(**kw))
-    tr = tht.Renderer(tcornell.cornell_box(glossy=True).build(),
-                      tht.make_camera(**CAM), tht.RenderSettings(**kw))
+    tr = tht.Renderer(tcornell.cornell_box(glossy=True).build(device=CPU),
+                      tht.make_camera(**CAM, device=CPU), tht.RenderSettings(**kw))
     ref, got = jr.render(2), tr.render(2)
     bad = (np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).any(axis=-1)
     assert bad.sum() <= bad.size // 256
@@ -240,18 +242,23 @@ def test_renderer_matches_jax_renderer():
 
 
 def test_no_jax_in_the_port():
-    """Importing the port (and driving it) loads neither JAX nor the JAX
-    package."""
+    """Importing the port (and driving it, a big scene's BVH routes too)
+    loads neither JAX nor the JAX package."""
     import subprocess
     import sys
 
     code = (
         "import sys, halogen_tpu_torch as ht\n"
-        "from halogen_tpu_torch.scene import cornell\n"
-        "from halogen_tpu_torch.kernels import megakernel\n"
-        "s = cornell.cornell_box().build()\n"
+        "from halogen_tpu_torch.scene import cornell, meshes, testing_scene\n"
+        "from halogen_tpu_torch.kernels import megakernel, traverse\n"
+        "from halogen_tpu_torch.accel import build_bvh, native_loader\n"
+        "s = cornell.cornell_box().build(device='cpu')\n"
         "st = ht.RenderSettings(width=4, height=4, max_bounces=1)\n"
-        "ht.render_frame(s, ht.make_camera(), st)\n"
+        "ht.render_frame(s, ht.make_camera(device='cpu'), st)\n"
+        "b = meshes.dragons_hero_scene(1, tris=320).build(device='cpu')\n"
+        "for i in (ht.Intersector.AUTO, ht.Intersector.RAYLET):\n"
+        "    ht.render_frame(b, ht.make_camera(device='cpu'), st.replace(\n"
+        "        intersector=i, brute_force_max_tris=64))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'halogen_tpu')]\n"
         "print(bad)\n"
