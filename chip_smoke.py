@@ -8,7 +8,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
   1. require a CUDA device; print the card's name and power limit;
   2. build the three kernel libraries (the megakernel, its adjoint and
      the world-BVH traversal) from `halogen_tpu_torch/csrc/`, one nvcc
-     process per source, in parallel;
+     process per source, in parallel, and print each kernel's registers,
+     spills and static shared memory;
   3. kernel vs its plain PyTorch version on the card (Cornell glossy,
      64x64 pixels x 4 spp lanes, 4 bounces; Sobol+RR, Sobol, PRNG+RR and
      per-type bounce limits): atol = rtol = 1e-4 per ray, at most 0.1% of
@@ -54,9 +55,11 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      differences);
  12. the `glass_box` and `envmap_nee` goldens rendered through the
      kernels, at `tests/test_golden.py`'s bounds;
- 13. the registers and spill bytes of every variant, and their and their
-     plain versions' times at the launch shape (262144 rays): B1a at 6
-     bounces, the glass variant at 8, the env-NEE variant at 4;
+ 13. the registers and spill bytes of every variant (the adjoints' with
+     the transcript in shared and in device memory), and the forward
+     variants' and their plain versions' times at the launch shape
+     (262144 rays): B1a at 6 bounces, the glass variant at 8, the env-NEE
+     variant at 4;
  14. the forward paths at full size: the glass box (512x512, 32 spp, 8
      bounces, one warm-up and 4 timed frames) and the `envmap_1024` preset
      (material spheres under the sky, 1024x1024, 16 spp, 4 bounces, env
@@ -117,7 +120,20 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      idle share (profiler); then one 256x256 frame through `Fused.OFF`
      (lockstep + B3 on the card), mean radiance within 2% of the kernel
      route's;
- 21. the work each launch shape of B1a-c, B2 and B2b needs, for their
+ 21. the adjoint's transcript routes: the glass adjoint at 20 bounces
+     without RR, past the shared-memory budget, so in device memory: vs
+     its plain version at phase 7's tolerance, bitwise repeatable, its
+     replay equal to the forward bit for bit; and B2 and B2b at 6 and 8
+     bounces through both routes, which must give the same bits;
+ 22. B3 and B1d on a walk 19 stack entries deep: the deep strip
+     (`meshes.deep_strip_scene`, max_leaf 1) under the sky, 16384 camera
+     rays: B3 vs its plain version (t, u, v at 1e-5, the same triangles,
+     rays that find triangle 1 in the 19th entry), and B1c+d vs plain as
+     in phase 17;
+ 23. B1a then B2, and B1b then B2b, on the same rays at the launch shape,
+     in turns (forward, adjoint, adjoint, forward; events and device
+     time): the adjoint's own share;
+ 24. the work each launch shape of B1a-c, B2 and B2b needs, for their
      bounds.
 The last lines are a JSON record of every kernel (B1a-d, B2, B2b, B3, and
 the routes B4-B6 that B3's kernel serves) with its launches on its main
@@ -182,12 +198,17 @@ def _cuda_ms(fn, reps: int) -> float:
 def _resources(log: str) -> dict:
     """Registers and spill-store bytes of every kernel variant, from
     nvcc's `-Xptxas -v` output: {name: (registers, spill bytes)}."""
-    names = {"megakernelILb0ELb0ELb0E": "B1a", "megakernelILb1ELb0ELb0E": "B1b",
-             "megakernelILb0ELb1ELb0E": "B1c", "megakernelILb1ELb1ELb0E": "B1b+c",
-             "megakernelILb0ELb0ELb1E": "B1d", "megakernelILb1ELb0ELb1E": "B1b+d",
-             "megakernelILb0ELb1ELb1E": "B1c+d",
-             "megakernelILb1ELb1ELb1E": "B1b+c+d",
-             "adjoint_kernelILb0E": "B2", "adjoint_kernelILb1E": "B2b",
+    names = {"megakernelILb0ELb0EE": "B1a", "megakernelILb1ELb0EE": "B1b",
+             "megakernelILb0ELb1EE": "B1c", "megakernelILb1ELb1EE": "B1b+c",
+             "megakernel_bvhILb0ELb0EE": "B1d",
+             "megakernel_bvhILb1ELb0EE": "B1b+d",
+             "megakernel_bvhILb0ELb1EE": "B1c+d",
+             "megakernel_bvhILb1ELb1EE": "B1b+c+d",
+             # the transcript in shared memory, and in device memory
+             "adjoint_kernelILb0ELb1EE": "B2",
+             "adjoint_kernelILb1ELb1EE": "B2b",
+             "adjoint_kernelILb0ELb0EE": "B2 global",
+             "adjoint_kernelILb1ELb0EE": "B2b global",
              "traverse_kernel": "B3"}
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
@@ -688,7 +709,8 @@ def main() -> int:
     print(f"[13] registers, spill-store bytes per variant: {res}",
           flush=True)
     assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
-                        "B1c+d", "B1b+c+d", "B2", "B2b", "B3"}, res
+                        "B1c+d", "B1b+c+d", "B2", "B2b", "B2 global",
+                        "B2b global", "B3"}, res
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -1169,7 +1191,7 @@ def main() -> int:
         torch.cuda.synchronize()
         assert np.isfinite(got.cpu().numpy()).all(), name
         k_ms = [_cuda_ms(kernel, 5), _cuda_ms(kernel, 5)]
-        dev_ms = profiled_ms(kernel, "megakernel<", reps=5)
+        dev_ms = profiled_ms(kernel, "megakernel_bvh<", reps=5)
         p_ms = [_cuda_ms(plain, 1), _cuda_ms(plain, 1)]
         w = _path_work(sc, o_cam, d_cam, dcam.far, sidx_cam, seed_cam, st19)
         ops = _path_ops(w, sc.any_transmissive, "c" in name)
@@ -1230,7 +1252,127 @@ def main() -> int:
           flush=True)
     assert rel20 < 2e-2, "glass dragon mean radiance disagrees with plain"
 
-    # --- 21. the record of every kernel: bounds from the work each
+    # --- 21. the adjoint's transcript routes
+    pix64 = torch.arange(64 * 64, device=dev)
+    st21 = glass_cases["glass_sobol_no_rr"].replace(
+        max_bounces=20, max_transmission_bounces=20)
+    assert adj.transcript_route(glass, st21) == "global", "cap"
+    o21, d21, sidx21, seed21 = rays(pix64, 4, 4, st21, 1)
+    ct21 = torch.rand((o21.shape[0], 3),
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    replay = torch.empty_like(o21)
+    got = adj._launch(glass, o21, d21, cam.far, sidx21, seed21, ct21, st21,
+                      None, replay)
+    again = adj.trace_grad_fused_materials(glass, o21, d21, cam.far, sidx21,
+                                           seed21, ct21, st21)
+    fwd = mk.trace_color_fused(glass, o21, d21, cam.far, sidx21, seed21,
+                               st21)
+    ref = adj.trace_grad_fused_materials_reference(
+        glass, o21, d21, cam.far, sidx21, seed21, ct21, st21)
+    torch.cuda.synchronize()
+    g21_err, ratio = _grad_compare(got, ref)
+    repeat, replay_ok = torch.equal(got, again), torch.equal(replay, fwd)
+    print(f"[21] glass adjoint, 20 bounces, no RR ({o21.shape[0]} rays): the "
+          f"global route ({adj.smem_bytes(glass, st21)} bytes of shared "
+          f"memory a block would need, budget {adj.SMEM_BUDGET}); [K, 12] max"
+          f" |diff| {g21_err:.3e}, worst diff/bound {ratio:.3e} (<= 1); "
+          f"bitwise repeatable {repeat}; replay color == forward "
+          f"{replay_ok}", flush=True)
+    assert ratio <= 1.0 and repeat and replay_ok, "global route"
+    routes21 = {}
+    for name, sc, st_r in (("B2", scene, cases["bounce_limits"]),
+                           ("B2b", glass, glass_cases["glass_sobol_rr"])):
+        o_r, d_r, sidx_r, seed_r = rays(pix64, 4, 4, st_r, 1)
+        ct_r = torch.rand((o_r.shape[0], 3),
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+        a, b = (adj._launch(sc, o_r, d_r, cam.far, sidx_r, seed_r, ct_r, st_r,
+                            None, route=r) for r in ("shared", "global"))
+        torch.cuda.synchronize()
+        routes21[name] = dict(smem_bytes=adj.smem_bytes(sc, st_r),
+                              same_bits=torch.equal(a, b))
+        print(f"[21] {name}, {st_r.max_bounces} bounces: shared route "
+              f"({routes21[name]['smem_bytes']} bytes a block) and global "
+              f"route give the same bits: {routes21[name]['same_bits']}",
+              flush=True)
+        assert routes21[name]["same_bits"], f"{name} routes differ"
+
+    # --- 22. B3 and B1d on a walk 19 entries deep
+    strip = meshes.deep_strip_scene().build(envmap=sky, max_leaf=1,
+                                            device=dev)
+    scam = ht.make_camera(**meshes.STRIP_CAM, device=dev)
+    st22 = ht.RenderSettings(width=64, height=64, samples_per_pixel=4,
+                             max_bounces=4, use_envmap=True,
+                             env_importance_sampling=True, env_mip_level=0)
+    o22, d22, sidx22, seed22 = rays(pix64, 4, 4, st22, 1, scam)
+    inf22 = torch.full((o22.shape[0],), float("inf"), device=dev)
+    got = [x.cpu().numpy() for x in traverse.traverse_world(
+        strip.wbvh, o22, d22, inf22)]
+    ref = [x.cpu().numpy() for x in traverse.traverse_world_reference(
+        strip.wbvh, o22, d22, inf22)]
+    assert np.array_equal(np.isinf(got[0]), np.isinf(ref[0])), "strip hits"
+    hit = np.isfinite(ref[0])
+    hit_x = (o22[:, 0].cpu().numpy() + np.where(hit, ref[0], 0.0)
+             * d22[:, 0].cpu().numpy())
+    deep_hits = int((hit & (np.abs(hit_x - 1.15) < 1e-3)).sum())
+    strip_err = max(float(np.abs(got[i][hit] - ref[i][hit]).max())
+                    for i in (0, 2, 3))
+    assert strip_err <= PARITY_TOL / 10 and np.array_equal(got[1], ref[1])
+    assert deep_hits > 0, "no ray found triangle 1 in the 19th entry"
+    got = mk.trace_fused_outputs(strip, o22, d22, scam.far, sidx22, seed22,
+                                 st22)
+    ref = mk.trace_color_fused_reference(strip, o22, d22, scam.far, sidx22,
+                                         seed22, st22)
+    col = mk.trace_color_fused(strip, o22, d22, scam.far, sidx22, seed22,
+                               st22)
+    torch.cuda.synchronize()
+    n_bad, n_dir, bad_w, err22, n_sky, _, _ = compare_as_read(strip, got, ref)
+    n_col, err_col = compare(col, deferred_sky(strip, st22, ref))
+    n22 = got.shape[0]
+    print(f"[22] the deep strip ({strip.num_triangles} triangles, max_leaf "
+          f"1): B3 on {n22} camera rays, {int(hit.sum())} hits, "
+          f"{deep_hits} on triangle 1 (found in the 19th stack entry), t/u/v"
+          f" max |diff| {strip_err:.3e}, triangles equal; B1c+d outputs (but"
+          f" 7-10) max |diff| {err22:.3e}, {n_bad} rays outside; on the "
+          f"{n_sky} sky rays direction {n_dir}, MIS weight {bad_w} outside;"
+          f" color after the sky max |diff| {err_col:.3e}, {n_col} rays "
+          f"outside", flush=True)
+    assert max(n_bad, n_dir, bad_w, n_col) <= PARITY_MAX_OUTSIDE * n22, (
+        "deep strip B1d")
+
+    # --- 23. each adjoint beside its forward kernel on the same rays, in
+    # turns: forward, adjoint, adjoint, forward
+    turns23 = {}
+    for f_name, a_name, sc, st23, r23 in (
+            ("B1a", "B2", scene, st_a, (o, d, sidx, seed)),
+            ("B1b", "B2b", glass, st_g, (o_g, d_g, sidx_g, seed_g))):
+        o23, d23, s23, e23 = r23
+        tab23 = mk._scene_tables(sc)
+        ct23 = torch.rand((o23.shape[0], 3),
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+        fns = {f_name: (lambda: mk.trace_fused_outputs(
+                   sc, o23, d23, cam.far, s23, e23, st23, tab23),
+                        "megakernel<"),
+               a_name: (lambda: adj.trace_grad_fused_materials(
+                   sc, o23, d23, cam.far, s23, e23, ct23, st23, tab23),
+                        "adjoint_kernel<")}
+        t23 = {f_name: [], a_name: []}
+        for name in (f_name, a_name, a_name, f_name):
+            fn, key = fns[name]
+            fn()
+            t23[name].append((_cuda_ms(fn, 10), profiled_ms(fn, key)))
+        dev_f = float(np.mean([x[1] for x in t23[f_name]]))
+        dev_a = float(np.mean([x[1] for x in t23[a_name]]))
+        turns23[a_name] = dict(events_ms=[x[0] for x in t23[a_name]],
+                               device_ms=[x[1] for x in t23[a_name]],
+                               forward_device_ms=[x[1] for x in t23[f_name]],
+                               own_device_ms=dev_a - dev_f)
+        print(f"[23] {f_name} then {a_name} on the same {o23.shape[0]} rays, "
+              f"{st23.max_bounces} bounces, in turns: {f_name} {t23[f_name]}"
+              f" ms, {a_name} {t23[a_name]} ms (events, device); the "
+              f"adjoint's own device time {dev_a - dev_f:.4f} ms of "
+              f"{dev_a:.4f} | {card}", flush=True)
+
+    # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
     w_b = _path_work(glass, o_g, d_g, cam.far, sidx_g, seed_g, st_g)
@@ -1256,7 +1398,7 @@ def main() -> int:
     b3_bytes = (n * 56 + _table_bytes((wb.nodes, wb.tris, wb.tri_map)))
     tt, bt, _ = work19["camera"]
     bounds["B3"] = _bound(b3_bytes, tt * OPS_TRI + bt * OPS_BOX)
-    print(f"[21] path work at the launch shapes: B1a {w_a}, B1b {w_b}, B1c "
+    print(f"[24] path work at the launch shapes: B1a {w_a}, B1b {w_b}, B1c "
           f"{w_c}; bounds (ms, by) {bounds}", flush=True)
 
     def entry(name, replaces, source, launches, err, k_ms, p_ms, **extra):
@@ -1306,6 +1448,10 @@ def main() -> int:
               device_idle_share=idle20),
         entry("B2", "halogen_tpu/kernels/adjoint.py:80", adjs,
               fb_launches[1], adj_err, adj_ms, adj_plain_ms, **reg("B2"),
+              global_route_registers=res["B2 global"],
+              smem_bytes_per_block=adj.smem_bytes(scene, st_a),
+              routes_same_bits=routes21["B2"]["same_bits"],
+              in_turns_with_B1a=turns23["B2"],
               parity_max_abs_err=adj_parity, fwd_bwd_mrays_per_s=fb_mrays,
               fwd_bwd_step_ms=dt9 / 2 * 1000.0,
               fit_s_per_step_median=fit_s,
@@ -1314,6 +1460,11 @@ def main() -> int:
               fit_held_out_loss=held),
         entry("B2b", "halogen_tpu/kernels/adjoint.py:244", adjs, fb15[1],
               b2b_err, b2b_k, b2b_p, **reg("B2b"),
+              global_route_registers=res["B2b global"],
+              smem_bytes_per_block=adj.smem_bytes(glass, st_g),
+              routes_same_bits=routes21["B2b"]["same_bits"],
+              global_route_max_abs_err=g21_err,
+              in_turns_with_B1b=turns23["B2b"],
               parity_max_abs_err=adj15, fwd_bwd_mrays_per_s=fb15_mrays,
               fwd_bwd_step_ms=dt15 / 2 * 1000.0),
         entry("B3", "halogen_tpu/kernels/bvh_pallas.py:142", trav,
@@ -1321,7 +1472,8 @@ def main() -> int:
               **reg("B3"), plain_rays=16384,
               device_ms=times19["camera"][1],
               bounce_rays_ms=times19["bounce"][0],
-              bounce_rays_device_ms=times19["bounce"][1]),
+              bounce_rays_device_ms=times19["bounce"][1],
+              deep_strip_max_abs_err=strip_err),
     ]
     for name, route, replaces in (
             ("B4", "TREELET", "halogen_tpu/kernels/treelet_bvh.py:192"),
@@ -1330,7 +1482,7 @@ def main() -> int:
         bounds[name] = bounds["B3"]
         kernels.append(entry(
             name, replaces, trav, routes16[route][0], routes16[route][1],
-            times19["camera"][0], b3_plain_ms, plain_rays=16384,
+            times19["camera"][0], b3_plain_ms, **reg("B3"), plain_rays=16384,
             served_by="B3", intersector=route))
     print(json.dumps({"kernels": kernels}))
     print(card)

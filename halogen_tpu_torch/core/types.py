@@ -76,10 +76,12 @@ class WorldBVH:
     slot to the scene's global triangle id. A node is 8 floats, two
     16-byte loads: lo.xyz, hi.xyz, index_a, count (ints as exact floats;
     count > 0 marks a leaf of triangles index_a.., else the children are
-    nodes index_a and index_a + 1). Node 0 is the root."""
+    nodes index_a and index_a + 1). Node 0 is the root. A triangle row is
+    12 floats, three 16-byte loads: the JAX package's 9 values and 3
+    zeros."""
 
     nodes: torch.Tensor  # [Nn, 8] float32
-    tris: torch.Tensor  # [T, 9] float32 in slot order: v0, e1, e2
+    tris: torch.Tensor  # [T, 12] float32 in slot order: v0, e1, e2, 0
     trin: torch.Tensor  # [T, 10] float32 in slot order: n0, n1-n0, n2-n0, mat
     tri_map: torch.Tensor  # [T] int32: slot -> global triangle id
 

@@ -11,10 +11,10 @@
 //      the replay rounds as the forward does and takes its Fresnel,
 //      refraction and Russian-roulette decisions bit for bit, and
 //      records a transcript per shaded bounce (`adjoint.py:447-456`):
-//      attenuation before the bounce, hit material, mask code (shade,
-//      spec, absorbing, survive, true hit, refraction), hit distance and
-//      the material of the medium the ray came through (the current
-//      medium, whose absorption Beer-Lambert applied; -1 elsewhere);
+//      attenuation before the bounce, hit distance, and one word holding
+//      the hit material, the material of the medium the ray came through
+//      (whose absorption Beer-Lambert applied) and the mask bits (spec,
+//      absorbing, survive, true hit, refraction);
 //   2. sweeps the bounces in reverse (`adjoint.py:480-583`): the
 //      attenuation cotangent gA flows back through the RR division
 //      1/max(atten) (the max's cotangent split evenly over argmax ties,
@@ -24,29 +24,42 @@
 //      is 1) to its hit material and d absorption to the current
 //      medium's material;
 //   3. sums those per material in a fixed order, so two calls give the
-//      same bits: per bounce, the block's 128 threads put their 12 values
-//      and material ids in shared memory and thread t sums accumulators
-//      t, t + 128, ... of the [K, 12] table over the 128 entries in index
-//      order; each block writes its partial table; a second kernel sums
-//      the blocks in a fixed tree.
+//      same bits (see below); each block writes its partial [K, 12]
+//      table, and a second kernel sums the blocks in a fixed tree.
 // A dead path stops its replay at its last shaded bounce; later bounces
 // pass gA through unchanged and contribute nothing (`adjoint.py:551-561`),
 // so sweeping only the shaded bounces is exact.
 //
-// What bounds it on this card: the replay, FP32 and integer throughput as in
-// the forward kernel (the sweep adds ~60 flops per shaded bounce). On top
-// of it come 28 bytes of transcript per shaded bounce, written in the
-// replay and read back in the sweep by the same thread: lane i of a warp
-// touches neighbouring addresses of a [B, 7, N] buffer, so both are
-// coalesced, and at 262144 rays the buffer (~51 MB at 7 bounces) mostly
-// stays in the 50 MB L2. The block reduction costs one barrier and
-// 128 shared-memory reads per accumulator per bounce that any path of the
-// block reached; rows are padded to 129 floats so that the threads of a
-// warp, which read one column of different rows, hit different banks.
-//
-// B2b adds the stack's registers to the replay and a second material id
-// per bounce to the sums (already there for B2's exiting hits); the
-// transcript keeps its 7 rows, 66 MB at 8 bounces and 262144 rays.
+// What bounds it on this card: the replay, which is the forward kernel's
+// bounce (FP32 and integer issue, divergence; B1b's bounce is ~three
+// quarters of B2b's time), then the sweep's ~60 flops a shaded bounce and
+// the sums. The bound of the work (its operations at the card's FP32 rate)
+// is 0.0120 ms for B2b's 262144 glass rays at 8 bounces and 0.0097 ms for
+// B2's Cornell rays at 6, against 0.36 and 0.16 ms of device time on an
+// H100 80GB HBM3 (PERF.md §6). A transcript in a device buffer ([B, 7, N],
+// 66 MB at 8 bounces and 262144 rays, past the 50 MB L2) and a block
+// barrier per bounce, after which K x 12 threads each sum one column over
+// the block's 128 paths, would keep every warp of a block waiting on its
+// longest path and on serial chains.
+// What the design does about it:
+//   - the transcript stays on chip: 20 bytes per bounce (a_prev rgb,
+//     t, the packed word) in shared memory, laid out [bounce][field]
+//     [thread] so that a warp's accesses fall in distinct banks, sized
+//     from max_bounces at launch (~23 KB a block at 8 bounces). Where it
+//     does not fit the wrapper's shared-memory budget, the same layout
+//     goes to device memory (the global route, [block][bounce][field]
+//     [thread]; within a few per cent of the shared route at 8 and 16
+//     bounces, either way);
+//   - the sums run per warp, with no block barrier per bounce: each warp
+//     sweeps its own paths at its own pace; per bounce the lanes of one
+//     hit material (`__match_any_sync`), and for the absorption columns
+//     those of one Beer material, add their values in a tree over their
+//     ranks in lane order, and the group's lowest lane adds the sum to
+//     the warp's [K, 12] table in shared memory (groups write distinct
+//     rows, so there are no atomics); at the end the block adds its four
+//     warp tables in warp order. Every order is fixed by lane and warp
+//     position, so two calls give the same bits.
+// PERF.md §6 gives the replay's, the sweep's and the sums' shares.
 //
 // Build with -fmad=false and without fast math, as megakernel.cu.
 
@@ -56,12 +69,18 @@ namespace {
 
 using namespace halogen;
 
-constexpr int kRec = 7;             // transcript rows per bounce
 constexpr int kNGrad = 12;          // d_e | d_albedo | d_specular | d_absorption
 constexpr int kMaxMaterials = 64;   // kernels/megakernel.py MAX_MATERIALS
-constexpr int kMaxAcc = kMaxMaterials * kNGrad / kThreads;  // per thread
-constexpr int kPad = kThreads + 1;  // shared row stride
+constexpr int kWarps = kThreads / 32;
+constexpr int kRec = 5;             // transcript words per bounce
 constexpr int kReduceThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// the packed word: hit material in bits 0-7, Beer material in 8-15, masks
+constexpr uint32_t kSpec = 1u << 16;
+constexpr uint32_t kAbsorbing = 1u << 17;
+constexpr uint32_t kSurvive = 1u << 18;
+constexpr uint32_t kTrueHit = 1u << 19;
+constexpr uint32_t kRefr = 1u << 20;
 
 struct Params {
   const float* origin;         // [N, 3]
@@ -71,29 +90,87 @@ struct Params {
   const uint32_t* seed;        // [N]
   const float* ct;             // [N, 3] cotangent of the color
   SceneView scene;             // global-memory tables
-  float* transcript;           // [B, 7, N] scratch
+  uint32_t* transcript;        // global route: [blocks, B + 1, 5, 128]
   float* partial;              // [blocks, K * 12]
   float* color;                // [N, 3] replayed color, or null
   int n;
   PathConfig cfg;
 };
 
-template <bool kTransmissive>
+// Position of the n-th (from 0) set bit of `mask`, which has more than n.
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(mask & ((1u << w) - 1u));
+    if (n >= c) {
+      n -= c;
+      mask >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// Adds, for every key that some lane of the warp holds (keys < 0 are
+// skipped), columns [C0, C1) of g summed over the lanes holding it to row
+// `key` of the warp's table `acc`. A group sums as a tree over its lanes'
+// ranks in lane order (rank r takes rank r + s at step s), so the order
+// depends on lane positions only; the group's lowest lane writes its row.
+// Every lane of the warp calls this with the same C0, C1.
+template <int C0, int C1>
+__device__ __forceinline__ void warp_sum_by_key(int key, float (&g)[kNGrad],
+                                                float* acc) {
+  const unsigned peers = __match_any_sync(kFull, key);
+  const unsigned lane = threadIdx.x & 31u;
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int size = key >= 0 ? __popc(peers) : 0;
+  const int max_size = __reduce_max_sync(kFull, size);
+  for (int s = 1; s < max_size; s <<= 1) {
+    const bool take = (rank & (2 * s - 1)) == 0 && rank + s < size;
+    const int src =
+        take ? nth_set_bit(peers, rank + s) : static_cast<int>(lane);
+#pragma unroll
+    for (int c = C0; c < C1; ++c) {
+      const float o = __shfl_sync(kFull, g[c], src);
+      if (take) g[c] += o;
+    }
+  }
+  if (rank == 0 && key >= 0) {
+#pragma unroll
+    for (int c = C0; c < C1; ++c) acc[key * kNGrad + c] += g[c];
+  }
+  __syncwarp();  // the next bounce's writers of a row read this one's
+}
+
+template <bool kTransmissive, bool kSmemTranscript>
 __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
   extern __shared__ float smem[];
   const SceneView sc = load_scene(p.scene, smem);
-  float* s_g = smem + scene_smem_floats(p.scene.num_tris,
-                                        p.scene.num_spheres,
-                                        p.scene.num_materials);  // [12][kPad]
-  int* s_id = reinterpret_cast<int*>(s_g + kNGrad * kPad);       // [2][kPad]
+  const int n_acc = sc.num_materials * kNGrad;
+  // [kWarps, K * 12] sums, then (shared route) the transcript
+  float* s_acc = smem + scene_smem_floats(p.scene.num_tris,
+                                          p.scene.num_spheres,
+                                          p.scene.num_materials);
+  for (int j = threadIdx.x; j < kWarps * n_acc; j += kThreads)
+    s_acc[j] = 0.0f;
   __syncthreads();
 
   const int tid = threadIdx.x;
   const int i = blockIdx.x * blockDim.x + tid;
   const bool valid = i < p.n;
-  const size_t n = static_cast<size_t>(p.n);
   PathConfig cfg = p.cfg;
   cfg.far = p.far[0];
+  // word f of bounce k of this thread's path: rec[(k * kRec + f) * kThreads]
+  uint32_t* rec;
+  if constexpr (kSmemTranscript) {
+    rec = reinterpret_cast<uint32_t*>(s_acc + kWarps * n_acc) + tid;
+  } else {
+    rec = p.transcript +
+          static_cast<size_t>(blockIdx.x) * (cfg.max_bounces + 1) * kRec *
+              kThreads +
+          tid;
+  }
 
   // ------------------------------------------------------------------
   // forward replay, recording the transcript of each shaded bounce
@@ -107,26 +184,25 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
     const uint32_t sidx = p.sample_idx[i];
     const uint32_t seed = p.seed[i];
     if constexpr (kTransmissive) s.stack.init();
-    BounceRecord rec;
+    BounceRecord r;
     for (int k = 0; k <= cfg.max_bounces; ++k) {
-      const int r = path_bounce<kTransmissive, false>(sc, cfg, sidx, seed, k,
-                                                      s, rec);
-      if (r == kEnded) break;
-      float* row = p.transcript + static_cast<size_t>(k) * kRec * n + i;
-      const float code = 1.0f + (rec.spec ? 2.0f : 0.0f) +
-                         (rec.absorbing ? 4.0f : 0.0f) +
-                         (rec.survive ? 8.0f : 0.0f) +
-                         (rec.is_true ? 16.0f : 0.0f) +
-                         (rec.refr ? 32.0f : 0.0f);
-      row[0] = rec.a_prev.x;
-      row[n] = rec.a_prev.y;
-      row[2 * n] = rec.a_prev.z;
-      row[3 * n] = static_cast<float>(rec.mat);
-      row[4 * n] = code;
-      row[5 * n] = rec.t_safe;
-      row[6 * n] = rec.absorbing ? static_cast<float>(rec.ab_mat) : -1.0f;
+      const int res = path_bounce<kTransmissive, false>(sc, cfg, sidx, seed,
+                                                        k, s, r);
+      if (res == kEnded) break;
+      uint32_t* w = rec + k * kRec * kThreads;
+      w[0] = __float_as_uint(r.a_prev.x);
+      w[kThreads] = __float_as_uint(r.a_prev.y);
+      w[2 * kThreads] = __float_as_uint(r.a_prev.z);
+      w[3 * kThreads] = __float_as_uint(r.t_safe);
+      w[4 * kThreads] = static_cast<uint32_t>(r.mat) |
+                        (r.absorbing ? static_cast<uint32_t>(r.ab_mat) << 8
+                                     : 0u) |
+                        (r.spec ? kSpec : 0u) |
+                        (r.absorbing ? kAbsorbing : 0u) |
+                        (r.survive ? kSurvive : 0u) |
+                        (r.is_true ? kTrueHit : 0u) | (r.refr ? kRefr : 0u);
       n_shaded = k + 1;
-      if (r != kShadedGoesOn) break;
+      if (res != kShadedGoesOn) break;
     }
     if (p.color != nullptr) {
       p.color[3 * i] = s.color.x;
@@ -136,37 +212,32 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
   }
 
   // ------------------------------------------------------------------
-  // reverse sweep and per-block material sums
+  // reverse sweep and per-warp material sums, each warp at its own pace
   // ------------------------------------------------------------------
   const V3 ct = valid ? V3{p.ct[3 * i], p.ct[3 * i + 1], p.ct[3 * i + 2]}
                       : V3{0.0f, 0.0f, 0.0f};
-  const int n_acc = sc.num_materials * kNGrad;
+  float* acc = s_acc + (tid >> 5) * n_acc;
   V3 gA = {0.0f, 0.0f, 0.0f};
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int q = 0; q < kMaxAcc; ++q) acc[q] = 0.0f;
-
-  for (int k = cfg.max_bounces; k >= 0; --k) {
-    // A barrier, and a block-uniform skip of bounces no path reached.
-    if (!__syncthreads_or(k < n_shaded)) continue;
+  for (int k = __reduce_max_sync(kFull, n_shaded) - 1; k >= 0; --k) {
     float g[kNGrad];
 #pragma unroll
     for (int j = 0; j < kNGrad; ++j) g[j] = 0.0f;
     int mid = -1, abid = -1;
     if (k < n_shaded) {
-      const float* row = p.transcript + static_cast<size_t>(k) * kRec * n + i;
-      const V3 a_prev = {row[0], row[n], row[2 * n]};
-      const int mat = static_cast<int>(row[3 * n]);
-      const int code = static_cast<int>(row[4 * n]);
-      const float t_safe = row[5 * n];
-      const int ab_mat = static_cast<int>(row[6 * n]);
-      const bool spec = (code & 2) != 0;
-      const bool absorbing = (code & 4) != 0;
-      const bool survive = (code & 8) != 0;
+      const uint32_t* w = rec + k * kRec * kThreads;
+      const V3 a_prev = {__uint_as_float(w[0]), __uint_as_float(w[kThreads]),
+                         __uint_as_float(w[2 * kThreads])};
+      const float t_safe = __uint_as_float(w[3 * kThreads]);
+      const uint32_t word = w[4 * kThreads];
+      const int mat = static_cast<int>(word & 0xffu);
+      const int ab_mat = static_cast<int>((word >> 8) & 0xffu);
+      const bool spec = (word & kSpec) != 0;
+      const bool absorbing = (word & kAbsorbing) != 0;
+      const bool survive = (word & kSurvive) != 0;
       // a refraction or a false hit scatters with color 1
       // (adjoint.py:512-516); opaque bounces never do
       const bool surf =
-          !kTransmissive || ((code & 16) != 0 && (code & 32) == 0);
+          !kTransmissive || ((word & kTrueHit) != 0 && (word & kRefr) == 0);
 
       // recompute the bounce's scatter factor (adjoint.py:499-524); the
       // absorption is the current medium's material row
@@ -188,12 +259,16 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
         const float ty = a_post.y == contribution ? 1.0f : 0.0f;
         const float tz = a_post.z == contribution ? 1.0f : 0.0f;
         const float n_tie = fmaxf(tx + ty + tz, 1.0f);
+        // t / n_tie for t in {0, 1} and n_tie in {1, 2, 3} is 0 or 1 /
+        // n_tie rounded, so a select gives the division's bits
+        const float inv_tie =
+            n_tie == 1.0f ? 1.0f : (n_tie == 2.0f ? 0.5f : 1.0f / 3.0f);
         const float gate = contribution > 1e-20f ? 1.0f : 0.0f;
         const float dot_ga =
             gA.x * a_post.x + gA.y * a_post.y + gA.z * a_post.z;
-        gp = {gA.x * inv_c - tx / n_tie * gate * dot_ga * inv_c * inv_c,
-              gA.y * inv_c - ty / n_tie * gate * dot_ga * inv_c * inv_c,
-              gA.z * inv_c - tz / n_tie * gate * dot_ga * inv_c * inv_c};
+        gp = {gA.x * inv_c - tx * inv_tie * gate * dot_ga * inv_c * inv_c,
+              gA.y * inv_c - ty * inv_tie * gate * dot_ga * inv_c * inv_c,
+              gA.z * inv_c - tz * inv_tie * gate * dot_ga * inv_c * inv_c};
       }
 
       // throughput product and emission (adjoint.py:551-574)
@@ -223,33 +298,25 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
       mid = mat;
       abid = absorbing ? ab_mat : -1;
     }
-
-#pragma unroll
-    for (int j = 0; j < kNGrad; ++j) s_g[j * kPad + tid] = g[j];
-    s_id[tid] = mid;
-    s_id[kPad + tid] = abid;
-    __syncthreads();
-    // accumulator a = material * 12 + column; absorption follows the
-    // Beer material, the other columns the hit material
-#pragma unroll
-    for (int q = 0; q < kMaxAcc; ++q) {
-      const int a = tid + q * kThreads;
-      if (a < n_acc) {
-        const int mat = a / kNGrad, c = a % kNGrad;
-        const int* ids = s_id + (c < 9 ? 0 : kPad);
-        const float* gc = s_g + c * kPad;
-        float sum = acc[q];
-        for (int e = 0; e < kThreads; ++e) sum += ids[e] == mat ? gc[e] : 0.0f;
-        acc[q] = sum;
-      }
+    // absorption follows the Beer material, the other columns the hit
+    // material; an opaque bounce's Beer material is its hit material (and
+    // its absorption columns are 0 where it does not absorb), so B2 sums
+    // all 12 columns in one grouping
+    if constexpr (kTransmissive) {
+      warp_sum_by_key<0, 9>(mid, g, acc);
+      if (__any_sync(kFull, abid >= 0)) warp_sum_by_key<9, 12>(abid, g, acc);
+    } else {
+      warp_sum_by_key<0, kNGrad>(mid, g, acc);
     }
   }
 
+  // the block's partial table: its warps' tables added in warp order
+  __syncthreads();
+  for (int a = tid; a < n_acc; a += kThreads) {
+    float sum = s_acc[a];
 #pragma unroll
-  for (int q = 0; q < kMaxAcc; ++q) {
-    const int a = tid + q * kThreads;
-    if (a < n_acc)
-      p.partial[static_cast<size_t>(blockIdx.x) * n_acc + a] = acc[q];
+    for (int w = 1; w < kWarps; ++w) sum += s_acc[w * n_acc + a];
+    p.partial[static_cast<size_t>(blockIdx.x) * n_acc + a] = sum;
   }
 }
 
@@ -274,17 +341,19 @@ __global__ void __launch_bounds__(kReduceThreads)
 
 }  // namespace
 
+// `transcript` null: the shared route, the transcript in shared memory;
+// else the global route, a [blocks, max_bounces + 1, 5, 128] word buffer.
 extern "C" int halogen_adjoint_launch(
     const float* origin, const float* direction, const float* far,
     const int* sample_idx, const int* seed, const float* ct,
     const float* tri, const float* trin, const float* sph, const float* mat,
-    float* transcript, float* partial, float* out, float* color, int n,
+    int* transcript, float* partial, float* out, float* color, int n,
     int num_tris, int num_spheres, int num_materials, int max_bounces,
     int lim_d, int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_acc = num_materials * kNGrad;
-  if (num_materials > kMaxMaterials)
+  if (num_materials > kMaxMaterials || max_bounces < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0)
     return static_cast<int>(
@@ -297,19 +366,26 @@ extern "C" int halogen_adjoint_launch(
   p.seed = reinterpret_cast<const uint32_t*>(seed);
   p.ct = ct;
   p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials};
-  p.transcript = transcript;
+  p.transcript = reinterpret_cast<uint32_t*>(transcript);
   p.partial = partial;
   p.color = color;
   p.n = n;
   p.cfg = {0.0f, max_bounces, lim_d, lim_g, lim_t, sobol != 0, use_rr != 0};
+  const bool in_smem = transcript == nullptr;
   const size_t smem =
-      sizeof(float) * (scene_smem_floats(num_tris, num_spheres, num_materials) +
-                       (kNGrad + 2) * kPad);
+      sizeof(float) *
+          (scene_smem_floats(num_tris, num_spheres, num_materials) +
+           static_cast<size_t>(kWarps) * n_acc) +
+      (in_smem ? sizeof(uint32_t) * (max_bounces + 1) * kRec * kThreads : 0);
   const int blocks = (n + kThreads - 1) / kThreads;
-  if (transmissive) {
-    adjoint_kernel<true><<<blocks, kThreads, smem, st>>>(p);
+  if (transmissive && in_smem) {
+    adjoint_kernel<true, true><<<blocks, kThreads, smem, st>>>(p);
+  } else if (transmissive) {
+    adjoint_kernel<true, false><<<blocks, kThreads, smem, st>>>(p);
+  } else if (in_smem) {
+    adjoint_kernel<false, true><<<blocks, kThreads, smem, st>>>(p);
   } else {
-    adjoint_kernel<false><<<blocks, kThreads, smem, st>>>(p);
+    adjoint_kernel<false, false><<<blocks, kThreads, smem, st>>>(p);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -12,6 +12,7 @@
 namespace halogen {
 
 constexpr int kTriStride = 9;    // v0, e1, e2
+constexpr int kTriRow4 = 3;      // the BVH tier's rows: v0, e1, e2, 3 pad
 constexpr int kTrinStride = 10;  // n0, n1 - n0, n2 - n0, material
 constexpr float kHitEps = 1e-4f;
 constexpr float kDetEps = 1e-8f;
@@ -85,14 +86,11 @@ __device__ __forceinline__ float sphere_t(const float* sp, V3 o, V3 d,
   return (aabb_t < far && t > kHitEps) ? t : INFINITY;
 }
 
-// Möller-Trumbore against triangle `tv` (v0, e1, e2): whether the ray
-// hits it past HIT_EPS, with the distance, barycentrics and determinant.
-__device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
+// Möller-Trumbore against the triangle (v0, e1, e2): whether the ray hits
+// it past HIT_EPS, with the distance, barycentrics and determinant.
+__device__ __forceinline__ bool triangle_hit(V3 v0, V3 e1, V3 e2, V3 o, V3 d,
                                              float& t, float& u, float& v,
                                              float& det) {
-  const V3 v0 = {tv[0], tv[1], tv[2]};
-  const V3 e1 = {tv[3], tv[4], tv[5]};
-  const V3 e2 = {tv[6], tv[7], tv[8]};
   const V3 pvec = cross3(d, e2);
   det = dot3(pvec, e1);
   const bool parallel = fabsf(det) < kDetEps;
@@ -104,6 +102,24 @@ __device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
   t = dot3(e2, qvec) * inv_det;
   return !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
          t > 0.0f && t > kHitEps;
+}
+
+// The same test on a brute-tier row `tv` of 9 floats (v0, e1, e2).
+__device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
+                                             float& t, float& u, float& v,
+                                             float& det) {
+  return triangle_hit(V3{tv[0], tv[1], tv[2]}, V3{tv[3], tv[4], tv[5]},
+                      V3{tv[6], tv[7], tv[8]}, o, d, t, u, v, det);
+}
+
+// The same test on a BVH-tier row of three float4s (v0, e1, e2, padding),
+// read through the read-only path: three 16-byte loads.
+__device__ __forceinline__ bool triangle_hit(const float4* row, V3 o, V3 d,
+                                             float& t, float& u, float& v,
+                                             float& det) {
+  const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+  return triangle_hit(V3{a.x, a.y, a.z}, V3{a.w, b.x, b.y},
+                      V3{b.z, b.w, c.x}, o, d, t, u, v, det);
 }
 
 }  // namespace halogen

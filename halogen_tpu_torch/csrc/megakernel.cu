@@ -17,7 +17,8 @@
 //   B1d the BVH tier (scenes over the brute tier's 128 triangles): each of
 //       the above with the closest hit and the shadow ray walking the
 //       world BVH (bvh_traverse.cuh) in global memory, in place of the
-//       Pallas kernel's raylet tier (`_make_raylet_traversal`, :523).
+//       Pallas kernel's raylet tier (`_make_raylet_traversal`, :523); a
+//       kernel of its own, `megakernel_bvh`, for its launch bounds.
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
@@ -39,7 +40,12 @@
 // B1d is bound by the walk instead: a dependent node or leaf load per step
 // (latency; the ~1 MB of nodes and triangles of an 8.7k-triangle scene
 // stay in L2) and the divergence of a warp's rays through the tree,
-// which grows after the first bounce as glass rays refract and reflect.
+// which grows after the first bounce as glass rays refract and reflect
+// (bvh_traverse.cuh says what the walk does about it). Its variants ask
+// for kBvhMinBlocks = 4 blocks per SM (`__launch_bounds__`): the glass
+// variant with env NEE then fits 128 registers (28 bytes of spill) and
+// runs faster than at the 135 it takes unbounded; 5 or more blocks spill
+// hundreds of bytes and run slower (PERF.md §6).
 // The design keeps everything else on chip:
 //   - one thread per ray, blocks of 128 threads, no padding of the ray
 //     count (a bounds check masks the ragged edge);
@@ -58,6 +64,9 @@ namespace {
 
 using namespace halogen;
 
+// blocks of 128 threads per SM that the BVH tier's variants must fit
+constexpr int kBvhMinBlocks = 4;
+
 struct Params {
   const float* origin;         // [N, 3]
   const float* direction;      // [N, 3]
@@ -70,8 +79,9 @@ struct Params {
   PathConfig cfg;
 };
 
+// The path of ray blockIdx.x * blockDim.x + threadIdx.x, into p.out.
 template <bool kTransmissive, bool kEnvNee, bool kBvh>
-__global__ void __launch_bounds__(kThreads) megakernel(Params p) {
+__device__ __forceinline__ void trace_path(const Params& p) {
   extern __shared__ float smem[];
   const SceneView sc = load_scene<kBvh>(p.scene, smem);
   __syncthreads();
@@ -113,17 +123,26 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   }
 }
 
-template <bool kBvh>
-void launch_variant(const Params& p, bool transmissive, bool env_nee,
-                    int blocks, size_t smem, cudaStream_t st) {
-  if (transmissive && env_nee) {
-    megakernel<true, true, kBvh><<<blocks, kThreads, smem, st>>>(p);
-  } else if (transmissive) {
-    megakernel<true, false, kBvh><<<blocks, kThreads, smem, st>>>(p);
-  } else if (env_nee) {
-    megakernel<false, true, kBvh><<<blocks, kThreads, smem, st>>>(p);
+// The brute tier (B1a-c).
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads) megakernel(Params p) {
+  trace_path<kTransmissive, kEnvNee, false>(p);
+}
+
+// The BVH tier (B1d), kBvhMinBlocks blocks per SM.
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
+    megakernel_bvh(Params p) {
+  trace_path<kTransmissive, kEnvNee, true>(p);
+}
+
+template <bool kTransmissive, bool kEnvNee>
+void launch_tier(const Params& p, bool bvh, int blocks, size_t smem,
+                 cudaStream_t st) {
+  if (bvh) {
+    megakernel_bvh<kTransmissive, kEnvNee><<<blocks, kThreads, smem, st>>>(p);
   } else {
-    megakernel<false, false, kBvh><<<blocks, kThreads, smem, st>>>(p);
+    megakernel<kTransmissive, kEnvNee><<<blocks, kThreads, smem, st>>>(p);
   }
 }
 
@@ -149,8 +168,10 @@ extern "C" int halogen_megakernel_launch(
   p.seed = reinterpret_cast<const uint32_t*>(seed);
   if (use_bvh && nodes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  // on the BVH tier `tri` is the world BVH's [T, 12] slot-order table
   p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials,
-             {reinterpret_cast<const float4*>(nodes), tri, trin}};
+             {reinterpret_cast<const float4*>(nodes),
+              reinterpret_cast<const float4*>(tri), trin}};
   p.out = out;
   p.n = n;
   p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,
@@ -160,10 +181,15 @@ extern "C" int halogen_megakernel_launch(
                                           num_materials);
   const int blocks = (n + kThreads - 1) / kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_bvh) {
-    launch_variant<true>(p, transmissive, env_nee, blocks, smem, st);
+  const bool bvh = use_bvh != 0;
+  if (transmissive && env_nee) {
+    launch_tier<true, true>(p, bvh, blocks, smem, st);
+  } else if (transmissive) {
+    launch_tier<true, false>(p, bvh, blocks, smem, st);
+  } else if (env_nee) {
+    launch_tier<false, true>(p, bvh, blocks, smem, st);
   } else {
-    launch_variant<false>(p, transmissive, env_nee, blocks, smem, st);
+    launch_tier<false, false>(p, bvh, blocks, smem, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

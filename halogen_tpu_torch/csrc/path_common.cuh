@@ -137,8 +137,8 @@ struct SceneView {
   const float* sph;   // [S, 5]
   const float* mat;   // [K, 17]
   int num_tris, num_spheres, num_materials;
-  // The BVH tier's world BVH; `tri` and `trin` are then its slot-order
-  // tables, left in global memory
+  // The BVH tier's world BVH, its slot-order tables left in global memory
+  // (`tri` and `trin` are unused there)
   BvhView bvh;
 };
 

@@ -11,11 +11,12 @@
 // below HIT_EPS (a dead lane, seed < 0) hits nothing and is not walked.
 //
 // One thread per ray, blocks of 128 threads, the walk of
-// bvh_traverse.cuh (`bvh_walk`: per-thread stack, near child first).
-// What bounds it: the dependent loads of the walk (latency), and warp
-// divergence among incoherent rays; the tables stay in L2 (see the
-// header). Built with -fmad=false like the megakernel, so a hit's t, u
-// and v are the brute tier's bits.
+// bvh_traverse.cuh (`bvh_walk`: while-while, near child first, a local
+// stack of far children). What bounds it:
+// the dependent loads of the walk (latency), and warp divergence among
+// incoherent rays; the tables stay in L2 (see the header for what the
+// walk does about it). Built with -fmad=false like the megakernel, so a
+// hit's t, u and v are the brute tier's bits.
 
 #include <stdint.h>
 
@@ -72,7 +73,8 @@ extern "C" int halogen_traverse_launch(
   p.origin = origin;
   p.direction = direction;
   p.seed = seed;
-  p.bvh = {reinterpret_cast<const float4*>(nodes), tri, nullptr};
+  p.bvh = {reinterpret_cast<const float4*>(nodes),
+           reinterpret_cast<const float4*>(tri), nullptr};
   p.tri_map = tri_map;
   p.t = t;
   p.tri = tri_out;

@@ -1,0 +1,234 @@
+"""Per-launch times of the port's hand-written kernels at the launch shapes
+of `chip_smoke.py`, on one CUDA device; a tool to compare two versions of
+the kernels on one card.
+
+Run from the root of a checkout:
+
+    python3 halogen_tpu_torch/kernel_times.py [--tree DIR] [--only NAME ...]
+        [--out FILE]
+
+`--tree DIR` times the package of another checkout of the port (say a
+parent commit unpacked with `git archive` into a git-ignored directory):
+this script imports `halogen_tpu_torch` from DIR, which builds its own
+kernels, so that two versions run the same script on the same rays (each
+tree's camera and sampler make them, and both share that code). Run the
+versions in turns (parent, new, new, parent) in one call on one card.
+
+The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
+  - B1a and B2: Cornell glossy, the first Morton-ordered group of a 512x512
+    32 spp frame, 6 bounces (phases 5, 8);
+  - B1b and B2b: the glass-in-glass box, the same pixels, 8 bounces
+    (phases 13, 15), and B2b at 16 bounces; where the tree's adjoint has
+    transcript routes, B2 and B2b also through each route;
+  - the BVH tier on the glass dragon camera's rays (phase 19): B1b+d (the
+    glass dragon, 12 bounces), B1d and B1c+d (a 1,280-triangle dragon
+    under the sky, 4 bounces, without and with env NEE), B1b+c+d (the
+    glass dragon under the sky with env NEE, 12 bounces);
+  - B3 on those camera rays and on one bounce's rays of the glass dragon.
+Each is launched once (a warm-up), then timed by CUDA events over two runs
+of 10 launches, and by `torch.profiler` device time per launch of the
+kernel itself (the adjoint's block-sum kernel is in its event time only).
+Printed: the card's name and power limit, each kernel's registers and
+spills from nvcc's `-Xptxas -v`, the times, and as the last line one JSON
+object of them; `--out` also writes that line to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+
+def _args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=None,
+                    help="root of the checkout whose package to time")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="time only these kernels (names as printed)")
+    ap.add_argument("--out", default=None)
+    return ap.parse_args(argv)
+
+
+def _resources(log: str) -> dict:
+    """{kernel entry (mangled name): [registers, spill-store bytes]} from
+    nvcc's `-Xptxas -v` output."""
+    out, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = [int(m.group(1)), spill]
+    return out
+
+
+def main(argv=None) -> int:
+    args = _args(argv)
+    root = os.path.abspath(args.tree or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), os.pardir))
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: needs a CUDA device", file=sys.stderr)
+        return 1
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.integrator.camera import generate_rays
+    from halogen_tpu_torch.integrator.trace import (
+        _make_pool,
+        _morton_pixel_order,
+        _pool_bounce,
+        _sampler_2d,
+    )
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import traverse
+    from halogen_tpu_torch.profile_frame import _self_device_us
+    from halogen_tpu_torch.sampler import sobol as sob
+    from halogen_tpu_torch.scene import cornell, meshes
+
+    assert os.path.dirname(os.path.dirname(ht.__file__)) == root, ht.__file__
+    for lib in mk.LIBRARIES:
+        mk.load_library(lib)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    res = _resources(mk.BUILD_LOG)
+
+    def rays(cam_kw, spp=32):
+        st = ht.RenderSettings(width=512, height=512, samples_per_pixel=spp)
+        cam = ht.make_camera(**cam_kw, device=dev)
+        perm, _ = _morton_pixel_order(512, 512)
+        pix = torch.from_numpy(perm.astype(np.int64)).to(dev)
+        sidx = sob.sample_index(1, torch.zeros_like(pix), spp)
+        seed = sob.pixel_seed(pix)
+        o, d = generate_rays(cam, pix % 512, pix // 512, 512, 512,
+                             st.filter_radius, sidx, seed, _sampler_2d(st))
+        return cam, o, d, sidx, seed
+
+    cam_kw = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0),
+                  fov_deg=40.0)
+    dragon_kw = dict(position=(0.0, 1.5, 5.0), target=(0.0, -0.3, 0.0),
+                     fov_deg=45.0)
+    sky = ht.Envmap.gradient_sky()
+    cam, o, d, sidx, seed = rays(cam_kw)
+    dcam, o_d, d_d, sidx_d, seed_d = rays(dragon_kw)
+    ct = torch.rand((o.shape[0], 3),
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    cornell_sc = cornell.cornell_box(glossy=True).build(device=dev)
+    glass = cornell.glass_sphere_box().build(device=dev)
+    dragon = meshes.glass_dragon_scene().build(device=dev)
+    hero = meshes.dragons_hero_scene(1, tris=1280).build(envmap=sky,
+                                                         device=dev)
+    dragon_sky = meshes.glass_dragon_scene().build(envmap=sky, device=dev)
+    st_a = ht.RenderSettings(max_bounces=6)
+    st_g = ht.RenderSettings(max_bounces=8, max_transmission_bounces=8)
+    st_g16 = st_g.replace(max_bounces=16, max_transmission_bounces=16)
+    st_d = ht.RenderSettings(max_bounces=12)
+    sky_kw = dict(use_envmap=True, env_mip_level=0)
+
+    def fwd(sc, st, r):
+        tab, et = mk._scene_tables(sc), mk.env_table(sc)
+        c, o_, d_, s_, e_ = r
+        return lambda: mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_, st,
+                                              tab, et)
+
+    def bwd(sc, st, route=None):
+        tab = mk._scene_tables(sc)
+        if route is None:
+            return lambda: adj.trace_grad_fused_materials(
+                sc, o, d, cam.far, sidx, seed, ct, st, tab)
+        return lambda: adj._launch(sc, o, d, cam.far, sidx, seed, ct, st,
+                                   tab, route=route)
+
+    r_c, r_d = (cam, o, d, sidx, seed), (dcam, o_d, d_d, sidx_d, seed_d)
+    far_d = dcam.far.expand(o_d.shape[0]).contiguous()
+    pool = _pool_bounce(dragon, st_d, _make_pool(o_d, d_d, dcam.far, sidx_d,
+                                                 seed_d, True), 0)
+    o_b, d_b = pool.origin.contiguous(), pool.direction.contiguous()
+    seed_b = torch.where(pool.active, far_d, -1.0)
+    # name: (launch, a part of its profiler rows' keys: megakernel<...>
+    # and megakernel_bvh<...> are the forward kernel's tiers)
+    jobs = {
+        "B1a": (fwd(cornell_sc, st_a, r_c), "megakernel"),
+        "B2": (bwd(cornell_sc, st_a), "adjoint_kernel<"),
+        "B1b": (fwd(glass, st_g, r_c), "megakernel"),
+        "B2b": (bwd(glass, st_g), "adjoint_kernel<"),
+        "B2b@16": (bwd(glass, st_g16), "adjoint_kernel<"),
+        "B1b+d": (fwd(dragon, st_d, r_d), "megakernel"),
+        "B1d": (fwd(hero, st_d.replace(max_bounces=4, **sky_kw), r_d),
+                "megakernel"),
+        "B1c+d": (fwd(hero, st_d.replace(max_bounces=4,
+                                         env_importance_sampling=True,
+                                         **sky_kw), r_d), "megakernel"),
+        "B1b+c+d": (fwd(dragon_sky, st_d.replace(
+            env_importance_sampling=True, **sky_kw), r_d), "megakernel"),
+        "B3 camera": (lambda: traverse.traverse_world(dragon.wbvh, o_d, d_d,
+                                                      far_d),
+                      "traverse_kernel"),
+        "B3 bounce": (lambda: traverse.traverse_world(dragon.wbvh, o_b, d_b,
+                                                      seed_b),
+                      "traverse_kernel"),
+    }
+    if hasattr(adj, "transcript_route"):  # the routes, where there are two
+        for name, sc, st in (("B2", cornell_sc, st_a), ("B2b", glass, st_g),
+                             ("B2b@16", glass, st_g16)):
+            for route in ("shared", "global"):
+                jobs[f"{name} {route}"] = (bwd(sc, st, route),
+                                           "adjoint_kernel<")
+    if args.only:
+        jobs = {k: v for k, v in jobs.items() if k in args.only}
+
+    def events_ms(fn, reps=10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def device_ms(fn, key, reps=10):
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(_self_device_us(r) for r in prof.key_averages()
+                   if key in r.key) / 1e3 / reps
+
+    times = {}
+    for name, (fn, key) in jobs.items():
+        fn()
+        torch.cuda.synchronize()
+        ev = [events_ms(fn), events_ms(fn)]
+        times[name] = {"events_ms": ev, "device_ms": device_ms(fn, key)}
+        print(f"{name}: events {ev[0]:.4f}, {ev[1]:.4f} ms; device "
+              f"{times[name]['device_ms']:.4f} ms | {card}", flush=True)
+    result = {"card": card, "tree": root, "nvcc_flags": mk.NVCC_FLAGS,
+              "build_seconds": mk.BUILD_SECONDS, "resources": res,
+              "times": times}
+    for k, v in res.items():
+        print(f"  {k}: registers {v[0]}, spill-store bytes {v[1]}")
+    line = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,10 @@ every path through the forward kernel's own bounce code
 bounces in reverse and sums the cotangents per material in a fixed order,
 so two calls give the same bits. In glass scenes the replay carries the
 medium stack, and d absorption goes to the material of the medium the
-ray travelled through.
+ray travelled through. The transcript stays in the block's shared memory
+where the block's tables fit `SMEM_BUDGET` (the shared route; at most 17
+bounces in the Cornell and glass boxes), else it goes to a device buffer
+of the same layout (the global route); both give the same bits.
 
 `trace_grad_fused_materials` takes rays on a CUDA device to the kernel and
 rays on the CPU to the plain PyTorch version,
@@ -38,10 +41,35 @@ from halogen_tpu_torch.core.types import MaterialTable, SceneData
 from halogen_tpu_torch.kernels import megakernel as mk
 
 N_GRAD = 12  # d_e premultiplied rgb | d_albedo rgb | d_specular rgb | d_absorption rgb
-N_RECORD = 7  # transcript rows per bounce: A_prev rgb, mat, code, t, Beer mat
+N_RECORD = 5  # transcript words per bounce: A_prev rgb, t, mats and masks
 THREADS = 128  # csrc/path_common.cuh kThreads
+WARPS = THREADS // 32
+# Dynamic shared memory a block of the adjoint may take (scene tables, the
+# warps' [K, 12] sums and the transcript) on the shared route: 48 KB, so
+# the 4 blocks a multiprocessor holds at B2b's 128 registers fit its
+# 227 KB, and no launch needs the opt-in above 48 KB (the global route's
+# block, tables and sums only, stays under 28 KB at the kernels' caps).
+SMEM_BUDGET = 48 * 1024
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
+
+
+def smem_bytes(scene: SceneData, settings: RenderSettings) -> int:
+    """A block's dynamic shared memory on the shared route: the scene
+    tables (`path_common.cuh::scene_smem_floats`), the warps' sums and the
+    transcript of max_bounces + 1 bounces."""
+    floats = (scene.num_triangles * 19 + scene.num_spheres * 5
+              + scene.materials.count * 17
+              + WARPS * scene.materials.count * N_GRAD)
+    words = (settings.max_bounces + 1) * N_RECORD * THREADS
+    return 4 * (floats + words)
+
+
+def transcript_route(scene: SceneData, settings: RenderSettings) -> str:
+    """'shared' where the block fits SMEM_BUDGET with its transcript, else
+    'global'."""
+    return ("shared" if smem_bytes(scene, settings) <= SMEM_BUDGET
+            else "global")
 
 
 def adjoint_supported(scene: SceneData, settings: RenderSettings) -> bool:
@@ -64,14 +92,23 @@ def _check_supported(scene: SceneData, settings: RenderSettings) -> None:
 
 def _launch(scene, origin, direction, far, sample_idx, seed, ct,
             settings: RenderSettings, tables,
-            replay_color: torch.Tensor | None = None) -> torch.Tensor:
+            replay_color: torch.Tensor | None = None,
+            route: str | None = None) -> torch.Tensor:
     """Launch the adjoint on the current stream; returns [K, 12].
     `replay_color`, an [N, 3] float32 buffer, receives the color of the
-    replayed paths (a check that the replay took the forward's path)."""
+    replayed paths (a check that the replay took the forward's path).
+    `route` ('shared' or 'global') overrides `transcript_route`; the
+    shared route raises where the block would exceed SMEM_BUDGET."""
     global LAUNCHES
     sidx, sd, far_t, tables, scalars = mk.kernel_inputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables)
     _check_supported(scene, settings)
+    route = route or transcript_route(scene, settings)
+    if route not in ("shared", "global"):
+        raise ValueError(f"unknown transcript route {route!r}")
+    if route == "shared" and smem_bytes(scene, settings) > SMEM_BUDGET:
+        raise ValueError("the transcript does not fit a block's shared "
+                         "memory at this bounce count")
     n = origin.shape[0]
     dev = origin.device
     buffers = {"ct": ct, "replay_color": replay_color}
@@ -84,10 +121,16 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
     if n == 0:
         return torch.zeros((k, N_GRAD), dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    # scratch: the transcript, lane-major so a warp's stores coalesce, and
-    # one partial [K, 12] table per block of 128 paths
-    transcript = torch.empty((settings.max_bounces + 1, N_RECORD, n), **f32)
-    partial = torch.empty((-(-n // THREADS), k * N_GRAD), **f32)
+    blocks = -(-n // THREADS)
+    # scratch: on the global route the transcript, [block, bounce, word,
+    # thread] so a warp's stores coalesce; one partial [K, 12] table per
+    # block of 128 paths
+    transcript = None
+    if route == "global":
+        transcript = torch.empty(
+            (blocks, settings.max_bounces + 1, N_RECORD, THREADS),
+            dtype=torch.int32, device=dev)
+    partial = torch.empty((blocks, k * N_GRAD), **f32)
     out = torch.empty((k, N_GRAD), **f32)
     lib = mk.load_library("adjoint")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -95,7 +138,8 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
         err = lib.halogen_adjoint_launch(
             origin.data_ptr(), direction.data_ptr(), far_t.data_ptr(),
             sidx.data_ptr(), sd.data_ptr(), ct.data_ptr(),
-            *(t.data_ptr() for t in tables), transcript.data_ptr(),
+            *(t.data_ptr() for t in tables),
+            None if transcript is None else transcript.data_ptr(),
             partial.data_ptr(), out.data_ptr(),
             None if replay_color is None else replay_color.data_ptr(),
             *scalars, stream)

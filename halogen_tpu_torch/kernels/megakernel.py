@@ -188,7 +188,8 @@ def _scene_tables(scene: SceneData):
     """Pack the scene into the kernel's tables: tri [T, 9] (v0, e1, e2),
     trin [T, 10] (n0, n1 - n0, n2 - n0, material), sph [S, 5] (center,
     radius, material) and mat [K, 17], all float32 and contiguous. On the
-    BVH tier tri and trin are the world BVH's own, in its slot order."""
+    BVH tier tri and trin are the world BVH's own, in its slot order (tri
+    then [T, 12], each row padded to three 16-byte loads)."""
     mats = scene.materials
     f32 = torch.float32
     mat_tab = torch.cat(
@@ -279,9 +280,12 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
     nodes = scene.wbvh.nodes if bvh else None
     if bvh and (nodes.device != dev or nodes.dtype != torch.float32
                 or not nodes.is_contiguous() or nodes.data_ptr() % 16
-                or nodes.ndim != 2 or nodes.shape[1] != 8):
-        raise ValueError("the world BVH's nodes must be a contiguous, "
-                         f"16-byte aligned float32 [Nn, 8] tensor on {dev}")
+                or nodes.ndim != 2 or nodes.shape[1] != 8
+                or tables[0].shape != (scene.num_triangles, 12)
+                or tables[0].data_ptr() % 16):
+        raise ValueError("the world BVH's nodes and triangles must be "
+                         "contiguous, 16-byte aligned float32 [Nn, 8] and "
+                         f"[T, 12] tensors on {dev}")
     env_nee = _use_nee(scene, settings)
     env_h = env_w = 0
     if env_nee:

@@ -5,7 +5,9 @@ treelet, flatlet and raylet kernels B4-B6 of the same contract).
 The kernel is hand-written CUDA C++ for Hopper (`csrc/traverse.cu`, the
 walk in `csrc/bvh_traverse.cuh` that the megakernel's BVH tier shares),
 built by `megakernel.load_library` with the other kernels. One thread per
-ray walks the tree with its own stack; the TPU's shared stack per
+ray walks the tree with its own stack ("while-while": inner nodes until
+the lane holds a leaf, then the leaf; near child first; triangle rows of
+`WorldBVH.tris` read as three 16-byte loads); the TPU's shared stack per
 1024-ray block, its [R, 128] node rows, and the treelet, flatlet and
 raylet layouts were answers to the TPU's vector unit and VMEM and have
 no counterpart here.
@@ -48,8 +50,8 @@ def _check(wbvh: WorldBVH, origin, direction, seed, dev) -> int:
         raise ValueError("seed must be [N]")
     t = wbvh.tris.shape[0]
     if (wbvh.nodes.ndim != 2 or wbvh.nodes.shape[1] != 8
-            or wbvh.tris.shape != (t, 9) or wbvh.tri_map.shape != (t,)):
-        raise ValueError("the world BVH must be nodes [Nn, 8], tris [T, 9] "
+            or wbvh.tris.shape != (t, 12) or wbvh.tri_map.shape != (t,)):
+        raise ValueError("the world BVH must be nodes [Nn, 8], tris [T, 12] "
                          "and tri_map [T]")
     for name, t in (("origin", origin), ("direction", direction),
                     ("seed", seed), ("nodes", wbvh.nodes),
@@ -60,8 +62,9 @@ def _check(wbvh: WorldBVH, origin, direction, seed, dev) -> int:
     if (wbvh.tri_map.dtype != torch.int32 or wbvh.tri_map.device != dev
             or not wbvh.tri_map.is_contiguous()):
         raise ValueError(f"tri_map must be contiguous int32 on {dev}")
-    if wbvh.nodes.data_ptr() % 16:
-        raise ValueError("the BVH nodes must be 16-byte aligned")
+    if wbvh.nodes.data_ptr() % 16 or wbvh.tris.data_ptr() % 16:
+        raise ValueError("the BVH nodes and triangles must be 16-byte "
+                         "aligned")
     return n
 
 
@@ -91,9 +94,11 @@ def traverse_world_reference(wbvh: WorldBVH, origin: torch.Tensor,
                              direction: torch.Tensor, seed: torch.Tensor):
     """Plain PyTorch version of the kernel: the brute force over the world
     BVH's triangles (`integrator.intersect.closest_tris`, first minimum in
-    slot order on ties) with the kernel's seed rule and outputs."""
+    slot order on ties; the 9 values of each 12-float row) with the
+    kernel's seed rule and outputs."""
     n = origin.shape[0]
-    t, slot, u, v, s = closest_tris(origin, direction, wbvh.tris, seed)
+    t, slot, u, v, s = closest_tris(origin, direction, wbvh.tris[:, :9],
+                                    seed)
     hit = t < INF
     tri = torch.where(hit, wbvh.tri_map[slot].to(torch.int32), -1)
     tests = torch.full((n,), wbvh.tris.shape[0], dtype=torch.int32,

@@ -189,10 +189,12 @@ def main(argv=None) -> int:
     aten_calls = sum(r.count for r in rows if r.key.startswith("aten::"))
     top = sorted((r for r in rows if _self_device_us(r) > 0),
                  key=_self_device_us, reverse=True)[:8]
-    # the kernels are templates: megakernel<false, false>(...) and so on
-    kernel_rows = lambda name: [r for r in rows if _self_device_us(r) > 0
-                                and f"{name}<" in r.key]
-    mega, adjoint = kernel_rows("megakernel"), kernel_rows("adjoint_kernel")
+    # the kernels are templates: megakernel<false, false>(...),
+    # megakernel_bvh<...> (the BVH tier) and so on
+    kernel_rows = lambda *names: [r for r in rows if _self_device_us(r) > 0
+                                  and any(f"{n}<" in r.key for n in names)]
+    mega = kernel_rows("megakernel", "megakernel_bvh")
+    adjoint = kernel_rows("adjoint_kernel")
 
     result = {
         "card": card,

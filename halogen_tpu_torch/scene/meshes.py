@@ -338,6 +338,31 @@ def outdoors_scene() -> Scene:
     return s
 
 
+def deep_strip_scene(n: int = 150, growth: float = 1.15) -> Scene:
+    """A narrow mesh whose world BVH is deep: n triangles across the +x
+    axis, triangle i at x = growth**i with half-size 0.5 * growth**i, so
+    from the origin each fills the same ±26° cone, odd ones pointing up
+    (+z) and even ones down. Built with `max_leaf=1`, the SAH tree peels
+    the largest triangles off one by one, and a ray from the origin into
+    the cone leaves 19 far children pending in its walk; a ray that
+    passes beside triangle 0 and meets triangle 1 finds it in the 19th
+    entry of its stack. Camera: `STRIP_CAM`."""
+    s = Scene()
+    scale = growth ** np.arange(n, dtype=np.float64)[:, None, None]
+    up = np.array([(1.0, -0.5, -0.5), (1.0, 0.5, -0.5), (1.0, 0.0, 0.5)])
+    down = up * np.array([1.0, 1.0, -1.0])
+    corners = np.where((np.arange(n) % 2 == 1)[:, None, None], up, down)
+    verts = (scale * corners).reshape(-1, 3)
+    s.add_mesh(verts.astype(np.float32),
+               np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+               Material.diffuse((0.7, 0.7, 0.7)))
+    return s
+
+
+STRIP_CAM = dict(position=(0.0, 0.0, 0.0), target=(1.0, 0.0, 0.0),
+                 fov_deg=40.0)
+
+
 def bvh_test_scene(tris: int = 4000) -> Scene:
     """Testing Scene 'BVH Test' group equivalent: dense high-poly
     geometry (torus knot) whose render exercises deep traversal — used

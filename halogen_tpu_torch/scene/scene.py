@@ -29,6 +29,8 @@ from halogen_tpu_torch.core.types import (
 from halogen_tpu_torch.scene.envmap import Envmap, build_env_cdf
 from halogen_tpu_torch.scene.material import Material
 
+WALK_COUNT_BITS = 8  # csrc/bvh_traverse.cuh kCountBits
+
 
 @dataclasses.dataclass
 class MeshEntry:
@@ -208,17 +210,21 @@ def pack_world_bvh(tri_verts_world: np.ndarray, tri_normals_world: np.ndarray,
     same `build_bvh` call as the JAX package's `pack_world_bvh`
     (`kernels/bvh_pallas.py:96-111`), so its nodes, slots and `tri_map`
     equal the JAX package's; laid out for the port's kernels (see
-    `WorldBVH`) instead of the TPU's [R, 128] rows."""
+    `WorldBVH`) instead of the TPU's [R, 128] rows. Raises ValueError
+    where a node does not fit the walk's 32-bit stack entry
+    (`_check_walk_packing`)."""
     tv = np.asarray(tri_verts_world, np.float32)
     bvh = build_bvh(tv.copy(), max_leaf=max_leaf, max_depth=MAX_DEPTH)
+    _check_walk_packing(bvh.index_a, bvh.count)
     order = bvh.tri_order
     nodes = np.concatenate(
         [bvh.lo, bvh.hi, bvh.index_a[:, None].astype(np.float32),
          bvh.count[:, None].astype(np.float32)], axis=1)
     v = tv[order]
     n = np.asarray(tri_normals_world, np.float32)[order]
-    tris = np.concatenate([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]],
-                          axis=1)
+    # rows of 12 floats (three 16-byte loads in the walk): v0, e1, e2, 0
+    tris = np.concatenate([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                           np.zeros((len(v), 3), np.float32)], axis=1)
     trin = np.concatenate(
         [n[:, 0], n[:, 1] - n[:, 0], n[:, 2] - n[:, 0],
          np.asarray(tri_material, np.float32)[order][:, None]], axis=1)
@@ -227,6 +233,23 @@ def pack_world_bvh(tri_verts_world: np.ndarray, tri_normals_world: np.ndarray,
                     tris=t(tris.astype(np.float32)),
                     trin=t(trin.astype(np.float32)),
                     tri_map=t(order.astype(np.int32)))
+
+
+def _check_walk_packing(index_a: np.ndarray, count: np.ndarray) -> None:
+    """The world-BVH walk (`csrc/bvh_traverse.cuh`) keeps a stack entry as
+    one 32-bit word, index_a << WALK_COUNT_BITS | count: a leaf's triangle
+    count must fit WALK_COUNT_BITS bits and every index_a the other bits."""
+    max_count = (1 << WALK_COUNT_BITS) - 1
+    max_index = (1 << (32 - WALK_COUNT_BITS)) - 1
+    if count.size and int(count.max()) > max_count:
+        raise ValueError(
+            f"a leaf of the world BVH holds {int(count.max())} triangles; "
+            f"the walk's stack entry packs at most {max_count} (a leaf this "
+            "large is left only where the build's depth ran out)")
+    if index_a.size and int(index_a.max()) > max_index:
+        raise ValueError(
+            f"a world-BVH index {int(index_a.max())} exceeds the walk's "
+            f"stack entry, which packs at most {max_index}")
 
 
 def _vertex_normals(vertices: np.ndarray, indices: np.ndarray) -> np.ndarray:

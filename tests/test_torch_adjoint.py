@@ -257,3 +257,27 @@ def test_plain_adjoint_matches_jax_interpret_kernel(fixture, rr):
     assert got.shape == ref.shape == (scene.materials.count, adj.N_GRAD)
     assert n == W * W
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["cornell", "glass"])
+def test_transcript_route_follows_the_shared_memory_budget(case):
+    """The adjoint keeps its transcript in the block's shared memory while
+    the block fits SMEM_BUDGET, up to 17 bounces in both boxes, and in a
+    device buffer past it; forcing the shared route past the budget
+    raises before anything is launched."""
+    from halogen_tpu_torch.scene import cornell
+
+    scene = (cornell.glass_sphere_box() if case == "glass"
+             else cornell.cornell_box(glossy=True)).build(device=CPU)
+    routes = [adj.transcript_route(scene, RenderSettings(max_bounces=b))
+              for b in (6, 8, 17, 18, 20)]
+    assert routes == ["shared"] * 3 + ["global"] * 2
+    assert adj.smem_bytes(scene, RenderSettings(max_bounces=17)) <= \
+        adj.SMEM_BUDGET < adj.smem_bytes(scene, RenderSettings(max_bounces=18))
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)
+    rays = (o, d, torch.tensor(1e30), 0, 0, torch.zeros((4, 3)))
+    for route, match in (("shared", "does not fit"), ("l2", "unknown")):
+        with pytest.raises(ValueError, match=match):
+            adj._launch(scene, *rays, RenderSettings(max_bounces=20), None,
+                        route=route)

@@ -141,6 +141,48 @@ def test_adjoint_is_bitwise_repeatable_and_replays_forward(glass,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("glass", [False, True])
+def test_transcript_routes_give_the_same_bits(glass, cuda_device):
+    """The transcript in shared memory (the route at 6 bounces) and in
+    device memory give the same [K, 12] bits: the same arithmetic, the
+    same order of sums."""
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                           max_bounces=6)
+    scene = (cornell.glass_sphere_box() if glass
+             else cornell.cornell_box(glossy=True)).build(device=cuda_device)
+    assert adj.transcript_route(scene, st) == "shared"
+    cam, o, d, sidx, seed, ct = _rays(cuda_device, st)
+    shared = adj._launch(scene, o, d, cam.far, sidx, seed, ct, st, None,
+                         route="shared")
+    dev_mem = adj._launch(scene, o, d, cam.far, sidx, seed, ct, st, None,
+                          route="global")
+    torch.cuda.synchronize()
+    assert torch.equal(shared, dev_mem)
+
+
+@pytest.mark.cuda
+def test_global_route_above_the_shared_cap(cuda_device):
+    """B2b at a bounce count whose transcript exceeds the shared-memory
+    budget takes the global route: it matches the plain version, is
+    bitwise repeatable and replays the forward bit for bit."""
+    st = _glass_settings("sobol_no_rr").replace(max_bounces=20,
+                                                max_transmission_bounces=20)
+    scene = cornell.glass_sphere_box().build(device=cuda_device)
+    assert adj.transcript_route(scene, st) == "global"
+    cam, o, d, sidx, seed, ct = _rays(cuda_device, st)
+    replay = torch.empty_like(o)
+    got = adj._launch(scene, o, d, cam.far, sidx, seed, ct, st, None, replay)
+    again = adj.trace_grad_fused_materials(scene, o, d, cam.far, sidx, seed,
+                                           ct, st)
+    fwd = mk.trace_color_fused(scene, o, d, cam.far, sidx, seed, st)
+    ref = adj.trace_grad_fused_materials_reference(scene, o, d, cam.far,
+                                                   sidx, seed, ct, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(replay, fwd)
+    assert_columns_close(got, ref)
+
+
+@pytest.mark.cuda
 def test_render_loss_grad_launches_both_kernels(cuda_device):
     """On a CUDA scene the image has a grad_fn, and render_loss_grad runs
     the megakernel forward and the adjoint backward, one launch of each

@@ -127,3 +127,53 @@ def test_thin_mesh_aabb_epsilon(method):
     assert np.all(bvh.hi[:, 2] > bvh.lo[:, 2])
     np.testing.assert_array_equal(
         bvh.hi, j_build_bvh(tris.copy(), method=method).hi)
+
+
+# --- the world BVH as the port's walk reads it
+
+
+def test_world_bvh_rows_pad_the_jax_rows():
+    """`WorldBVH.tris` holds the JAX package's nine values per slot (v0,
+    e1, e2) and three zeros: 48-byte rows, three 16-byte loads each."""
+    import torch
+
+    from halogen_tpu.kernels.bvh_pallas import pack_world_bvh as j_pack
+    from halogen_tpu_torch.scene.scene import pack_world_bvh
+
+    tris = _random_mesh(300, seed=4)
+    ref = j_pack(tris.copy())
+    w = pack_world_bvh(tris, np.zeros_like(tris),
+                       np.zeros(len(tris), np.int32), device="cpu")
+    t = len(tris)
+    assert w.tris.shape == (t, 12) and w.tris.dtype == torch.float32
+    assert w.tris.is_contiguous() and w.tris.stride(0) * 4 == 48
+    np.testing.assert_array_equal(w.tris[:, :9].numpy(),
+                                  np.asarray(ref.tris)[:9, :t].T)
+    assert not w.tris[:, 9:].any()
+    np.testing.assert_array_equal(w.tri_map.numpy(),
+                                  np.asarray(ref.tri_map)[:t])
+
+
+def test_scene_build_raises_where_a_leaf_cannot_be_packed():
+    """The walk's stack entry packs a leaf's count in 8 bits: a world BVH
+    with a 300-triangle leaf is refused at build time, not walked wrong."""
+    from halogen_tpu_torch.scene.material import Material
+    from halogen_tpu_torch.scene.scene import Scene
+
+    tris = _random_mesh(300, seed=5)
+    s = Scene()
+    s.add_mesh(tris.reshape(-1, 3), np.arange(900).reshape(300, 3),
+               Material.diffuse((0.5, 0.5, 0.5)))
+    assert s.build(device="cpu").wbvh.nodes[:, 7].max() <= 5
+    with pytest.raises(ValueError, match="300 triangles"):
+        s.build(max_leaf=300, device="cpu")
+
+
+def test_walk_packing_refuses_large_indices():
+    from halogen_tpu_torch.scene.scene import _check_walk_packing
+
+    _check_walk_packing(np.array([(1 << 24) - 1]), np.array([255]))
+    with pytest.raises(ValueError, match="index"):
+        _check_walk_packing(np.array([1 << 24]), np.array([0]))
+    with pytest.raises(ValueError, match="256 triangles"):
+        _check_walk_packing(np.array([0]), np.array([256]))

@@ -6,7 +6,11 @@
 - the world-BVH closest hit's plain version (`kernels/traverse.py`, B3's)
   against the JAX Pallas kernel `traverse_world_bvh_any` in interpret
   mode, as `tests/test_pallas.py` runs it;
-- every `Intersector` value of the port against BRUTE.
+- every `Intersector` value of the port against BRUTE;
+- the CUDA walk's order (`csrc/bvh_traverse.cuh`, which runs only on the
+  card), replayed here in Python on the world BVH's tables: it finds
+  the plain version's hits, and on `meshes.deep_strip_scene` its stack
+  holds 19 entries.
 
 Rays come from numpy with a seed: 4,096 of them, a quarter aimed at the
 scene's spheres, with finite, infinite and negative far planes (a far of
@@ -201,3 +205,94 @@ def test_traverse_world_checks_its_inputs():
         torch.tensor([1e30, -1.0, 0.0, float("inf")]))
     assert tri[1] == tri[2] == -1 and torch.isinf(t[1:3]).all()
     assert tt[1] == tt[2] == 0 and (bt == 0).all()
+
+
+def _walk(wbvh, o, d, seed):
+    """`bvh_walk`'s closest hit, step for step in numpy (float64 box and
+    triangle tests): while-while, the near child that the ray enters
+    next, the far one pushed. Returns (t, slot, deepest stack, box tests,
+    the stack slot the winning leaf was popped from, or -1)."""
+    nodes, tris = wbvh.nodes.numpy(), wbvh.tris.numpy()
+    inv = 1.0 / np.where(np.abs(d) < 1e-30, 1e-30, d)
+
+    def entry(i, limit):
+        t1, t2 = (nodes[i, :3] - o) * inv, (nodes[i, 3:6] - o) * inv
+        tmin = np.minimum(t1, t2).max()
+        tmax = np.maximum(t1, t2).min()
+        return tmin if tmax > max(0.0, tmin) and tmin < limit else np.inf
+
+    best, slot, from_slot = seed, -1, -1
+    stack, deepest, boxes, node, popped = [], 0, 0, 0, -1
+    while True:
+        while nodes[node, 7] == 0:
+            a = int(nodes[node, 6])
+            ea, eb = entry(a, best), entry(a + 1, best)
+            boxes += 2
+            near, far = (a, a + 1) if ea <= eb else (a + 1, a)
+            e_near, e_far = min(ea, eb), max(ea, eb)
+            if e_near < np.inf:
+                if e_far < np.inf:
+                    stack.append(far)
+                    deepest = max(deepest, len(stack))
+                node, popped = near, -1
+            elif stack:
+                popped = len(stack) - 1
+                node = stack.pop()
+            else:
+                return best, slot, deepest, boxes, from_slot
+        ia, ct = int(nodes[node, 6]), int(nodes[node, 7])
+        for k in range(ia, ia + ct):
+            v0, e1, e2 = tris[k, 0:3], tris[k, 3:6], tris[k, 6:9]
+            p = np.cross(d, e2)
+            det = p @ e1
+            if abs(det) < 1e-8:
+                continue
+            tv = o - v0
+            u = tv @ p / det
+            q = np.cross(tv, e1)
+            v, t = d @ q / det, e2 @ q / det
+            if 0 <= u <= 1 and v >= 0 and u + v <= 1 and 1e-4 < t < best:
+                best, slot, from_slot = t, k, popped
+        if not stack:
+            return best, slot, deepest, boxes, from_slot
+        popped = len(stack) - 1
+        node = stack.pop()
+
+
+@pytest.mark.parametrize("name", ["glass_dragon", "deep_strip"])
+def test_walk_order_finds_the_plain_hits(name):
+    """The kernel's walk, replayed in Python, meets the plain version's
+    triangle on every ray (t within 1e-4: float64 here, float32 there).
+    On the deep strip the walks keep 19 entries, and rays beside triangle
+    0 find triangle 1 in the 19th: the stack depth the card's tests use."""
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.integrator.camera import generate_rays
+    from halogen_tpu_torch.integrator.trace import _sampler_2d
+    from halogen_tpu_torch.sampler import sobol as sob
+
+    if name == "deep_strip":
+        scene = tmeshes.deep_strip_scene().build(max_leaf=1, device="cpu")
+        cam_kw = tmeshes.STRIP_CAM
+    else:
+        scene = tmeshes.glass_dragon_scene().build(device="cpu")
+        cam_kw = dict(position=(0, 1.5, 5), target=(0, -0.3, 0), fov_deg=45)
+    cam = ht.make_camera(**cam_kw, device="cpu")
+    st = RenderSettings(width=12, height=12, samples_per_pixel=1)
+    pix = torch.arange(st.num_pixels)
+    sidx = sob.sample_index(1, torch.zeros_like(pix), 1)
+    o, d = generate_rays(cam, pix % 12, pix // 12, 12, 12, st.filter_radius,
+                         sidx, sob.pixel_seed(pix), _sampler_2d(st))
+    seed = torch.full((o.shape[0],), float("inf"))
+    t, tri, *_ = traverse.traverse_world(scene.wbvh, o, d, seed)
+    tri_map = scene.wbvh.tri_map.numpy()
+    deep = []  # (deepest stack, the winner's stack slot, hit x)
+    for i in range(o.shape[0]):
+        wt, ws, depth, _, from_slot = _walk(
+            scene.wbvh, o[i].double().numpy(), d[i].double().numpy(), np.inf)
+        assert (ws < 0) == (tri[i] < 0), i
+        if ws >= 0:
+            assert tri_map[ws] == tri[i] and abs(wt - float(t[i])) < 1e-4
+        deep.append((depth, from_slot, float(o[i, 0] + wt * d[i, 0])))
+    if name == "deep_strip":
+        assert max(x[0] for x in deep) == 19
+        assert any(f == 18 and abs(x - 1.15) < 1e-3 for _, f, x in deep)

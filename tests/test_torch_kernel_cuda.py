@@ -2,9 +2,10 @@
 opaque variant (B1a) on Cornell glossy, the medium-stack variant (B1b) on
 the glass-in-glass box, the envmap variants (B1c) with the sky shaded
 after the kernel, with and without env NEE, and the BVH tier (B1d) on the
-glass dragon and on a dragon under the sky with env NEE; and the
-world-BVH traversal kernel (B3) against its plain version, with every
-`Intersector` route that reaches it.
+glass dragon, on a dragon under the sky with env NEE and on a strip
+whose walks keep 19 entries on the stack; and the world-BVH traversal
+kernel (B3) against its plain version, with every `Intersector` route
+that reaches it.
 
 Needs an NVIDIA GPU with nvcc; skips without one. Imports no JAX, so it
 also runs on a machine that has only the port's dependencies:
@@ -293,6 +294,59 @@ def test_traverse_matches_plain_on_card(cuda_device):
     other = got[1] != ref[1]
     assert other.sum() <= 16  # ties at shared edges: 0.1%
     assert (got[1][~hit] == -1).all() and (got[5] > 0).any()
+
+
+def _strip_camera_rays(cam, st, dev):
+    pix = torch.arange(st.num_pixels, device=dev)
+    sidx = sob.sample_index(1, torch.zeros_like(pix), st.samples_per_pixel)
+    seed = sob.pixel_seed(pix)
+    o, d = generate_rays(cam, pix % st.width, pix // st.width, st.width,
+                         st.height, st.filter_radius, sidx, seed,
+                         _sampler_2d(st))
+    return o, d
+
+
+@pytest.mark.cuda
+def test_traverse_deep_stack_on_card(cuda_device):
+    """B3 on the deep strip (`meshes.deep_strip_scene`, max_leaf=1), whose
+    camera rays leave 19 far children pending on the walk's stack (a ray
+    beside triangle 0 finds triangle 1, at x = 1.15, in the 19th entry):
+    the kernel equals its plain version (t, u, v at 1e-5, the same
+    triangles)."""
+    scene = meshes.deep_strip_scene().build(max_leaf=1, device=cuda_device)
+    cam = ht.make_camera(**meshes.STRIP_CAM, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=1)
+    o, d = _strip_camera_rays(cam, st, cuda_device)
+    seed = torch.full((o.shape[0],), float("inf"), device=cuda_device)
+    got = [x.cpu().numpy() for x in traverse.traverse_world(scene.wbvh, o, d,
+                                                            seed)]
+    ref = [x.cpu().numpy() for x in traverse.traverse_world_reference(
+        scene.wbvh, o, d, seed)]
+    np.testing.assert_array_equal(np.isinf(got[0]), np.isinf(ref[0]))
+    hit = np.isfinite(ref[0])
+    assert hit.mean() > 0.5  # the cone's corners pass beside the strip
+    for i in (0, 2, 3):
+        np.testing.assert_allclose(got[i][hit], ref[i][hit], atol=1e-5,
+                                   rtol=1e-5)
+    np.testing.assert_array_equal(got[1], ref[1])
+    hit_x = (o[:, 0] + torch.from_numpy(ref[0]).to(o) * d[:, 0]).cpu()
+    assert bool((torch.abs(hit_x - 1.15) < 1e-3).any())  # triangle 1
+    assert (got[6][hit] > 32).all()  # deep walks
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_deep_stack_matches_plain_on_card(cuda_device):
+    """B1d on the deep strip under the sky with env NEE (B1c+d): the
+    camera rays' walks keep 19 entries on the stack; the kernel agrees
+    with its plain version as the other B1d scenes do."""
+    scene = meshes.deep_strip_scene().build(
+        envmap=Envmap.gradient_sky(), max_leaf=1, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                           max_bounces=4, use_envmap=True,
+                           env_importance_sampling=True, env_mip_level=0)
+    assert mk.uses_bvh(scene)
+    _check_kernel_vs_plain(scene, meshes.STRIP_CAM, st, cuda_device,
+                           as_read=True)
 
 
 @pytest.mark.cuda
