@@ -20,7 +20,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      shape (262144 rays, 6 bounces);
   6. the main path at `bench.py`'s configuration (Cornell glossy, 512x512,
      32 spp, 6 bounces, 262144-ray chunks): one warm-up frame and 4 timed
-     frames through `render_frame`, with the kernel's launch count; one
+     frames through `render_frame` (each group one launch that makes its
+     own rays), with the kernel's launch count; one
      frame of the plain version, whose mean radiance must agree within 2%;
   7. adjoint kernel vs its plain PyTorch version on the card (phase 3's
      four cases, a cotangent from torch.Generator seed 0): per [K, 12]
@@ -133,8 +134,39 @@ Phases, in order; the first that fails ends the run with a non-zero exit
  23. B1a then B2, and B1b then B2b, on the same rays at the launch shape,
      in turns (forward, adjoint, adjoint, forward; events and device
      time): the adjoint's own share;
- 24. the work each launch shape of B1a-c, B2 and B2b needs, for their
-     bounds.
+ 25. the rays the kernel makes itself (a launch from pixels, as
+     `render_pixels` issues it) against `group_rays` on the card, at frame
+     3, first lane 2, two lanes a pixel of a 64x64 frame: sample index and
+     seed bit for bit, origin and direction within 1e-6 (the float ops are
+     `generate_rays`'; `logf`, `sinf`, `cosf` and the 3x3 transform, a
+     GEMM in torch, may round an ulp apart), the count of rays not bit
+     for bit printed; and the launch from pixels against the explicit-ray
+     launch on the rays it wrote, outputs bit for bit: B1a, B1b through a
+     thin lens, B1c, B1b with the PRNG sampler, B1b+c+d;
+ 26. warps that refill against one ray a thread, outputs bit for bit, at
+     100,003 rays (ragged) and 1,000 (fewer than the grid's threads): B1a,
+     B1b, B1c;
+ 27. the launch from pixels at the launch shape (262144 rays, more than
+     the persistent grid holds, so most rays are made by lanes that fell
+     free), for B1a, B1b, B1c and, on the glass dragon camera's pixels,
+     B1b+d (one ray a thread) and B1c+d (refilling): its rays against
+     `group_rays` as in phase 25, its outputs bit for bit against the
+     explicit-ray launch on the rays it wrote, and against the plain
+     version (`group_rays`, then the lockstep) at phase 11's tolerance
+     (the BVH tier as in phase 17, on every 16th ray); this error and the
+     launch's time are the kernels record's. Then B1a-c from pixels, from
+     explicit rays, and from explicit rays with one ray a thread (events
+     and profiler device time), registers and spills;
+ 24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
+     their bounds, with the mean bounces of a ray and of each 32 rays'
+     longest path.
+Phases 6, 9, 14, 15 and 20 also profile one frame or step: the
+`cudaLaunchKernel` calls, the device's busy time and its idle share; a
+Cornell and a glass-box frame must stay under 3,350 launches (a tenth of
+what they took when torch made the rays). A kernel's device time is the
+profiler's mean over the launches it kept; where it kept none in five
+sessions (it can drop events late in a long process) the time reads "not
+recorded" (null in the record) beside the CUDA-event time.
 The last lines are a JSON record of every kernel (B1a-d, B2, B2b, B3, and
 the routes B4-B6 that B3's kernel serves) with its launches on its main
 path, error, times, plain time, bound and library call, the card's name
@@ -165,13 +197,23 @@ DRAGON_CAM = dict(position=(0.0, 1.5, 5.0), target=(0.0, -0.3, 0.0),
 # fp32 operations of one primitive test and of one shaded bounce, counted
 # from csrc/geometry.cuh (triangle_hit, sphere_t), bvh_traverse.cuh
 # (node_entry) and path_common.cuh (path_bounce; sinf, cosf, expf and
-# sqrtf as ~20 each; the sampler's integer work is not counted)
+# sqrtf as ~20 each)
 OPS_TRI, OPS_SPHERE, OPS_BOX = 55, 55, 27
 OPS_SHADE = 230  # an opaque hit: normals, draws, Fresnel, lobes, RR
 OPS_GLASS = 50  # + the refraction branch and Beer-Lambert
-OPS_NEE = 190  # + the env draw, two glossy pdfs and the MIS weight
+OPS_NEE = 150  # + two glossy pdfs and the MIS weight (the draw is a row)
 OPS_ADJ = 100  # + the adjoint's reverse sweep of the bounce
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32, HBM3
+OPS_RAY = 90  # a primary ray made in the kernel (camera_ray; logf x 2)
+# int32 operations of the Owen-scrambled Sobol sampler (path_common.cuh:
+# u32_hash 9, hash_combine 5, owen_core 10, the dimension-1 butterfly 15,
+# a bit reversal 1): a 2D draw 71, a 1D draw 31
+OPS_INT_SHADE = 2 * 71 + 31  # a shaded bounce: two 2D draws and one 1D
+OPS_INT_NEE = 71  # + the env draw's 2D draw
+OPS_INT_RAY = 2 * 71 + 12  # a primary ray: two 2D draws, seed and index
+# H100 SXM: fp32 (an FMA counted as two), HBM3. An int32 operation is
+# counted as two fp32 operations: -fmad=false kernels issue no FMA, and
+# int32 issues on half the lanes.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def _card() -> str:
@@ -233,6 +275,8 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
     draw faces an opaque surface, as the kernel's), and the triangle, box
     and sphere tests. A shadow ray's walk is counted as a closest-hit walk,
     an upper bound on the kernel's any-hit walk."""
+    import torch
+
     import halogen_tpu_torch.integrator.trace as tr
     from halogen_tpu_torch.config import Intersector
     from halogen_tpu_torch.kernels import megakernel as mk
@@ -240,7 +284,7 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
 
     bvh, nee = mk.uses_bvh(scene), tr._use_nee(scene, st)
     w = dict(rays=0, shaded=0, shadow=0, tri=0, box=0)
-    state = {"calls": 0}
+    state = {"calls": 0, "bounces": 0}
     isect0, walk0 = tr.intersect_scene, traverse.traverse_world
 
     def walk(wbvh, origin, direction, seed_):
@@ -266,6 +310,7 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
         if not shadow:
             state["hit"], state["shaded"] = hit, mask & (hit.t < far_)
             w["shaded"] += int(state["shaded"].sum())
+            state["bounces"] = state["bounces"] + mask.to(torch.int32)
         if not bvh:
             w["tri"] += n * sc.num_triangles
         return hit
@@ -278,6 +323,13 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
     finally:
         tr.intersect_scene, traverse.traverse_world = isect0, walk0
     w["sphere"] = (w["rays"] + w["shadow"]) * scene.num_spheres
+    # a warp without refill stays for its longest path: the mean trips of
+    # a ray, and of each 32 consecutive rays' longest
+    trips = state["bounces"].to(torch.float32)
+    w["mean_bounces"] = float(trips.mean())
+    w["mean_warp_max"] = float(
+        trips[:trips.shape[0] // 32 * 32].reshape(-1, 32).max(dim=1)
+        .values.mean())
     return w
 
 
@@ -290,11 +342,17 @@ def _bound(n_bytes: float, ops: float) -> tuple:
             "operations")
 
 
-def _path_ops(w: dict, glass: bool, nee: bool, adjoint: bool = False):
+def _path_ops(w: dict, glass: bool, nee: bool, adjoint: bool = False,
+              makes_rays: int = 0):
+    """fp32-equivalent operations of the work `w` (an int32 operation as
+    two); `makes_rays`: the primary rays the launch makes itself."""
     shade = (OPS_SHADE + (OPS_GLASS if glass else 0) + (OPS_NEE if nee
              else 0) + (OPS_ADJ if adjoint else 0))
+    ints = (w["shaded"] * (OPS_INT_SHADE + (OPS_INT_NEE if nee else 0))
+            + makes_rays * OPS_INT_RAY)
     return (w["tri"] * OPS_TRI + w["box"] * OPS_BOX
-            + w["sphere"] * OPS_SPHERE + w["shaded"] * shade)
+            + w["sphere"] * OPS_SPHERE + w["shaded"] * shade
+            + makes_rays * OPS_RAY + 2 * ints)
 
 
 def _table_bytes(tables) -> int:
@@ -313,6 +371,44 @@ def _grad_compare(got, ref) -> tuple:
     bound = GRAD_RTOL * np.abs(ref).max(axis=0) + GRAD_ATOL
     diff = np.abs(got - ref)
     return float(diff.max()), float((diff / bound).max())
+
+
+def _profile_step(fn, step_ms: float) -> dict:
+    """One call of `fn` (a frame or a step) under `torch.profiler`: the
+    `cudaLaunchKernel` calls, the device-side operations (kernels, copies
+    and memsets), the launches of the port's own kernels, the device's busy
+    time and its idle share of `step_ms`, the step's unprofiled time."""
+    import torch
+    from halogen_tpu_torch.profile_frame import _self_device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    on_device = [r for r in rows if _self_device_us(r) > 0]
+    busy_ms = sum(_self_device_us(r) for r in on_device) / 1e3
+    own = ("megakernel<", "megakernel_bvh<", "adjoint_kernel<",
+           "traverse_kernel")
+    return dict(
+        cuda_launches=sum(r.count for r in rows
+                          if r.key.startswith("cudaLaunchKernel")),
+        device_ops=sum(r.count for r in on_device),
+        kernel_launches=sum(r.count for r in on_device
+                            if any(k in r.key for k in own)),
+        busy_ms=busy_ms, profiled_ms=profiled_ms,
+        idle_share=1.0 - busy_ms / step_ms)
+
+
+def _profile_text(p: dict) -> str:
+    return (f"a profiled one: {p['cuda_launches']} cudaLaunchKernel calls, "
+            f"{p['device_ops']} device operations, {p['kernel_launches']} "
+            f"launches of the port's kernels, device busy "
+            f"{p['busy_ms']:.3f} ms, idle share {p['idle_share']:.3f} "
+            f"(profiled {p['profiled_ms']:.1f} ms)")
 
 
 def main() -> int:
@@ -480,10 +576,16 @@ def main() -> int:
     m_kernel = float(frames[0].mean())
     m_plain = float(plain_img.mean())
     rel = abs(m_kernel - m_plain) / abs(m_plain)
+    prof6 = _profile_step(lambda: ht.render_frame(scene, cam, st, 5),
+                          dt / 4 * 1e3)
+    # the kernel makes its own rays: no eager ray-generation launches (a
+    # frame of 32 groups took ~33,500 launches when torch made the rays)
+    assert prof6["cuda_launches"] <= 3350, prof6
     print(f"[6] main path {st.width}x{st.height} {st.samples_per_pixel} spp "
           f"{st.max_bounces} bounces: {launches} kernel "
           f"launches in 5 frames; 4 frames in {dt:.4f} s = {mrays:.3f} "
-          f"Mrays/s; plain frame {plain_frame_s:.4f} s = "
+          f"Mrays/s; {_profile_text(prof6)}; plain frame "
+          f"{plain_frame_s:.4f} s = "
           f"{st.samples_per_pixel * st.num_pixels / plain_frame_s / 1e6:.3f}"
           f" Mrays/s; mean radiance kernel {m_kernel:.6f} vs plain "
           f"{m_plain:.6f} (rel {rel:.2e}, < 2e-2) | {card}", flush=True)
@@ -556,10 +658,14 @@ def main() -> int:
             g = getattr(grads["materials"], f.name)
             assert bool(torch.isfinite(g.float()).all()), f.name
     fb_mrays = st9.samples_per_pixel * st9.num_pixels * 2 / dt9 / 1e6
+    prof9 = _profile_step(
+        lambda: render_loss_grad(params, scene, cam, st9, zeros, 3),
+        dt9 / 2 * 1e3)
     print(f"[9] fwd+bwd {st9.width}x{st9.height} {st9.samples_per_pixel} spp"
           f" {st9.max_bounces} bounces: launches (megakernel, adjoint) "
           f"{fb_launches} in 3 steps; 2 steps in {dt9:.4f} s = "
-          f"{fb_mrays:.3f} Mrays/s (fwd+bwd) | {card}", flush=True)
+          f"{fb_mrays:.3f} Mrays/s (fwd+bwd); {_profile_text(prof9)} | "
+          f"{card}", flush=True)
     st9s = st9.replace(width=64, height=64, samples_per_pixel=16)
     zeros_s = torch.zeros((64, 64, 3), device=dev)
     _, g_k = render_loss_grad(params, scene, cam, st9s, zeros_s, 1)
@@ -778,13 +884,19 @@ def main() -> int:
         p_img = ht.render_frame(sc, cm, small.replace(fused=ht.Fused.OFF), 1)
         rel14 = abs(float(k_img.mean()) - float(p_img.mean())) / abs(
             float(p_img.mean()))
-        main14[name] = (launches14, mr14, dt14 / n_frames, rel14)
+        prof14 = _profile_step(
+            lambda: ht.render_frame(sc, cm, st14, n_frames + 1),
+            dt14 / n_frames * 1e3)
+        if name == "glass":
+            assert prof14["cuda_launches"] <= 3350, prof14
+        main14[name] = (launches14, mr14, dt14 / n_frames, rel14, prof14)
         print(f"[14] {name} {st14.width}x{st14.height} "
               f"{st14.samples_per_pixel} spp {st14.max_bounces} bounces: "
               f"{launches14} kernel launches in "
               f"{n_frames + 1} frames; {n_frames} frames in {dt14:.4f} s = "
-              f"{mr14:.3f} Mrays/s; 256x256 mean radiance kernel vs plain "
-              f"rel {rel14:.2e} (< 2e-2) | {card}", flush=True)
+              f"{mr14:.3f} Mrays/s; {_profile_text(prof14)}; 256x256 mean "
+              f"radiance kernel vs plain rel {rel14:.2e} (< 2e-2) | {card}",
+              flush=True)
         assert rel14 < 2e-2, f"{name} mean radiance disagrees with plain"
 
     # --- 15. the glass adjoint (B2b)
@@ -856,11 +968,14 @@ def main() -> int:
             g = getattr(grads["materials"], f.name)
             assert bool(torch.isfinite(g.float()).all()), f.name
     fb15_mrays = st15.samples_per_pixel * st15.num_pixels * 2 / dt15 / 1e6
+    prof15 = _profile_step(
+        lambda: render_loss_grad(params15, glass, cam, st15, zeros15, 3),
+        dt15 / 2 * 1e3)
     print(f"[15] glass fwd+bwd {st15.width}x{st15.height} "
           f"{st15.samples_per_pixel} spp {st15.max_bounces} bounces: "
           f"launches (megakernel, adjoint) {fb15} in 3 steps; 2 steps in "
-          f"{dt15:.4f} s = {fb15_mrays:.3f} Mrays/s (fwd+bwd) | {card}",
-          flush=True)
+          f"{dt15:.4f} s = {fb15_mrays:.3f} Mrays/s (fwd+bwd); "
+          f"{_profile_text(prof15)} | {card}", flush=True)
     st15s = st15.replace(width=64, height=64, samples_per_pixel=16)
     zeros15s = torch.zeros((64, 64, 3), device=dev)
     _, g_k = render_loss_grad(params15, glass, cam, st15s, zeros15s, 1)
@@ -1135,13 +1250,36 @@ def main() -> int:
     seed_b = torch.where(pool.active, far_cam, -1.0)
 
     def profiled_ms(fn, key, reps=10):
+        """Mean device time of the kernel `key` (its name, with "<" for a
+        template) over the launches the profiler recorded. Late in a long
+        process the profiler can drop events, at times all of a session's:
+        the mean is over what it kept, a session that kept none is
+        repeated after a pause, and if five kept none the answer is None
+        (printed "not recorded"): a fault of the tracing, not of the
+        kernel, whose event times beside it do not pass through the
+        profiler."""
         acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [r for r in prof.key_averages() if key in r.key]
-        return sum(_self_device_us(r) for r in rows) / 1e3 / reps
+        name = key.rstrip("<")
+        # the demangled name, or the mangled one where demangling failed
+        keys = (key, f"{len(name)}{name}I" if key.endswith("<") else key)
+        for attempt in range(5):
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.1 * attempt)
+            kept = prof.key_averages()
+            rows = [r for r in kept if any(k in r.key for k in keys)]
+            count = sum(r.count for r in rows)
+            if count:
+                return sum(_self_device_us(r) for r in rows) / 1e3 / count
+            print(f"    the profiler kept no {key} launch of {reps} "
+                  f"(session {attempt + 1} of 5); it kept "
+                  f"{[r.key[:60] for r in kept][:4]}", flush=True)
+        return None
+
+    def ms4(x):
+        return "not recorded" if x is None else f"{x:.4f}"
 
     b3_rays = {"camera": (o_cam, d_cam, far_cam),
                "bounce": (o_b, d_b, seed_b)}
@@ -1156,7 +1294,7 @@ def main() -> int:
         times19[name] = (k_ms, profiled_ms(fn, "traverse_kernel"))
         print(f"[19] B3 on the glass dragon's {name} rays ({o19.shape[0]}, "
               f"{work19[name][2]} walked): {k_ms} ms (events), "
-              f"{times19[name][1]:.4f} ms (device); {work19[name][0]} "
+              f"{ms4(times19[name][1])} ms (device); {work19[name][0]} "
               f"triangle and {work19[name][1]} box tests | {card}",
               flush=True)
     small = slice(0, 16384)
@@ -1200,7 +1338,7 @@ def main() -> int:
         b1d[name] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, work=w,
                          bound=_bound(nbytes, ops), res=res[name])
         print(f"[19] {name}: one launch of {o_cam.shape[0]} rays, "
-              f"{st19.max_bounces} bounces: {k_ms} ms (events), {dev_ms:.4f}"
+              f"{st19.max_bounces} bounces: {k_ms} ms (events), {ms4(dev_ms)}"
               f" ms (device); registers, spill bytes {res[name]}; plain "
               f"(lockstep, brute force) at 16384 rays {p_ms} ms; work {w}; "
               f"bound {b1d[name]['bound'][0]:.4f} ms by "
@@ -1221,15 +1359,9 @@ def main() -> int:
         assert img.shape == (512, 512, 3)
         assert bool(torch.isfinite(img).all()), "glass dragon not finite"
     mrays20 = st_d.samples_per_pixel * st_d.num_pixels * 2 / dt20 / 1e6
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        ht.render_frame(dragon, dcam, st_d, 3)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    busy_ms = sum(_self_device_us(r) for r in prof.key_averages()) / 1e3
-    idle20 = 1.0 - busy_ms / (dt20 / 2 * 1e3)
+    prof20 = _profile_step(lambda: ht.render_frame(dragon, dcam, st_d, 3),
+                           dt20 / 2 * 1e3)
+    idle20 = prof20["idle_share"]
     st20s = st_d.replace(width=256, height=256)
     k_img = ht.render_frame(dragon, dcam, st20s, 1)
     traverse.LAUNCHES = 0
@@ -1244,9 +1376,8 @@ def main() -> int:
     print(f"[20] glass dragon {st_d.width}x{st_d.height} "
           f"{st_d.samples_per_pixel} spp {st_d.max_bounces} bounces: "
           f"{launches20[0]} B1d launches in 3 frames; 2 frames in "
-          f"{dt20:.4f} s = {mrays20:.3f} Mrays/s; device busy {busy_ms:.1f} "
-          f"ms of a frame (profiled frame {prof_s * 1e3:.1f} ms), idle share"
-          f" {idle20:.3f} of the timed frames' mean; 256x256 Fused.OFF "
+          f"{dt20:.4f} s = {mrays20:.3f} Mrays/s; {_profile_text(prof20)}; "
+          f"256x256 Fused.OFF "
           f"frame ({b3_launches} launches of the traversal kernel) mean "
           f"radiance vs the kernel route rel {rel20:.2e} (< 2e-2) | {card}",
           flush=True)
@@ -1360,17 +1491,191 @@ def main() -> int:
             fn, key = fns[name]
             fn()
             t23[name].append((_cuda_ms(fn, 10), profiled_ms(fn, key)))
-        dev_f = float(np.mean([x[1] for x in t23[f_name]]))
-        dev_a = float(np.mean([x[1] for x in t23[a_name]]))
+        dev_f, dev_a = ([x[1] for x in t23[k] if x[1] is not None]
+                        for k in (f_name, a_name))
+        dev_f = float(np.mean(dev_f)) if dev_f else None
+        dev_a = float(np.mean(dev_a)) if dev_a else None
+        own = None if None in (dev_f, dev_a) else dev_a - dev_f
         turns23[a_name] = dict(events_ms=[x[0] for x in t23[a_name]],
                                device_ms=[x[1] for x in t23[a_name]],
                                forward_device_ms=[x[1] for x in t23[f_name]],
-                               own_device_ms=dev_a - dev_f)
+                               own_device_ms=own)
         print(f"[23] {f_name} then {a_name} on the same {o23.shape[0]} rays, "
               f"{st23.max_bounces} bounces, in turns: {f_name} {t23[f_name]}"
               f" ms, {a_name} {t23[a_name]} ms (events, device); the "
-              f"adjoint's own device time {dev_a - dev_f:.4f} ms of "
-              f"{dev_a:.4f} | {card}", flush=True)
+              f"adjoint's own device time {ms4(own)} ms of "
+              f"{ms4(dev_a)} | {card}", flush=True)
+
+    # --- 25. the kernel's own rays, and the launch from pixels against the
+    # explicit-ray launch
+    from halogen_tpu_torch.integrator.trace import group_rays
+
+    lens_cam = ht.make_camera(**CAM, aperture_deg=2.0, focal_distance=3.2,
+                              device=dev)
+    cases25 = {
+        "B1a": (scene, cam, cases["sobol_rr"]),
+        "B1b, thin lens": (glass, lens_cam, glass_cases["glass_sobol_rr"]),
+        "B1c": (spheres, sky_cam, sky_cases["sky_spheres_nee"][2]),
+        "B1b prng": (glass, cam, glass_cases["glass_prng_rr"]),
+        "B1b+c+d": (dragon_sky, dcam, cases17["dragon_sky_nee"][1]),
+    }
+    rays25 = {}
+    for name, (sc, cm, st25) in cases25.items():
+        frame, lane0, spp_block = 3, 2, 2
+        view = mk.pixel_view(cm, st25, frame, pix64)
+        out, o25, d25, sidx25, seed25 = mk.trace_pixels_outputs(
+            sc, view, lane0, spp_block, st25, write_rays=True)
+        quiet = mk.trace_pixels_outputs(sc, view, lane0, spp_block, st25)
+        explicit = mk.trace_fused_outputs(sc, o25, d25, cm.far, sidx25,
+                                          seed25, st25)
+        ro, rd, rsidx, rseed = group_rays(cm, st25, frame, pix64, lane0,
+                                          spp_block)
+        torch.cuda.synchronize()
+        ints_ok = (torch.equal(sidx25, mk._as_i32(rsidx))
+                   and torch.equal(seed25, mk._as_i32(rseed)))
+        o_err = float((o25 - ro).abs().max())
+        d_err = float((d25 - rd).abs().max())
+        n_apart = int(((o25 != ro) | (d25 != rd)).any(dim=1).sum())
+        same = torch.equal(out, explicit) and torch.equal(out, quiet)
+        rays25[name] = dict(origin_max_abs_err=o_err,
+                            direction_max_abs_err=d_err,
+                            rays_not_bit_equal=n_apart)
+        print(f"[25] {name}: {out.shape[0]} rays made in the kernel vs "
+              f"group_rays on the card: sample index and seed bit for bit "
+              f"{ints_ok}; origin max |diff| {o_err:.3e}, direction "
+              f"{d_err:.3e} (<= 1e-6), {n_apart} rays not bit for bit; "
+              f"launch from pixels == explicit-ray launch on those rays, "
+              f"bit for bit: {same}", flush=True)
+        assert ints_ok, f"{name}: sample index or seed differs"
+        assert o_err <= 1e-6 and d_err <= 1e-6, f"{name}: rays differ"
+        assert same, f"{name}: the launch from pixels took another path"
+
+    # --- 26. warps that refill against one ray a thread, bit for bit
+    # the threads of the smallest grid a refilling launch may have: one
+    # block an SM
+    grid_rays = 128 * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    refill26 = {}
+    for name, (sc, cm, st26, r26, et) in {
+            "B1a": (scene, cam, st_a, (o, d, sidx, seed), None),
+            "B1b": (glass, cam, st_g, (o_g, d_g, sidx_g, seed_g), None),
+            "B1c": (spheres, sky_cam, st_e, (o_e, d_e, sidx_e, seed_e),
+                    env_tab)}.items():
+        for count in (100003, 1000):  # ragged; smaller than the grid
+            assert count % 128 and (count == 1000) == (count < grid_rays)
+            o26, d26, s26, e26 = (x[:count].contiguous() for x in r26)
+            a = mk.trace_fused_outputs(sc, o26, d26, cm.far, s26, e26, st26,
+                                       None, et)
+            b = mk._launch(sc, o26, d26, cm.far, s26, e26, st26, None, et,
+                           refill=False)
+            torch.cuda.synchronize()
+            refill26[(name, count)] = torch.equal(a, b)
+            print(f"[26] {name}, {count} rays: the refilling launch == one "
+                  f"ray a thread, bit for bit: {refill26[(name, count)]}",
+                  flush=True)
+            assert refill26[(name, count)], (name, count)
+
+    # --- 27. the redesigned variants at the launch shape, from pixels (as
+    # the main path launches them: 262144 rays, over the persistent grid,
+    # so most rays are made by lanes that fell free) against the plain
+    # version, `group_rays` then the lockstep integrator, and against the
+    # explicit-ray launch; then their times
+    def pixel_launch_check(name, sc, cm, st27, pix27, tab27, et, plain_rays):
+        """One launch from pixels at the launch shape: its rays against
+        `group_rays`, its outputs bit for bit against the explicit-ray
+        launch on the rays it wrote, and against the plain version (on
+        every `len / plain_rays`-th ray, spread over the launch). Returns
+        (max |diff| vs plain, rays not bit-equal to group_rays, plain ms)."""
+        view = mk.pixel_view(cm, st27, 1, pix27)
+        out, o27, d27, s27, e27 = mk.trace_pixels_outputs(
+            sc, view, 0, 1, st27, tab27, et, write_rays=True)
+        explicit = mk.trace_fused_outputs(sc, o27, d27, cm.far, s27, e27,
+                                          st27, tab27, et)
+        n27 = out.shape[0]
+        pick = torch.arange(0, n27, n27 // plain_rays, device=dev)
+
+        def plain():
+            r = group_rays(cm, st27, 1, pix27[pick], 0, 1)
+            return mk.trace_color_fused_reference(sc, r[0], r[1], cm.far,
+                                                  r[2], r[3], st27)
+        ro, rd, rsidx, rseed = group_rays(cm, st27, 1, pix27, 0, 1)
+        ref = plain()
+        torch.cuda.synchronize()
+        assert (torch.equal(s27, mk._as_i32(rsidx))
+                and torch.equal(e27, mk._as_i32(rseed))), (
+            f"{name}: sample index or seed differs at the launch shape")
+        o_err = float((o27 - ro).abs().max())
+        d_err = float((d27 - rd).abs().max())
+        n_apart = int(((o27 != ro) | (d27 != rd)).any(dim=1).sum())
+        assert o_err <= 1e-6 and d_err <= 1e-6, f"{name}: rays differ"
+        assert torch.equal(out, explicit), (
+            f"{name}: the launch from pixels took another path")
+        if mk.uses_bvh(sc):
+            n_bad, n_dir, bad_w, err, _, _, _ = compare_as_read(
+                sc, out[pick], ref)
+            n_bad = max(n_bad, n_dir, bad_w)
+        else:
+            n_bad, err = compare(out[pick, :10], ref[:, :10])
+        p_ms = [_cuda_ms(plain, 1), _cuda_ms(plain, 1)]
+        print(f"[27] {name}: a launch from pixels of {n27} rays, "
+              f"{st27.max_bounces} bounces: rays vs group_rays sample index "
+              f"and seed bit for bit, origin max |diff| {o_err:.3e}, "
+              f"direction {d_err:.3e} (<= 1e-6), {n_apart} rays not bit for "
+              f"bit; outputs == the explicit-ray launch bit for bit; vs "
+              f"plain (group_rays and the lockstep) on {pick.shape[0]} of "
+              f"them max |diff| {err:.3e}, {n_bad} rays outside "
+              f"{PARITY_TOL}; plain {p_ms} ms", flush=True)
+        assert n_bad <= PARITY_MAX_OUTSIDE * pick.shape[0], name
+        return err, n_apart, p_ms
+
+    times27, err27, plain27 = {}, {}, {}
+    for name, (sc, cm, st27, pix27, r27, et) in {
+            "B1a": (scene, cam, st_a, pix_g, (o, d, sidx, seed), None),
+            "B1b": (glass, cam, st_g, pix_g, (o_g, d_g, sidx_g, seed_g),
+                    None),
+            "B1c": (spheres, sky_cam, st_e, pix_e,
+                    (o_e, d_e, sidx_e, seed_e), env_tab)}.items():
+        tab27 = mk._scene_tables(sc)
+        err27[name], _, plain27[name] = pixel_launch_check(
+            name, sc, cm, st27, pix27, tab27, et, pix27.shape[0])
+        view = mk.pixel_view(cm, st27, 1, pix27)
+        from_pixels = lambda: mk.trace_pixels_outputs(sc, view, 0, 1, st27,
+                                                      tab27, et)
+        o27, d27, s27, e27 = r27  # phase 13's: group_rays' on these pixels
+        s27, e27 = mk._as_i32(s27), mk._as_i32(e27)
+        from_rays = lambda: mk.trace_fused_outputs(sc, o27, d27, cm.far, s27,
+                                                   e27, st27, tab27, et)
+        threads = lambda: mk._launch(sc, o27, d27, cm.far, s27, e27, st27,
+                                     tab27, et, refill=False)
+        t27 = {}
+        for key, fn in (("pixels", from_pixels), ("rays", from_rays),
+                        ("rays, one a thread", threads)):
+            fn()
+            t27[key] = ([_cuda_ms(fn, 10), _cuda_ms(fn, 10)],
+                        profiled_ms(fn, "megakernel<"))
+        times27[name] = t27
+        print(f"[27] {name}: one launch of {o27.shape[0]} rays, "
+              f"{st27.max_bounces} bounces, ms (events x 2, device): "
+              f"{t27}; registers, spill bytes {res[name]} | {card}",
+              flush=True)
+    # the BVH tier from pixels at the glass dragon's launch shape: B1b+d
+    # (the glass dragon's frame; one ray a thread) and B1c+d (its warps
+    # refill); plain, brute force over every triangle, on 16384 of the rays
+    for name in ("B1b+d", "B1c+d"):
+        sc, st27 = shapes19[name]
+        tab27, et = mk._scene_tables(sc), mk.env_table(sc)
+        err27[name], _, plain27[name] = pixel_launch_check(
+            name, sc, dcam, st27, pix_g, tab27, et, 16384)
+        view = mk.pixel_view(dcam, st27, 1, pix_g)
+        from_pixels = lambda: mk.trace_pixels_outputs(sc, view, 0, 1, st27,
+                                                      tab27, et)
+        from_pixels()
+        times27[name] = {"pixels": (
+            [_cuda_ms(from_pixels, 5), _cuda_ms(from_pixels, 5)],
+            profiled_ms(from_pixels, "megakernel_bvh<", reps=5))}
+        print(f"[27] {name}: one launch from pixels of {pix_g.shape[0]} "
+              f"rays, {st27.max_bounces} bounces, ms (events x 2, device): "
+              f"{times27[name]['pixels']} | {card}", flush=True)
 
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
@@ -1381,13 +1686,15 @@ def main() -> int:
     tab_a, tab_b, tab_c = (mk._scene_tables(x) for x in (scene, glass,
                                                          spheres))
     k_mat = 12 * 4 * scene.materials.count
+    # a launch from pixels reads 8 bytes a ray (its pixel; the camera block
+    # is 96 bytes a launch) and writes 40, or 48 with env NEE
     bounds = {
-        "B1a": _bound(n * 72 + _table_bytes(tab_a),
-                      _path_ops(w_a, False, False)),
-        "B1b": _bound(n * 72 + _table_bytes(tab_b),
-                      _path_ops(w_b, True, False)),
-        "B1c": _bound(n * 80 + _table_bytes((*tab_c, env_tab)),
-                      _path_ops(w_c, False, True)),
+        "B1a": _bound(n * 48 + 96 + _table_bytes(tab_a),
+                      _path_ops(w_a, False, False, makes_rays=n)),
+        "B1b": _bound(n * 48 + 96 + _table_bytes(tab_b),
+                      _path_ops(w_b, True, False, makes_rays=n)),
+        "B1c": _bound(n * 56 + 96 + _table_bytes((*tab_c, env_tab)),
+                      _path_ops(w_c, False, True, makes_rays=n)),
         "B1d": b1d["B1b+d"]["bound"],
         "B2": _bound(n * 44 + _table_bytes(tab_a) + k_mat,
                      _path_ops(w_a, False, False, adjoint=True)),
@@ -1400,6 +1707,20 @@ def main() -> int:
     bounds["B3"] = _bound(b3_bytes, tt * OPS_TRI + bt * OPS_BOX)
     print(f"[24] path work at the launch shapes: B1a {w_a}, B1b {w_b}, B1c "
           f"{w_c}; bounds (ms, by) {bounds}", flush=True)
+
+    def redesigned(name, prof):
+        """The extra keys of a variant redesigned with its rays made in
+        the kernel: phase 27's times and the profiled frame."""
+        t = times27[name]
+        return dict(
+            device_ms=t["pixels"][1], explicit_rays_ms=t["rays"][0],
+            explicit_rays_device_ms=t["rays"][1],
+            one_ray_a_thread_device_ms=t["rays, one a thread"][1],
+            refill_bit_for_bit=all(v for k, v in refill26.items()
+                                   if k[0] == name),
+            frame_cuda_launches=prof["cuda_launches"],
+            frame_device_busy_ms=prof["busy_ms"],
+            frame_device_idle_share=prof["idle_share"])
 
     def entry(name, replaces, source, launches, err, k_ms, p_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1417,27 +1738,41 @@ def main() -> int:
     dmain = b1d["B1b+d"]
     kernels = [
         entry("B1a", "halogen_tpu/kernels/megakernel.py:945", mega, launches,
-              max_err, kernel_ms, plain_ms, **reg("B1a"),
+              err27["B1a"], times27["B1a"]["pixels"][0], plain27["B1a"],
+              **reg("B1a"), explicit_rays_max_abs_err=max_err,
+              explicit_rays_plain_ms=plain_ms,
+              **redesigned("B1a", prof6), own_rays=rays25,
               rays_outside_tol=int(n_bad), rays=n, parity_max_abs_err=parity,
               frame_ms=dt / 4 * 1000.0,
               plain_frame_ms=plain_frame_s * 1000.0, mrays_per_s=mrays,
-              build_s=build_s, ms_again=float(np.mean(times13["B1a"][0]))),
+              build_s=build_s),
         entry("B1b", "halogen_tpu/kernels/megakernel.py:225", mega,
-              main14["glass"][0], err13["B1b"], *times13["B1b"],
-              **reg("B1b"), parity_max_abs_err={
+              main14["glass"][0], err27["B1b"], times27["B1b"]["pixels"][0],
+              plain27["B1b"], **reg("B1b"),
+              explicit_rays_max_abs_err=err13["B1b"],
+              explicit_rays_plain_ms=times13["B1b"][1],
+              **redesigned("B1b", main14["glass"][4]), parity_max_abs_err={
                   k: v for k, v in parity11.items() if "glass" in k},
               frame_ms=main14["glass"][2] * 1000.0,
               mrays_per_s=main14["glass"][1]),
         entry("B1c", "halogen_tpu/kernels/megakernel.py:1380", mega,
-              main14["envmap_1024"][0], err13["B1c"], *times13["B1c"],
-              **reg("B1c"), parity_max_abs_err={
+              main14["envmap_1024"][0], err27["B1c"],
+              times27["B1c"]["pixels"][0], plain27["B1c"], **reg("B1c"),
+              explicit_rays_max_abs_err=err13["B1c"],
+              explicit_rays_plain_ms=times13["B1c"][1],
+              **redesigned("B1c", main14["envmap_1024"][4]),
+              parity_max_abs_err={
                   k: v for k, v in parity11.items() if "sky" in k},
               frame_ms=main14["envmap_1024"][2] * 1000.0,
               mrays_per_s=main14["envmap_1024"][1]),
         entry("B1d", "halogen_tpu/kernels/megakernel.py:523", mega,
-              launches20[0], max(parity17.values()), dmain["ms"],
-              dmain["plain_ms"], **reg("B1b+d"), plain_rays=16384,
-              device_ms=dmain["device_ms"], parity_max_abs_err=parity17,
+              launches20[0], err27["B1b+d"], times27["B1b+d"]["pixels"][0],
+              plain27["B1b+d"], **reg("B1b+d"), plain_rays=16384,
+              device_ms=times27["B1b+d"]["pixels"][1],
+              explicit_rays_ms=dmain["ms"],
+              explicit_rays_device_ms=dmain["device_ms"],
+              refilling_variant_max_abs_err=err27["B1c+d"],
+              parity_max_abs_err=parity17,
               variants={k: dict(ms=v["ms"], device_ms=v["device_ms"],
                                 plain_ms=v["plain_ms"],
                                 bound_ms=v["bound"][0],
@@ -1445,7 +1780,9 @@ def main() -> int:
                                 spill_store_bytes=v["res"][1])
                         for k, v in b1d.items()},
               frame_ms=dt20 / 2 * 1000.0, mrays_per_s=mrays20,
-              device_idle_share=idle20),
+              device_idle_share=idle20,
+              frame_cuda_launches=prof20["cuda_launches"],
+              frame_device_busy_ms=prof20["busy_ms"]),
         entry("B2", "halogen_tpu/kernels/adjoint.py:80", adjs,
               fb_launches[1], adj_err, adj_ms, adj_plain_ms, **reg("B2"),
               global_route_registers=res["B2 global"],
@@ -1454,6 +1791,9 @@ def main() -> int:
               in_turns_with_B1a=turns23["B2"],
               parity_max_abs_err=adj_parity, fwd_bwd_mrays_per_s=fb_mrays,
               fwd_bwd_step_ms=dt9 / 2 * 1000.0,
+              step_cuda_launches=prof9["cuda_launches"],
+              step_device_busy_ms=prof9["busy_ms"],
+              step_device_idle_share=prof9["idle_share"],
               fit_s_per_step_median=fit_s,
               fit_loss_first_last=[losses[0], losses[-1]],
               fit_albedo_err_before_after=[err0, err1],
@@ -1466,7 +1806,10 @@ def main() -> int:
               global_route_max_abs_err=g21_err,
               in_turns_with_B1b=turns23["B2b"],
               parity_max_abs_err=adj15, fwd_bwd_mrays_per_s=fb15_mrays,
-              fwd_bwd_step_ms=dt15 / 2 * 1000.0),
+              fwd_bwd_step_ms=dt15 / 2 * 1000.0,
+              step_cuda_launches=prof15["cuda_launches"],
+              step_device_busy_ms=prof15["busy_ms"],
+              step_device_idle_share=prof15["idle_share"]),
         entry("B3", "halogen_tpu/kernels/bvh_pallas.py:142", trav,
               b3_launches, b3_err, times19["camera"][0], b3_plain_ms,
               **reg("B3"), plain_rays=16384,

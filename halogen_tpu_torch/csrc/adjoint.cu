@@ -145,7 +145,8 @@ __device__ __forceinline__ void warp_sum_by_key(int key, float (&g)[kNGrad],
 
 template <bool kTransmissive, bool kSmemTranscript>
 __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];  // 16-byte aligned triangle rows
+  float* smem = reinterpret_cast<float*>(smem4);
   const SceneView sc = load_scene(p.scene, smem);
   const int n_acc = sc.num_materials * kNGrad;
   // [kWarps, K * 12] sums, then (shared route) the transcript

@@ -37,8 +37,8 @@
 //     L1 holds;
 //   - triangle rows of 12 floats, read as three 16-byte loads
 //     (`triangle_hit` on a float4 row: the same ops in the same order as
-//     on the brute tier's 9-float rows, so every route still agrees bit
-//     for bit on the same triangle).
+//     on the brute tier's rows in shared memory, so every route still
+//     agrees bit for bit on the same triangle).
 // Measured slower and left out (PERF.md §6): the stack's first 8 or 16
 // entries in shared memory, and culling popped entries by a stored entry
 // distance (its store, load and branch cost more than the boxes it

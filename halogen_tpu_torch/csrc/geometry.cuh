@@ -11,8 +11,8 @@
 
 namespace halogen {
 
-constexpr int kTriStride = 9;    // v0, e1, e2
-constexpr int kTriRow4 = 3;      // the BVH tier's rows: v0, e1, e2, 3 pad
+constexpr int kTriStride = 12;   // v0, e1, e2, 3 pad: three 16-byte loads
+constexpr int kTriRow4 = 3;      // a row in float4s
 constexpr int kTrinStride = 10;  // n0, n1 - n0, n2 - n0, material
 constexpr float kHitEps = 1e-4f;
 constexpr float kDetEps = 1e-8f;
@@ -104,16 +104,19 @@ __device__ __forceinline__ bool triangle_hit(V3 v0, V3 e1, V3 e2, V3 o, V3 d,
          t > 0.0f && t > kHitEps;
 }
 
-// The same test on a brute-tier row `tv` of 9 floats (v0, e1, e2).
+// The same test on a brute-tier row `tv` in shared memory: 12 floats (v0,
+// e1, e2, 3 pad), 16-byte aligned, read as three 16-byte loads.
 __device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
                                              float& t, float& u, float& v,
                                              float& det) {
-  return triangle_hit(V3{tv[0], tv[1], tv[2]}, V3{tv[3], tv[4], tv[5]},
-                      V3{tv[6], tv[7], tv[8]}, o, d, t, u, v, det);
+  const float4* row = reinterpret_cast<const float4*>(tv);
+  const float4 a = row[0], b = row[1], c = row[2];
+  return triangle_hit(V3{a.x, a.y, a.z}, V3{a.w, b.x, b.y},
+                      V3{b.z, b.w, c.x}, o, d, t, u, v, det);
 }
 
-// The same test on a BVH-tier row of three float4s (v0, e1, e2, padding),
-// read through the read-only path: three 16-byte loads.
+// The same test on a BVH-tier row in global memory (the same layout), read
+// through the read-only path.
 __device__ __forceinline__ bool triangle_hit(const float4* row, V3 o, V3 d,
                                              float& t, float& u, float& v,
                                              float& det) {

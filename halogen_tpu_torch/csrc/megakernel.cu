@@ -10,7 +10,7 @@
 // compile-time variants, chosen by the entry point as the Pallas kernel
 // is specialized statically:
 //   B1a opaque, no NEE (any_transmissive=False, env_nee=False);
-//   B1b nested dielectrics: a per-thread medium stack of 8 slots
+//   B1b nested dielectrics: a per-thread medium stack of 8 material ids
 //       (any_transmissive=True);
 //   B1c env NEE: an envmap draw and a shadow ray per bounce, 12 outputs
 //       (env_nee=True), alone or with B1b;
@@ -22,38 +22,74 @@
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
-// What bounds it on this card: FP32 issue and warp divergence. Each
-// ray-bounce runs about 14 primitive tests (12 triangles and 2 spheres of
-// the Cornell box), one material lookup and ~600 integer ops of the
-// Owen-scrambled Sobol sampler, while a ray moves only 72 bytes through
-// device memory (32 in: origin, direction, sample index, seed; 40 out,
-// 48 with env NEE). B1b adds the stack's unrolled selects (8 slots x 6
-// values) and the registers to hold them; glass paths run longer (8
-// bounces) and diverge more, since a warp's rays refract, reflect and
-// pass through false hits on different bounces. B1c adds a second Sobol
-// draw, one 40-byte row read from the [H*W, 10] draw table (cached in L1
-// and L2), the sin/cos of the draw and a shadow ray per bounce, i.e.
-// roughly twice the primitive tests. The TPU kernel took its env draws
-// precomputed as a [7, K, N] table, because gathers are costly there;
-// here the draw runs in the kernel, which saves the host the K Sobol
-// evaluations per group and the ~37 MB buffer.
+// What bounds it on this card: instruction issue, then the unevenness of
+// the paths. A launch moves little through device memory: from pixels a
+// ray costs 8 bytes in (its pixel; the camera block is 96 bytes a launch)
+// and 40 out (48 with env NEE), and the scene tables are read once a
+// block. Each ray-bounce runs about 14 primitive tests (12 triangles and
+// 2 spheres of the Cornell box; twice that with B1c's shadow ray), one
+// material lookup and five sampler draws. The paths end unevenly: a
+// Cornell ray takes 2.3 trips of the loop on average while the longest of
+// each 32 takes 5.2 (glass 2.7 and 7.3, the sky scene 1.7 and 3.0;
+// chip_smoke.py phase 24), so a warp that waits for its longest path idles
+// over half its lanes. What the design does about each:
+//   - the kernel makes its own rays. With a camera block (`CameraView`)
+//     thread i takes pixel pix[i / spp_block] and lane i % spp_block,
+//     hashes the pixel into its seed and runs `camera_ray`
+//     (path_common.cuh): two 2D draws and ~90 float ops, each rounded as
+//     `camera.generate_rays` rounds it on the card. On the TPU the jit
+//     fuses that work beside the Pallas call; eager PyTorch issues it as
+//     ~1,050 launches a group, which kept the card idle 71-88% of a
+//     frame. A frame's group is now one launch (and the sky pass where
+//     there is an envmap). Where a gradient is wanted the rays are also
+//     written out, for the adjoint's replay. Without the block the kernel
+//     reads explicit rays (32 bytes a ray), for callers that have them.
+//   - warps are persistent and refill ("replacing terminated rays", Aila
+//     and Laine 2009): the grid is as many blocks as the card holds at
+//     once, a warp draws ray indices from one global counter, and as
+//     soon as one of its lanes is free (its ray's outputs stored) the
+//     free lanes take new rays; the bounce index is per lane. Outputs are indexed by ray and a ray's result does not
+//     depend on its lane, so the bits are those of one ray a thread
+//     (`counter` null: that order, kept for the comparison). Refilling as
+//     soon as any lane is free measured fastest on the brute tier
+//     (B1a 0.117 -> 0.083 ms, B1b 0.200 -> 0.120, B1c 0.179 -> 0.141 a
+//     262144-ray launch; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+//     The glass variants of the BVH tier run without it: their walk wants
+//     the coherent rays of neighbouring pixels more than full warps.
+//   - the sampler (path_common.cuh): Sobol's dimension 1 is Pascal's
+//     triangle mod 2, so its 32 table rows are five butterfly steps, and
+//     the bit reversals that met between it, the index shuffle and the
+//     Owen scramble cancel. An Owen-scrambled 2D draw is ~70 integer ops;
+//     the 32 rows of a direction table would alone be ~130.
+//   - B1b's medium stack is 8 material ids in one 64-bit word: every field
+//     of a medium is a column of its material's row in shared memory, a
+//     push inserts a byte and a pop deletes one. As 8 slots x 6 fields
+//     the stack takes 48 registers (126-128 in all, 4 blocks an SM); so
+//     B1b fits 89 (5 blocks an SM).
+//   - triangle rows are 12 floats, read from shared memory as three
+//     16-byte loads (the BVH tier's layout); every thread of a warp that
+//     tests the same triangle reads the same address, which the
+//     shared-memory crossbar broadcasts.
+//   - B1c's env draw is one 64-byte row of the [H*W, 16] draw table (four
+//     16-byte loads through the read-only path, cached in L1 and L2),
+//     which also holds the direction of the texel and of its alias, so a
+//     draw computes no sine or cosine. The TPU kernel took its env draws
+//     precomputed as a [7, K, N] table, because gathers are costly there;
+//     here the draw runs in the kernel.
+//   - each block copies the scene tables into shared memory once; blocks
+//     of 128 threads, no padding of the ray count.
 // B1d is bound by the walk instead: a dependent node or leaf load per step
 // (latency; the ~1 MB of nodes and triangles of an 8.7k-triangle scene
 // stay in L2) and the divergence of a warp's rays through the tree,
 // which grows after the first bounce as glass rays refract and reflect
 // (bvh_traverse.cuh says what the walk does about it). Its variants ask
-// for kBvhMinBlocks = 4 blocks per SM (`__launch_bounds__`): the glass
-// variant with env NEE then fits 128 registers (28 bytes of spill) and
-// runs faster than at the 135 it takes unbounded; 5 or more blocks spill
-// hundreds of bytes and run slower (PERF.md §6).
-// The design keeps everything else on chip:
-//   - one thread per ray, blocks of 128 threads, no padding of the ray
-//     count (a bounds check masks the ragged edge);
-//   - each block copies the scene tables into shared memory once;
-//   - the bounce loop runs inside the thread, and a dead ray leaves it.
-// The tables come in as pointers, not __constant__ symbols, so launches
-// are re-entrant; the Sobol direction table is constant data and lives in
-// __constant__ memory, read at a warp-uniform index.
+// for kBvhMinBlocks = 4 blocks per SM (`__launch_bounds__`).
+// Measured and left out (PERF.md §6): `__launch_bounds__` that force 5-8
+// blocks an SM on the brute tier (spills; slower or equal), and
+// `camera_ray` out of line (B1a slower).
+// The tables come in as pointers, not __constant__ symbols, and the ray
+// counter is a [1] tensor the wrapper zeroes on the stream, so launches
+// are re-entrant.
 //
 // Build with -fmad=false and without fast math so each op rounds as the
 // plain PyTorch version's does.
@@ -66,45 +102,57 @@ using namespace halogen;
 
 // blocks of 128 threads per SM that the BVH tier's variants must fit
 constexpr int kBvhMinBlocks = 4;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 struct Params {
-  const float* origin;         // [N, 3]
-  const float* direction;      // [N, 3]
-  const float* far;            // [1]
-  const uint32_t* sample_idx;  // [N]
-  const uint32_t* seed;        // [N]
-  SceneView scene;             // global-memory tables
-  float* out;                  // [N, 10], or [N, 12] with env NEE
+  // Explicit rays (cam.cam null), read; or, with a camera block, buffers
+  // the kernel writes its own rays to (null: not wanted)
+  float* origin;         // [N, 3]
+  float* direction;      // [N, 3]
+  uint32_t* sample_idx;  // [N]
+  uint32_t* seed;        // [N]
+  const float* far;      // [1]
+  CameraView cam;
+  SceneView scene;       // global-memory tables
+  float* out;            // [N, 10], or [N, 12] with env NEE
+  // [1], zero at launch: the next ray to hand out (warps draw their rays
+  // from it); null: thread t of the grid takes ray t
+  int* counter;
   int n;
   PathConfig cfg;
 };
 
-// The path of ray blockIdx.x * blockDim.x + threadIdx.x, into p.out.
-template <bool kTransmissive, bool kEnvNee, bool kBvh>
-__device__ __forceinline__ void trace_path(const Params& p) {
-  extern __shared__ float smem[];
-  const SceneView sc = load_scene<kBvh>(p.scene, smem);
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-
-  PathConfig cfg = p.cfg;
-  cfg.far = p.far[0];
-  PathState s;
-  s.o = {p.origin[3 * i], p.origin[3 * i + 1], p.origin[3 * i + 2]};
-  s.d = {p.direction[3 * i], p.direction[3 * i + 1], p.direction[3 * i + 2]};
-  const uint32_t sidx = p.sample_idx[i];
-  const uint32_t seed = p.seed[i];
-  if constexpr (kTransmissive) s.stack.init();
-
-  BounceRecord rec;
-  for (int k = 0; k <= cfg.max_bounces; ++k) {
-    if (path_bounce<kTransmissive, kEnvNee, kBvh>(sc, cfg, sidx, seed, k, s,
-                                                  rec) != kShadedGoesOn)
-      break;
+// Ray i of the launch into `s`: read, or made from the camera block.
+__device__ __forceinline__ void load_ray(const Params& p, int i, PathState& s,
+                                         uint32_t& sidx, uint32_t& seed) {
+  if (p.cam.cam != nullptr) {
+    const PrimaryRay r = camera_ray(p.cam, p.cfg.sobol, i);
+    s.o = r.o;
+    s.d = r.d;
+    sidx = r.sidx;
+    seed = r.seed;
+    if (p.origin != nullptr) {  // for the adjoint's replay
+      p.origin[3 * i] = r.o.x;
+      p.origin[3 * i + 1] = r.o.y;
+      p.origin[3 * i + 2] = r.o.z;
+      p.direction[3 * i] = r.d.x;
+      p.direction[3 * i + 1] = r.d.y;
+      p.direction[3 * i + 2] = r.d.z;
+      p.sample_idx[i] = sidx;
+      p.seed[i] = seed;
+    }
+  } else {
+    s.o = {p.origin[3 * i], p.origin[3 * i + 1], p.origin[3 * i + 2]};
+    s.d = {p.direction[3 * i], p.direction[3 * i + 1],
+           p.direction[3 * i + 2]};
+    sidx = p.sample_idx[i];
+    seed = p.seed[i];
   }
+}
 
+template <bool kEnvNee>
+__device__ __forceinline__ void store_path(const Params& p, int i,
+                                           const PathState& s) {
   constexpr int kOut = kEnvNee ? 12 : 10;
   float* out = p.out + kOut * static_cast<size_t>(i);
   out[0] = s.color.x;
@@ -123,6 +171,65 @@ __device__ __forceinline__ void trace_path(const Params& p) {
   }
 }
 
+// The paths of this block's warps, into p.out. A lane holds one ray at a
+// time and takes it one bounce a trip; as soon as a lane of the warp is
+// free, the free lanes take the next rays of the launch ("replacing
+// terminated rays", Aila and Laine 2009). A ray's result does not depend
+// on its lane.
+template <bool kTransmissive, bool kEnvNee, bool kBvh>
+__device__ __forceinline__ void trace_path(const Params& p) {
+  extern __shared__ float4 smem4[];
+  const SceneView sc =
+      load_scene<kBvh>(p.scene, reinterpret_cast<float*>(smem4));
+  __syncthreads();
+
+  PathConfig cfg = p.cfg;
+  cfg.far = p.far[0];
+  const unsigned lane = threadIdx.x & 31u;
+  PathState s;
+  BounceRecord rec;
+  uint32_t sidx = 0u, seed = 0u;
+  int ray = -1;      // the ray this lane holds, -1: none
+  int k = 0;         // its next bounce
+  bool more = true;  // the launch may have rays not handed out (per warp)
+  while (true) {
+    unsigned live = __ballot_sync(kFullWarp, ray >= 0);
+    if (more && live != kFullWarp) {
+      int next;
+      if (p.counter != nullptr) {
+        const unsigned free_lanes = ~live;
+        int base = 0;
+        if (lane == 0u) base = atomicAdd(p.counter, __popc(free_lanes));
+        base = __shfl_sync(kFullWarp, base, 0);
+        next = base + __popc(free_lanes & ((1u << lane) - 1u));
+        more = base + __popc(free_lanes) < p.n;
+      } else {
+        next = blockIdx.x * blockDim.x + threadIdx.x;
+        more = false;
+      }
+      if (ray < 0 && next < p.n) {
+        ray = next;
+        k = 0;
+        s = PathState();
+        if constexpr (kTransmissive) s.stack.init();
+        load_ray(p, ray, s, sidx, seed);
+      }
+      live = __ballot_sync(kFullWarp, ray >= 0);
+    }
+    if (live == 0u) break;
+    if (ray >= 0) {
+      const int res =
+          path_bounce<kTransmissive, kEnvNee, kBvh>(sc, cfg, sidx, seed, k, s,
+                                                    rec);
+      ++k;
+      if (res != kShadedGoesOn || k > cfg.max_bounces) {
+        store_path<kEnvNee>(p, ray, s);
+        ray = -1;
+      }
+    }
+  }
+}
+
 // The brute tier (B1a-c).
 template <bool kTransmissive, bool kEnvNee>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
@@ -136,60 +243,96 @@ __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
   trace_path<kTransmissive, kEnvNee, true>(p);
 }
 
-template <bool kTransmissive, bool kEnvNee>
-void launch_tier(const Params& p, bool bvh, int blocks, size_t smem,
-                 cudaStream_t st) {
-  if (bvh) {
-    megakernel_bvh<kTransmissive, kEnvNee><<<blocks, kThreads, smem, st>>>(p);
-  } else {
-    megakernel<kTransmissive, kEnvNee><<<blocks, kThreads, smem, st>>>(p);
+// Launches `kernel`: one thread a ray without a counter; with one, as many
+// blocks as the card holds at once (never more than the rays need).
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const Params& p, size_t smem,
+                   cudaStream_t st) {
+  int blocks = (p.n + kThreads - 1) / kThreads;
+  if (p.counter != nullptr) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidValue;
+    blocks = min(blocks, per_sm * sms);
   }
+  kernel<<<blocks, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kTransmissive, bool kEnvNee>
+cudaError_t launch_tier(const Params& p, bool bvh, size_t smem,
+                        cudaStream_t st) {
+  if (bvh) return launch(megakernel_bvh<kTransmissive, kEnvNee>, p, smem, st);
+  return launch(megakernel<kTransmissive, kEnvNee>, p, smem, st);
 }
 
 }  // namespace
 
+// Rays: explicit (`cam` null; origin, direction, sample_idx and seed are
+// read) or made by the kernel from the camera block (`cam` [24], `pix`
+// [n / spp_block], `frame` [1], width, height, spp_block, lane0, spp; the
+// four ray buffers are then written when origin is not null). `counter`
+// ([1] int32, zero) selects persistent warps that refill; null: one ray
+// a thread.
 extern "C" int halogen_megakernel_launch(
-    const float* origin, const float* direction, const float* far,
-    const int* sample_idx, const int* seed, const float* tri,
-    const float* trin, const float* sph, const float* mat,
-    const float* nodes, const float* env_tab, float* out, int n,
-    int num_tris, int num_spheres,
-    int num_materials, int max_bounces, int lim_d, int lim_g, int lim_t,
-    int sobol, int use_rr, int transmissive, int env_nee, int env_h,
-    int env_w, int use_bvh, void* stream) {
+    float* origin, float* direction, const float* far, int* sample_idx,
+    int* seed, const float* tri, const float* trin, const float* sph,
+    const float* mat, const float* nodes, const float* env_tab, float* out,
+    const float* cam, const long long* pix, const int* frame, int* counter,
+    int n, int num_tris, int num_spheres, int num_materials, int max_bounces,
+    int lim_d, int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
+    int env_nee, int env_h, int env_w, int use_bvh, int width, int height,
+    int spp_block, int lane0, int spp, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (env_nee && (env_tab == nullptr || env_h <= 0 || env_w <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cam != nullptr ? (pix == nullptr || frame == nullptr || width <= 0 ||
+                        height <= 0 || spp_block <= 0)
+                     : (origin == nullptr || direction == nullptr ||
+                        sample_idx == nullptr || seed == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (use_bvh && nodes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.origin = origin;
   p.direction = direction;
+  p.sample_idx = reinterpret_cast<uint32_t*>(sample_idx);
+  p.seed = reinterpret_cast<uint32_t*>(seed);
   p.far = far;
-  p.sample_idx = reinterpret_cast<const uint32_t*>(sample_idx);
-  p.seed = reinterpret_cast<const uint32_t*>(seed);
-  if (use_bvh && nodes == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.cam = {cam,   pix,       reinterpret_cast<const uint32_t*>(frame),
+           width, height,    spp_block,
+           lane0, spp};
   // on the BVH tier `tri` is the world BVH's [T, 12] slot-order table
   p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials,
              {reinterpret_cast<const float4*>(nodes),
               reinterpret_cast<const float4*>(tri), trin}};
   p.out = out;
+  p.counter = counter;
   p.n = n;
   p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,
-           use_rr != 0, env_tab,   env_h, env_w};
+           use_rr != 0, reinterpret_cast<const float4*>(env_tab), env_h,
+           env_w};
   const size_t smem = sizeof(float) * scene_smem_floats(
                                           use_bvh ? 0 : num_tris, num_spheres,
                                           num_materials);
-  const int blocks = (n + kThreads - 1) / kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bvh = use_bvh != 0;
+  cudaError_t err;
   if (transmissive && env_nee) {
-    launch_tier<true, true>(p, bvh, blocks, smem, st);
+    err = launch_tier<true, true>(p, bvh, smem, st);
   } else if (transmissive) {
-    launch_tier<true, false>(p, bvh, blocks, smem, st);
+    err = launch_tier<true, false>(p, bvh, smem, st);
   } else if (env_nee) {
-    launch_tier<false, true>(p, bvh, blocks, smem, st);
+    err = launch_tier<false, true>(p, bvh, smem, st);
   } else {
-    launch_tier<false, false>(p, bvh, blocks, smem, st);
+    err = launch_tier<false, false>(p, bvh, smem, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

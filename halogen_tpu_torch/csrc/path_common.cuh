@@ -53,31 +53,20 @@ constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.318309886183790671538f;  // float32(1 / pi)
 constexpr float kInvU32 = 1.0f / 4294967296.0f;
 
-// Sobol direction numbers of dimension 1 (dimension 0 is bit reversal).
-__constant__ uint32_t kSobolDim1[32] = {
-    0x80000000u, 0xC0000000u, 0xA0000000u, 0xF0000000u,
-    0x88000000u, 0xCC000000u, 0xAA000000u, 0xFF000000u,
-    0x80800000u, 0xC0C00000u, 0xA0A00000u, 0xF0F00000u,
-    0x88880000u, 0xCCCC0000u, 0xAAAA0000u, 0xFFFF0000u,
-    0x80008000u, 0xC000C000u, 0xA000A000u, 0xF000F000u,
-    0x88008800u, 0xCC00CC00u, 0xAA00AA00u, 0xFF00FF00u,
-    0x80808080u, 0xC0C0C0C0u, 0xA0A0A0A0u, 0xF0F0F0F0u,
-    0x88888888u, 0xCCCCCCCCu, 0xAAAAAAAAu, 0xFFFFFFFFu,
-};
-
 // ---------------------------------------------------------------------
 // uint32 sampler (mirrors sampler/sobol.py and megakernel.py:88-183)
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t owen_scramble(uint32_t value,
-                                                  uint32_t seed) {
-  uint32_t x = __brev(value);
+// The hash-based Owen scramble (HalogenRandom.hlsl:140-161) without its two
+// bit reversals: owen_scramble(v, s) == __brev(owen_core(__brev(v), s)).
+// The draws below compose it so that reversals which meet cancel.
+__device__ __forceinline__ uint32_t owen_core(uint32_t x, uint32_t seed) {
   x ^= x * 0x3D20ADEAu;
   x += seed;
   x *= (seed >> 16) | 1u;
   x ^= x * 0x05526C56u;
   x ^= x * 0x53A22864u;
-  return __brev(x);
+  return x;
 }
 
 __device__ __forceinline__ uint32_t u32_hash(uint32_t v) {
@@ -90,13 +79,18 @@ __device__ __forceinline__ uint32_t hash_combine(uint32_t seed, uint32_t v) {
   return seed ^ (v + (seed << 6) + (seed >> 2));
 }
 
-__device__ __forceinline__ uint32_t sobol_dim1(uint32_t index) {
-  uint32_t x = 0u;
-#pragma unroll
-  for (int bit = 0; bit < 32; ++bit) {
-    x ^= ((index >> bit) & 1u) * kSobolDim1[bit];
-  }
-  return x;
+// __brev(sobol1d(index, 1)), the bit-reversed Sobol point of dimension 1.
+// That dimension's direction numbers are Pascal's triangle mod 2, so the
+// product with them is five butterfly steps (sampler/sobol.py
+// `sobol_dim1_reversed`) instead of 32 table rows.
+__device__ __forceinline__ uint32_t sobol_dim1_reversed(uint32_t index) {
+  uint32_t y = index;
+  y ^= (y >> 1) & 0x55555555u;
+  y ^= (y >> 2) & 0x33333333u;
+  y ^= (y >> 4) & 0x0F0F0F0Fu;
+  y ^= (y >> 8) & 0x00FF00FFu;
+  y ^= (y >> 16) & 0x0000FFFFu;
+  return y;
 }
 
 __device__ __forceinline__ float to_unit(uint32_t u) {
@@ -108,9 +102,11 @@ __device__ __forceinline__ void sample_2d(bool sobol, uint32_t index,
                                           float* a, float* b) {
   if (sobol) {  // ld_sample_2d
     uint32_t sd = seed ^ u32_hash(dim);
-    uint32_t shuffled = owen_scramble(index, sd);
-    *a = to_unit(owen_scramble(__brev(shuffled), hash_combine(sd, 0u)));
-    *b = to_unit(owen_scramble(sobol_dim1(shuffled), hash_combine(sd, 1u)));
+    // owen_scramble(index, sd); dimension 0 of the point is its reversal
+    const uint32_t shuffled = __brev(owen_core(__brev(index), sd));
+    *a = to_unit(__brev(owen_core(shuffled, hash_combine(sd, 0u))));
+    *b = to_unit(__brev(owen_core(sobol_dim1_reversed(shuffled),
+                                  hash_combine(sd, 1u))));
   } else {  // prng_sample_2d
     uint32_t h0 = hash_combine(hash_combine(seed, index), dim);
     *a = to_unit(u32_hash(h0));
@@ -122,9 +118,100 @@ __device__ __forceinline__ float sample_1d(bool sobol, uint32_t index,
                                            uint32_t dim, uint32_t seed) {
   if (sobol) {  // ld_sample_1d: scrambles the value, no index shuffle
     uint32_t sd = seed ^ u32_hash(dim);
-    return to_unit(owen_scramble(__brev(index), u32_hash(sd)));
+    return to_unit(__brev(owen_core(index, u32_hash(sd))));
   }
   return to_unit(u32_hash(hash_combine(hash_combine(seed, index), dim)));
+}
+
+// ---------------------------------------------------------------------
+// primary rays (integrator/camera.py `generate_rays`, trace.py `group_rays`)
+// ---------------------------------------------------------------------
+
+constexpr uint32_t kDimFocalDisc = 0u;  // sobol.DIM_FOCAL_DISC
+constexpr uint32_t kDimRayJitter = 1u;  // sobol.DIM_RAY_JITTER
+
+// A launch's camera block. With `cam` null the kernel reads explicit rays;
+// else thread i makes its own: pixel pix[i / spp_block], lane lane0 +
+// i % spp_block of the sample stream of frame `frame`.
+struct CameraView {
+  const float* cam;       // [24]: cam_to_world row-major [4, 4], half_w,
+                          // half_h, near, focal distance, aperture radius,
+                          // filter radius, 2 unused
+  const long long* pix;   // [n / spp_block] flat pixel ids
+  const uint32_t* frame;  // [1]
+  int width, height, spp_block, lane0, spp;
+};
+
+struct PrimaryRay {
+  V3 o, d;
+  uint32_t sidx, seed;
+};
+
+// sampler/mappings.py inverse_blackman_harris_cdf. PyTorch divides a CUDA
+// tensor by a Python number as a product with its float32 reciprocal, and
+// so does this (likewise `/ width` and `/ height` below).
+__device__ __forceinline__ float inverse_blackman_harris_cdf(float x) {
+  const float t = x * 1.99221575606f - 0.99610787803f;
+  return 0.5f * logf((1.0f + t) / (1.0f - t)) * (1.0f / 6.24f);
+}
+
+// core/math.py normalize without a floor: v / sqrt((x x + y y) + z z)
+__device__ __forceinline__ V3 normalize_div(V3 v) {
+  const float n = sqrtf(dot3(v, v));
+  return {v.x / n, v.y / n, v.z / n};
+}
+
+// Row j of `v @ m[:3, :3].T`: PyTorch hands that product to a float32
+// GEMM, which sums the three products as a chain of fused multiply-adds.
+__device__ __forceinline__ float rotate_row(const float* m, int j, V3 v) {
+  return fmaf(v.z, m[4 * j + 2],
+              fmaf(v.y, m[4 * j + 1], fmaf(v.x, m[4 * j], 0.0f)));
+}
+
+// Ray i of the launch's group: the thin-lens camera with Blackman-Harris
+// pixel filtering, float op for float op as `generate_rays` runs on the
+// card, with the pixel's seed and the sample index of `group_rays`.
+__device__ __forceinline__ PrimaryRay camera_ray(const CameraView& cv,
+                                                 bool sobol, int i) {
+  const float* c = cv.cam;
+  const float half_w = c[16], half_h = c[17], near = c[18];
+  const float focal = c[19], aperture = c[20], filter_radius = c[21];
+  const int pixel = static_cast<int>(cv.pix[i / cv.spp_block]);
+  PrimaryRay r;
+  r.seed = u32_hash(static_cast<uint32_t>(pixel));
+  r.sidx = cv.frame[0] * static_cast<uint32_t>(cv.spp) +
+           static_cast<uint32_t>(cv.lane0 + i % cv.spp_block);
+  const float inv_w = 1.0f / static_cast<float>(cv.width);
+  const float inv_h = 1.0f / static_cast<float>(cv.height);
+  const float px = static_cast<float>(pixel % cv.width);
+  const float py = static_cast<float>(pixel / cv.width);
+  const float ndc_x = (px + 0.5f) * inv_w * 2.0f - 1.0f;
+  const float ndc_y = (py + 0.5f) * inv_h * 2.0f - 1.0f;
+  const float px_w = 2.0f * half_w * inv_w;
+  const float px_h = 2.0f * half_h * inv_h;
+  float ju, jv, au, av;
+  sample_2d(sobol, r.sidx, kDimRayJitter, r.seed, &ju, &jv);
+  const float jitter_x =
+      inverse_blackman_harris_cdf(ju) * 2.0f * filter_radius * px_w;
+  const float jitter_y =
+      inverse_blackman_harris_cdf(jv) * 2.0f * filter_radius * px_h;
+  // camera-space point on the near plane (compute:1002-1003)
+  const V3 screen = {ndc_x * half_w + jitter_x, ndc_y * half_h + jitter_y,
+                     near};
+  // thin lens: aperture point on the focal disc (compute:998-999)
+  sample_2d(sobol, r.sidx, kDimFocalDisc, r.seed, &au, &av);
+  const float theta = au * kTwoPi;
+  const float rad = aperture * av;
+  const V3 lens = {cosf(theta) * rad, sinf(theta) * rad, 0.0f};
+  // direction through the focal plane (compute:1006-1007)
+  const V3 fn = normalize_div(screen);
+  const V3 cam_dir = normalize_div(
+      {fn.x * focal - lens.x, fn.y * focal - lens.y, fn.z * focal - lens.z});
+  r.o = {rotate_row(c, 0, lens) + c[3], rotate_row(c, 1, lens) + c[7],
+         rotate_row(c, 2, lens) + c[11]};
+  r.d = normalize_div({rotate_row(c, 0, cam_dir), rotate_row(c, 1, cam_dir),
+                       rotate_row(c, 2, cam_dir)});
+  return r;
 }
 
 // ---------------------------------------------------------------------
@@ -132,7 +219,7 @@ __device__ __forceinline__ float sample_1d(bool sobol, uint32_t index,
 // ---------------------------------------------------------------------
 
 struct SceneView {
-  const float* tri;   // [T, 9]
+  const float* tri;   // [T, 12]
   const float* trin;  // [T, 10]
   const float* sph;   // [S, 5]
   const float* mat;   // [K, 17]
@@ -149,8 +236,8 @@ __host__ __device__ __forceinline__ size_t scene_smem_floats(
          static_cast<size_t>(num_materials) * kMatStride;
 }
 
-// Copies the tables from global memory into `smem` once per block (at
-// most ~15 KB at the caps); every thread of a warp then reads the same
+// Copies the tables from global memory into `smem` (16-byte aligned, the
+// triangle rows first) once per block (at most ~17 KB at the caps); every thread of a warp then reads the same
 // address, which the shared-memory crossbar broadcasts. The BVH tier
 // copies the spheres and materials only: its triangles stay in global
 // memory (L2), where the walk reads the few it needs. The caller
@@ -189,126 +276,81 @@ __device__ __forceinline__ SceneView load_scene(const SceneView& g,
 constexpr int kStackDepth = 8;           // participatingMediumStack[8]
 constexpr int kEmptyPrio = 0x7FFFFFFF;   // the empty medium's priority
 constexpr int kNoMedium = -1;            // the empty medium's id
+constexpr uint64_t kByteOnes = 0x0101010101010101ull;
 
-struct Medium {
-  float ior;
-  V3 ab;  // absorption
-  int prio, mid;
-};
-
-__device__ __forceinline__ Medium empty_medium() {
-  return {1.0f, {0.0f, 0.0f, 0.0f}, kEmptyPrio, kNoMedium};
+// A medium is only ever the inside of a material: its IOR, absorption and
+// priority are columns 12, 13:16 and 16 of the material's row, which the
+// block holds in shared memory. So a medium is its material id, and the
+// empty medium (IOR 1, no absorption, priority 2^31 - 1) is kNoMedium.
+__device__ __forceinline__ float medium_ior(const float* mat, int id) {
+  return id < 0 ? 1.0f : mat[id * kMatStride + 12];
 }
 
-// Field by field, so that no address is selected and the media stay in
-// registers.
-__device__ __forceinline__ Medium sel_medium(bool c, const Medium& a,
-                                             const Medium& b) {
-  return {c ? a.ior : b.ior, sel3(c, a.ab, b.ab), c ? a.prio : b.prio,
-          c ? a.mid : b.mid};
+__device__ __forceinline__ int medium_prio(const float* mat, int id) {
+  return id < 0 ? kEmptyPrio : static_cast<int>(mat[id * kMatStride + 16]);
 }
 
 // One ray's stack, sorted by descending priority from slot 0 up; the top
-// is slot size - 1. It is kept field by field (per-slot arrays, as the
-// Pallas `_Stack` keeps per-slot lists), every loop is unrolled over the
-// 8 slots, and every update is a select between values at constant
-// indices, so the slots can live in registers. Push and pop are the
-// masked shifts of `_Stack`, slot for slot (slots at or above `size` hold
-// whatever the shifts leave there and are never read).
+// is slot size - 1. The Pallas `_Stack` keeps six fields a slot as
+// per-slot lists and shifts them under masks; here a slot is one byte (a
+// material id, < 64) of a 64-bit word, a push inserts a byte and a pop
+// deletes one, which leaves the slots under `size` as `_Stack`'s shifts
+// do. Slots at or above `size` are never read (so the wrapping shift of
+// `_Stack`'s pop needs no copy).
 struct MediumStack {
-  float ior[kStackDepth], abx[kStackDepth], aby[kStackDepth],
-      abz[kStackDepth];
-  int prio[kStackDepth], mid[kStackDepth];
+  uint64_t ids;  // slot k in byte k
   int size;
 
   __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int k = 0; k < kStackDepth; ++k) {
-      ior[k] = 1.0f;
-      abx[k] = aby[k] = abz[k] = 0.0f;
-      prio[k] = kEmptyPrio;
-      mid[k] = kNoMedium;
-    }
+    ids = 0ull;
     size = 0;
   }
 
+  __device__ __forceinline__ int id_at(int k) const {
+    return static_cast<int>((ids >> (8 * k)) & 0xFFull);
+  }
+
   // get_top_ray_medium (compute:647-654)
-  __device__ __forceinline__ Medium top() const {
-    Medium out = empty_medium();
-    const int idx = size - 1;
-#pragma unroll
-    for (int k = 0; k < kStackDepth; ++k) {
-      const bool sel = idx == k;
-      out.ior = sel ? ior[k] : out.ior;
-      out.ab.x = sel ? abx[k] : out.ab.x;
-      out.ab.y = sel ? aby[k] : out.ab.y;
-      out.ab.z = sel ? abz[k] : out.ab.z;
-      out.prio = sel ? prio[k] : out.prio;
-      out.mid = sel ? mid[k] : out.mid;
-    }
-    return out;
+  __device__ __forceinline__ int top() const {
+    return size == 0 ? kNoMedium : id_at(size - 1);
   }
 
   // determine_true_medium_hit (compute:656-665)
-  __device__ __forceinline__ bool is_true_hit(int p) const {
-    return size == 0 || p <= top().prio;
+  __device__ __forceinline__ bool is_true_hit(const float* mat, int p) const {
+    return size == 0 || p <= medium_prio(mat, top());
   }
 
   // add_to_medium_stack (compute:582-622): at the top when prio <= the
   // top's (the empty stack's top is 2^31 - 1), else at the count of
   // strictly greater entries; a full stack drops the push.
-  __device__ __forceinline__ void push(const Medium& m, bool mask) {
-    const bool can = mask && size < kStackDepth;
-    int idx = 0;
-#pragma unroll
-    for (int k = 0; k < kStackDepth; ++k) {
-      idx += (k < size && prio[k] > m.prio) ? 1 : 0;
+  __device__ __forceinline__ void push(const float* mat, int id, int prio,
+                                       bool mask) {
+    if (!mask || size >= kStackDepth) return;
+    int idx = size;
+    if (prio > medium_prio(mat, top())) {
+      idx = 0;
+      for (int k = 0; k < size; ++k)
+        idx += medium_prio(mat, id_at(k)) > prio ? 1 : 0;
     }
-    idx = m.prio <= top().prio ? size : idx;
-    // top down, so slot k - 1 still holds its old value
-#pragma unroll
-    for (int k = kStackDepth - 1; k >= 0; --k) {
-      const bool wr = can && k == idx;
-      const bool up = can && k > idx;
-      const int j = k > 0 ? k - 1 : 0;
-      ior[k] = wr ? m.ior : (up ? ior[j] : ior[k]);
-      abx[k] = wr ? m.ab.x : (up ? abx[j] : abx[k]);
-      aby[k] = wr ? m.ab.y : (up ? aby[j] : aby[k]);
-      abz[k] = wr ? m.ab.z : (up ? abz[j] : abz[k]);
-      prio[k] = wr ? m.prio : (up ? prio[j] : prio[k]);
-      mid[k] = wr ? m.mid : (up ? mid[j] : mid[k]);
-    }
-    size += can ? 1 : 0;
+    const uint64_t low = (1ull << (8 * idx)) - 1ull;  // idx <= 7
+    ids = (ids & low) | (static_cast<uint64_t>(id) << (8 * idx)) |
+          ((ids & ~low) << 8);
+    ++size;
   }
 
   // pop_from_medium_stack (compute:627-642): remove the lowest slot with
-  // id `id`, shifting the ones above it down (the last slot takes the
-  // old slot 0, as the wrapping shift does); a missing id is a no-op.
+  // id `id`, shifting the ones above it down; a missing id is a no-op.
   __device__ __forceinline__ void pop_id(int id, bool mask) {
-    int first = kStackDepth;
-#pragma unroll
-    for (int k = kStackDepth - 1; k >= 0; --k) {
-      first = (k < size && mid[k] == id) ? k : first;
-    }
-    const bool found = first < kStackDepth;
-    const bool go = mask && found;
-    const float ior0 = ior[0], abx0 = abx[0], aby0 = aby[0], abz0 = abz[0];
-    const int prio0 = prio[0], mid0 = mid[0];
-    // bottom up, so slot k + 1 still holds its old value
-#pragma unroll
-    for (int k = 0; k < kStackDepth; ++k) {
-      const bool dead = go && k == size - 1;
-      const bool down = go && k >= first;
-      const bool last = k == kStackDepth - 1;
-      const int j = last ? k : k + 1;
-      ior[k] = dead ? 1.0f : (down ? (last ? ior0 : ior[j]) : ior[k]);
-      abx[k] = dead ? 0.0f : (down ? (last ? abx0 : abx[j]) : abx[k]);
-      aby[k] = dead ? 0.0f : (down ? (last ? aby0 : aby[j]) : aby[k]);
-      abz[k] = dead ? 0.0f : (down ? (last ? abz0 : abz[j]) : abz[k]);
-      prio[k] = dead ? kEmptyPrio : (down ? (last ? prio0 : prio[j]) : prio[k]);
-      mid[k] = dead ? kNoMedium : (down ? (last ? mid0 : mid[j]) : mid[k]);
-    }
-    size -= go ? 1 : 0;
+    // a flag in bit 7 of every byte equal to `id`: the zero-byte test's
+    // false positives lie above a true one, so the lowest flag is exact
+    const uint64_t x = ids ^ (kByteOnes * static_cast<uint64_t>(id));
+    uint64_t flags = (x - kByteOnes) & ~x & (kByteOnes << 7);
+    if (size < kStackDepth) flags &= (1ull << (8 * size)) - 1ull;
+    if (!mask || flags == 0ull) return;
+    const int first = (__ffsll(static_cast<long long>(flags)) - 1) >> 3;
+    const uint64_t low = (1ull << (8 * first)) - 1ull;
+    ids = (ids & low) | ((ids >> 8) & ~low);
+    --size;
   }
 };
 
@@ -320,9 +362,9 @@ struct PathConfig {
   float far;
   int max_bounces, lim_d, lim_g, lim_t;
   bool sobol, use_rr;
-  // env NEE: [H * W, 10] draw table (alias_p, alias_j, pdf, alias pdf,
-  // texel radiance rgb, alias radiance rgb) of an H x W map
-  const float* env_tab = nullptr;
+  // env NEE: the draw table of an H x W map, a row of four float4s a
+  // texel (kernels/megakernel.py `env_table`)
+  const float4* env_tab = nullptr;
   int env_h = 0, env_w = 0;
 };
 
@@ -556,27 +598,24 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
 
   const bool entering = orient > 0.0f;
   float cur_ior, hit_ior;
-  Medium cur;       // the medium the ray travelled through (transmissive)
+  int cur_id = kNoMedium;  // the medium the ray travelled through
   bool true_hit = true;
   if constexpr (kTransmissive) {
-    // interface tracking (evaluate_material_hit, compute:743-817)
+    // interface tracking (evaluate_material_hit, compute:743-817); the
+    // hit material's own medium has id mat_id
     const int prio = static_cast<int>(m[16]);
-    const Medium internal = {ior, mat_absorption(m), prio, mat_id};
     const bool uses_tracking = prio >= 0;  // compute:758
-    true_hit = !uses_tracking || s.stack.is_true_hit(prio);
-    const Medium top0 = s.stack.top();
+    true_hit = !uses_tracking || s.stack.is_true_hit(sc.mat, prio);
+    const int top0 = s.stack.top();
     const bool empty0 = s.stack.size == 0;
     s.stack.pop_id(mat_id, uses_tracking && !entering);
-    const Medium top_ap = s.stack.top();
-    cur = sel_medium(entering, top0,
-                     sel_medium(uses_tracking,
-                                sel_medium(empty0, internal, top0),
-                                internal));
-    const Medium hitm = sel_medium(entering, internal,
-                                   sel_medium(uses_tracking, top_ap, top0));
-    s.stack.push(internal, uses_tracking && entering);
-    cur_ior = cur.ior;
-    hit_ior = hitm.ior;
+    const int top_ap = s.stack.top();
+    cur_id = entering ? top0
+                      : (uses_tracking ? (empty0 ? mat_id : top0) : mat_id);
+    const int hit_id = entering ? mat_id : (uses_tracking ? top_ap : top0);
+    s.stack.push(sc.mat, mat_id, prio, uses_tracking && entering);
+    cur_ior = medium_ior(sc.mat, cur_id);
+    hit_ior = medium_ior(sc.mat, hit_id);
   } else {
     cur_ior = entering ? 1.0f : ior;
     hit_ior = entering ? ior : 1.0f;
@@ -668,9 +707,12 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
     // bandaid pop (compute:799-802)
     s.stack.pop_id(mat_id, true_hit && entering && bounce_type != 2);
     // Beer-Lambert through the current medium (compute:810-813)
-    absorbing = cur.mid != kNoMedium;
-    ab_mat = cur.mid;
-    sc_at = mul3(sc_at, beer_factor(cur.ab, absorbing, t_safe));
+    absorbing = cur_id != kNoMedium;
+    ab_mat = cur_id;
+    sc_at = mul3(sc_at,
+                 beer_factor(mat_absorption(sc.mat + (absorbing ? cur_id : 0) *
+                                                         kMatStride),
+                             absorbing, t_safe));
   } else {
     new_dir = normalize3(sel3(do_spec, spec_dir, diffuse_dir), 1e-20f);
     new_org = refl_org;
@@ -685,29 +727,24 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   if constexpr (kEnvNee) {
     // --- envmap next-event estimation + MIS (megakernel.py:1380-1504)
     // on opaque lobes. The draw: sampler dims DIM_ENV_NEE_BASE + 5k, the
-    // alias step on one row of the draw table (envmap.sample_env_draw).
+    // alias step on one row of the draw table (envmap.sample_env_draw),
+    // which also holds the direction of the texel and of its alias.
     float nu, nv;
     sample_2d(cfg.sobol, sidx, kDimEnvNeeBase + stride, seed, &nu, &nv);
     const int n_tex = cfg.env_h * cfg.env_w;
     const float rn = fminf(fmaxf(nu, 0.0f), 0.99999988f) *
                      static_cast<float>(n_tex);
     const int idx = min(max(static_cast<int>(rn), 0), n_tex - 1);
-    const float* row = cfg.env_tab + 10 * static_cast<size_t>(idx);
-    const bool stay = nv < __ldg(row);
-    const float* alt = row + 3;  // alias pdf at [3], its radiance at [7:10]
-    const int texel = stay ? idx : static_cast<int>(__ldg(row + 1));
-    const float lpdf = __ldg(stay ? row + 2 : alt);
-    const V3 rad = {__ldg((stay ? row : alt) + 4), __ldg((stay ? row : alt) + 5),
-                    __ldg((stay ? row : alt) + 6)};
-    const int rowi = texel / cfg.env_w;
-    const int col = texel - rowi * cfg.env_w;
-    const float th = (static_cast<float>(rowi) + 0.5f) /
-                     static_cast<float>(cfg.env_h) * kPi;
-    const float ph = ((static_cast<float>(col) + 0.5f) /
-                          static_cast<float>(cfg.env_w) -
-                      0.5f) * 2.0f * kPi;
-    const float sin_th = sinf(th);
-    const V3 ld = {sin_th * sinf(ph), cosf(th), -sin_th * cosf(ph)};
+    // the row: (alias_p, alias_j, pdf, alias pdf), (radiance, dir.x),
+    // (alias radiance, alias dir.x), (dir.yz, alias dir.yz)
+    const float4* row = cfg.env_tab + 4 * static_cast<size_t>(idx);
+    const float4 head = __ldg(row);
+    const bool stay = nv < head.x;
+    const float lpdf = stay ? head.z : head.w;
+    const float4 rx = __ldg(row + (stay ? 1 : 2));
+    const float4 yz = __ldg(row + 3);
+    const V3 rad = {rx.x, rx.y, rx.z};
+    const V3 ld = {rx.w, stay ? yz.x : yz.z, stay ? yz.y : yz.w};
 
     const float ps = spec_prob;
     const bool surf = m[3] >= 1.0f;

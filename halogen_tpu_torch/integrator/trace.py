@@ -359,6 +359,30 @@ def trace_rays(scene: SceneData, origin: torch.Tensor,
     return TraceOut(deferred_sky(scene, settings, outputs), outputs)
 
 
+def group_rays(camera: Camera, settings: RenderSettings, frame,
+               pix: torch.Tensor, lane0: int, spp_block: int):
+    """The rays of one group of `render_pixels`: for flat pixel indices
+    `pix` [n], lanes lane0 .. lane0 + spp_block - 1 of each pixel's sample
+    stream at `frame`, pixel-major (all lanes of a pixel adjacent).
+    Returns (origin [N, 3], direction [N, 3], sample_idx [N], seed [N]),
+    N = n * spp_block, the integers as uint32 values held in int64.
+
+    This is the plain version of the megakernel's ray prologue
+    (`csrc/path_common.cuh` `camera_ray`): a launch from pixels makes the
+    same rays in the kernel."""
+    w = settings.width
+    n = pix.shape[0]
+    pixb = torch.repeat_interleave(pix, spp_block)
+    lane = torch.arange(spp_block, device=pix.device).repeat(n)
+    sidx = sob.sample_index(frame, (lane0 + lane) & sob.MASK32,
+                            settings.samples_per_pixel)
+    seed = sob.pixel_seed(pixb)
+    o, d = generate_rays(camera, pixb % w, pixb // w, w, settings.height,
+                         settings.filter_radius, sidx, seed,
+                         _sampler_2d(settings))
+    return o, d, sidx, seed
+
+
 def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
                   frame, pix: torch.Tensor, spp_offset: int = 0,
                   spp_count: int | None = None) -> torch.Tensor:
@@ -366,14 +390,10 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
     over spp lanes [spp_offset, spp_offset + spp_count)."""
     from halogen_tpu_torch.kernels import megakernel as mk
 
-    w, h = settings.width, settings.height
     n = pix.shape[0]
     spp = settings.samples_per_pixel if spp_count is None else spp_count
     camera = camera.to(pix.device)
 
-    px = pix % w
-    py = pix // w
-    seed = sob.pixel_seed(pix)
     # The device decides the route: on a CUDA device AUTO and FORCE launch
     # the kernel, which raises for a scene outside its caps; on the CPU,
     # and under OFF, the lockstep integrator runs.
@@ -382,9 +402,6 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
                                    and mk.fused_supported(scene, settings)):
         raise NotImplementedError(
             "the wavefront scheduler is not ported yet (ROADMAP A12)")
-    tables = mk._scene_tables(scene) if use_kernel else None
-    env_tab = (mk.env_table(scene) if use_kernel and _use_nee(scene, settings)
-               else None)
 
     # Fold spp lanes into the ray axis, pixel-major (all lanes of a pixel
     # adjacent); per-ray results do not depend on the slot.
@@ -395,26 +412,27 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
             spp_block = cand
             break
     groups = spp // spp_block
-    nb = n * spp_block
-    pxb = torch.repeat_interleave(px, spp_block)
-    pyb = torch.repeat_interleave(py, spp_block)
-    seedb = torch.repeat_interleave(seed, spp_block)
-    lane = torch.arange(spp_block, device=pix.device).repeat(n)
-    farb = camera.far.expand(nb)
+
+    if use_kernel:
+        # megakernel forward, adjoint-kernel backward; the kernel makes
+        # each group's rays itself, so a group is one launch (and the sky
+        # pass where there is an envmap)
+        tables = mk._scene_tables(scene)
+        env_tab = mk.env_table(scene) if _use_nee(scene, settings) else None
+        view = mk.pixel_view(camera, settings, frame, pix)
+    else:
+        farb = camera.far.expand(n * spp_block)
 
     acc = torch.zeros((n, 3), device=pix.device)
     for g in range(groups):
-        lanes = (spp_offset + g * spp_block + lane) & sob.MASK32
-        sidx = sob.sample_index(frame, lanes, settings.samples_per_pixel)
-        o, d = generate_rays(camera, pxb, pyb, w, h, settings.filter_radius,
-                             sidx, seedb, _sampler_2d(settings))
+        lane0 = spp_offset + g * spp_block
         if use_kernel:
-            # megakernel forward, adjoint-kernel backward
-            col = mk.trace_color_fused_diff(scene, o, d, camera.far, sidx,
-                                            seedb, settings, tables=tables,
-                                            env_tab=env_tab)
+            col = mk.trace_color_pixels_diff(scene, view, lane0, spp_block,
+                                             settings, tables, env_tab)
         else:
-            col = trace_rays(scene, o, d, farb, sidx, seedb, settings).color
+            o, d, sidx, seed = group_rays(camera, settings, frame, pix,
+                                          lane0, spp_block)
+            col = trace_rays(scene, o, d, farb, sidx, seed, settings).color
         acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)
     return acc / spp
 

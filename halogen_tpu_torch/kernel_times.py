@@ -5,7 +5,7 @@ the kernels on one card.
 Run from the root of a checkout:
 
     python3 halogen_tpu_torch/kernel_times.py [--tree DIR] [--only NAME ...]
-        [--out FILE]
+        [--no-refill] [--out FILE]
 
 `--tree DIR` times the package of another checkout of the port (say a
 parent commit unpacked with `git archive` into a git-ignored directory):
@@ -20,6 +20,9 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
   - B1b and B2b: the glass-in-glass box, the same pixels, 8 bounces
     (phases 13, 15), and B2b at 16 bounces; where the tree's adjoint has
     transcript routes, B2 and B2b also through each route;
+  - B1c: the material spheres under the sky with env NEE, the first
+    262144 Morton-ordered pixels of the 1024x1024 `envmap_1024` frame, 4
+    bounces (phase 13);
   - the BVH tier on the glass dragon camera's rays (phase 19): B1b+d (the
     glass dragon, 12 bounces), B1d and B1c+d (a 1,280-triangle dragon
     under the sky, 4 bounces, without and with env NEE), B1b+c+d (the
@@ -49,6 +52,10 @@ def _args(argv):
                     help="root of the checkout whose package to time")
     ap.add_argument("--only", nargs="*", default=None,
                     help="time only these kernels (names as printed)")
+    ap.add_argument("--no-refill", action="store_true",
+                    help="launch the forward kernel with one ray a thread "
+                    "instead of persistent warps that refill their free "
+                    "lanes (a tree whose kernel refills)")
     ap.add_argument("--out", default=None)
     return ap.parse_args(argv)
 
@@ -106,14 +113,14 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     res = _resources(mk.BUILD_LOG)
 
-    def rays(cam_kw, spp=32):
-        st = ht.RenderSettings(width=512, height=512, samples_per_pixel=spp)
+    def rays(cam_kw, spp=32, size=512):
+        st = ht.RenderSettings(width=size, height=size, samples_per_pixel=spp)
         cam = ht.make_camera(**cam_kw, device=dev)
-        perm, _ = _morton_pixel_order(512, 512)
-        pix = torch.from_numpy(perm.astype(np.int64)).to(dev)
+        perm, _ = _morton_pixel_order(size, size)
+        pix = torch.from_numpy(perm[:262144].astype(np.int64)).to(dev)
         sidx = sob.sample_index(1, torch.zeros_like(pix), spp)
         seed = sob.pixel_seed(pix)
-        o, d = generate_rays(cam, pix % 512, pix // 512, 512, 512,
+        o, d = generate_rays(cam, pix % size, pix // size, size, size,
                              st.filter_radius, sidx, seed, _sampler_2d(st))
         return cam, o, d, sidx, seed
 
@@ -124,6 +131,9 @@ def main(argv=None) -> int:
     sky = ht.Envmap.gradient_sky()
     cam, o, d, sidx, seed = rays(cam_kw)
     dcam, o_d, d_d, sidx_d, seed_d = rays(dragon_kw)
+    r_e = rays(dict(position=(0.0, 1.0, 6.0), target=(0.0, 0.5, 0.0),
+                    fov_deg=40.0), spp=16, size=1024)
+    spheres = cornell.material_demo_spheres().build(envmap=sky, device=dev)
     ct = torch.rand((o.shape[0], 3),
                     generator=torch.Generator().manual_seed(0)).to(dev)
     cornell_sc = cornell.cornell_box(glossy=True).build(device=dev)
@@ -141,6 +151,9 @@ def main(argv=None) -> int:
     def fwd(sc, st, r):
         tab, et = mk._scene_tables(sc), mk.env_table(sc)
         c, o_, d_, s_, e_ = r
+        if args.no_refill:
+            return lambda: mk._launch(sc, o_, d_, c.far, s_, e_, st, tab, et,
+                                      refill=False)
         return lambda: mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_, st,
                                               tab, et)
 
@@ -166,6 +179,9 @@ def main(argv=None) -> int:
         "B1b": (fwd(glass, st_g, r_c), "megakernel"),
         "B2b": (bwd(glass, st_g), "adjoint_kernel<"),
         "B2b@16": (bwd(glass, st_g16), "adjoint_kernel<"),
+        "B1c": (fwd(spheres, st_d.replace(max_bounces=4,
+                                          env_importance_sampling=True,
+                                          **sky_kw), r_e), "megakernel"),
         "B1b+d": (fwd(dragon, st_d, r_d), "megakernel"),
         "B1d": (fwd(hero, st_d.replace(max_bounces=4, **sky_kw), r_d),
                 "megakernel"),
@@ -201,13 +217,18 @@ def main(argv=None) -> int:
         return start.elapsed_time(end) / reps
 
     def device_ms(fn, key, reps=10):
+        # the mean over the launches the profiler recorded (it can drop
+        # events); every job launches its kernel once a call
         acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        return sum(_self_device_us(r) for r in prof.key_averages()
-                   if key in r.key) / 1e3 / reps
+        rows = [r for r in prof.key_averages() if key in r.key]
+        count = sum(r.count for r in rows)
+        if not count:  # it kept none of them
+            return float("nan")
+        return sum(_self_device_us(r) for r in rows) / 1e3 / count
 
     times = {}
     for name, (fn, key) in jobs.items():
@@ -217,7 +238,8 @@ def main(argv=None) -> int:
         times[name] = {"events_ms": ev, "device_ms": device_ms(fn, key)}
         print(f"{name}: events {ev[0]:.4f}, {ev[1]:.4f} ms; device "
               f"{times[name]['device_ms']:.4f} ms | {card}", flush=True)
-    result = {"card": card, "tree": root, "nvcc_flags": mk.NVCC_FLAGS,
+    result = {"card": card, "tree": root, "no_refill": args.no_refill,
+              "nvcc_flags": mk.NVCC_FLAGS,
               "build_seconds": mk.BUILD_SECONDS, "resources": res,
               "times": times}
     for k, v in res.items():

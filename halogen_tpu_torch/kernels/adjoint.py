@@ -58,7 +58,7 @@ def smem_bytes(scene: SceneData, settings: RenderSettings) -> int:
     """A block's dynamic shared memory on the shared route: the scene
     tables (`path_common.cuh::scene_smem_floats`), the warps' sums and the
     transcript of max_bounces + 1 bounces."""
-    floats = (scene.num_triangles * 19 + scene.num_spheres * 5
+    floats = (scene.num_triangles * 22 + scene.num_spheres * 5
               + scene.materials.count * 17
               + WARPS * scene.materials.count * N_GRAD)
     words = (settings.max_bounces + 1) * N_RECORD * THREADS

@@ -41,6 +41,7 @@ same scenes as the reference.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 import hashlib
 import os
 import shutil
@@ -52,8 +53,14 @@ import torch
 
 from halogen_tpu_torch.config import DebugMode, RenderSettings, SamplerKind
 from halogen_tpu_torch.core.types import SceneData
-from halogen_tpu_torch.integrator.trace import _use_nee, deferred_sky
-from halogen_tpu_torch.scene.envmap import env_draw_table
+from halogen_tpu_torch.integrator.camera import Camera
+from halogen_tpu_torch.integrator.trace import (
+    _use_nee,
+    deferred_sky,
+    group_rays,
+)
+from halogen_tpu_torch.sampler import sobol as sob
+from halogen_tpu_torch.scene.envmap import _texel_direction, env_draw_table
 
 # Caps of the brute tier: the scene tables live in shared memory.
 MAX_TRIS = 128
@@ -80,7 +87,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # megakernel and the adjoint include the bounce body in path_common.cuh;
 # it and the traversal kernel include the walk in bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": ("halogen_megakernel_launch", 12, 15),
+    "megakernel": ("halogen_megakernel_launch", 16, 20),
     "adjoint": ("halogen_adjoint_launch", 14, 11),
     "traverse": ("halogen_traverse_launch", 13, 1),
 }
@@ -177,19 +184,31 @@ def fused_supported(scene: SceneData, settings: RenderSettings) -> bool:
 
 
 def env_table(scene: SceneData) -> torch.Tensor | None:
-    """The env-NEE draw table [H * W, 10] the kernel reads one row of per
-    draw (`envmap.env_draw_table`), or None without alias tables."""
+    """The env-NEE draw table the kernel reads one row of per draw, or
+    None without alias tables: [H * W, 16], a row four 16-byte loads:
+    (alias_p, alias_j, pdf, alias pdf) | (texel radiance rgb, direction x)
+    | (alias radiance rgb, alias direction x) | (direction yz, alias
+    direction yz). The first ten values are `envmap.env_draw_table`'s; the
+    directions are those `envmap.sample_env_draw` computes for the texel
+    and for its alias, stored so that a draw needs no sine or cosine."""
     if scene.env_cdf is None or not scene.env_mips:
         return None
-    return env_draw_table(scene.env_cdf, scene.env_mips[0]).contiguous()
+    cdf = scene.env_cdf
+    h, w = cdf.pdf.shape
+    draw = env_draw_table(cdf, scene.env_mips[0])
+    own = _texel_direction(torch.arange(h * w, device=draw.device), h, w)
+    alias = own[cdf.alias_j.to(torch.int64)]
+    return torch.cat([draw[:, 0:7], own[:, 0:1], draw[:, 7:10],
+                      alias[:, 0:1], own[:, 1:3], alias[:, 1:3]],
+                     dim=1).to(torch.float32).contiguous()
 
 
 def _scene_tables(scene: SceneData):
-    """Pack the scene into the kernel's tables: tri [T, 9] (v0, e1, e2),
-    trin [T, 10] (n0, n1 - n0, n2 - n0, material), sph [S, 5] (center,
-    radius, material) and mat [K, 17], all float32 and contiguous. On the
-    BVH tier tri and trin are the world BVH's own, in its slot order (tri
-    then [T, 12], each row padded to three 16-byte loads)."""
+    """Pack the scene into the kernel's tables: tri [T, 12] (v0, e1, e2
+    and 3 zeros: three 16-byte loads a row), trin [T, 10] (n0, n1 - n0,
+    n2 - n0, material), sph [S, 5] (center, radius, material) and mat
+    [K, 17], all float32 and contiguous. On the BVH tier tri and trin are
+    the world BVH's own, in its slot order."""
     mats = scene.materials
     f32 = torch.float32
     mat_tab = torch.cat(
@@ -210,8 +229,8 @@ def _scene_tables(scene: SceneData):
     else:
         tv = scene.tri_verts_world
         v0 = tv[:, 0]
-        tri_tab = torch.cat([v0, tv[:, 1] - v0, tv[:, 2] - v0],
-                            dim=1).contiguous()
+        tri_tab = torch.cat([v0, tv[:, 1] - v0, tv[:, 2] - v0,
+                             torch.zeros_like(v0)], dim=1).contiguous()
         tn = scene.tri_normals_world
         n0 = tn[:, 0]
         trin_tab = torch.cat([n0, tn[:, 1] - n0, tn[:, 2] - n0,
@@ -224,8 +243,84 @@ def _scene_tables(scene: SceneData):
 
 
 def _as_i32(u: torch.Tensor) -> torch.Tensor:
-    """uint32 values held in int64 -> their int32 bit pattern."""
+    """uint32 values held in int64 -> their int32 bit pattern (an int32
+    tensor already is one: the rays a pixel launch wrote)."""
+    if u.dtype == torch.int32:
+        return u
     return (((u & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+class PixelView(NamedTuple):
+    """What a launch from pixels reads beside the scene: the camera block,
+    the frame word and the chunk's pixels (`pixel_view`)."""
+
+    camera: Camera
+    block: torch.Tensor | None  # [24] float32 (`camera_block`); CUDA only
+    frame_word: torch.Tensor | None  # [1] int32 bits of the frame
+    frame: object  # int, or a device tensor
+    pix: torch.Tensor  # [n] int64 flat pixel ids
+
+
+def camera_block(camera: Camera, settings: RenderSettings) -> torch.Tensor:
+    """The kernel's camera block, [24] float32 on the camera's device: the
+    [4, 4] camera-to-world matrix row-major, half_w, half_h, near, focal
+    distance, aperture radius, the filter radius and two unused (which
+    repeat it)."""
+    dev = camera.cam_to_world.device
+    scalars = torch.stack([camera.half_w, camera.half_h, camera.near,
+                           camera.focal_distance, camera.aperture_radius])
+    # filled on the device: no copy from the host
+    rest = torch.full((3,), settings.filter_radius, dtype=torch.float32,
+                      device=dev)
+    return torch.cat([camera.cam_to_world.reshape(16), scalars,
+                      rest]).to(torch.float32).contiguous()
+
+
+def pixel_view(camera: Camera, settings: RenderSettings, frame,
+               pix: torch.Tensor) -> PixelView:
+    """A `PixelView` for launches that render `pix` [n] at `frame` (an int,
+    or a device tensor): made once for all groups of a chunk."""
+    if pix.dtype != torch.int64 or pix.ndim != 1:
+        raise ValueError("pix must be a flat int64 tensor")
+    camera = camera.to(pix.device)
+    if pix.device.type != "cuda":
+        return PixelView(camera, None, None, frame, pix)
+    if isinstance(frame, torch.Tensor):
+        word = _as_i32(frame.to(pix.device, torch.int64).reshape(-1)[:1])
+    else:  # the uint32's int32 bit pattern, filled on the device
+        bits = int(frame) & 0xFFFFFFFF
+        word = torch.full((1,), bits - ((bits & 0x80000000) << 1),
+                          dtype=torch.int32, device=pix.device)
+    return PixelView(camera, camera_block(camera, settings),
+                     word.contiguous(), frame, pix.contiguous())
+
+
+def _scene_inputs(scene, settings: RenderSettings, tables, dev):
+    """Check scene and tables for a launch on `dev`; returns (tables, the
+    int arguments that follow the ray count in both C entry points)."""
+    if not fused_supported(scene, settings):
+        raise NotImplementedError(
+            "the CUDA megakernel covers scenes without area-light NEE or "
+            f"debug views, with <= {MAX_SPHERES} spheres, <= "
+            f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles "
+            "(wider tiers: ROADMAP A8, A9)")
+    tables = tables if tables is not None else _scene_tables(scene)
+    for t in tables:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("scene tables must be contiguous float32 on "
+                             f"{dev}")
+    ints = (scene.num_triangles, scene.num_spheres,
+            scene.materials.count, settings.max_bounces,
+            settings.max_diffuse_bounces, settings.max_glossy_bounces,
+            settings.max_transmission_bounces,
+            int(settings.sampler == SamplerKind.SOBOL),
+            int(settings.russian_roulette), int(scene.any_transmissive))
+    return tables, ints
+
+
+def _far_word(far, dev) -> torch.Tensor:
+    return torch.as_tensor(far, dtype=torch.float32,
+                           device=dev).reshape(-1)[:1].contiguous()
 
 
 def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
@@ -233,14 +328,8 @@ def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
     """Check rays and scene for a launch of the megakernel or its adjoint;
     returns (sample_idx, seed, far, tables, scalars) as the kernels take
     them: int32 bit views, a [1] far, contiguous float32 tables, and the
-    int arguments both C entry points share (the megakernel's env-NEE
-    ints follow them)."""
-    if not fused_supported(scene, settings):
-        raise NotImplementedError(
-            "the CUDA megakernel covers scenes without area-light NEE or "
-            f"debug views, with <= {MAX_SPHERES} spheres, <= "
-            f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles "
-            "(wider tiers: ROADMAP A8, A9)")
+    int arguments both C entry points share (the megakernel's own follow
+    them)."""
     n = origin.shape[0]
     dev = origin.device
     if origin.shape != (n, 3) or direction.shape != (n, 3):
@@ -250,32 +339,59 @@ def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
             raise ValueError(f"{name} must be contiguous float32")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, rays on {dev}")
-    tables = tables if tables is not None else _scene_tables(scene)
-    for t in tables:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("scene tables must be contiguous float32 on "
-                             f"{dev}")
-    sidx = _as_i32(torch.as_tensor(sample_idx, device=dev).expand(n))
-    sd = _as_i32(torch.as_tensor(seed, device=dev).expand(n))
-    far_t = torch.as_tensor(far, dtype=torch.float32,
-                            device=dev).reshape(-1)[:1].contiguous()
-    scalars = (n, scene.num_triangles, scene.num_spheres,
-               scene.materials.count, settings.max_bounces,
-               settings.max_diffuse_bounces, settings.max_glossy_bounces,
-               settings.max_transmission_bounces,
-               int(settings.sampler == SamplerKind.SOBOL),
-               int(settings.russian_roulette), int(scene.any_transmissive))
-    return sidx.contiguous(), sd.contiguous(), far_t, tables, scalars
+    tables, ints = _scene_inputs(scene, settings, tables, dev)
+    sidx = _as_i32(torch.as_tensor(sample_idx, device=dev)).expand(n)
+    sd = _as_i32(torch.as_tensor(seed, device=dev)).expand(n)
+    return (sidx.contiguous(), sd.contiguous(), _far_word(far, dev), tables,
+            (n, *ints))
 
 
 def _launch(scene, origin, direction, far, sample_idx, seed,
-            settings: RenderSettings, tables, env_tab=None) -> torch.Tensor:
+            settings: RenderSettings, tables, env_tab=None, *,
+            view: PixelView | None = None, lane0: int = 0,
+            spp_block: int = 1, write_rays: bool = False,
+            refill: bool = True):
     """Launch the kernel variant the scene and settings select, on the
-    current stream; returns [N, 10], or [N, 12] with env NEE."""
+    current stream; returns [N, 10], or [N, 12] with env NEE.
+
+    With `view` the kernel makes its own rays, those of
+    `group_rays(view.camera, settings, view.frame, view.pix, lane0,
+    spp_block)` (origin, direction, far, sample_idx and seed are not
+    read), and with `write_rays` it also writes them out: the result is
+    then (out, origin, direction, sample_idx, seed), the integers as int32
+    bit patterns.
+
+    The kernel's warps are persistent and take new rays for their lanes as
+    these fall free; `refill=False` runs ray i on thread i of the grid
+    instead, which gives the same bits (kept for the comparison). The BVH
+    tier's glass variants always run so: their walk measured faster on the
+    coherent rays of neighbouring threads than in full warps."""
     global LAUNCHES
-    sidx, sd, far_t, tables, scalars = kernel_inputs(
-        scene, origin, direction, far, sample_idx, seed, settings, tables)
-    dev = origin.device
+    rays = (None,) * 4
+    if view is None:
+        sidx, sd, far_t, tables, scalars = kernel_inputs(
+            scene, origin, direction, far, sample_idx, seed, settings, tables)
+        dev = origin.device
+        rays = (origin, direction, sidx, sd)
+        cam_ptrs, cam_ints = (None, None, None), (0, 0, 0, 0, 0)
+    else:
+        dev = view.pix.device
+        if view.block is None or dev.type != "cuda":
+            raise ValueError("a launch from pixels needs a PixelView on a "
+                             "CUDA device")
+        n = view.pix.shape[0] * spp_block
+        tables, ints = _scene_inputs(scene, settings, tables, dev)
+        scalars = (n, *ints)
+        far_t = _far_word(view.camera.far, dev)
+        if write_rays:
+            i32 = dict(dtype=torch.int32, device=dev)
+            rays = (torch.empty((n, 3), dtype=torch.float32, device=dev),
+                    torch.empty((n, 3), dtype=torch.float32, device=dev),
+                    torch.empty((n,), **i32), torch.empty((n,), **i32))
+        cam_ptrs = (view.block.data_ptr(), view.pix.data_ptr(),
+                    view.frame_word.data_ptr())
+        cam_ints = (settings.width, settings.height, spp_block, lane0,
+                    settings.samples_per_pixel)
     bvh = uses_bvh(scene)
     nodes = scene.wbvh.nodes if bvh else None
     if bvh and (nodes.device != dev or nodes.dtype != torch.float32
@@ -291,28 +407,34 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
     if env_nee:
         env_tab = env_tab if env_tab is not None else env_table(scene)
         env_h, env_w = scene.env_cdf.pdf.shape
-        if (env_tab.shape != (env_h * env_w, 10) or env_tab.device != dev
+        if (env_tab.shape != (env_h * env_w, 16) or env_tab.device != dev
                 or env_tab.dtype != torch.float32
-                or not env_tab.is_contiguous()):
-            raise ValueError("the env draw table must be a contiguous "
-                             f"float32 [{env_h * env_w}, 10] on {dev}")
+                or not env_tab.is_contiguous() or env_tab.data_ptr() % 16):
+            raise ValueError("the env draw table must be a contiguous, "
+                             "16-byte aligned float32 "
+                             f"[{env_h * env_w}, 16] on {dev}")
     out = torch.empty(
-        (origin.shape[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
+        (scalars[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
         dtype=torch.float32, device=dev)
+    # the next ray to hand out, zeroed on the stream before the launch
+    counter = (torch.zeros(1, dtype=torch.int32, device=dev)
+               if refill and not (bvh and scene.any_transmissive) else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    o, d, si, sd_ = rays
     lib = load_library("megakernel")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.halogen_megakernel_launch(
-            origin.data_ptr(), direction.data_ptr(), far_t.data_ptr(),
-            sidx.data_ptr(), sd.data_ptr(),
-            *(t.data_ptr() for t in tables),
-            nodes.data_ptr() if bvh else None,
+            ptr(o), ptr(d), far_t.data_ptr(), ptr(si), ptr(sd_),
+            *(t.data_ptr() for t in tables), ptr(nodes),
             env_tab.data_ptr() if env_nee else None, out.data_ptr(),
-            *scalars, int(env_nee), env_h, env_w, int(bvh), stream)
+            *cam_ptrs, ptr(counter),
+            *scalars, int(env_nee), env_h, env_w, int(bvh), *cam_ints,
+            stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out
+    return (out, *rays) if view is not None and write_rays else out
 
 
 def trace_color_fused_reference(scene: SceneData, origin, direction, far,
@@ -362,6 +484,31 @@ def trace_color_fused(scene: SceneData, origin, direction, far, sample_idx,
         env_tab))
 
 
+def trace_pixels_outputs(scene: SceneData, view: PixelView, lane0: int,
+                         spp_block: int, settings: RenderSettings,
+                         tables=None, env_tab=None,
+                         write_rays: bool = False):
+    """`trace_fused_outputs` on the rays of one group of pixels,
+    `group_rays(view.camera, settings, view.frame, view.pix, lane0,
+    spp_block)`: on a CUDA device the kernel makes them itself (one launch,
+    no ray tensors); on the CPU they are made by `group_rays` and traced by
+    the plain version. With `write_rays` the result is (outputs, origin,
+    direction, sample_idx, seed)."""
+    dev = view.pix.device
+    if dev.type == "cuda":
+        return _launch(scene, None, None, None, None, None, settings, tables,
+                       env_tab, view=view, lane0=lane0, spp_block=spp_block,
+                       write_rays=write_rays)
+    if dev.type != "cpu":
+        raise ValueError(f"no megakernel for device {dev}")
+    rays = group_rays(view.camera, settings, view.frame, view.pix, lane0,
+                      spp_block)
+    out = trace_color_fused_reference(scene, rays[0], rays[1],
+                                      view.camera.far, rays[2], rays[3],
+                                      settings)
+    return (out, *rays) if write_rays else out
+
+
 class _FusedDiff(torch.autograd.Function):
     """Megakernel forward, adjoint-kernel backward: the port of the JAX
     package's custom_vjp (`megakernel.py:1904-1978`) on its fused-adjoint
@@ -371,18 +518,35 @@ class _FusedDiff(torch.autograd.Function):
     MAX_TRIS triangles) have no backward here yet: the JAX package replays
     them with the lockstep vjp (`megakernel.py:1953-1975`), which the port
     brings with the envmap gradients (ROADMAP A8) and the big-scene
-    backward (ROADMAP A9)."""
+    backward (ROADMAP A9).
+
+    `group` is None for explicit rays, or (view, lane0, spp_block,
+    want_rays) for a launch from pixels: the kernel then makes the rays
+    and, where a backward may follow (`want_rays`), writes them out for
+    the adjoint's replay."""
 
     @staticmethod
-    def forward(ctx, scene, settings, env_tab, tri_tab, trin_tab, sph_tab,
-                mat_tab, origin, direction, far, sample_idx, seed):
+    def forward(ctx, scene, settings, env_tab, group, tri_tab, trin_tab,
+                sph_tab, mat_tab, origin, direction, far, sample_idx, seed):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
         ctx.scene, ctx.settings = scene, settings
-        # the rays of this launch, not a graph of its bounces
-        ctx.save_for_backward(*tables, origin, direction, far, sample_idx,
-                              seed)
-        return trace_color_fused(scene, origin, direction, far, sample_idx,
-                                 seed, settings, tables, env_tab)
+        if group is None:
+            out = trace_fused_outputs(scene, origin, direction, far,
+                                      sample_idx, seed, settings, tables,
+                                      env_tab)
+        else:
+            view, lane0, spp_block, want_rays = group
+            out = trace_pixels_outputs(scene, view, lane0, spp_block,
+                                       settings, tables, env_tab,
+                                       write_rays=want_rays)
+            if want_rays:
+                out, origin, direction, sample_idx, seed = out
+                far = view.camera.far
+        if origin is not None:
+            # the rays of this launch, not a graph of its bounces
+            ctx.save_for_backward(*tables, origin, direction, far,
+                                  sample_idx, seed)
+        return deferred_sky(scene, settings, out)
 
     @staticmethod
     def backward(ctx, grad_color):
@@ -399,7 +563,7 @@ class _FusedDiff(torch.autograd.Function):
         *tables, origin, direction, far, sample_idx, seed = ctx.saved_tensors
         mat_tab = tables[3]
         d_mat = None
-        if ctx.needs_input_grad[6]:  # mat_tab
+        if ctx.needs_input_grad[7]:  # mat_tab
             # grad_color may be an expanded view (stride 0) of the
             # per-pixel cotangent: the kernel reads a dense [N, 3]
             dmat12 = adj.trace_grad_fused_materials(
@@ -412,8 +576,8 @@ class _FusedDiff(torch.autograd.Function):
             d_mat[:, 0:3] = dmat12[:, 3:6]    # albedo rgb
             d_mat[:, 4:7] = dmat12[:, 6:9]    # specular
             d_mat[:, 13:16] = dmat12[:, 9:12]  # absorption
-        return (None, None, None, None, None, None, d_mat, None, None, None,
-                None, None)
+        return (None, None, None, None, None, None, None, d_mat, None, None,
+                None, None, None)
 
 
 def trace_color_fused_diff(scene: SceneData, origin, direction, far,
@@ -429,5 +593,20 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
     far = torch.as_tensor(far, dtype=torch.float32, device=dev)
     sample_idx = torch.as_tensor(sample_idx, device=dev)
     seed = torch.as_tensor(seed, device=dev)
-    return _FusedDiff.apply(scene, settings, env_tab, *tables, origin,
+    return _FusedDiff.apply(scene, settings, env_tab, None, *tables, origin,
                             direction, far, sample_idx, seed)
+
+
+def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
+                            spp_block: int, settings: RenderSettings,
+                            tables=None, env_tab=None) -> torch.Tensor:
+    """`trace_color_fused_diff` on the rays of one group of pixels (see
+    `trace_pixels_outputs`): [N, 3] radiance from one kernel launch that
+    makes its own rays, and the sky pass. The rays are written out, and
+    kept for the adjoint, only where a gradient is wanted."""
+    tables = tables if tables is not None else _scene_tables(scene)
+    want_rays = torch.is_grad_enabled() and any(t.requires_grad
+                                                for t in tables)
+    return _FusedDiff.apply(scene, settings, env_tab,
+                            (view, lane0, spp_block, want_rays), *tables,
+                            None, None, None, None, None)

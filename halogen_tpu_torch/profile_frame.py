@@ -10,8 +10,7 @@ with S one of cornell, glass, envmap_1024, glass_dragon.
 
 The frame is a forward path of `chip_smoke.py`: by default the main path,
 Cornell glossy, 512x512, 32 spp, 6 bounces, 262144-ray chunks, so 32
-groups of 262144 rays, each a `generate_rays` call and one megakernel
-launch; `--scene glass` the glass-in-glass box at 512x512, 32 spp, 8
+groups of 262144 rays, each one megakernel launch that makes its own rays; `--scene glass` the glass-in-glass box at 512x512, 32 spp, 8
 bounces (the medium-stack variant); `--scene envmap_1024` the JAX CLI
 preset, material spheres under the gradient sky at 1024x1024, 16 spp, 4
 bounces with env NEE (64 groups, each also a sky pass after the kernel);
@@ -21,14 +20,16 @@ triangles) at 512x512, 32 spp, 12 bounces, through the megakernel's BVH
 tier (B1d).
 With `--grad` the step is `diff.render_loss_grad` at `bench.py`'s
 forward-plus-backward configuration instead: 256x256, 256 spp, so 64
-groups, each a `generate_rays` call, one megakernel launch and, in the
-backward, one adjoint launch (Cornell or glass). Printed:
+groups, each one megakernel launch (which writes out the rays it made)
+and, in the backward, one adjoint launch (Cornell or glass). Printed:
 
   - the host-clock time of each of `--frames` steps (no profiler), with
     `torch.cuda.synchronize()` around each;
-  - one group's `generate_rays`: host time to issue it, and its time to
-    complete (host clock, synchronized), and one kernel launch's device time
-    (CUDA events), each averaged over 10 calls;
+  - one group's rays by `group_rays`, the plain version of the kernel's
+    ray prologue (off the kernel route): host time to issue it, and its
+    time to complete (host clock, synchronized); one launch from pixels:
+    host time to issue it, and its time by CUDA events; each averaged over
+    10 calls;
   - from `torch.profiler` over one frame: the frame's time under the
     profiler, device busy time (the sum of the device-side rows' times:
     one stream, so they do not overlap), the idle share of the profiled
@@ -56,10 +57,8 @@ from torch.autograd import DeviceType
 
 import halogen_tpu_torch as ht
 from halogen_tpu_torch.diff import render_loss_grad
-from halogen_tpu_torch.integrator.camera import generate_rays
-from halogen_tpu_torch.integrator.trace import _morton_pixel_order, _sampler_2d
+from halogen_tpu_torch.integrator.trace import _morton_pixel_order, group_rays
 from halogen_tpu_torch.kernels import megakernel as mk
-from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene import cornell, meshes
 
 CAM = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0), fov_deg=40.0)
@@ -147,17 +146,13 @@ def main(argv=None) -> int:
 
     # one group: 262144 pixels x 1 spp lane
     perm, _ = _morton_pixel_order(st.width, st.height)
-    pix = torch.from_numpy(perm.astype(np.int64)).to(dev)
-    seed = sob.pixel_seed(pix)
-    sidx = sob.sample_index(1, torch.zeros_like(pix), st.samples_per_pixel)
-    px, py = pix % st.width, pix // st.width
+    pix = torch.from_numpy(perm[:262144].astype(np.int64)).to(dev)
 
     def gen():
-        return generate_rays(cam, px, py, st.width, st.height,
-                             st.filter_radius, sidx, seed, _sampler_2d(st))
+        return group_rays(cam, st, 1, pix, 0, 1)
 
     reps = 10
-    o, d = gen()
+    gen()
     torch.cuda.synchronize()
     issue_s = done_s = 0.0
     for _ in range(reps):
@@ -168,10 +163,15 @@ def main(argv=None) -> int:
         issue_s += t1 - t0
         done_s += time.perf_counter() - t0
     tables = mk._scene_tables(scene)
+    env_tab = mk.env_table(scene)
+    view = mk.pixel_view(cam, st, 1, pix)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
-        mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st, tables)
+        mk.trace_pixels_outputs(scene, view, 0, 1, st, tables, env_tab)
+    launch_issue_ms = (time.perf_counter() - t0) / reps * 1e3
     end.record()
     torch.cuda.synchronize()
     kernel_ms = start.elapsed_time(end) / reps
@@ -207,6 +207,7 @@ def main(argv=None) -> int:
         "frame_ms_max": max(frame_ms),
         "gen_rays_issue_ms": issue_s / reps * 1e3,
         "gen_rays_done_ms": done_s / reps * 1e3,
+        "launch_issue_ms": launch_issue_ms,
         "kernel_ms": kernel_ms,
         "profiled_frame_ms": prof_frame_ms,
         "device_busy_ms": busy_ms,
@@ -227,9 +228,11 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"{result['step']} {args.scene} {st.width}x{st.height} "
           f"{st.samples_per_pixel} spp, steps (host clock, ms): {frame_ms}")
-    print(f"generate_rays per group: issue {result['gen_rays_issue_ms']:.3f} "
-          f"ms, done {result['gen_rays_done_ms']:.3f} ms; kernel launch "
-          f"{kernel_ms:.4f} ms (CUDA events)")
+    print(f"group_rays (plain) per group: issue "
+          f"{result['gen_rays_issue_ms']:.3f} ms, done "
+          f"{result['gen_rays_done_ms']:.3f} ms; a launch from pixels: "
+          f"issue {launch_issue_ms:.4f} ms (host), {kernel_ms:.4f} ms "
+          f"(CUDA events)")
     print(f"profiled frame {prof_frame_ms:.1f} ms: device busy "
           f"{busy_ms:.2f} ms, idle "
           f"{result['device_idle_share_profiled']:.3f} "

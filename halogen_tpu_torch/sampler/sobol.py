@@ -122,6 +122,20 @@ def sobol1d(index, dim: int) -> torch.Tensor:
     return x
 
 
+def sobol_dim1_reversed(index) -> torch.Tensor:
+    """`reverse_bits_u32(sobol1d(index, 1))` in five steps. Dimension 1's
+    direction numbers are the rows of Pascal's triangle mod 2, bit-reversed,
+    so the product with them is a butterfly: the form the CUDA kernels use
+    (`csrc/path_common.cuh`), where the reversal then cancels against the
+    one that opens `owen_scramble`."""
+    y = _u32(index)
+    y = y ^ ((y >> 1) & 0x55555555)
+    y = y ^ ((y >> 2) & 0x33333333)
+    y = y ^ ((y >> 4) & 0x0F0F0F0F)
+    y = y ^ ((y >> 8) & 0x00FF00FF)
+    return y ^ ((y >> 16) & 0x0000FFFF)
+
+
 def _seeded(dimension, seed):
     return _u32(seed) ^ u32_hash(dimension)
 

@@ -177,6 +177,57 @@ def test_fused_diff_matches_lockstep_autograd(fixture, glass, case, rr):
                                    atol=TOL, rtol=TOL, msg=f)
 
 
+@pytest.mark.parametrize("case", ["cornell", "glass"])
+def test_pixel_launch_wrappers_take_plain_version_on_cpu(fixture, glass,
+                                                         case):
+    """The launch-from-pixels wrappers on CPU pixels: `trace_pixels_outputs`
+    gives the plain version's outputs on `group_rays`' rays, and
+    `trace_color_pixels_diff` the color and the material gradients of
+    `trace_color_fused_diff` on those rays, bit for bit; no kernel is
+    launched."""
+    from halogen_tpu_torch.integrator.trace import group_rays
+
+    _, scene, _ = fixture if case == "cornell" else glass
+    st = RenderSettings(**_settings(True), samples_per_pixel=8)
+    cam = interop.camera_from_numpy(
+        interop.camera_to_numpy(jht.make_camera(**CAM)), device=CPU)
+    pix = torch.from_numpy(np.random.default_rng(1).permutation(W * W)[:24])
+    frame, lane0, spp_block = 2, 4, 2
+    view = mk.pixel_view(cam, st, frame, pix)
+    assert view.block is None and view.frame_word is None
+    before = mk.LAUNCHES
+    out, o, d, sidx, seed = mk.trace_pixels_outputs(
+        scene, view, lane0, spp_block, st, write_rays=True)
+    for got, ref in zip((o, d, sidx, seed),
+                        group_rays(cam, st, frame, pix, lane0, spp_block)):
+        assert torch.equal(got, ref)
+    assert out.shape == (48, mk.N_OUTPUTS)
+    assert torch.equal(out, mk.trace_fused_outputs(scene, o, d, cam.far,
+                                                   sidx, seed, st))
+    assert torch.equal(out, mk.trace_pixels_outputs(scene, view, lane0,
+                                                    spp_block, st))
+
+    ct = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(48, 3)).astype(np.float32))
+    grads = []
+    for fn in (lambda sc: mk.trace_color_pixels_diff(sc, view, lane0,
+                                                     spp_block, st),
+               lambda sc: mk.trace_color_fused_diff(sc, o, d, cam.far, sidx,
+                                                    seed, st)):
+        albedo = scene.materials.albedo.clone().requires_grad_(True)
+        sc = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, albedo=albedo))
+        col = fn(sc)
+        (col * ct).sum().backward()
+        grads.append((col.detach(), albedo.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert grads[0][1].abs().max() > 0
+    assert mk.LAUNCHES == before
+    with pytest.raises(ValueError, match="int64"):
+        mk.pixel_view(cam, st, frame, pix.to(torch.int32))
+
+
 def test_fused_diff_gives_geometry_and_rays_no_gradient(fixture):
     """The Function's backward returns a cotangent for the material table
     only: geometry, camera rays and far get none (as the JAX fused

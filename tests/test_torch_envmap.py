@@ -127,6 +127,39 @@ def test_draws_match_jax(maps):
     assert torch.equal(tab[:, 1].long(), tcdf.alias_j.long())
 
 
+def test_kernel_env_table_reproduces_the_draw():
+    """`kernels/megakernel.env_table`, the rows of four 16-byte loads the
+    CUDA kernel reads: `env_draw_table`'s ten values with the direction of
+    the texel and of its alias, so that the kernel's alias step (a row,
+    then a select) gives `sample_env_draw`'s direction, pdf and radiance
+    bit for bit."""
+    from halogen_tpu_torch.kernels import megakernel as mk
+
+    scene = tcornell.cornell_box().build(envmap=tenv.Envmap.gradient_sky(),
+                                         device=CPU)
+    cdf, env0 = scene.env_cdf, scene.env_mips[0]
+    tab = mk.env_table(scene)
+    h, w = cdf.pdf.shape
+    assert tab.shape == (h * w, 16) and tab.dtype == torch.float32
+    draw = tenv.env_draw_table(cdf, env0)
+    assert torch.equal(tab[:, [0, 1, 2, 3, 4, 5, 6, 8, 9, 10]], draw)
+    u = np.random.default_rng(4).random((2, N)).astype(np.float32)
+    u1, u2 = torch.from_numpy(u[0]), torch.from_numpy(u[1])
+    want_d, want_pdf, want_rad = tenv.sample_env_draw(cdf, env0, u1, u2)
+    # the kernel's step (csrc/path_common.cuh, the env NEE draw)
+    n = h * w
+    idx = torch.clamp((torch.clamp(u1, 0.0, float(np.float32(1.0 - 1e-7)))
+                       * n).to(torch.int64), 0, n - 1)
+    row = tab[idx]
+    stay = u2 < row[:, 0]
+    rx = torch.where(stay[:, None], row[:, 4:8], row[:, 8:12])
+    yz = torch.where(stay[:, None], row[:, 12:14], row[:, 14:16])
+    assert torch.equal(torch.where(stay, row[:, 2], row[:, 3]), want_pdf)
+    assert torch.equal(rx[:, :3], want_rad)
+    assert torch.equal(torch.cat([rx[:, 3:], yz], dim=1), want_d)
+    assert mk.env_table(tcornell.cornell_box().build(device=CPU)) is None
+
+
 def test_scene_build_carries_the_envmap():
     """`Scene.build(envmap=...)` fills env_mips and env_cdf as the JAX
     build does, `interop` carries both across, and `.to` moves them."""

@@ -393,3 +393,142 @@ def test_big_scene_frame_launches_bvh_tier(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         render_loss_grad({"materials": scene.materials}, scene, cam, st,
                          torch.zeros((16, 16, 3), device=cuda_device), 1)
+
+
+# --- launches from pixels, and warps that refill
+
+def _pixel_scenes(dev):
+    """B1a, B1b, B1c and a B1d variant: (scene, camera, settings)."""
+    sky = Envmap.gradient_sky()
+    small = dict(width=48, height=32, samples_per_pixel=8)
+    glass = dict(max_bounces=8, max_transmission_bounces=8)
+    return {
+        "B1a": (cornell.cornell_box(glossy=True).build(device=dev),
+                ht.make_camera(**CAM, aspect=1.5, device=dev),
+                ht.RenderSettings(**small, max_bounces=4)),
+        # a thin lens
+        "B1b": (cornell.glass_sphere_box().build(device=dev),
+                ht.make_camera(**CAM, aspect=1.5, aperture_deg=2.0,
+                               focal_distance=3.2, device=dev),
+                ht.RenderSettings(**small, **glass)),
+        "B1c": (cornell.material_demo_spheres().build(envmap=sky, device=dev),
+                ht.make_camera(**SKY_CAM, aspect=1.5, device=dev),
+                ht.RenderSettings(**small, max_bounces=4, use_envmap=True,
+                                  env_importance_sampling=True,
+                                  env_mip_level=0,
+                                  sampler=ht.SamplerKind.PRNG)),
+        "B1b+d": (meshes.glass_dragon_scene().build(device=dev),
+                  ht.make_camera(position=(0, 1.5, 5), target=(0, -0.3, 0),
+                                 fov_deg=45, aspect=1.5, device=dev),
+                  ht.RenderSettings(**small, max_bounces=12)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pix", [1000, 150001])
+@pytest.mark.parametrize("name", ["B1a", "B1b", "B1c", "B1b+d"])
+def test_pixel_launch_equals_explicit_ray_launch(name, n_pix, cuda_device):
+    """The kernel's own rays against `group_rays` on the card (integers
+    bit for bit; floats within 1e-6: the ops are `generate_rays`', but a
+    `logf`, `sinf` or `cosf` or the camera transform's GEMM may round an
+    ulp apart from torch's), and the launch from pixels against the
+    explicit-ray launch on the rays it wrote, outputs bit for bit: at a
+    ray count under the persistent grid, and at one over it (300,002: the
+    pixels repeat), where lanes that fall free make the later rays."""
+    from halogen_tpu_torch.integrator.trace import group_rays
+
+    scene, cam, st = _pixel_scenes(cuda_device)[name]
+    rng = np.random.default_rng(3)
+    pix = torch.from_numpy(rng.integers(0, st.num_pixels, n_pix)).to(
+        cuda_device)
+    frame, lane0, spp_block = 5, 4, 2
+    view = mk.pixel_view(cam, st, frame, pix)
+    before = mk.LAUNCHES
+    out, o, d, sidx, seed = mk.trace_pixels_outputs(
+        scene, view, lane0, spp_block, st, write_rays=True)
+    quiet = mk.trace_pixels_outputs(scene, view, lane0, spp_block, st)
+    explicit = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
+    assert mk.LAUNCHES == before + 3
+    ro, rd, rsidx, rseed = group_rays(cam, st, frame, pix, lane0, spp_block)
+    torch.cuda.synchronize()
+    assert torch.equal(sidx, mk._as_i32(rsidx))
+    assert torch.equal(seed, mk._as_i32(rseed))
+    assert float((o - ro).abs().max()) <= 1e-6
+    assert float((d - rd).abs().max()) <= 1e-6
+    assert torch.equal(out, explicit)
+    assert torch.equal(out, quiet)
+    # the frame as a device tensor gives the same launch
+    view_t = mk.pixel_view(cam, st, torch.tensor([frame], device=cuda_device),
+                           pix)
+    assert torch.equal(out, mk.trace_pixels_outputs(scene, view_t, lane0,
+                                                    spp_block, st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 262144 + 5])
+def test_refilling_launch_matches_plain(n, cuda_device):
+    """Warps that refill, at ragged ray counts and at counts smaller and
+    larger than the grid: equal to the one-ray-a-thread order bit for bit,
+    and to the plain version at the kernel's tolerance."""
+    st = ht.RenderSettings(width=512, height=512, samples_per_pixel=2,
+                           max_bounces=4)
+    scene = cornell.glass_sphere_box().build(device=cuda_device)
+    cam = ht.make_camera(**CAM, device=cuda_device)
+    pix = torch.arange(n, device=cuda_device) % st.num_pixels
+    lane = torch.arange(n, device=cuda_device) // st.num_pixels
+    sidx = sob.sample_index(1, lane, st.samples_per_pixel)
+    seed = sob.pixel_seed(pix)
+    o, d = generate_rays(cam, pix % st.width, pix // st.width, st.width,
+                         st.height, st.filter_radius, sidx, seed,
+                         _sampler_2d(st))
+    got = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
+    threads = mk._launch(scene, o, d, cam.far, sidx, seed, st, None,
+                         refill=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, threads)
+    m = min(n, 4096)  # the plain version on the first rays
+    ref = mk.trace_color_fused_reference(scene, o[:m], d[:m], cam.far,
+                                         sidx[:m], seed[:m], st)
+    a, b = got[:m].cpu().numpy(), ref.cpu().numpy()
+    bad = (np.abs(a - b) > 1e-4 + 1e-4 * np.abs(b)).any(axis=1)
+    assert np.isfinite(got.cpu().numpy()).all()
+    assert bad.sum() <= max(1, m // 1000), bad.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("glass", [False, True])
+def test_grad_with_in_kernel_rays_equals_explicit_rays(glass, cuda_device):
+    """`render_loss_grad` through launches from pixels (the kernel writes
+    the rays it made for the adjoint) against the same groups with
+    explicit rays: the same [K, 12] bits, so the same gradients."""
+    from halogen_tpu_torch.diff import render_loss_grad
+
+    scene = (cornell.glass_sphere_box() if glass
+             else cornell.cornell_box(glossy=True)).build(device=cuda_device)
+    cam = ht.make_camera(**CAM, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
+                           max_bounces=8 if glass else 4,
+                           max_transmission_bounces=8, ray_chunk_size=2048)
+    target = torch.zeros((32, 32, 3), device=cuda_device)
+    params = {"materials": scene.materials}
+    _, g_pix = render_loss_grad(params, scene, cam, st, target, 3)
+
+    def explicit(sc, view, lane0, spp_block, settings, tables=None,
+                 env_tab=None):
+        # the rays as the kernel makes them (its written-out rays), then
+        # the explicit-ray route
+        _, o, d, sidx, seed = mk.trace_pixels_outputs(
+            sc, view, lane0, spp_block, settings, write_rays=True)
+        return mk.trace_color_fused_diff(sc, o, d, view.camera.far, sidx,
+                                         seed, settings, tables, env_tab)
+
+    saved = mk.trace_color_pixels_diff
+    mk.trace_color_pixels_diff = explicit
+    try:
+        _, g_exp = render_loss_grad(params, scene, cam, st, target, 3)
+    finally:
+        mk.trace_color_pixels_diff = saved
+    for f in ("albedo", "specular", "emissive", "absorption"):
+        a, b = getattr(g_pix["materials"], f), getattr(g_exp["materials"], f)
+        assert torch.equal(a, b), f
+    assert float(g_pix["materials"].albedo.abs().sum()) > 0

@@ -52,6 +52,32 @@ def test_render_frame_matches_jax(glossy, spp, chunk):
         f"{bad.sum()} pixels outside 1e-5; max {np.abs(got - ref).max()}")
 
 
+@pytest.mark.parametrize("spp_offset,spp_count", [(2, 4), (5, 3)])
+def test_render_pixels_spp_window_matches_jax(spp_offset, spp_count):
+    """`render_pixels` over a window of the spp lanes (a nonzero
+    `spp_offset`, as a sharded render takes them) on a Morton chunk, in
+    groups of more than one lane and of one."""
+    kw = dict(width=16, height=16, samples_per_pixel=8, max_bounces=4,
+              ray_chunk_size=256)
+    jscene = jcornell.cornell_box(glossy=True).build()
+    jcam = jht.make_camera(**CAM)
+    perm, _ = _morton_pixel_order(16, 16)
+    pix = perm[64:192]
+    ref = np.asarray(jht.integrator.trace.render_pixels(
+        jscene, jcam, jht.RenderSettings(**kw), 3, np.asarray(pix, np.int32),
+        spp_offset, spp_count))
+
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(jscene), device=CPU)
+    cam = interop.camera_from_numpy(interop.camera_to_numpy(jcam), device=CPU)
+    got = tht.integrator.trace.render_pixels(
+        scene, cam, tht.RenderSettings(**kw), 3,
+        torch.from_numpy(pix.astype(np.int64)), spp_offset, spp_count).numpy()
+    assert got.shape == ref.shape == (128, 3)
+    bad = (np.abs(got - ref) > 1e-5 + 1e-5 * np.abs(ref)).any(axis=-1)
+    assert bad.sum() <= 1, (
+        f"{bad.sum()} pixels outside 1e-5; max {np.abs(got - ref).max()}")
+
+
 @pytest.mark.parametrize("name", ["glass", "env_nee"])
 def test_slice_render_frame_matches_jax(name):
     """render_frame on the glass box (8 bounces, the stack) and on the

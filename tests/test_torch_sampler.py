@@ -65,6 +65,39 @@ def test_sobol1d_bit_exact(dim, draws):
               tsob.sobol1d(_t(index), dim))
 
 
+@pytest.mark.parametrize("indices", ["below_2_16", "random", "all_ones"])
+def test_sobol_dim1_butterfly_bit_exact(indices, draws):
+    """The kernels' five-step form of Sobol's dimension 1 against the
+    table, the port's and the JAX package's, bit for bit."""
+    index = {"below_2_16": np.arange(1 << 16, dtype=np.uint32),
+             "random": draws[0],
+             "all_ones": np.array([0xFFFFFFFF, 0x80000000, 1, 0],
+                                  np.uint32)}[indices]
+    got = tsob.sobol_dim1_reversed(_t(index))
+    _same_u32(jsob.reverse_bits_u32(jsob.sobol1d(jnp.asarray(index), 1)),
+              got)
+    assert torch.equal(got, tsob.reverse_bits_u32(tsob.sobol1d(_t(index), 1)))
+
+
+def test_kernel_sampler_composition_bit_exact(draws):
+    """The kernels' draws, with the bit reversals that meet cancelled
+    (`owen_core` is `owen_scramble` without its two reversals), against
+    the sampler's u32 draws."""
+    index, dim, seed = (_t(a) for a in draws)
+    rev = tsob.reverse_bits_u32
+    core = lambda x, s: rev(tsob.owen_scramble(rev(x), s))
+    sd = seed ^ tsob.u32_hash(dim)
+    shuffled = rev(core(rev(index), sd))
+    a = rev(core(shuffled, tsob.hash_combine(sd, 0)))
+    b = rev(core(tsob.sobol_dim1_reversed(shuffled),
+                 tsob.hash_combine(sd, 1)))
+    x, y = tsob.u32_owen_scrambled_sobol_2d(index, dim, seed)
+    assert torch.equal(a, x) and torch.equal(b, y)
+    one = rev(core(index, tsob.u32_hash(sd)))
+    assert torch.equal(one, tsob.u32_owen_scrambled_sobol_1d(index, dim,
+                                                             seed))
+
+
 @pytest.mark.parametrize("fn", ["u32_owen_scrambled_sobol_1d",
                                 "u32_owen_scrambled_sobol_2d",
                                 "u32_owen_scrambled_sobol_4d"])
