@@ -6,10 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; the first that fails ends the run with a non-zero exit
 (no phase is caught):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the three kernel libraries (the megakernel, its adjoint and
-     the world-BVH traversal) from `halogen_tpu_torch/csrc/`, one nvcc
-     process per source, in parallel, and print each kernel's registers,
-     spills and static shared memory;
+  2. build the four kernel libraries (the megakernel, its adjoint, the
+     world-BVH traversal and the sky pair) from `halogen_tpu_torch/csrc/`,
+     one nvcc process per source, in parallel, and print each kernel's
+     registers, spills and static shared memory;
   3. kernel vs its plain PyTorch version on the card (Cornell glossy,
      64x64 pixels x 4 spp lanes, 4 bounces; Sobol+RR, Sobol, PRNG+RR and
      per-type bounce limits): atol = rtol = 1e-4 per ray, at most 0.1% of
@@ -64,15 +64,21 @@ Phases, in order; the first that fails ends the run with a non-zero exit
  14. the forward paths at full size: the glass box (512x512, 32 spp, 8
      bounces, one warm-up and 4 timed frames) and the `envmap_1024` preset
      (material spheres under the sky, 1024x1024, 16 spp, 4 bounces, env
-     NEE, mip level 0; one warm-up and 2 timed frames), each with its
-     launch count and Mrays/s; then one 256x256 frame of each against the
-     plain route, mean radiance within 2%;
+     NEE, mip level 0; one warm-up and 2 timed frames; its sky pass the
+     sky kernel, one launch a group), each with its launch count and
+     Mrays/s; then one 256x256 frame of each against the plain route,
+     mean radiance within 2%;
  15. the glass adjoint: vs its plain version in phase 11's four glass
      cases (phase 7's tolerance), bitwise repeatable, its replay equal to
      the glass forward bit for bit; its time at the launch shape; the
      glass fwd+bwd step (`render_loss_grad`, 256x256, 256 spp, 8 bounces,
      64 + 64 launches per step) and its grads vs `Fused.OFF` at 64x64, 16
-     spp; a backward on an envmap scene raises NotImplementedError;
+     spp; the envmap backward through `render_loss_grad` (Cornell glossy
+     under the sky, and the spheres under it with env NEE; materials and
+     mips, 64x64, 16 spp): every kernel of its path launched, vs
+     `Fused.OFF` with the same per-pixel cotangent, zero on the pixels
+     whose forwards round apart (at most 0.1%): the materials at phase 7's
+     tolerance, every mip at 1e-4 of its largest + 1e-6;
  16. the world-BVH traversal kernel (B3) vs its plain version (a brute
      force over the same triangles) on the glass dragon's BVH (8,724
      triangles): 65536 rays, half camera rays and half numpy-seeded points
@@ -157,18 +163,54 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      launch's time are the kernels record's. Then B1a-c from pixels, from
      explicit rays, and from explicit rays with one ray a thread (events
      and profiler device time), registers and spills;
+ 28. the adjoint's BVH tier: B2b+d on the glass dragon and B2+d on a
+     1,280-triangle metal dragon in the Cornell shell, at the glass
+     dragon's launch shape (262144 camera rays, 12 bounces): vs plain
+     (brute-force hits) on every 16th ray at phase 7's tolerance, bitwise
+     repeatable, the replay equal to B1d's forward bit for bit, both
+     transcript routes the same bits; times at the launch shape;
+ 29. the sky pair vs `deferred_sky` (the `envmap_1024` launch shape's
+     outputs, and Cornell glossy under the sky with the mip bias): the
+     forward at 1e-4 per ray (at most 0.1% outside), the backward's
+     cotangents of the miss attenuation and roughness at 1e-4 of their
+     column's largest, each mip's at 1e-4 of its largest + 1e-6, two
+     calls bitwise equal; times of both kernels and of their plain
+     versions, and of `index_add_` on the backward's taps;
+ 30. the adjoint's sky variants vs plain, 64x64 x 4 lanes: the sky alone
+     (B2c), env NEE (B2c+n), glass under the sky with env NEE (B2b+c+n),
+     and the same on the BVH tier (B2c+d, B2c+n+d, B2b+c+n+d): [K, 13] at
+     phase 7's tolerance, every mip at 1e-4 of its largest + 1e-6, on the
+     rays whose forward outputs (color, miss attenuation, roughness) the
+     kernel and plain agree on at phase 11's tolerance (at most 0.1% may
+     not: a near-mirror lobe's pdf, phase 17); two calls bitwise equal,
+     the replay equal to the forward; `adjoint.trace_grad_fused` takes
+     them through the main path's autograd Functions; B2c and B2c+n timed
+     at the `envmap_1024` launch shape, where [K, 13] and B2c+n's record
+     sums into the finest mip are held to plain too;
+ 31. the full-width gradient steps, each a warm-up and 2 timed
+     `render_loss_grad` steps with every kernel count set to 0 before them
+     (each kernel of the path must launch): the glass dragon at
+     `bench.py`'s configuration (512x512, 32 spp, 12 bounces), the
+     `envmap_1024` preset with {"materials", "env_mips"}, a 1,280-triangle
+     metal dragon and Cornell glossy under the sky at 256x256; each with
+     its launches, step time, Mrays/s (fwd+bwd) and device idle share;
+     the `envmap_1024` forward frame (phase 14) beside the torch sky
+     pass's figures; and a 10-step `fit_materials(optimize_env=True)` of
+     the `envmap_1024` scene at 256x256 from a sky at half brightness and
+     a perturbed albedo: the held-out loss must fall, every texel >= 0;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
-Phases 6, 9, 14, 15 and 20 also profile one frame or step: the
+Phases 6, 9, 14, 15, 20 and 31 also profile one frame or step: the
 `cudaLaunchKernel` calls, the device's busy time and its idle share; a
 Cornell and a glass-box frame must stay under 3,350 launches (a tenth of
 what they took when torch made the rays). A kernel's device time is the
 profiler's mean over the launches it kept; where it kept none in five
 sessions (it can drop events late in a long process) the time reads "not
 recorded" (null in the record) beside the CUDA-event time.
-The last lines are a JSON record of every kernel (B1a-d, B2, B2b, B3, and
-the routes B4-B6 that B3's kernel serves) with its launches on its main
+The last lines are a JSON record of every kernel (B1a-d, B2, B2b, B2b+d,
+B2+d, B2c, B2c+n, the sky forward and backward, B3, and the routes B4-B6
+that B3's kernel serves) with its launches on its main
 path, error, times, plain time, bound and library call, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -204,6 +246,12 @@ OPS_GLASS = 50  # + the refraction branch and Beer-Lambert
 OPS_NEE = 150  # + two glossy pdfs and the MIS weight (the draw is a row)
 OPS_ADJ = 100  # + the adjoint's reverse sweep of the bounce
 OPS_RAY = 90  # a primary ray made in the kernel (camera_ray; logf x 2)
+# the sky pass (csrc/sky.cu): a ray's lookup (normalize, atan2 and acos as
+# ~20 each, two bilinear lookups of 3 channels and the blend, the MIS
+# weight), and the backward's taps (eight shares of three channels, the
+# level's cotangent) and their sums
+OPS_SKY = 200
+OPS_SKY_BWD = 150
 # int32 operations of the Owen-scrambled Sobol sampler (path_common.cuh:
 # u32_hash 9, hash_combine 5, owen_core 10, the dimension-1 butterfly 15,
 # a bit reversal 1): a 2D draw 71, a 1D draw 31
@@ -246,18 +294,30 @@ def _resources(log: str) -> dict:
              "megakernel_bvhILb1ELb0EE": "B1b+d",
              "megakernel_bvhILb0ELb1EE": "B1c+d",
              "megakernel_bvhILb1ELb1EE": "B1b+c+d",
-             # the transcript in shared memory, and in device memory
-             "adjoint_kernelILb0ELb1EE": "B2",
-             "adjoint_kernelILb1ELb1EE": "B2b",
-             "adjoint_kernelILb0ELb0EE": "B2 global",
-             "adjoint_kernelILb1ELb0EE": "B2b global",
-             "traverse_kernel": "B3"}
+             "traverse_kernel": "B3", "sky_forward": "sky forward",
+             "sky_backward_taps": "sky backward",
+             "sky_scatter_sum": "sky backward sums"}
+
+    def adjoint_name(mangled):
+        """adjoint_kernel<kTransmissive, kSmemTranscript, kBvh, kEnv>: B2
+        or B2b; c with the sky, +n with env NEE; +d on the BVH tier;
+        " global" with the transcript in device memory."""
+        m = re.search(r"adjoint_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E",
+                      mangled)
+        if not m:
+            return None
+        t, smem, bvh, env = (int(x) for x in m.groups())
+        return ("B2b" if t else "B2") + (("+c" if t else "c") if env
+                                          else "") + ("+n" if env == 2
+                                                      else "") + (
+            "+d" if bvh else "") + ("" if smem else " global")
+
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = next((v for k, v in names.items() if k in m.group(1)),
-                       None)
+            cur = adjoint_name(m.group(1)) or next(
+                (v for k, v in names.items() if k in m.group(1)), None)
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -392,7 +452,8 @@ def _profile_step(fn, step_ms: float) -> dict:
     on_device = [r for r in rows if _self_device_us(r) > 0]
     busy_ms = sum(_self_device_us(r) for r in on_device) / 1e3
     own = ("megakernel<", "megakernel_bvh<", "adjoint_kernel<",
-           "traverse_kernel")
+           "traverse_kernel", "sky_forward", "sky_backward_taps",
+           "sky_scatter_sum")
     return dict(
         cuda_launches=sum(r.count for r in rows
                           if r.key.startswith("cudaLaunchKernel")),
@@ -433,6 +494,7 @@ def main() -> int:
     )
     from halogen_tpu_torch.kernels import adjoint as adj
     from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import sky as skyk
     from halogen_tpu_torch.sampler import sobol as sob
     from halogen_tpu_torch.scene import cornell
 
@@ -814,9 +876,15 @@ def main() -> int:
     res = _resources(mk.BUILD_LOG)
     print(f"[13] registers, spill-store bytes per variant: {res}",
           flush=True)
+    adjoint_variants = {
+        f"{base}{env}{bvh}{route}" for base, env in (
+            ("B2", ""), ("B2", "c"), ("B2", "c+n"), ("B2b", ""),
+            ("B2b", "+c"), ("B2b", "+c+n"))
+        for bvh in ("", "+d") for route in ("", " global")}
     assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
-                        "B1c+d", "B1b+c+d", "B2", "B2b", "B2 global",
-                        "B2b global", "B3"}, res
+                        "B1c+d", "B1b+c+d", "B3", "sky forward",
+                        "sky backward", "sky backward sums",
+                        *adjoint_variants}, res
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -863,7 +931,7 @@ def main() -> int:
                "envmap_1024": (spheres, sky_cam, st_e, 2)}
     main14 = {}
     for name, (sc, cm, st14, n_frames) in paths14.items():
-        mk.LAUNCHES = adj.LAUNCHES = 0
+        mk.LAUNCHES = adj.LAUNCHES = skyk.FORWARD_LAUNCHES = 0
         ht.render_frame(sc, cm, st14, 0)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -872,8 +940,11 @@ def main() -> int:
         torch.cuda.synchronize()
         dt14 = time.perf_counter() - t0
         launches14 = mk.LAUNCHES
+        sky14 = skyk.FORWARD_LAUNCHES
         assert launches14 > 0, f"the {name} path did not launch the kernel"
         assert adj.LAUNCHES == 0
+        # the sky pass is the sky kernel, one launch a group
+        assert sky14 == (launches14 if skyk.uses_sky(sc, st14) else 0), sky14
         for img in frames14:
             assert img.shape == (st14.height, st14.width, 3)
             assert bool(torch.isfinite(img).all()), f"{name} not finite"
@@ -889,10 +960,12 @@ def main() -> int:
             dt14 / n_frames * 1e3)
         if name == "glass":
             assert prof14["cuda_launches"] <= 3350, prof14
-        main14[name] = (launches14, mr14, dt14 / n_frames, rel14, prof14)
+        main14[name] = (launches14, mr14, dt14 / n_frames, rel14, prof14,
+                        sky14)
         print(f"[14] {name} {st14.width}x{st14.height} "
               f"{st14.samples_per_pixel} spp {st14.max_bounces} bounces: "
-              f"{launches14} kernel launches in "
+              f"{launches14} kernel launches and {sky14} sky kernel "
+              f"launches in "
               f"{n_frames + 1} frames; {n_frames} frames in {dt14:.4f} s = "
               f"{mr14:.3f} Mrays/s; {_profile_text(prof14)}; 256x256 mean "
               f"radiance kernel vs plain rel {rel14:.2e} (< 2e-2) | {card}",
@@ -989,16 +1062,56 @@ def main() -> int:
         assert ratio <= 1.0, f"glass render_loss_grad {f} disagrees"
     print(f"[15] glass render_loss_grad 64x64 16 spp, kernels vs Fused.OFF, "
           f"max |diff| per field {fb15_err}", flush=True)
-    st_sky = ht.RenderSettings(width=8, height=8, samples_per_pixel=2,
-                               max_bounces=2, use_envmap=True)
-    try:
-        render_loss_grad({"materials": sky_cornell.materials}, sky_cornell,
-                         cam, st_sky, torch.zeros((8, 8, 3), device=dev), 1)
-    except NotImplementedError as e:
-        print(f"[15] envmap backward raises NotImplementedError: {e}",
-              flush=True)
-    else:
-        raise AssertionError("an envmap backward did not raise")
+    # the envmap backward through render_loss_grad vs Fused.OFF, without
+    # and with env NEE: materials and every mip. Each route's target is its
+    # own image + c, so both get the same per-pixel cotangent (-2c/N); c
+    # is 0 on the pixels whose forwards the two routes round apart (at
+    # most 0.1%), so the backward is held where the paths agree
+    cases15 = {
+        "Cornell glossy under the sky": (sky_cornell, cam, ht.RenderSettings(
+            width=64, height=64, samples_per_pixel=16, max_bounces=4,
+            use_envmap=True)),
+        "the spheres under the sky, env NEE": (
+            spheres, sky_cam, ht.RenderSettings(
+                width=64, height=64, samples_per_pixel=16, max_bounces=4,
+                use_envmap=True, env_importance_sampling=True,
+                env_mip_level=0)),
+    }
+    sky_counts = lambda: (mk.LAUNCHES, adj.LAUNCHES, skyk.FORWARD_LAUNCHES,
+                          skyk.BACKWARD_LAUNCHES, skyk.SCATTER_LAUNCHES)
+    gen15 = torch.Generator().manual_seed(15)
+    for name, (sc, cm, st_sky) in cases15.items():
+        p_sky = {"materials": sc.materials, "env_mips": sc.env_mips}
+        st_off = st_sky.replace(fused=ht.Fused.OFF)
+        img_k = ht.render_frame(sc, cm, st_sky, 1)
+        img_p = ht.render_frame(sc, cm, st_off, 1)
+        agree = ((img_k - img_p).abs() <= PARITY_TOL + PARITY_TOL
+                 * img_p.abs()).all(dim=2, keepdim=True)
+        n_apart = int((~agree).sum())
+        assert n_apart <= PARITY_MAX_OUTSIDE * agree.numel(), name
+        c15 = torch.rand(tuple(img_k.shape), generator=gen15).to(dev) * agree
+        before = sky_counts()
+        _, g_k = render_loss_grad(p_sky, sc, cm, st_sky, img_k + c15, 1)
+        launched = tuple(a - b for a, b in zip(sky_counts(), before))
+        _, g_p = render_loss_grad(p_sky, sc, cm, st_off, img_p + c15, 1)
+        sky15 = {}
+        for f in ("albedo", "specular", "roughness", "emissive",
+                  "absorption"):
+            sky15[f], ratio = _grad_compare(getattr(g_k["materials"], f),
+                                            getattr(g_p["materials"], f))
+            assert ratio <= 1.0, f"{name}: render_loss_grad {f} disagrees"
+        env15 = [(float((a - b).abs().max()), float(b.abs().max()))
+                 for a, b in zip(g_k["env_mips"], g_p["env_mips"])]
+        assert all(bool(torch.isfinite(m).all()) for m in g_k["env_mips"])
+        assert all(err <= 1e-4 * top + 1e-6 for err, top in env15), (
+            f"{name}: a mip's gradient disagrees")
+        assert min(launched) > 0, launched
+        print(f"[15] envmap backward, {name} (64x64 16 spp, 4 bounces; "
+              f"{n_apart} pixels whose forwards round apart, held out): "
+              f"launches (megakernel, adjoint, sky forward, sky backward, "
+              f"sky sums) {launched}; vs Fused.OFF max |diff| per field "
+              f"{sky15}; per mip (max |diff|, max |plain|) {env15} (each <= "
+              f"1e-4 max |plain| + 1e-6)", flush=True)
 
     # --- 16. B3 against its plain version, and the four world routes
     import halogen_tpu_torch.integrator.trace as tr
@@ -1677,6 +1790,411 @@ def main() -> int:
               f"rays, {st27.max_bounces} bounces, ms (events x 2, device): "
               f"{times27[name]['pixels']} | {card}", flush=True)
 
+    # --- 28. the adjoint's BVH tier (B2+d, B2b+d) vs plain
+    bounds_new = {}  # the new kernels' bounds, for phase 24's record
+    from halogen_tpu_torch.scene.material import Material
+
+    box = cornell.cornell_box(with_spheres=False)
+    dverts, dfaces = meshes.dragon_mesh(3)
+    box.add_mesh(dverts, dfaces, Material.metal((0.9, 0.6, 0.5),
+                                                roughness=0.4),
+                 transform=meshes._scale_translate(0.55, (0.0, -0.45, 0.0)))
+    metal_dragon = box.build(device=dev)  # 1,280 triangles, opaque
+    assert mk.uses_bvh(metal_dragon)
+    ct_cam = torch.rand((o_cam.shape[0], 3),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    # the plain version (brute force over every triangle) on every 16th
+    # ray of the launch shape
+    sub28 = [x[::16].contiguous() for x in (o_cam, d_cam, sidx_cam,
+                                            seed_cam, ct_cam)]
+    adj28 = {}
+    for name, sc in (("B2b+d", dragon), ("B2+d", metal_dragon)):
+        tab28 = mk._scene_tables(sc)
+        o28, d28, s28, e28, c28 = sub28
+        got = adj.trace_grad_fused_materials(sc, o28, d28, dcam.far, s28,
+                                             e28, c28, st_d, tab28)
+        again = adj.trace_grad_fused_materials(sc, o28, d28, dcam.far, s28,
+                                               e28, c28, st_d, tab28)
+        ref = adj.trace_grad_fused_materials_reference(
+            sc, o28, d28, dcam.far, s28, e28, c28, st_d)
+        replay = torch.empty_like(o28)
+        adj._launch(sc, o28, d28, dcam.far, s28, e28, c28, st_d, tab28,
+                    replay)
+        fwd28 = mk.trace_fused_outputs(sc, o28, d28, dcam.far, s28, e28,
+                                       st_d, tab28)
+        routes28 = [adj._launch(sc, o28, d28, dcam.far, s28, e28, c28, st_d,
+                                tab28, route=r) for r in ("shared",
+                                                          "global")]
+        torch.cuda.synchronize()
+        err, ratio = _grad_compare(got, ref)
+        repeat = torch.equal(got, again)
+        replay_ok = torch.equal(replay, fwd28[:, 0:3])
+        same_routes = torch.equal(routes28[0], routes28[1])
+        kernel = lambda: adj.trace_grad_fused_materials(
+            sc, o_cam, d_cam, dcam.far, sidx_cam, seed_cam, ct_cam, st_d,
+            tab28)
+        plain = lambda: adj.trace_grad_fused_materials_reference(
+            sc, o28, d28, dcam.far, s28, e28, c28, st_d)
+        kernel()
+        k_ms = [_cuda_ms(kernel, 5), _cuda_ms(kernel, 5)]
+        dev_ms = profiled_ms(kernel, "adjoint_kernel<", reps=5)
+        p_ms = [_cuda_ms(plain, 1)]
+        w = (b1d["B1b+d"]["work"] if sc is dragon else _path_work(
+            sc, o_cam, d_cam, dcam.far, sidx_cam, seed_cam, st_d))
+        nbytes = (o_cam.shape[0] * 44
+                  + _table_bytes((*tab28, sc.wbvh.nodes))
+                  + 12 * 4 * sc.materials.count)
+        adj28[name] = dict(err=err, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                           bound=_bound(nbytes, _path_ops(
+                               w, sc.any_transmissive, False, adjoint=True)),
+                           smem_bytes=adj.smem_bytes(sc, st_d))
+        print(f"[28] {name} ({sc.num_triangles} triangles, {st_d.max_bounces}"
+              f" bounces): vs plain on {o28.shape[0]} rays [K, 12] max |diff|"
+              f" {err:.3e}, worst diff/bound {ratio:.3e} (<= 1); bitwise "
+              f"repeatable {repeat}; replay color == B1d's forward "
+              f"{replay_ok}; shared ({adj28[name]['smem_bytes']} bytes a "
+              f"block) and global routes the same bits {same_routes}; one "
+              f"launch of {o_cam.shape[0]} rays {k_ms} ms (events), "
+              f"{ms4(dev_ms)} ms (device); plain {p_ms} ms; bound "
+              f"{adj28[name]['bound'][0]:.4f} ms by "
+              f"{adj28[name]['bound'][1]} | {card}", flush=True)
+        assert ratio <= 1.0 and repeat and replay_ok and same_routes, name
+
+    # --- 29. the sky pair vs deferred_sky
+    pix64 = torch.arange(64 * 64, device=dev)
+    st29c = sky_cases["sky_cornell"][2]
+    o29, d29, s29, e29 = rays(pix64, 4, 4, st29c, 1)
+    tab_e = mk._scene_tables(spheres)
+    cases29 = {
+        "envmap_1024": (spheres, st_e, mk.trace_fused_outputs(
+            spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, st_e, tab_e,
+            env_tab)),
+        "sky_cornell": (sky_cornell, st29c, mk.trace_fused_outputs(
+            sky_cornell, o29, d29, cam.far, s29, e29, st29c)),
+    }
+    sky29 = {}
+    for name, (sc, st29, out29) in cases29.items():
+        n29 = out29.shape[0]
+        ct29 = torch.rand((n29, 3),
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+        col = skyk.sky_forward(sc, st29, out29)
+        col_p = deferred_sky(sc, st29, out29)
+        d4, env29 = skyk.sky_backward_full(sc, st29, out29, ct29)
+        d4b, env29b = skyk.sky_backward_full(sc, st29, out29, ct29)
+        d4p, env29p = skyk.sky_backward_reference(sc, st29, out29, ct29)
+        torch.cuda.synchronize()
+        n_bad, f_err = compare(col, col_p)
+        bound4 = 1e-4 * d4p.abs().max(dim=0).values + 1e-6
+        bad4 = int(((d4 - d4p).abs() > bound4).any(dim=1).sum())
+        lv_err = [float((a - b).abs().max()) for a, b in zip(env29, env29p)]
+        lv_ok = all(float((a - b).abs().max())
+                    <= 1e-4 * float(b.abs().max()) + 1e-6
+                    for a, b in zip(env29, env29p))
+        repeat = torch.equal(d4, d4b) and all(
+            torch.equal(a, b) for a, b in zip(env29, env29b))
+        sky29[name] = dict(fwd_err=f_err, d4_err=float((d4 - d4p).abs()
+                                                       .max()),
+                           mip_err=lv_err)
+        print(f"[29] {name}: {n29} rays; sky forward vs deferred_sky max "
+              f"|diff| {f_err:.3e}, {n_bad} rays outside {PARITY_TOL}; "
+              f"backward: miss attenuation and roughness cotangents max "
+              f"|diff| {sky29[name]['d4_err']:.3e}, {bad4} rays outside "
+              f"1e-4 of the column's largest; per mip max |diff| "
+              f"{[f'{x:.2e}' for x in lv_err]} (<= 1e-4 max |mip| + 1e-6: "
+              f"{lv_ok}); two calls bitwise equal {repeat}", flush=True)
+        assert n_bad <= PARITY_MAX_OUTSIDE * n29, f"sky forward {name}"
+        assert bad4 <= PARITY_MAX_OUTSIDE * n29, f"sky backward {name}"
+        assert lv_ok and repeat, f"sky backward {name}"
+    # times at the envmap_1024 launch shape
+    out_e = cases29["envmap_1024"][2]
+    n_e = out_e.shape[0]
+    ct_e = torch.rand((n_e, 3),
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    fns29 = {
+        "sky forward": (lambda: skyk.sky_forward(spheres, st_e, out_e),
+                        lambda: deferred_sky(spheres, st_e, out_e),
+                        "sky_forward"),
+        "sky backward": (
+            lambda: skyk.sky_backward_full(spheres, st_e, out_e, ct_e),
+            lambda: skyk.sky_backward_reference(spheres, st_e, out_e, ct_e),
+            "sky_"),
+    }
+    _, keys_e, wts_e = skyk.sky_backward(spheres, st_e, out_e, ct_e)
+    keep_e = keys_e >= 0
+    keys_l, wts_l = keys_e[keep_e].long(), wts_e[keep_e]
+    n_tex = sum(int(m.shape[0] * m.shape[1]) for m in spheres.env_mips)
+    library29 = lambda: torch.zeros((n_tex, 3), device=dev).index_add_(
+        0, keys_l, wts_l)
+    library29()
+    lib29_ms = [_cuda_ms(library29, 10), _cuda_ms(library29, 10)]
+    times29 = {}
+    for name, (kernel, plain, key) in fns29.items():
+        kernel()
+        p_ms = [_cuda_ms(plain, 1)]
+        k_ms = [_cuda_ms(kernel, 10), _cuda_ms(kernel, 10)]
+        p_ms.append(_cuda_ms(plain, 1))
+        times29[name] = (k_ms, profiled_ms(kernel, key), p_ms)
+        print(f"[29] {name} at the envmap_1024 launch shape ({n_e} rays): "
+              f"{k_ms} ms (events), {ms4(times29[name][1])} ms (device, a "
+              f"kernel's launch), plain {p_ms} ms | {card}", flush=True)
+    print(f"[29] index_add_ of the backward's {int(keep_e.sum())} taps (a "
+          f"library call with float atomics, used nowhere in the port): "
+          f"{lib29_ms} ms | {card}", flush=True)
+    atlas_bytes = 12 * n_tex
+    bounds_new["sky forward"] = _bound(
+        n_e * (4 * out_e.shape[1] + 12) + atlas_bytes, n_e * OPS_SKY)
+    bounds_new["sky backward"] = _bound(
+        n_e * (4 * out_e.shape[1] + 12 + 16) + 2 * atlas_bytes,
+        n_e * (OPS_SKY + OPS_SKY_BWD))
+
+    # --- 30. the adjoint's sky variants vs plain
+    cases30 = {
+        "B2c": (sky_cornell, cam, sky_cases["sky_cornell"][2]),
+        "B2c+n": (spheres, sky_cam, sky_cases["sky_spheres_nee"][2]),
+        "B2b+c+n": (glass_sky, cam, sky_cases["sky_glass_nee"][2]),
+        "B2c+d": (sky_hero, dcam, cases17["hero_sky"][1]),
+        "B2c+n+d": (sky_hero, dcam, cases17["hero_sky_nee"][1]),
+        "B2b+c+n+d": (dragon_sky, dcam, cases17["dragon_sky_nee"][1]),
+    }
+    adj30 = {}
+    for name, (sc, cm, st30) in cases30.items():
+        o30, d30, s30, e30 = rays(pix64, 4, 4, st30, 1, cm)
+        n30 = o30.shape[0]
+        # the backward is held where the forward paths agree: a ray whose
+        # color or whose miss attenuation and roughness (what the sky
+        # backward reads) the kernel and plain round apart by more than
+        # phase 11's tolerance (a near-mirror lobe's pdf turns an ulp of
+        # direction into percents of an MIS weight; phase 17) gets a zero
+        # cotangent; at most 0.1% of the rays may be so
+        out_k = mk.trace_fused_outputs(sc, o30, d30, cm.far, s30, e30, st30)
+        out_p = mk.trace_color_fused_reference(sc, o30, d30, cm.far, s30,
+                                               e30, st30)
+        pair = [torch.cat([deferred_sky(sc, st30, x), x[:, 3:7]], dim=1)
+                for x in (out_k, out_p)]
+        agree = ((pair[0] - pair[1]).abs()
+                 <= PARITY_TOL + PARITY_TOL * pair[1].abs()).all(dim=1)
+        n_apart = int((~agree).sum())
+        assert n_apart <= PARITY_MAX_OUTSIDE * n30, f"{name} forward"
+        ct30 = torch.rand((n30, 3), generator=torch.Generator().manual_seed(
+            0)).to(dev) * agree[:, None]
+        got, env30 = adj.trace_grad_fused(sc, o30, d30, cm.far, s30, e30,
+                                          ct30, st30)
+        again, env30b = adj.trace_grad_fused(sc, o30, d30, cm.far, s30, e30,
+                                             ct30, st30)
+        ref, env30p = adj.trace_grad_fused_reference(sc, o30, d30, cm.far,
+                                                     s30, e30, ct30, st30)
+        replay = torch.empty_like(o30)
+        adj._launch(sc, o30, d30, cm.far, s30, e30, ct30, st30, None,
+                    replay, gsky=torch.zeros((o30.shape[0], 4), device=dev))
+        fwd30 = mk.trace_fused_outputs(sc, o30, d30, cm.far, s30, e30, st30)
+        torch.cuda.synchronize()
+        err, ratio = _grad_compare(got, ref)
+        lv_err = [float((a - b).abs().max()) for a, b in zip(env30, env30p)]
+        lv_ok = all(float((a - b).abs().max())
+                    <= 1e-4 * float(b.abs().max()) + 1e-6
+                    for a, b in zip(env30, env30p))
+        repeat = torch.equal(got, again) and all(
+            torch.equal(a, b) for a, b in zip(env30, env30b))
+        replay_ok = torch.equal(replay, fwd30[:, 0:3])
+        adj30[name] = dict(err=err, mip_err=lv_err, rays_apart=n_apart)
+        print(f"[30] {name}: {n30} rays ({n_apart} whose forward paths "
+              f"round apart, held out), {st30.max_bounces} "
+              f"bounces; [K, {got.shape[1]}] max |diff| {err:.3e}, worst "
+              f"diff/bound {ratio:.3e} (<= 1); per mip max |diff| "
+              f"{[f'{x:.2e}' for x in lv_err]} (<= 1e-4 max |mip| + 1e-6: "
+              f"{lv_ok}); bitwise repeatable {repeat}; replay color == "
+              f"forward {replay_ok}", flush=True)
+        assert ratio <= 1.0 and lv_ok and repeat and replay_ok, name
+    # B2c and B2c+n at the envmap_1024 launch shape, with the sky
+    # backward's cotangents
+    d4_e = skyk.sky_backward(spheres, st_e, out_e, ct_e)[0]
+    slots = st_e.max_bounces + 1
+    rec_e = (torch.empty((n_e, slots), dtype=torch.int32, device=dev),
+             torch.empty((n_e, slots, 3), device=dev))
+    times30 = {}
+    for name, st30 in (("B2c", st_e.replace(env_importance_sampling=False)),
+                       ("B2c+n", st_e)):
+        nee30 = st30.env_importance_sampling
+        out30 = (out_e if nee30 else mk.trace_fused_outputs(
+            spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, st30, tab_e))
+        d4_30 = (d4_e if nee30 else
+                 skyk.sky_backward(spheres, st30, out30, ct_e)[0])
+        kernel = lambda: adj._launch(
+            spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, ct_e, st30,
+            tab_e, gsky=d4_30, env_tab=env_tab if nee30 else None,
+            records=rec_e if nee30 else None)
+        plain = lambda: adj.trace_grad_outputs_reference(
+            spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e,
+            torch.cat([ct_e, d4_30], dim=1), st30, want_env=nee30)
+        got, ref = kernel(), plain()[0]
+        torch.cuda.synchronize()
+        err30, ratio30 = _grad_compare(got, ref)
+        assert ratio30 <= 1.0, f"{name} at the launch shape"
+        env30_text = ""
+        if nee30:
+            # the finest mip's sums of the records, on the rays whose
+            # forward paths agree (as above)
+            out_pe = mk.trace_color_fused_reference(
+                spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, st30)
+            pair = [torch.cat([deferred_sky(spheres, st30, x), x[:, 3:7]],
+                              dim=1) for x in (out30, out_pe)]
+            agree_e = ((pair[0] - pair[1]).abs() <= PARITY_TOL + PARITY_TOL
+                       * pair[1].abs()).all(dim=1)
+            apart_e = int((~agree_e).sum())
+            assert apart_e <= PARITY_MAX_OUTSIDE * n_e, f"{name} forward"
+            d_keep = torch.cat([ct_e, d4_30], dim=1) * agree_e[:, None]
+            env_k = adj.trace_grad_outputs(
+                spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, d_keep, st30,
+                tab_e, env_tab, want_env=True)[1]
+            env_p = adj.trace_grad_outputs_reference(
+                spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, d_keep, st30,
+                want_env=True)[1]
+            env_err = float((env_k - env_p).abs().max())
+            env_top = float(env_p.abs().max())
+            assert env_err <= 1e-4 * env_top + 1e-6, f"{name} records"
+            env30_text = (f"; the finest mip's record sums ({apart_e} rays "
+                          f"apart, held out) max |diff| {env_err:.3e}, max "
+                          f"|plain| {env_top:.3e} (<= 1e-4 max + 1e-6)")
+        p_ms = [_cuda_ms(plain, 1)]
+        k_ms = [_cuda_ms(kernel, 10), _cuda_ms(kernel, 10)]
+        p_ms.append(_cuda_ms(plain, 1))
+        dev30 = profiled_ms(kernel, "adjoint_kernel<")
+        w30 = _path_work(spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e,
+                         st30)
+        route30 = adj.transcript_route(spheres, st30)
+        bounds_new[name] = _bound(
+            n_e * (44 + 16 + (16 * slots if nee30 else 0))
+            + _table_bytes((*tab_e, env_tab if nee30 else None))
+            + 13 * 4 * spheres.materials.count,
+            _path_ops(w30, False, nee30, adjoint=True))
+        reg30 = res[name + (" global" if route30 == "global" else "")]
+        times30[name] = dict(ms=k_ms, device_ms=dev30, plain_ms=p_ms,
+                             err=err30, route=route30, res=reg30)
+        print(f"[30] {name} at the envmap_1024 launch shape ({n_e} rays, "
+              f"{st30.max_bounces} bounces, {route30} route): {k_ms} ms "
+              f"(events), {ms4(dev30)} ms (device); plain {p_ms} ms; "
+              f"[K, 13] max |diff| {err30:.3e}, worst diff/bound "
+              f"{ratio30:.3e}{env30_text}; bound "
+              f"{bounds_new[name][0]:.4f} ms by "
+              f"{bounds_new[name][1]}; registers, spill bytes {reg30} | "
+              f"{card}", flush=True)
+
+    # --- 31. the full-width gradient steps and the envmap_1024 frame
+    def timed_steps(fn, n_steps):
+        """A warm-up and `n_steps` timed calls of fn(frame) with every
+        kernel count set to 0 before the warm-up: (seconds per step,
+        {kernel: launches in the n_steps + 1 calls}, the results)."""
+        mk.LAUNCHES = adj.LAUNCHES = 0
+        skyk.FORWARD_LAUNCHES = skyk.BACKWARD_LAUNCHES = 0
+        skyk.SCATTER_LAUNCHES = 0
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(f + 1) for f in range(n_steps)]
+        torch.cuda.synchronize()
+        dt_ = (time.perf_counter() - t0) / n_steps
+        counts = dict(megakernel=mk.LAUNCHES, adjoint=adj.LAUNCHES,
+                      sky_forward=skyk.FORWARD_LAUNCHES,
+                      sky_backward=skyk.BACKWARD_LAUNCHES,
+                      sky_sums=skyk.SCATTER_LAUNCHES)
+        return dt_, counts, outs
+
+    steps31 = {}
+    zeros_d = torch.zeros((st_d.height, st_d.width, 3), device=dev)
+    zeros_e = torch.zeros((st_e.height, st_e.width, 3), device=dev)
+    st_m = st_d.replace(width=256, height=256)
+    zeros_m = torch.zeros((256, 256, 3), device=dev)
+    st_c = st9.replace(width=256, height=256, samples_per_pixel=16,
+                       max_bounces=4, use_envmap=True)
+    jobs31 = {
+        # name: (step, settings, the kernels its path must launch)
+        "glass_dragon fwd+bwd": (
+            lambda f: render_loss_grad({"materials": dragon.materials},
+                                       dragon, dcam, st_d, zeros_d, f),
+            st_d, ("megakernel", "adjoint")),
+        "envmap_1024 fwd+bwd": (
+            lambda f: render_loss_grad(
+                {"materials": spheres.materials,
+                 "env_mips": spheres.env_mips}, spheres, sky_cam, st_e,
+                zeros_e, f),
+            st_e, ("megakernel", "adjoint", "sky_forward", "sky_backward",
+                   "sky_sums")),
+        "metal_dragon fwd+bwd 256": (
+            lambda f: render_loss_grad({"materials": metal_dragon.materials},
+                                       metal_dragon, dcam, st_m, zeros_m, f),
+            st_m, ("megakernel", "adjoint")),
+        "sky_cornell fwd+bwd 256": (
+            lambda f: render_loss_grad(
+                {"materials": sky_cornell.materials,
+                 "env_mips": sky_cornell.env_mips}, sky_cornell, cam, st_c,
+                torch.zeros((256, 256, 3), device=dev), f),
+            st_c, ("megakernel", "adjoint", "sky_forward", "sky_backward",
+                   "sky_sums")),
+    }
+    for name, (fn, st31, need) in jobs31.items():
+        n_steps = 2
+        dt31, counts, outs = timed_steps(fn, n_steps)
+        for loss, grads in outs:
+            assert bool(torch.isfinite(loss)), name
+            for f in dataclasses.fields(grads["materials"]):
+                g = getattr(grads["materials"], f.name)
+                assert bool(torch.isfinite(g.float()).all()), (name, f.name)
+            for m in grads.get("env_mips", ()):
+                assert bool(torch.isfinite(m).all()), name
+        missing = [k for k in need if counts[k] == 0]
+        assert not missing, f"{name} launched none of {missing}"
+        mr31 = st31.samples_per_pixel * st31.num_pixels / dt31 / 1e6
+        prof31 = _profile_step(lambda: fn(n_steps + 1), dt31 * 1e3)
+        steps31[name] = dict(step_ms=dt31 * 1e3, mrays_fwd_bwd=mr31,
+                             launches=counts, profile=prof31)
+        print(f"[31] {name} {st31.width}x{st31.height} "
+              f"{st31.samples_per_pixel} spp {st31.max_bounces} bounces: "
+              f"{counts} launches in {n_steps + 1} steps; step "
+              f"{dt31 * 1e3:.1f} ms = {mr31:.3f} Mrays/s (fwd+bwd); "
+              f"{_profile_text(prof31)} | {card}", flush=True)
+    prof_e = main14["envmap_1024"][4]
+    print(f"[31] envmap_1024 forward frame through the sky kernel (phase "
+          f"14): {main14['envmap_1024'][2] * 1e3:.1f} ms a frame, "
+          f"{main14['envmap_1024'][1]:.3f} Mrays/s; "
+          f"{prof_e['cuda_launches']} cudaLaunchKernel calls, device idle "
+          f"share {prof_e['idle_share']:.3f} (the torch sky pass: 231.5 ms, "
+          f"9,918 launches, 0.777 idle) | {card}", flush=True)
+
+    # a 10-step envmap fit at 256x256: the sky at half its brightness and
+    # the albedo perturbed; the held-out loss must fall, texels stay >= 0
+    st31f = st_e.replace(width=256, height=256)
+    target31 = ht.render_frame(spheres, sky_cam, st31f, 0)
+    true_e = spheres
+    pert_e = dataclasses.replace(
+        spheres, env_mips=tuple(0.5 * m for m in spheres.env_mips),
+        materials=dataclasses.replace(
+            spheres.materials, albedo=torch.clamp(
+                spheres.materials.albedo * 0.5 + 0.2, 0.0, 1.0)))
+    marks31 = [time.perf_counter()]
+    fitted_e, losses_e = fit_materials(
+        pert_e, sky_cam, st31f, target31, steps=10, lr=1e-2,
+        optimize_env=True,
+        callback=lambda i, p, l: marks31.append(time.perf_counter()))
+    held31 = {
+        name: float(np.mean([float(render_loss(
+            {"materials": p["materials"], "env_mips": p["env_mips"]},
+            true_e, sky_cam, st31f, target31, f))
+            for f in range(1000, 1004)]))
+        for name, p in (("perturbed", {"materials": pert_e.materials,
+                                       "env_mips": pert_e.env_mips}),
+                        ("fitted", fitted_e),
+                        ("true", {"materials": true_e.materials,
+                                  "env_mips": true_e.env_mips}))}
+    min_texel = min(float(m.min()) for m in fitted_e["env_mips"])
+    fit31_ms = float(np.median(np.diff(marks31))) * 1e3
+    print(f"[31] fit_materials(optimize_env=True), envmap_1024 at 256x256, "
+          f"10 steps: loss {losses_e[0]:.6e} -> {losses_e[-1]:.6e}; "
+          f"held-out loss {held31}; smallest texel {min_texel:.4e}; median "
+          f"step {fit31_ms:.1f} ms | {card}", flush=True)
+    assert np.isfinite(losses_e).all(), "env fit losses not finite"
+    assert held31["fitted"] < held31["perturbed"], "the env fit did not help"
+    assert min_texel >= 0.0, "a texel went below 0"
+
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
@@ -1705,6 +2223,9 @@ def main() -> int:
     b3_bytes = (n * 56 + _table_bytes((wb.nodes, wb.tris, wb.tri_map)))
     tt, bt, _ = work19["camera"]
     bounds["B3"] = _bound(b3_bytes, tt * OPS_TRI + bt * OPS_BOX)
+    bounds.update(bounds_new)
+    for name in ("B2b+d", "B2+d"):
+        bounds[name] = adj28[name]["bound"]
     print(f"[24] path work at the launch shapes: B1a {w_a}, B1b {w_b}, B1c "
           f"{w_c}; bounds (ms, by) {bounds}", flush=True)
 
@@ -1722,13 +2243,14 @@ def main() -> int:
             frame_device_busy_ms=prof["busy_ms"],
             frame_device_idle_share=prof["idle_share"])
 
-    def entry(name, replaces, source, launches, err, k_ms, p_ms, **extra):
+    def entry(name, replaces, source, launches, err, k_ms, p_ms,
+              library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": float(np.mean(k_ms)),
                 "plain_ms": float(np.mean(p_ms)),
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": None, **extra}
+                "library_ms": library_ms, **extra}
 
     mega = "halogen_tpu_torch/csrc/megakernel.cu"
     adjs = "halogen_tpu_torch/csrc/adjoint.cu"
@@ -1818,6 +2340,57 @@ def main() -> int:
               bounce_rays_device_ms=times19["bounce"][1],
               deep_strip_max_abs_err=strip_err),
     ]
+    skys = "halogen_tpu_torch/csrc/sky.cu"
+    vjp = "halogen_tpu/kernels/megakernel.py:1953"  # the lockstep vjp
+    step = lambda name: steps31[name]
+    for name, path in (("B2b+d", "glass_dragon fwd+bwd"),
+                       ("B2+d", "metal_dragon fwd+bwd 256")):
+        a28 = adj28[name]
+        kernels.append(entry(
+            name, "halogen_tpu/kernels/adjoint.py:80", adjs,
+            step(path)["launches"]["adjoint"], a28["err"], a28["ms"],
+            a28["plain_ms"], **reg(name), extends=vjp, plain_rays=16384,
+            device_ms=a28["device_ms"], smem_bytes_per_block=a28[
+                "smem_bytes"], main_path=path,
+            step_ms=step(path)["step_ms"],
+            fwd_bwd_mrays_per_s=step(path)["mrays_fwd_bwd"],
+            step_cuda_launches=step(path)["profile"]["cuda_launches"],
+            step_device_idle_share=step(path)["profile"]["idle_share"]))
+    for name, path in (("B2c", "sky_cornell fwd+bwd 256"),
+                       ("B2c+n", "envmap_1024 fwd+bwd")):
+        t30 = times30[name]
+        kernels.append(entry(
+            name, "halogen_tpu/kernels/adjoint.py:80", adjs,
+            step(path)["launches"]["adjoint"], t30["err"], t30["ms"],
+            t30["plain_ms"], registers=t30["res"][0],
+            spill_store_bytes=t30["res"][1], transcript_route=t30["route"],
+            extends=vjp, device_ms=t30["device_ms"], main_path=path,
+            parity_max_abs_err={k: v for k, v in adj30.items()
+                                if k.startswith(name[:3])},
+            step_ms=step(path)["step_ms"],
+            fwd_bwd_mrays_per_s=step(path)["mrays_fwd_bwd"],
+            step_cuda_launches=step(path)["profile"]["cuda_launches"],
+            step_device_idle_share=step(path)["profile"]["idle_share"]))
+    t29f, t29b = times29["sky forward"], times29["sky backward"]
+    kernels.append(entry(
+        "sky forward", "halogen_tpu/integrator/trace.py:460", skys,
+        main14["envmap_1024"][5], sky29["envmap_1024"]["fwd_err"], t29f[0],
+        t29f[2], **reg("sky forward"), device_ms=t29f[1],
+        main_path="envmap_1024 frame (phase 14)",
+        frame_ms=main14["envmap_1024"][2] * 1000.0,
+        frame_cuda_launches=main14["envmap_1024"][4]["cuda_launches"],
+        frame_device_idle_share=main14["envmap_1024"][4]["idle_share"],
+        parity_max_abs_err={k: v["fwd_err"] for k, v in sky29.items()}))
+    kernels.append(entry(
+        "sky backward", "halogen_tpu/scene/envmap.py:360", skys,
+        step("envmap_1024 fwd+bwd")["launches"]["sky_backward"],
+        max(max(v["mip_err"]) for v in sky29.values()), t29b[0], t29b[2],
+        library_ms=float(np.mean(lib29_ms)), **reg("sky backward"),
+        sums_registers=res["sky backward sums"][0],
+        sums_launches=step("envmap_1024 fwd+bwd")["launches"]["sky_sums"],
+        device_ms_per_kernel_launch=t29b[1],
+        main_path="envmap_1024 fwd+bwd", library_call="index_add_",
+        parity_max_abs_err=sky29))
     for name, route, replaces in (
             ("B4", "TREELET", "halogen_tpu/kernels/treelet_bvh.py:192"),
             ("B5", "FLATLET", "halogen_tpu/kernels/flatlet.py:199"),

@@ -1,20 +1,36 @@
 // Fused path-replay adjoint for NVIDIA Hopper (sm_90a): per-material
-// cotangents of the traced color, the backward of megakernel.cu.
+// cotangents of the traced path's outputs, the backward of megakernel.cu.
 //
 // Replaces `halogen_tpu/kernels/adjoint.py::_make_adjoint_kernel` (the
 // Pallas TPU kernel) in its opaque branch (B2, any_transmissive=False)
 // and its nested-dielectric branch (B2b, any_transmissive=True; Pallas
-// :244-247, :273-297, :342-403, :499-521), two compile-time variants. For
-// every path it
+// :244-247, :273-297, :342-403, :499-521), and goes where the Pallas
+// kernel does not: the JAX package differentiates big scenes and envmap
+// scenes by the lockstep vjp (`megakernel.py:1953-1975`), which this
+// kernel replaces on the card. Compile-time variants:
+//   kTransmissive: B2 or B2b;
+//   kBvh (B2+d, B2b+d): scenes over the brute tier's 128 triangles; the
+//     replay's closest hit and shadow ray walk the world BVH
+//     (bvh_traverse.cuh) in global memory, as B1d's do;
+//   kEnv: 0 no sky; 1 the sky at the miss (B2c): the sky pass's backward
+//     (sky.cu) hands each ray the cotangent of the miss attenuation and of
+//     the accumulated roughness (the mip-bias level of the lookup), which
+//     seed the sweep; 2 the same with env NEE (B2c+n): each bounce's NEE
+//     term atten * f * L * w / pdf reaches the albedo and specular sums
+//     and the attenuation's cotangent, and the replay writes one record
+//     per (ray, bounce) -- the drawn texel and ct * atten * f * w / pdf --
+//     which the sky backward sums into the finest mip.
+// For every path it
 //   1. replays the forward kernel's path through the same `path_bounce`
-//      (path_common.cuh; B2b through its medium-stack variant, B1b's), so
-//      the replay rounds as the forward does and takes its Fresnel,
-//      refraction and Russian-roulette decisions bit for bit, and
+//      (path_common.cuh; with the same switches as the forward variant),
+//      so the replay rounds as the forward does and takes its Fresnel,
+//      refraction, Russian-roulette and NEE decisions bit for bit, and
 //      records a transcript per shaded bounce (`adjoint.py:447-456`):
 //      attenuation before the bounce, hit distance, and one word holding
 //      the hit material, the material of the medium the ray came through
 //      (whose absorption Beer-Lambert applied) and the mask bits (spec,
-//      absorbing, survive, true hit, refraction);
+//      absorbing, survive, true hit, refraction); with env NEE also the
+//      NEE's radiance times its weight and its two BRDF factors;
 //   2. sweeps the bounces in reverse (`adjoint.py:480-583`): the
 //      attenuation cotangent gA flows back through the RR division
 //      1/max(atten) (the max's cotangent split evenly over argmax ties,
@@ -22,9 +38,12 @@
 //      bounce routes d emission (premultiplied), d albedo or d specular
 //      (by lobe; none on refraction and false hits, whose scatter color
 //      is 1) to its hit material and d absorption to the current
-//      medium's material;
+//      medium's material; with the sky, gA starts at the miss
+//      attenuation's cotangent where the path missed, and the roughness
+//      accumulator's cotangent adds roughness to gA.x after each bounce
+//      and atten.x to d roughness (a 13th column);
 //   3. sums those per material in a fixed order, so two calls give the
-//      same bits (see below); each block writes its partial [K, 12]
+//      same bits (see below); each block writes its partial [K, 12|13]
 //      table, and a second kernel sums the blocks in a fixed tree.
 // A dead path stops its replay at its last shaded bounce; later bounces
 // pass gA through unchanged and contribute nothing (`adjoint.py:551-561`),
@@ -32,34 +51,31 @@
 //
 // What bounds it on this card: the replay, which is the forward kernel's
 // bounce (FP32 and integer issue, divergence; B1b's bounce is ~three
-// quarters of B2b's time), then the sweep's ~60 flops a shaded bounce and
-// the sums. The bound of the work (its operations at the card's FP32 rate)
-// is 0.0120 ms for B2b's 262144 glass rays at 8 bounces and 0.0097 ms for
-// B2's Cornell rays at 6, against 0.36 and 0.16 ms of device time on an
-// H100 80GB HBM3 (PERF.md §6). A transcript in a device buffer ([B, 7, N],
-// 66 MB at 8 bounces and 262144 rays, past the 50 MB L2) and a block
-// barrier per bounce, after which K x 12 threads each sum one column over
-// the block's 128 paths, would keep every warp of a block waiting on its
-// longest path and on serial chains.
+// quarters of B2b's time; on the BVH tier the walk's dependent loads),
+// then the sweep's ~60 flops a shaded bounce and the sums (PERF.md §6).
 // What the design does about it:
 //   - the transcript stays on chip: 20 bytes per bounce (a_prev rgb,
-//     t, the packed word) in shared memory, laid out [bounce][field]
-//     [thread] so that a warp's accesses fall in distinct banks, sized
-//     from max_bounces at launch (~23 KB a block at 8 bounces). Where it
-//     does not fit the wrapper's shared-memory budget, the same layout
-//     goes to device memory (the global route, [block][bounce][field]
-//     [thread]; within a few per cent of the shared route at 8 and 16
-//     bounces, either way);
+//     t, the packed word; 40 with env NEE) in shared memory, laid out
+//     [bounce][field][thread] so that a warp's accesses fall in distinct
+//     banks, sized from max_bounces at launch. Where it does not fit the
+//     wrapper's shared-memory budget, the same layout goes to device
+//     memory (the global route, [block][bounce][field][thread]); both give
+//     the same bits. The BVH variants keep no triangles in shared memory;
 //   - the sums run per warp, with no block barrier per bounce: each warp
 //     sweeps its own paths at its own pace; per bounce the lanes of one
 //     hit material (`__match_any_sync`), and for the absorption columns
 //     those of one Beer material, add their values in a tree over their
 //     ranks in lane order, and the group's lowest lane adds the sum to
-//     the warp's [K, 12] table in shared memory (groups write distinct
+//     the warp's [K, 12|13] table in shared memory (groups write distinct
 //     rows, so there are no atomics); at the end the block adds its four
 //     warp tables in warp order. Every order is fixed by lane and warp
-//     position, so two calls give the same bits.
-// PERF.md §6 gives the replay's, the sweep's and the sums' shares.
+//     position, so two calls give the same bits;
+//   - one ray a thread, as B1d's glass variants: the replay needs no ray
+//     counter, and a thread's transcript slot is its ray's;
+//   - the NEE records go straight to device memory in ray-major order
+//     ([N, B + 1]), where the sky backward's stable ordering by texel
+//     keeps them in ray order; a float atomic per record would sum in
+//     another order on every call.
 //
 // Build with -fmad=false and without fast math, as megakernel.cu.
 
@@ -69,10 +85,8 @@ namespace {
 
 using namespace halogen;
 
-constexpr int kNGrad = 12;          // d_e | d_albedo | d_specular | d_absorption
 constexpr int kMaxMaterials = 64;   // kernels/megakernel.py MAX_MATERIALS
 constexpr int kWarps = kThreads / 32;
-constexpr int kRec = 5;             // transcript words per bounce
 constexpr int kReduceThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 // the packed word: hit material in bits 0-7, Beer material in 8-15, masks
@@ -82,17 +96,28 @@ constexpr uint32_t kSurvive = 1u << 18;
 constexpr uint32_t kTrueHit = 1u << 19;
 constexpr uint32_t kRefr = 1u << 20;
 
+// columns: d_e | d_albedo | d_specular | d_absorption, and with the sky
+// d_roughness (through the mip-bias level of the sky lookup)
+__host__ __device__ constexpr int n_grad(int env) { return env ? 13 : 12; }
+// transcript words per bounce: A_prev rgb, t, the packed word; with env
+// NEE its radiance * weight rgb, dterm, gterm
+__host__ __device__ constexpr int n_rec(int env) { return env == 2 ? 10 : 5; }
+
 struct Params {
   const float* origin;         // [N, 3]
   const float* direction;      // [N, 3]
   const float* far;            // [1]
   const uint32_t* sample_idx;  // [N]
   const uint32_t* seed;        // [N]
-  const float* ct;             // [N, 3] cotangent of the color
+  const float* ct;             // [N, 3] cotangent of the path color
+  const float* gsky;           // [N, 4] cotangent of the miss atten rgb and
+                               // of the accumulated roughness (env >= 1)
   SceneView scene;             // global-memory tables
-  uint32_t* transcript;        // global route: [blocks, B + 1, 5, 128]
-  float* partial;              // [blocks, K * 12]
+  uint32_t* transcript;        // global route: [blocks, B + 1, rec, 128]
+  float* partial;              // [blocks, K * n_grad]
   float* color;                // [N, 3] replayed color, or null
+  int* nee_key;                // [N, B + 1] drawn texel or -1 (env == 2)
+  float* nee_w;                // [N, B + 1, 3] its cotangent (env == 2)
   int n;
   PathConfig cfg;
 };
@@ -114,12 +139,13 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
 
 // Adds, for every key that some lane of the warp holds (keys < 0 are
 // skipped), columns [C0, C1) of g summed over the lanes holding it to row
-// `key` of the warp's table `acc`. A group sums as a tree over its lanes'
-// ranks in lane order (rank r takes rank r + s at step s), so the order
-// depends on lane positions only; the group's lowest lane writes its row.
-// Every lane of the warp calls this with the same C0, C1.
-template <int C0, int C1>
-__device__ __forceinline__ void warp_sum_by_key(int key, float (&g)[kNGrad],
+// `key` of the warp's table `acc` (rows of NG columns). A group sums as a
+// tree over its lanes' ranks in lane order (rank r takes rank r + s at
+// step s), so the order depends on lane positions only; the group's
+// lowest lane writes its row. Every lane of the warp calls this with the
+// same C0, C1.
+template <int C0, int C1, int NG>
+__device__ __forceinline__ void warp_sum_by_key(int key, float (&g)[NG],
                                                 float* acc) {
   const unsigned peers = __match_any_sync(kFull, key);
   const unsigned lane = threadIdx.x & 31u;
@@ -138,19 +164,22 @@ __device__ __forceinline__ void warp_sum_by_key(int key, float (&g)[kNGrad],
   }
   if (rank == 0 && key >= 0) {
 #pragma unroll
-    for (int c = C0; c < C1; ++c) acc[key * kNGrad + c] += g[c];
+    for (int c = C0; c < C1; ++c) acc[key * NG + c] += g[c];
   }
   __syncwarp();  // the next bounce's writers of a row read this one's
 }
 
-template <bool kTransmissive, bool kSmemTranscript>
+template <bool kTransmissive, bool kSmemTranscript, bool kBvh, int kEnv>
 __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
+  constexpr int kNG = n_grad(kEnv);
+  constexpr int kRec = n_rec(kEnv);
+  constexpr bool kNee = kEnv == 2;
   extern __shared__ float4 smem4[];  // 16-byte aligned triangle rows
   float* smem = reinterpret_cast<float*>(smem4);
-  const SceneView sc = load_scene(p.scene, smem);
-  const int n_acc = sc.num_materials * kNGrad;
-  // [kWarps, K * 12] sums, then (shared route) the transcript
-  float* s_acc = smem + scene_smem_floats(p.scene.num_tris,
+  const SceneView sc = load_scene<kBvh>(p.scene, smem);
+  const int n_acc = sc.num_materials * kNG;
+  // [kWarps, K * kNG] sums, then (shared route) the transcript
+  float* s_acc = smem + scene_smem_floats(kBvh ? 0 : p.scene.num_tris,
                                           p.scene.num_spheres,
                                           p.scene.num_materials);
   for (int j = threadIdx.x; j < kWarps * n_acc; j += kThreads)
@@ -162,21 +191,23 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
   const bool valid = i < p.n;
   PathConfig cfg = p.cfg;
   cfg.far = p.far[0];
+  const int slots = cfg.max_bounces + 1;
   // word f of bounce k of this thread's path: rec[(k * kRec + f) * kThreads]
   uint32_t* rec;
   if constexpr (kSmemTranscript) {
     rec = reinterpret_cast<uint32_t*>(s_acc + kWarps * n_acc) + tid;
   } else {
     rec = p.transcript +
-          static_cast<size_t>(blockIdx.x) * (cfg.max_bounces + 1) * kRec *
-              kThreads +
-          tid;
+          static_cast<size_t>(blockIdx.x) * slots * kRec * kThreads + tid;
   }
+  const V3 ct = valid ? V3{p.ct[3 * i], p.ct[3 * i + 1], p.ct[3 * i + 2]}
+                      : V3{0.0f, 0.0f, 0.0f};
 
   // ------------------------------------------------------------------
   // forward replay, recording the transcript of each shaded bounce
   // ------------------------------------------------------------------
   int n_shaded = 0;  // bounces 0 .. n_shaded-1 shaded
+  bool missed = false;
   if (valid) {
     PathState s;
     s.o = {p.origin[3 * i], p.origin[3 * i + 1], p.origin[3 * i + 2]};
@@ -186,10 +217,14 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
     const uint32_t seed = p.seed[i];
     if constexpr (kTransmissive) s.stack.init();
     BounceRecord r;
-    for (int k = 0; k <= cfg.max_bounces; ++k) {
-      const int res = path_bounce<kTransmissive, false>(sc, cfg, sidx, seed,
-                                                        k, s, r);
-      if (res == kEnded) break;
+    int k = 0;
+    for (; k <= cfg.max_bounces; ++k) {
+      const int res = path_bounce<kTransmissive, kNee, kBvh>(sc, cfg, sidx,
+                                                             seed, k, s, r);
+      if (res == kEnded || res == kMissed) {
+        missed = res == kMissed;
+        break;
+      }
       uint32_t* w = rec + k * kRec * kThreads;
       w[0] = __float_as_uint(r.a_prev.x);
       w[kThreads] = __float_as_uint(r.a_prev.y);
@@ -202,8 +237,43 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
                         (r.absorbing ? kAbsorbing : 0u) |
                         (r.survive ? kSurvive : 0u) |
                         (r.is_true ? kTrueHit : 0u) | (r.refr ? kRefr : 0u);
+      if constexpr (kNee) {
+        // the NEE term atten * f * L * w_fac: its radiance * weight and
+        // BRDF factors for the sweep, and the texel's record
+        const bool lit = r.nee_texel >= 0;
+        const V3 q = lit ? V3{r.nee_rad.x * r.nee_wfac,
+                              r.nee_rad.y * r.nee_wfac,
+                              r.nee_rad.z * r.nee_wfac}
+                         : V3{0.0f, 0.0f, 0.0f};
+        w[5 * kThreads] = __float_as_uint(q.x);
+        w[6 * kThreads] = __float_as_uint(q.y);
+        w[7 * kThreads] = __float_as_uint(q.z);
+        w[8 * kThreads] = __float_as_uint(lit ? r.nee_dterm : 0.0f);
+        w[9 * kThreads] = __float_as_uint(lit ? r.nee_gterm : 0.0f);
+        const size_t slot = static_cast<size_t>(i) * slots + k;
+        p.nee_key[slot] = r.nee_texel;
+        if (lit) {
+          const float* m = sc.mat + r.mat * kMatStride;
+          p.nee_w[3 * slot] = ct.x * r.a_prev.x *
+                              (m[0] * r.nee_dterm + m[4] * r.nee_gterm) *
+                              r.nee_wfac;
+          p.nee_w[3 * slot + 1] = ct.y * r.a_prev.y *
+                                  (m[1] * r.nee_dterm + m[5] * r.nee_gterm) *
+                                  r.nee_wfac;
+          p.nee_w[3 * slot + 2] = ct.z * r.a_prev.z *
+                                  (m[2] * r.nee_dterm + m[6] * r.nee_gterm) *
+                                  r.nee_wfac;
+        }
+      }
       n_shaded = k + 1;
-      if (res != kShadedGoesOn) break;
+      if (res != kShadedGoesOn) {
+        ++k;
+        break;
+      }
+    }
+    if constexpr (kNee) {
+      for (; k <= cfg.max_bounces; ++k)
+        p.nee_key[static_cast<size_t>(i) * slots + k] = -1;
     }
     if (p.color != nullptr) {
       p.color[3 * i] = s.color.x;
@@ -215,14 +285,22 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
   // ------------------------------------------------------------------
   // reverse sweep and per-warp material sums, each warp at its own pace
   // ------------------------------------------------------------------
-  const V3 ct = valid ? V3{p.ct[3 * i], p.ct[3 * i + 1], p.ct[3 * i + 2]}
-                      : V3{0.0f, 0.0f, 0.0f};
   float* acc = s_acc + (tid >> 5) * n_acc;
   V3 gA = {0.0f, 0.0f, 0.0f};
+  float g_rough = 0.0f;  // cotangent of the accumulated roughness
+  if constexpr (kEnv != 0) {
+    if (valid) {
+      // the sky at the miss multiplies the miss attenuation, the
+      // attenuation after the last shaded bounce
+      if (missed)
+        gA = {p.gsky[4 * i], p.gsky[4 * i + 1], p.gsky[4 * i + 2]};
+      g_rough = p.gsky[4 * i + 3];
+    }
+  }
   for (int k = __reduce_max_sync(kFull, n_shaded) - 1; k >= 0; --k) {
-    float g[kNGrad];
+    float g[kNG];
 #pragma unroll
-    for (int j = 0; j < kNGrad; ++j) g[j] = 0.0f;
+    for (int j = 0; j < kNG; ++j) g[j] = 0.0f;
     int mid = -1, abid = -1;
     if (k < n_shaded) {
       const uint32_t* w = rec + k * kRec * kThreads;
@@ -271,6 +349,12 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
               gA.y * inv_c - ty * inv_tie * gate * dot_ga * inv_c * inv_c,
               gA.z * inv_c - tz * inv_tie * gate * dot_ga * inv_c * inv_c};
       }
+      if constexpr (kEnv != 0) {
+        // the roughness accumulator adds roughness * atten.x after the
+        // scatter, before Russian roulette
+        gp.x = gp.x + g_rough * m[8];
+        g[12] = g_rough * a_post.x;
+      }
 
       // throughput product and emission (adjoint.py:551-574)
       const V3 em = {m[9], m[10], m[11]};
@@ -296,18 +380,38 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
         g[10] = -t_safe * beer.y * g_beer.y;
         g[11] = -t_safe * beer.z * g_beer.z;
       }
+      if constexpr (kNee) {
+        // the NEE term a_prev * (albedo * dterm + specular * gterm) * q
+        const V3 q = {__uint_as_float(w[5 * kThreads]),
+                      __uint_as_float(w[6 * kThreads]),
+                      __uint_as_float(w[7 * kThreads])};
+        const float dterm = __uint_as_float(w[8 * kThreads]);
+        const float gterm = __uint_as_float(w[9 * kThreads]);
+        const V3 cq = mul3(ct, q);
+        gA = {gA.x + cq.x * (m[0] * dterm + m[4] * gterm),
+              gA.y + cq.y * (m[1] * dterm + m[5] * gterm),
+              gA.z + cq.z * (m[2] * dterm + m[6] * gterm)};
+        const V3 ca = mul3(cq, a_prev);
+        g[3] = g[3] + ca.x * dterm;
+        g[4] = g[4] + ca.y * dterm;
+        g[5] = g[5] + ca.z * dterm;
+        g[6] = g[6] + ca.x * gterm;
+        g[7] = g[7] + ca.y * gterm;
+        g[8] = g[8] + ca.z * gterm;
+      }
       mid = mat;
       abid = absorbing ? ab_mat : -1;
     }
     // absorption follows the Beer material, the other columns the hit
     // material; an opaque bounce's Beer material is its hit material (and
     // its absorption columns are 0 where it does not absorb), so B2 sums
-    // all 12 columns in one grouping
+    // all columns in one grouping
     if constexpr (kTransmissive) {
       warp_sum_by_key<0, 9>(mid, g, acc);
       if (__any_sync(kFull, abid >= 0)) warp_sum_by_key<9, 12>(abid, g, acc);
+      if constexpr (kEnv != 0) warp_sum_by_key<12, 13>(mid, g, acc);
     } else {
-      warp_sum_by_key<0, kNGrad>(mid, g, acc);
+      warp_sum_by_key<0, kNG>(mid, g, acc);
     }
   }
 
@@ -340,25 +444,60 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) out[a] = s[0];
 }
 
+template <bool kTransmissive, bool kSmem, bool kBvh>
+cudaError_t launch_env(int env, const Params& p, int blocks, size_t smem,
+                       cudaStream_t st) {
+  if (env == 2) {
+    adjoint_kernel<kTransmissive, kSmem, kBvh, 2>
+        <<<blocks, kThreads, smem, st>>>(p);
+  } else if (env == 1) {
+    adjoint_kernel<kTransmissive, kSmem, kBvh, 1>
+        <<<blocks, kThreads, smem, st>>>(p);
+  } else {
+    adjoint_kernel<kTransmissive, kSmem, kBvh, 0>
+        <<<blocks, kThreads, smem, st>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kTransmissive, bool kSmem>
+cudaError_t launch_tier(bool bvh, int env, const Params& p, int blocks,
+                        size_t smem, cudaStream_t st) {
+  if (bvh) return launch_env<kTransmissive, kSmem, true>(env, p, blocks, smem,
+                                                         st);
+  return launch_env<kTransmissive, kSmem, false>(env, p, blocks, smem, st);
+}
+
 }  // namespace
 
 // `transcript` null: the shared route, the transcript in shared memory;
-// else the global route, a [blocks, max_bounces + 1, 5, 128] word buffer.
+// else the global route, a [blocks, max_bounces + 1, rec, 128] word
+// buffer. `nodes`: the world BVH's nodes on the BVH tier (`tri` and `trin`
+// are then its slot-order tables). `env`: 0 no sky, 1 the sky at the miss
+// (`gsky` [N, 4]), 2 the sky and env NEE (`env_tab` [H * W, 16], and the
+// [N, B + 1] records `nee_key`, `nee_w`).
 extern "C" int halogen_adjoint_launch(
     const float* origin, const float* direction, const float* far,
     const int* sample_idx, const int* seed, const float* ct,
     const float* tri, const float* trin, const float* sph, const float* mat,
-    int* transcript, float* partial, float* out, float* color, int n,
-    int num_tris, int num_spheres, int num_materials, int max_bounces,
-    int lim_d, int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
-    void* stream) {
+    int* transcript, float* partial, float* out, float* color,
+    const float* nodes, const float* gsky, const float* env_tab,
+    int* nee_key, float* nee_w, int n, int num_tris, int num_spheres,
+    int num_materials, int max_bounces, int lim_d, int lim_g, int lim_t,
+    int sobol, int use_rr, int transmissive, int use_bvh, int env, int env_h,
+    int env_w, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_acc = num_materials * kNGrad;
-  if (num_materials > kMaxMaterials || max_bounces < 0)
+  if (num_materials > kMaxMaterials || max_bounces < 0 || env < 0 || env > 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_acc = num_materials * n_grad(env);
   if (n <= 0)
     return static_cast<int>(
         cudaMemsetAsync(out, 0, sizeof(float) * n_acc, st));
+  if ((use_bvh && nodes == nullptr) || (env >= 1 && gsky == nullptr) ||
+      (env == 2 && (env_tab == nullptr || nee_key == nullptr ||
+                    nee_w == nullptr || env_h <= 0 || env_w <= 0 ||
+                    static_cast<long long>(env_h) * env_w > (1 << 24))))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.origin = origin;
   p.direction = direction;
@@ -366,29 +505,39 @@ extern "C" int halogen_adjoint_launch(
   p.sample_idx = reinterpret_cast<const uint32_t*>(sample_idx);
   p.seed = reinterpret_cast<const uint32_t*>(seed);
   p.ct = ct;
-  p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials};
+  p.gsky = gsky;
+  p.scene = {tri, trin, sph, mat, num_tris, num_spheres, num_materials,
+             {reinterpret_cast<const float4*>(nodes),
+              reinterpret_cast<const float4*>(tri), trin}};
   p.transcript = reinterpret_cast<uint32_t*>(transcript);
   p.partial = partial;
   p.color = color;
+  p.nee_key = nee_key;
+  p.nee_w = nee_w;
   p.n = n;
-  p.cfg = {0.0f, max_bounces, lim_d, lim_g, lim_t, sobol != 0, use_rr != 0};
+  p.cfg = {0.0f,        max_bounces, lim_d,  lim_g, lim_t, sobol != 0,
+           use_rr != 0, reinterpret_cast<const float4*>(env_tab), env_h,
+           env_w};
   const bool in_smem = transcript == nullptr;
+  const bool bvh = use_bvh != 0;
   const size_t smem =
       sizeof(float) *
-          (scene_smem_floats(num_tris, num_spheres, num_materials) +
+          (scene_smem_floats(bvh ? 0 : num_tris, num_spheres,
+                             num_materials) +
            static_cast<size_t>(kWarps) * n_acc) +
-      (in_smem ? sizeof(uint32_t) * (max_bounces + 1) * kRec * kThreads : 0);
+      (in_smem ? sizeof(uint32_t) * (max_bounces + 1) * n_rec(env) * kThreads
+               : 0);
   const int blocks = (n + kThreads - 1) / kThreads;
+  cudaError_t err;
   if (transmissive && in_smem) {
-    adjoint_kernel<true, true><<<blocks, kThreads, smem, st>>>(p);
+    err = launch_tier<true, true>(bvh, env, p, blocks, smem, st);
   } else if (transmissive) {
-    adjoint_kernel<true, false><<<blocks, kThreads, smem, st>>>(p);
+    err = launch_tier<true, false>(bvh, env, p, blocks, smem, st);
   } else if (in_smem) {
-    adjoint_kernel<false, true><<<blocks, kThreads, smem, st>>>(p);
+    err = launch_tier<false, true>(bvh, env, p, blocks, smem, st);
   } else {
-    adjoint_kernel<false, false><<<blocks, kThreads, smem, st>>>(p);
+    err = launch_tier<false, false>(bvh, env, p, blocks, smem, st);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_blocks<<<n_acc, kReduceThreads, 0, st>>>(partial, blocks, n_acc, out);
   return static_cast<int>(cudaGetLastError());

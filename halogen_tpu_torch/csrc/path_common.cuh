@@ -20,7 +20,8 @@
 //     its occlusion mode :749-752, :1443-1450): the closest hit walks the
 //     world BVH (bvh_traverse.cuh) instead of scanning every triangle,
 //     and the env-NEE shadow ray is an any-hit walk; the triangles stay
-//     in global memory. Only the forward kernel has it.
+//     in global memory. The adjoint's BVH variants (B2+d, B2b+d) replay
+//     through it too.
 // With all three off the body is B1a's, op for op. Because the code is one,
 // and both files are built with the same flags (-fmad=false, no fast
 // math), the adjoint's replay takes the forward kernel's path bit for
@@ -390,17 +391,27 @@ struct PathState {
 // false hit (its scatter color is 1), whether Beer-Lambert applied and
 // the material of the medium it came from, the hit distance and whether
 // Russian roulette let the path go on.
+// With env NEE also the draw that reached the sky unoccluded, if any
+// (nee_texel >= 0): the drawn texel of the finest mip (the alias texel
+// where the draw took the alias), its radiance, the balance weight over
+// the draw's pdf (w_fac) and the diffuse and glossy factors of the BRDF
+// (dterm, gterm), so that the contribution is
+// a_prev * (albedo * dterm + specular * gterm) * radiance * w_fac.
 struct BounceRecord {
   V3 a_prev;
   int mat, ab_mat;
   float t_safe;
   bool spec, refr, is_true, absorbing, survive;
+  int nee_texel;
+  V3 nee_rad;
+  float nee_wfac, nee_dterm, nee_gterm;
 };
 
 enum BounceResult {
-  kEnded = 0,         // nothing shaded: over a bounce limit, or a miss
+  kEnded = 0,         // nothing shaded: over a bounce limit
   kShadedEnded = 1,   // shaded, then killed by Russian roulette
   kShadedGoesOn = 2,  // shaded, the path goes on
+  kMissed = 3,        // nothing shaded: the ray left for the sky
 };
 
 // Beer-Lambert factor of a bounce: exp(-absorption * t) on absorbing
@@ -582,7 +593,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
       s.m_pcos = s.prev_pcos;
       s.m_nee = s.prev_nee;
     }
-    return kEnded;
+    return kMissed;
   }
 
   // --- emission before BRDF (compute:901-902)
@@ -750,6 +761,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
     const bool surf = m[3] >= 1.0f;
     const float cos_l = dot3(normal, ld);
     const bool cand = surf && cos_l > 0.0f && lpdf > 1e-12f;
+    rec.nee_texel = -1;
     if (cand) {
       const V3 sh_o = {pos.x + normal.x * 1e-4f, pos.y + normal.y * 1e-4f,
                        pos.z + normal.z * 1e-4f};
@@ -764,6 +776,13 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
             s.color.x + s.atten.x * (m[0] * dterm + m[4] * gterm) * rad.x * w_fac,
             s.color.y + s.atten.y * (m[1] * dterm + m[5] * gterm) * rad.y * w_fac,
             s.color.z + s.atten.z * (m[2] * dterm + m[6] * gterm) * rad.z * w_fac};
+        // for the adjoint (dead code in the forward kernel); alias_j is a
+        // float32, exact below 2^24 texels
+        rec.nee_texel = stay ? idx : static_cast<int>(head.y);
+        rec.nee_rad = rad;
+        rec.nee_wfac = w_fac;
+        rec.nee_dterm = dterm;
+        rec.nee_gterm = gterm;
       }
     }
     // continuation-strategy pdf for the next bounce's MIS

@@ -5,18 +5,24 @@ path-gradient estimator: path geometry and discrete sampling decisions
 (lobe choice, Russian-roulette survival, the deterministic Sobol stream)
 are fixed (`integrator/trace.py::_pool_bounce` detaches origin and
 direction), and gradients flow through the throughput product: emission,
-albedo and specular attenuation and Beer-Lambert absorption. Roughness,
-metallic and IOR act only through sampling decisions, so their gradients
-are exactly zero.
+albedo and specular attenuation and Beer-Lambert absorption. Metallic
+and IOR act only through sampling decisions, so their gradients are
+exactly zero; so are roughness's, but where the sky's lookup takes its
+mip level from the accumulated roughness (`mip_importance_bias`).
 
 On a CUDA device each ray group's backward is the adjoint kernel
 (`kernels/adjoint.py`), which replays the paths instead of storing them:
 a step keeps the rays of each group, not a graph of every bounce. On the
 CPU and under `Fused.OFF` autograd runs through the lockstep integrator.
 
+Envmap texels are parameters too (`"env_mips"`, a tuple of [H, W, 3] mips,
+finest first): they reach the image through the sky at the miss and, with
+env NEE, through the radiance of the drawn texel. On a CUDA device their
+cotangents come from the sky pass's backward kernel (`kernels/sky.py`),
+which sums every ray's taps per texel in a fixed order.
+
 A fit's state is saved in the JAX package's npz layout, so a fit started
-there resumes here. Envmap texels (`"env_mips"`, `optimize_env`) come with
-ROADMAP A8 and sharded fits (`mesh`) with A11.
+there resumes here. Sharded fits (`mesh`) come with ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -53,12 +59,6 @@ _BOUNDS = {
 }
 
 
-def _no_env(params: dict) -> None:
-    if "env_mips" in params:
-        raise NotImplementedError(
-            "envmap gradients are not ported yet (ROADMAP A8)")
-
-
 def render_with_materials(materials: MaterialTable, scene: SceneData,
                           camera: Camera, settings: RenderSettings,
                           frame=0) -> torch.Tensor:
@@ -69,8 +69,12 @@ def render_with_materials(materials: MaterialTable, scene: SceneData,
 
 def render_with_params(params: dict, scene: SceneData, camera: Camera,
                        settings: RenderSettings, frame=0) -> torch.Tensor:
-    """Forward render over a param dict {"materials": MaterialTable}."""
-    _no_env(params)
+    """Forward render over a param dict {"materials": MaterialTable,
+    "env_mips": tuple of [H, W, 3] mips}, the full differentiable surface.
+    The env-NEE alias tables (`scene.env_cdf`) stay as built; the draw's
+    radiance is read from the given finest mip."""
+    scene = dataclasses.replace(
+        scene, env_mips=tuple(params.get("env_mips", scene.env_mips)))
     return render_with_materials(params.get("materials", scene.materials),
                                  scene, camera, settings, frame)
 
@@ -86,22 +90,30 @@ def render_loss(params: dict, scene: SceneData, camera: Camera,
 def render_loss_grad(params: dict, scene: SceneData, camera: Camera,
                      settings: RenderSettings, target, frame=0):
     """(loss, grads) of `render_loss` with respect to params
-    {"materials": MaterialTable}. grads["materials"] is a MaterialTable of
-    float gradients, with int32 zeros for priority (JAX's float0)."""
-    _no_env(params)
+    {"materials": MaterialTable} and, where given, {"env_mips": tuple}.
+    grads["materials"] is a MaterialTable of float gradients, with int32
+    zeros for priority (JAX's float0); grads["env_mips"] a tuple of one
+    cotangent per mip."""
     mats = params.get("materials", scene.materials)
     leaves = {f: getattr(mats, f).detach().requires_grad_(True)
               for f in FLOAT_MATERIAL_FIELDS}
+    env = ([m.detach().requires_grad_(True) for m in params["env_mips"]]
+           if "env_mips" in params else None)
     with torch.enable_grad():
-        loss = render_loss({"materials": with_material_params(mats, leaves)},
-                           scene, camera, settings, target, frame)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-    g = {f: torch.zeros_like(leaves[f]) if gf is None else gf
-         for f, gf in zip(leaves, grads)}
-    g_mats = dataclasses.replace(mats, **g,
+        p = {"materials": with_material_params(mats, leaves)}
+        if env is not None:
+            p["env_mips"] = tuple(env)
+        loss = render_loss(p, scene, camera, settings, target, frame)
+        wrt = list(leaves.values()) + (env or [])
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = [torch.zeros_like(x) if gx is None else gx
+             for x, gx in zip(wrt, grads)]
+    g_mats = dataclasses.replace(mats, **dict(zip(leaves, grads)),
                                  priority=torch.zeros_like(mats.priority))
-    return loss.detach(), {"materials": g_mats}
+    out = {"materials": g_mats}
+    if env is not None:
+        out["env_mips"] = tuple(grads[len(leaves):])
+    return loss.detach(), out
 
 
 def material_params(materials: MaterialTable) -> dict:
@@ -135,10 +147,12 @@ def make_optimizer(lr: float = 5e-2):
 
 
 def _leaves(tree) -> list:
-    """Tensors of nested dicts in sorted-key order, as `jax.tree.leaves`
-    flattens dicts."""
+    """Tensors of nested dicts (in sorted-key order) and sequences, as
+    `jax.tree.leaves` flattens dicts and tuples."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in _leaves(x)]
     return [tree]
 
 
@@ -190,14 +204,14 @@ def fit_materials(scene: SceneData, camera: Camera,
                   lr: float = 5e-2, optimize_env: bool = False,
                   callback=None, checkpoint_path: str | None = None,
                   checkpoint_every: int = 25, mesh=None):
-    """Inverse-rendering loop: fit the float material parameters to a
-    target image with Adam and projection onto physical ranges. Returns
-    ({"materials": MaterialTable}, losses). Each step renders another
-    frame of the sample stream. When `checkpoint_path` exists the run
-    resumes from it; progress is saved every `checkpoint_every` steps."""
-    if optimize_env:
-        raise NotImplementedError(
-            "envmap fitting is not ported yet (ROADMAP A8)")
+    """Inverse-rendering loop: fit the float material parameters (and,
+    with `optimize_env`, the envmap's mips) to a target image with Adam and
+    projection onto physical ranges (texels onto >= 0). Returns
+    ({"materials": MaterialTable[, "env_mips": tuple]}, losses). Each step
+    renders another frame of the sample stream; env NEE draws by the alias
+    tables as built and reads the radiance of the current finest mip. When
+    `checkpoint_path` exists the run resumes from it; progress is saved
+    every `checkpoint_every` steps."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded fits are not ported yet (ROADMAP A11)")
@@ -205,11 +219,17 @@ def fit_materials(scene: SceneData, camera: Camera,
     params = {"material_params": {
         f: t.detach().clone().requires_grad_(True)
         for f, t in material_params(scene.materials).items()}}
+    if optimize_env:
+        params["env_mips"] = [m.detach().clone().requires_grad_(True)
+                              for m in scene.env_mips]
     opt = make_optimizer(lr)(_leaves(params))
 
     def to_render_params(p):
-        return {"materials": with_material_params(scene.materials,
-                                                  p["material_params"])}
+        out = {"materials": with_material_params(scene.materials,
+                                                 p["material_params"])}
+        if "env_mips" in p:
+            out["env_mips"] = tuple(p["env_mips"])
+        return out
 
     start = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
@@ -227,6 +247,8 @@ def fit_materials(scene: SceneData, camera: Camera,
         with torch.no_grad():
             for f, v in project_material_params(mp).items():
                 mp[f].copy_(v)
+            for m in params.get("env_mips", ()):
+                m.clamp_(min=0.0)
         losses.append(float(loss.detach()))
         if callback is not None:
             callback(i, params, losses[-1])
@@ -234,5 +256,8 @@ def fit_materials(scene: SceneData, camera: Camera,
             save_fit_state(checkpoint_path, params, opt, i + 1)
     if checkpoint_path and losses:
         save_fit_state(checkpoint_path, params, opt, steps)
-    fitted = {f: t.detach() for f, t in params["material_params"].items()}
-    return to_render_params({"material_params": fitted}), losses
+    fitted = {"material_params": {
+        f: t.detach() for f, t in params["material_params"].items()}}
+    if optimize_env:
+        fitted["env_mips"] = [m.detach() for m in params["env_mips"]]
+    return to_render_params(fitted), losses

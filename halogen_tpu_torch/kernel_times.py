@@ -27,7 +27,15 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     glass dragon, 12 bounces), B1d and B1c+d (a 1,280-triangle dragon
     under the sky, 4 bounces, without and with env NEE), B1b+c+d (the
     glass dragon under the sky with env NEE, 12 bounces);
-  - B3 on those camera rays and on one bounce's rays of the glass dragon.
+  - B3 on those camera rays and on one bounce's rays of the glass dragon;
+  - where the tree has them, the adjoint's BVH and sky variants on the
+    same rays as their forward kernels: B2b+d (the glass dragon, 12
+    bounces), B2+d (a 1,280-triangle metal dragon in the Cornell shell, 12
+    bounces), B2c+d (the 1,280-triangle dragon under the sky, 4 bounces),
+    B2c and B2c+n (the `envmap_1024` rays, without and with env NEE), each
+    with a random cotangent of the miss attenuation and roughness; and the
+    sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
+    backward`, its taps, the sort by texel and the per-texel sums).
 Each is launched once (a warm-up), then timed by CUDA events over two runs
 of 10 launches, and by `torch.profiler` device time per launch of the
 kernel itself (the adjoint's block-sum kernel is in its event time only).
@@ -157,6 +165,19 @@ def main(argv=None) -> int:
         return lambda: mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_, st,
                                               tab, et)
 
+    def bwd_at(sc, st, r):
+        """The adjoint alone on rays r, with the sky's cotangents where the
+        scene has a sky in use."""
+        tab, et = mk._scene_tables(sc), mk.env_table(sc)
+        c, o_, d_, s_, e_ = r
+        n = o_.shape[0]
+        g = torch.Generator().manual_seed(1)
+        ct_ = torch.rand((n, 3), generator=g).to(dev)
+        gsky = torch.rand((n, 4), generator=g).to(dev)
+        env = adj.env_mode(sc, st)
+        return lambda: adj._launch(sc, o_, d_, c.far, s_, e_, ct_, st, tab,
+                                   gsky=gsky if env else None, env_tab=et)
+
     def bwd(sc, st, route=None):
         tab = mk._scene_tables(sc)
         if route is None:
@@ -197,6 +218,37 @@ def main(argv=None) -> int:
                                                       seed_b),
                       "traverse_kernel"),
     }
+    if hasattr(adj, "env_mode"):  # the BVH and sky variants, and the sky
+        from halogen_tpu_torch.kernels import sky as sky_k
+        from halogen_tpu_torch.scene.material import Material
+
+        box = cornell.cornell_box(with_spheres=False)
+        verts, faces = meshes.dragon_mesh(3)
+        box.add_mesh(verts, faces, Material.metal((0.9, 0.6, 0.5),
+                                                  roughness=0.4),
+                     transform=meshes._scale_translate(0.55,
+                                                       (0.0, -0.45, 0.0)))
+        metal_dragon = box.build(device=dev)
+        st_e = ht.RenderSettings(max_bounces=4, env_importance_sampling=True,
+                                 **sky_kw)
+        st_sky = st_e.replace(env_importance_sampling=False)
+        jobs.update({
+            "B2b+d": (bwd_at(dragon, st_d, r_d), "adjoint_kernel<"),
+            "B2+d": (bwd_at(metal_dragon, st_d, r_d), "adjoint_kernel<"),
+            "B2c+d": (bwd_at(hero, st_sky, r_d), "adjoint_kernel<"),
+            "B2c": (bwd_at(spheres, st_sky, r_e), "adjoint_kernel<"),
+            "B2c+n": (bwd_at(spheres, st_e, r_e), "adjoint_kernel<"),
+        })
+        c_e, o_e, d_e, s_e, e_e = r_e
+        out_e = mk.trace_fused_outputs(spheres, o_e, d_e, c_e.far, s_e, e_e,
+                                       st_e)
+        ct_e = torch.rand((o_e.shape[0], 3),
+                          generator=torch.Generator().manual_seed(2)).to(dev)
+        jobs["sky forward"] = (
+            lambda: sky_k.sky_forward(spheres, st_e, out_e), "sky_forward")
+        jobs["sky backward"] = (
+            lambda: sky_k.sky_backward_full(spheres, st_e, out_e, ct_e),
+            "sky_")
     if hasattr(adj, "transcript_route"):  # the routes, where there are two
         for name, sc, st in (("B2", cornell_sc, st_a), ("B2b", glass, st_g),
                              ("B2b@16", glass, st_g16)):

@@ -14,7 +14,8 @@ this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
 the adjoint kernel's library (`csrc/adjoint.cu`, `kernels/adjoint.py`)
 and the world-BVH traversal kernel's (`csrc/traverse.cu`,
-`kernels/traverse.py`) in the same step, one nvcc process per source.
+`kernels/traverse.py`) and the sky pair's (`csrc/sky.cu`,
+`kernels/sky.py`) in the same step, one nvcc process per source.
 
 `trace_fused_outputs` takes rays on a CUDA device to the kernel and rays
 on the CPU to the plain PyTorch version, `trace_color_fused_reference`,
@@ -22,10 +23,11 @@ which runs the lockstep integrator; both give the same per-ray outputs.
 A CUDA launch that fails raises; there is no fallback. `LAUNCHES` counts
 kernel launches. `trace_color_fused` adds the sky from those outputs
 (`integrator.trace.deferred_sky`: one lookup per ray, after the kernel,
-as the Pallas wrapper does). `trace_color_fused_diff` is the
-differentiable form: this kernel forward, the adjoint kernel backward
-(envmap scenes and scenes over MAX_TRIS triangles have no backward on
-this route yet, ROADMAP A8 and A9).
+as the Pallas wrapper does; on a CUDA device the sky kernel,
+`kernels/sky.py`). `trace_color_fused_diff` is the differentiable form:
+this kernel forward, the adjoint kernel backward (`kernels/adjoint.py`),
+on every scene the kernel renders; the sky pass's backward kernel gives
+the envmap's cotangents and those the adjoint takes at the miss.
 
 Scope (`fused_supported`, the JAX predicate): opaque and transmissive
 scenes, with or without an envmap and its next-event estimation, without
@@ -54,11 +56,7 @@ import torch
 from halogen_tpu_torch.config import DebugMode, RenderSettings, SamplerKind
 from halogen_tpu_torch.core.types import SceneData
 from halogen_tpu_torch.integrator.camera import Camera
-from halogen_tpu_torch.integrator.trace import (
-    _use_nee,
-    deferred_sky,
-    group_rays,
-)
+from halogen_tpu_torch.integrator.trace import _use_nee, group_rays
 from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene.envmap import _texel_direction, env_draw_table
 
@@ -82,14 +80,18 @@ _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-# One shared library per kernel source, each with one C entry point:
-# (function, pointer arguments, int arguments, then the stream). The
-# megakernel and the adjoint include the bounce body in path_common.cuh;
-# it and the traversal kernel include the walk in bvh_traverse.cuh.
+# One shared library per kernel source, with its C entry points:
+# {function: (pointer arguments, int arguments, float arguments)}, then
+# the stream. The megakernel and the adjoint include the bounce body in
+# path_common.cuh; it and the traversal kernel include the walk in
+# bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": ("halogen_megakernel_launch", 16, 20),
-    "adjoint": ("halogen_adjoint_launch", 14, 11),
-    "traverse": ("halogen_traverse_launch", 13, 1),
+    "megakernel": {"halogen_megakernel_launch": (16, 20, 0)},
+    "adjoint": {"halogen_adjoint_launch": (19, 15, 0)},
+    "traverse": {"halogen_traverse_launch": (13, 1, 0)},
+    "sky": {"halogen_sky_forward": (5, 6, 2),
+            "halogen_sky_backward": (8, 6, 2),
+            "halogen_sky_scatter": (4, 2, 0)},
 }
 _HEADERS = ("path_common.cuh", "geometry.cuh", "bvh_traverse.cuh")
 
@@ -151,11 +153,11 @@ def load_library(name: str = "megakernel") -> ctypes.CDLL:
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
     lib = ctypes.CDLL(paths[name])
-    entry, n_ptr, n_int = LIBRARIES[name]
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+    for entry, (n_ptr, n_int, n_float) in LIBRARIES[name].items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     _libs[name] = lib
     return lib
 
@@ -190,7 +192,9 @@ def env_table(scene: SceneData) -> torch.Tensor | None:
     | (alias radiance rgb, alias direction x) | (direction yz, alias
     direction yz). The first ten values are `envmap.env_draw_table`'s; the
     directions are those `envmap.sample_env_draw` computes for the texel
-    and for its alias, stored so that a draw needs no sine or cosine."""
+    and for its alias, stored so that a draw needs no sine or cosine. The
+    table is data for the kernels (detached): the radiance's cotangent
+    reaches the finest mip through the adjoint's env-NEE records."""
     if scene.env_cdf is None or not scene.env_mips:
         return None
     cdf = scene.env_cdf
@@ -200,7 +204,7 @@ def env_table(scene: SceneData) -> torch.Tensor | None:
     alias = own[cdf.alias_j.to(torch.int64)]
     return torch.cat([draw[:, 0:7], own[:, 0:1], draw[:, 7:10],
                       alias[:, 0:1], own[:, 1:3], alias[:, 1:3]],
-                     dim=1).to(torch.float32).contiguous()
+                     dim=1).detach().to(torch.float32).contiguous()
 
 
 def _scene_tables(scene: SceneData):
@@ -301,9 +305,9 @@ def _scene_inputs(scene, settings: RenderSettings, tables, dev):
     if not fused_supported(scene, settings):
         raise NotImplementedError(
             "the CUDA megakernel covers scenes without area-light NEE or "
-            f"debug views, with <= {MAX_SPHERES} spheres, <= "
+            f"debug views (ROADMAP A8), with <= {MAX_SPHERES} spheres, <= "
             f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles "
-            "(wider tiers: ROADMAP A8, A9)")
+            "(the JAX package's fused tiers' caps)")
     tables = tables if tables is not None else _scene_tables(scene)
     for t in tables:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
@@ -476,10 +480,13 @@ def trace_color_fused(scene: SceneData, origin, direction, far, sample_idx,
                       seed, settings: RenderSettings, tables=None,
                       env_tab=None) -> torch.Tensor:
     """Fused megakernel forward: [N, 3] radiance, the kernel's path color
-    plus the deferred sky (JAX `megakernel.py:1868-1900`). `tables` and
-    `env_tab` may carry `_scene_tables(scene)` and `env_table(scene)`
-    computed once for many calls."""
-    return deferred_sky(scene, settings, trace_fused_outputs(
+    plus the sky at the miss (JAX `megakernel.py:1868-1900`; the sky kernel
+    on a CUDA device, `deferred_sky` on the CPU). `tables` and `env_tab`
+    may carry `_scene_tables(scene)` and `env_table(scene)` computed once
+    for many calls."""
+    from halogen_tpu_torch.kernels import sky
+
+    return sky.sky_color(scene, settings, trace_fused_outputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables,
         env_tab))
 
@@ -511,25 +518,29 @@ def trace_pixels_outputs(scene: SceneData, view: PixelView, lane0: int,
 
 class _FusedDiff(torch.autograd.Function):
     """Megakernel forward, adjoint-kernel backward: the port of the JAX
-    package's custom_vjp (`megakernel.py:1904-1978`) on its fused-adjoint
-    route. Only the material table gets a cotangent; geometry, camera
-    rays and far get none (use `Fused.OFF` to differentiate geometry).
-    Scenes outside `adjoint_supported` (an envmap in use, or more than
-    MAX_TRIS triangles) have no backward here yet: the JAX package replays
-    them with the lockstep vjp (`megakernel.py:1953-1975`), which the port
-    brings with the envmap gradients (ROADMAP A8) and the big-scene
-    backward (ROADMAP A9).
+    package's custom_vjp (`megakernel.py:1904-1978`), on every scene the
+    kernel renders (the JAX package takes its Pallas adjoint where
+    `adjoint_supported` holds and the lockstep vjp elsewhere). The result
+    is the kernel's per-ray outputs, [N, 10] or [N, 12]; the sky pass
+    (`kernels/sky.py`) makes the color from them, and its backward hands
+    this one the cotangents of the color, the miss attenuation and the
+    accumulated roughness. Only the material table and, with env NEE, the
+    finest mip (the radiance of the drawn texels) get cotangents; geometry,
+    camera rays and far get none (use `Fused.OFF` to differentiate
+    geometry).
 
     `group` is None for explicit rays, or (view, lane0, spp_block,
     want_rays) for a launch from pixels: the kernel then makes the rays
     and, where a backward may follow (`want_rays`), writes them out for
-    the adjoint's replay."""
+    the adjoint's replay (on both tiers)."""
 
     @staticmethod
     def forward(ctx, scene, settings, env_tab, group, tri_tab, trin_tab,
-                sph_tab, mat_tab, origin, direction, far, sample_idx, seed):
+                sph_tab, mat_tab, origin, direction, far, sample_idx, seed,
+                *env_mips):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
-        ctx.scene, ctx.settings = scene, settings
+        ctx.scene, ctx.settings, ctx.env_tab = scene, settings, env_tab
+        ctx.n_env = len(env_mips)
         if group is None:
             out = trace_fused_outputs(scene, origin, direction, far,
                                       sample_idx, seed, settings, tables,
@@ -546,38 +557,41 @@ class _FusedDiff(torch.autograd.Function):
             # the rays of this launch, not a graph of its bounces
             ctx.save_for_backward(*tables, origin, direction, far,
                                   sample_idx, seed)
-        return deferred_sky(scene, settings, out)
+        return out
 
     @staticmethod
-    def backward(ctx, grad_color):
+    def backward(ctx, grad_out):
         from halogen_tpu_torch.kernels import adjoint as adj
 
-        if not adj.adjoint_supported(ctx.scene, ctx.settings):
-            if ctx.scene.num_triangles > MAX_TRIS:
-                raise NotImplementedError(
-                    "not ported yet: the backward of a scene over "
-                    f"MAX_TRIS = {MAX_TRIS} triangles (ROADMAP A9)")
-            raise NotImplementedError(
-                "envmap gradients are not ported yet: the backward of an "
-                "envmap scene (ROADMAP A8)")
         *tables, origin, direction, far, sample_idx, seed = ctx.saved_tensors
         mat_tab = tables[3]
-        d_mat = None
-        if ctx.needs_input_grad[7]:  # mat_tab
-            # grad_color may be an expanded view (stride 0) of the
-            # per-pixel cotangent: the kernel reads a dense [N, 3]
-            dmat12 = adj.trace_grad_fused_materials(
+        want_env = ctx.n_env > 0 and ctx.needs_input_grad[13]
+        d_mat = d_env0 = None
+        if ctx.needs_input_grad[7] or want_env:  # mat_tab, env_mips[0]
+            # grad_out may be an expanded view (stride 0) of the per-pixel
+            # cotangent: the kernel reads dense columns
+            dmat, d_env0 = adj.trace_grad_outputs(
                 ctx.scene, origin, direction, far, sample_idx, seed,
-                grad_color.contiguous(), ctx.settings, tables=tuple(tables))
-            # [K, 12] columns onto _scene_tables' [K, 17] layout; autograd
-            # chains col 9:12 through the rgb * intensity product
+                grad_out.contiguous(), ctx.settings, tables=tuple(tables),
+                env_tab=ctx.env_tab, want_env=want_env)
+            # [K, 12|13] columns onto _scene_tables' [K, 17] layout;
+            # autograd chains col 9:12 through the rgb * intensity product
             d_mat = torch.zeros_like(mat_tab)
-            d_mat[:, 9:12] = dmat12[:, 0:3]   # emission, premultiplied
-            d_mat[:, 0:3] = dmat12[:, 3:6]    # albedo rgb
-            d_mat[:, 4:7] = dmat12[:, 6:9]    # specular
-            d_mat[:, 13:16] = dmat12[:, 9:12]  # absorption
+            d_mat[:, 9:12] = dmat[:, 0:3]   # emission, premultiplied
+            d_mat[:, 0:3] = dmat[:, 3:6]    # albedo rgb
+            d_mat[:, 4:7] = dmat[:, 6:9]    # specular
+            d_mat[:, 13:16] = dmat[:, 9:12]  # absorption
+            if dmat.shape[1] > 12:
+                d_mat[:, 8] = dmat[:, 12]   # roughness (the sky's level)
+        d_env = [d_env0] + [None] * (ctx.n_env - 1) if ctx.n_env else []
         return (None, None, None, None, None, None, None, d_mat, None, None,
-                None, None, None)
+                None, None, None, *d_env)
+
+
+def _nee_mips(scene: SceneData, settings: RenderSettings) -> tuple:
+    """The mips whose texels the forward kernel reads (the finest, through
+    the env-NEE draw table), as inputs of `_FusedDiff`."""
+    return scene.env_mips[:1] if _use_nee(scene, settings) else ()
 
 
 def trace_color_fused_diff(scene: SceneData, origin, direction, far,
@@ -585,16 +599,22 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
                            tables=None, env_tab=None) -> torch.Tensor:
     """Differentiable fused tracer (port of the JAX
     `trace_color_fused_diff`, `megakernel.py:1981-1993`): [N, 3] radiance
-    from `trace_color_fused`, whose backward is the adjoint kernel
-    (`kernels/adjoint.py`), or its plain version on the CPU. Gradients
-    reach the scene's material table through `_scene_tables(scene)`."""
+    from the kernel and the sky pass, whose backwards are the adjoint
+    kernel (`kernels/adjoint.py`) and the sky backward kernel
+    (`kernels/sky.py`), or their plain versions on the CPU. Gradients
+    reach the scene's material table through `_scene_tables(scene)` and
+    its envmap's mips."""
+    from halogen_tpu_torch.kernels import sky
+
     dev = origin.device
     tables = tables if tables is not None else _scene_tables(scene)
     far = torch.as_tensor(far, dtype=torch.float32, device=dev)
     sample_idx = torch.as_tensor(sample_idx, device=dev)
     seed = torch.as_tensor(seed, device=dev)
-    return _FusedDiff.apply(scene, settings, env_tab, None, *tables, origin,
-                            direction, far, sample_idx, seed)
+    out = _FusedDiff.apply(scene, settings, env_tab, None, *tables, origin,
+                           direction, far, sample_idx, seed,
+                           *_nee_mips(scene, settings))
+    return sky.sky_color(scene, settings, out)
 
 
 def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
@@ -604,9 +624,13 @@ def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
     `trace_pixels_outputs`): [N, 3] radiance from one kernel launch that
     makes its own rays, and the sky pass. The rays are written out, and
     kept for the adjoint, only where a gradient is wanted."""
+    from halogen_tpu_torch.kernels import sky
+
     tables = tables if tables is not None else _scene_tables(scene)
-    want_rays = torch.is_grad_enabled() and any(t.requires_grad
-                                                for t in tables)
-    return _FusedDiff.apply(scene, settings, env_tab,
-                            (view, lane0, spp_block, want_rays), *tables,
-                            None, None, None, None, None)
+    mips = _nee_mips(scene, settings)
+    want_rays = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*tables, *mips))
+    out = _FusedDiff.apply(scene, settings, env_tab,
+                           (view, lane0, spp_block, want_rays), *tables,
+                           None, None, None, None, None, *mips)
+    return sky.sky_color(scene, settings, out)

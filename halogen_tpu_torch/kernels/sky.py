@@ -1,0 +1,371 @@
+"""The sky at the miss as a pair of CUDA kernels: the forward lookup and a
+deterministic backward (`csrc/sky.cu`).
+
+After the fused megakernel each ray's color gets the sky at its miss: a
+trilinear lookup of the envmap's mip pyramid at the recorded direction
+and mip-bias level, times the miss attenuation and, with env NEE, the
+balance-heuristic weight (`integrator.trace.deferred_sky`, the JAX
+package's XLA sky pass `trace.py:460-482`). On a CUDA device
+`sky_color` runs it as one launch a group (`SkyPass`, a
+`torch.autograd.Function`); its backward is the sky backward kernel:
+per ray the cotangents of the miss attenuation and of the accumulated
+roughness, which the adjoint kernel takes (`kernels/adjoint.py`), and the
+ray's eight taps of the lookup, which `scatter_texels` sums into each
+texel of each mip in a fixed order (a stable sort by texel, then one warp
+a texel): two calls give the same bits, where autograd through the
+gathers would scatter with float atomics. The adjoint's env-NEE records
+are summed into the finest mip the same way.
+
+On the CPU, and under `Fused.OFF`, the plain version runs:
+`deferred_sky` with torch autograd. `sky_taps_reference` is the plain
+PyTorch version of the backward kernel, tap for tap. A CUDA launch that
+fails raises; there is no fallback. `FORWARD_LAUNCHES`,
+`BACKWARD_LAUNCHES` and `SCATTER_LAUNCHES` count the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from halogen_tpu_torch.config import RenderSettings
+from halogen_tpu_torch.core.types import SceneData
+from halogen_tpu_torch.integrator.trace import _use_nee, deferred_sky
+from halogen_tpu_torch.scene.envmap import dir_to_equirect_uv, env_pdf
+
+TAPS = 8  # four bilinear taps in each of two mips
+MAX_MIPS = 16  # csrc/sky.cu kMaxMips
+
+FORWARD_LAUNCHES = 0  # sky forward launches since the count was set to 0
+BACKWARD_LAUNCHES = 0  # sky backward (taps) launches
+SCATTER_LAUNCHES = 0  # per-texel sum launches (the backward's second step)
+
+
+def uses_sky(scene: SceneData, settings: RenderSettings) -> bool:
+    """Whether the color gets a sky at the miss."""
+    return settings.use_envmap and bool(scene.env_mips)
+
+
+def atlas(env_mips) -> torch.Tensor:
+    """Every mip's texels, finest first: [sum H_l W_l, 3] float32."""
+    return torch.cat([m.reshape(-1, 3) for m in env_mips]).to(
+        torch.float32).contiguous()
+
+
+def split_mips(flat: torch.Tensor, env_mips) -> tuple:
+    """[sum H_l W_l, 3] -> one [H_l, W_l, 3] tensor per mip."""
+    out, off = [], 0
+    for m in env_mips:
+        h, w = int(m.shape[0]), int(m.shape[1])
+        out.append(flat[off:off + h * w].reshape(h, w, 3))
+        off += h * w
+    return tuple(out)
+
+
+def _lib():
+    from halogen_tpu_torch.kernels import megakernel as mk
+
+    return mk.load_library("sky")
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, dev) -> None:
+    if (t.shape != shape or t.dtype != dtype or not t.is_contiguous()
+            or t.device != dev):
+        raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} "
+                         f"on {dev}")
+
+
+def _kernel_args(scene: SceneData, settings: RenderSettings,
+                 outputs: torch.Tensor, env_mips):
+    """Check the launch; returns (atlas, pdf, host mip layout, the ints after
+    the ray count, the floats)."""
+    n, n_out = outputs.shape
+    dev = outputs.device
+    nee = _use_nee(scene, settings)
+    if n_out != (12 if nee else 10):
+        raise ValueError(f"the sky pass takes [N, {12 if nee else 10}] "
+                         "outputs")
+    _check(outputs, "outputs", (n, n_out), torch.float32, dev)
+    if not 1 <= len(env_mips) <= MAX_MIPS:
+        raise ValueError(f"the sky kernels take 1 to {MAX_MIPS} mips")
+    tex = atlas(env_mips)
+    if tex.device != dev:
+        raise ValueError(f"the envmap is on {tex.device}, the rays on {dev}")
+    layout = [len(env_mips)]
+    for m in env_mips:
+        layout += [int(m.shape[0]), int(m.shape[1])]
+    layout = (ctypes.c_int * len(layout))(*layout)
+    pdf, pdf_h, pdf_w = None, 0, 0
+    if nee:
+        pdf = scene.env_cdf.pdf.to(torch.float32).contiguous()
+        pdf_h, pdf_w = pdf.shape
+        if pdf.device != dev:
+            raise ValueError(f"the env pdf is on {pdf.device}, not {dev}")
+    ints = (n, n_out, pdf_h, pdf_w, int(settings.mip_importance_bias),
+            int(nee))
+    floats = (float(settings.env_mip_level),
+              float(settings.mip_importance_range))
+    return tex, pdf, layout, ints, floats
+
+
+def sky_forward(scene: SceneData, settings: RenderSettings,
+                outputs: torch.Tensor, env_mips=None) -> torch.Tensor:
+    """[N, 3] radiance: the path color plus the sky at the miss. The kernel
+    on a CUDA device, `deferred_sky` on the CPU. `env_mips` defaults to the
+    scene's."""
+    global FORWARD_LAUNCHES
+    env_mips = scene.env_mips if env_mips is None else tuple(env_mips)
+    if not uses_sky(scene, settings):
+        return outputs[:, 0:3]
+    if outputs.device.type == "cpu":
+        return deferred_sky(scene, settings, outputs)
+    if outputs.device.type != "cuda":
+        raise ValueError(f"no sky kernel for device {outputs.device}")
+    tex, pdf, layout, ints, floats = _kernel_args(scene, settings, outputs,
+                                                  env_mips)
+    dev = outputs.device
+    color = torch.empty((outputs.shape[0], 3), dtype=torch.float32,
+                        device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().halogen_sky_forward(
+            outputs.data_ptr(), tex.data_ptr(),
+            None if pdf is None else pdf.data_ptr(), ctypes.addressof(layout),
+            color.data_ptr(), *ints, *floats, stream)
+    if err != 0:
+        raise RuntimeError(f"sky forward launch failed: CUDA error {err}")
+    FORWARD_LAUNCHES += 1
+    return color
+
+
+def sky_taps_reference(scene: SceneData, settings: RenderSettings,
+                       outputs: torch.Tensor, ct: torch.Tensor, env_mips=None):
+    """Plain PyTorch version of the backward kernel's first step, tap for
+    tap: (d_out [N, 4]: the cotangents of the miss attenuation rgb and of
+    the accumulated roughness; keys [N * 8] int32, the atlas texel of each
+    tap, -1 for a ray that never reached the sky; weights [N * 8, 3])."""
+    env_mips = scene.env_mips if env_mips is None else tuple(env_mips)
+    n = outputs.shape[0]
+    dev = outputs.device
+    n_mips = len(env_mips)
+    hs = [int(m.shape[0]) for m in env_mips]
+    ws = [int(m.shape[1]) for m in env_mips]
+    offs = [sum(h * w for h, w in zip(hs[:l], ws[:l])) for l in range(n_mips)]
+    tex = atlas(env_mips)
+    matten, rough = outputs[:, 3:6], outputs[:, 6]
+    u, v = dir_to_equirect_uv(outputs[:, 7:10])
+    if settings.mip_importance_bias:
+        raw = settings.env_mip_level + rough * settings.mip_importance_range
+    else:
+        raw = torch.full_like(rough, float(settings.env_mip_level))
+    level = torch.clamp(raw, 0.0, float(n_mips - 1))
+    moves = ((raw >= 0.0) & (raw <= float(n_mips - 1))
+             & bool(settings.mip_importance_bias) & (n_mips > 1))
+    if n_mips == 1:
+        l0 = torch.zeros((n,), dtype=torch.int64, device=dev)
+    else:
+        l0 = torch.clamp(torch.floor(level).to(torch.int64), 0, n_mips - 2)
+    l1 = torch.clamp_max(l0 + 1, n_mips - 1)
+    frac = (level - l0.to(torch.float32))[:, None]
+    w_mis = torch.ones((n,), device=dev)
+    if _use_nee(scene, settings):
+        pe = env_pdf(scene.env_cdf, outputs[:, 7:10])
+        w_mis = torch.where(outputs[:, 11] > 0.5, outputs[:, 10]
+                            / torch.clamp_min(outputs[:, 10] + pe, 1e-12),
+                            1.0)
+    cw = ct * w_mis[:, None]
+    g = cw * matten
+    reached = (matten != 0).any(dim=1)
+    h_t = torch.tensor(hs, device=dev)
+    w_t = torch.tensor(ws, device=dev)
+    off_t = torch.tensor(offs, device=dev)
+
+    def taps(li):
+        h, w, off = h_t[li], w_t[li], off_t[li]
+        fx = u * w.to(torch.float32) - 0.5
+        fy = v * h.to(torch.float32) - 0.5
+        x0, y0 = torch.floor(fx), torch.floor(fy)
+        wx, wy = (fx - x0)[:, None], (fy - y0)[:, None]
+        x0i = torch.remainder(x0.to(torch.int64), w)
+        x1i = torch.remainder(x0i + 1, w)
+        y0u = y0.to(torch.int64)
+        y0i = torch.clamp(torch.minimum(y0u, h - 1), min=0)
+        y1i = torch.minimum(y0i + 1, h - 1)
+        wy = torch.where((y0u < 0)[:, None], 0.0, wy)
+        t = torch.stack([off + y0i * w + x0i, off + y0i * w + x1i,
+                         off + y1i * w + x0i, off + y1i * w + x1i], dim=1)
+        c = tex[t]  # [N, 4, 3]
+        top = c[:, 0] + (c[:, 1] - c[:, 0]) * wx
+        bot = c[:, 2] + (c[:, 3] - c[:, 2]) * wx
+        return t, wx, wy, top + (bot - top) * wy
+
+    def shares(ga, wx, wy):
+        gtop, gbot = ga - ga * wy, ga * wy
+        return torch.stack([gtop * (1.0 - wx), gtop * wx, gbot * (1.0 - wx),
+                            gbot * wx], dim=1)  # [N, 4, 3]
+
+    t0, wx0, wy0, a = taps(l0)
+    keys = [t0]
+    d_rough = torch.zeros((n,), device=dev)
+    if n_mips > 1:
+        t1, wx1, wy1, b = taps(l1)
+        d_frac = (g * (b - a)).sum(dim=1)
+        d_rough = torch.where(moves, d_frac * settings.mip_importance_range,
+                              0.0)
+        sky = a + (b - a) * frac
+        wts = [shares(g - g * frac, wx0, wy0), shares(g * frac, wx1, wy1)]
+        keys.append(t1)
+    else:
+        sky = a
+        wts = [shares(g, wx0, wy0), torch.zeros((n, 4, 3), device=dev)]
+        keys.append(torch.full_like(t0, -1))
+    keys = torch.cat(keys, dim=1)
+    keys = torch.where(reached[:, None], keys, -1).to(torch.int32)
+    d_out = torch.cat([cw * sky, d_rough[:, None]], dim=1)
+    return d_out, keys.reshape(-1), torch.cat(wts, dim=1).reshape(-1, 3)
+
+
+def sky_backward(scene: SceneData, settings: RenderSettings,
+                 outputs: torch.Tensor, ct: torch.Tensor, env_mips=None,
+                 taps: bool = True):
+    """The backward's first step: (d_out [N, 4], keys [N * 8], weights
+    [N * 8, 3]) as `sky_taps_reference` gives them; the kernel on a CUDA
+    device, the plain version on the CPU. Without `taps` (no mip wants a
+    cotangent) the kernel writes d_out only, and keys and weights are
+    None."""
+    global BACKWARD_LAUNCHES
+    env_mips = scene.env_mips if env_mips is None else tuple(env_mips)
+    if outputs.device.type == "cpu":
+        d_out, keys, wts = sky_taps_reference(scene, settings, outputs, ct,
+                                              env_mips)
+        return (d_out, keys, wts) if taps else (d_out, None, None)
+    if outputs.device.type != "cuda":
+        raise ValueError(f"no sky kernel for device {outputs.device}")
+    tex, pdf, layout, ints, floats = _kernel_args(scene, settings, outputs,
+                                                  env_mips)
+    n, dev = outputs.shape[0], outputs.device
+    _check(ct, "ct", (n, 3), torch.float32, dev)
+    d_out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    keys = wts = None
+    if taps:
+        keys = torch.empty((n * TAPS,), dtype=torch.int32, device=dev)
+        wts = torch.empty((n * TAPS, 3), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().halogen_sky_backward(
+            outputs.data_ptr(), tex.data_ptr(), ptr(pdf),
+            ctypes.addressof(layout), ct.data_ptr(), d_out.data_ptr(),
+            ptr(keys), ptr(wts), *ints, *floats, stream)
+    if err != 0:
+        raise RuntimeError(f"sky backward launch failed: CUDA error {err}")
+    BACKWARD_LAUNCHES += 1
+    return d_out, keys, wts
+
+
+def scatter_texels(keys: torch.Tensor, wts: torch.Tensor,
+                   n_texels: int) -> torch.Tensor:
+    """[n_texels, 3]: per texel t the sum of wts[j] over the j with
+    keys[j] == t (keys < 0 are skipped). On a CUDA device a stable sort by
+    texel and the per-texel sum kernel, in a fixed order (two calls give
+    the same bits); on the CPU `index_add_`, in index order."""
+    global SCATTER_LAUNCHES
+    m, dev = keys.shape[0], keys.device
+    _check(keys, "keys", (m,), torch.int32, dev)
+    _check(wts, "wts", (m, 3), torch.float32, dev)
+    if dev.type == "cpu":
+        keep = keys >= 0
+        return torch.zeros((n_texels, 3), dtype=torch.float32).index_add_(
+            0, keys[keep].to(torch.int64), wts[keep])
+    if dev.type != "cuda":
+        raise ValueError(f"no scatter kernel for device {dev}")
+    if m >= 2 ** 31:
+        raise ValueError("too many taps for one scatter")
+    # the ordering step: a stable sort keeps each texel's taps in the order
+    # they were written (ray-major)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    out = torch.empty((n_texels, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().halogen_sky_scatter(
+            sorted_keys.data_ptr(), perm.data_ptr(), wts.data_ptr(),
+            out.data_ptr(), m, n_texels, stream)
+    if err != 0:
+        raise RuntimeError(f"sky scatter launch failed: CUDA error {err}")
+    SCATTER_LAUNCHES += 1
+    return out
+
+
+def sky_backward_reference(scene: SceneData, settings: RenderSettings,
+                           outputs: torch.Tensor, ct: torch.Tensor,
+                           env_mips=None):
+    """Plain version of the pair's backward: torch autograd of
+    (deferred_sky * ct).sum(); returns (d_out [N, 4], one cotangent per
+    mip)."""
+    env_mips = scene.env_mips if env_mips is None else tuple(env_mips)
+    with torch.enable_grad():
+        leaves = [m.detach().clone().requires_grad_(True) for m in env_mips]
+        out = outputs.detach().clone().requires_grad_(True)
+        sc = dataclasses.replace(scene, env_mips=tuple(leaves))
+        col = deferred_sky(sc, settings, out)
+        grads = torch.autograd.grad((col * ct).sum(), [out, *leaves],
+                                    allow_unused=True)
+    d_env = tuple(torch.zeros_like(x) if g is None else g
+                  for g, x in zip(grads[1:], leaves))
+    return grads[0][:, 3:7].contiguous(), d_env
+
+
+def sky_backward_full(scene: SceneData, settings: RenderSettings,
+                      outputs: torch.Tensor, ct: torch.Tensor, env_mips=None):
+    """(d_out [N, 4], one cotangent per mip) of the sky pass: the backward
+    kernel and the per-texel sum on a CUDA device, their plain versions
+    on the CPU."""
+    env_mips = scene.env_mips if env_mips is None else tuple(env_mips)
+    d_out, keys, wts = sky_backward(scene, settings, outputs, ct, env_mips)
+    n_texels = sum(int(m.shape[0]) * int(m.shape[1]) for m in env_mips)
+    return d_out, split_mips(scatter_texels(keys, wts, n_texels), env_mips)
+
+
+class SkyPass(torch.autograd.Function):
+    """The sky pass with the kernel pair: `sky_forward` forward; backward
+    the cotangent of the outputs (the color's, and from the sky's the miss
+    attenuation's and the accumulated roughness's) and of every mip."""
+
+    @staticmethod
+    def forward(ctx, scene, settings, outputs, *env_mips):
+        ctx.scene, ctx.settings = scene, settings
+        ctx.save_for_backward(outputs, *env_mips)
+        return sky_forward(scene, settings, outputs, env_mips)
+
+    @staticmethod
+    def backward(ctx, grad_color):
+        outputs, *env_mips = ctx.saved_tensors
+        ct = grad_color.contiguous()
+        want_env = any(ctx.needs_input_grad[3:])
+        if want_env:
+            d4, d_env = sky_backward_full(ctx.scene, ctx.settings, outputs,
+                                          ct, env_mips)
+        else:
+            d4 = sky_backward(ctx.scene, ctx.settings, outputs, ct,
+                              env_mips, taps=False)[0]
+            d_env = (None,) * len(env_mips)
+        d_outputs = None
+        if ctx.needs_input_grad[2]:
+            d_outputs = torch.zeros_like(outputs)
+            d_outputs[:, 0:3] = ct
+            d_outputs[:, 3:7] = d4
+        return (None, None, d_outputs, *d_env)
+
+
+def sky_color(scene: SceneData, settings: RenderSettings,
+              outputs: torch.Tensor) -> torch.Tensor:
+    """[N, 3] radiance from the per-ray outputs of the megakernel,
+    differentiable in the outputs and the scene's mips: `SkyPass` on a CUDA
+    device, `deferred_sky` with autograd on the CPU."""
+    if not uses_sky(scene, settings):
+        return outputs[:, 0:3]
+    if outputs.device.type == "cuda":
+        return SkyPass.apply(scene, settings, outputs, *scene.env_mips)
+    return deferred_sky(scene, settings, outputs)

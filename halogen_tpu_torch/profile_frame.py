@@ -17,11 +17,17 @@ bounces with env NEE (64 groups, each also a sky pass after the kernel);
 `--scene glass_dragon` `bench.py`'s glass dragon (the reference's
 Dragon_8k in glass around an air bubble, in the Cornell shell: 8,724
 triangles) at 512x512, 32 spp, 12 bounces, through the megakernel's BVH
-tier (B1d).
-With `--grad` the step is `diff.render_loss_grad` at `bench.py`'s
-forward-plus-backward configuration instead: 256x256, 256 spp, so 64
-groups, each one megakernel launch (which writes out the rays it made)
-and, in the backward, one adjoint launch (Cornell or glass). Printed:
+tier (B1d); with an envmap, each group's sky pass is one launch of the
+sky kernel (`kernels/sky.py`).
+With `--grad` the step is `diff.render_loss_grad` instead: for Cornell
+and glass at `bench.py`'s forward-plus-backward configuration, 256x256,
+256 spp, so 64 groups, each one megakernel launch (which writes out the
+rays it made) and, in the backward, one adjoint launch; for the glass
+dragon at its frame's configuration (512x512, 32 spp, 12 bounces: the
+adjoint's BVH tier, B2b+d); for `envmap_1024` at the preset's frame with
+{"materials", "env_mips"} (each group also the sky forward, the sky
+backward and its per-texel sums, and the adjoint's sky and env-NEE
+variant). Printed:
 
   - the host-clock time of each of `--frames` steps (no profiler), with
     `torch.cuda.synchronize()` around each;
@@ -70,6 +76,11 @@ DRAGON_CAM = dict(position=(0.0, 1.5, 5.0), target=(0.0, -0.3, 0.0),
 SETTINGS = dict(width=512, height=512, samples_per_pixel=32, max_bounces=6,
                 ray_chunk_size=262144)
 GLASS = dict(max_bounces=8, max_transmission_bounces=8)
+# the JAX CLI's preset 3 (`cli/main.py:33-34, :93`)
+ENVMAP_1024 = dict(width=1024, height=1024, samples_per_pixel=16,
+                   max_bounces=4, use_envmap=True,
+                   env_importance_sampling=True, env_mip_level=0,
+                   ray_chunk_size=262144)
 # scene -> (build, camera, frame settings, step settings for --grad)
 SCENES = {
     "cornell": (lambda dev: cornell.cornell_box(glossy=True).build(
@@ -80,12 +91,11 @@ SCENES = {
               dict(SETTINGS, **GLASS, width=256, height=256,
                    samples_per_pixel=256)),
     "glass_dragon": (lambda dev: meshes.glass_dragon_scene().build(
-        device=dev), DRAGON_CAM, dict(SETTINGS, max_bounces=12), None),
+        device=dev), DRAGON_CAM, dict(SETTINGS, max_bounces=12),
+        dict(SETTINGS, max_bounces=12)),
     "envmap_1024": (lambda dev: cornell.material_demo_spheres().build(
-        envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM,
-        dict(width=1024, height=1024, samples_per_pixel=16, max_bounces=4,
-             use_envmap=True, env_importance_sampling=True,
-             env_mip_level=0, ray_chunk_size=262144), None),
+        envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM, ENVMAP_1024,
+        ENVMAP_1024),
 }
 
 
@@ -113,11 +123,6 @@ def main(argv=None) -> int:
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
     build, cam_kw, frame_kw, grad_kw = SCENES[args.scene]
-    if args.grad and grad_kw is None:
-        print(f"profile_frame: {args.scene} has no gradient step yet "
-              "(envmap gradients, ROADMAP A8; big scenes, A9)",
-              file=sys.stderr)
-        return 1
     kw = grad_kw if args.grad else frame_kw
 
     dev = torch.device("cuda", 0)
@@ -130,8 +135,10 @@ def main(argv=None) -> int:
     st = ht.RenderSettings(**kw)
     if args.grad:
         zeros = torch.zeros((st.height, st.width, 3), device=dev)
-        step = lambda f: render_loss_grad({"materials": scene.materials},
-                                          scene, cam, st, zeros, f)
+        params = {"materials": scene.materials}
+        if st.use_envmap:
+            params["env_mips"] = scene.env_mips
+        step = lambda f: render_loss_grad(params, scene, cam, st, zeros, f)
     else:
         step = lambda f: ht.render_frame(scene, cam, st, f)
 
@@ -195,6 +202,8 @@ def main(argv=None) -> int:
                                   and any(f"{n}<" in r.key for n in names)]
     mega = kernel_rows("megakernel", "megakernel_bvh")
     adjoint = kernel_rows("adjoint_kernel")
+    sky_rows = [r for r in rows if _self_device_us(r) > 0
+                and r.key.startswith("sky_")]
 
     result = {
         "card": card,
@@ -219,6 +228,9 @@ def main(argv=None) -> int:
         "megakernel_ms": sum(_self_device_us(r) for r in mega) / 1e3,
         "adjoint_launches": sum(r.count for r in adjoint),
         "adjoint_ms": sum(_self_device_us(r) for r in adjoint) / 1e3,
+        "sky_kernels": {r.key[:40]: {"launches": r.count,
+                                     "ms": _self_device_us(r) / 1e3}
+                        for r in sky_rows},
         "cuda_launch_kernel_calls": launches,
         "aten_op_calls": aten_calls,
         "top_device_kernels": [
@@ -241,7 +253,8 @@ def main(argv=None) -> int:
           f"megakernel {result['megakernel_launches']} launches, "
           f"{result['megakernel_ms']:.3f} ms; adjoint "
           f"{result['adjoint_launches']} launches, "
-          f"{result['adjoint_ms']:.3f} ms")
+          f"{result['adjoint_ms']:.3f} ms; sky kernels "
+          f"{result['sky_kernels']}")
     for r in result["top_device_kernels"]:
         print(f"  {r['total_ms']:9.3f} ms  {r['count']:6d}x  {r['name']}")
     line = json.dumps(result)

@@ -18,6 +18,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 import halogen_tpu as jht
@@ -82,20 +83,25 @@ def _port_rays(rays, requires_grad=False):
             torch.from_numpy(rays["ct"]))
 
 
-def _jax_grads(jscene, rays, rr):
+def _jax_grads(jscene, rays, rr, env=False, **kw):
+    """jax.grad of sum(color * ct) through the JAX lockstep tracer w.r.t.
+    the material table (and, with `env`, the envmap's mips)."""
     n = rays["o"].shape[0]
-    st = jht.RenderSettings(**_settings(rr))
+    st = jht.RenderSettings(**_settings(rr), **kw)
 
-    def loss(mats):
-        col = j_trace_rays(dataclasses.replace(jscene, materials=mats),
+    def loss(mats, mips):
+        col = j_trace_rays(dataclasses.replace(jscene, materials=mats,
+                                               env_mips=mips),
                            jnp.asarray(rays["o"]), jnp.asarray(rays["d"]),
                            jnp.full((n,), rays["far"]),
                            jnp.asarray(rays["sidx"]),
                            jnp.asarray(rays["seed"]), st).color
         return jnp.sum(col * jnp.asarray(rays["ct"]))
 
-    g = jax.jit(jax.grad(loss, allow_int=True))(jscene.materials)
-    return interop.material_table_to_numpy(g)
+    g, g_env = jax.jit(jax.grad(loss, argnums=(0, 1), allow_int=True))(
+        jscene.materials, jscene.env_mips)
+    g = interop.material_table_to_numpy(g)
+    return (g, [np.asarray(m) for m in g_env]) if env else g
 
 
 def _assert_fields_close(got: dict, ref: dict, atol=TOL, rtol=TOL):
@@ -108,7 +114,7 @@ def _assert_fields_close(got: dict, ref: dict, atol=TOL, rtol=TOL):
 def test_plain_adjoint_matches_jax_grad(fixture, rr):
     jscene, scene, rays = fixture
     st = RenderSettings(**_settings(rr))
-    assert adj.adjoint_supported(scene, st)
+    assert adj.adjoint_covers(scene, st)
     o, d, far, sidx, seed, ct = _port_rays(rays)
     dmat = adj.trace_grad_fused_materials(scene, o, d, far, sidx, seed, ct,
                                           st)
@@ -131,7 +137,7 @@ def test_plain_adjoint_matches_jax_grad_on_glass(glass, rr):
     absorption to the medium's material, as JAX's lockstep does."""
     jscene, scene, rays = glass
     st = RenderSettings(**_settings(rr))
-    assert scene.any_transmissive and adj.adjoint_supported(scene, st)
+    assert scene.any_transmissive and adj.adjoint_covers(scene, st)
     o, d, far, sidx, seed, ct = _port_rays(rays)
     got = interop.material_table_to_numpy(adj.material_cotangents(
         scene, adj.trace_grad_fused_materials(scene, o, d, far, sidx, seed,
@@ -255,35 +261,102 @@ def test_fused_diff_gives_geometry_and_rays_no_gradient(fixture):
 
 
 def test_adjoint_out_of_slice_raises(fixture):
-    """Envmap scenes have no fused adjoint yet (ROADMAP A8), with or
-    without env NEE; glass scenes do. A scene that carries an envmap it
-    does not use is in."""
+    """Envmap scenes have the fused adjoint, with and without env NEE: on
+    the rays of the fixture under the gradient sky its plain version gives
+    the JAX lockstep's gradient for every material field (roughness too,
+    through the mip-bias level of the sky lookup) and every mip, and the
+    differentiable fused tracer's backward runs through it. Area-light NEE
+    stays out of the fused route and raises."""
     _, _, rays = fixture
-    sky = interop.scene_from_numpy(interop.scene_to_numpy(
-        jcornell.cornell_box(glossy=True).build(
-            envmap=JEnvmap.gradient_sky())), device=CPU)
+    jsky = jcornell.cornell_box(glossy=True).build(
+        envmap=JEnvmap.gradient_sky())
+    sky = interop.scene_from_numpy(interop.scene_to_numpy(jsky), device=CPU)
     glass = interop.scene_from_numpy(interop.scene_to_numpy(
         jcornell.glass_sphere_box().build()), device=CPU)
-    o, d, far, sidx, seed, ct = _port_rays(rays)
+    o, d, far, sidx, seed, _ = _port_rays(rays)
+    n = o.shape[0]
     st = RenderSettings(**_settings(True))
-    assert adj.adjoint_supported(glass, st)
-    assert adj.adjoint_supported(sky, st)
+    assert adj.adjoint_covers(glass, st)
+    assert adj.adjoint_covers(sky, st)
     for env in (dict(use_envmap=True),
-                dict(use_envmap=True, env_importance_sampling=True)):
+                dict(use_envmap=True, env_importance_sampling=True,
+                     env_mip_level=0)):
         st_env = st.replace(**env)
-        assert not adj.adjoint_supported(sky, st_env)
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            adj.trace_grad_fused_materials(sky, o, d, far, sidx, seed, ct,
+        assert adj.adjoint_covers(sky, st_env)
+        # the rays whose colors the two packages agree on: with env NEE
+        # one of these 64 rays takes a near-mirror glossy pdf, which turns
+        # an ulp of direction into 1e-2 of its color
+        col = trace_rays(sky, o, d, far.expand(n), sidx, seed, st_env).color
+        jcol = j_trace_rays(
+            jsky, jnp.asarray(rays["o"]), jnp.asarray(rays["d"]),
+            jnp.full((n,), rays["far"]), jnp.asarray(rays["sidx"]),
+            jnp.asarray(rays["seed"]),
+            jht.RenderSettings(**_settings(True), **env)).color
+        agree = np.abs(col.numpy() - np.asarray(jcol)).max(axis=1) <= 1e-5
+        assert agree.sum() >= n - 2
+        masked = dict(rays, ct=rays["ct"] * agree[:, None])
+        ct = torch.from_numpy(masked["ct"])
+        dmat, d_env = adj.trace_grad_fused(sky, o, d, far, sidx, seed, ct,
                                            st_env)
-        # the forward runs; its backward raises
+        assert dmat.shape == (sky.materials.count, adj.N_GRAD_SKY)
+        got = interop.material_table_to_numpy(
+            adj.material_cotangents(sky, dmat))
+        ref, ref_env = _jax_grads(jsky, masked, True, env=True, **env)
+        assert np.abs(ref["roughness"]).max() > 0
+        _assert_fields_close(got, ref)
+        assert len(d_env) == len(ref_env)
+        # a texel's cotangent sums the taps of many rays, of both signs
+        # (ct is normal), which XLA's scatter and torch's index_add add in
+        # other orders: 1e-4 of the level's largest, as on the card
+        for level, (g, r) in enumerate(zip(d_env, ref_env)):
+            np.testing.assert_allclose(
+                g.numpy(), r, atol=1e-4 * np.abs(r).max() + TOL, rtol=1e-5,
+                err_msg=f"mip {level}")
+        # the fused tracer's backward runs the same adjoint
         mats = dataclasses.replace(
             sky.materials,
             albedo=sky.materials.albedo.clone().requires_grad_(True))
         col = mk.trace_color_fused_diff(
             dataclasses.replace(sky, materials=mats), o, d, far, sidx, seed,
             st_env)
-        with pytest.raises(NotImplementedError, match="envmap gradients"):
-            (col * ct).sum().backward()
+        (col * ct).sum().backward()
+        np.testing.assert_allclose(mats.albedo.grad.numpy()[:, :3],
+                                   ref["albedo"][:, :3], atol=TOL, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        adj.trace_grad_fused_materials(
+            sky, o, d, far, sidx, seed, ct,
+            st.replace(light_importance_sampling=True))
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["sky", "env_nee"])
+def test_main_path_composition_matches_plain_under_sky(fixture, nee):
+    """The composition a render's backward runs under a sky (the fused
+    Function, whose backward gives the finest mip the env-NEE records, and
+    the sky pass), on CPU tensors where each piece is its plain version,
+    gives the plain backward's material columns and every mip's cotangent,
+    the finest mip with both its sky taps and its env-NEE texels."""
+    _, _, rays = fixture
+    sky = interop.scene_from_numpy(interop.scene_to_numpy(
+        jcornell.cornell_box(glossy=True).build(
+            envmap=JEnvmap.gradient_sky())), device=CPU)
+    o, d, far, sidx, seed, ct = _port_rays(rays)
+    st = RenderSettings(**_settings(True), use_envmap=True,
+                        env_importance_sampling=nee, env_mip_level=0)
+    assert adj.env_mode(sky, st) == (2 if nee else 1)
+    env_tab = mk.env_table(sky) if nee else None
+    dmat, d_env = adj._main_path_grads(sky, o, d, far, sidx, seed, ct, st,
+                                       mk._scene_tables(sky), env_tab)
+    ref, ref_env = adj.trace_grad_fused_reference(sky, o, d, far, sidx, seed,
+                                                  ct, st)
+    assert dmat.shape == ref.shape == (sky.materials.count, adj.N_GRAD_SKY)
+    assert ref[:, 12].abs().max() > 0
+    torch.testing.assert_close(dmat, ref, atol=TOL, rtol=TOL)
+    assert len(d_env) == len(ref_env)
+    assert ref_env[0].abs().max() > 0
+    for level, (g, r) in enumerate(zip(d_env, ref_env)):
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max())
+                                   + TOL, rtol=1e-5, msg=f"mip {level}")
+    assert adj.LAUNCHES == 0
 
 
 @pytest.mark.slow

@@ -5,6 +5,7 @@ invariants of `tests/test_bvh.py` hold in the port."""
 
 import numpy as np
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 
 from halogen_tpu.accel.bvh import build_bvh as j_build_bvh
 from halogen_tpu.scene import meshes as jmeshes

@@ -12,6 +12,7 @@ bilinear weight by ~1e-7, and the spot sky's brightest texel is 60.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 from halogen_tpu.scene import cornell as jcornell

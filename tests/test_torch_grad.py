@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import optax
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 import halogen_tpu as jht
@@ -359,15 +360,41 @@ def test_fit_state_roundtrip(fit, tmp_path):
 
 
 def test_out_of_slice_raises():
-    _, _, scene, cam = _both("cornell")
-    st = tht.RenderSettings(**ST)
+    """Envmap gradients are in (they raised before): with "env_mips" among
+    the params, render_loss_grad gives the JAX package's material and mip
+    gradients, and fit_materials(optimize_env=True) takes a step that
+    equals JAX's (the Cornell box under a constant sky, 2 bounces). Sharded
+    fits (ROADMAP A11) still raise."""
+    js = jcornell.cornell_box().build(
+        envmap=jht.Envmap.constant((0.6, 0.7, 0.9)))
+    jc = jht.make_camera(**CAM)
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU)
+    cam = interop.camera_from_numpy(interop.camera_to_numpy(jc), device=CPU)
+    kw = dict(ST, max_bounces=2, use_envmap=True)
+    st, jst = tht.RenderSettings(**kw), jht.RenderSettings(**kw)
     target = _target()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tgrad.render_loss_grad({"materials": scene.materials,
-                                "env_mips": ()}, scene, cam, st, target)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tgrad.fit_materials(scene, cam, st, target, steps=1,
-                            optimize_env=True)
+    loss, grads = tgrad.render_loss_grad(
+        {"materials": scene.materials, "env_mips": scene.env_mips}, scene,
+        cam, st, target)
+    jl, jg = _j_loss_grad({"materials": js.materials, "env_mips": js.env_mips},
+                          js, jc, jst, jnp.asarray(target), 0)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=RTOL)
+    got = interop.material_table_to_numpy(grads["materials"])
+    ref = interop.material_table_to_numpy(jg["materials"])
+    for f in FIELDS:
+        np.testing.assert_allclose(got[f], ref[f], atol=ATOL, rtol=RTOL,
+                                   err_msg=f)
+    assert len(grads["env_mips"]) == len(js.env_mips) == 2
+    assert np.abs(np.asarray(jg["env_mips"][1])).max() > 0
+    for g, r in zip(grads["env_mips"], jg["env_mips"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=RTOL)
+    params, losses = tgrad.fit_materials(scene, cam, st, target, steps=1,
+                                         optimize_env=True)
+    _, jlosses = jgrad.fit_materials(js, jc, jst, jnp.asarray(target),
+                                     steps=1, optimize_env=True)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    assert all(bool((m >= 0).all()) for m in params["env_mips"])
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tgrad.fit_materials(scene, cam, st, target, steps=1, mesh=object())
 

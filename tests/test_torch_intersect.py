@@ -27,6 +27,7 @@ grazing ray (a small determinant) that moves u and v by up to ~4e-5
 
 import numpy as np
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 import jax.numpy as jnp

@@ -17,6 +17,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 import halogen_tpu as jht

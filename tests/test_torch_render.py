@@ -15,6 +15,7 @@ import pathlib
 import numpy as np
 import jax
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 import halogen_tpu as jht

@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
 import torch
 
 from halogen_tpu.kernels.bvh_pallas import pack_world_bvh as j_pack_world_bvh
