@@ -174,8 +174,17 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      forward at 1e-4 per ray (at most 0.1% outside), the backward's
      cotangents of the miss attenuation and roughness at 1e-4 of their
      column's largest, each mip's at 1e-4 of its largest + 1e-6, two
-     calls bitwise equal; times of both kernels and of their plain
-     versions, and of `index_add_` on the backward's taps;
+     calls bitwise equal; then the backward's ordering and sums at three
+     sets of keys (the launch shape's taps, the same rays' taps into a
+     512x1024 map of 698,880 texels, and the launch shape's env-NEE
+     records from B2c+n): the ordering equal to `torch.sort(stable=
+     True)`'s permutation on the keys >= 0, every mip within 1e-4 of its
+     largest + 1e-6 of `index_add_` in float64, two calls bitwise equal,
+     and equal to `reduce_texels_model` bit for bit; each stage timed
+     (CUDA events, profiler device time per call) beside its library
+     call (`torch.sort`, `index_add_`) and its bound; the taps kernel,
+     the whole backward and both forward kernels and their plain
+     versions timed at the launch shape;
  30. the adjoint's sky variants vs plain, 64x64 x 4 lanes: the sky alone
      (B2c), env NEE (B2c+n), glass under the sky with env NEE (B2b+c+n),
      and the same on the BVH tier (B2c+d, B2c+n+d, B2b+c+n+d): [K, 13] at
@@ -296,7 +305,10 @@ def _resources(log: str) -> dict:
              "megakernel_bvhILb1ELb1EE": "B1b+c+d",
              "traverse_kernel": "B3", "sky_forward": "sky forward",
              "sky_backward_taps": "sky backward",
-             "sky_scatter_sum": "sky backward sums"}
+             "sky_radix_count": "sky ordering count",
+             "sky_radix_scan": "sky ordering scan",
+             "sky_radix_scatter": "sky ordering scatter",
+             "sky_reduce_texels": "sky backward sums"}
 
     def adjoint_name(mangled):
         """adjoint_kernel<kTransmissive, kSmemTranscript, kBvh, kEnv>: B2
@@ -453,7 +465,7 @@ def _profile_step(fn, step_ms: float) -> dict:
     busy_ms = sum(_self_device_us(r) for r in on_device) / 1e3
     own = ("megakernel<", "megakernel_bvh<", "adjoint_kernel<",
            "traverse_kernel", "sky_forward", "sky_backward_taps",
-           "sky_scatter_sum")
+           "sky_radix_", "sky_reduce_texels")
     return dict(
         cuda_launches=sum(r.count for r in rows
                           if r.key.startswith("cudaLaunchKernel")),
@@ -883,7 +895,9 @@ def main() -> int:
         for bvh in ("", "+d") for route in ("", " global")}
     assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
                         "B1c+d", "B1b+c+d", "B3", "sky forward",
-                        "sky backward", "sky backward sums",
+                        "sky backward", "sky ordering count",
+                        "sky ordering scan", "sky ordering scatter",
+                        "sky backward sums",
                         *adjoint_variants}, res
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
@@ -1078,7 +1092,8 @@ def main() -> int:
                 env_mip_level=0)),
     }
     sky_counts = lambda: (mk.LAUNCHES, adj.LAUNCHES, skyk.FORWARD_LAUNCHES,
-                          skyk.BACKWARD_LAUNCHES, skyk.SCATTER_LAUNCHES)
+                          skyk.BACKWARD_LAUNCHES, skyk.ORDER_LAUNCHES,
+                          skyk.SCATTER_LAUNCHES)
     gen15 = torch.Generator().manual_seed(15)
     for name, (sc, cm, st_sky) in cases15.items():
         p_sky = {"materials": sc.materials, "env_mips": sc.env_mips}
@@ -1109,9 +1124,9 @@ def main() -> int:
         print(f"[15] envmap backward, {name} (64x64 16 spp, 4 bounces; "
               f"{n_apart} pixels whose forwards round apart, held out): "
               f"launches (megakernel, adjoint, sky forward, sky backward, "
-              f"sky sums) {launched}; vs Fused.OFF max |diff| per field "
-              f"{sky15}; per mip (max |diff|, max |plain|) {env15} (each <= "
-              f"1e-4 max |plain| + 1e-6)", flush=True)
+              f"sky ordering, sky sums) {launched}; vs Fused.OFF max |diff| "
+              f"per field {sky15}; per mip (max |diff|, max |plain|) "
+              f"{env15} (each <= 1e-4 max |plain| + 1e-6)", flush=True)
 
     # --- 16. B3 against its plain version, and the four world routes
     import halogen_tpu_torch.integrator.trace as tr
@@ -1362,9 +1377,11 @@ def main() -> int:
     o_b, d_b = pool.origin.contiguous(), pool.direction.contiguous()
     seed_b = torch.where(pool.active, far_cam, -1.0)
 
-    def profiled_ms(fn, key, reps=10):
+    def profiled_ms(fn, key, reps=10, per_call=False):
         """Mean device time of the kernel `key` (its name, with "<" for a
-        template) over the launches the profiler recorded. Late in a long
+        template) over the launches the profiler recorded (with
+        `per_call`, of all kernels whose names contain `key`, over the
+        calls of fn, which must all have been recorded). Late in a long
         process the profiler can drop events, at times all of a session's:
         the mean is over what it kept, a session that kept none is
         repeated after a pause, and if five kept none the answer is None
@@ -1384,6 +1401,10 @@ def main() -> int:
             kept = prof.key_averages()
             rows = [r for r in kept if any(k in r.key for k in keys)]
             count = sum(r.count for r in rows)
+            if per_call and count:
+                rows = [r for r in kept if _self_device_us(r) > 0
+                        and key in r.key]
+                return sum(_self_device_us(r) for r in rows) / 1e3 / reps
             if count:
                 return sum(_self_device_us(r) for r in rows) / 1e3 / count
             print(f"    the profiler kept no {key} launch of {reps} "
@@ -1920,9 +1941,111 @@ def main() -> int:
             "sky_"),
     }
     _, keys_e, wts_e = skyk.sky_backward(spheres, st_e, out_e, ct_e)
+    n_tex = sum(int(m.shape[0] * m.shape[1]) for m in spheres.env_mips)
+    # the backward's ordering and sums held at three sets of keys: the
+    # launch shape's taps, the same rays' taps into a 512 x 1024 map (6
+    # mips, 698,880 texels, 20 key bits), and the launch shape's env-NEE
+    # records (B2c+n, into the finest mip's 8,192 texels)
+    big_img = np.random.default_rng(7).uniform(
+        0.0, 2.0, (512, 1024, 3)).astype(np.float32)
+    big_mips = tuple(torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+                     for m in Envmap.from_equirect(big_img, 6).mips)
+    n_big = sum(int(m.shape[0] * m.shape[1]) for m in big_mips)
+    d4_e = skyk.sky_backward(spheres, st_e, out_e, ct_e)[0]
+    slots = st_e.max_bounces + 1
+    rec_e = (torch.empty((n_e, slots), dtype=torch.int32, device=dev),
+             torch.empty((n_e, slots, 3), device=dev))
+    adj._launch(spheres, o_e, d_e, sky_cam.far, sidx_e, seed_e, ct_e, st_e,
+                tab_e, gsky=d4_e, env_tab=env_tab, records=rec_e)
+    h_f, w_f = spheres.env_cdf.pdf.shape
+    sets29 = {
+        "envmap_1024 taps": (keys_e, wts_e, n_tex,
+                             [m.shape[:2] for m in spheres.env_mips]),
+        "512x1024 atlas taps": (*skyk.sky_backward(
+            spheres, st_e, out_e, ct_e, big_mips)[1:], n_big,
+            [m.shape[:2] for m in big_mips]),
+        "envmap_1024 records": (rec_e[0].reshape(-1),
+                                rec_e[1].reshape(-1, 3), h_f * w_f,
+                                [(h_f, w_f)]),
+    }
+    scat29 = {}
+    for name, (keys29, wts29, nt29, shapes29) in sets29.items():
+        ordered, idx29 = skyk.order_texels(keys29, nt29)
+        ref_k, ref_perm = torch.sort(keys29, stable=True)
+        keep29 = ref_k >= 0
+        order_ok = (torch.equal(ordered, ref_k[keep29])
+                    and torch.equal(idx29.long(), ref_perm[keep29]))
+        got29 = skyk.scatter_texels(keys29, wts29, nt29)
+        again29 = skyk.scatter_texels(keys29, wts29, nt29)
+        model29 = skyk.reduce_texels_model(ordered, wts29[idx29.long()],
+                                           nt29)
+        live = keys29 >= 0
+        ref29 = torch.zeros((nt29, 3), dtype=torch.float64,
+                            device=dev).index_add_(
+            0, keys29[live].long(), wts29[live].double())
+        mip_err, mip_ok, off = [], True, 0
+        for h29, w29 in shapes29:
+            g = got29[off:off + h29 * w29].double()
+            r = ref29[off:off + h29 * w29]
+            off += h29 * w29
+            mip_err.append(float((g - r).abs().max()))
+            mip_ok &= mip_err[-1] <= 1e-4 * float(r.abs().max()) + 1e-6
+        repeat29 = torch.equal(got29, again29)
+        model_ok = torch.equal(got29, model29)
+        if name == "envmap_1024 taps":  # the main path's taps count the
+            # ordering's first pass: the same bits
+            full29 = skyk.sky_backward_full(spheres, st_e, out_e, ct_e)[1]
+            repeat29 &= all(torch.equal(a, b) for a, b in zip(
+                full29, skyk.split_mips(got29, spheres.env_mips)))
+        kept29 = int(keep29.sum())
+        keys_l, wts_l = keys29[live].long(), wts29[live]
+        st29 = torch.cuda.current_stream().cuda_stream
+        stages = {
+            "ordering": (lambda k=keys29, t=nt29: skyk._order(k, t, st29),
+                         "sky_radix_"),
+            "sums": (lambda a=skyk._order(keys29, nt29, st29), w=wts29,
+                     t=nt29: skyk._sums(*a, w, t, st29),
+                     "sky_reduce_texels"),
+            "ordering and sums": (lambda k=keys29, w=wts29, t=nt29:
+                                  skyk.scatter_texels(k, w, t), "sky_r"),
+        }
+        times = {}
+        for stage, (fn, key) in stages.items():
+            fn()
+            times[stage] = dict(ms=[_cuda_ms(fn, 10), _cuda_ms(fn, 10)],
+                                device_ms=profiled_ms(fn, key,
+                                                      per_call=True))
+        lib_sort = lambda k=keys29: torch.sort(k, stable=True)
+        lib_add = lambda k=keys_l, w=wts_l, t=nt29: torch.zeros(
+            (t, 3), device=dev).index_add_(0, k, w)
+        lib_sort(), lib_add()
+        times["ordering"]["library_ms"] = _cuda_ms(lib_sort, 10)
+        times["sums"]["library_ms"] = _cuda_ms(lib_add, 10)
+        m29 = keys29.shape[0]
+        times["ordering"]["bound"] = _bound(4 * m29 + 8 * kept29, 0)
+        times["sums"]["bound"] = _bound(20 * kept29 + 12 * nt29, 0)
+        scat29[name] = dict(taps=m29, kept=kept29, texels=nt29,
+                            order_equal=order_ok, repeat=repeat29,
+                            model_bits=model_ok, mip_err=mip_err,
+                            stages=times)
+        print(f"[29] {name}: {m29} keys, {kept29} in [0, {nt29}); the "
+              f"order equals torch.sort(stable=True)'s {order_ok}; per "
+              f"mip max |diff| vs index_add_ in float64 "
+              f"{[f'{x:.2e}' for x in mip_err]} (<= 1e-4 max |mip| + "
+              f"1e-6: {mip_ok}); two calls bitwise equal {repeat29}; "
+              f"equal to reduce_texels_model {model_ok}; ordering "
+              f"{times['ordering']['ms']} ms (events), "
+              f"{ms4(times['ordering']['device_ms'])} (device), torch.sort "
+              f"{times['ordering']['library_ms']:.4f}, bound "
+              f"{times['ordering']['bound'][0]:.4f}; sums "
+              f"{times['sums']['ms']} ms, "
+              f"{ms4(times['sums']['device_ms'])} (device), index_add_ "
+              f"{times['sums']['library_ms']:.4f}, bound "
+              f"{times['sums']['bound'][0]:.4f}; both "
+              f"{times['ordering and sums']['ms']} ms | {card}", flush=True)
+        assert order_ok and mip_ok and repeat29 and model_ok, name
     keep_e = keys_e >= 0
     keys_l, wts_l = keys_e[keep_e].long(), wts_e[keep_e]
-    n_tex = sum(int(m.shape[0] * m.shape[1]) for m in spheres.env_mips)
     library29 = lambda: torch.zeros((n_tex, 3), device=dev).index_add_(
         0, keys_l, wts_l)
     library29()
@@ -1937,6 +2060,20 @@ def main() -> int:
         print(f"[29] {name} at the envmap_1024 launch shape ({n_e} rays): "
               f"{k_ms} ms (events), {ms4(times29[name][1])} ms (device, a "
               f"kernel's launch), plain {p_ms} ms | {card}", flush=True)
+    order29 = skyk._workspace(keys_e.shape[0], n_tex, dev)
+    bwd_call_ms = profiled_ms(fns29["sky backward"][0], "sky_",
+                              per_call=True)
+    print(f"[29] sky backward, every kernel of a call: "
+          f"{ms4(bwd_call_ms)} ms (device) | {card}", flush=True)
+    taps29 = lambda: skyk.sky_backward(spheres, st_e, out_e, ct_e,
+                                       order=order29)
+    taps29()
+    taps_ms = dict(ms=[_cuda_ms(taps29, 10), _cuda_ms(taps29, 10)],
+                   device_ms=profiled_ms(taps29, "sky_backward_taps"))
+    print(f"[29] sky backward's taps at the envmap_1024 launch shape (with "
+          f"the ordering's first-pass counts, as on the main path): "
+          f"{taps_ms['ms']} ms (events), {ms4(taps_ms['device_ms'])} ms "
+          f"(device) | {card}", flush=True)
     print(f"[29] index_add_ of the backward's {int(keep_e.sum())} taps (a "
           f"library call with float atomics, used nowhere in the port): "
           f"{lib29_ms} ms | {card}", flush=True)
@@ -1945,6 +2082,9 @@ def main() -> int:
         n_e * (4 * out_e.shape[1] + 12) + atlas_bytes, n_e * OPS_SKY)
     bounds_new["sky backward"] = _bound(
         n_e * (4 * out_e.shape[1] + 12 + 16) + 2 * atlas_bytes,
+        n_e * (OPS_SKY + OPS_SKY_BWD))
+    taps_ms["bound"] = _bound(
+        n_e * (4 * out_e.shape[1] + 12 + 16 + 16 * skyk.TAPS) + atlas_bytes,
         n_e * (OPS_SKY + OPS_SKY_BWD))
 
     # --- 30. the adjoint's sky variants vs plain
@@ -2006,11 +2146,7 @@ def main() -> int:
               f"forward {replay_ok}", flush=True)
         assert ratio <= 1.0 and lv_ok and repeat and replay_ok, name
     # B2c and B2c+n at the envmap_1024 launch shape, with the sky
-    # backward's cotangents
-    d4_e = skyk.sky_backward(spheres, st_e, out_e, ct_e)[0]
-    slots = st_e.max_bounces + 1
-    rec_e = (torch.empty((n_e, slots), dtype=torch.int32, device=dev),
-             torch.empty((n_e, slots, 3), device=dev))
+    # backward's cotangents (phase 29's d4_e, and its record buffers)
     times30 = {}
     for name, st30 in (("B2c", st_e.replace(env_importance_sampling=False)),
                        ("B2c+n", st_e)):
@@ -2086,7 +2222,7 @@ def main() -> int:
         {kernel: launches in the n_steps + 1 calls}, the results)."""
         mk.LAUNCHES = adj.LAUNCHES = 0
         skyk.FORWARD_LAUNCHES = skyk.BACKWARD_LAUNCHES = 0
-        skyk.SCATTER_LAUNCHES = 0
+        skyk.ORDER_LAUNCHES = skyk.SCATTER_LAUNCHES = 0
         fn(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2096,6 +2232,7 @@ def main() -> int:
         counts = dict(megakernel=mk.LAUNCHES, adjoint=adj.LAUNCHES,
                       sky_forward=skyk.FORWARD_LAUNCHES,
                       sky_backward=skyk.BACKWARD_LAUNCHES,
+                      sky_ordering=skyk.ORDER_LAUNCHES,
                       sky_sums=skyk.SCATTER_LAUNCHES)
         return dt_, counts, outs
 
@@ -2118,7 +2255,7 @@ def main() -> int:
                  "env_mips": spheres.env_mips}, spheres, sky_cam, st_e,
                 zeros_e, f),
             st_e, ("megakernel", "adjoint", "sky_forward", "sky_backward",
-                   "sky_sums")),
+                   "sky_ordering", "sky_sums")),
         "metal_dragon fwd+bwd 256": (
             lambda f: render_loss_grad({"materials": metal_dragon.materials},
                                        metal_dragon, dcam, st_m, zeros_m, f),
@@ -2129,7 +2266,7 @@ def main() -> int:
                  "env_mips": sky_cornell.env_mips}, sky_cornell, cam, st_c,
                 torch.zeros((256, 256, 3), device=dev), f),
             st_c, ("megakernel", "adjoint", "sky_forward", "sky_backward",
-                   "sky_sums")),
+                   "sky_ordering", "sky_sums")),
     }
     for name, (fn, st31, need) in jobs31.items():
         n_steps = 2
@@ -2381,14 +2518,45 @@ def main() -> int:
         frame_cuda_launches=main14["envmap_1024"][4]["cuda_launches"],
         frame_device_idle_share=main14["envmap_1024"][4]["idle_share"],
         parity_max_abs_err={k: v["fwd_err"] for k, v in sky29.items()}))
+    launches31 = step("envmap_1024 fwd+bwd")["launches"]
+
+    def stage(t, library_call):
+        return dict(ms=float(np.mean(t["ms"])), device_ms=t["device_ms"],
+                    bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                    library_ms=t.get("library_ms"),
+                    library_call=library_call)
+
+    scat_e = scat29["envmap_1024 taps"]
     kernels.append(entry(
         "sky backward", "halogen_tpu/scene/envmap.py:360", skys,
-        step("envmap_1024 fwd+bwd")["launches"]["sky_backward"],
+        launches31["sky_backward"],
         max(max(v["mip_err"]) for v in sky29.values()), t29b[0], t29b[2],
         library_ms=float(np.mean(lib29_ms)), **reg("sky backward"),
+        ordering_registers={k: res[f"sky ordering {k}"][0]
+                            for k in ("count", "scan", "scatter")},
         sums_registers=res["sky backward sums"][0],
-        sums_launches=step("envmap_1024 fwd+bwd")["launches"]["sky_sums"],
-        device_ms_per_kernel_launch=t29b[1],
+        ordering_launches=launches31["sky_ordering"],
+        sums_launches=launches31["sky_sums"],
+        device_ms_per_kernel_launch=t29b[1], device_ms=bwd_call_ms,
+        stages={
+            "taps": dict(stage(taps_ms, None), kernel="sky_backward_taps"),
+            "ordering": dict(stage(scat_e["stages"]["ordering"],
+                                   "torch.sort(stable=True)"),
+                             kernel="sky_radix_count, _scan, _scatter"),
+            "sums": dict(stage(scat_e["stages"]["sums"], "index_add_"),
+                         kernel="sky_reduce_texels")},
+        scatters={k: dict(taps=v["taps"], kept=v["kept"],
+                          texels=v["texels"],
+                          order_equals_torch_sort=v["order_equal"],
+                          repeat=v["repeat"],
+                          equals_model=v["model_bits"],
+                          mip_max_abs_err=v["mip_err"],
+                          ordering=stage(v["stages"]["ordering"],
+                                         "torch.sort(stable=True)"),
+                          sums=stage(v["stages"]["sums"], "index_add_"),
+                          ordering_and_sums_ms=float(np.mean(
+                              v["stages"]["ordering and sums"]["ms"])))
+                  for k, v in scat29.items()},
         main_path="envmap_1024 fwd+bwd", library_call="index_add_",
         parity_max_abs_err=sky29))
     for name, route, replaces in (

@@ -6,7 +6,7 @@
 // `halogen_tpu/kernels/megakernel.py:1868-1900` with
 // `scene/envmap.py::sample_env_packed` and its vjp), and whose plain
 // PyTorch version (`integrator/trace.py::deferred_sky`) takes ~150 eager
-// launches a group. Three kernels:
+// launches a group. The kernels:
 //   sky_forward: per ray, the trilinear lookup of the mip pyramid at the
 //     recorded miss direction and mip-bias level (`_trilinear`,
 //     `_bilin_atlas`: texel centres at (i + 0.5) / size, u wraps, v
@@ -18,23 +18,38 @@
 //     and of the accumulated roughness, through the level's blend between
 //     two mips) and the ray's eight taps of the lookup (four bilinear taps
 //     in each of two mips), each a texel of the flat atlas of all mips
-//     and its share of ct * w * matten;
-//   sky_scatter_sum: the per-texel sums of those taps (and of the adjoint's
-//     env-NEE records): the wrapper orders the taps by texel with a stable
-//     sort, which keeps each texel's taps in ray order, and one warp per
-//     texel sums its run: lane l takes taps l, l + 32, ... in order, then
-//     the lanes add in a fixed tree. No float atomics: two calls give the
-//     same bits.
+//     and its share of ct * w * matten. A block stages its 2,048 taps in
+//     shared memory and stores them as 16-byte vectors, contiguous across
+//     the block, and can count their first radix digit: its taps are a
+//     tile of the ordering's first pass;
+//   sky_radix_count, sky_radix_scan, sky_radix_scatter: the ordering, a
+//     stable LSD radix sort of the taps by texel over only the bits the
+//     atlas needs (14 for the gradient sky), at most 8 bits a pass: per
+//     tile of 2,048 keys a digit histogram, a scan of them in digit then
+//     tile order, and a stable scatter whose in-tile ranks come from
+//     __match_any_sync. The first pass drops the keys outside
+//     [0, n_texels) (-1: a ray that never reached the sky) and moves each
+//     key's tap index (int32) with it; the order is that of a stable sort,
+//     so each texel's run stays in tap (ray) order;
+//   sky_reduce_texels: the per-texel sums of the ordered taps (and of the
+//     adjoint's env-NEE records), a reduce-by-key over tiles of 512 taps a
+//     warp: a lane adds its 16 consecutive taps one after another, a
+//     segmented scan across the lanes (a fixed tree) joins a run that
+//     crosses lanes; a run inside a tile is written whole, the tile's first
+//     and last runs go to two carry slots, which the next launch reduces
+//     the same way, in tile order, until one tile is left. No searches, no
+//     work for an empty texel (a memset zeroes the output first), no float
+//     atomics: two calls give the same bits.
 // The taps follow the footprint-packed lookup the plain version
 // differentiates (`pack_footprint`): above the first row's centre the
 // weight of the second row is 0, and the second row is min(y0 + 1, H - 1).
 //
-// What bounds it on this card: memory and latency. The forward reads 40 or
-// 48 bytes of a ray's outputs and eight texels (cached: the pyramid of an
-// envmap is small beside L2) and writes 12 bytes; the backward writes a
-// ray's eight taps (key and three weights, 128 bytes), which the sort
-// reads and writes again, and the sum reads each tap once. One thread a
-// ray, 256 threads a block; the sum's warps read their runs contiguously.
+// What bounds it on this card: memory. The forward reads 40 or 48 bytes of
+// a ray's outputs and eight texels (cached: the pyramid of an envmap is
+// small beside L2) and writes 12 bytes; the backward's taps write 128
+// bytes a ray (a key and three weights a tap), the sort reads and writes
+// 8 bytes a tap a pass, and the sums read 8 bytes a tap and gather its 12
+// bytes of weights. Work per thread is bounded by a tile everywhere.
 //
 // Build with -fmad=false and without fast math, as megakernel.cu.
 
@@ -46,8 +61,16 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxMips = 16;
 constexpr int kTaps = 8;
+constexpr int kSortItems = 8;  // keys a thread in a sort pass
+constexpr int kSortTile = kThreads * kSortItems;
+constexpr int kMaxDigitBits = 8;
+constexpr int kMaxRadix = 1 << kMaxDigitBits;
+constexpr int kNoDigit = kMaxRadix;  // a key the pass does not move
+constexpr int kSumItems = 16;        // consecutive keys a lane in the sums
+constexpr int kSumTile = 32 * kSumItems;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kPi = 3.14159265358979323846f;
@@ -77,8 +100,8 @@ struct Lookup {
   bool level_moves;  // d level / d rough = range (else 0)
 };
 
-__device__ __forceinline__ Lookup lookup(const SkyParams& p, int i) {
-  const float* o = p.outputs + static_cast<size_t>(i) * p.n_out;
+// `o` is the ray's row of outputs, in device memory or in registers.
+__device__ __forceinline__ Lookup lookup(const SkyParams& p, const float* o) {
   // envmap.py dir_to_equirect_uv: normalize, atan2 for u, acos for v
   const float x0 = o[7], y0 = o[8], z0 = o[9];
   const float nrm = sqrtf(x0 * x0 + y0 * y0 + z0 * z0);
@@ -156,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   const float* o = p.outputs + static_cast<size_t>(i) * p.n_out;
-  const Lookup L = lookup(p, i);
+  const Lookup L = lookup(p, o);
   int t[4];
   float wx, wy;
   bilinear(p.mips, L.l0, L.u, L.v, t, wx, wy);
@@ -172,11 +195,11 @@ __global__ void __launch_bounds__(kThreads)
   color[3 * i + 2] = o[2] + s.z * o[5] * L.w_mis;
 }
 
-// Writes the four taps of a bilinear lookup from slot j: texels t (or -1
-// where the ray never reached the sky) and their shares of the lookup's
-// cotangent ga, top + (bot - top) wy with top = c00 + (c01 - c00) wx, as
-// autograd takes them.
-__device__ __forceinline__ void put_taps(int* keys, float* wts, size_t j,
+// Writes the four taps of a bilinear lookup from slot j of the block's
+// staging area: texels t (or -1 where the ray never reached the sky) and
+// their shares of the lookup's cotangent ga, top + (bot - top) wy with
+// top = c00 + (c01 - c00) wx, as autograd takes them.
+__device__ __forceinline__ void put_taps(int* keys, float* wts, int j,
                                          const int (&t)[4], float wx, float wy,
                                          float3 ga, bool reached) {
   const float3 gtop = make_float3(ga.x - ga.x * wy, ga.y - ga.y * wy,
@@ -193,98 +216,506 @@ __device__ __forceinline__ void put_taps(int* keys, float* wts, size_t j,
   }
 }
 
+// A ray's row of outputs in registers, by 16-byte loads (12 columns) or
+// 8-byte loads (10).
+__device__ __forceinline__ void load_row(const SkyParams& p, int i,
+                                         float (&o)[12]) {
+  if (p.n_out == 12) {
+    const float4* r = reinterpret_cast<const float4*>(p.outputs) + 3 * i;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float4 v = __ldg(r + c);
+      o[4 * c] = v.x;
+      o[4 * c + 1] = v.y;
+      o[4 * c + 2] = v.z;
+      o[4 * c + 3] = v.w;
+    }
+  } else {
+    const float2* r = reinterpret_cast<const float2*>(p.outputs) + 5 * i;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      const float2 v = __ldg(r + c);
+      o[2 * c] = v.x;
+      o[2 * c + 1] = v.y;
+    }
+    o[10] = o[11] = 0.0f;
+  }
+}
+
+// The block's digit counts: each thread's kSortItems digits (kNoDigit is
+// not counted) into its warp's row of h, one add by the first lane of each
+// group of equal digits in a step (no atomics), then the warps' rows summed
+// into column `tile` of hist (a row of n_tiles a digit).
+__device__ __forceinline__ void block_histogram(
+    const int (&digit)[kSortItems], int radix, int (*h)[kMaxRadix],
+    int* hist, int n_tiles, int tile) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int d = lane; d < radix; d += 32) h[warp][d] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kSortItems; ++s) {
+    const unsigned peers = __match_any_sync(kFull, digit[s]);
+    if (digit[s] != kNoDigit && lane == __ffs(peers) - 1)
+      h[warp][digit[s]] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < radix; d += kThreads) {
+    int c = 0;
+    for (int w = 0; w < kWarps; ++w) c += h[w][d];
+    hist[d * n_tiles + tile] = c;
+  }
+}
+
 // The cotangents of one ray's lookup, as autograd takes them through
 // `deferred_sky`: g = ct * w * matten reaches the blend a + (b - a) frac
 // as g - g frac and g frac, then each mip's four taps (`put_taps`); the
 // miss attenuation gets ct * w * sky and the accumulated roughness
 // range * sum_c g_c (b_c - a_c) where the level is inside [0, n - 1].
 // With keys null (no mip wants a cotangent) the taps are not written.
+// The block's taps go to shared memory first, then out as 16-byte vectors:
+// the block's 2,048 keys and 6,144 weights are contiguous in the output.
+// With hist (the ordering's first pass, whose tile of 2,048 keys is this
+// block's taps) the block also writes its keys' first-digit counts, as
+// sky_radix_count would.
 __global__ void __launch_bounds__(kThreads)
     sky_backward_taps(SkyParams p, const float* ct, float* d_out, int* keys,
-                      float* wts) {
+                      float* wts, int* hist, int digit_bits, int n_texels) {
+  __shared__ __align__(16) int s_keys[kThreads * kTaps];
+  __shared__ __align__(16) float s_wts[kThreads * kTaps * 3];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-  const float* o = p.outputs + static_cast<size_t>(i) * p.n_out;
-  const Lookup L = lookup(p, i);
-  const float3 cw = make_float3(ct[3 * i] * L.w_mis, ct[3 * i + 1] * L.w_mis,
-                                ct[3 * i + 2] * L.w_mis);
-  const float3 g = make_float3(cw.x * o[3], cw.y * o[4], cw.z * o[5]);
-  const bool reached = o[3] != 0.0f || o[4] != 0.0f || o[5] != 0.0f;
-  const size_t j0 = static_cast<size_t>(i) * kTaps;
-  int t[4];
-  float wx, wy;
-  bilinear(p.mips, L.l0, L.u, L.v, t, wx, wy);
-  float3 s = bilinear_value(p.atlas, t, wx, wy);
-  float3 ga = g;
-  float d_rough = 0.0f;
-  if (p.mips.n > 1) {
-    int t1[4];
-    float wx1, wy1;
-    bilinear(p.mips, L.l1, L.u, L.v, t1, wx1, wy1);
-    const float3 b = bilinear_value(p.atlas, t1, wx1, wy1);
-    const float d_frac = g.x * (b.x - s.x) + g.y * (b.y - s.y) +
-                         g.z * (b.z - s.z);
-    if (L.level_moves) d_rough = d_frac * p.range;
-    s = make_float3(s.x + (b.x - s.x) * L.frac, s.y + (b.y - s.y) * L.frac,
-                    s.z + (b.z - s.z) * L.frac);
-    ga = make_float3(g.x - g.x * L.frac, g.y - g.y * L.frac,
-                     g.z - g.z * L.frac);
-    if (keys != nullptr) {
-      put_taps(keys, wts, j0 + 4, t1, wx1, wy1,
-               make_float3(g.x * L.frac, g.y * L.frac, g.z * L.frac),
-               reached);
+  const bool taps = keys != nullptr;  // the same for the whole grid
+  if (i < p.n) {
+    float o[12];
+    load_row(p, i, o);
+    const Lookup L = lookup(p, o);
+    const float3 cw = make_float3(ct[3 * i] * L.w_mis,
+                                  ct[3 * i + 1] * L.w_mis,
+                                  ct[3 * i + 2] * L.w_mis);
+    const float3 g = make_float3(cw.x * o[3], cw.y * o[4], cw.z * o[5]);
+    const bool reached = o[3] != 0.0f || o[4] != 0.0f || o[5] != 0.0f;
+    const int j0 = threadIdx.x * kTaps;
+    int t[4];
+    float wx, wy;
+    bilinear(p.mips, L.l0, L.u, L.v, t, wx, wy);
+    float3 s = bilinear_value(p.atlas, t, wx, wy);
+    float3 ga = g;
+    float d_rough = 0.0f;
+    if (p.mips.n > 1) {
+      int t1[4];
+      float wx1, wy1;
+      bilinear(p.mips, L.l1, L.u, L.v, t1, wx1, wy1);
+      const float3 b = bilinear_value(p.atlas, t1, wx1, wy1);
+      const float d_frac = g.x * (b.x - s.x) + g.y * (b.y - s.y) +
+                           g.z * (b.z - s.z);
+      if (L.level_moves) d_rough = d_frac * p.range;
+      s = make_float3(s.x + (b.x - s.x) * L.frac, s.y + (b.y - s.y) * L.frac,
+                      s.z + (b.z - s.z) * L.frac);
+      ga = make_float3(g.x - g.x * L.frac, g.y - g.y * L.frac,
+                       g.z - g.z * L.frac);
+      if (taps) {
+        put_taps(s_keys, s_wts, j0 + 4, t1, wx1, wy1,
+                 make_float3(g.x * L.frac, g.y * L.frac, g.z * L.frac),
+                 reached);
+      }
+    } else if (taps) {
+      for (int c = 4; c < kTaps; ++c) {
+        s_keys[j0 + c] = -1;
+        s_wts[3 * (j0 + c)] = s_wts[3 * (j0 + c) + 1] =
+            s_wts[3 * (j0 + c) + 2] = 0.0f;
+      }
     }
-  } else if (keys != nullptr) {
-    for (int c = 4; c < kTaps; ++c) keys[j0 + c] = -1;
+    if (taps) put_taps(s_keys, s_wts, j0, t, wx, wy, ga, reached);
+    reinterpret_cast<float4*>(d_out)[i] =
+        make_float4(cw.x * s.x, cw.y * s.y, cw.z * s.z, d_rough);
   }
-  if (keys != nullptr) put_taps(keys, wts, j0, t, wx, wy, ga, reached);
-  d_out[4 * i] = cw.x * s.x;
-  d_out[4 * i + 1] = cw.y * s.y;
-  d_out[4 * i + 2] = cw.z * s.z;
-  d_out[4 * i + 3] = d_rough;
+  if (!taps) return;
+  __syncthreads();
+  // the block's rays [r0, r0 + nr): 2 int4 of keys and 6 float4 of
+  // weights a ray, copied out with neighbouring threads on neighbouring
+  // vectors
+  const int r0 = blockIdx.x * kThreads;
+  const int nr = min(kThreads, p.n - r0);
+  int4* k_out = reinterpret_cast<int4*>(keys + static_cast<size_t>(r0) * kTaps);
+  float4* w_out =
+      reinterpret_cast<float4*>(wts + static_cast<size_t>(r0) * kTaps * 3);
+  const int4* k_in = reinterpret_cast<const int4*>(s_keys);
+  const float4* w_in = reinterpret_cast<const float4*>(s_wts);
+  for (int c = threadIdx.x; c < 2 * nr; c += kThreads) k_out[c] = k_in[c];
+  for (int c = threadIdx.x; c < 6 * nr; c += kThreads) w_out[c] = w_in[c];
+  if (hist == nullptr) return;
+  __syncthreads();  // the weights are out: their staging area takes counts
+  int(*h)[kMaxRadix] = reinterpret_cast<int(*)[kMaxRadix]>(s_wts);
+  int digit[kSortItems];
+#pragma unroll
+  for (int s = 0; s < kSortItems; ++s) {
+    const int slot = s * kThreads + threadIdx.x;
+    const int k = s_keys[slot];
+    digit[s] = slot < kTaps * nr && k >= 0 && k < n_texels
+                   ? k & ((1 << digit_bits) - 1)
+                   : kNoDigit;
+  }
+  block_histogram(digit, 1 << digit_bits, h, hist, gridDim.x, blockIdx.x);
 }
 
-// First j in [0, m) with keys[j] >= key (keys ascending).
-__device__ __forceinline__ int lower_bound(const int* keys, int m, int key) {
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+// An exclusive scan of one int a thread across the block, in thread
+// order; `total` gets the block's sum. Every thread of the block calls it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int& total) {
+  __shared__ int warp_sums[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
   }
-  return lo;
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_sums[w];
+    if (w < warp) before += c;
+    total += c;
+  }
+  __syncthreads();
+  return before + x - v;
 }
 
-// out[t] = sum of wts[perm[j]] over the run of texel t in the sorted keys,
-// one warp a texel, in a fixed order.
+// One pass of the ordering: the digit (key >> shift) & (2^bits - 1) of the
+// pass's keys. The first pass reads the taps' keys, drops those outside
+// [0, n_texels) and numbers the rest by their tap index; a later pass reads
+// the pass before's keys and tap indices, `*count` of them.
+struct SortPass {
+  const int* keys;
+  const int* idx;    // null in the first pass: the index is the position
+  const int* count;  // null in the first pass: m keys
+  int m;             // the first pass's keys, and a bound on every pass's
+  int n_texels;
+  int shift, bits;
+  int n_tiles;  // tiles of m keys: the length of a histogram row
+};
+
+__device__ __forceinline__ int pass_count(const SortPass& p) {
+  return p.count == nullptr ? p.m : *p.count;
+}
+
+// The pass's key j (-1 past the n keys).
+__device__ __forceinline__ int pass_key(const SortPass& p, int j, int n) {
+  return j < n ? __ldg(p.keys + j) : -1;
+}
+
+// The digit of a key; kNoDigit past the keys, and in the first pass for a
+// key outside [0, n_texels). A later pass reads only keys it moved.
+__device__ __forceinline__ int pass_digit(const SortPass& p, int key,
+                                          bool in) {
+  if (!in || (p.idx == nullptr && (key < 0 || key >= p.n_texels)))
+    return kNoDigit;
+  return (key >> p.shift) & ((1 << p.bits) - 1);
+}
+
+// hist[d * n_tiles + tile]: the keys of digit d in the tile (2,048 keys a
+// block), by `block_histogram`.
 __global__ void __launch_bounds__(kThreads)
-    sky_scatter_sum(const int* keys, const long long* perm, const float* wts,
-                    int m, int n_texels, float* out) {
-  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (t >= n_texels) return;  // whole warps leave together
-  const int lo = lower_bound(keys, m, t);
-  const int hi = lower_bound(keys, m, t + 1);
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  for (int j = lo + lane; j < hi; j += 32) {
-    const long long q = __ldg(perm + j);
-    sx += __ldg(wts + 3 * q);
-    sy += __ldg(wts + 3 * q + 1);
-    sz += __ldg(wts + 3 * q + 2);
+    sky_radix_count(SortPass p, int* hist) {
+  __shared__ int h[kWarps][kMaxRadix];
+  const int n = pass_count(p);
+  const int base = blockIdx.x * kSortTile;
+  int key[kSortItems], digit[kSortItems];
+#pragma unroll
+  for (int s = 0; s < kSortItems; ++s)
+    key[s] = pass_key(p, base + s * kThreads + threadIdx.x, n);
+#pragma unroll
+  for (int s = 0; s < kSortItems; ++s)
+    digit[s] = pass_digit(p, key[s], base + s * kThreads + threadIdx.x < n);
+  block_histogram(digit, 1 << p.bits, h, hist, p.n_tiles, blockIdx.x);
+}
+
+// Per digit (one block each): the exclusive scan of its row of tile counts,
+// in tile order, in place; totals[d] the digit's keys.
+__global__ void __launch_bounds__(kThreads)
+    sky_radix_scan(int* hist, int n_tiles, int* totals) {
+  int* row = hist + static_cast<size_t>(blockIdx.x) * n_tiles;
+  const int per = (n_tiles + kThreads - 1) / kThreads;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, n_tiles);
+  const int hi = min(lo + per, n_tiles);
+  int sum = 0;
+  for (int t = lo; t < hi; ++t) sum += row[t];
+  int total;
+  int run = block_exclusive_scan(sum, total);
+  for (int t = lo; t < hi; ++t) {
+    const int c = row[t];
+    row[t] = run;
+    run += c;
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = total;
+}
+
+// The stable scatter of one pass. Warp w of a block takes keys
+// [base + 256 w, base + 256 (w + 1)) in eight 32-key steps; a key's rank
+// among the equal digits before it in its warp is its lanes' match
+// (__match_any_sync) below it plus the warp's earlier steps; the warps'
+// counts are added in warp order, after the digits before it (totals, in
+// digit order) and the tiles before it (the scanned histogram). So the
+// keys leave in the order of a stable sort by digit. The block first puts
+// its keys in that order in shared memory, then writes them out with
+// neighbouring threads on neighbouring slots (a digit's keys of a tile are
+// contiguous in the output). The first pass writes the number of keys it
+// kept to *count_out.
+__global__ void __launch_bounds__(kThreads)
+    sky_radix_scatter(SortPass p, const int* hist, const int* totals,
+                      int* keys_out, int* idx_out, int* count_out) {
+  __shared__ int cnt[kWarps][kMaxRadix];
+  __shared__ int tile_base[kMaxRadix];  // the digit's slot in the output,
+                                        // less its first slot in the tile
+  __shared__ int s_key[kSortTile], s_src[kSortTile];
+  const int radix = 1 << p.bits;
+  const int n = pass_count(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int total;
+  const int before = block_exclusive_scan(
+      static_cast<int>(threadIdx.x) < radix ? totals[threadIdx.x] : 0, total);
+  if (static_cast<int>(threadIdx.x) < radix)
+    tile_base[threadIdx.x] =
+        before + hist[threadIdx.x * p.n_tiles + blockIdx.x];
+  if (count_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    *count_out = total;
+  const int base = blockIdx.x * kSortTile;
+  if (base >= n) return;  // the whole block
+  for (int d = lane; d < radix; d += 32) cnt[warp][d] = 0;
+  __syncwarp();
+  const unsigned below = (1u << lane) - 1;
+  const int first = base + warp * 32 * kSortItems;
+  int key[kSortItems], src[kSortItems], digit[kSortItems], rank[kSortItems];
+#pragma unroll
+  for (int s = 0; s < kSortItems; ++s) {  // every load before the first use
+    const int j = first + 32 * s + lane;
+    key[s] = pass_key(p, j, n);
+    src[s] = p.idx == nullptr ? j : j < n ? __ldg(p.idx + j) : 0;
   }
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    sx += __shfl_down_sync(kFull, sx, s);
-    sy += __shfl_down_sync(kFull, sy, s);
-    sz += __shfl_down_sync(kFull, sz, s);
+  for (int s = 0; s < kSortItems; ++s) {
+    digit[s] = pass_digit(p, key[s], first + 32 * s + lane < n);
+    const unsigned peers = __match_any_sync(kFull, digit[s]);
+    const bool moves = digit[s] != kNoDigit;
+    if (moves) rank[s] = cnt[warp][digit[s]] + __popc(peers & below);
+    __syncwarp();
+    if (moves && lane == __ffs(peers) - 1)
+      cnt[warp][digit[s]] += __popc(peers);
+    __syncwarp();
   }
-  if (lane == 0) {
-    out[3 * t] = sx;
-    out[3 * t + 1] = sy;
-    out[3 * t + 2] = sz;
+  __syncthreads();
+  // the tile's keys of each digit, their first slot in the tile (digit
+  // order), and each warp's first slot for the digit (warp order)
+  const int d0 = threadIdx.x;
+  int in_tile = 0;
+  if (d0 < radix)
+    for (int w = 0; w < kWarps; ++w) in_tile += cnt[w][d0];
+  int kept;
+  const int start = block_exclusive_scan(d0 < radix ? in_tile : 0, kept);
+  if (d0 < radix) {
+    int run = start;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w][d0];
+      cnt[w][d0] = run;
+      run += c;
+    }
+    tile_base[d0] -= start;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kSortItems; ++s) {
+    if (digit[s] == kNoDigit) continue;
+    const int slot = cnt[warp][digit[s]] + rank[s];
+    s_key[slot] = key[s];
+    s_src[slot] = src[s];
+  }
+  __syncthreads();
+  const int mask = (1 << p.bits) - 1;
+  for (int slot = threadIdx.x; slot < kept; slot += kThreads) {
+    const int k = s_key[slot];
+    const int pos = tile_base[(k >> p.shift) & mask] + slot;
+    keys_out[pos] = k;
+    idx_out[pos] = s_src[slot];
+  }
+}
+
+// One level of the per-texel sums over `*count` ordered keys: level 0
+// reads the ordering (keys, tap indices into the taps' weights), a later
+// level the carries of the level before (keys and their partial sums).
+struct SumLevel {
+  const int* keys;
+  const int* idx;      // level 0: weights at vals[3 * idx[j]]; else null
+  const float* vals;
+  const int* count;
+  int* carry_keys;     // two slots a tile: its first and its last run
+  float* carry_vals;
+  int* count_out;      // the carries' number, 0 when this level is the last
+  float* out;          // [n_texels, 3], zeroed
+};
+
+// A lane's kSumItems consecutive keys and their weights, by 16-byte loads
+// where the lane's keys are all below `end` (every weight load issued
+// before the first is used); key -1 past the end.
+__device__ __forceinline__ void load_items(const SumLevel& p, int j0, int end,
+                                           int (&k)[kSumItems],
+                                           float (&v)[kSumItems][3]) {
+  if (j0 + kSumItems <= end) {
+    const int4* kv = reinterpret_cast<const int4*>(p.keys + j0);
+#pragma unroll
+    for (int c = 0; c < kSumItems / 4; ++c) {
+      const int4 q = __ldg(kv + c);
+      k[4 * c] = q.x;
+      k[4 * c + 1] = q.y;
+      k[4 * c + 2] = q.z;
+      k[4 * c + 3] = q.w;
+    }
+    if (p.idx != nullptr) {
+      int src[kSumItems];
+      const int4* iv = reinterpret_cast<const int4*>(p.idx + j0);
+#pragma unroll
+      for (int c = 0; c < kSumItems / 4; ++c) {
+        const int4 q = __ldg(iv + c);
+        src[4 * c] = q.x;
+        src[4 * c + 1] = q.y;
+        src[4 * c + 2] = q.z;
+        src[4 * c + 3] = q.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kSumItems; ++i) {
+        const float* w = p.vals + 3 * static_cast<size_t>(src[i]);
+        v[i][0] = __ldg(w);
+        v[i][1] = __ldg(w + 1);
+        v[i][2] = __ldg(w + 2);
+      }
+    } else {
+      const float4* vv =
+          reinterpret_cast<const float4*>(p.vals + 3 * static_cast<size_t>(j0));
+#pragma unroll
+      for (int c = 0; c < 3 * kSumItems / 4; ++c) {
+        const float4 q = __ldg(vv + c);
+        v[(4 * c) / 3][(4 * c) % 3] = q.x;
+        v[(4 * c + 1) / 3][(4 * c + 1) % 3] = q.y;
+        v[(4 * c + 2) / 3][(4 * c + 2) % 3] = q.z;
+        v[(4 * c + 3) / 3][(4 * c + 3) % 3] = q.w;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kSumItems; ++i) {
+    const int j = j0 + i;
+    k[i] = -1;
+    v[i][0] = v[i][1] = v[i][2] = 0.0f;
+    if (j < end) {
+      k[i] = __ldg(p.keys + j);
+      const size_t q = p.idx != nullptr
+                           ? static_cast<size_t>(__ldg(p.idx + j))
+                           : static_cast<size_t>(j);
+      v[i][0] = __ldg(p.vals + 3 * q);
+      v[i][1] = __ldg(p.vals + 3 * q + 1);
+      v[i][2] = __ldg(p.vals + 3 * q + 2);
+    }
+  }
+}
+
+// A warp a tile of kSumTile keys, lane l its keys [16 l, 16 l + 16). A key
+// is a head where it differs from the key before it (the tile's first key
+// always). The lane adds the keys since its last head one after another
+// (its partial, the earlier sum first); the lanes take an inclusive
+// segmented scan of (a head in the lane, its partial), Hillis-Steele over
+// 1, 2, 4, 8, 16 lanes, the lower lanes' sum added first, so lane l - 1's
+// result is the partial of the run that enters lane l. The lane then
+// walks its keys again from that partial; at a run's last key it holds the
+// run's sum: a run inside the tile is written to out, the tile's first and
+// last runs (a run that may cross into a neighbour) go to the tile's two
+// carry slots, (key, partial), the last slot (key, 0) where one run fills
+// the tile. With one tile left every run is whole and written.
+__global__ void __launch_bounds__(kThreads) sky_reduce_texels(SumLevel p) {
+  const int n = *p.count;
+  const int tiles = (n + kSumTile - 1) / kSumTile;
+  const bool last = tiles <= 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *p.count_out = last ? 0 : 2 * tiles;
+  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (tile >= tiles) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const int base = tile * kSumTile;
+  const int end = min(base + kSumTile, n);
+  const int k_first = __ldg(p.keys + base), k_last = __ldg(p.keys + end - 1);
+  int k[kSumItems];
+  float v[kSumItems][3];
+  load_items(p, base + lane * kSumItems, end, k, v);
+  const int k_before = __shfl_up_sync(kFull, k[kSumItems - 1], 1);
+  const int k_after = __shfl_down_sync(kFull, k[0], 1);
+  bool head[kSumItems];
+  bool any = false;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kSumItems; ++i) {
+    head[i] = i == 0 ? lane == 0 || k_before != k[0]
+                     : k[i > 0 ? i - 1 : 0] != k[i];
+    if (i == 0 || head[i]) {
+      ax = v[i][0];
+      ay = v[i][1];
+      az = v[i][2];
+    } else {
+      ax = ax + v[i][0];
+      ay = ay + v[i][1];
+      az = az + v[i][2];
+    }
+    any = any || head[i];
+  }
+  bool f = any;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float ux = __shfl_up_sync(kFull, ax, d);
+    const float uy = __shfl_up_sync(kFull, ay, d);
+    const float uz = __shfl_up_sync(kFull, az, d);
+    const int uf = __shfl_up_sync(kFull, static_cast<int>(f), d);
+    if (lane >= d) {
+      if (!f) {
+        ax = ux + ax;
+        ay = uy + ay;
+        az = uz + az;
+      }
+      f = f || uf != 0;
+    }
+  }
+  float rx = __shfl_up_sync(kFull, ax, 1);
+  float ry = __shfl_up_sync(kFull, ay, 1);
+  float rz = __shfl_up_sync(kFull, az, 1);
+#pragma unroll
+  for (int i = 0; i < kSumItems; ++i) {
+    if (head[i]) {
+      rx = v[i][0];
+      ry = v[i][1];
+      rz = v[i][2];
+    } else {
+      rx = rx + v[i][0];
+      ry = ry + v[i][1];
+      rz = rz + v[i][2];
+    }
+    const int next = i + 1 < kSumItems ? k[i + 1 < kSumItems ? i + 1 : i]
+                     : lane < 31 ? k_after : -1;
+    if (k[i] < 0 || next == k[i]) continue;
+    if (last || (k[i] != k_first && k[i] != k_last)) {
+      p.out[3 * static_cast<size_t>(k[i])] = rx;
+      p.out[3 * static_cast<size_t>(k[i]) + 1] = ry;
+      p.out[3 * static_cast<size_t>(k[i]) + 2] = rz;
+    } else {
+      const int slot = 2 * tile + (k[i] == k_first ? 0 : 1);
+      p.carry_keys[slot] = k[i];
+      p.carry_vals[3 * slot] = rx;
+      p.carry_vals[3 * slot + 1] = ry;
+      p.carry_vals[3 * slot + 2] = rz;
+    }
+  }
+  if (!last && k_first == k_last && lane == 0) {
+    p.carry_keys[2 * tile + 1] = k_first;
+    p.carry_vals[3 * (2 * tile + 1)] = 0.0f;
+    p.carry_vals[3 * (2 * tile + 1) + 1] = 0.0f;
+    p.carry_vals[3 * (2 * tile + 1) + 2] = 0.0f;
   }
 }
 
@@ -338,32 +769,122 @@ extern "C" int halogen_sky_forward(const float* outputs, const float* atlas,
   return static_cast<int>(cudaGetLastError());
 }
 
+// With hist (and keys), also the ordering's first-pass digit counts of
+// the taps (`digit_bits` bits of the keys in [0, n_texels)), as
+// halogen_sky_order's hist, which it then need not count.
 extern "C" int halogen_sky_backward(const float* outputs, const float* atlas,
                                     const float* pdf, const int* mips,
                                     const float* ct, float* d_out, int* keys,
-                                    float* wts, int n, int n_out, int pdf_h,
-                                    int pdf_w, int bias, int nee,
+                                    float* wts, int* hist, int n, int n_out,
+                                    int pdf_h, int pdf_w, int bias, int nee,
+                                    int digit_bits, int n_texels,
                                     float base_level, float range,
                                     void* stream) {
   SkyParams p;
   if (!make_params(p, outputs, atlas, pdf, mips, n, n_out, pdf_h, pdf_w,
                    bias, nee, base_level, range))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hist != nullptr &&
+      (keys == nullptr || digit_bits < 1 || digit_bits > kMaxDigitBits))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   sky_backward_taps<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(p, ct, d_out, keys,
-                                                           wts);
+                      static_cast<cudaStream_t>(stream)>>>(
+      p, ct, d_out, keys, wts, hist, digit_bits, n_texels);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int halogen_sky_scatter(const int* keys, const long long* perm,
-                                   const float* wts, float* out, int m,
-                                   int n_texels, void* stream) {
-  if (n_texels <= 0) return static_cast<int>(cudaSuccess);
-  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = 32ll * n_texels;
-  sky_scatter_sum<<<static_cast<int>((threads + kThreads - 1) / kThreads),
-                    kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, perm, wts, m, n_texels, out);
-  return static_cast<int>(cudaGetLastError());
+// The ordering: `passes` stable passes of `digit_bits` bits over the m
+// keys, the last into keys_out and idx_out (tap indices), the others into
+// keys_tmp and idx_tmp; hist holds 2^digit_bits rows of ceil(m / 2048)
+// tile counts (with `counted`, the first pass's are there already:
+// halogen_sky_backward's), totals 2^digit_bits ints; *count gets the
+// number of keys in [0, n_texels), the length of the order.
+extern "C" int halogen_sky_order(const int* keys, int* keys_out,
+                                 int* idx_out, int* keys_tmp, int* idx_tmp,
+                                 int* hist, int* totals, int* count, int m,
+                                 int n_texels, int passes, int digit_bits,
+                                 int counted, void* stream) {
+  if (m <= 0 || n_texels <= 0 || passes < 1 || digit_bits < 1 ||
+      digit_bits > kMaxDigitBits || passes * digit_bits > 31 ||
+      (n_texels - 1) >> (passes * digit_bits) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  SortPass p;
+  p.keys = keys;
+  p.idx = nullptr;
+  p.count = nullptr;
+  p.m = m;
+  p.n_texels = n_texels;
+  p.bits = digit_bits;
+  p.n_tiles = (m + kSortTile - 1) / kSortTile;
+  const int radix = 1 << digit_bits;
+  for (int pass = 0; pass < passes; ++pass) {
+    const bool to_out = (passes - 1 - pass) % 2 == 0;
+    int* k_out = to_out ? keys_out : keys_tmp;
+    int* i_out = to_out ? idx_out : idx_tmp;
+    p.shift = pass * digit_bits;
+    if (pass > 0 || !counted)
+      sky_radix_count<<<p.n_tiles, kThreads, 0, st>>>(p, hist);
+    sky_radix_scan<<<radix, kThreads, 0, st>>>(hist, p.n_tiles, totals);
+    sky_radix_scatter<<<p.n_tiles, kThreads, 0, st>>>(
+        p, hist, totals, k_out, i_out, pass == 0 ? count : nullptr);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    p.keys = k_out;
+    p.idx = i_out;
+    p.count = count;
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// The number of launches of the sums over m ordered keys: the first level
+// and the carries' levels (`kernels/sky.py` _sum_plan).
+static int sum_levels(int m) {
+  int levels = 1;
+  for (long long ub = m; ub > kSumTile; ++levels)
+    ub = 2 * ((ub + kSumTile - 1) / kSumTile);
+  return levels;
+}
+
+// out[t] = the sum of wts[idx[j]] over the run of texel t in the ordered
+// keys, *count of them (out is zeroed first); carry_keys / carry_vals hold
+// two buffers
+// of `cap` slots (ping-pong between levels; cap a multiple of 4, so that
+// both are 16-byte aligned), counts one int a level.
+extern "C" int halogen_sky_sum(const int* keys, const int* idx,
+                               const float* wts, const int* count,
+                               int* carry_keys, float* carry_vals,
+                               int* counts, float* out, int m, int cap,
+                               int n_levels, int n_texels, void* stream) {
+  if (m <= 0 || n_texels <= 0 || n_levels != sum_levels(m) ||
+      cap % 4 != 0 || cap < 2 * ((m + kSumTile - 1) / kSumTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t zeroed = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(n_texels) * 3 * sizeof(float), st);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  SumLevel p;
+  p.keys = keys;
+  p.idx = idx;
+  p.vals = wts;
+  p.count = count;
+  p.out = out;
+  long long ub = m;
+  for (int level = 0; level < n_levels; ++level) {
+    p.carry_keys = carry_keys + static_cast<size_t>(level % 2) * cap;
+    p.carry_vals = carry_vals + static_cast<size_t>(level % 2) * cap * 3;
+    p.count_out = counts + level;
+    const long long tiles = (ub + kSumTile - 1) / kSumTile;
+    sky_reduce_texels<<<static_cast<int>((tiles + kWarps - 1) / kWarps),
+                        kThreads, 0, st>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    p.keys = p.carry_keys;
+    p.idx = nullptr;
+    p.vals = p.carry_vals;
+    p.count = p.count_out;
+    ub = 2 * tiles;
+  }
+  return static_cast<int>(cudaSuccess);
 }

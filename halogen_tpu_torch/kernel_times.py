@@ -35,10 +35,17 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     B2c and B2c+n (the `envmap_1024` rays, without and with env NEE), each
     with a random cotangent of the miss attenuation and roughness; and the
     sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
-    backward`, its taps, the sort by texel and the per-texel sums).
+    backward`, its taps, the ordering by texel and the per-texel sums),
+    and the backward's stages alone: `sky backward taps` (where the tree's
+    taps kernel counts the ordering's first pass, with it), `sky
+    ordering` (with its first pass's count) and `sky sums` of the taps,
+    and the whole scatter of the taps (`sky scatter: taps`) and of
+    B2c+n's env-NEE records at the same rays (`sky scatter: records`).
 Each is launched once (a warm-up), then timed by CUDA events over two runs
 of 10 launches, and by `torch.profiler` device time per launch of the
-kernel itself (the adjoint's block-sum kernel is in its event time only).
+kernel itself (the adjoint's block-sum kernel is in its event time only);
+the sky backward and its stages by the device time of every kernel a call
+launches, per call, split by kernel name.
 Printed: the card's name and power limit, each kernel's registers and
 spills from nvcc's `-Xptxas -v`, the times, and as the last line one JSON
 object of them; `--out` also writes that line to a file.
@@ -83,6 +90,62 @@ def _resources(log: str) -> dict:
         if m and cur:
             out[cur] = [int(m.group(1)), spill]
     return out
+
+
+def _sky_stages(sky_k, adj, mk, spheres, st_e, r_e, out_e, ct_e):
+    """The sky backward's stages on the `envmap_1024` rays, each timed per
+    call with every device kernel it launches: the taps; the ordering by
+    texel of the taps and the per-texel sums (this tree's kernels where it
+    has them, `order_texels`'s; else `torch.sort(stable=True)`, then its
+    sum kernel on the sorted keys); and the whole scatter of the taps and
+    of the adjoint's env-NEE records (B2c+n at the same rays)."""
+    import ctypes
+
+    import torch
+
+    dev = out_e.device
+    _, keys, wts = sky_k.sky_backward(spheres, st_e, out_e, ct_e)
+    n_tex = sum(int(m.shape[0] * m.shape[1]) for m in spheres.env_mips)
+    taps = lambda: sky_k.sky_backward(spheres, st_e, out_e, ct_e)
+    if hasattr(sky_k, "_workspace"):  # the taps kernel counts the first pass
+        order = sky_k._workspace(keys.shape[0], n_tex, dev)
+        taps = lambda: sky_k.sky_backward(spheres, st_e, out_e, ct_e,
+                                          order=order)
+    jobs = {"sky backward taps": (taps, None)}
+    if hasattr(sky_k, "order_texels"):
+        st = torch.cuda.current_stream(dev).cuda_stream
+        ordered = sky_k._order(keys, n_tex, st)
+        jobs["sky ordering"] = (lambda: sky_k._order(keys, n_tex, st), None)
+        jobs["sky sums"] = (lambda: sky_k._sums(*ordered, wts, n_tex, st),
+                            None)
+    else:
+        ordered, perm = torch.sort(keys, stable=True)
+
+        def sums():
+            out = torch.empty((n_tex, 3), device=dev)
+            err = sky_k._lib().halogen_sky_scatter(
+                ordered.data_ptr(), perm.data_ptr(), wts.data_ptr(),
+                out.data_ptr(), keys.shape[0], n_tex,
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            if err != 0:
+                raise RuntimeError(f"sky scatter launch failed: {err}")
+
+        jobs["sky ordering"] = (lambda: torch.sort(keys, stable=True), None)
+        jobs["sky sums"] = (sums, None)
+    jobs["sky scatter: taps"] = (
+        lambda: sky_k.scatter_texels(keys, wts, n_tex), None)
+    c, o_, d_, s_, e_ = r_e
+    n, slots = o_.shape[0], st_e.max_bounces + 1
+    rec = (torch.empty((n, slots), dtype=torch.int32, device=dev),
+           torch.empty((n, slots, 3), device=dev))
+    d4 = sky_k.sky_backward(spheres, st_e, out_e, ct_e)[0]
+    adj._launch(spheres, o_, d_, c.far, s_, e_, ct_e, st_e,
+                mk._scene_tables(spheres), gsky=d4,
+                env_tab=mk.env_table(spheres), records=rec)
+    h, w = spheres.env_cdf.pdf.shape
+    jobs["sky scatter: records"] = (lambda: sky_k.scatter_texels(
+        rec[0].reshape(-1), rec[1].reshape(-1, 3), h * w), None)
+    return jobs
 
 
 def main(argv=None) -> int:
@@ -248,7 +311,9 @@ def main(argv=None) -> int:
             lambda: sky_k.sky_forward(spheres, st_e, out_e), "sky_forward")
         jobs["sky backward"] = (
             lambda: sky_k.sky_backward_full(spheres, st_e, out_e, ct_e),
-            "sky_")
+            None)
+        jobs.update(_sky_stages(sky_k, adj, mk, spheres, st_e, r_e, out_e,
+                                ct_e))
     if hasattr(adj, "transcript_route"):  # the routes, where there are two
         for name, sc, st in (("B2", cornell_sc, st_a), ("B2b", glass, st_g),
                              ("B2b@16", glass, st_g16)):
@@ -270,12 +335,23 @@ def main(argv=None) -> int:
 
     def device_ms(fn, key, reps=10):
         # the mean over the launches the profiler recorded (it can drop
-        # events); every job launches its kernel once a call
+        # events); every job with a key launches its kernel once a call;
+        # with key None, every device kernel of a call, per call, and the
+        # split by kernel name
         acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        if key is None:
+            rows = [r for r in prof.key_averages() if _self_device_us(r) > 0]
+            split = {}
+            for r in rows:
+                name = r.key.replace("(anonymous namespace)::", "").split(
+                    "(")[0][:48]
+                split[name] = split.get(name, 0.0) + (
+                    _self_device_us(r) / 1e3 / reps)
+            return sum(split.values()), split
         rows = [r for r in prof.key_averages() if key in r.key]
         count = sum(r.count for r in rows)
         if not count:  # it kept none of them
@@ -287,9 +363,15 @@ def main(argv=None) -> int:
         fn()
         torch.cuda.synchronize()
         ev = [events_ms(fn), events_ms(fn)]
-        times[name] = {"events_ms": ev, "device_ms": device_ms(fn, key)}
+        dev_ms, split = device_ms(fn, key), None
+        if key is None:
+            dev_ms, split = dev_ms
+        times[name] = {"events_ms": ev, "device_ms": dev_ms}
+        if split is not None:
+            times[name]["device_ms_by_kernel"] = split
         print(f"{name}: events {ev[0]:.4f}, {ev[1]:.4f} ms; device "
-              f"{times[name]['device_ms']:.4f} ms | {card}", flush=True)
+              f"{dev_ms:.4f} ms{'' if split is None else f' {split}'} | "
+              f"{card}", flush=True)
     result = {"card": card, "tree": root, "no_refill": args.no_refill,
               "nvcc_flags": mk.NVCC_FLAGS,
               "build_seconds": mk.BUILD_SECONDS, "resources": res,

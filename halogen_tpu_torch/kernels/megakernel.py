@@ -90,8 +90,9 @@ LIBRARIES = {
     "adjoint": {"halogen_adjoint_launch": (19, 15, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
     "sky": {"halogen_sky_forward": (5, 6, 2),
-            "halogen_sky_backward": (8, 6, 2),
-            "halogen_sky_scatter": (4, 2, 0)},
+            "halogen_sky_backward": (9, 8, 2),
+            "halogen_sky_order": (8, 5, 0),
+            "halogen_sky_sum": (8, 4, 0)},
 }
 _HEADERS = ("path_common.cuh", "geometry.cuh", "bvh_traverse.cuh")
 

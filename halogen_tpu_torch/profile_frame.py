@@ -41,8 +41,10 @@ variant). Printed:
     one stream, so they do not overlap), the idle share of the profiled
     frame and of the median unprofiled frame, the number of
     `cudaLaunchKernel` calls and `aten::` op calls, the megakernel's and
-    the adjoint's launches and device time, and the device kernels that
-    take the most time.
+    the adjoint's launches and device time, the sky kernels' (with
+    `--grad` the backward's ordering and sums apart for the scatter of
+    the sky's taps and that of the adjoint's env-NEE records), and the
+    device kernels that take the most time.
 
 The last line is one JSON object of these numbers; `--out` also writes it
 to a file.
@@ -109,6 +111,40 @@ def _self_device_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def _short(key: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0][:40]
+
+
+def _sky_scatters(prof) -> dict:
+    """The device ms and launches of the sky backward's ordering
+    (`sky_radix_*`) and sums (`sky_reduce_texels`), apart for the scatter
+    of the sky's taps and that of the adjoint's env-NEE records: a group's
+    backward runs the sky backward (its taps kernel, then the scatter of
+    the taps), then the adjoint (then the scatter of its records), so a
+    scatter kernel belongs to the one of the two that ran last before it
+    on the stream."""
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    out, owner = {}, None
+    for e in events:
+        if "sky_backward_taps" in e.name:
+            owner = "taps"
+        elif "adjoint_kernel" in e.name:
+            owner = "records"
+        stage = ("ordering" if "sky_radix_" in e.name else
+                 "sums" if "sky_reduce_texels" in e.name else None)
+        if stage is None or owner is None:
+            continue
+        row = out.setdefault(owner, {"ordering_ms": 0.0, "sums_ms": 0.0,
+                                     "ordering_launches": 0,
+                                     "sums_launches": 0})
+        row[f"{stage}_ms"] += e.time_range.elapsed_us() / 1e3
+        row[f"{stage}_launches"] += 1
+    return out
 
 
 def main(argv=None) -> int:
@@ -203,7 +239,8 @@ def main(argv=None) -> int:
     mega = kernel_rows("megakernel", "megakernel_bvh")
     adjoint = kernel_rows("adjoint_kernel")
     sky_rows = [r for r in rows if _self_device_us(r) > 0
-                and r.key.startswith("sky_")]
+                and "sky_" in r.key]
+    scatters = _sky_scatters(prof)
 
     result = {
         "card": card,
@@ -228,9 +265,10 @@ def main(argv=None) -> int:
         "megakernel_ms": sum(_self_device_us(r) for r in mega) / 1e3,
         "adjoint_launches": sum(r.count for r in adjoint),
         "adjoint_ms": sum(_self_device_us(r) for r in adjoint) / 1e3,
-        "sky_kernels": {r.key[:40]: {"launches": r.count,
-                                     "ms": _self_device_us(r) / 1e3}
+        "sky_kernels": {_short(r.key): {"launches": r.count,
+                                        "ms": _self_device_us(r) / 1e3}
                         for r in sky_rows},
+        "sky_scatters": scatters,
         "cuda_launch_kernel_calls": launches,
         "aten_op_calls": aten_calls,
         "top_device_kernels": [
@@ -254,7 +292,8 @@ def main(argv=None) -> int:
           f"{result['megakernel_ms']:.3f} ms; adjoint "
           f"{result['adjoint_launches']} launches, "
           f"{result['adjoint_ms']:.3f} ms; sky kernels "
-          f"{result['sky_kernels']}")
+          f"{result['sky_kernels']}; the sky backward's two scatters "
+          f"{scatters}")
     for r in result["top_device_kernels"]:
         print(f"  {r['total_ms']:9.3f} ms  {r['count']:6d}x  {r['name']}")
     line = json.dumps(result)
