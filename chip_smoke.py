@@ -57,7 +57,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
  12. the `glass_box` and `envmap_nee` goldens rendered through the
      kernels, at `tests/test_golden.py`'s bounds;
  13. the registers and spill bytes of every variant (the adjoints' with
-     the transcript in shared and in device memory), and the forward
+     the transcript in shared and in device memory; those built before
+     B1e must equal `RESOURCES_BEFORE_B1E`), and the forward
      variants' and their plain versions' times at the launch shape
      (262144 rays): B1a at 6 bounces, the glass variant at 8, the env-NEE
      variant at 4;
@@ -207,19 +208,50 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      pass's figures; and a 10-step `fit_materials(optimize_env=True)` of
      the `envmap_1024` scene at 256x256 from a sky at half brightness and
      a perturbed albedo: the held-out loss must fall, every texel >= 0;
+ 32. the area-light NEE variants (B1e) vs their plain version, the
+     lockstep on the card (`Fused.OFF`'s closest hits: brute force up to
+     4096 triangles, B3 above), 64x64 pixels x 4 lanes: the Cornell box
+     (a triangle panel), `glow_orbs` (four sphere emitters), the blocked
+     plate of `tests/test_light_nee.py:74-92`, the glass box (B1b+e),
+     Cornell glossy under the sky with env NEE and light NEE (B1c+e), the
+     glass dragon (B1b+e+d) and `testing_scene(False)` (77,364 triangles
+     and a long CDF, B1e+d): per ray at phase 11's tolerance, with env NEE
+     or on the BVH tier the final direction and the continuation pdf held
+     where and as the sky pass reads them (phase 17); each scene's 256x256
+     frame through the kernel with its mean radiance within 2% of
+     `Fused.OFF`'s; then on the Cornell box at 256x256, 3 bounces, the
+     checks of `tests/test_light_nee.py:44-71`: the 96 spp NEE mean within
+     6% of the BRDF-only mean, and at 4 spp the NEE frame's mean error
+     (against 192 spp of NEE) under 0.75 times the BRDF-only frame's; the
+     light-NEE variants' registers and spills; B1e on phase 5's rays
+     (Cornell glossy, 6 bounces) and B1b+e+d on phase 19's (the glass
+     dragon, 12 bounces) timed beside B1a and B1b+d, with the work their
+     rays need and their bound; and `render_loss_grad` with light NEE
+     raising NotImplementedError (ROADMAP B2+l) before any launch;
+ 33. light NEE at full width: Cornell glossy (512x512, 32 spp, 6
+     bounces, `bench.py`'s), `glow_orbs` at 512x512 and the glass dragon
+     (512x512, 32 spp, 12 bounces): a warm-up and 2 timed frames each, the
+     launches, Mrays/s, and a profiled frame;
+ 34. the CLI on the card, in this process (`halogen_tpu_torch.cli.main`):
+     `render --preset cornell_glossy_512 --light-nee --frames 2` (the
+     preset's frames win, as in the JAX CLI), `bench --preset glass_dragon
+     --light-nee` (its JSON line), `debug-sobol`, `fit --steps 3 --width
+     64`, a render resumed from its checkpoint, and `--sharded` raising
+     NotImplementedError (ROADMAP A11); its files in a temporary
+     directory, removed after;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
-Phases 6, 9, 14, 15, 20 and 31 also profile one frame or step: the
+Phases 6, 9, 14, 15, 20, 31 and 33 also profile one frame or step: the
 `cudaLaunchKernel` calls, the device's busy time and its idle share; a
 Cornell and a glass-box frame must stay under 3,350 launches (a tenth of
 what they took when torch made the rays). A kernel's device time is the
 profiler's mean over the launches it kept; where it kept none in five
 sessions (it can drop events late in a long process) the time reads "not
 recorded" (null in the record) beside the CUDA-event time.
-The last lines are a JSON record of every kernel (B1a-d, B2, B2b, B2b+d,
-B2+d, B2c, B2c+n, the sky forward and backward, B3, and the routes B4-B6
-that B3's kernel serves) with its launches on its main
+The last lines are a JSON record of every kernel (B1a-e, B1e+d, B2, B2b,
+B2b+d, B2+d, B2c, B2c+n, the sky forward and backward, B3, and the routes
+B4-B6 that B3's kernel serves) with its launches on its main
 path, error, times, plain time, bound and library call, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -253,6 +285,10 @@ OPS_TRI, OPS_SPHERE, OPS_BOX = 55, 55, 27
 OPS_SHADE = 230  # an opaque hit: normals, draws, Fresnel, lobes, RR
 OPS_GLASS = 50  # + the refraction branch and Beer-Lambert
 OPS_NEE = 150  # + two glossy pdfs and the MIS weight (the draw is a row)
+# + light NEE: the point on a triangle or the cone direction (two sqrtf,
+# three divisions, a cosf and sinf), the two pdfs, one glossy pdf, the MIS
+# weight, and the emission's weight at the hit
+OPS_LNEE = 200
 OPS_ADJ = 100  # + the adjoint's reverse sweep of the bounce
 OPS_RAY = 90  # a primary ray made in the kernel (camera_ray; logf x 2)
 # the sky pass (csrc/sky.cu): a ray's lookup (normalize, atan2 and acos as
@@ -266,11 +302,30 @@ OPS_SKY_BWD = 150
 # a bit reversal 1): a 2D draw 71, a 1D draw 31
 OPS_INT_SHADE = 2 * 71 + 31  # a shaded bounce: two 2D draws and one 1D
 OPS_INT_NEE = 71  # + the env draw's 2D draw
+OPS_INT_LNEE = 71 + 31  # + light NEE's 2D and 1D draws
 OPS_INT_RAY = 2 * 71 + 12  # a primary ray: two 2D draws, seed and index
 # H100 SXM: fp32 (an FMA counted as two), HBM3. An int32 operation is
 # counted as two fp32 operations: -fmad=false kernels issue no FMA, and
 # int32 issues on half the lanes.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# (registers, spill-store bytes) of every variant that the parent of the
+# light-NEE variants (B1e) built, read from its nvcc `-Xptxas -v` output
+# (`kernel_times.py --tree` of that commit): the variants that include
+# the bounce body must keep them, so the switch that B1e added compiles
+# away where it is off
+RESOURCES_BEFORE_B1E = {
+    "B1a": (72, 0), "B1b": (89, 0), "B1c": (94, 0), "B1b+c": (96, 0),
+    "B1d": (84, 0), "B1b+d": (88, 0), "B1c+d": (92, 0), "B1b+c+d": (94, 0),
+    "B2": (79, 0), "B2 global": (80, 0), "B2+d": (78, 0),
+    "B2+d global": (79, 0), "B2b": (88, 0), "B2b global": (88, 0),
+    "B2b+c": (88, 0), "B2b+c global": (88, 0), "B2b+c+d": (94, 0),
+    "B2b+c+d global": (95, 0), "B2b+c+n": (125, 0),
+    "B2b+c+n global": (127, 0), "B2b+c+n+d": (96, 20),
+    "B2b+c+n+d global": (96, 20), "B2b+d": (94, 0), "B2b+d global": (95, 0),
+    "B2c": (79, 0), "B2c global": (80, 0), "B2c+d": (78, 0),
+    "B2c+d global": (79, 0), "B2c+n": (95, 0), "B2c+n global": (96, 0),
+    "B2c+n+d": (95, 0), "B2c+n+d global": (95, 0), "B3": (48, 0),
+}
 
 
 def _card() -> str:
@@ -297,7 +352,15 @@ def _cuda_ms(fn, reps: int) -> float:
 def _resources(log: str) -> dict:
     """Registers and spill-store bytes of every kernel variant, from
     nvcc's `-Xptxas -v` output: {name: (registers, spill bytes)}."""
-    names = {"megakernelILb0ELb0EE": "B1a", "megakernelILb1ELb0EE": "B1b",
+    names = {"megakernel_lightILb0ELb0EE": "B1e",
+             "megakernel_lightILb1ELb0EE": "B1b+e",
+             "megakernel_lightILb0ELb1EE": "B1c+e",
+             "megakernel_lightILb1ELb1EE": "B1b+c+e",
+             "megakernel_bvh_lightILb0ELb0EE": "B1e+d",
+             "megakernel_bvh_lightILb1ELb0EE": "B1b+e+d",
+             "megakernel_bvh_lightILb0ELb1EE": "B1c+e+d",
+             "megakernel_bvh_lightILb1ELb1EE": "B1b+c+e+d",
+             "megakernelILb0ELb0EE": "B1a", "megakernelILb1ELb0EE": "B1b",
              "megakernelILb0ELb1EE": "B1c", "megakernelILb1ELb1EE": "B1b+c",
              "megakernel_bvhILb0ELb0EE": "B1d",
              "megakernel_bvhILb1ELb0EE": "B1b+d",
@@ -343,10 +406,13 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
     """What the kernel's path needs on these rays, counted by the lockstep
     on the card with its closest hits brute-forced (or, for a BVH-tier
     scene, walked by B3, whose counters give the walk's tests): ray-bounce
-    intersections, shaded bounces, env-NEE shadow rays (the lanes whose
-    draw faces an opaque surface, as the kernel's), and the triangle, box
-    and sphere tests. A shadow ray's walk is counted as a closest-hit walk,
-    an upper bound on the kernel's any-hit walk."""
+    intersections, shaded bounces, env-NEE and light-NEE shadow rays (the
+    lanes whose draw faces an opaque surface, as the kernel's; for light
+    NEE an upper bound, which counts also the draws the kernel refuses
+    before its ray: the light itself, a grazing cosine), and the
+    triangle, box and sphere tests. A shadow ray's walk is counted as an
+    unbounded closest-hit walk, an upper bound on the kernel's any-hit or
+    bounded walk."""
     import torch
 
     import halogen_tpu_torch.integrator.trace as tr
@@ -355,7 +421,9 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
     from halogen_tpu_torch.kernels import traverse
 
     bvh, nee = mk.uses_bvh(scene), tr._use_nee(scene, st)
-    w = dict(rays=0, shaded=0, shadow=0, tri=0, box=0)
+    lnee = tr._use_light_nee(scene, st)
+    calls = 1 + int(nee) + int(lnee)  # intersections a bounce
+    w = dict(rays=0, shaded=0, shadow=0, lshadow=0, tri=0, box=0)
     state = {"calls": 0, "bounces": 0}
     isect0, walk0 = tr.intersect_scene, traverse.traverse_world
 
@@ -366,7 +434,10 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
         return out
 
     def isect(sc, origin, direction, far_, settings):
-        shadow = nee and state["calls"] % 2 == 1
+        call = state["calls"] % calls
+        shadow = call > 0
+        kind = "lshadow" if call == calls - 1 and lnee and shadow else (
+            "shadow" if shadow else "rays")
         state["calls"] += 1
         if shadow:  # the lanes that cast one (trace._pool_bounce's cand)
             h = state["hit"]
@@ -378,7 +449,7 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
         state["mask"] = mask
         hit = isect0(sc, origin, direction, far_, settings)
         n = int(mask.sum())
-        w["shadow" if shadow else "rays"] += n
+        w[kind] += n
         if not shadow:
             state["hit"], state["shaded"] = hit, mask & (hit.t < far_)
             w["shaded"] += int(state["shaded"].sum())
@@ -394,7 +465,7 @@ def _path_work(scene, o, d, far, sidx, seed, st) -> dict:
                       st.replace(intersector=kind))
     finally:
         tr.intersect_scene, traverse.traverse_world = isect0, walk0
-    w["sphere"] = (w["rays"] + w["shadow"]) * scene.num_spheres
+    w["sphere"] = (w["rays"] + w["shadow"] + w["lshadow"]) * scene.num_spheres
     # a warp without refill stays for its longest path: the mean trips of
     # a ray, and of each 32 consecutive rays' longest
     trips = state["bounces"].to(torch.float32)
@@ -415,12 +486,16 @@ def _bound(n_bytes: float, ops: float) -> tuple:
 
 
 def _path_ops(w: dict, glass: bool, nee: bool, adjoint: bool = False,
-              makes_rays: int = 0):
+              makes_rays: int = 0, lnee: bool = False):
     """fp32-equivalent operations of the work `w` (an int32 operation as
-    two); `makes_rays`: the primary rays the launch makes itself."""
+    two); `makes_rays`: the primary rays the launch makes itself; `lnee`:
+    light NEE's draw and weights on every shaded bounce (its shadow rays'
+    tests are in w)."""
     shade = (OPS_SHADE + (OPS_GLASS if glass else 0) + (OPS_NEE if nee
-             else 0) + (OPS_ADJ if adjoint else 0))
-    ints = (w["shaded"] * (OPS_INT_SHADE + (OPS_INT_NEE if nee else 0))
+             else 0) + (OPS_ADJ if adjoint else 0)
+             + (OPS_LNEE if lnee else 0))
+    ints = (w["shaded"] * (OPS_INT_SHADE + (OPS_INT_NEE if nee else 0)
+                           + (OPS_INT_LNEE if lnee else 0))
             + makes_rays * OPS_INT_RAY)
     return (w["tri"] * OPS_TRI + w["box"] * OPS_BOX
             + w["sphere"] * OPS_SPHERE + w["shaded"] * shade
@@ -463,7 +538,8 @@ def _profile_step(fn, step_ms: float) -> dict:
     rows = prof.key_averages()
     on_device = [r for r in rows if _self_device_us(r) > 0]
     busy_ms = sum(_self_device_us(r) for r in on_device) / 1e3
-    own = ("megakernel<", "megakernel_bvh<", "adjoint_kernel<",
+    own = ("megakernel<", "megakernel_bvh<", "megakernel_light<",
+           "megakernel_bvh_light<", "adjoint_kernel<",
            "traverse_kernel", "sky_forward", "sky_backward_taps",
            "sky_radix_", "sky_reduce_texels")
     return dict(
@@ -491,6 +567,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     import numpy as np
 
     import halogen_tpu_torch as ht
@@ -893,12 +970,21 @@ def main() -> int:
             ("B2", ""), ("B2", "c"), ("B2", "c+n"), ("B2b", ""),
             ("B2b", "+c"), ("B2b", "+c+n"))
         for bvh in ("", "+d") for route in ("", " global")}
+    light_variants = {f"B1{v}e{t}" for v in ("", "b+", "c+", "b+c+")
+                      for t in ("", "+d")}
     assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
-                        "B1c+d", "B1b+c+d", "B3", "sky forward",
+                        "B1c+d", "B1b+c+d", *light_variants, "B3",
+                        "sky forward",
                         "sky backward", "sky ordering count",
                         "sky ordering scan", "sky ordering scatter",
                         "sky backward sums",
                         *adjoint_variants}, res
+    changed = {k: (v, res[k]) for k, v in RESOURCES_BEFORE_B1E.items()
+               if tuple(res[k]) != v}
+    print(f"[13] the {len(RESOURCES_BEFORE_B1E)} variants built before B1e "
+          f"keep their registers and spills: {not changed} {changed}",
+          flush=True)
+    assert not changed, changed
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -2332,6 +2418,281 @@ def main() -> int:
     assert held31["fitted"] < held31["perturbed"], "the env fit did not help"
     assert min_texel >= 0.0, "a texel went below 0"
 
+    # --- 32. the light-NEE variants (B1e) vs plain, unbiasedness, noise
+    from halogen_tpu_torch.integrator.trace import trace_rays
+
+    t32 = time.perf_counter()
+    print(f"[32] phases 1-31 took {t32 - t_main:.1f} s", flush=True)
+
+    def blocked_plate():
+        s32 = cornell.cornell_box(with_spheres=False)
+        v32 = np.array([(-0.5, 0.2, -0.5), (0.5, 0.2, -0.5), (0.5, 0.2, 0.5),
+                        (-0.5, 0.2, 0.5)], np.float32)
+        s32.add_mesh(v32, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+                     ht.Material.diffuse((0.1, 0.1, 0.1)))
+        return s32.build(device=dev)
+
+    lbase = dict(width=64, height=64, samples_per_pixel=4,
+                 light_importance_sampling=True)
+    sky_env = dict(use_envmap=True, env_importance_sampling=True,
+                   env_mip_level=0)
+    testing = testing_scene.testing_scene(False).build(device=dev)
+    light32 = {  # name: (variant, scene, camera, settings)
+        "cornell": ("B1e", cornell.cornell_box().build(device=dev), cam,
+                    ht.RenderSettings(**lbase, max_bounces=4)),
+        "glow_orbs": ("B1e", cornell.glow_orbs().build(device=dev), cam,
+                      ht.RenderSettings(**lbase, max_bounces=4)),
+        "blocked_plate": ("B1e", blocked_plate(), cam,
+                          ht.RenderSettings(**lbase, max_bounces=2)),
+        "glass_box": ("B1b+e", glass, cam, ht.RenderSettings(
+            **lbase, max_bounces=8, max_transmission_bounces=8)),
+        "sky_env_light": ("B1c+e", sky_cornell, cam, ht.RenderSettings(
+            **lbase, max_bounces=4, **sky_env)),
+        "glass_dragon": ("B1b+e+d", dragon, dcam, ht.RenderSettings(
+            **lbase, max_bounces=12)),
+        "testing_active": ("B1e+d", testing,
+                           testing_scene.testing_scene_camera(device=dev),
+                           ht.RenderSettings(**lbase, max_bounces=4)),
+    }
+    parity32, means32 = {}, {}
+    for name, (variant, sc, cm, st32) in light32.items():
+        assert sc.lights is not None and mk.fused_supported(sc, st32), name
+        pix = torch.arange(st32.num_pixels, device=dev)
+        o32, d32, s32, e32 = rays(pix, 4, 4, st32, 1, cm)
+        got = mk.trace_fused_outputs(sc, o32, d32, cm.far, s32, e32, st32)
+        col = mk.trace_color_fused(sc, o32, d32, cm.far, s32, e32, st32)
+        # the plain version: the lockstep on the card (its closest hits as
+        # Fused.OFF takes them: brute force up to 4096 triangles, else B3)
+        ref = trace_rays(sc, o32, d32, cm.far.expand(o32.shape[0]), s32, e32,
+                         st32.replace(fused=ht.Fused.OFF))
+        torch.cuda.synchronize()
+        n32 = got.shape[0]
+        # with env NEE, or on a BVH-tier scene, the final direction and the
+        # continuation pdf are held where and as the sky pass reads them
+        # (phase 17): on rays that reached the sky, the pdf through its MIS
+        # weight
+        read = (ref.outputs[:, 3:6] != 0).any(dim=1)
+        as_read = mk.uses_bvh(sc) or st32.env_importance_sampling
+        keep = [c for c in range(got.shape[1])
+                if c != 10 and not (as_read and c in (7, 8, 9))]
+        n_bad, max_out = compare(got[:, keep], ref.outputs[:, keep])
+        n_bad_col, max_col = compare(col, ref.color)
+        n_bad_dir = 0
+        if as_read:
+            n_bad_dir, _ = compare(got[read, 7:10], ref.outputs[read, 7:10])
+        if got.shape[1] > 10:
+            wg = env_mis_weight(sc, got)[read].cpu().numpy()
+            wr = env_mis_weight(sc, ref.outputs)[read].cpu().numpy()
+            bad_w = int((np.abs(wg - wr) > PARITY_TOL
+                         + PDF_RTOL * np.abs(wr)).sum())
+            assert bad_w <= PARITY_MAX_OUTSIDE * n32, f"{name} MIS weight"
+        parity32[name] = (variant, max(max_out, max_col))
+        # the frames: the kernel's route and Fused.OFF at 256x256
+        st_f = st32.replace(width=256, height=256)
+        before = mk.LAUNCHES
+        k_img = ht.render_frame(sc, cm, st_f, 1)
+        assert mk.LAUNCHES > before, f"{name} did not launch B1e"
+        p_img = ht.render_frame(sc, cm, st_f.replace(fused=ht.Fused.OFF), 1)
+        rel = abs(float(k_img.mean()) - float(p_img.mean())) / abs(
+            float(p_img.mean()))
+        means32[name] = (float(k_img.mean()), float(p_img.mean()), rel)
+        print(f"[32] {name} ({variant}): {n32} rays, {got.shape[1]} "
+              f"outputs; outputs max |diff| {max_out:.3e}, {n_bad} rays "
+              f"outside {PARITY_TOL}; color max |diff| {max_col:.3e}, "
+              f"{n_bad_col} rays outside; final direction of the rays that "
+              f"reached the sky: {n_bad_dir} outside; 256x256 mean radiance "
+              f"kernel {means32[name][0]:.6f} vs plain {means32[name][1]:.6f}"
+              f" (rel {rel:.2e}, < 2e-2) | {card}", flush=True)
+        assert n_bad <= PARITY_MAX_OUTSIDE * n32, f"parity {name} failed"
+        assert n_bad_col <= PARITY_MAX_OUTSIDE * n32, f"color {name} failed"
+        assert n_bad_dir <= PARITY_MAX_OUTSIDE * n32, f"direction {name}"
+        assert rel < 2e-2, f"{name} frame mean disagrees with plain"
+
+    # unbiasedness and noise (tests/test_light_nee.py:44-71) at 256x256
+    cornell_d = light32["cornell"][1]
+    st_u = ht.RenderSettings(width=256, height=256, samples_per_pixel=96,
+                             max_bounces=3)
+    brdf_hi = ht.render_frame(cornell_d, cam, st_u, 1)
+    nee_hi = ht.render_frame(cornell_d, cam, st_u.replace(
+        light_importance_sampling=True), 1)
+    rel_u = abs(float(nee_hi.mean()) - float(brdf_hi.mean())) / float(
+        brdf_hi.mean())
+    lo = st_u.replace(samples_per_pixel=4)
+    nee_lo = ht.render_frame(cornell_d, cam, lo.replace(
+        light_importance_sampling=True), 1)
+    brdf_lo = ht.render_frame(cornell_d, cam, lo, 1)
+    ref_u = torch.stack([ht.render_frame(cornell_d, cam, lo.replace(
+        samples_per_pixel=64, light_importance_sampling=True), f)
+        for f in range(1, 4)]).mean(dim=0)
+    err_nee = float((nee_lo - ref_u).abs().mean())
+    err_brdf = float((brdf_lo - ref_u).abs().mean())
+    print(f"[32] Cornell at 256x256, 3 bounces: 96 spp mean radiance NEE "
+          f"{float(nee_hi.mean()):.6f} vs BRDF-only "
+          f"{float(brdf_hi.mean()):.6f} (rel {rel_u:.3e}, < 0.06); 4 spp "
+          f"mean |error| against 192 spp of NEE: NEE {err_nee:.5f}, "
+          f"BRDF-only {err_brdf:.5f} (ratio {err_nee / err_brdf:.3f}, "
+          f"< 0.75) | {card}", flush=True)
+    assert rel_u < 0.06, "light NEE is biased against BRDF sampling"
+    assert err_nee < 0.75 * err_brdf, "light NEE did not cut the noise"
+
+    # registers, and the device time at the launch shape beside B1a (phase
+    # 5's rays, Cornell glossy, 6 bounces) and B1b+d (phase 19's rays)
+    light_shapes = {
+        "B1e": (scene, cam, st_a.replace(light_importance_sampling=True),
+                o, d, sidx, seed, "megakernel_light<", "B1a"),
+        "B1b+e+d": (dragon, dcam, st_d.replace(
+            light_importance_sampling=True), o_cam, d_cam, sidx_cam,
+            seed_cam, "megakernel_bvh_light<", "B1b+d"),
+    }
+    times32 = {}
+    for name, (sc, cm, st32, o32, d32, s32, e32, key, beside) in (
+            light_shapes.items()):
+        tab32, lt32 = mk._scene_tables(sc), mk.light_table(sc)
+        kernel = lambda: mk.trace_fused_outputs(sc, o32, d32, cm.far, s32, e32,
+                                                st32, tab32, None, lt32)
+        small = slice(0, 16384) if mk.uses_bvh(sc) else slice(None)
+        plain = lambda: trace_rays(
+            sc, o32[small], d32[small], cm.far.expand(o32[small].shape[0]),
+            s32[small], e32[small], st32.replace(fused=ht.Fused.OFF)).outputs
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        n_bad, err = compare(got[small, :7], ref[:, :7])
+        k_ms = [_cuda_ms(kernel, 10), _cuda_ms(kernel, 10)]
+        dev_ms = profiled_ms(kernel, key, reps=5)
+        p_ms = [_cuda_ms(plain, 1), _cuda_ms(plain, 1)]
+        w = _path_work(sc, o32, d32, cm.far, s32, e32, st32)
+        nbytes = (o32.shape[0] * (32 + 4 * got.shape[1])
+                  + _table_bytes((*tab32, *lt32, sc.wbvh.nodes
+                                  if mk.uses_bvh(sc) else None)))
+        bound = _bound(nbytes, _path_ops(w, sc.any_transmissive, False,
+                                         lnee=True))
+        times32[name] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                             plain_rays=int(ref.shape[0]), err=err,
+                             outside=int(n_bad), work=w, bound=bound,
+                             res=res[name])
+        print(f"[32] {name}: one launch of {o32.shape[0]} rays, "
+              f"{st32.max_bounces} bounces: {k_ms} ms (events), "
+              f"{ms4(dev_ms)} ms (device), beside {beside} in phases 13 and "
+              f"19 on the same rays; registers, spill bytes {res[name]}; "
+              f"plain (the lockstep) at {ref.shape[0]} rays {p_ms} ms; "
+              f"outputs 0-6 max |diff| {err:.3e}, {n_bad} rays outside; "
+              f"work {w}; bound {bound[0]:.4f} ms by {bound[1]} | {card}",
+              flush=True)
+        assert n_bad <= PARITY_MAX_OUTSIDE * ref.shape[0], name
+    print(f"[32] registers, spill-store bytes of the light-NEE variants: "
+          f"{ {k: res[k] for k in sorted(light_variants)} }", flush=True)
+
+    # its gradient has no adjoint kernel yet: refused before any launch
+    before = mk.LAUNCHES, adj.LAUNCHES
+    try:
+        render_loss_grad({"materials": cornell_d.materials}, cornell_d, cam,
+                         light32["cornell"][3],
+                         torch.zeros((64, 64, 3), device=dev), 1)
+        raise AssertionError("render_loss_grad with light NEE did not raise")
+    except NotImplementedError as e:
+        assert "B2+l" in str(e), e
+    assert (mk.LAUNCHES, adj.LAUNCHES) == before
+    print("[32] render_loss_grad with light NEE on the card raises "
+          "NotImplementedError naming ROADMAP B2+l, before any launch",
+          flush=True)
+
+    # --- 33. light NEE at full width
+    full33 = {  # name: (scene, camera, settings, frames timed)
+        "cornell_glossy": (scene, cam, st_a.replace(
+            samples_per_pixel=32, light_importance_sampling=True), 2),
+        "glow_orbs": (light32["glow_orbs"][1], cam, st_a.replace(
+            samples_per_pixel=32, light_importance_sampling=True), 2),
+        "glass_dragon": (dragon, dcam, st_d.replace(
+            light_importance_sampling=True), 2),
+    }
+    main33 = {}
+    for name, (sc, cm, st33, n_frames) in full33.items():
+        mk.LAUNCHES = adj.LAUNCHES = 0
+        ht.render_frame(sc, cm, st33, 0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames33 = [ht.render_frame(sc, cm, st33, f + 1)
+                    for f in range(n_frames)]
+        torch.cuda.synchronize()
+        dt33 = time.perf_counter() - t0
+        launches33 = mk.LAUNCHES
+        assert launches33 > 0 and adj.LAUNCHES == 0, name
+        for img in frames33:
+            assert img.shape == (st33.height, st33.width, 3)
+            assert bool(torch.isfinite(img).all()), f"{name} not finite"
+        mr33 = st33.samples_per_pixel * st33.num_pixels * n_frames / dt33 / 1e6
+        prof33 = _profile_step(
+            lambda: ht.render_frame(sc, cm, st33, n_frames + 1),
+            dt33 / n_frames * 1e3)
+        main33[name] = dict(launches=launches33, frame_ms=dt33 / n_frames
+                            * 1e3, mrays_per_s=mr33, profile=prof33)
+        print(f"[33] {name} with light NEE {st33.width}x{st33.height} "
+              f"{st33.samples_per_pixel} spp {st33.max_bounces} bounces: "
+              f"{launches33} kernel launches in {n_frames + 1} frames; "
+              f"{n_frames} frames in {dt33:.4f} s = {mr33:.3f} Mrays/s; "
+              f"{_profile_text(prof33)} | {card}", flush=True)
+
+    # --- 34. the CLI on the card, in this process
+    from halogen_tpu_torch.cli.main import main as cli
+
+    tmp34 = tempfile.TemporaryDirectory()
+    out34 = pathlib.Path(tmp34.name)
+
+    def wrote(path):  # a PNG, or the linear .npy where there is no PIL
+        return path.exists() or pathlib.Path(str(path) + ".npy").exists()
+
+    import contextlib
+    import io
+
+    cli34 = {}
+    for name, argv in (
+            ("render cornell_glossy_512 light NEE",
+             ["render", "--preset", "cornell_glossy_512", "--light-nee",
+              "--frames", "2", "--out", str(out34 / "cornell.png")]),
+            ("bench glass_dragon light NEE",
+             ["bench", "--preset", "glass_dragon", "--light-nee"]),
+            ("debug-sobol", ["debug-sobol", "--out", str(out34 / "s.png")]),
+            ("fit", ["fit", "--steps", "3", "--width", "64", "--out",
+                     str(out34 / "fit.png")])):
+        mk.LAUNCHES = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        cli34[name] = (rc, time.perf_counter() - t0, mk.LAUNCHES,
+                       buf.getvalue().strip())
+        print(f"[34] {name}: rc {rc}, {cli34[name][1]:.2f} s, "
+              f"{mk.LAUNCHES} megakernel launches; stdout "
+              f"{cli34[name][3][-200:]!r}", flush=True)
+        assert rc == 0, name
+    assert cli34["render cornell_glossy_512 light NEE"][2] > 0
+    assert wrote(out34 / "cornell.png") and wrote(out34 / "s.png")
+    bench34 = json.loads(cli34["bench glass_dragon light NEE"][3]
+                         .splitlines()[-1])
+    assert set(bench34) == {"metric", "value", "unit", "vs_baseline"}
+    assert bench34["value"] > 0 and bench34["unit"] == "Mrays/s/cuda"
+    fit34 = json.loads(cli34["fit"][3].splitlines()[-1])
+    assert np.isfinite([fit34["initial_loss"], fit34["final_loss"]]).all()
+    ck34 = out34 / "state.npz"
+    for _ in range(2):
+        assert cli(["render", "--width", "64", "--spp", "2", "--frames", "2",
+                    "--light-nee", "--out", str(out34 / "ck.png"),
+                    "--checkpoint", str(ck34)]) == 0
+    frame_count = int(np.load(ck34)["frame_count"])
+    assert frame_count >= 3, frame_count  # resumed past the first run
+    try:
+        cli(["render", "--sharded", "--out", str(out34 / "x.png")])
+        raise AssertionError("--sharded did not raise")
+    except NotImplementedError as e:
+        assert "A11" in str(e), e
+    tmp34.cleanup()
+    print(f"[34] a checkpoint resumed to frame_count {frame_count}; "
+          f"--sharded raises NotImplementedError naming ROADMAP A11; bench "
+          f"{bench34}; phases 32-34 took {time.perf_counter() - t32:.1f} s "
+          f"| {card}", flush=True)
+
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
@@ -2568,6 +2929,35 @@ def main() -> int:
             name, replaces, trav, routes16[route][0], routes16[route][1],
             times19["camera"][0], b3_plain_ms, **reg("B3"), plain_rays=16384,
             served_by="B3", intersector=route))
+    # B1e's variants: the brute tier's timed on Cornell glossy (B1e), the
+    # BVH tier's on the glass dragon (B1b+e+d); the lockstep's light NEE is
+    # what they replace (the Pallas kernel has no light-NEE variant)
+    lnee = "halogen_tpu/integrator/trace.py:332"
+    for name, timed, path in (("B1e", "B1e", "cornell_glossy"),
+                              ("B1e+d", "B1b+e+d", "glass_dragon")):
+        t, m33 = times32[timed], main33[path]
+        bvh_tier = name.endswith("+d")
+        tier = {k: v[1] for k, v in parity32.items()
+                if v[0].endswith("+d") == bvh_tier}
+        bounds[name] = t["bound"]
+        kernels.append(entry(
+            name, lnee, mega, m33["launches"], max(tier.values()), t["ms"],
+            t["plain_ms"], registers=t["res"][0], spill_store_bytes=t["res"][1],
+            timed_variant=timed, plain_rays=t["plain_rays"],
+            device_ms=t["device_ms"], launch_shape_max_abs_err=t["err"],
+            variant_registers={k: res[k] for k in sorted(light_variants)
+                               if k.endswith("+d") == bvh_tier},
+            parity_max_abs_err=tier,
+            frame_mean_kernel_plain_rel={
+                k: means32[k] for k, v in parity32.items()
+                if v[0].endswith("+d") == bvh_tier},
+            main_path=f"{path} with light NEE (phase 33)",
+            frame_ms=m33["frame_ms"], mrays_per_s=m33["mrays_per_s"],
+            frame_cuda_launches=m33["profile"]["cuda_launches"],
+            frame_device_busy_ms=m33["profile"]["busy_ms"],
+            frame_device_idle_share=m33["profile"]["idle_share"]))
+    print(f"[24] chip_smoke took {time.perf_counter() - t_main:.1f} s "
+          f"after its imports", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

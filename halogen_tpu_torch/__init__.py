@@ -8,13 +8,14 @@ On the CPU every kernel's plain PyTorch version runs instead.
 
 The port so far covers the forward render of opaque and nested-dielectric
 (glass) scenes, with or without an environment map and its next-event
-estimation, up to 200,000 triangles (per-mesh and world BVHs, a
-world-BVH traversal kernel and the megakernel's BVH tier), and the
-material gradients and fitting loop of scenes of up to 128 triangles
-(`halogen_tpu_torch.diff`; on the card, envmap scenes have no gradient
-yet; see ROADMAP.md). Area-light next-event estimation and debug views
-raise. The entry points build on the card unless the caller passes
-`device="cpu"`.
+estimation, with or without area-light next-event estimation, up to
+200,000 triangles (per-mesh and world BVHs, a world-BVH traversal kernel
+and the megakernel's BVH tier); material and envmap gradients and the
+fitting loop (`halogen_tpu_torch.diff`), on the card for every scene but
+those with area-light NEE (ROADMAP B2+l); and the command line,
+`python -m halogen_tpu_torch.cli`. Debug views, sharded rendering and
+the wavefront scheduler raise (see ROADMAP.md). The entry points build on
+the card unless the caller passes `device="cpu"`.
 """
 
 from halogen_tpu_torch.config import (

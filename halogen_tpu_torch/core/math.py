@@ -23,6 +23,15 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return p[..., 0] + p[..., 1] + p[..., 2]
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 3] cross product, each component a product difference (the
+    JAX `jnp.cross`'s formula, and the kernels' `cross3`)."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                       dim=-1)
+
+
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     n = torch.sqrt(dot(v, v))[..., None]
     return v / torch.clamp_min(n, eps) if eps else v / n

@@ -2,9 +2,9 @@
 
 Dataclasses of tensors on one device, SoA and flat like the JAX pytrees
 (the reference's packed ComputeBuffers, `HalogenRenderPass.cs:10-76`).
-`.to(device)` returns a copy on another device. The light table of the
-JAX `SceneData` is not ported yet (ROADMAP A8), and its TPU packings of
-the world BVH (`wbvh`'s [R, 128] rows, the treelet, flatlet and raylet
+`.to(device)` returns a copy on another device. The scene's light table
+(`scene/lights.py`) is the JAX `SceneData`'s; its TPU packings of the
+world BVH (`wbvh`'s [R, 128] rows, the treelet, flatlet and raylet
 tables) are replaced by one `WorldBVH` of the port's own layout.
 """
 
@@ -130,6 +130,13 @@ class SceneData:
     any_transmissive: bool = True
     # The world BVH (None for a scene without triangles)
     wbvh: WorldBVH | None = None
+    # Area-light NEE (scene/lights.py): the emitters' table, or None where
+    # the scene has none; per triangle the pdf_area of its light and per
+    # sphere its selection probability (0 for non-emitters), [max(T, 1)]
+    # and [max(S, 1)] as in the JAX package.
+    lights: object = None
+    tri_light_pdf_area: torch.Tensor | None = None
+    sphere_light_sel: torch.Tensor | None = None
 
     @property
     def num_triangles(self) -> int:

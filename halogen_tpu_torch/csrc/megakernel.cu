@@ -18,7 +18,13 @@
 //       the above with the closest hit and the shadow ray walking the
 //       world BVH (bvh_traverse.cuh) in global memory, in place of the
 //       Pallas kernel's raylet tier (`_make_raylet_traversal`, :523); a
-//       kernel of its own, `megakernel_bvh`, for its launch bounds.
+//       kernel of its own, `megakernel_bvh`, for its launch bounds;
+//   B1e area-light NEE (light_nee=True): each of the above with a light
+//       drawn from the light table and a closest-hit shadow ray per
+//       bounce, `megakernel_light` and `megakernel_bvh_light` (kernels of
+//       their own, so that the other variants keep their names). The
+//       Pallas kernel has no such variant (`megakernel.py:1622-1635`); it
+//       replaces the JAX lockstep's light NEE, `trace.py:200-229, 332-432`.
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
@@ -78,6 +84,12 @@
 //     here the draw runs in the kernel.
 //   - each block copies the scene tables into shared memory once; blocks
 //     of 128 threads, no padding of the ray count.
+// B1e adds to each shaded opaque bounce a 1D and a 2D draw, a binary
+// search of the light table's CDF column (log2 L dependent loads, 64 bytes
+// apart; a 4-light table is one cache line, the testing scene's 77k
+// triangles' table a few KB of it in L1/L2), one 64-byte row, ~120 float
+// ops (the point or cone direction, the pdfs and the weight) and a
+// closest-hit shadow ray: the primitive tests of a second ray.
 // B1d is bound by the walk instead: a dependent node or leaf load per step
 // (latency; the ~1 MB of nodes and triangles of an 8.7k-triangle scene
 // stay in L2) and the divergence of a warp's rays through the tree,
@@ -115,6 +127,7 @@ struct Params {
   CameraView cam;
   SceneView scene;       // global-memory tables
   float* out;            // [N, 10], or [N, 12] with env NEE
+  LightView light;       // light NEE's tables (B1e)
   // [1], zero at launch: the next ray to hand out (warps draw their rays
   // from it); null: thread t of the grid takes ray t
   int* counter;
@@ -176,7 +189,7 @@ __device__ __forceinline__ void store_path(const Params& p, int i,
 // free, the free lanes take the next rays of the launch ("replacing
 // terminated rays", Aila and Laine 2009). A ray's result does not depend
 // on its lane.
-template <bool kTransmissive, bool kEnvNee, bool kBvh>
+template <bool kTransmissive, bool kEnvNee, bool kBvh, bool kLightNee>
 __device__ __forceinline__ void trace_path(const Params& p) {
   extern __shared__ float4 smem4[];
   const SceneView sc =
@@ -218,9 +231,8 @@ __device__ __forceinline__ void trace_path(const Params& p) {
     }
     if (live == 0u) break;
     if (ray >= 0) {
-      const int res =
-          path_bounce<kTransmissive, kEnvNee, kBvh>(sc, cfg, sidx, seed, k, s,
-                                                    rec);
+      const int res = path_bounce<kTransmissive, kEnvNee, kBvh, kLightNee>(
+          sc, cfg, sidx, seed, k, s, rec, p.light);
       ++k;
       if (res != kShadedGoesOn || k > cfg.max_bounces) {
         store_path<kEnvNee>(p, ray, s);
@@ -233,14 +245,26 @@ __device__ __forceinline__ void trace_path(const Params& p) {
 // The brute tier (B1a-c).
 template <bool kTransmissive, bool kEnvNee>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
-  trace_path<kTransmissive, kEnvNee, false>(p);
+  trace_path<kTransmissive, kEnvNee, false, false>(p);
 }
 
 // The BVH tier (B1d), kBvhMinBlocks blocks per SM.
 template <bool kTransmissive, bool kEnvNee>
 __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
     megakernel_bvh(Params p) {
-  trace_path<kTransmissive, kEnvNee, true>(p);
+  trace_path<kTransmissive, kEnvNee, true, false>(p);
+}
+
+// Light NEE (B1e) on the brute tier and on the BVH tier (B1e+d).
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads) megakernel_light(Params p) {
+  trace_path<kTransmissive, kEnvNee, false, true>(p);
+}
+
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
+    megakernel_bvh_light(Params p) {
+  trace_path<kTransmissive, kEnvNee, true, true>(p);
 }
 
 // Launches `kernel`: one thread a ray without a counter; with one, as many
@@ -267,8 +291,14 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem,
 }
 
 template <bool kTransmissive, bool kEnvNee>
-cudaError_t launch_tier(const Params& p, bool bvh, size_t smem,
+cudaError_t launch_tier(const Params& p, bool bvh, bool light, size_t smem,
                         cudaStream_t st) {
+  if (light) {
+    if (bvh)
+      return launch(megakernel_bvh_light<kTransmissive, kEnvNee>, p, smem,
+                    st);
+    return launch(megakernel_light<kTransmissive, kEnvNee>, p, smem, st);
+  }
   if (bvh) return launch(megakernel_bvh<kTransmissive, kEnvNee>, p, smem, st);
   return launch(megakernel<kTransmissive, kEnvNee>, p, smem, st);
 }
@@ -280,18 +310,24 @@ cudaError_t launch_tier(const Params& p, bool bvh, size_t smem,
 // [n / spp_block], `frame` [1], width, height, spp_block, lane0, spp; the
 // four ray buffers are then written when origin is not null). `counter`
 // ([1] int32, zero) selects persistent warps that refill; null: one ray
-// a thread.
+// a thread. With light_nee, `light_rows` [num_lights, 16] and `light_dens`
+// [num_tris + num_spheres] (`LightView`).
 extern "C" int halogen_megakernel_launch(
     float* origin, float* direction, const float* far, int* sample_idx,
     int* seed, const float* tri, const float* trin, const float* sph,
     const float* mat, const float* nodes, const float* env_tab, float* out,
     const float* cam, const long long* pix, const int* frame, int* counter,
-    int n, int num_tris, int num_spheres, int num_materials, int max_bounces,
-    int lim_d, int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
+    const float* light_rows, const float* light_dens, int n, int num_tris,
+    int num_spheres, int num_materials, int max_bounces, int lim_d,
+    int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
     int env_nee, int env_h, int env_w, int use_bvh, int width, int height,
-    int spp_block, int lane0, int spp, void* stream) {
+    int spp_block, int lane0, int spp, int light_nee, int num_lights,
+    void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (env_nee && (env_tab == nullptr || env_h <= 0 || env_w <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (light_nee &&
+      (light_rows == nullptr || light_dens == nullptr || num_lights <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (cam != nullptr ? (pix == nullptr || frame == nullptr || width <= 0 ||
                         height <= 0 || spp_block <= 0)
@@ -314,6 +350,8 @@ extern "C" int halogen_megakernel_launch(
              {reinterpret_cast<const float4*>(nodes),
               reinterpret_cast<const float4*>(tri), trin}};
   p.out = out;
+  p.light = {reinterpret_cast<const float4*>(light_rows), light_dens,
+             num_lights, num_tris};
   p.counter = counter;
   p.n = n;
   p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,
@@ -323,16 +361,16 @@ extern "C" int halogen_megakernel_launch(
                                           use_bvh ? 0 : num_tris, num_spheres,
                                           num_materials);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bvh = use_bvh != 0;
+  const bool bvh = use_bvh != 0, light = light_nee != 0;
   cudaError_t err;
   if (transmissive && env_nee) {
-    err = launch_tier<true, true>(p, bvh, smem, st);
+    err = launch_tier<true, true>(p, bvh, light, smem, st);
   } else if (transmissive) {
-    err = launch_tier<true, false>(p, bvh, smem, st);
+    err = launch_tier<true, false>(p, bvh, light, smem, st);
   } else if (env_nee) {
-    err = launch_tier<false, true>(p, bvh, smem, st);
+    err = launch_tier<false, true>(p, bvh, light, smem, st);
   } else {
-    err = launch_tier<false, false>(p, bvh, smem, st);
+    err = launch_tier<false, false>(p, bvh, light, smem, st);
   }
   return static_cast<int>(err);
 }

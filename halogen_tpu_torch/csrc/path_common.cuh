@@ -21,8 +21,17 @@
 //     world BVH (bvh_traverse.cuh) instead of scanning every triangle,
 //     and the env-NEE shadow ray is an any-hit walk; the triangles stay
 //     in global memory. The adjoint's BVH variants (B2+d, B2b+d) replay
-//     through it too.
-// With all three off the body is B1a's, op for op. Because the code is one,
+//     through it too;
+//   kLightNee (B1e, forward only; the JAX package has no kernel for it:
+//     its megakernel refuses light NEE, `megakernel.py:1622-1635`, and
+//     runs the lockstep `integrator/trace.py:200-229, 332-432`): one
+//     emitter a bounce from the light table by its power CDF, a point on
+//     a triangle or a direction in a sphere's cone, a closest-hit shadow
+//     ray, the balance heuristic against the continuation pdf, and the
+//     emission's MIS weight where light NEE covered the previous scatter.
+//     Its table is one 64-byte row a light (`LightView`), so a draw is a
+//     binary search over the CDF column and four 16-byte loads.
+// With all four off the body is B1a's, op for op. Because the code is one,
 // and both files are built with the same flags (-fmad=false, no fast
 // math), the adjoint's replay takes the forward kernel's path bit for
 // bit; a copy that drifted by one ulp could flip a Fresnel, refraction or
@@ -370,6 +379,22 @@ struct PathConfig {
 };
 
 constexpr uint32_t kDimEnvNeeBase = 1u << 16;  // sobol.DIM_ENV_NEE_BASE
+constexpr uint32_t kDimLightNeeSel = 1u << 17;  // sobol.DIM_LIGHT_NEE_SEL
+constexpr uint32_t kDimLightNeePoint = (1u << 17) + 1u;  // DIM_LIGHT_NEE_POINT
+constexpr float kVisScale = 0.999f;  // float32(1 - 1e-3), trace.py:402
+
+// Area-light NEE's tables (kernels/megakernel.py `light_table`): one row of
+// four float4s a light, (cdf, sel, pdf_area, code) | (emission rgb
+// premultiplied, p0.x) | (p0.yz, p1.xy) | (p1.z, p2.xyz), code the
+// triangle's index in the tier's order (the BVH tier's slot) or -1 - the
+// sphere's, p0-p2 the triangle's vertices or (center, radius) of the
+// sphere; and `dens` [T + S]: each triangle's pdf_area in the tier's order,
+// then each sphere's selection probability (0 for non-emitters).
+struct LightView {
+  const float4* rows = nullptr;
+  const float* dens = nullptr;
+  int count = 0, num_tris = 0;
+};
 
 struct PathState {
   V3 o, d;
@@ -496,16 +521,202 @@ __device__ __forceinline__ bool shadow_visible(const SceneView& sc, V3 o,
   }
 }
 
+// Whether the light NEE shadow ray from `o` along `d` reaches its light
+// (trace.py:394-402): the closest hit (the mesh-beats-sphere-by-HIT_EPS
+// rule inside `far`) is the light itself (`is_tri`, `idx`), or lies at or
+// past kVisScale * dist. The brute tier takes the closest hit over every
+// primitive; the BVH tier walks for the closest triangle under
+// min(far, sphere t - HIT_EPS, kVisScale * dist): a triangle found is the
+// closest hit and lies before the bound, and where none is, the closest
+// hit is the sphere's or lies past the bound. Both give the brute answer
+// up to exact ties in t.
+template <bool kBvh>
+__device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
+                                              V3 d, float far, bool is_tri,
+                                              int idx, float dist) {
+  const V3 inv_d = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  float sp_t = INFINITY;
+  int sp_i = -1;
+  for (int si = 0; si < sc.num_spheres; ++si) {
+    bool inside;
+    const float t =
+        sphere_t(sc.sph + si * kSphStride, o, d, inv_d, far, inside);
+    if (t < sp_t) {
+      sp_t = t;
+      sp_i = si;
+    }
+  }
+  const float bound = dist * kVisScale;
+  if constexpr (kBvh) {
+    BvhHit h = {fminf(fminf(far, sp_t - kHitEps), bound), 0.0f, 0.0f, 0.0f,
+                -1, 0, 0};
+    if (bvh_walk<false, false>(sc.bvh, o, d, h)) return is_tri && h.slot == idx;
+    return (!is_tri && sp_i == idx && sp_t < INFINITY) || sp_t >= bound;
+  } else {
+    float tr_t = INFINITY;
+    int tr_i = -1;
+    for (int ti = 0; ti < sc.num_tris; ++ti) {
+      float t, u, v, det;
+      if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
+          t < tr_t) {
+        tr_t = t;
+        tr_i = ti;
+      }
+    }
+    const bool mesh_wins = (tr_t < sp_t - kHitEps) && (tr_t < far);
+    const bool self = is_tri ? (mesh_wins && tr_i == idx)
+                             : (!mesh_wins && sp_t < INFINITY && sp_i == idx);
+    return self || (mesh_wins ? tr_t : sp_t) >= bound;
+  }
+}
+
+// Solid-angle pdf of cone-sampling a sphere light of selection probability
+// `sel` from `p` (scene/lights.py `sphere_cone_pdf`; 0 inside the sphere).
+__device__ __forceinline__ float sphere_cone_pdf(float sel, const float* sp,
+                                                 V3 p) {
+  const V3 dv = {sp[0] - p.x, sp[1] - p.y, sp[2] - p.z};
+  const float d2 = dot3(dv, dv);
+  const float sin2 = sp[3] * sp[3] / fmaxf(d2, 1e-12f);
+  const float cos_max = sqrtf(fminf(fmaxf(1.0f - sin2, 0.0f), 1.0f));
+  const float solid = kTwoPi * (1.0f - cos_max);
+  return (sin2 < 1.0f && solid > 1e-12f) ? sel / fmaxf(solid, 1e-12f) : 0.0f;
+}
+
+// Balance-heuristic weight of the emission at a hit under light NEE
+// (trace.py `emission_weight`): where light NEE covered the previous
+// scatter (s.prev_nee), the continuation's pdf against the light table's
+// solid-angle density of the emitter hit (a triangle's pdf_area t^2 /
+// |cos|, a sphere's cone pdf from the previous origin `o`); else 1.
+__device__ __forceinline__ float emission_weight(const SceneView& sc,
+                                                 const LightView& lv,
+                                                 const PathState& s, V3 o,
+                                                 V3 d, V3 normal,
+                                                 float t_safe, bool mesh_wins,
+                                                 int tri, int sph) {
+  if (!s.prev_nee) return 1.0f;
+  float pdf;
+  if (mesh_wins) {
+    const float cos_hit = fabsf(dot3(d, normal));
+    pdf = __ldg(lv.dens + tri) * t_safe * t_safe / fmaxf(cos_hit, 1e-6f);
+  } else {
+    pdf = sphere_cone_pdf(__ldg(lv.dens + lv.num_tris + sph),
+                          sc.sph + sph * kSphStride, o);
+  }
+  return pdf > 0.0f ? s.prev_pcos / fmaxf(s.prev_pcos + pdf, 1e-12f) : 1.0f;
+}
+
+// The area-light NEE term of a bounce at an opaque hit (trace.py
+// `light_nee`), added to s.color: the light by a binary search of the
+// power CDF (the first row with cdf >= u, `searchsorted` 'left', clipped
+// to the last), a point on a triangle by area or a direction in a
+// sphere's cone, the shadow ray, the balance heuristic. `hit_tri` and
+// `hit_sph` are the primitive shaded (-1 where none), which is never its
+// own light.
+template <bool kBvh>
+__device__ __forceinline__ void light_nee(const SceneView& sc,
+                                          const LightView& lv,
+                                          const PathConfig& cfg,
+                                          uint32_t sidx, uint32_t seed,
+                                          uint32_t stride, V3 pos, V3 normal,
+                                          V3 refl, float r2, float ps,
+                                          const float* m, int hit_tri,
+                                          int hit_sph, PathState& s) {
+  const float u_sel = sample_1d(cfg.sobol, sidx, kDimLightNeeSel + stride,
+                                seed);
+  float pu, pv;
+  sample_2d(cfg.sobol, sidx, kDimLightNeePoint + stride, seed, &pu, &pv);
+  int lo = 0, hi = lv.count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(&lv.rows[4 * static_cast<size_t>(mid)].x) < u_sel) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const float4* row = lv.rows + 4 * static_cast<size_t>(min(lo, lv.count - 1));
+  const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2),
+               e = __ldg(row + 3);
+  const int code = static_cast<int>(a.w);
+  const bool is_tri = code >= 0;
+  const int idx = is_tri ? code : -1 - code;
+  V3 wi;
+  float dist, pdf_sa;
+  bool ok;
+  if (is_tri) {  // a uniform point on the triangle
+    const V3 v0 = {b.w, c.x, c.y}, v1 = {c.z, c.w, e.x}, v2 = {e.y, e.z, e.w};
+    const float su = sqrtf(fminf(fmaxf(pu, 0.0f), 1.0f));
+    const float b0 = 1.0f - su, b1 = su * (1.0f - pv), b2 = su * pv;
+    const V3 wv = {v0.x * b0 + v1.x * b1 + v2.x * b2 - pos.x,
+                   v0.y * b0 + v1.y * b1 + v2.y * b2 - pos.y,
+                   v0.z * b0 + v1.z * b1 + v2.z * b2 - pos.z};
+    const V3 gn = cross3({v1.x - v0.x, v1.y - v0.y, v1.z - v0.z},
+                         {v2.x - v0.x, v2.y - v0.y, v2.z - v0.z});
+    const float d2 = dot3(wv, wv);
+    dist = sqrtf(fmaxf(d2, 1e-12f));
+    wi = {wv.x / dist, wv.y / dist, wv.z / dist};
+    const float gl = fmaxf(sqrtf(dot3(gn, gn)), 1e-12f);
+    const float cos_l = fabsf(dot3({gn.x / gl, gn.y / gl, gn.z / gl}, wi));
+    pdf_sa = a.z * d2 / fmaxf(cos_l, 1e-6f);
+    ok = cos_l > 1e-4f && a.z > 0.0f && idx != hit_tri;
+  } else {  // a uniform direction in the sphere's cone
+    const float rad = c.z;
+    const V3 dv = {b.w - pos.x, c.x - pos.y, c.y - pos.z};
+    const float dc2 = dot3(dv, dv);
+    const float dc = sqrtf(fmaxf(dc2, 1e-12f));
+    const V3 dh = {dv.x / dc, dv.y / dc, dv.z / dc};
+    const float sin2max = rad * rad / fmaxf(dc2, 1e-12f);
+    const float cos_max = sqrtf(fminf(fmaxf(1.0f - sin2max, 0.0f), 1.0f));
+    const float cos_th = 1.0f - pu * (1.0f - cos_max);
+    const float sin_th =
+        sqrtf(fminf(fmaxf(1.0f - cos_th * cos_th, 0.0f), 1.0f));
+    const float phi = pv * kTwoPi;
+    const V3 up = fabsf(dh.y) < 0.9f ? V3{0.0f, 1.0f, 0.0f}
+                                     : V3{1.0f, 0.0f, 0.0f};
+    V3 tg = cross3(up, dh);
+    const float tl = fmaxf(sqrtf(dot3(tg, tg)), 1e-12f);
+    tg = {tg.x / tl, tg.y / tl, tg.z / tl};
+    const V3 bt = cross3(dh, tg);
+    const float sc_ = sin_th * cosf(phi), ss = sin_th * sinf(phi);
+    wi = {dh.x * cos_th + tg.x * sc_ + bt.x * ss,
+          dh.y * cos_th + tg.y * sc_ + bt.y * ss,
+          dh.z * cos_th + tg.z * sc_ + bt.z * ss};
+    const float solid = kTwoPi * (1.0f - cos_max);
+    pdf_sa = a.y / fmaxf(solid, 1e-12f);
+    dist = dc * cos_th -
+           sqrtf(fmaxf(rad * rad - dc2 * sin_th * sin_th, 0.0f));
+    ok = sin2max < 1.0f && solid > 1e-12f && idx != hit_sph;
+  }
+  const float cos_s = dot3(normal, wi);
+  if (!ok || !(cos_s > 0.0f)) return;
+  const V3 sh_o = {pos.x + normal.x * 1e-4f, pos.y + normal.y * 1e-4f,
+                   pos.z + normal.z * 1e-4f};
+  if (!light_visible<kBvh>(sc, sh_o, wi, cfg.far, is_tri, idx, dist)) return;
+  const float p_gl = glossy_pdf(wi, refl, r2, normal);
+  const float p_mix = (1.0f - ps) * fmaxf(cos_s, 0.0f) * kInvPi + ps * p_gl;
+  const float w_l = pdf_sa / fmaxf(pdf_sa + p_mix, 1e-12f);
+  const float f = w_l / fmaxf(pdf_sa, 1e-12f);
+  const float dterm = (1.0f - ps) * cos_s * kInvPi;
+  const float gterm = ps * p_gl;
+  s.color = {s.color.x + s.atten.x * (m[0] * dterm + m[4] * gterm) * b.x * f,
+             s.color.y + s.atten.y * (m[1] * dterm + m[5] * gterm) * b.y * f,
+             s.color.z + s.atten.z * (m[2] * dterm + m[6] * gterm) * b.z * f};
+}
+
 // Advances `s` by bounce k of the path (trace_ray compute:876-950) and
 // fills `rec` when the bounce shades. The caller stops at any result but
 // kShadedGoesOn: every later update of the Pallas body is masked for a
-// dead ray, so its state is frozen and leaving the loop is exact.
-template <bool kTransmissive, bool kEnvNee, bool kBvh = false>
+// dead ray, so its state is frozen and leaving the loop is exact. With
+// kLightNee (`lv` its tables) s.prev_nee is the flag of the JAX lockstep's
+// prev_lnee too: both are the previous bounce's `covered`.
+template <bool kTransmissive, bool kEnvNee, bool kBvh = false,
+          bool kLightNee = false>
 __device__ __forceinline__ int path_bounce(const SceneView& sc,
                                            const PathConfig& cfg,
                                            uint32_t sidx, uint32_t seed,
                                            int k, PathState& s,
-                                           BounceRecord& rec) {
+                                           BounceRecord& rec,
+                                           const LightView& lv = LightView()) {
   // --- per-type termination (compute:869-871, `>` semantics)
   const int n_transmit = kTransmissive ? s.n_transmit : 0;  // opaque: 0
   if (s.n_diffuse > cfg.lim_d || s.n_glossy > cfg.lim_g ||
@@ -520,6 +731,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   float sp_t = INFINITY, sp_orient = 1.0f;
   V3 sp_c = {0.0f, 0.0f, 0.0f};
   float sp_mat = 0.0f;
+  int sp_i = -1, tr_i = -1;  // light NEE: the sphere and triangle hit
   for (int si = 0; si < sc.num_spheres; ++si) {
     const float* sp = sc.sph + si * kSphStride;
     bool inside;
@@ -529,6 +741,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
       sp_orient = inside ? -1.0f : 1.0f;
       sp_c = {sp[0], sp[1], sp[2]};
       sp_mat = sp[4];
+      if constexpr (kLightNee) sp_i = si;
     }
   }
 
@@ -548,6 +761,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
               __ldg(tn + 1) + __ldg(tn + 4) * h.u + __ldg(tn + 7) * h.v,
               __ldg(tn + 2) + __ldg(tn + 5) * h.u + __ldg(tn + 8) * h.v};
       tr_mat = __ldg(tn + 9);
+      if constexpr (kLightNee) tr_i = h.slot;
     }
   } else {
     for (int ti = 0; ti < sc.num_tris; ++ti) {
@@ -560,6 +774,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
         tr_n = {tn[0] + tn[3] * u + tn[6] * v, tn[1] + tn[4] * u + tn[7] * v,
                 tn[2] + tn[5] * u + tn[8] * v};
         tr_mat = tn[9];
+        if constexpr (kLightNee) tr_i = ti;
       }
     }
   }
@@ -596,9 +811,18 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
     return kMissed;
   }
 
-  // --- emission before BRDF (compute:901-902)
-  s.color = {s.color.x + em.x * s.atten.x, s.color.y + em.y * s.atten.y,
-             s.color.z + em.z * s.atten.z};
+  // --- emission before BRDF (compute:901-902); under light NEE weighted
+  // by the balance heuristic where light NEE covered the previous scatter
+  if constexpr (kLightNee) {
+    const float w = emission_weight(sc, lv, s, o, d, normal, t_safe,
+                                    mesh_wins, tr_i, sp_i);
+    s.color = {s.color.x + em.x * s.atten.x * w,
+               s.color.y + em.y * s.atten.y * w,
+               s.color.z + em.z * s.atten.z * w};
+  } else {
+    s.color = {s.color.x + em.x * s.atten.x, s.color.y + em.y * s.atten.y,
+               s.color.z + em.z * s.atten.z};
+  }
 
   // --- sampler draws for this bounce (dims = base + 5k, compute:921)
   const uint32_t stride = 5u * static_cast<uint32_t>(k);
@@ -793,6 +1017,27 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
                                 ps * glossy_pdf(new_dir, refl, r2, normal)
                           : 0.0f;
     s.prev_nee = covered;
+  }
+
+  if constexpr (kLightNee) {
+    // --- area-light next-event estimation + MIS (trace.py:332-432) on
+    // opaque lobes, after env NEE's term where both are on
+    const bool surf = m[3] >= 1.0f;
+    if constexpr (!kEnvNee) {  // the continuation pdf, as env NEE keeps it
+      const float cos_nd = dot3(normal, new_dir);
+      const bool covered = surf && cos_nd > 0.0f && bounce_type != 2 &&
+                           !(bounce_type == 1 && r2 <= 1e-6f);
+      s.prev_pcos = covered ? (1.0f - spec_prob) * fmaxf(cos_nd, 0.0f) *
+                                      kInvPi +
+                                  spec_prob *
+                                      glossy_pdf(new_dir, refl, r2, normal)
+                            : 0.0f;
+      s.prev_nee = covered;
+    }
+    if (surf)
+      light_nee<kBvh>(sc, lv, cfg, sidx, seed, stride, pos, normal, refl, r2,
+                      spec_prob, m, mesh_wins ? tr_i : -1,
+                      mesh_wins ? -1 : sp_i, s);
   }
 
   rec.a_prev = s.atten;

@@ -21,12 +21,13 @@ Semantics preserved (trace_ray, HalgoenCompute.compute:876-950):
   (compute:911 adds `roughness * lightAttenuation` to a scalar: .x wins),
   shaded once per ray after the loop (`deferred_sky`), as the megakernel
   route does
-- envmap next-event estimation with MIS, a capability beyond the
-  reference (its MIS TODO, compute:19)
+- envmap and area-light next-event estimation with MIS, a capability
+  beyond the reference (its MIS TODO, compute:19); both may run in one
+  bounce, env first, as in the JAX package
 - sampler dimensions advance by 5 per bounce (compute:921)
 
-Area-light next-event estimation and debug views raise
-NotImplementedError naming the ROADMAP item that brings them.
+Debug views raise NotImplementedError naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -38,7 +39,12 @@ import numpy as np
 import torch
 
 from halogen_tpu_torch.config import DebugMode, Fused, RenderSettings, SamplerKind
-from halogen_tpu_torch.core.math import dot, procedural_glossy_pdf, reflect
+from halogen_tpu_torch.core.math import (
+    cross,
+    dot,
+    procedural_glossy_pdf,
+    reflect,
+)
 from halogen_tpu_torch.core.medium import MediumStack
 from halogen_tpu_torch.core.types import SceneData
 from halogen_tpu_torch.integrator.camera import Camera, generate_rays
@@ -53,6 +59,7 @@ from halogen_tpu_torch.scene.envmap import (
     sample_env_draw,
     sample_env_packed,
 )
+from halogen_tpu_torch.scene.lights import sample_light, sphere_cone_pdf
 
 
 def _sampler_2d(settings: RenderSettings):
@@ -74,15 +81,17 @@ def _use_nee(scene: SceneData, settings: RenderSettings) -> bool:
             and scene.env_cdf is not None and bool(scene.env_mips))
 
 
+def _use_light_nee(scene: SceneData, settings: RenderSettings) -> bool:
+    """Area-light NEE is on only when the flag is set and the scene has
+    emitters (JAX `trace.py:89-92`): with the flag and no emitter a scene
+    renders as without the flag."""
+    return settings.light_importance_sampling and scene.lights is not None
+
+
 def check_slice(scene: SceneData, settings: RenderSettings) -> None:
     """Raise NotImplementedError for what the port does not have yet."""
-    missing = []
-    if settings.light_importance_sampling:
-        missing.append("area-light next-event estimation (ROADMAP A8)")
     if settings.debug_mode != DebugMode.NONE:
-        missing.append("debug views (ROADMAP A8)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+        raise NotImplementedError("not ported yet: debug views (ROADMAP A8)")
 
 
 def sample_sky(scene: SceneData, direction: torch.Tensor, level,
@@ -145,9 +154,11 @@ class Pool(NamedTuple):
     counts: torch.Tensor  # [N, 3] bounce-type counts
     stack: MediumStack | None  # None in opaque scenes
     active: torch.Tensor  # [N] bool
-    # MIS state for env NEE: was the previous scatter an NEE-covered lobe,
-    # and its continuation pdf for the direction it took
+    # MIS state for NEE: was the previous scatter a lobe that env NEE
+    # (prev_nee) or area-light NEE (prev_lnee) covers, and its
+    # continuation pdf for the direction it took (shared: the same density)
     prev_nee: torch.Tensor  # [N] bool
+    prev_lnee: torch.Tensor  # [N] bool
     prev_pcos: torch.Tensor  # [N]
     # The miss record the megakernel also returns: the attenuation at
     # the bounce where the ray missed (0 if it never did), and with env
@@ -176,6 +187,7 @@ def _make_pool(origin, direction, far, sample_idx, seed,
         stack=MediumStack.create(n, device=dev) if any_transmissive else None,
         active=torch.ones((n,), dtype=torch.bool, device=dev),
         prev_nee=zeros(n, dtype=torch.bool),
+        prev_lnee=zeros(n, dtype=torch.bool),
         prev_pcos=zeros(n),
         miss_attenuation=zeros(n, 3),
         miss_pcos=zeros(n),
@@ -187,16 +199,19 @@ def _make_pool(origin, direction, far, sample_idx, seed,
 
 
 _INV_PI = float(np.float32(1.0 / np.pi))
+_TWO_PI = float(np.float32(2.0 * np.pi))
+_VIS_SCALE = float(np.float32(1.0 - 1e-3))  # trace.py:402
 
 
 def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
                  k: int) -> Pool:
     """One bounce of every ray in `carry` (trace_ray compute:876-950): the
-    JAX `_pool_bounce` without area-light NEE and debug views, and with
-    the sky deferred to `deferred_sky`."""
+    JAX `_pool_bounce` without debug views, and with the sky deferred to
+    `deferred_sky`."""
     s2 = _sampler_2d(settings)
     s1 = _sampler_1d(settings)
     use_nee = _use_nee(scene, settings)
+    use_lnee = _use_light_nee(scene, settings)
     sample_idx, seed, far = carry.sample_idx, carry.seed, carry.far
 
     # --- per-type termination check at loop top (compute:891-893)
@@ -212,10 +227,15 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
     is_hit = active & (hit.t < far)  # compute:898
     mat = gather_materials(scene.materials, hit.material)
 
-    # --- emission (compute:901-902)
+    # --- emission (compute:901-902). With area-light NEE, emission reached
+    # by a continuation that light NEE covered is weighted by the balance
+    # heuristic against the light table's solid-angle density at this hit
+    # (JAX trace.py:200-229).
     emission = mat.emissive_rgb * mat.emissive_intensity[:, None]
-    color = carry.color + torch.where(
-        (active & is_hit)[:, None], emission * carry.attenuation, 0.0)
+    lit = emission * carry.attenuation
+    if use_lnee:
+        lit = lit * emission_weight(scene, carry, hit)[:, None]
+    color = carry.color + torch.where((active & is_hit)[:, None], lit, 0.0)
 
     # --- sampler dims for this bounce (base + 5*k, compute:921)
     stride = sob.BOUNCE_DIM_STRIDE * k
@@ -234,13 +254,14 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
     atten = torch.where(sm, carry.attenuation * shaded.attenuation,
                         carry.attenuation)
 
-    # --- envmap next-event estimation + MIS (JAX trace.py:257-330) on
-    # opaque lobes: the continuation's solid-angle density is
-    # (1 - ps) cos / pi for the diffuse branch plus ps times the
-    # procedural glossy lobe's pdf. Mirrors (roughness 0) are a delta:
-    # no NEE, continuation weight 1. Pdfs and MIS weights are detached.
+    # --- next-event estimation + MIS (JAX trace.py:257-432) on opaque
+    # lobes: the continuation's solid-angle density is (1 - ps) cos / pi
+    # for the diffuse branch plus ps times the procedural glossy lobe's
+    # pdf. Mirrors (roughness 0) are a delta: no NEE, continuation weight
+    # 1. Pdfs and MIS weights are detached.
     prev_nee, prev_pcos = carry.prev_nee, carry.prev_pcos
-    if use_nee:
+    prev_lnee = carry.prev_lnee
+    if use_nee or use_lnee:
         surf_lane = shade_mask & (mat.alpha >= 1.0)
         ps = shaded.spec_prob.detach()
         a2 = (mat.roughness * mat.roughness).detach()
@@ -256,8 +277,9 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
                    & ~((shaded.bounce_type == 1)
                        & (a2 <= float(np.float32(1e-6)))))
         prev_pcos = torch.where(covered, mix_pdf(new_dir, cos_nd)[0], 0.0)
-        prev_nee = covered
 
+    if use_nee:
+        prev_nee = covered
         nu, nv = s2(sample_idx, sob.DIM_ENV_NEE_BASE + stride, seed)
         ldir, lpdf, radiance = sample_env_draw(
             scene.env_cdf, scene.env_mips[0], nu, nv)
@@ -275,6 +297,11 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
         contrib = (carry.attenuation * f_cos * radiance
                    * (w_nee / torch.clamp_min(lpdf, 1e-12))[:, None])
         color = color + torch.where((cand & visible)[:, None], contrib, 0.0)
+
+    if use_lnee:
+        prev_lnee = covered
+        color = color + light_nee(scene, settings, carry, hit, mat,
+                                  surf_lane, far_eff, mix_pdf, ps, stride)
 
     # Bounce-type counts (compute:796,807)
     onehot = (torch.arange(3, device=shade_mask.device)[None, :]
@@ -320,11 +347,123 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
         stack=shaded.stack,
         active=active & is_hit & (~killed),
         prev_nee=prev_nee,
+        prev_lnee=prev_lnee,
         prev_pcos=prev_pcos,
         miss_attenuation=miss_attenuation,
         miss_pcos=miss_pcos,
         miss_nee=miss_nee,
     )
+
+
+def emission_weight(scene: SceneData, carry: Pool, hit) -> torch.Tensor:
+    """[N] balance-heuristic weight of the emission at `hit` under
+    area-light NEE (JAX `trace.py:206-228`): the previous continuation's
+    pdf against the light table's solid-angle density of the emitter hit
+    (a triangle's pdf_area * t^2 / |cos|; a sphere's cone pdf from the
+    previous origin), where the previous scatter was a lobe that light NEE
+    covers and that density is > 0; else 1."""
+    pdf_area = torch.where(
+        hit.tri >= 0, scene.tri_light_pdf_area[torch.clamp_min(hit.tri, 0)],
+        0.0)
+    cos_hit = torch.abs(dot(carry.direction, hit.normal))
+    t_safe = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    pdf_sa = pdf_area * t_safe * t_safe / torch.clamp_min(cos_hit, 1e-6)
+    if scene.num_spheres:
+        sp = torch.clamp_min(hit.sphere, 0)
+        sph_pdf = sphere_cone_pdf(scene.sphere_light_sel[sp],
+                                  scene.sphere_center[sp],
+                                  scene.sphere_radius[sp], carry.origin)
+        pdf_sa = torch.where(hit.sphere >= 0, sph_pdf, pdf_sa)
+    w_cont = carry.prev_pcos / torch.clamp_min(carry.prev_pcos + pdf_sa,
+                                               1e-12)
+    return torch.where(carry.prev_lnee & (pdf_sa > 0.0), w_cont, 1.0)
+
+
+def light_nee(scene: SceneData, settings: RenderSettings, carry: Pool, hit,
+              mat, surf_lane, far_eff, mix_pdf, ps, stride) -> torch.Tensor:
+    """[N, 3] area-light NEE term of one bounce (JAX `trace.py:332-431`):
+    one emissive triangle or sphere chosen by the power CDF, a point on a
+    triangle by area or a direction in a sphere's cone, a shadow ray whose
+    closest hit must be the light itself or lie past 0.999 of its
+    distance, and the balance heuristic against the continuation pdf."""
+    s1, s2 = _sampler_1d(settings), _sampler_2d(settings)
+    u_sel = s1(carry.sample_idx, sob.DIM_LIGHT_NEE_SEL + stride, carry.seed)
+    pu, pv = s2(carry.sample_idx, sob.DIM_LIGHT_NEE_POINT + stride,
+                carry.seed)
+    ls = sample_light(scene.lights, scene, u_sel, pu, pv)
+    is_tri = ls["kind"] == 0
+
+    # triangle branch: the direction to the sampled point
+    wi_vec = ls["tri_point"] - hit.pos
+    d2 = dot(wi_vec, wi_vec)
+    dist_t = torch.sqrt(torch.clamp_min(d2, 1e-12))
+    wi_t = wi_vec / dist_t[:, None]
+    gn_hat = ls["gn"] / torch.clamp_min(
+        torch.sqrt(dot(ls["gn"], ls["gn"])), 1e-12)[:, None]
+    cos_l = torch.abs(dot(gn_hat, wi_t))
+    pdf_sa_t = ls["pdf_area"] * d2 / torch.clamp_min(cos_l, 1e-6)
+    ok_t = (cos_l > 1e-4) & (ls["pdf_area"] > 0.0) & (ls["idx"] != hit.tri)
+
+    # sphere branch: a uniform direction in the subtended cone
+    dvec = ls["center"] - hit.pos
+    dc2 = dot(dvec, dvec)
+    dc = torch.sqrt(torch.clamp_min(dc2, 1e-12))
+    dhat = dvec / dc[:, None]
+    r = ls["radius"]
+    sin2max = r * r / torch.clamp_min(dc2, 1e-12)
+    outside = sin2max < 1.0
+    cos_max = torch.sqrt(torch.clamp(1.0 - sin2max, 0.0, 1.0))
+    cos_th = 1.0 - pu * (1.0 - cos_max)
+    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, 0.0, 1.0))
+    phi = pv * _TWO_PI
+    # orthonormal basis around dhat
+    y_up = (torch.abs(dhat[:, 1:2]) < 0.9).to(dhat.dtype)
+    up = torch.cat([1.0 - y_up, y_up, torch.zeros_like(y_up)], dim=1)
+    tang = cross(up, dhat)
+    tang = tang / torch.clamp_min(torch.sqrt(dot(tang, tang)),
+                                  1e-12)[:, None]
+    bitan = cross(dhat, tang)
+    wi_s = (dhat * cos_th[:, None] + tang * (sin_th * torch.cos(phi))[:, None]
+            + bitan * (sin_th * torch.sin(phi))[:, None])
+    solid = _TWO_PI * (1.0 - cos_max)
+    pdf_sa_s = ls["sel"] / torch.clamp_min(solid, 1e-12)
+    # distance to the sphere's surface along wi_s
+    proj = dc * cos_th
+    under = r * r - dc2 * sin_th * sin_th
+    dist_s = proj - torch.sqrt(torch.clamp_min(under, 0.0))
+    ok_s = outside & (solid > 1e-12) & (ls["idx"] != hit.sphere)
+
+    wi = torch.where(is_tri[:, None], wi_t, wi_s)
+    dist = torch.where(is_tri, dist_t, dist_s)
+    pdf_sa = torch.where(is_tri, pdf_sa_t, pdf_sa_s)
+    ok = torch.where(is_tri, ok_t, ok_s)
+    cos_s = dot(hit.normal, wi)
+    cand = surf_lane & ok & (cos_s > 0.0)
+
+    # shadow ray: visible iff nothing sits in front of the light, i.e. the
+    # closest hit is the light itself or lies past the sampled point (a
+    # grazing ray along a shared edge of a triangle light)
+    sh_origin = hit.pos + hit.normal * 1e-4
+    sh = intersect_scene(scene, sh_origin, wi, far_eff, settings)
+    hit_self = torch.where(is_tri, sh.tri == ls["idx"],
+                           sh.sphere == ls["idx"])
+    visible = hit_self | (sh.t >= dist * _VIS_SCALE)
+
+    lmat = torch.where(
+        is_tri,
+        scene.tri_material[torch.where(is_tri, ls["idx"], 0)]
+        if scene.num_triangles else 0,
+        scene.sphere_material[torch.where(is_tri, 0, ls["idx"])]
+        if scene.num_spheres else 0).to(torch.int64)
+    l_emissive = scene.materials.emissive[lmat]  # [N, 4]
+    l_em = l_emissive[:, :3] * l_emissive[:, 3][:, None]
+    p_mix, p_gl = mix_pdf(wi, cos_s)
+    w_l = pdf_sa / torch.clamp_min(pdf_sa + p_mix, 1e-12)
+    f_cos = (mat.albedo * ((1.0 - ps) * cos_s * _INV_PI)[:, None]
+             + mat.specular * (ps * p_gl)[:, None])
+    contrib = (carry.attenuation * f_cos * l_em
+               * (w_l / torch.clamp_min(pdf_sa, 1e-12))[:, None])
+    return torch.where((cand & visible)[:, None], contrib, 0.0)
 
 
 class TraceOut(NamedTuple):
@@ -419,6 +558,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         # pass where there is an envmap)
         tables = mk._scene_tables(scene)
         env_tab = mk.env_table(scene) if _use_nee(scene, settings) else None
+        light_tab = (mk.light_table(scene) if _use_light_nee(scene, settings)
+                     else None)
         view = mk.pixel_view(camera, settings, frame, pix)
     else:
         farb = camera.far.expand(n * spp_block)
@@ -428,7 +569,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         lane0 = spp_offset + g * spp_block
         if use_kernel:
             col = mk.trace_color_pixels_diff(scene, view, lane0, spp_block,
-                                             settings, tables, env_tab)
+                                             settings, tables, env_tab,
+                                             light_tab)
         else:
             o, d, sidx, seed = group_rays(camera, settings, frame, pix,
                                           lane0, spp_block)

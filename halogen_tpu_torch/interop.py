@@ -2,7 +2,9 @@
 
 `scene_to_numpy` reads the leaves of a `SceneData` by field name (from
 this package, or any object with the same field names, such as the JAX
-package's `SceneData`) into numpy; `scene_from_numpy` builds this
+package's `SceneData`) into numpy, the light table as one entry per
+field (`lights.kind`, ...; none where the scene has no emitter);
+`scene_from_numpy` builds this
 package's `SceneData` from them, on the card unless the caller asks for
 the CPU. The per-mesh BVH arrays travel with the triangles; the world BVH
 is derived data in another layout in each package (`WorldBVH` here, the
@@ -23,14 +25,16 @@ import torch
 from halogen_tpu_torch.core.types import MaterialTable, SceneData, target_device
 from halogen_tpu_torch.integrator.camera import Camera
 from halogen_tpu_torch.scene.envmap import EnvCDF
+from halogen_tpu_torch.scene.lights import LightTable
 from halogen_tpu_torch.scene.scene import pack_world_bvh
 
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
 # the tensor fields; the envmap's mips (a tuple) and alias tables (a
-# NamedTuple, or None) are carried on their own, the world BVH is rebuilt
+# NamedTuple, or None) and the light table are carried on their own, the
+# world BVH is rebuilt
 _SCENE_FIELDS = [f.name for f in dataclasses.fields(SceneData)
                  if f.name not in ("materials", "env_mips", "env_cdf",
-                                   "any_transmissive", "wbvh")]
+                                   "any_transmissive", "wbvh", "lights")]
 _CAMERA_FIELDS = [f.name for f in dataclasses.fields(Camera)]
 
 
@@ -59,6 +63,9 @@ def scene_to_numpy(scene) -> dict:
     out["env_cdf"] = None if cdf is None else {
         name: _np(getattr(cdf, name)) for name in EnvCDF._fields}
     out["any_transmissive"] = bool(scene.any_transmissive)
+    if scene.lights is not None:
+        out.update({f"lights.{name}": _np(getattr(scene.lights, name))
+                    for name in LightTable._fields})
     return out
 
 
@@ -70,6 +77,9 @@ def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
     mats = MaterialTable(**{name: t(arrays["materials"][name])
                             for name in _MATERIAL_FIELDS})
     cdf = arrays["env_cdf"]
+    lights = (LightTable(**{name: t(arrays[f"lights.{name}"])
+                            for name in LightTable._fields})
+              if "lights.kind" in arrays else None)
     return SceneData(
         **{name: t(arrays[name]) for name in _SCENE_FIELDS},
         materials=mats,
@@ -81,6 +91,7 @@ def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
                             arrays["tri_normals_world"],
                             arrays["tri_material"], device=device)
         if len(arrays["tri_verts_world"]) else None,
+        lights=lights,
     )
 
 

@@ -28,6 +28,8 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     under the sky, 4 bounces, without and with env NEE), B1b+c+d (the
     glass dragon under the sky with env NEE, 12 bounces);
   - B3 on those camera rays and on one bounce's rays of the glass dragon;
+  - where the tree has area-light NEE, B1e on B1a's rays with light NEE
+    and B1b+e+d on B1b+d's (`chip_smoke.py` phase 32);
   - where the tree has them, the adjoint's BVH and sky variants on the
     same rays as their forward kernels: B2b+d (the glass dragon, 12
     bounces), B2+d (a 1,280-triangle metal dragon in the Cornell shell, 12
@@ -221,12 +223,15 @@ def main(argv=None) -> int:
 
     def fwd(sc, st, r):
         tab, et = mk._scene_tables(sc), mk.env_table(sc)
+        # the light table, where the tree has light NEE, made once
+        lt = ({"light_tab": mk.light_table(sc)}
+              if st.light_importance_sampling else {})
         c, o_, d_, s_, e_ = r
         if args.no_refill:
             return lambda: mk._launch(sc, o_, d_, c.far, s_, e_, st, tab, et,
-                                      refill=False)
+                                      refill=False, **lt)
         return lambda: mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_, st,
-                                              tab, et)
+                                              tab, et, **lt)
 
     def bwd_at(sc, st, r):
         """The adjoint alone on rays r, with the sky's cotangents where the
@@ -314,6 +319,11 @@ def main(argv=None) -> int:
             None)
         jobs.update(_sky_stages(sky_k, adj, mk, spheres, st_e, r_e, out_e,
                                 ct_e))
+    if hasattr(mk, "light_table"):  # area-light NEE (B1e), where it is
+        jobs["B1e"] = (fwd(cornell_sc, st_a.replace(
+            light_importance_sampling=True), r_c), "megakernel")
+        jobs["B1b+e+d"] = (fwd(dragon, st_d.replace(
+            light_importance_sampling=True), r_d), "megakernel")
     if hasattr(adj, "transcript_route"):  # the routes, where there are two
         for name, sc, st in (("B2", cornell_sc, st_a), ("B2b", glass, st_g),
                              ("B2b@16", glass, st_g16)):

@@ -41,7 +41,8 @@ emission, albedo and specular attenuation, Beer-Lambert absorption,
 Russian roulette's 1/max(attenuation), the env-NEE term and the sky's
 mip-bias level; metallic and IOR act only through sampling decisions
 and get zero. Scope (`adjoint_covers`): every scene the megakernel
-renders (`megakernel.fused_supported`).
+renders (`megakernel.fused_supported`) but with area-light NEE, whose
+adjoint is ROADMAP B2+l.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ import torch
 
 from halogen_tpu_torch.config import Intersector, RenderSettings
 from halogen_tpu_torch.core.types import MaterialTable, SceneData
-from halogen_tpu_torch.integrator.trace import _use_nee
+from halogen_tpu_torch.integrator.trace import _use_light_nee, _use_nee
 from halogen_tpu_torch.kernels import megakernel as mk
 from halogen_tpu_torch.kernels import sky
 
@@ -109,15 +110,23 @@ def transcript_route(scene: SceneData, settings: RenderSettings) -> str:
 def adjoint_covers(scene: SceneData, settings: RenderSettings) -> bool:
     """Whether the port differentiates `scene` through the fused route:
     every scene its megakernel renders (`megakernel.fused_supported`),
-    brute and BVH tier, glass, sky and env NEE."""
-    return mk.fused_supported(scene, settings)
+    brute and BVH tier, glass, sky and env NEE, but area-light NEE (with
+    the flag and emitters, the JAX predicate), whose adjoint variant is
+    ROADMAP B2+l."""
+    return (mk.fused_supported(scene, settings)
+            and not _use_light_nee(scene, settings))
 
 
 def _check_covered(scene: SceneData, settings: RenderSettings) -> None:
+    if _use_light_nee(scene, settings):
+        raise NotImplementedError(
+            "the fused adjoint has no area-light NEE variant yet (ROADMAP "
+            "B2+l); on the CPU render_loss_grad differentiates it through "
+            "the lockstep")
     if not adjoint_covers(scene, settings):
         raise NotImplementedError(
-            "the fused adjoint covers the megakernel's scenes (no area-light"
-            " NEE or debug views, within its caps; ROADMAP A8)")
+            "the fused adjoint covers the megakernel's scenes (no debug "
+            "views, within its caps; ROADMAP A8)")
 
 
 def _launch(scene, origin, direction, far, sample_idx, seed, ct,

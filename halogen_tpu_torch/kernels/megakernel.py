@@ -8,7 +8,9 @@ opaque (B1a), nested dielectrics with a per-thread medium stack (B1b),
 and envmap next-event estimation (B1c) alone or with the stack; each of
 those in the brute tier (every triangle tested, tables in shared memory)
 and in the BVH tier (B1d: the closest hit and the shadow ray walk the
-scene's world BVH, `csrc/bvh_traverse.cuh`, in global memory).
+scene's world BVH, `csrc/bvh_traverse.cuh`, in global memory); and each
+of those eight with area-light next-event estimation (B1e, the light
+table of `light_table`), which the JAX package runs only in its lockstep.
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
@@ -29,9 +31,10 @@ this kernel forward, the adjoint kernel backward (`kernels/adjoint.py`),
 on every scene the kernel renders; the sky pass's backward kernel gives
 the envmap's cotangents and those the adjoint takes at the miss.
 
-Scope (`fused_supported`, the JAX predicate): opaque and transmissive
-scenes, with or without an envmap and its next-event estimation, without
-area-light NEE or debug views, with at most MAX_SPHERES spheres and
+Scope (`fused_supported`, the JAX predicate without its refusal of
+area-light NEE): opaque and transmissive scenes, with or without an
+envmap and its next-event estimation and area-light NEE, without debug
+views, with at most MAX_SPHERES spheres and
 MAX_MATERIALS materials; up to MAX_TRIS triangles on the brute tier, and
 up to MAX_BVH_TRIS on the BVH tier, through the scene's world BVH.
 MAX_BVH_TRIS is the JAX raylet tier's cap (`raylet.py:67`), which the
@@ -56,7 +59,11 @@ import torch
 from halogen_tpu_torch.config import DebugMode, RenderSettings, SamplerKind
 from halogen_tpu_torch.core.types import SceneData
 from halogen_tpu_torch.integrator.camera import Camera
-from halogen_tpu_torch.integrator.trace import _use_nee, group_rays
+from halogen_tpu_torch.integrator.trace import (
+    _use_light_nee,
+    _use_nee,
+    group_rays,
+)
 from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene.envmap import _texel_direction, env_draw_table
 
@@ -86,7 +93,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # path_common.cuh; it and the traversal kernel include the walk in
 # bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": {"halogen_megakernel_launch": (16, 20, 0)},
+    "megakernel": {"halogen_megakernel_launch": (18, 22, 0)},
     "adjoint": {"halogen_adjoint_launch": (19, 15, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
     "sky": {"halogen_sky_forward": (5, 6, 2),
@@ -173,11 +180,11 @@ def uses_bvh(scene: SceneData) -> bool:
 def fused_supported(scene: SceneData, settings: RenderSettings) -> bool:
     """Static eligibility for the port's fused megakernel: the JAX
     `fused_supported` (`megakernel.py:1608-1641`) on its brute and raylet
-    tiers. Transmissive scenes, envmaps and env NEE are in; area-light
-    NEE, debug views and scenes over the caps are out."""
+    tiers, but area-light NEE, which the port's kernel has (B1e) and the
+    Pallas kernel has not. Transmissive scenes, envmaps, env NEE and
+    light NEE are in; debug views and scenes over the caps are out."""
     return (
         settings.debug_mode == DebugMode.NONE
-        and not settings.light_importance_sampling
         and scene.num_triangles <= MAX_BVH_TRIS
         and scene.num_spheres <= MAX_SPHERES
         and scene.materials.count <= MAX_MATERIALS
@@ -206,6 +213,64 @@ def env_table(scene: SceneData) -> torch.Tensor | None:
     return torch.cat([draw[:, 0:7], own[:, 0:1], draw[:, 7:10],
                       alias[:, 0:1], own[:, 1:3], alias[:, 1:3]],
                      dim=1).detach().to(torch.float32).contiguous()
+
+
+class LightRows(NamedTuple):
+    """Area-light NEE's tables for the kernel (`light_table`)."""
+
+    rows: torch.Tensor  # [L, 16] float32, a light a row
+    dens: torch.Tensor  # [T + S] float32
+
+
+def light_table(scene: SceneData) -> LightRows | None:
+    """The light table as the kernel reads it, or None without emitters:
+    rows [L, 16], a light four 16-byte loads: (cdf, sel, pdf_area, code) |
+    (its material's emission rgb, premultiplied as `_scene_tables`' col
+    9:12; p0.x) | (p0.yz, p1.xy) | (p1.z, p2.xyz), where code is the
+    triangle's index in the kernel's triangle order (on the BVH tier its
+    slot, through the inverse of `WorldBVH.tri_map`) or -1 - the sphere's,
+    and p0-p2 are the triangle's world vertices or the sphere's (center,
+    radius, 0, ...). dens [T + S]: each triangle's pdf_area in the same
+    order, then each sphere's selection probability, for the emission's
+    MIS weight at a hit. So the BVH tier needs no map from a global
+    triangle id to a slot. Data for the kernel (detached)."""
+    lt = scene.lights
+    if lt is None:
+        return None
+    dev = lt.cdf.device
+    n_t, n_s, n_l = scene.num_triangles, scene.num_spheres, lt.count
+    is_tri = lt.kind == 0
+    idx = lt.idx.to(torch.int64)
+    tri = torch.where(is_tri, idx, 0)
+    sph = torch.where(is_tri, 0, idx)
+    tri_pdf = scene.tri_light_pdf_area[:n_t]
+    code = tri
+    if uses_bvh(scene):  # global id -> slot, and the pdfs in slot order
+        tri_map = scene.wbvh.tri_map.to(torch.int64)
+        slot = torch.empty_like(tri_map)
+        slot[tri_map] = torch.arange(n_t, device=dev)
+        code = slot[tri]
+        tri_pdf = tri_pdf[tri_map]
+    code = torch.where(is_tri, code, -1 - idx).to(torch.float32)
+    zero = torch.zeros((n_l,), dtype=torch.int64, device=dev)
+    mat = torch.where(
+        is_tri, scene.tri_material[tri].to(torch.int64) if n_t else zero,
+        scene.sphere_material[sph].to(torch.int64) if n_s else zero)
+    em = scene.materials.emissive[mat]
+    em = em[:, :3] * em[:, 3][:, None]
+    geo_t = (scene.tri_verts_world[tri].reshape(n_l, 9) if n_t
+             else torch.zeros((n_l, 9), device=dev))
+    geo_s = (torch.cat([scene.sphere_center[sph],
+                        scene.sphere_radius[sph][:, None],
+                        torch.zeros((n_l, 5), device=dev)], dim=1) if n_s
+             else torch.zeros((n_l, 9), device=dev))
+    geo = torch.where(is_tri[:, None], geo_t, geo_s)
+    rows = torch.cat([lt.cdf[:, None], lt.sel[:, None], lt.pdf_area[:, None],
+                      code[:, None], em, geo], dim=1)
+    dens = torch.cat([tri_pdf, scene.sphere_light_sel[:n_s]])
+    f32 = torch.float32
+    return LightRows(rows.detach().to(f32).contiguous(),
+                     dens.detach().to(f32).contiguous())
 
 
 def _scene_tables(scene: SceneData):
@@ -305,8 +370,8 @@ def _scene_inputs(scene, settings: RenderSettings, tables, dev):
     int arguments that follow the ray count in both C entry points)."""
     if not fused_supported(scene, settings):
         raise NotImplementedError(
-            "the CUDA megakernel covers scenes without area-light NEE or "
-            f"debug views (ROADMAP A8), with <= {MAX_SPHERES} spheres, <= "
+            "the CUDA megakernel covers scenes without debug views (ROADMAP "
+            f"A8), with <= {MAX_SPHERES} spheres, <= "
             f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles "
             "(the JAX package's fused tiers' caps)")
     tables = tables if tables is not None else _scene_tables(scene)
@@ -355,9 +420,10 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             settings: RenderSettings, tables, env_tab=None, *,
             view: PixelView | None = None, lane0: int = 0,
             spp_block: int = 1, write_rays: bool = False,
-            refill: bool = True):
+            refill: bool = True, light_tab: LightRows | None = None):
     """Launch the kernel variant the scene and settings select, on the
-    current stream; returns [N, 10], or [N, 12] with env NEE.
+    current stream; returns [N, 10], or [N, 12] with env NEE. With
+    area-light NEE `light_tab` may carry `light_table(scene)`.
 
     With `view` the kernel makes its own rays, those of
     `group_rays(view.camera, settings, view.frame, view.pix, lane0,
@@ -418,6 +484,20 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             raise ValueError("the env draw table must be a contiguous, "
                              "16-byte aligned float32 "
                              f"[{env_h * env_w}, 16] on {dev}")
+    light = _use_light_nee(scene, settings)
+    n_lights = 0
+    if light:
+        light_tab = light_tab if light_tab is not None else light_table(scene)
+        n_lights = light_tab.rows.shape[0]
+        n_dens = scene.num_triangles + scene.num_spheres
+        rows, dens = light_tab
+        if (rows.shape != (n_lights, 16) or dens.shape != (n_dens,)
+                or any(t.device != dev or t.dtype != torch.float32
+                       or not t.is_contiguous() for t in light_tab)
+                or rows.data_ptr() % 16):
+            raise ValueError("the light table must be contiguous float32 "
+                             f"[L, 16] (16-byte aligned) and [{n_dens}] on "
+                             f"{dev}")
     out = torch.empty(
         (scalars[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
         dtype=torch.float32, device=dev)
@@ -434,8 +514,10 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             *(t.data_ptr() for t in tables), ptr(nodes),
             env_tab.data_ptr() if env_nee else None, out.data_ptr(),
             *cam_ptrs, ptr(counter),
+            *((light_tab.rows.data_ptr(), light_tab.dens.data_ptr())
+              if light else (None, None)),
             *scalars, int(env_nee), env_h, env_w, int(bvh), *cam_ints,
-            stream)
+            int(light), n_lights, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -462,7 +544,7 @@ def trace_color_fused_reference(scene: SceneData, origin, direction, far,
 
 def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
                         seed, settings: RenderSettings, tables=None,
-                        env_tab=None) -> torch.Tensor:
+                        env_tab=None, light_tab=None) -> torch.Tensor:
     """[N, 10] per-ray outputs: color rgb gathered along the path (the sky
     excluded), miss attenuation rgb, accumulated roughness, final
     direction xyz; with env NEE [N, 12], adding the continuation pdf and
@@ -470,7 +552,7 @@ def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
     on the CPU."""
     if origin.device.type == "cuda":
         return _launch(scene, origin, direction, far, sample_idx, seed,
-                       settings, tables, env_tab)
+                       settings, tables, env_tab, light_tab=light_tab)
     if origin.device.type != "cpu":
         raise ValueError(f"no megakernel for device {origin.device}")
     return trace_color_fused_reference(scene, origin, direction, far,
@@ -479,23 +561,23 @@ def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
 
 def trace_color_fused(scene: SceneData, origin, direction, far, sample_idx,
                       seed, settings: RenderSettings, tables=None,
-                      env_tab=None) -> torch.Tensor:
+                      env_tab=None, light_tab=None) -> torch.Tensor:
     """Fused megakernel forward: [N, 3] radiance, the kernel's path color
     plus the sky at the miss (JAX `megakernel.py:1868-1900`; the sky kernel
-    on a CUDA device, `deferred_sky` on the CPU). `tables` and `env_tab`
-    may carry `_scene_tables(scene)` and `env_table(scene)` computed once
-    for many calls."""
+    on a CUDA device, `deferred_sky` on the CPU). `tables`, `env_tab` and
+    `light_tab` may carry `_scene_tables(scene)`, `env_table(scene)` and
+    `light_table(scene)` computed once for many calls."""
     from halogen_tpu_torch.kernels import sky
 
     return sky.sky_color(scene, settings, trace_fused_outputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables,
-        env_tab))
+        env_tab, light_tab))
 
 
 def trace_pixels_outputs(scene: SceneData, view: PixelView, lane0: int,
                          spp_block: int, settings: RenderSettings,
                          tables=None, env_tab=None,
-                         write_rays: bool = False):
+                         write_rays: bool = False, light_tab=None):
     """`trace_fused_outputs` on the rays of one group of pixels,
     `group_rays(view.camera, settings, view.frame, view.pix, lane0,
     spp_block)`: on a CUDA device the kernel makes them itself (one launch,
@@ -506,7 +588,7 @@ def trace_pixels_outputs(scene: SceneData, view: PixelView, lane0: int,
     if dev.type == "cuda":
         return _launch(scene, None, None, None, None, None, settings, tables,
                        env_tab, view=view, lane0=lane0, spp_block=spp_block,
-                       write_rays=write_rays)
+                       write_rays=write_rays, light_tab=light_tab)
     if dev.type != "cpu":
         raise ValueError(f"no megakernel for device {dev}")
     rays = group_rays(view.camera, settings, view.frame, view.pix, lane0,
@@ -533,24 +615,27 @@ class _FusedDiff(torch.autograd.Function):
     `group` is None for explicit rays, or (view, lane0, spp_block,
     want_rays) for a launch from pixels: the kernel then makes the rays
     and, where a backward may follow (`want_rays`), writes them out for
-    the adjoint's replay (on both tiers)."""
+    the adjoint's replay (on both tiers). `aux` is (env_tab, light_tab),
+    either None."""
 
     @staticmethod
-    def forward(ctx, scene, settings, env_tab, group, tri_tab, trin_tab,
+    def forward(ctx, scene, settings, aux, group, tri_tab, trin_tab,
                 sph_tab, mat_tab, origin, direction, far, sample_idx, seed,
                 *env_mips):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
+        env_tab, light_tab = aux
         ctx.scene, ctx.settings, ctx.env_tab = scene, settings, env_tab
         ctx.n_env = len(env_mips)
         if group is None:
             out = trace_fused_outputs(scene, origin, direction, far,
                                       sample_idx, seed, settings, tables,
-                                      env_tab)
+                                      env_tab, light_tab)
         else:
             view, lane0, spp_block, want_rays = group
             out = trace_pixels_outputs(scene, view, lane0, spp_block,
                                        settings, tables, env_tab,
-                                       write_rays=want_rays)
+                                       write_rays=want_rays,
+                                       light_tab=light_tab)
             if want_rays:
                 out, origin, direction, sample_idx, seed = out
                 far = view.camera.far
@@ -597,7 +682,8 @@ def _nee_mips(scene: SceneData, settings: RenderSettings) -> tuple:
 
 def trace_color_fused_diff(scene: SceneData, origin, direction, far,
                            sample_idx, seed, settings: RenderSettings,
-                           tables=None, env_tab=None) -> torch.Tensor:
+                           tables=None, env_tab=None,
+                           light_tab=None) -> torch.Tensor:
     """Differentiable fused tracer (port of the JAX
     `trace_color_fused_diff`, `megakernel.py:1981-1993`): [N, 3] radiance
     from the kernel and the sky pass, whose backwards are the adjoint
@@ -612,15 +698,16 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
     far = torch.as_tensor(far, dtype=torch.float32, device=dev)
     sample_idx = torch.as_tensor(sample_idx, device=dev)
     seed = torch.as_tensor(seed, device=dev)
-    out = _FusedDiff.apply(scene, settings, env_tab, None, *tables, origin,
-                           direction, far, sample_idx, seed,
+    out = _FusedDiff.apply(scene, settings, (env_tab, light_tab), None,
+                           *tables, origin, direction, far, sample_idx, seed,
                            *_nee_mips(scene, settings))
     return sky.sky_color(scene, settings, out)
 
 
 def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
                             spp_block: int, settings: RenderSettings,
-                            tables=None, env_tab=None) -> torch.Tensor:
+                            tables=None, env_tab=None,
+                            light_tab=None) -> torch.Tensor:
     """`trace_color_fused_diff` on the rays of one group of pixels (see
     `trace_pixels_outputs`): [N, 3] radiance from one kernel launch that
     makes its own rays, and the sky pass. The rays are written out, and
@@ -631,7 +718,7 @@ def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
     mips = _nee_mips(scene, settings)
     want_rays = torch.is_grad_enabled() and any(
         t.requires_grad for t in (*tables, *mips))
-    out = _FusedDiff.apply(scene, settings, env_tab,
+    out = _FusedDiff.apply(scene, settings, (env_tab, light_tab),
                            (view, lane0, spp_block, want_rays), *tables,
                            None, None, None, None, None, *mips)
     return sky.sky_color(scene, settings, out)

@@ -15,6 +15,7 @@ from halogen_tpu_torch.sampler.sobol import (
 from halogen_tpu_torch.sampler.mappings import (
     unit_vector_from_2d,
     point_in_circle,
+    blackman_harris_filter,
     inverse_blackman_harris_cdf,
 )
 
@@ -24,5 +25,5 @@ __all__ = [
     "u32_hash", "owen_scramble", "sobol1d",
     "ld_sample_1d", "ld_sample_2d", "ld_sample_4d",
     "unit_vector_from_2d", "point_in_circle",
-    "inverse_blackman_harris_cdf",
+    "blackman_harris_filter", "inverse_blackman_harris_cdf",
 ]

@@ -27,6 +27,14 @@ def point_in_circle(radius, u: torch.Tensor, v: torch.Tensor):
     return torch.cos(theta) * r, torch.sin(theta) * r
 
 
+def blackman_harris_filter(x: torch.Tensor, width) -> torch.Tensor:
+    """Blackman-Harris window evaluated at x in [0, width]
+    (HalogenRandom.hlsl:314-317)."""
+    phi = _TWO_PI * (x / width)
+    return (0.35875 - 0.48829 * torch.cos(phi) + 0.14128 * torch.cos(2.0 * phi)
+            - 0.01168 * torch.cos(3.0 * phi))
+
+
 def _arctanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.log((1.0 + x) / (1.0 - x))
 

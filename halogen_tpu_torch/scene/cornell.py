@@ -1,13 +1,13 @@
-"""Procedural test scenes (PyTorch port of the scene constructors in
-`halogen_tpu/scene/cornell.py` that need no BVH).
+"""Procedural test scenes (PyTorch port of `halogen_tpu/scene/cornell.py`).
 
 The reference's test content lives in `Assets/Scenes/Testing Scene.unity`
 (Cornell Box active at root, plus Material Demo / Roughness / Metallic /
 Fresnel / Transparency sphere groups, Scale Demo, BVH Test, Glow Orbs —
 SURVEY.md §2 assets note). These constructors rebuild that feature-matrix
 scene procedurally: the Cornell box is the golden-image fixture, the
-sphere grids exercise each material axis, and `glass_sphere_box` exercises
-nested dielectrics + absorption.
+sphere grids exercise each material axis, `glass_sphere_box` exercises
+nested dielectrics + absorption, and `glow_orbs` (emissive spheres only)
+area-light NEE's sphere branch.
 """
 
 from __future__ import annotations
@@ -99,4 +99,70 @@ def glass_sphere_box(absorption: float = 1.0) -> Scene:
     inner = Material.glass(ior=1.0, priority=0)  # air bubble, higher precedence
     s.add_sphere((0.0, -0.5, 0.0), 0.45, outer)
     s.add_sphere((0.0, -0.5, 0.0), 0.25, inner)
+    return s
+
+
+def fresnel_spheres(n: int = 5) -> Scene:
+    """IOR sweep 1.0 -> 2.4 of clear glass spheres over a checker-ish
+    floor (the Fresnel Spheres group)."""
+    s = Scene()
+    floor = Material.diffuse((0.6, 0.6, 0.6))
+    _quad(s, [(-10, -1, -10), (10, -1, -10), (10, -1, 10), (-10, -1, 10)],
+          floor)
+    for i in range(n):
+        ior = 1.0 + 1.4 * i / max(n - 1, 1)
+        s.add_sphere((i * 1.2 - (n - 1) * 0.6, -0.5, 0.0), 0.5,
+                     Material.glass(ior=ior, priority=0))
+    return s
+
+
+def scale_demo(scales=(0.25, 0.5, 1.0, 2.0)) -> Scene:
+    """The same mesh instanced at different non-uniform scales: per-mesh
+    transforms and the inverse-transpose normal path (the reference's
+    Scale Demo group)."""
+    from halogen_tpu_torch.scene.meshes import icosphere
+
+    s = Scene()
+    floor = Material.diffuse((0.55, 0.55, 0.55))
+    _quad(s, [(-12, -1, -12), (12, -1, -12), (12, -1, 12), (-12, -1, 12)],
+          floor)
+    v, f = icosphere(2)
+    mat = Material.diffuse((0.2, 0.5, 0.8))
+    x = -3.0
+    for sc in scales:
+        m = np.eye(4, dtype=np.float32)
+        m[0, 0] = sc
+        m[1, 1] = sc * 0.6  # non-uniform: stresses the normal transform
+        m[2, 2] = sc
+        m[:3, 3] = (x + sc, sc * 0.6 - 1.0, 0.0)
+        x += 2.2 * sc
+        s.add_mesh(v, f, mat, transform=m)
+    return s
+
+
+def glow_orbs(n: int = 4) -> Scene:
+    """Dark room lit only by emissive spheres (the Glow Orbs group)."""
+    s = cornell_box(light_intensity=0.0, with_spheres=False)
+    colors = [(1.0, 0.4, 0.1), (0.2, 0.8, 1.0), (0.9, 0.1, 0.8),
+              (0.4, 1.0, 0.3)]
+    rng = np.random.default_rng(3)
+    for i in range(n):
+        p = rng.uniform(-0.7, 0.7, size=3)
+        s.add_sphere((float(p[0]), float(p[1]), float(p[2])), 0.12,
+                     Material.emissive(colors[i % len(colors)], 12.0))
+    return s
+
+
+def transparency_spheres() -> Scene:
+    """Row of spheres sweeping opacity 1 -> 0 (Transparency Spheres group)."""
+    s = Scene()
+    floor = Material.diffuse((0.6, 0.6, 0.6))
+    _quad(s, [(-10, -1, -10), (10, -1, -10), (10, -1, 10), (-10, -1, 10)],
+          floor)
+    n = 5
+    for i in range(n):
+        opacity = 1.0 - i / (n - 1)
+        mat = Material(color=(0.9, 0.9, 0.9), opacity=opacity,
+                       roughness=0.0, index_of_refraction=1.5)
+        s.add_sphere((i * 1.2 - (n - 1) * 0.6, -0.5, 0.0), 0.5, mat)
     return s

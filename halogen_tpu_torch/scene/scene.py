@@ -1,12 +1,14 @@
 """Scene registry and tensor packing (PyTorch port of
-`halogen_tpu/scene/scene.py`, without the light table).
+`halogen_tpu/scene/scene.py`).
 
 `build()` flattens the registered spheres and meshes into a `SceneData`:
 materials deduplicated by value (`PackMaterialToList`,
 HalogenRenderPass.cs:524-537), a BVH per mesh (which reorders the mesh's
 triangles), triangles and BVH nodes concatenated with per-mesh offsets,
 world-space triangle copies for the brute-force intersector, the world
-BVH over every world-space triangle for the traversal kernels, and the
+BVH over every world-space triangle for the traversal kernels, the light
+table of the emitters (`scene/lights.py`, indexed by global triangle id,
+the ids the kernels' hits report through `WorldBVH.tri_map`), and the
 envmap's mips and alias tables. It builds on the card unless the caller
 asks for the CPU.
 """
@@ -27,6 +29,7 @@ from halogen_tpu_torch.core.types import (
     target_device,
 )
 from halogen_tpu_torch.scene.envmap import Envmap, build_env_cdf
+from halogen_tpu_torch.scene.lights import build_light_table
 from halogen_tpu_torch.scene.material import Material
 
 WALK_COUNT_BITS = 8  # csrc/bvh_traverse.cuh kCountBits
@@ -175,6 +178,9 @@ class Scene:
         if tv_world_cat.shape[0] > 0:
             wbvh = pack_world_bvh(tv_world_cat, tn_world_cat, tri_mat_cat,
                                   max_leaf, device)
+        lights, tri_light_pdf, sphere_light_sel = build_light_table(
+            tv_world_cat, tri_mat_cat, s_center, s_radius, s_mat,
+            mat_table.emissive.cpu().numpy(), device)
         return SceneData(
             tri_verts_world=t(tv_world_cat),
             tri_normals_world=t(tn_world_cat),
@@ -200,6 +206,9 @@ class Scene:
             # any material that can refract (transmission alpha < 1)?
             any_transmissive=bool(mat_table.albedo[:, 3].min().item() < 1.0),
             wbvh=wbvh,
+            lights=lights,
+            tri_light_pdf_area=tri_light_pdf,
+            sphere_light_sel=sphere_light_sel,
         )
 
 

@@ -266,7 +266,7 @@ def test_adjoint_out_of_slice_raises(fixture):
     the JAX lockstep's gradient for every material field (roughness too,
     through the mip-bias level of the sky lookup) and every mip, and the
     differentiable fused tracer's backward runs through it. Area-light NEE
-    stays out of the fused route and raises."""
+    has no adjoint variant yet (ROADMAP B2+l) and raises."""
     _, _, rays = fixture
     jsky = jcornell.cornell_box(glossy=True).build(
         envmap=JEnvmap.gradient_sky())
@@ -322,7 +322,7 @@ def test_adjoint_out_of_slice_raises(fixture):
         (col * ct).sum().backward()
         np.testing.assert_allclose(mats.albedo.grad.numpy()[:, :3],
                                    ref["albedo"][:, :3], atol=TOL, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B2\\+l"):
         adj.trace_grad_fused_materials(
             sky, o, d, far, sidx, seed, ct,
             st.replace(light_importance_sampling=True))

@@ -3,9 +3,10 @@ opaque variant (B1a) on Cornell glossy, the medium-stack variant (B1b) on
 the glass-in-glass box, the envmap variants (B1c) with the sky shaded
 after the kernel, with and without env NEE, and the BVH tier (B1d) on the
 glass dragon, on a dragon under the sky with env NEE and on a strip
-whose walks keep 19 entries on the stack; and the world-BVH traversal
-kernel (B3) against its plain version, with every `Intersector` route
-that reaches it.
+whose walks keep 19 entries on the stack; the area-light NEE variants
+(B1e) on both tiers, with glass and with env NEE; and the world-BVH
+traversal kernel (B3) against its plain version, with every
+`Intersector` route that reaches it.
 
 Needs an NVIDIA GPU with nvcc; skips without one. Imports no JAX, so it
 also runs on a machine that has only the port's dependencies:
@@ -259,6 +260,102 @@ def test_bvh_sky_kernel_matches_plain_on_card(nee, cuda_device):
                            env_importance_sampling=nee, env_mip_level=0)
     assert mk.uses_bvh(scene)
     _check_kernel_vs_plain(scene, DRAGON_CAM, st, cuda_device, as_read=True)
+
+
+def _blocked_plate():
+    """tests/test_light_nee.py:74-92: a dark plate between the floor and
+    the Cornell box's panel."""
+    s = cornell.cornell_box(with_spheres=False)
+    v = np.array([(-0.5, 0.2, -0.5), (0.5, 0.2, -0.5), (0.5, 0.2, 0.5),
+                  (-0.5, 0.2, 0.5)], np.float32)
+    s.add_mesh(v, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+               cornell.Material.diffuse((0.1, 0.1, 0.1)))
+    return s
+
+
+# B1e: name -> (scene builder, camera, settings beyond light NEE at 32x32
+# and 2 spp)
+LIGHT_CASES = {
+    "cornell": (lambda: cornell.cornell_box(), CAM, dict(max_bounces=4)),
+    "cornell_prng_no_rr": (lambda: cornell.cornell_box(glossy=True), CAM,
+                           dict(max_bounces=4, sampler=ht.SamplerKind.PRNG,
+                                russian_roulette=False)),
+    "glow_orbs": (lambda: cornell.glow_orbs(), CAM, dict(max_bounces=4)),
+    "blocked_plate": (_blocked_plate, CAM, dict(max_bounces=2)),
+    "glass_box": (lambda: cornell.glass_sphere_box(), CAM,
+                  dict(max_bounces=8, max_transmission_bounces=8)),
+    "sky_env_light": (lambda: cornell.cornell_box(glossy=True), CAM,
+                      dict(max_bounces=4, use_envmap=True,
+                           env_importance_sampling=True, env_mip_level=0)),
+    "glass_sky_env_light": (lambda: cornell.glass_sphere_box(), CAM,
+                            dict(max_bounces=8, max_transmission_bounces=8,
+                                 use_envmap=True,
+                                 env_importance_sampling=True,
+                                 env_mip_level=0)),
+    "glass_dragon": (lambda: meshes.glass_dragon_scene(), DRAGON_CAM,
+                     dict(max_bounces=12)),
+    "dragon_sky_env_light": (lambda: meshes.glass_dragon_scene(tris=1280),
+                             DRAGON_CAM,
+                             dict(max_bounces=4, use_envmap=True,
+                                  env_importance_sampling=True,
+                                  env_mip_level=0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIGHT_CASES))
+def test_light_nee_kernel_matches_plain_on_card(name, cuda_device):
+    """B1e on the brute tier (the Cornell panel, the Glow Orbs' sphere
+    emitters, a blocked panel, glass, env NEE and light NEE together) and
+    on the BVH tier (B1e+d: the glass dragon, and a dragon under the sky
+    with both NEEs), against the lockstep's light NEE. With env NEE the
+    final direction and the continuation pdf are held where and as the sky
+    pass reads them (`as_read`): Cornell glossy's 0.1-roughness metal
+    sphere has the near-mirror lobe whose pdf amplifies an ulp of
+    direction (5 of 2,048 raw pdfs outside rtol 1e-2 on an H100)."""
+    make, cam_kw, kw = LIGHT_CASES[name]
+    sky = Envmap.gradient_sky() if kw.get("use_envmap") else None
+    scene = make().build(envmap=sky, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                           light_importance_sampling=True, **kw)
+    assert scene.lights is not None and mk.fused_supported(scene, st)
+    bvh = mk.uses_bvh(scene)
+    assert bvh == name.startswith(("glass_dragon", "dragon"))
+    if bvh:
+        st = st.replace(width=64, height=64)
+    got = _check_kernel_vs_plain(scene, cam_kw, st, cuda_device,
+                                 as_read=bvh or st.env_importance_sampling)
+    assert got.shape[1] == (mk.N_OUTPUTS_NEE if st.env_importance_sampling
+                            else mk.N_OUTPUTS)
+
+
+@pytest.mark.cuda
+def test_light_nee_frame_launches_kernel_and_grad_raises(cuda_device):
+    """A light-NEE frame on the card is one B1e launch a group (no plain
+    version on the main path), and its gradient, which has no adjoint
+    kernel yet, raises naming ROADMAP B2+l before any launch."""
+    from halogen_tpu_torch.diff import fit_materials, render_loss_grad
+
+    scene = cornell.cornell_box().build(device=cuda_device)
+    cam = ht.make_camera(**CAM, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
+                           max_bounces=4, ray_chunk_size=2048,
+                           light_importance_sampling=True)
+    before = mk.LAUNCHES
+    img = ht.render_frame(scene, cam, st, 1)
+    assert mk.LAUNCHES - before == 2
+    plain = ht.render_frame(scene, cam, st.replace(fused=ht.Fused.OFF), 1)
+    img, plain = img.cpu().numpy(), plain.cpu().numpy()
+    bad = (np.abs(img - plain) > 1e-4 + 1e-4 * np.abs(plain)).any(axis=-1)
+    assert bad.sum() <= 1
+    before = mk.LAUNCHES
+    target = torch.zeros((32, 32, 3), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="B2\\+l"):
+        render_loss_grad({"materials": scene.materials}, scene, cam, st,
+                         target, 1)
+    with pytest.raises(NotImplementedError, match="B2\\+l"):
+        fit_materials(scene, cam, st, target, steps=1)
+    assert mk.LAUNCHES == before
 
 
 def _traverse_rays(scene, n, dev, seed=0):
@@ -521,13 +618,15 @@ def test_grad_with_in_kernel_rays_equals_explicit_rays(glass, cuda_device):
     _, g_pix = render_loss_grad(params, scene, cam, st, target, 3)
 
     def explicit(sc, view, lane0, spp_block, settings, tables=None,
-                 env_tab=None):
+                 env_tab=None, light_tab=None):
         # the rays as the kernel makes them (its written-out rays), then
         # the explicit-ray route
         _, o, d, sidx, seed = mk.trace_pixels_outputs(
-            sc, view, lane0, spp_block, settings, write_rays=True)
+            sc, view, lane0, spp_block, settings, write_rays=True,
+            light_tab=light_tab)
         return mk.trace_color_fused_diff(sc, o, d, view.camera.far, sidx,
-                                         seed, settings, tables, env_tab)
+                                         seed, settings, tables, env_tab,
+                                         light_tab)
 
     saved = mk.trace_color_pixels_diff
     mk.trace_color_pixels_diff = explicit

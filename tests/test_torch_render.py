@@ -269,8 +269,8 @@ def test_renderer_matches_jax_renderer():
 
 
 def test_no_jax_in_the_port():
-    """Importing the port (and driving it, a big scene's BVH routes too)
-    loads neither JAX nor the JAX package."""
+    """Importing the port (and driving it: a big scene's BVH routes, area-
+    light NEE, and the CLI) loads neither JAX nor the JAX package."""
     import subprocess
     import sys
 
@@ -286,6 +286,17 @@ def test_no_jax_in_the_port():
         "for i in (ht.Intersector.AUTO, ht.Intersector.RAYLET):\n"
         "    ht.render_frame(b, ht.make_camera(device='cpu'), st.replace(\n"
         "        intersector=i, brute_force_max_tris=64))\n"
+        "g = cornell.glow_orbs().build(device='cpu')\n"
+        "ht.render_frame(g, ht.make_camera(device='cpu'), st.replace(\n"
+        "    light_importance_sampling=True))\n"
+        "from halogen_tpu_torch.cli.main import main\n"
+        "import halogen_tpu_torch.utils.profiling, halogen_tpu_torch.utils.debug\n"
+        "import os, tempfile\n"
+        "out = os.path.join(tempfile.mkdtemp(), 'r.png')\n"
+        "main(['render', '--width', '4', '--spp', '1', '--bounces', '1',\n"
+        "      '--light-nee', '--device', 'cpu', '--out', out])\n"
+        "main(['debug-sobol', '--width', '8', '--count', '100',\n"
+        "      '--device', 'cpu', '--out', out])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'halogen_tpu')]\n"
         "print(bad)\n"

@@ -157,3 +157,31 @@ def test_mappings_match():
     np.testing.assert_allclose(
         np.asarray(jmap.inverse_blackman_harris_cdf(jnp.asarray(u))),
         tmap.inverse_blackman_harris_cdf(tu).numpy(), atol=1e-6, rtol=0)
+
+
+def test_blackman_harris_filter_matches_jax():
+    x = np.random.default_rng(3).uniform(0.0, 2.0, N).astype(np.float32)
+    ref = np.asarray(jmap.blackman_harris_filter(jnp.asarray(x), 2.0))
+    got = tmap.blackman_harris_filter(torch.from_numpy(x), 2.0).numpy()
+    # the sum of three cosine terms cancels near the window's ends
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-7)
+
+
+def test_sobol_debug_matches_jax():
+    """The sampler visualizer's histogram and the discrepancy probe
+    (`sampler/debug.py`) on the CPU against the JAX package's."""
+    from halogen_tpu.sampler import debug as jdebug
+    from halogen_tpu_torch.sampler import debug as tdebug
+
+    for through in (True, False):
+        ref = jdebug.sobol_filter_image(size=32, count=5000,
+                                        through_filter=through)
+        got = tdebug.sobol_filter_image(size=32, count=5000,
+                                        through_filter=through, device="cpu")
+        assert got.dtype == np.float32 and got.shape == (32, 32, 3)
+        np.testing.assert_array_equal(got, ref)
+    ref = jdebug.sobol_discrepancy_probe()
+    got = tdebug.sobol_discrepancy_probe(device="cpu")
+    assert sorted(got) == sorted(ref)
+    for d in ref:
+        np.testing.assert_allclose(got[d], ref[d], rtol=1e-6)

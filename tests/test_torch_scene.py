@@ -27,6 +27,13 @@ SCENES = {
     "cornell": lambda c: c.cornell_box(),
     "cornell_glossy": lambda c: c.cornell_box(glossy=True),
     "glass_box": lambda c: c.glass_sphere_box(),
+    # the Cornell family's other builders: an IOR sweep, instanced
+    # non-uniform scales (icospheres over the brute tier's cap), emissive
+    # spheres only, and an opacity sweep
+    "fresnel_spheres": lambda c: c.fresnel_spheres(),
+    "scale_demo": lambda c: c.scale_demo(),
+    "glow_orbs": lambda c: c.glow_orbs(),
+    "transparency_spheres": lambda c: c.transparency_spheres(),
 }
 BIG_SCENES = {  # (JAX module, port module, builder)
     "glass_dragon": (jmeshes, tmeshes, lambda m: m.glass_dragon_scene()),
