@@ -58,7 +58,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      kernels, at `tests/test_golden.py`'s bounds;
  13. the registers and spill bytes of every variant (the adjoints' with
      the transcript in shared and in device memory; those built before
-     B1e must equal `RESOURCES_BEFORE_B1E`), and the forward
+     B1e must equal `RESOURCES_BEFORE_B1E`, but the two replay variants
+     of `RESOURCES_SINCE_SHARED_SWEEP`; the record route's forward
+     variants and sweeps printed, and no sweep may spill), and the forward
      variants' and their plain versions' times at the launch shape
      (262144 rays): B1a at 6 bounces, the glass variant at 8, the env-NEE
      variant at 4;
@@ -169,7 +171,25 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      dragon's launch shape (262144 camera rays, 12 bounces): vs plain
      (brute-force hits) on every 16th ray at phase 7's tolerance, bitwise
      repeatable, the replay equal to B1d's forward bit for bit, both
-     transcript routes the same bits; times at the launch shape;
+     transcript routes the same bits; times at the launch shape. Then the
+     record route at the same shape for B2+d, B2b+d, B2c+d, B2c+n+d (the
+     1,280-triangle dragon under the sky, without and with env NEE) and
+     B2b+c+n+d (the glass dragon under the sky with env NEE): the
+     forward's outputs with the record equal those without bit for bit;
+     the sweep's [K, 12|13] and env-NEE records equal the replay's bit for
+     bit, and repeat; the sweep within 1e-5 * max |column| + 1e-7 of
+     `sweep_reference` on the same record; the record against
+     `record_transcript_reference` on every 16th ray whose forward
+     outputs kernel and plain agree on at phase 11's tolerance (up to 1%
+     may not: a drifted final direction, phase 17): ids and masks equal,
+     floats at phase 11's tolerance, in glass on all but 0.1% of those
+     rays, there also on a second frame's rays, with where and how the
+     floats part (the drift of phase 17 reaching a hit distance); the
+     record route against the plain backward at phase 7's
+     tolerance on those rays; times (events and profiler device time) of
+     the forward without and with the record, the sweep, the replay and
+     the sweep's plain version, the sweep's bound from the shaded bounces
+     its record holds;
  29. the sky pair vs `deferred_sky` (the `envmap_1024` launch shape's
      outputs, and Cornell glossy under the sky with the mip bias): the
      forward at 1e-4 per ray (at most 0.1% outside), the backward's
@@ -194,16 +214,22 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      kernel and plain agree on at phase 11's tolerance (at most 0.1% may
      not: a near-mirror lobe's pdf, phase 17); two calls bitwise equal,
      the replay equal to the forward; `adjoint.trace_grad_fused` takes
-     them through the main path's autograd Functions; B2c and B2c+n timed
+     them through the main path's autograd Functions, which on the BVH
+     tier record and sweep (the record route), equal to the replay
+     (`RECORD_BUDGET = 0`) bit for bit, every mip too; B2c and B2c+n timed
      at the `envmap_1024` launch shape, where [K, 13] and B2c+n's record
      sums into the finest mip are held to plain too;
  31. the full-width gradient steps, each a warm-up and 2 timed
      `render_loss_grad` steps with every kernel count set to 0 before them
-     (each kernel of the path must launch): the glass dragon at
-     `bench.py`'s configuration (512x512, 32 spp, 12 bounces), the
-     `envmap_1024` preset with {"materials", "env_mips"}, a 1,280-triangle
-     metal dragon and Cornell glossy under the sky at 256x256; each with
-     its launches, step time, Mrays/s (fwd+bwd) and device idle share;
+     (each kernel of the path must launch, and the other route's none):
+     the glass dragon at `bench.py`'s configuration (512x512, 32 spp, 12
+     bounces), the `envmap_1024` preset with {"materials", "env_mips"}, a
+     1,280-triangle metal dragon and Cornell glossy under the sky at
+     256x256, then the two dragons again with `adjoint.RECORD_BUDGET = 0`
+     (the replay; the first runs take the record route), whose losses and
+     material gradients must equal the record route's bit for bit; each
+     with its launches, step time, Mrays/s (fwd+bwd), device idle share
+     and peak device memory (`torch.cuda.max_memory_allocated`);
      the `envmap_1024` forward frame (phase 14) beside the torch sky
      pass's figures; and a 10-step `fit_materials(optimize_env=True)` of
      the `envmap_1024` scene at 256x256 from a sky at half brightness and
@@ -252,8 +278,10 @@ recorded" (null in the record) beside the CUDA-event time.
 The last lines are a JSON record of every kernel (B1a-e, B1e+d, B2, B2b,
 B2b+d, B2+d, B2c, B2c+n, the sky forward and backward, B3, and the routes
 B4-B6 that B3's kernel serves) with its launches on its main
-path, error, times, plain time, bound and library call, the card's name
-and power limit, and {"ok": true, "device": {...}}.
+path, error, times, plain time, bound and library call (B2b+d's and
+B2+d's are the record route's sweep, which their steps launch, with the
+replay and the recording forward beside them), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -290,6 +318,8 @@ OPS_NEE = 150  # + two glossy pdfs and the MIS weight (the draw is a row)
 # weight, and the emission's weight at the hit
 OPS_LNEE = 200
 OPS_ADJ = 100  # + the adjoint's reverse sweep of the bounce
+OPS_SWEEP = 60  # the record route's sweep of a shaded bounce, alone
+OPS_SWEEP_NEE = 25  # + its env-NEE term and record
 OPS_RAY = 90  # a primary ray made in the kernel (camera_ray; logf x 2)
 # the sky pass (csrc/sky.cu): a ray's lookup (normalize, atan2 and acos as
 # ~20 each, two bilinear lookups of 3 channels and the blend, the MIS
@@ -326,6 +356,15 @@ RESOURCES_BEFORE_B1E = {
     "B2c+d global": (79, 0), "B2c+n": (95, 0), "B2c+n global": (96, 0),
     "B2c+n+d": (95, 0), "B2c+n+d global": (95, 0), "B3": (48, 0),
 }
+# Where the replay's own code changed since: the sweep's arithmetic and
+# the env-NEE record's weight moved into functions shared with the record
+# route's sweep (csrc/adjoint.cu `sweep_bounce`, `store_nee_weight`), the
+# same operations in the same order; ptxas then allocates one register
+# fewer to the brute tier's B2b+c+n and one more to its global route. The
+# forward variants, which the record switch must leave alone, are not here.
+RESOURCES_SINCE_SHARED_SWEEP = {
+    "B2b+c+n": (124, 0), "B2b+c+n global": (128, 0),
+}
 
 
 def _card() -> str:
@@ -349,10 +388,83 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
+    """The kernel's record `rec` of the rays `sub` (origin, direction,
+    far, sample index, seed) against `record_transcript_reference`, on the
+    rays whose forward outputs `out_sub` agree with the plain version's at
+    phase 11's tolerance (all but the continuation pdf): those rays
+    (`agree`), how many of them differ in ids or masks (`ids`) and in a
+    float past 1e-4 + 1e-4 |plain| (`floats`), the floats' largest
+    |diff| / (1 + |plain|) (`err`), and where floats differ (`drift`): for
+    those rays the first slot that differs, as bounces before the path's
+    last; whether t alone differs there; |dt| / (1 + t) there, and the
+    largest at the slots before it."""
+    import torch
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+
+    out_p = mk.trace_color_fused_reference(sc, *sub, st)
+    cols = [c for c in range(out_p.shape[1]) if c != 10]
+    agree = ((out_sub[:, cols] - out_p[:, cols]).abs()
+             <= PARITY_TOL + PARITY_TOL * out_p[:, cols].abs()).all(dim=1)
+    ref = adj.record_transcript_reference(sc, *sub, st)
+    n_sh = rec.end.to(torch.int64) & 0xFFFF
+    ids_apart = agree & (rec.end != ref.end)
+    first = torch.full_like(n_sh, -1)
+    t_only = torch.zeros_like(agree)
+    dt = torch.zeros((st.max_bounces + 1, agree.shape[0]),
+                     device=agree.device)
+    err = 0.0
+    for k in range(st.max_bounces + 1):
+        live = agree & (n_sh > k)
+        if not bool(live.any()):
+            continue
+        ids_apart |= live & (rec.word[k] != ref.word[k])
+        if rec.texel is not None:
+            ids_apart |= live & (rec.texel[k] != ref.texel[k])
+        t_bad = torch.zeros_like(agree)
+        other_bad = torch.zeros_like(agree)
+        for j, (a, b) in enumerate(((rec.a, ref.a), (rec.nq, ref.nq),
+                                    (rec.ngw, ref.ngw))):
+            if a is None:
+                continue
+            a, b = a[k], b[k]
+            out = (a - b).abs() > PARITY_TOL + PARITY_TOL * b.abs()
+            if j == 0:
+                t_bad = out[:, 3]
+                out = out[:, 0:3]
+            other_bad |= out.any(dim=1)
+            err = max(err, float(((a - b).abs() / (1.0 + b.abs()))[live]
+                                 .max()))
+        dt[k] = torch.where(live, (rec.a[k, :, 3] - ref.a[k, :, 3]).abs()
+                            / (1.0 + ref.a[k, :, 3].abs()), 0.0)
+        new = live & (t_bad | other_bad) & (first < 0)
+        t_only = torch.where(new, t_bad & ~other_bad, t_only)
+        first = torch.where(new, k, first)
+    rays = torch.nonzero(first >= 0).flatten().tolist()
+    drift = {"rays": len(rays),
+             "t_alone": int(t_only[first >= 0].sum())}
+    if rays:
+        k = first[rays]
+        at = dt[k, rays]
+        before = torch.stack([dt[:int(kk), r].max() if int(kk) else
+                              dt.new_zeros(()) for kk, r in zip(k, rays)])
+        drift.update(bounces_before_the_last=sorted(
+            int(x) for x in (n_sh[rays] - 1 - k)),
+            dt_rel=[float(at.min()), float(at.max())],
+            dt_rel_before_max=float(before.max()))
+    return dict(agree=agree, ids=int(ids_apart.sum()),
+                floats=len(rays), err=err, drift=drift)
+
+
 def _resources(log: str) -> dict:
     """Registers and spill-store bytes of every kernel variant, from
     nvcc's `-Xptxas -v` output: {name: (registers, spill bytes)}."""
-    names = {"megakernel_lightILb0ELb0EE": "B1e",
+    names = {"megakernel_bvh_recordILb0ELb0EE": "B1d record",
+             "megakernel_bvh_recordILb1ELb0EE": "B1b+d record",
+             "megakernel_bvh_recordILb0ELb1EE": "B1c+d record",
+             "megakernel_bvh_recordILb1ELb1EE": "B1b+c+d record",
+             "megakernel_lightILb0ELb0EE": "B1e",
              "megakernel_lightILb1ELb0EE": "B1b+e",
              "megakernel_lightILb0ELb1EE": "B1c+e",
              "megakernel_lightILb1ELb1EE": "B1b+c+e",
@@ -376,16 +488,24 @@ def _resources(log: str) -> dict:
     def adjoint_name(mangled):
         """adjoint_kernel<kTransmissive, kSmemTranscript, kBvh, kEnv>: B2
         or B2b; c with the sky, +n with env NEE; +d on the BVH tier;
-        " global" with the transcript in device memory."""
+        " global" with the transcript in device memory. adjoint_sweep<
+        kTransmissive, kEnv>: the record route's sweep of the BVH tier's
+        variant, " sweep"."""
+        def variant(t, env):
+            return ("B2b" if t else "B2") + (("+c" if t else "c") if env
+                                              else "") + ("+n" if env == 2
+                                                          else "")
+        m = re.search(r"adjoint_sweepILb(\d)ELi(\d)EE", mangled)
+        if m:
+            t, env = (int(x) for x in m.groups())
+            return variant(t, env) + "+d sweep"
         m = re.search(r"adjoint_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E",
                       mangled)
         if not m:
             return None
         t, smem, bvh, env = (int(x) for x in m.groups())
-        return ("B2b" if t else "B2") + (("+c" if t else "c") if env
-                                          else "") + ("+n" if env == 2
-                                                      else "") + (
-            "+d" if bvh else "") + ("" if smem else " global")
+        return variant(t, env) + ("+d" if bvh else "") + (
+            "" if smem else " global")
 
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
@@ -539,7 +659,8 @@ def _profile_step(fn, step_ms: float) -> dict:
     on_device = [r for r in rows if _self_device_us(r) > 0]
     busy_ms = sum(_self_device_us(r) for r in on_device) / 1e3
     own = ("megakernel<", "megakernel_bvh<", "megakernel_light<",
-           "megakernel_bvh_light<", "adjoint_kernel<",
+           "megakernel_bvh_light<", "megakernel_bvh_record<",
+           "adjoint_kernel<", "adjoint_sweep<",
            "traverse_kernel", "sky_forward", "sky_backward_taps",
            "sky_radix_", "sky_reduce_texels")
     return dict(
@@ -972,19 +1093,32 @@ def main() -> int:
         for bvh in ("", "+d") for route in ("", " global")}
     light_variants = {f"B1{v}e{t}" for v in ("", "b+", "c+", "b+c+")
                       for t in ("", "+d")}
+    record_variants = {f"B1{v}d record" for v in ("", "b+", "c+", "b+c+")}
+    sweep_variants = {f"{base}{env}+d sweep" for base, env in (
+        ("B2", ""), ("B2", "c"), ("B2", "c+n"), ("B2b", ""), ("B2b", "+c"),
+        ("B2b", "+c+n"))}
     assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
                         "B1c+d", "B1b+c+d", *light_variants, "B3",
                         "sky forward",
                         "sky backward", "sky ordering count",
                         "sky ordering scan", "sky ordering scatter",
                         "sky backward sums",
-                        *adjoint_variants}, res
-    changed = {k: (v, res[k]) for k, v in RESOURCES_BEFORE_B1E.items()
+                        *adjoint_variants, *record_variants,
+                        *sweep_variants}, res
+    expected = {**RESOURCES_BEFORE_B1E, **RESOURCES_SINCE_SHARED_SWEEP}
+    changed = {k: (v, res[k]) for k, v in expected.items()
                if tuple(res[k]) != v}
-    print(f"[13] the {len(RESOURCES_BEFORE_B1E)} variants built before B1e "
-          f"keep their registers and spills: {not changed} {changed}",
-          flush=True)
+    print(f"[13] the {len(expected)} variants built before B1e keep their "
+          f"registers and spills (the forward variants all, the replay's "
+          f"{sorted(RESOURCES_SINCE_SHARED_SWEEP)} as since the shared "
+          f"sweep): {not changed} {changed}", flush=True)
     assert not changed, changed
+    spilled = {k: res[k] for k in sweep_variants if res[k][1]}
+    print(f"[13] the record route's kernels: forward "
+          f"{ {k: res[k] for k in sorted(record_variants)} }, sweep "
+          f"{ {k: res[k] for k in sorted(sweep_variants)} } (registers, "
+          f"spill-store bytes); sweeps that spill: {spilled}", flush=True)
+    assert not spilled, spilled
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -1967,6 +2101,196 @@ def main() -> int:
               f"{adj28[name]['bound'][1]} | {card}", flush=True)
         assert ratio <= 1.0 and repeat and replay_ok and same_routes, name
 
+    # the record route at the same launch shape, for every BVH-tier
+    # variant of the adjoint: the forward records the transcript (its
+    # outputs equal those without the record), the sweep alone reads it
+    # (equal to the replay bit for bit, [K, 12|13] and env-NEE records),
+    # each half against its plain version, and their times
+    sky12 = dict(use_envmap=True, env_mip_level=0)
+    cases28r = {
+        "B2+d": (metal_dragon, st_d),
+        "B2b+d": (dragon, st_d),
+        "B2c+d": (sky_hero, st_d.replace(**sky12)),
+        "B2c+n+d": (sky_hero, st_d.replace(**sky12,
+                                           env_importance_sampling=True)),
+        "B2b+c+n+d": (dragon_sky, st_d.replace(
+            **sky12, env_importance_sampling=True)),
+    }
+    n28 = o_cam.shape[0]
+    cam28 = (o_cam, d_cam, dcam.far, sidx_cam, seed_cam)
+    rec28 = {}
+    for name, (sc, st28) in cases28r.items():
+        tab, et = mk._scene_tables(sc), mk.env_table(sc)
+        env = adj.env_mode(sc, st28)
+        nee = env == 2
+        slots = st28.max_bounces + 1
+        gsky28 = (torch.rand((n28, 4), generator=torch.Generator()
+                             .manual_seed(3)).to(dev) if env else None)
+        rec = mk.empty_record(n28, st28, nee, dev)
+        fwd_rec = lambda: mk.trace_fused_outputs(sc, *cam28, st28, tab, et,
+                                                 record=rec)
+        fwd = lambda: mk.trace_fused_outputs(sc, *cam28, st28, tab, et)
+
+        def nee_bufs():
+            return ((torch.empty((n28, slots), dtype=torch.int32,
+                                 device=dev),
+                     torch.empty((n28, slots, 3), device=dev))
+                    if nee else None)
+
+        sweep = lambda recs=None: adj._launch(
+            sc, None, None, None, None, None, ct_cam, st28, tab, gsky=gsky28,
+            env_tab=et, records=recs, record=rec)
+        replay = lambda recs=None: adj._launch(
+            sc, *cam28, ct_cam, st28, tab, gsky=gsky28, env_tab=et,
+            records=recs)
+        out_rec, out = fwd_rec(), fwd()
+        recs_s, recs_r = nee_bufs(), nee_bufs()
+        got, again = sweep(recs_s), sweep()
+        got_r = replay(recs_r)
+        torch.cuda.synchronize()
+        fwd_same = torch.equal(out_rec, out)
+        routes_same = torch.equal(got, got_r) and torch.equal(got, again)
+        if nee:
+            lit = recs_s[0] >= 0
+            routes_same = routes_same and torch.equal(
+                recs_s[0], recs_r[0]) and torch.equal(recs_s[1][lit],
+                                                      recs_r[1][lit])
+        # the sweep against its plain version on the same record
+        d_out = torch.cat([ct_cam, gsky28 if env else torch.zeros(
+            (n28, 4), device=dev)], dim=1)
+        sweep_plain = lambda: adj.sweep_reference(sc, st28, rec, d_out)
+        ref_s, ref_recs = sweep_plain()
+        bound_s = 1e-5 * ref_s.abs().amax(dim=0) + 1e-7
+        sweep_ratio = float(((got - ref_s).abs() / bound_s).max())
+        if nee:
+            nee_ratio = float(((recs_s[1] - ref_recs[1]).abs()
+                               / (1e-5 * ref_recs[1].abs().max() + 1e-7))
+                              [lit].max())
+            assert torch.equal(recs_s[0], ref_recs[0]), name
+            sweep_ratio = max(sweep_ratio, nee_ratio)
+        # the record against its plain version (the lockstep's transcript)
+        # on every 16th ray, where the forward outputs agree at phase 11's
+        # tolerance (all but the continuation pdf; through 12 bounces of
+        # glass a ray's final direction can drift, phase 17, so up to 1% of
+        # the rays may be held out); on those, ids and masks equal and the
+        # floats at phase 11's tolerance (1e-4 + 1e-4 |plain|), in glass on
+        # all but 0.1% of them (phase 11's allowance), where the drift that
+        # phase 17 shows reaches a hit distance; in glass also on a second
+        # frame's rays, and where the floats part, which and how
+        sub = [x[::16].contiguous() if x.dim() else x for x in cam28]
+        every16 = mk.Record(rec.a[:, ::16], rec.word[:, ::16],
+                            rec.end[::16], *(None if t is None else
+                                             t[:, ::16] for t in (
+                                                 rec.nq, rec.ngw,
+                                                 rec.texel)))
+        cmp28 = [_record_vs_plain(sc, st28, sub, every16,
+                                  out_rec[::16])]
+        if sc.any_transmissive:
+            o2, d2, s2, e2 = rays(pix_g[::16], 1, 32, st_d, 2, dcam)
+            sub2 = [o2, d2, dcam.far, s2, e2]
+            rec2 = mk.empty_record(o2.shape[0], st28, nee, dev)
+            out2 = mk.trace_fused_outputs(sc, *sub2, st28, tab, et,
+                                          record=rec2)
+            cmp28.append(_record_vs_plain(sc, st28, sub2, rec2, out2))
+        agree = cmp28[0]["agree"]
+        n_apart = int((~agree).sum())
+        n_ids, n_floats = cmp28[0]["ids"], cmp28[0]["floats"]
+        rec_err = max(c["err"] for c in cmp28)
+        for c in cmp28:
+            assert int((~c["agree"]).sum()) <= 0.01 * c["agree"].shape[0], (
+                name, int((~c["agree"]).sum()))
+        rec_ok = all(
+            c["ids"] == 0 and c["floats"] <= (
+                PARITY_MAX_OUTSIDE * c["agree"].shape[0]
+                if sc.any_transmissive else 0) for c in cmp28)
+        if sc.any_transmissive:
+            for f, c in enumerate(cmp28, 1):
+                print(f"[28] {name}: the record vs the lockstep's, frame "
+                      f"{f}: {c['agree'].shape[0]} rays, "
+                      f"{int((~c['agree']).sum())} held out, ids or masks "
+                      f"apart {c['ids']}, floats apart {c['floats']}: "
+                      f"{c['drift']}", flush=True)
+        # the record route against the plain backward (autograd through
+        # the lockstep) at phase 7's tolerance, on the agreeing rays
+        rec_sub = mk.empty_record(sub[0].shape[0], st28, nee, dev)
+        mk.trace_fused_outputs(sc, *sub, st28, tab, et, record=rec_sub)
+        d_sub = d_out[::16] * agree[:, None]
+        got_sub = adj._launch(sc, None, None, None, None, None,
+                              d_sub[:, 0:3].contiguous(), st28, tab,
+                              gsky=d_sub[:, 3:7].contiguous() if env
+                              else None, env_tab=et, record=rec_sub)
+        ref_sub = adj.trace_grad_outputs_reference(sc, *sub, d_sub, st28)[0]
+        plain_err, plain_ratio = _grad_compare(got_sub, ref_sub)
+        print(f"[28] {name} on the record route ({sc.num_triangles} "
+              f"triangles, {st28.max_bounces} bounces, {n28} rays): the "
+              f"forward's outputs with the record == without {fwd_same}; "
+              f"the sweep == the replay bit for bit ([K, {got.shape[1]}]"
+              f"{' and env-NEE records' if nee else ''}), repeatable "
+              f"{routes_same}; vs sweep_reference "
+              f"worst diff/bound {sweep_ratio:.3e} (<= 1); the record vs "
+              f"the lockstep's on {agree.shape[0]} rays ({n_apart} apart, "
+              f"held out): rays whose ids or masks differ {n_ids} (none), "
+              f"whose floats differ past 1e-4 {n_floats} (none; in glass "
+              f"<= 0.1%) {rec_ok}"
+              f", floats max |diff| / (1 + |plain|) {rec_err:.3e}; vs the "
+              f"plain backward max |diff| "
+              f"{plain_err:.3e}, worst diff/bound {plain_ratio:.3e} (<= 1)",
+              flush=True)
+        assert fwd_same and routes_same and rec_ok, name
+        assert sweep_ratio <= 1.0, name
+        assert plain_ratio <= 1.0, name
+        # times: the forward without and with the record, the sweep, the
+        # replay, the sweep's plain version
+        fwd_v = {"B2+d": "B1d", "B2b+d": "B1b+d", "B2c+d": "B1d",
+                 "B2c+n+d": "B1c+d", "B2b+c+n+d": "B1b+c+d"}[name]
+        t28 = {}
+        for key, fn, prof_key in (
+                ("forward", fwd, "megakernel_bvh<"),
+                ("forward with the record", fwd_rec,
+                 "megakernel_bvh_record<"),
+                ("sweep", sweep, "adjoint_sweep<"),
+                ("replay", replay, "adjoint_kernel<")):
+            fn()
+            t28[key] = ([_cuda_ms(fn, 5), _cuda_ms(fn, 5)],
+                        profiled_ms(fn, prof_key, reps=5))
+        t28["sweep plain"] = ([_cuda_ms(sweep_plain, 1),
+                               _cuda_ms(sweep_plain, 1)], None)
+        # the sweep's bound: the bytes it must move (the words of the
+        # shaded bounces, a ray's end word, its ct and sky cotangents, the
+        # table and the [K, 12|13] partials and result) against its flops
+        shaded = int(((rec.end.to(torch.int64) & 0xFFFF)).sum())
+        words = adj.record_words(sc, st28)
+        blocks = -(-n28 // adj.THREADS)
+        cols = got.shape[1]
+        kmat = sc.materials.count
+        lit_count = int(lit.sum()) if nee else 0
+        sweep_bytes = (shaded * 4 * words + n28 * (4 + 12 + (16 if env
+                                                              else 0))
+                       + 4 * kmat * 17 + 4 * (blocks + 1) * kmat * cols
+                       + (n28 * slots * 4 + lit_count * 12 if nee else 0))
+        sweep_ops = shaded * (OPS_SWEEP + (OPS_SWEEP_NEE if nee else 0))
+        bound_sweep = _bound(sweep_bytes, sweep_ops)
+        rec28[name] = dict(
+            err=plain_err, sweep_ratio=sweep_ratio, rec_err=rec_err,
+            rec_rays_apart=[n_apart, n_ids, n_floats],
+            times=t28, bound=bound_sweep, shaded=shaded,
+            ops_ms=sweep_ops / PEAK_FLOPS * 1e3,
+            record_bytes=adj.record_bytes(sc, st28, n28),
+            record_written_bytes=shaded * 4 * words + 4 * n28,
+            res=res[name + " sweep"],
+            smem_bytes=4 * kmat * (17 + adj.WARPS * cols),
+            forward_variant=fwd_v, forward_res=res[fwd_v + " record"])
+        print(f"[28] {name}: ms (events x 2, device) {t28}; sweep "
+              f"registers, spill bytes {rec28[name]['res']}, dynamic shared "
+              f"memory "
+              f"{rec28[name]['smem_bytes']} bytes a block; the recording "
+              f"forward's ({fwd_v}) {rec28[name]['forward_res']}; "
+              f"{shaded} shaded bounces, record "
+              f"{rec28[name]['record_bytes'] / 1e6:.1f} MB a launch; sweep "
+              f"bound {bound_sweep[0]:.4f} ms by {bound_sweep[1]} (its "
+              f"flops alone {rec28[name]['ops_ms']:.4f} ms) | {card}",
+              flush=True)
+
     # --- 29. the sky pair vs deferred_sky
     pix64 = torch.arange(64 * 64, device=dev)
     st29c = sky_cases["sky_cornell"][2]
@@ -2203,8 +2527,21 @@ def main() -> int:
         assert n_apart <= PARITY_MAX_OUTSIDE * n30, f"{name} forward"
         ct30 = torch.rand((n30, 3), generator=torch.Generator().manual_seed(
             0)).to(dev) * agree[:, None]
+        sweeps = adj.SWEEP_LAUNCHES
         got, env30 = adj.trace_grad_fused(sc, o30, d30, cm.far, s30, e30,
                                           ct30, st30)
+        recorded = adj.SWEEP_LAUNCHES > sweeps
+        assert recorded == mk.uses_bvh(sc), name  # the BVH tier records
+        same30 = True
+        if recorded:  # the replay (RECORD_BUDGET 0) gives the same bits
+            saved, adj.RECORD_BUDGET = adj.RECORD_BUDGET, 0
+            try:
+                rep30, env_rep = adj.trace_grad_fused(
+                    sc, o30, d30, cm.far, s30, e30, ct30, st30)
+            finally:
+                adj.RECORD_BUDGET = saved
+            same30 = torch.equal(got, rep30) and all(
+                torch.equal(a, b) for a, b in zip(env30, env_rep))
         again, env30b = adj.trace_grad_fused(sc, o30, d30, cm.far, s30, e30,
                                              ct30, st30)
         ref, env30p = adj.trace_grad_fused_reference(sc, o30, d30, cm.far,
@@ -2229,8 +2566,10 @@ def main() -> int:
               f"diff/bound {ratio:.3e} (<= 1); per mip max |diff| "
               f"{[f'{x:.2e}' for x in lv_err]} (<= 1e-4 max |mip| + 1e-6: "
               f"{lv_ok}); bitwise repeatable {repeat}; replay color == "
-              f"forward {replay_ok}", flush=True)
+              f"forward {replay_ok}; record route {recorded}, equal to the "
+              f"replay's bits {same30}", flush=True)
         assert ratio <= 1.0 and lv_ok and repeat and replay_ok, name
+        assert same30, name
     # B2c and B2c+n at the envmap_1024 launch shape, with the sky
     # backward's cotangents (phase 29's d4_e, and its record buffers)
     times30 = {}
@@ -2307,6 +2646,7 @@ def main() -> int:
         kernel count set to 0 before the warm-up: (seconds per step,
         {kernel: launches in the n_steps + 1 calls}, the results)."""
         mk.LAUNCHES = adj.LAUNCHES = 0
+        mk.RECORD_LAUNCHES = adj.SWEEP_LAUNCHES = 0
         skyk.FORWARD_LAUNCHES = skyk.BACKWARD_LAUNCHES = 0
         skyk.ORDER_LAUNCHES = skyk.SCATTER_LAUNCHES = 0
         fn(0)
@@ -2316,6 +2656,7 @@ def main() -> int:
         torch.cuda.synchronize()
         dt_ = (time.perf_counter() - t0) / n_steps
         counts = dict(megakernel=mk.LAUNCHES, adjoint=adj.LAUNCHES,
+                      record=mk.RECORD_LAUNCHES, sweep=adj.SWEEP_LAUNCHES,
                       sky_forward=skyk.FORWARD_LAUNCHES,
                       sky_backward=skyk.BACKWARD_LAUNCHES,
                       sky_ordering=skyk.ORDER_LAUNCHES,
@@ -2329,34 +2670,59 @@ def main() -> int:
     zeros_m = torch.zeros((256, 256, 3), device=dev)
     st_c = st9.replace(width=256, height=256, samples_per_pixel=16,
                        max_bounces=4, use_envmap=True)
+    glass_step = lambda f: render_loss_grad(
+        {"materials": dragon.materials}, dragon, dcam, st_d, zeros_d, f)
+    metal_step = lambda f: render_loss_grad(
+        {"materials": metal_dragon.materials}, metal_dragon, dcam, st_m,
+        zeros_m, f)
     jobs31 = {
-        # name: (step, settings, the kernels its path must launch)
-        "glass_dragon fwd+bwd": (
-            lambda f: render_loss_grad({"materials": dragon.materials},
-                                       dragon, dcam, st_d, zeros_d, f),
-            st_d, ("megakernel", "adjoint")),
+        # name: (step, settings, the kernels its path must launch, those
+        # it must not); the BVH tier's steps on the record route (the
+        # forward records, the backward sweeps), then again with
+        # RECORD_BUDGET = 0 (the replay)
+        "glass_dragon fwd+bwd": (glass_step, st_d,
+                                 ("megakernel", "record", "sweep"),
+                                 ("adjoint",)),
         "envmap_1024 fwd+bwd": (
             lambda f: render_loss_grad(
                 {"materials": spheres.materials,
                  "env_mips": spheres.env_mips}, spheres, sky_cam, st_e,
                 zeros_e, f),
             st_e, ("megakernel", "adjoint", "sky_forward", "sky_backward",
-                   "sky_ordering", "sky_sums")),
-        "metal_dragon fwd+bwd 256": (
-            lambda f: render_loss_grad({"materials": metal_dragon.materials},
-                                       metal_dragon, dcam, st_m, zeros_m, f),
-            st_m, ("megakernel", "adjoint")),
+                   "sky_ordering", "sky_sums"), ("record", "sweep")),
+        "metal_dragon fwd+bwd 256": (metal_step, st_m,
+                                     ("megakernel", "record", "sweep"),
+                                     ("adjoint",)),
         "sky_cornell fwd+bwd 256": (
             lambda f: render_loss_grad(
                 {"materials": sky_cornell.materials,
                  "env_mips": sky_cornell.env_mips}, sky_cornell, cam, st_c,
                 torch.zeros((256, 256, 3), device=dev), f),
             st_c, ("megakernel", "adjoint", "sky_forward", "sky_backward",
-                   "sky_ordering", "sky_sums")),
+                   "sky_ordering", "sky_sums"), ("record", "sweep")),
+        "glass_dragon fwd+bwd replay": (glass_step, st_d,
+                                        ("megakernel", "adjoint"),
+                                        ("record", "sweep")),
+        "metal_dragon fwd+bwd 256 replay": (metal_step, st_m,
+                                            ("megakernel", "adjoint"),
+                                            ("record", "sweep")),
     }
-    for name, (fn, st31, need) in jobs31.items():
+    outs31 = {}
+    for name, (fn, st31, need, shun) in jobs31.items():
         n_steps = 2
-        dt31, counts, outs = timed_steps(fn, n_steps)
+        saved_budget = adj.RECORD_BUDGET
+        if name.endswith("replay"):
+            adj.RECORD_BUDGET = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            dt31, counts, outs = timed_steps(fn, n_steps)
+            torch.cuda.synchronize()
+            peak31 = torch.cuda.max_memory_allocated()
+            prof31 = _profile_step(lambda: fn(n_steps + 1), dt31 * 1e3)
+        finally:
+            adj.RECORD_BUDGET = saved_budget
+        outs31[name] = outs
         for loss, grads in outs:
             assert bool(torch.isfinite(loss)), name
             for f in dataclasses.fields(grads["materials"]):
@@ -2366,15 +2732,28 @@ def main() -> int:
                 assert bool(torch.isfinite(m).all()), name
         missing = [k for k in need if counts[k] == 0]
         assert not missing, f"{name} launched none of {missing}"
+        stray = [k for k in shun if counts[k] != 0]
+        assert not stray, f"{name} launched {stray}"
         mr31 = st31.samples_per_pixel * st31.num_pixels / dt31 / 1e6
-        prof31 = _profile_step(lambda: fn(n_steps + 1), dt31 * 1e3)
         steps31[name] = dict(step_ms=dt31 * 1e3, mrays_fwd_bwd=mr31,
-                             launches=counts, profile=prof31)
+                             launches=counts, profile=prof31,
+                             peak_bytes=peak31)
         print(f"[31] {name} {st31.width}x{st31.height} "
               f"{st31.samples_per_pixel} spp {st31.max_bounces} bounces: "
               f"{counts} launches in {n_steps + 1} steps; step "
               f"{dt31 * 1e3:.1f} ms = {mr31:.3f} Mrays/s (fwd+bwd); "
-              f"{_profile_text(prof31)} | {card}", flush=True)
+              f"{_profile_text(prof31)}; peak memory "
+              f"{peak31 / 2**30:.3f} GiB | {card}", flush=True)
+    for name in ("glass_dragon fwd+bwd", "metal_dragon fwd+bwd 256"):
+        same = all(
+            torch.equal(a[0], b[0]) and all(
+                torch.equal(getattr(a[1]["materials"], f.name),
+                            getattr(b[1]["materials"], f.name))
+                for f in dataclasses.fields(a[1]["materials"]))
+            for a, b in zip(outs31[name], outs31[name + " replay"]))
+        print(f"[31] {name}: the record route's losses and material "
+              f"gradients == the replay's bit for bit {same}", flush=True)
+        assert same, name
     prof_e = main14["envmap_1024"][4]
     print(f"[31] envmap_1024 forward frame through the sky kernel (phase "
           f"14): {main14['envmap_1024'][2] * 1e3:.1f} ms a frame, "
@@ -2722,8 +3101,8 @@ def main() -> int:
     tt, bt, _ = work19["camera"]
     bounds["B3"] = _bound(b3_bytes, tt * OPS_TRI + bt * OPS_BOX)
     bounds.update(bounds_new)
-    for name in ("B2b+d", "B2+d"):
-        bounds[name] = adj28[name]["bound"]
+    for name in ("B2b+d", "B2+d"):  # the record route's sweep
+        bounds[name] = rec28[name]["bound"]
     print(f"[24] path work at the launch shapes: B1a {w_a}, B1b {w_b}, B1c "
           f"{w_c}; bounds (ms, by) {bounds}", flush=True)
 
@@ -2743,6 +3122,9 @@ def main() -> int:
 
     def entry(name, replaces, source, launches, err, k_ms, p_ms,
               library_ms=None, **extra):
+        # the record's own keys are the ones given here; extras add keys
+        assert not set(extra) & {"route", "source", "replaces", "ms",
+                                 "plain_ms", "bound_ms", "bound_by"}, extra
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": float(np.mean(k_ms)),
@@ -2841,19 +3223,55 @@ def main() -> int:
     skys = "halogen_tpu_torch/csrc/sky.cu"
     vjp = "halogen_tpu/kernels/megakernel.py:1953"  # the lockstep vjp
     step = lambda name: steps31[name]
+    # B2b+d and B2+d: the record route's sweep (adjoint_sweep), which the
+    # main path's steps launch; beside it the replay it replaced and the
+    # recording forward, timed on the same rays (phase 28)
     for name, path in (("B2b+d", "glass_dragon fwd+bwd"),
                        ("B2+d", "metal_dragon fwd+bwd 256")):
-        a28 = adj28[name]
+        a28, r28 = adj28[name], rec28[name]
+        t = r28["times"]
+        rep_step = step(path + " replay")
         kernels.append(entry(
             name, "halogen_tpu/kernels/adjoint.py:80", adjs,
-            step(path)["launches"]["adjoint"], a28["err"], a28["ms"],
-            a28["plain_ms"], **reg(name), extends=vjp, plain_rays=16384,
-            device_ms=a28["device_ms"], smem_bytes_per_block=a28[
-                "smem_bytes"], main_path=path,
+            step(path)["launches"]["sweep"], r28["err"], t["sweep"][0],
+            t["sweep plain"][0], registers=r28["res"][0],
+            spill_store_bytes=r28["res"][1], kernel="adjoint_sweep",
+            transcript_route="recorded", extends=vjp,
+            device_ms=t["sweep"][1], smem_bytes_per_block=r28["smem_bytes"],
+            record_rays_apart_ids_floats=r28["rec_rays_apart"],
+            sweep_vs_plain_worst_ratio=r28["sweep_ratio"],
+            record_vs_plain_max_rel_err=r28["rec_err"],
+            bound_ops_ms=r28["ops_ms"], shaded_bounces=r28["shaded"],
+            record_bytes_per_launch=r28["record_bytes"],
+            record_written_bytes=r28["record_written_bytes"],
+            forward_variant=r28["forward_variant"],
+            forward_ms=t["forward"][0], forward_device_ms=t["forward"][1],
+            forward_record_ms=t["forward with the record"][0],
+            forward_record_device_ms=t["forward with the record"][1],
+            forward_record_registers=r28["forward_res"][0],
+            forward_record_spill_store_bytes=r28["forward_res"][1],
+            replay_ms=t["replay"][0], replay_device_ms=t["replay"][1],
+            replay_registers=res[name][0], replay_bound_ms=a28["bound"][0],
+            replay_max_abs_err=a28["err"], replay_plain_ms=a28["plain_ms"],
+            replay_plain_rays=16384,
+            smem_bytes_per_block_replay=a28["smem_bytes"], main_path=path,
             step_ms=step(path)["step_ms"],
             fwd_bwd_mrays_per_s=step(path)["mrays_fwd_bwd"],
             step_cuda_launches=step(path)["profile"]["cuda_launches"],
-            step_device_idle_share=step(path)["profile"]["idle_share"]))
+            step_device_busy_ms=step(path)["profile"]["busy_ms"],
+            step_device_idle_share=step(path)["profile"]["idle_share"],
+            step_peak_bytes=step(path)["peak_bytes"],
+            replay_step_ms=rep_step["step_ms"],
+            replay_fwd_bwd_mrays_per_s=rep_step["mrays_fwd_bwd"],
+            replay_step_device_busy_ms=rep_step["profile"]["busy_ms"],
+            replay_step_device_idle_share=rep_step["profile"]["idle_share"],
+            replay_step_peak_bytes=rep_step["peak_bytes"],
+            variants={k: dict(sweep_ms=v["times"]["sweep"][0],
+                              sweep_device_ms=v["times"]["sweep"][1],
+                              replay_device_ms=v["times"]["replay"][1],
+                              bound_ms=v["bound"][0], registers=v["res"][0],
+                              spill_store_bytes=v["res"][1])
+                      for k, v in rec28.items()}))
     for name, path in (("B2c", "sky_cornell fwd+bwd 256"),
                        ("B2c+n", "envmap_1024 fwd+bwd")):
         t30 = times30[name]

@@ -20,7 +20,20 @@
 //     and the attenuation's cotangent, and the replay writes one record
 //     per (ray, bounce) -- the drawn texel and ct * atten * f * w / pdf --
 //     which the sky backward sums into the finest mip.
-// For every path it
+// Three routes give the transcript of each shaded bounce to one reverse
+// sweep (`sweep_bounce`, `warp_sums`), which all three run alike:
+//   shared (`adjoint_kernel<*, true, *, *>`): the kernel replays the path
+//     and keeps the transcript in the block's shared memory, where the
+//     block fits `adjoint.SMEM_BUDGET`;
+//   global (`<*, false, *, *>`): the same replay with the transcript in a
+//     device buffer of the same layout, past that budget;
+//   record (`adjoint_sweep<kTransmissive, kEnv>`): no replay.
+//     The forward kernel recorded the transcript as it traced
+//     (megakernel.cu `megakernel_bvh_record`, path_common.cuh
+//     `RecordView`). The BVH tier takes it where a step's records fit
+//     `adjoint.RECORD_BUDGET` (`adjoint.record_plan`), else it replays;
+//     the brute tier always replays.
+// All three give the same bits. On the replay routes, for every path it
 //   1. replays the forward kernel's path through the same `path_bounce`
 //      (path_common.cuh; with the same switches as the forward variant),
 //      so the replay rounds as the forward does and takes its Fresnel,
@@ -45,15 +58,16 @@
 //   3. sums those per material in a fixed order, so two calls give the
 //      same bits (see below); each block writes its partial [K, 12|13]
 //      table, and a second kernel sums the blocks in a fixed tree.
+// The record route runs steps 2 and 3 on the recorded words.
 // A dead path stops its replay at its last shaded bounce; later bounces
 // pass gA through unchanged and contribute nothing (`adjoint.py:551-561`),
 // so sweeping only the shaded bounces is exact.
 //
-// What bounds it on this card: the replay, which is the forward kernel's
-// bounce (FP32 and integer issue, divergence; B1b's bounce is ~three
-// quarters of B2b's time; on the BVH tier the walk's dependent loads),
-// then the sweep's ~60 flops a shaded bounce and the sums (PERF.md §6).
-// What the design does about it:
+// What bounds the replay on this card: the replay, which is the forward
+// kernel's bounce (FP32 and integer issue, divergence; B1b's bounce is
+// ~three quarters of B2b's time; on the BVH tier the walk's dependent
+// loads), then the sweep's ~60 flops a shaded bounce and the sums
+// (PERF.md §6). What the design does about it:
 //   - the transcript stays on chip: 20 bytes per bounce (a_prev rgb,
 //     t, the packed word; 40 with env NEE) in shared memory, laid out
 //     [bounce][field][thread] so that a warp's accesses fall in distinct
@@ -76,6 +90,21 @@
 //     ([N, B + 1]), where the sky backward's stable ordering by texel
 //     keeps them in ray order; a float atomic per record would sum in
 //     another order on every call.
+// On the BVH tier the replay re-walks the world BVH that the forward has
+// just walked (B2b+d takes 0.68-0.70 ms a 262144-ray launch of the glass
+// dragon on an NVIDIA H100 80GB HBM3 at 700 W, of which the walk ~0.53;
+// PERF.md §6). The record route trades that walk for the
+// transcript's bytes: 20 a shaded bounce (48 with env NEE) written by the
+// forward and read once here, a dependent stream of ~60 flops a bounce,
+// bound by memory latency. Its design: ray i on thread i % 128 of block
+// i / 128 as on the replay routes, so the sums' orders and bits are the
+// same; slot-major records, so a warp's loads of one slot are 512
+// contiguous bytes (16-byte loads); only the material table in shared
+// memory, and no minimum of blocks an SM (48 registers, 56 with env NEE).
+// A register prefetch of bounce k - 1's words while bounce k is swept
+// measured no faster on the glass dragon (0.0333-0.0339 against
+// 0.0334-0.0337 ms a 262144-ray launch on the same H100; PERF.md §6), so
+// each bounce's words are loaded as the sweep reaches them.
 //
 // Build with -fmad=false and without fast math, as megakernel.cu.
 
@@ -89,12 +118,6 @@ constexpr int kMaxMaterials = 64;   // kernels/megakernel.py MAX_MATERIALS
 constexpr int kWarps = kThreads / 32;
 constexpr int kReduceThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-// the packed word: hit material in bits 0-7, Beer material in 8-15, masks
-constexpr uint32_t kSpec = 1u << 16;
-constexpr uint32_t kAbsorbing = 1u << 17;
-constexpr uint32_t kSurvive = 1u << 18;
-constexpr uint32_t kTrueHit = 1u << 19;
-constexpr uint32_t kRefr = 1u << 20;
 
 // columns: d_e | d_albedo | d_specular | d_absorption, and with the sky
 // d_roughness (through the mip-bias level of the sky lookup)
@@ -169,6 +192,201 @@ __device__ __forceinline__ void warp_sum_by_key(int key, float (&g)[NG],
   __syncwarp();  // the next bounce's writers of a row read this one's
 }
 
+// The transcript words of one shaded bounce, as the sweep reads them: on
+// the replay routes word f of the bounce lies at w[f * kThreads] (shared or
+// device memory, read where the sweep uses it); on the record route the
+// forward kernel's `RecordView` rows, loaded ahead (RecordWords).
+struct ReplayWords {
+  const uint32_t* w;
+  __device__ __forceinline__ V3 a_prev() const {
+    return {__uint_as_float(w[0]), __uint_as_float(w[kThreads]),
+            __uint_as_float(w[2 * kThreads])};
+  }
+  __device__ __forceinline__ float t_safe() const {
+    return __uint_as_float(w[3 * kThreads]);
+  }
+  __device__ __forceinline__ uint32_t word() const { return w[4 * kThreads]; }
+  __device__ __forceinline__ V3 nee_q() const {
+    return {__uint_as_float(w[5 * kThreads]), __uint_as_float(w[6 * kThreads]),
+            __uint_as_float(w[7 * kThreads])};
+  }
+  __device__ __forceinline__ float nee_dterm() const {
+    return __uint_as_float(w[8 * kThreads]);
+  }
+  __device__ __forceinline__ float nee_gterm() const {
+    return __uint_as_float(w[9 * kThreads]);
+  }
+};
+
+struct RecordWords {
+  float4 a = {0.0f, 0.0f, 0.0f, 0.0f};   // a_prev rgb, t_safe
+  uint32_t w = 0u;                       // the packed word
+  float4 nq = {0.0f, 0.0f, 0.0f, 0.0f};  // env NEE: q rgb, dterm
+  float2 ngw = {0.0f, 0.0f};             // env NEE: gterm, w_fac
+  int texel = -1;                        // env NEE: the drawn texel
+  __device__ __forceinline__ V3 a_prev() const { return {a.x, a.y, a.z}; }
+  __device__ __forceinline__ float t_safe() const { return a.w; }
+  __device__ __forceinline__ uint32_t word() const { return w; }
+  __device__ __forceinline__ V3 nee_q() const { return {nq.x, nq.y, nq.z}; }
+  __device__ __forceinline__ float nee_dterm() const { return nq.w; }
+  __device__ __forceinline__ float nee_gterm() const { return ngw.x; }
+};
+
+// Slot k of ray i of the recorded transcript: 16- and 4-byte loads, those
+// of consecutive rays consecutive (and with env NEE 16, 8 and 4 more).
+template <bool kNee>
+__device__ __forceinline__ RecordWords load_words(const RecordView& rv, int i,
+                                                  int k) {
+  const size_t s = static_cast<size_t>(k) * rv.n + i;
+  RecordWords r;
+  r.a = __ldg(rv.a + s);
+  r.w = __ldg(rv.word + s);
+  if constexpr (kNee) {
+    r.nq = __ldg(rv.nq + s);
+    r.ngw = __ldg(rv.ngw + s);
+    r.texel = __ldg(rv.texel + s);
+  }
+  return r;
+}
+
+// The cotangent of an env-NEE draw's radiance, ct * a_prev * (albedo *
+// dterm + specular * gterm) * w_fac, into out[0:3] (the record the sky
+// backward sums into the drawn texel).
+__device__ __forceinline__ void store_nee_weight(float* out, const float* m,
+                                                 V3 ct, V3 a_prev,
+                                                 float dterm, float gterm,
+                                                 float wfac) {
+  out[0] = ct.x * a_prev.x * (m[0] * dterm + m[4] * gterm) * wfac;
+  out[1] = ct.y * a_prev.y * (m[1] * dterm + m[5] * gterm) * wfac;
+  out[2] = ct.z * a_prev.z * (m[2] * dterm + m[6] * gterm) * wfac;
+}
+
+// One shaded bounce of the reverse sweep (`adjoint.py:480-583`), shared by
+// both kernels so that they round alike: from the bounce's words `w`, the
+// cotangent gA of the attenuation after the bounce and g_rough that of the
+// accumulated roughness, its columns into g (zeros on entry), gA moved to
+// before the bounce, and the keys of its sums: the hit material `mid` and
+// the Beer material `abid` (-1: none).
+template <bool kTransmissive, int kEnv, typename Words>
+__device__ __forceinline__ void sweep_bounce(const float* mat_tab,
+                                             bool use_rr, V3 ct,
+                                             const Words& w, V3& gA,
+                                             float g_rough,
+                                             float (&g)[n_grad(kEnv)],
+                                             int& mid, int& abid) {
+  constexpr bool kNee = kEnv == 2;
+  const V3 a_prev = w.a_prev();
+  const float t_safe = w.t_safe();
+  const uint32_t word = w.word();
+  const int mat = static_cast<int>(word & 0xffu);
+  const int ab_mat = static_cast<int>((word >> 8) & 0xffu);
+  const bool spec = (word & kSpec) != 0;
+  const bool absorbing = (word & kAbsorbing) != 0;
+  const bool survive = (word & kSurvive) != 0;
+  // a refraction or a false hit scatters with color 1
+  // (adjoint.py:512-516); opaque bounces never do
+  const bool surf =
+      !kTransmissive || ((word & kTrueHit) != 0 && (word & kRefr) == 0);
+
+  // recompute the bounce's scatter factor (adjoint.py:499-524); the
+  // absorption is the current medium's material row
+  const float* m = mat_tab + mat * kMatStride;
+  const V3 base = surf ? lobe_color(m, spec) : V3{1.0f, 1.0f, 1.0f};
+  const V3 beer = beer_factor(
+      mat_absorption(mat_tab + (absorbing ? ab_mat : mat) * kMatStride),
+      absorbing, t_safe);
+  const V3 scf = mul3(base, beer);
+  const V3 a_post = mul3(a_prev, scf);
+
+  // Russian roulette's 1/max(atten) (adjoint.py:526-547)
+  V3 gp = gA;
+  if (use_rr && survive) {
+    const float contribution = fmaxf(fmaxf(a_post.x, a_post.y), a_post.z);
+    const float inv_c = 1.0f / fmaxf(contribution, 1e-20f);
+    const float tx = a_post.x == contribution ? 1.0f : 0.0f;
+    const float ty = a_post.y == contribution ? 1.0f : 0.0f;
+    const float tz = a_post.z == contribution ? 1.0f : 0.0f;
+    const float n_tie = fmaxf(tx + ty + tz, 1.0f);
+    // t / n_tie for t in {0, 1} and n_tie in {1, 2, 3} is 0 or 1 /
+    // n_tie rounded, so a select gives the division's bits
+    const float inv_tie =
+        n_tie == 1.0f ? 1.0f : (n_tie == 2.0f ? 0.5f : 1.0f / 3.0f);
+    const float gate = contribution > 1e-20f ? 1.0f : 0.0f;
+    const float dot_ga = gA.x * a_post.x + gA.y * a_post.y + gA.z * a_post.z;
+    gp = {gA.x * inv_c - tx * inv_tie * gate * dot_ga * inv_c * inv_c,
+          gA.y * inv_c - ty * inv_tie * gate * dot_ga * inv_c * inv_c,
+          gA.z * inv_c - tz * inv_tie * gate * dot_ga * inv_c * inv_c};
+  }
+  if constexpr (kEnv != 0) {
+    // the roughness accumulator adds roughness * atten.x after the
+    // scatter, before Russian roulette
+    gp.x = gp.x + g_rough * m[8];
+    g[12] = g_rough * a_post.x;
+  }
+
+  // throughput product and emission (adjoint.py:551-574)
+  const V3 em = {m[9], m[10], m[11]};
+  const V3 g_sc = mul3(gp, a_prev);
+  gA = {gp.x * scf.x + ct.x * em.x, gp.y * scf.y + ct.y * em.y,
+        gp.z * scf.z + ct.z * em.z};
+  const V3 g_base = mul3(g_sc, beer);
+  const V3 g_beer = mul3(g_sc, base);
+  g[0] = ct.x * a_prev.x;
+  g[1] = ct.y * a_prev.y;
+  g[2] = ct.z * a_prev.z;
+  if (surf && spec) {
+    g[6] = g_base.x;
+    g[7] = g_base.y;
+    g[8] = g_base.z;
+  } else if (surf) {
+    g[3] = g_base.x;
+    g[4] = g_base.y;
+    g[5] = g_base.z;
+  }
+  if (absorbing) {
+    g[9] = -t_safe * beer.x * g_beer.x;
+    g[10] = -t_safe * beer.y * g_beer.y;
+    g[11] = -t_safe * beer.z * g_beer.z;
+  }
+  if constexpr (kNee) {
+    // the NEE term a_prev * (albedo * dterm + specular * gterm) * q
+    const V3 q = w.nee_q();
+    const float dterm = w.nee_dterm();
+    const float gterm = w.nee_gterm();
+    const V3 cq = mul3(ct, q);
+    gA = {gA.x + cq.x * (m[0] * dterm + m[4] * gterm),
+          gA.y + cq.y * (m[1] * dterm + m[5] * gterm),
+          gA.z + cq.z * (m[2] * dterm + m[6] * gterm)};
+    const V3 ca = mul3(cq, a_prev);
+    g[3] = g[3] + ca.x * dterm;
+    g[4] = g[4] + ca.y * dterm;
+    g[5] = g[5] + ca.z * dterm;
+    g[6] = g[6] + ca.x * gterm;
+    g[7] = g[7] + ca.y * gterm;
+    g[8] = g[8] + ca.z * gterm;
+  }
+  mid = mat;
+  abid = absorbing ? ab_mat : -1;
+}
+
+// A warp's sums of one bounce's columns: absorption follows the Beer
+// material, the other columns the hit material; an opaque bounce's Beer
+// material is its hit material (and its absorption columns are 0 where it
+// does not absorb), so B2 sums all columns in one grouping.
+template <bool kTransmissive, int kEnv>
+__device__ __forceinline__ void warp_sums(int mid, int abid,
+                                          float (&g)[n_grad(kEnv)],
+                                          float* acc) {
+  constexpr int kNG = n_grad(kEnv);
+  if constexpr (kTransmissive) {
+    warp_sum_by_key<0, 9>(mid, g, acc);
+    if (__any_sync(kFull, abid >= 0)) warp_sum_by_key<9, 12>(abid, g, acc);
+    if constexpr (kEnv != 0) warp_sum_by_key<12, 13>(mid, g, acc);
+  } else {
+    warp_sum_by_key<0, kNG>(mid, g, acc);
+  }
+}
+
 template <bool kTransmissive, bool kSmemTranscript, bool kBvh, int kEnv>
 __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
   constexpr int kNG = n_grad(kEnv);
@@ -230,13 +448,7 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
       w[kThreads] = __float_as_uint(r.a_prev.y);
       w[2 * kThreads] = __float_as_uint(r.a_prev.z);
       w[3 * kThreads] = __float_as_uint(r.t_safe);
-      w[4 * kThreads] = static_cast<uint32_t>(r.mat) |
-                        (r.absorbing ? static_cast<uint32_t>(r.ab_mat) << 8
-                                     : 0u) |
-                        (r.spec ? kSpec : 0u) |
-                        (r.absorbing ? kAbsorbing : 0u) |
-                        (r.survive ? kSurvive : 0u) |
-                        (r.is_true ? kTrueHit : 0u) | (r.refr ? kRefr : 0u);
+      w[4 * kThreads] = pack_bounce(r);
       if constexpr (kNee) {
         // the NEE term atten * f * L * w_fac: its radiance * weight and
         // BRDF factors for the sweep, and the texel's record
@@ -252,18 +464,10 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
         w[9 * kThreads] = __float_as_uint(lit ? r.nee_gterm : 0.0f);
         const size_t slot = static_cast<size_t>(i) * slots + k;
         p.nee_key[slot] = r.nee_texel;
-        if (lit) {
-          const float* m = sc.mat + r.mat * kMatStride;
-          p.nee_w[3 * slot] = ct.x * r.a_prev.x *
-                              (m[0] * r.nee_dterm + m[4] * r.nee_gterm) *
-                              r.nee_wfac;
-          p.nee_w[3 * slot + 1] = ct.y * r.a_prev.y *
-                                  (m[1] * r.nee_dterm + m[5] * r.nee_gterm) *
-                                  r.nee_wfac;
-          p.nee_w[3 * slot + 2] = ct.z * r.a_prev.z *
-                                  (m[2] * r.nee_dterm + m[6] * r.nee_gterm) *
-                                  r.nee_wfac;
-        }
+        if (lit)
+          store_nee_weight(p.nee_w + 3 * slot, sc.mat + r.mat * kMatStride,
+                           ct, r.a_prev, r.nee_dterm, r.nee_gterm,
+                           r.nee_wfac);
       }
       n_shaded = k + 1;
       if (res != kShadedGoesOn) {
@@ -302,117 +506,101 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < kNG; ++j) g[j] = 0.0f;
     int mid = -1, abid = -1;
+    if (k < n_shaded)
+      sweep_bounce<kTransmissive, kEnv>(
+          sc.mat, cfg.use_rr, ct, ReplayWords{rec + k * kRec * kThreads},
+          gA, g_rough, g, mid, abid);
+    warp_sums<kTransmissive, kEnv>(mid, abid, g, acc);
+  }
+
+  // the block's partial table: its warps' tables added in warp order
+  __syncthreads();
+  for (int a = tid; a < n_acc; a += kThreads) {
+    float sum = s_acc[a];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) sum += s_acc[w * n_acc + a];
+    p.partial[static_cast<size_t>(blockIdx.x) * n_acc + a] = sum;
+  }
+}
+
+struct SweepParams {
+  const float* mat;   // [K, 17]
+  const float* ct;    // [N, 3] cotangent of the path color
+  const float* gsky;  // [N, 4] (env >= 1), as Params
+  RecordView rec;     // the forward kernel's transcript
+  float* partial;     // [blocks, K * n_grad]
+  int* nee_key;       // [N, B + 1] (env == 2), as Params
+  float* nee_w;       // [N, B + 1, 3] (env == 2)
+  int n, num_materials, slots;
+  bool use_rr;
+};
+
+// The sweep of adjoint_kernel over the transcript its forward recorded
+// (B2+d, B2b+d and their sky variants on the record route): no replay, so
+// no triangles, BVH or rays; the material table in shared memory. Ray i
+// is thread i % 128 of block i / 128, and the sweep, the warp sums and the
+// block partials are adjoint_kernel's (`sweep_bounce`, `warp_sums`), so
+// [K, 12|13] and the env-NEE records are the replay's bit for bit.
+template <bool kTransmissive, int kEnv>
+__global__ void __launch_bounds__(kThreads) adjoint_sweep(SweepParams p) {
+  constexpr int kNG = n_grad(kEnv);
+  constexpr bool kNee = kEnv == 2;
+  extern __shared__ float4 smem4[];
+  float* mat = reinterpret_cast<float*>(smem4);
+  const int n_mat = p.num_materials * kMatStride;
+  const int n_acc = p.num_materials * kNG;
+  float* s_acc = mat + n_mat;  // [kWarps, K * kNG] sums
+  for (int j = threadIdx.x; j < n_mat; j += kThreads) mat[j] = p.mat[j];
+  for (int j = threadIdx.x; j < kWarps * n_acc; j += kThreads)
+    s_acc[j] = 0.0f;
+  __syncthreads();
+
+  const int tid = threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + tid;
+  const bool valid = i < p.n;
+  const V3 ct = valid ? V3{p.ct[3 * i], p.ct[3 * i + 1], p.ct[3 * i + 2]}
+                      : V3{0.0f, 0.0f, 0.0f};
+  const uint32_t end = valid ? p.rec.end[i] : 0u;
+  const int n_shaded = static_cast<int>(end & 0xffffu);
+  const bool missed = (end & kEndMissed) != 0u;
+  if constexpr (kNee) {
+    if (valid) {
+      for (int k = n_shaded; k < p.slots; ++k)
+        p.nee_key[static_cast<size_t>(i) * p.slots + k] = -1;
+    }
+  }
+
+  float* acc = s_acc + (tid >> 5) * n_acc;
+  V3 gA = {0.0f, 0.0f, 0.0f};
+  float g_rough = 0.0f;
+  if constexpr (kEnv != 0) {
+    if (valid) {
+      if (missed)
+        gA = {p.gsky[4 * i], p.gsky[4 * i + 1], p.gsky[4 * i + 2]};
+      g_rough = p.gsky[4 * i + 3];
+    }
+  }
+  const int top = __reduce_max_sync(kFull, n_shaded) - 1;
+  RecordWords cur;
+  for (int k = top; k >= 0; --k) {
+    if (k < n_shaded) cur = load_words<kNee>(p.rec, i, k);
+    float g[kNG];
+#pragma unroll
+    for (int j = 0; j < kNG; ++j) g[j] = 0.0f;
+    int mid = -1, abid = -1;
     if (k < n_shaded) {
-      const uint32_t* w = rec + k * kRec * kThreads;
-      const V3 a_prev = {__uint_as_float(w[0]), __uint_as_float(w[kThreads]),
-                         __uint_as_float(w[2 * kThreads])};
-      const float t_safe = __uint_as_float(w[3 * kThreads]);
-      const uint32_t word = w[4 * kThreads];
-      const int mat = static_cast<int>(word & 0xffu);
-      const int ab_mat = static_cast<int>((word >> 8) & 0xffu);
-      const bool spec = (word & kSpec) != 0;
-      const bool absorbing = (word & kAbsorbing) != 0;
-      const bool survive = (word & kSurvive) != 0;
-      // a refraction or a false hit scatters with color 1
-      // (adjoint.py:512-516); opaque bounces never do
-      const bool surf =
-          !kTransmissive || ((word & kTrueHit) != 0 && (word & kRefr) == 0);
-
-      // recompute the bounce's scatter factor (adjoint.py:499-524); the
-      // absorption is the current medium's material row
-      const float* m = sc.mat + mat * kMatStride;
-      const V3 base = surf ? lobe_color(m, spec) : V3{1.0f, 1.0f, 1.0f};
-      const V3 beer = beer_factor(
-          mat_absorption(sc.mat + (absorbing ? ab_mat : mat) * kMatStride),
-          absorbing, t_safe);
-      const V3 scf = mul3(base, beer);
-      const V3 a_post = mul3(a_prev, scf);
-
-      // Russian roulette's 1/max(atten) (adjoint.py:526-547)
-      V3 gp = gA;
-      if (cfg.use_rr && survive) {
-        const float contribution =
-            fmaxf(fmaxf(a_post.x, a_post.y), a_post.z);
-        const float inv_c = 1.0f / fmaxf(contribution, 1e-20f);
-        const float tx = a_post.x == contribution ? 1.0f : 0.0f;
-        const float ty = a_post.y == contribution ? 1.0f : 0.0f;
-        const float tz = a_post.z == contribution ? 1.0f : 0.0f;
-        const float n_tie = fmaxf(tx + ty + tz, 1.0f);
-        // t / n_tie for t in {0, 1} and n_tie in {1, 2, 3} is 0 or 1 /
-        // n_tie rounded, so a select gives the division's bits
-        const float inv_tie =
-            n_tie == 1.0f ? 1.0f : (n_tie == 2.0f ? 0.5f : 1.0f / 3.0f);
-        const float gate = contribution > 1e-20f ? 1.0f : 0.0f;
-        const float dot_ga =
-            gA.x * a_post.x + gA.y * a_post.y + gA.z * a_post.z;
-        gp = {gA.x * inv_c - tx * inv_tie * gate * dot_ga * inv_c * inv_c,
-              gA.y * inv_c - ty * inv_tie * gate * dot_ga * inv_c * inv_c,
-              gA.z * inv_c - tz * inv_tie * gate * dot_ga * inv_c * inv_c};
-      }
-      if constexpr (kEnv != 0) {
-        // the roughness accumulator adds roughness * atten.x after the
-        // scatter, before Russian roulette
-        gp.x = gp.x + g_rough * m[8];
-        g[12] = g_rough * a_post.x;
-      }
-
-      // throughput product and emission (adjoint.py:551-574)
-      const V3 em = {m[9], m[10], m[11]};
-      const V3 g_sc = mul3(gp, a_prev);
-      gA = {gp.x * scf.x + ct.x * em.x, gp.y * scf.y + ct.y * em.y,
-            gp.z * scf.z + ct.z * em.z};
-      const V3 g_base = mul3(g_sc, beer);
-      const V3 g_beer = mul3(g_sc, base);
-      g[0] = ct.x * a_prev.x;
-      g[1] = ct.y * a_prev.y;
-      g[2] = ct.z * a_prev.z;
-      if (surf && spec) {
-        g[6] = g_base.x;
-        g[7] = g_base.y;
-        g[8] = g_base.z;
-      } else if (surf) {
-        g[3] = g_base.x;
-        g[4] = g_base.y;
-        g[5] = g_base.z;
-      }
-      if (absorbing) {
-        g[9] = -t_safe * beer.x * g_beer.x;
-        g[10] = -t_safe * beer.y * g_beer.y;
-        g[11] = -t_safe * beer.z * g_beer.z;
-      }
+      sweep_bounce<kTransmissive, kEnv>(mat, p.use_rr, ct, cur, gA, g_rough,
+                                        g, mid, abid);
       if constexpr (kNee) {
-        // the NEE term a_prev * (albedo * dterm + specular * gterm) * q
-        const V3 q = {__uint_as_float(w[5 * kThreads]),
-                      __uint_as_float(w[6 * kThreads]),
-                      __uint_as_float(w[7 * kThreads])};
-        const float dterm = __uint_as_float(w[8 * kThreads]);
-        const float gterm = __uint_as_float(w[9 * kThreads]);
-        const V3 cq = mul3(ct, q);
-        gA = {gA.x + cq.x * (m[0] * dterm + m[4] * gterm),
-              gA.y + cq.y * (m[1] * dterm + m[5] * gterm),
-              gA.z + cq.z * (m[2] * dterm + m[6] * gterm)};
-        const V3 ca = mul3(cq, a_prev);
-        g[3] = g[3] + ca.x * dterm;
-        g[4] = g[4] + ca.y * dterm;
-        g[5] = g[5] + ca.z * dterm;
-        g[6] = g[6] + ca.x * gterm;
-        g[7] = g[7] + ca.y * gterm;
-        g[8] = g[8] + ca.z * gterm;
+        const size_t slot = static_cast<size_t>(i) * p.slots + k;
+        p.nee_key[slot] = cur.texel;
+        if (cur.texel >= 0)
+          store_nee_weight(p.nee_w + 3 * slot, mat + mid * kMatStride, ct,
+                           cur.a_prev(), cur.nee_dterm(), cur.nee_gterm(),
+                           cur.ngw.y);
       }
-      mid = mat;
-      abid = absorbing ? ab_mat : -1;
     }
-    // absorption follows the Beer material, the other columns the hit
-    // material; an opaque bounce's Beer material is its hit material (and
-    // its absorption columns are 0 where it does not absorb), so B2 sums
-    // all columns in one grouping
-    if constexpr (kTransmissive) {
-      warp_sum_by_key<0, 9>(mid, g, acc);
-      if (__any_sync(kFull, abid >= 0)) warp_sum_by_key<9, 12>(abid, g, acc);
-      if constexpr (kEnv != 0) warp_sum_by_key<12, 13>(mid, g, acc);
-    } else {
-      warp_sum_by_key<0, kNG>(mid, g, acc);
-    }
+    warp_sums<kTransmissive, kEnv>(mid, abid, g, acc);
   }
 
   // the block's partial table: its warps' tables added in warp order
@@ -466,6 +654,13 @@ cudaError_t launch_tier(bool bvh, int env, const Params& p, int blocks,
   if (bvh) return launch_env<kTransmissive, kSmem, true>(env, p, blocks, smem,
                                                          st);
   return launch_env<kTransmissive, kSmem, false>(env, p, blocks, smem, st);
+}
+
+template <bool kTransmissive, int kEnv>
+cudaError_t launch_sweep(const SweepParams& p, int blocks, size_t smem,
+                         cudaStream_t st) {
+  adjoint_sweep<kTransmissive, kEnv><<<blocks, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -537,6 +732,66 @@ extern "C" int halogen_adjoint_launch(
     err = launch_tier<false, true>(bvh, env, p, blocks, smem, st);
   } else {
     err = launch_tier<false, false>(bvh, env, p, blocks, smem, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_blocks<<<n_acc, kReduceThreads, 0, st>>>(partial, blocks, n_acc, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The record route: the sweep over the transcript a forward launch of the
+// megakernel recorded on these n rays (`rec_*`, path_common.cuh
+// `RecordView`, for max_bounces + 1 slots), then the block sums. `env`,
+// `gsky`, `nee_key` and `nee_w` as for halogen_adjoint_launch.
+extern "C" int halogen_adjoint_sweep(
+    const float* mat, const float* ct, const float* gsky, float* rec_a,
+    int* rec_word, float* rec_nq, float* rec_ngw, int* rec_texel,
+    int* rec_end, float* partial, float* out, int* nee_key, float* nee_w,
+    int n, int num_materials, int max_bounces, int use_rr, int transmissive,
+    int env, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_materials > kMaxMaterials || max_bounces < 0 || env < 0 || env > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_acc = num_materials * n_grad(env);
+  if (n <= 0)
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, sizeof(float) * n_acc, st));
+  if (rec_a == nullptr || rec_word == nullptr || rec_end == nullptr ||
+      (env >= 1 && gsky == nullptr) ||
+      (env == 2 && (rec_nq == nullptr || rec_ngw == nullptr ||
+                    rec_texel == nullptr || nee_key == nullptr ||
+                    nee_w == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SweepParams p;
+  p.mat = mat;
+  p.ct = ct;
+  p.gsky = gsky;
+  p.rec = {reinterpret_cast<float4*>(rec_a),
+           reinterpret_cast<uint32_t*>(rec_word),
+           reinterpret_cast<float4*>(rec_nq),
+           reinterpret_cast<float2*>(rec_ngw),
+           rec_texel,
+           reinterpret_cast<uint32_t*>(rec_end),
+           n};
+  p.partial = partial;
+  p.nee_key = nee_key;
+  p.nee_w = nee_w;
+  p.n = n;
+  p.num_materials = num_materials;
+  p.slots = max_bounces + 1;
+  p.use_rr = use_rr != 0;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(num_materials) *
+                                           kMatStride +
+                                       static_cast<size_t>(kWarps) * n_acc);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaError_t err;
+  if (transmissive) {
+    err = env == 2   ? launch_sweep<true, 2>(p, blocks, smem, st)
+          : env == 1 ? launch_sweep<true, 1>(p, blocks, smem, st)
+                     : launch_sweep<true, 0>(p, blocks, smem, st);
+  } else {
+    err = env == 2   ? launch_sweep<false, 2>(p, blocks, smem, st)
+          : env == 1 ? launch_sweep<false, 1>(p, blocks, smem, st)
+                     : launch_sweep<false, 0>(p, blocks, smem, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_blocks<<<n_acc, kReduceThreads, 0, st>>>(partial, blocks, n_acc, out);

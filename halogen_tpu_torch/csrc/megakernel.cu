@@ -24,7 +24,15 @@
 //       bounce, `megakernel_light` and `megakernel_bvh_light` (kernels of
 //       their own, so that the other variants keep their names). The
 //       Pallas kernel has no such variant (`megakernel.py:1622-1635`); it
-//       replaces the JAX lockstep's light NEE, `trace.py:200-229, 332-432`.
+//       replaces the JAX lockstep's light NEE, `trace.py:200-229, 332-432`;
+//   B1d with kRecord (`megakernel_bvh_record`), where a gradient follows
+//       on the record route (`kernels/adjoint.py` record_plan): each shaded
+//       bounce also writes the transcript the adjoint's sweep reads
+//       (`RecordView`, path_common.cuh; 20 bytes, 48 with env NEE) and
+//       each path one word, so that the backward (adjoint.cu
+//       `adjoint_sweep`) need not walk the BVH again. The stores are
+//       indexed by ray and slot-major: coalesced where a thread holds one
+//       ray (the glass variants), scattered where lanes refill.
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
@@ -128,6 +136,7 @@ struct Params {
   SceneView scene;       // global-memory tables
   float* out;            // [N, 10], or [N, 12] with env NEE
   LightView light;       // light NEE's tables (B1e)
+  RecordView rec;        // the transcript for the adjoint (kRecord)
   // [1], zero at launch: the next ray to hand out (warps draw their rays
   // from it); null: thread t of the grid takes ray t
   int* counter;
@@ -188,8 +197,11 @@ __device__ __forceinline__ void store_path(const Params& p, int i,
 // time and takes it one bounce a trip; as soon as a lane of the warp is
 // free, the free lanes take the next rays of the launch ("replacing
 // terminated rays", Aila and Laine 2009). A ray's result does not depend
-// on its lane.
-template <bool kTransmissive, bool kEnvNee, bool kBvh, bool kLightNee>
+// on its lane. With kRecord the lane also writes each shaded bounce's
+// transcript and, at the path's end, its shaded count and miss flag to
+// p.rec, indexed by ray, for the sweep-only adjoint.
+template <bool kTransmissive, bool kEnvNee, bool kBvh, bool kLightNee,
+          bool kRecord = false>
 __device__ __forceinline__ void trace_path(const Params& p) {
   extern __shared__ float4 smem4[];
   const SceneView sc =
@@ -233,9 +245,17 @@ __device__ __forceinline__ void trace_path(const Params& p) {
     if (ray >= 0) {
       const int res = path_bounce<kTransmissive, kEnvNee, kBvh, kLightNee>(
           sc, cfg, sidx, seed, k, s, rec, p.light);
+      const bool shaded = res == kShadedEnded || res == kShadedGoesOn;
+      if constexpr (kRecord) {
+        if (shaded) record_bounce<kEnvNee>(p.rec, ray, k, rec);
+      }
       ++k;
       if (res != kShadedGoesOn || k > cfg.max_bounces) {
         store_path<kEnvNee>(p, ray, s);
+        if constexpr (kRecord) {
+          p.rec.end[ray] = static_cast<uint32_t>(shaded ? k : k - 1) |
+                           (res == kMissed ? kEndMissed : 0u);
+        }
         ray = -1;
       }
     }
@@ -253,6 +273,13 @@ template <bool kTransmissive, bool kEnvNee>
 __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
     megakernel_bvh(Params p) {
   trace_path<kTransmissive, kEnvNee, true, false>(p);
+}
+
+// The BVH tier recording the adjoint's transcript (B1d with kRecord).
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
+    megakernel_bvh_record(Params p) {
+  trace_path<kTransmissive, kEnvNee, true, false, true>(p);
 }
 
 // Light NEE (B1e) on the brute tier and on the BVH tier (B1e+d).
@@ -291,8 +318,11 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem,
 }
 
 template <bool kTransmissive, bool kEnvNee>
-cudaError_t launch_tier(const Params& p, bool bvh, bool light, size_t smem,
-                        cudaStream_t st) {
+cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
+                        size_t smem, cudaStream_t st) {
+  if (record)
+    return launch(megakernel_bvh_record<kTransmissive, kEnvNee>, p, smem,
+                  st);
   if (light) {
     if (bvh)
       return launch(megakernel_bvh_light<kTransmissive, kEnvNee>, p, smem,
@@ -311,13 +341,19 @@ cudaError_t launch_tier(const Params& p, bool bvh, bool light, size_t smem,
 // four ray buffers are then written when origin is not null). `counter`
 // ([1] int32, zero) selects persistent warps that refill; null: one ray
 // a thread. With light_nee, `light_rows` [num_lights, 16] and `light_dens`
-// [num_tris + num_spheres] (`LightView`).
+// [num_tris + num_spheres] (`LightView`). `rec_a` not null: record the
+// adjoint's transcript (the BVH tier without light NEE): `rec_a` [B + 1,
+// n] float4, `rec_word` [B + 1, n], `rec_end` [n], with env NEE also
+// `rec_nq` [B + 1, n] float4, `rec_ngw` [B + 1, n] float2 and `rec_texel`
+// [B + 1, n] (`RecordView`).
 extern "C" int halogen_megakernel_launch(
     float* origin, float* direction, const float* far, int* sample_idx,
     int* seed, const float* tri, const float* trin, const float* sph,
     const float* mat, const float* nodes, const float* env_tab, float* out,
     const float* cam, const long long* pix, const int* frame, int* counter,
-    const float* light_rows, const float* light_dens, int n, int num_tris,
+    const float* light_rows, const float* light_dens, float* rec_a,
+    int* rec_word, float* rec_nq, float* rec_ngw, int* rec_texel,
+    int* rec_end, int n, int num_tris,
     int num_spheres, int num_materials, int max_bounces, int lim_d,
     int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
     int env_nee, int env_h, int env_w, int use_bvh, int width, int height,
@@ -336,6 +372,12 @@ extern "C" int halogen_megakernel_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   if (use_bvh && nodes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool record = rec_a != nullptr;
+  if (record && (!use_bvh || light_nee || rec_word == nullptr ||
+                 rec_end == nullptr ||
+                 (env_nee && (rec_nq == nullptr || rec_ngw == nullptr ||
+                              rec_texel == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.origin = origin;
   p.direction = direction;
@@ -352,6 +394,13 @@ extern "C" int halogen_megakernel_launch(
   p.out = out;
   p.light = {reinterpret_cast<const float4*>(light_rows), light_dens,
              num_lights, num_tris};
+  p.rec = {reinterpret_cast<float4*>(rec_a),
+           reinterpret_cast<uint32_t*>(rec_word),
+           reinterpret_cast<float4*>(rec_nq),
+           reinterpret_cast<float2*>(rec_ngw),
+           rec_texel,
+           reinterpret_cast<uint32_t*>(rec_end),
+           n};
   p.counter = counter;
   p.n = n;
   p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,
@@ -364,13 +413,13 @@ extern "C" int halogen_megakernel_launch(
   const bool bvh = use_bvh != 0, light = light_nee != 0;
   cudaError_t err;
   if (transmissive && env_nee) {
-    err = launch_tier<true, true>(p, bvh, light, smem, st);
+    err = launch_tier<true, true>(p, bvh, light, record, smem, st);
   } else if (transmissive) {
-    err = launch_tier<true, false>(p, bvh, light, smem, st);
+    err = launch_tier<true, false>(p, bvh, light, record, smem, st);
   } else if (env_nee) {
-    err = launch_tier<false, true>(p, bvh, light, smem, st);
+    err = launch_tier<false, true>(p, bvh, light, record, smem, st);
   } else {
-    err = launch_tier<false, false>(p, bvh, light, smem, st);
+    err = launch_tier<false, false>(p, bvh, light, record, smem, st);
   }
   return static_cast<int>(err);
 }

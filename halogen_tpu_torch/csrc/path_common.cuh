@@ -21,7 +21,8 @@
 //     world BVH (bvh_traverse.cuh) instead of scanning every triangle,
 //     and the env-NEE shadow ray is an any-hit walk; the triangles stay
 //     in global memory. The adjoint's BVH variants (B2+d, B2b+d) replay
-//     through it too;
+//     through it too, or, on the record route, sweep what the forward
+//     recorded as it traced (`RecordView`, `record_bounce`);
 //   kLightNee (B1e, forward only; the JAX package has no kernel for it:
 //     its megakernel refuses light NEE, `megakernel.py:1622-1635`, and
 //     runs the lockstep `integrator/trace.py:200-229, 332-432`): one
@@ -438,6 +439,60 @@ enum BounceResult {
   kShadedGoesOn = 2,  // shaded, the path goes on
   kMissed = 3,        // nothing shaded: the ray left for the sky
 };
+
+// The packed word of a shaded bounce in the adjoint's transcript: the hit
+// material in bits 0-7, the Beer material in 8-15 (0 where the bounce does
+// not absorb), and the masks.
+constexpr uint32_t kSpec = 1u << 16;
+constexpr uint32_t kAbsorbing = 1u << 17;
+constexpr uint32_t kSurvive = 1u << 18;
+constexpr uint32_t kTrueHit = 1u << 19;
+constexpr uint32_t kRefr = 1u << 20;
+
+__device__ __forceinline__ uint32_t pack_bounce(const BounceRecord& r) {
+  return static_cast<uint32_t>(r.mat) |
+         (r.absorbing ? static_cast<uint32_t>(r.ab_mat) << 8 : 0u) |
+         (r.spec ? kSpec : 0u) | (r.absorbing ? kAbsorbing : 0u) |
+         (r.survive ? kSurvive : 0u) | (r.is_true ? kTrueHit : 0u) |
+         (r.refr ? kRefr : 0u);
+}
+
+// The transcript a forward kernel records for the sweep-only adjoint
+// (adjoint.cu `adjoint_sweep`): per shaded bounce what the replay would
+// rebuild, slot-major, so that the sweep's loads of one slot by
+// consecutive rays are consecutive: slot k of ray i is element k * n + i.
+// Slots at or past a ray's shaded count are never written nor read.
+struct RecordView {
+  float4* a = nullptr;       // a_prev rgb, t_safe
+  uint32_t* word = nullptr;  // pack_bounce
+  float4* nq = nullptr;      // env NEE: radiance * w_fac rgb, dterm
+  float2* ngw = nullptr;     // env NEE: gterm, w_fac
+  int* texel = nullptr;      // env NEE: the drawn texel, -1 none
+  uint32_t* end = nullptr;   // [n]: shaded bounces | missed << 31
+  int n = 0;
+};
+
+constexpr uint32_t kEndMissed = 1u << 31;
+
+// Bounce k of ray i into `rv`. The NEE words of a bounce whose draw did
+// not reach the sky are zeros (the replay's transcript holds the same).
+template <bool kEnvNee>
+__device__ __forceinline__ void record_bounce(const RecordView& rv, int i,
+                                              int k, const BounceRecord& r) {
+  const size_t s = static_cast<size_t>(k) * rv.n + i;
+  rv.a[s] = make_float4(r.a_prev.x, r.a_prev.y, r.a_prev.z, r.t_safe);
+  rv.word[s] = pack_bounce(r);
+  if constexpr (kEnvNee) {
+    const bool lit = r.nee_texel >= 0;
+    rv.nq[s] = lit ? make_float4(r.nee_rad.x * r.nee_wfac,
+                                 r.nee_rad.y * r.nee_wfac,
+                                 r.nee_rad.z * r.nee_wfac, r.nee_dterm)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    rv.ngw[s] = lit ? make_float2(r.nee_gterm, r.nee_wfac)
+                    : make_float2(0.0f, 0.0f);
+    rv.texel[s] = r.nee_texel;
+  }
+}
 
 // Beer-Lambert factor of a bounce: exp(-absorption * t) on absorbing
 // lanes, 1 elsewhere. `ab` is the absorbing medium's absorption.

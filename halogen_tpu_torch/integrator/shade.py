@@ -145,6 +145,14 @@ class ShadeResult(NamedTuple):
     bounce_type: torch.Tensor  # [N]
     stack: MediumStack | None  # None in opaque scenes
     spec_prob: torch.Tensor  # [N]
+    # what the adjoint's transcript records of the bounce: the lobe the
+    # BRDF drew (material_brdf's bounce type, before a false hit's pass
+    # through), whether the hit was a true one, and the material of the
+    # medium the ray came through (-1: none); None in opaque scenes for
+    # the last two (every hit is true; the medium is the hit's own)
+    lobe: torch.Tensor | None = None
+    true_hit: torch.Tensor | None = None
+    medium: torch.Tensor | None = None
 
 
 def _sel_medium(cond: torch.Tensor, a: Medium, b: Medium) -> Medium:
@@ -225,7 +233,8 @@ def evaluate_material_hit(ray_dir, hit: HitRecord, mat: MaterialSample,
     attenuation = torch.where((active & absorbing)[:, None],
                               attenuation * absorb, attenuation)
     return ShadeResult(origin, direction, attenuation, bounce_type, stack2,
-                       scat.spec_prob)
+                       scat.spec_prob, scat.bounce_type, true_hit,
+                       cur.material_id)
 
 
 def _evaluate_material_hit_opaque(ray_dir, hit, mat, stack, active,
@@ -246,4 +255,5 @@ def _evaluate_material_hit_opaque(ray_dir, hit, mat, stack, active,
         (active & (~entering))[:, None], scat.attenuation * absorb,
         scat.attenuation)
     return ShadeResult(scat.origin, scat.direction, attenuation,
-                       scat.bounce_type, stack, scat.spec_prob)
+                       scat.bounce_type, stack, scat.spec_prob,
+                       scat.bounce_type)

@@ -204,10 +204,11 @@ _VIS_SCALE = float(np.float32(1.0 - 1e-3))  # trace.py:402
 
 
 def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
-                 k: int) -> Pool:
+                 k: int, tape: list | None = None) -> Pool:
     """One bounce of every ray in `carry` (trace_ray compute:876-950): the
     JAX `_pool_bounce` without debug views, and with the sky deferred to
-    `deferred_sky`."""
+    `deferred_sky`. With `tape` (a list) it also appends what the
+    adjoint's transcript records of the bounce (`_tape_entry`)."""
     s2 = _sampler_2d(settings)
     s1 = _sampler_1d(settings)
     use_nee = _use_nee(scene, settings)
@@ -281,8 +282,8 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
     if use_nee:
         prev_nee = covered
         nu, nv = s2(sample_idx, sob.DIM_ENV_NEE_BASE + stride, seed)
-        ldir, lpdf, radiance = sample_env_draw(
-            scene.env_cdf, scene.env_mips[0], nu, nv)
+        ldir, lpdf, radiance, texel = sample_env_draw(
+            scene.env_cdf, scene.env_mips[0], nu, nv, with_texel=True)
         cos_l = dot(hit.normal, ldir)
         cand = surf_lane & (cos_l > 0.0) & (lpdf > float(np.float32(1e-12)))
         sh_origin = hit.pos + hit.normal * 1e-4
@@ -294,8 +295,8 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
         f_cos = (mat.albedo * ((1.0 - ps) * cos_l * _INV_PI)[:, None]
                  + mat.specular * (ps * p_gl_l)[:, None])
         w_nee = lpdf / (lpdf + p_mix_l)
-        contrib = (carry.attenuation * f_cos * radiance
-                   * (w_nee / torch.clamp_min(lpdf, 1e-12))[:, None])
+        w_fac = w_nee / torch.clamp_min(lpdf, 1e-12)
+        contrib = carry.attenuation * f_cos * radiance * w_fac[:, None]
         color = color + torch.where((cand & visible)[:, None], contrib, 0.0)
 
     if use_lnee:
@@ -325,6 +326,14 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
 
     # --- miss: the ray dies; record what the sky pass needs
     miss = active & (~is_hit)
+    if tape is not None:
+        nee = None
+        if use_nee:
+            lit = cand & visible
+            nee = (torch.where(lit, texel, -1), radiance, w_fac,
+                   (1.0 - ps) * cos_l * _INV_PI, ps * p_gl_l)
+        tape.append(_tape_entry(scene, carry, hit, shaded, shade_mask,
+                                killed, miss, nee))
     miss_attenuation = torch.where(miss[:, None], carry.attenuation,
                                    carry.miss_attenuation)
     miss_pcos = torch.where(miss, carry.prev_pcos, carry.miss_pcos)
@@ -353,6 +362,38 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
         miss_pcos=miss_pcos,
         miss_nee=miss_nee,
     )
+
+
+def _tape_entry(scene: SceneData, carry: Pool, hit, shaded, shade_mask,
+                killed, miss, nee) -> dict:
+    """What the adjoint's transcript holds of one bounce, per ray
+    (detached; `kernels/adjoint.py` `record_transcript_reference` packs
+    it): whether it shaded and whether it missed; the attenuation before
+    it, the hit distance, the hit material, the Beer material (that of the
+    medium the ray came through; the hit's own, exiting it, in opaque
+    scenes) and whether Beer-Lambert applied, the BRDF's lobe (spec: the
+    drawn lobe was the specular one), whether the bounce refracted or
+    passed through a false hit, whether the hit was a true one, whether
+    Russian roulette let the path go on; with env NEE `nee` (the texel
+    whose radiance reached the hit, -1 none; its radiance, its weight over
+    the pdf, the BRDF's diffuse and glossy factors)."""
+    t_safe = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    if shaded.medium is None:  # opaque: Beer-Lambert exiting the hit
+        absorbing = ~(hit.orientation > 0)
+        ab_mat = hit.material
+        true_hit = torch.ones_like(shade_mask)
+    else:
+        absorbing = shaded.medium != -1
+        ab_mat = shaded.medium
+        true_hit = shaded.true_hit
+    entry = dict(shaded=shade_mask, missed=miss,
+                 a_prev=carry.attenuation, t=t_safe, mat=hit.material,
+                 ab_mat=ab_mat, absorbing=absorbing, spec=shaded.lobe == 1,
+                 refr=shaded.bounce_type == 2, true_hit=true_hit,
+                 survive=~killed, nee=nee)
+    return {k: (tuple(x.detach() for x in v) if isinstance(v, tuple)
+                else None if v is None else v.detach())
+            for k, v in entry.items()}
 
 
 def emission_weight(scene: SceneData, carry: Pool, hit) -> torch.Tensor:
@@ -481,14 +522,16 @@ class TraceOut(NamedTuple):
 
 def trace_rays(scene: SceneData, origin: torch.Tensor,
                direction: torch.Tensor, far, sample_idx, seed,
-               settings: RenderSettings) -> TraceOut:
+               settings: RenderSettings, tape: list | None = None
+               ) -> TraceOut:
     """Lockstep scheduler: a loop over bounces on the full ray pool, then
-    the sky pass."""
+    the sky pass. With `tape` (a list) each bounce appends what the
+    adjoint's transcript records of it (`_tape_entry`)."""
     check_slice(scene, settings)
     pool = _make_pool(origin, direction, far, sample_idx, seed,
                       scene.any_transmissive)
     for k in range(settings.max_bounces + 1):
-        pool = _pool_bounce(scene, settings, pool, k)
+        pool = _pool_bounce(scene, settings, pool, k, tape)
     cols = [pool.color, pool.miss_attenuation, pool.acc_roughness[:, None],
             pool.direction]
     if _use_nee(scene, settings):
@@ -524,9 +567,13 @@ def group_rays(camera: Camera, settings: RenderSettings, frame,
 
 def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
                   frame, pix: torch.Tensor, spp_offset: int = 0,
-                  spp_count: int | None = None) -> torch.Tensor:
+                  spp_count: int | None = None,
+                  record: bool | None = None) -> torch.Tensor:
     """Render flat pixel indices `pix` [n] -> [n, 3] radiance, averaged
-    over spp lanes [spp_offset, spp_offset + spp_count)."""
+    over spp lanes [spp_offset, spp_offset + spp_count). On the kernel
+    route `record` is the plan of the step this call belongs to
+    (`megakernel.records_wanted`): whether its launches record the
+    adjoint's transcript; None plans this call's groups."""
     from halogen_tpu_torch.kernels import megakernel as mk
 
     n = pix.shape[0]
@@ -542,14 +589,7 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         raise NotImplementedError(
             "the wavefront scheduler is not ported yet (ROADMAP A12)")
 
-    # Fold spp lanes into the ray axis, pixel-major (all lanes of a pixel
-    # adjacent); per-ray results do not depend on the slot.
-    max_block = max(1, settings.ray_chunk_size // max(n, 1))
-    spp_block = 1
-    for cand in range(min(spp, max_block), 0, -1):
-        if spp % cand == 0:
-            spp_block = cand
-            break
+    spp_block = _spp_block(n, spp, settings.ray_chunk_size)
     groups = spp // spp_block
 
     if use_kernel:
@@ -561,6 +601,9 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         light_tab = (mk.light_table(scene) if _use_light_nee(scene, settings)
                      else None)
         view = mk.pixel_view(camera, settings, frame, pix)
+        if record is None:
+            record = mk.records_wanted(scene, settings, tables, pix.device,
+                                       n * spp_block, groups)
     else:
         farb = camera.far.expand(n * spp_block)
 
@@ -570,13 +613,25 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         if use_kernel:
             col = mk.trace_color_pixels_diff(scene, view, lane0, spp_block,
                                              settings, tables, env_tab,
-                                             light_tab)
+                                             light_tab, record=record)
         else:
             o, d, sidx, seed = group_rays(camera, settings, frame, pix,
                                           lane0, spp_block)
             col = trace_rays(scene, o, d, farb, sidx, seed, settings).color
         acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)
     return acc / spp
+
+
+def _spp_block(n: int, spp: int, chunk_size: int) -> int:
+    """The spp lanes a group folds into its ray axis, pixel-major (all
+    lanes of a pixel adjacent; per-ray results do not depend on the
+    slot): the largest divisor of `spp` whose group of `n` pixels fits
+    `chunk_size` rays, at least 1."""
+    max_block = max(1, chunk_size // max(n, 1))
+    for cand in range(min(spp, max_block), 0, -1):
+        if spp % cand == 0:
+            return cand
+    return 1
 
 
 @functools.lru_cache(maxsize=8)
@@ -617,8 +672,18 @@ def render_frame(scene: SceneData, camera: Camera, settings: RenderSettings,
     n_chunks = -(-n_pixels // chunk)
     pix, inv = _pixel_order_on(w, h, n_chunks * chunk, device)
 
+    record = None
+    if device.type == "cuda" and settings.fused != Fused.OFF:
+        # one plan for the frame's launches, before the first
+        from halogen_tpu_torch.kernels import megakernel as mk
+
+        spp = settings.samples_per_pixel
+        spp_block = _spp_block(chunk, spp, settings.ray_chunk_size)
+        record = mk.records_wanted(scene, settings, None, device,
+                                   chunk * spp_block,
+                                   n_chunks * (spp // spp_block))
     chunks = [render_pixels(scene, camera, settings, frame,
-                            pix[c * chunk:(c + 1) * chunk])
+                            pix[c * chunk:(c + 1) * chunk], record=record)
               for c in range(n_chunks)]
     img = torch.cat(chunks)[:n_pixels][inv]
     return img.reshape(h, w, 3)

@@ -34,9 +34,13 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     same rays as their forward kernels: B2b+d (the glass dragon, 12
     bounces), B2+d (a 1,280-triangle metal dragon in the Cornell shell, 12
     bounces), B2c+d (the 1,280-triangle dragon under the sky, 4 bounces),
-    B2c and B2c+n (the `envmap_1024` rays, without and with env NEE), each
-    with a random cotangent of the miss attenuation and roughness; and the
-    sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
+    B2c+n+d (the same dragon with env NEE), B2c and B2c+n (the
+    `envmap_1024` rays, without and with env NEE), each with a random
+    cotangent of the miss attenuation and roughness; where the tree has
+    the record route, the forward recording the transcript (`B1b+d
+    record`) and the sweep over it (`B2b+d sweep`, `B2+d sweep`, `B2c+d
+    sweep` and `B2c+n+d sweep`) on the same rays and cotangents as the
+    replay's jobs of the same names; and the sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
     backward`, its taps, the ordering by texel and the per-texel sums),
     and the backward's stages alone: `sky backward taps` (where the tree's
     taps kernel counts the ordering's first pass, with it), `sky
@@ -49,13 +53,16 @@ kernel itself (the adjoint's block-sum kernel is in its event time only);
 the sky backward and its stages by the device time of every kernel a call
 launches, per call, split by kernel name.
 Printed: the card's name and power limit, each kernel's registers and
-spills from nvcc's `-Xptxas -v`, the times, and as the last line one JSON
-object of them; `--out` also writes that line to a file.
+spills from nvcc's `-Xptxas -v`, the times, a hash of each adjoint job's
+[K, 12|13] result (equal hashes: equal bits, across trees and routes),
+and as the last line one JSON object of them; `--out` also writes that
+line to a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -246,6 +253,23 @@ def main(argv=None) -> int:
         return lambda: adj._launch(sc, o_, d_, c.far, s_, e_, ct_, st, tab,
                                    gsky=gsky if env else None, env_tab=et)
 
+    def sweep_at(sc, st, r):
+        """The record route's sweep on rays r, the cotangents of bwd_at,
+        over the transcript a forward launch recorded on them once."""
+        tab, et = mk._scene_tables(sc), mk.env_table(sc)
+        c, o_, d_, s_, e_ = r
+        n = o_.shape[0]
+        g = torch.Generator().manual_seed(1)
+        ct_ = torch.rand((n, 3), generator=g).to(dev)
+        gsky = torch.rand((n, 4), generator=g).to(dev)
+        env = adj.env_mode(sc, st)
+        rec = mk.empty_record(n, st, env == 2, dev)
+        mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_, st, tab, et,
+                               record=rec)
+        return lambda: adj._launch(sc, None, None, None, None, None, ct_, st,
+                                   tab, gsky=gsky if env else None,
+                                   env_tab=et, record=rec)
+
     def bwd(sc, st, route=None):
         tab = mk._scene_tables(sc)
         if route is None:
@@ -304,6 +328,7 @@ def main(argv=None) -> int:
             "B2b+d": (bwd_at(dragon, st_d, r_d), "adjoint_kernel<"),
             "B2+d": (bwd_at(metal_dragon, st_d, r_d), "adjoint_kernel<"),
             "B2c+d": (bwd_at(hero, st_sky, r_d), "adjoint_kernel<"),
+            "B2c+n+d": (bwd_at(hero, st_e, r_d), "adjoint_kernel<"),
             "B2c": (bwd_at(spheres, st_sky, r_e), "adjoint_kernel<"),
             "B2c+n": (bwd_at(spheres, st_e, r_e), "adjoint_kernel<"),
         })
@@ -319,6 +344,19 @@ def main(argv=None) -> int:
             None)
         jobs.update(_sky_stages(sky_k, adj, mk, spheres, st_e, r_e, out_e,
                                 ct_e))
+    if hasattr(adj, "record_plan"):  # the record route, where it is
+        rec_d = mk.empty_record(o_d.shape[0], st_d, False, dev)
+        tab_d = mk._scene_tables(dragon)
+        jobs.update({
+            "B1b+d record": (lambda: mk.trace_fused_outputs(
+                dragon, o_d, d_d, dcam.far, sidx_d, seed_d, st_d, tab_d,
+                record=rec_d), "megakernel_bvh_record<"),
+            "B2b+d sweep": (sweep_at(dragon, st_d, r_d), "adjoint_sweep<"),
+            "B2+d sweep": (sweep_at(metal_dragon, st_d, r_d),
+                           "adjoint_sweep<"),
+            "B2c+d sweep": (sweep_at(hero, st_sky, r_d), "adjoint_sweep<"),
+            "B2c+n+d sweep": (sweep_at(hero, st_e, r_d), "adjoint_sweep<"),
+        })
     if hasattr(mk, "light_table"):  # area-light NEE (B1e), where it is
         jobs["B1e"] = (fwd(cornell_sc, st_a.replace(
             light_importance_sampling=True), r_c), "megakernel")
@@ -370,8 +408,12 @@ def main(argv=None) -> int:
 
     times = {}
     for name, (fn, key) in jobs.items():
-        fn()
+        out = fn()
         torch.cuda.synchronize()
+        digest = None
+        if key is not None and key.startswith("adjoint"):
+            digest = hashlib.sha256(
+                out.detach().cpu().numpy().tobytes()).hexdigest()[:16]
         ev = [events_ms(fn), events_ms(fn)]
         dev_ms, split = device_ms(fn, key), None
         if key is None:
@@ -379,8 +421,11 @@ def main(argv=None) -> int:
         times[name] = {"events_ms": ev, "device_ms": dev_ms}
         if split is not None:
             times[name]["device_ms_by_kernel"] = split
+        if digest is not None:
+            times[name]["result_sha256"] = digest
         print(f"{name}: events {ev[0]:.4f}, {ev[1]:.4f} ms; device "
-              f"{dev_ms:.4f} ms{'' if split is None else f' {split}'} | "
+              f"{dev_ms:.4f} ms{'' if split is None else f' {split}'}"
+              f"{'' if digest is None else f'; result {digest}'} | "
               f"{card}", flush=True)
     result = {"card": card, "tree": root, "no_refill": args.no_refill,
               "nvcc_flags": mk.NVCC_FLAGS,

@@ -4,19 +4,27 @@ branch, B2, and its nested-dielectric branch, B2b; and of the JAX
 package's lockstep vjp where the Pallas kernel stops: big scenes, B2+d and
 B2b+d, and envmap scenes with and without env NEE).
 
-The kernel is hand-written CUDA C++ for Hopper (`csrc/adjoint.cu`), built
-with the megakernel's library step (`megakernel.load_library`). It replays
-every path through the forward kernel's own bounce code
-(`csrc/path_common.cuh`), records a transcript per bounce, sweeps the
-bounces in reverse and sums the cotangents per material in a fixed order,
-so two calls give the same bits. In glass scenes the replay carries the
-medium stack, and d absorption goes to the material of the medium the
-ray travelled through. On the BVH tier (scenes over MAX_TRIS triangles)
-the replay walks the world BVH as B1d does. The transcript stays in the
-block's shared memory where the block's tables fit `SMEM_BUDGET` (the
-shared route; at most 17 bounces in the Cornell and glass boxes), else it
-goes to a device buffer of the same layout (the global route); both give
-the same bits.
+The kernels are hand-written CUDA C++ for Hopper (`csrc/adjoint.cu`),
+built with the megakernel's library step (`megakernel.load_library`).
+Each sweeps every path's shaded bounces in reverse from a transcript (per
+bounce the attenuation before it, the hit distance, the materials and
+masks) and sums the cotangents per material in a fixed order, so two
+calls give the same bits. In glass scenes d absorption goes to the
+material of the medium the ray travelled through. Three routes give the
+sweep its transcript, and all three give the same bits:
+  - 'shared': the kernel replays every path through the forward kernel's
+    own bounce code (`csrc/path_common.cuh`; on the BVH tier, scenes over
+    MAX_TRIS triangles, walking the world BVH as B1d does) and keeps the
+    transcript in the block's shared memory, where the block's tables fit
+    `SMEM_BUDGET` (at most 17 bounces in the Cornell and glass boxes);
+  - 'global': the same replay with the transcript in a device buffer of
+    the same layout, past that budget;
+  - 'recorded': no replay. The forward launch recorded the transcript as
+    it traced (`megakernel.Record`), and `adjoint_sweep` reads it. The BVH
+    tier takes it where a step's records fit `RECORD_BUDGET`
+    (`record_plan`, decided from sizes before any launch); the brute
+    tier, and callers that bring rays without a record, replay
+    (`transcript_route`).
 
 With an envmap in use the kernel takes the cotangents of the path's
 outputs (`trace_grad_outputs`): of its color, of its miss attenuation and
@@ -31,9 +39,13 @@ by autograd through `megakernel.trace_color_fused_diff`.
 The plain PyTorch versions, `trace_grad_outputs_reference` and
 `trace_grad_fused_reference`, are autograd through the lockstep integrator
 with `Intersector.AUTO` pinned to BRUTE, as the JAX lockstep backward
-pins it (`megakernel.py:1962-1968`). Rays on a CUDA device go to the
-kernels and rays on the CPU to the plain versions; a CUDA launch that
-fails raises, there is no fallback. `LAUNCHES` counts kernel launches.
+pins it (`megakernel.py:1962-1968`). The record route's two halves have
+theirs: `record_transcript_reference` (the lockstep's transcript in the
+kernel's layout) and `sweep_reference` (the sweep in torch, vectorised
+over rays). Rays on a CUDA device go to the kernels and rays on the CPU
+to the plain versions; a CUDA launch that fails raises, there is no
+fallback. `LAUNCHES` counts the replay kernel's launches, `SWEEP_LAUNCHES`
+the sweep's.
 `material_cotangents` maps the [K, 12|13] result onto a `MaterialTable`.
 
 The gradient is the detached-sampling estimator of the lockstep tracer:
@@ -48,6 +60,7 @@ adjoint is ROADMAP B2+l.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -70,7 +83,16 @@ WARPS = THREADS // 32
 # block, tables and sums only, stays under 28 KB at the kernels' caps).
 SMEM_BUDGET = 48 * 1024
 
-LAUNCHES = 0  # kernel launches since the count was last set to 0
+# Device memory the record route's transcripts of one step may take:
+# bytes, or None for RECORD_SHARE of the card's memory. At 12 bounces a ray
+# keeps 4 + 13 * 20 bytes (13 * 48 with env NEE): 69 MB a 262144-ray
+# launch, 2.2 GB the glass dragon's 32-launch step, ~71 GB a 1024x1024
+# step of 256 spp (which therefore replays).
+RECORD_BUDGET = None
+RECORD_SHARE = 0.25
+
+LAUNCHES = 0  # replay-kernel launches since the count was last set to 0
+SWEEP_LAUNCHES = 0  # sweep-kernel launches (the record route), likewise
 
 
 def env_mode(scene: SceneData, settings: RenderSettings) -> int:
@@ -101,10 +123,60 @@ def smem_bytes(scene: SceneData, settings: RenderSettings) -> int:
 
 
 def transcript_route(scene: SceneData, settings: RenderSettings) -> str:
-    """'shared' where the block fits SMEM_BUDGET with its transcript, else
-    'global'."""
+    """The replay's route: 'shared' where the block fits SMEM_BUDGET with
+    its transcript, else 'global' (`record_plan` gives a step's route,
+    which may be 'recorded')."""
     return ("shared" if smem_bytes(scene, settings) <= SMEM_BUDGET
             else "global")
+
+
+def record_words(scene: SceneData, settings: RenderSettings) -> int:
+    """32-bit words the forward records a shaded bounce: a_prev rgb, t and
+    the packed word; with env NEE 7 more (its radiance * weight rgb,
+    dterm, gterm, weight, texel)."""
+    return 12 if env_mode(scene, settings) == 2 else 5
+
+
+def record_bytes(scene: SceneData, settings: RenderSettings,
+                 n_rays: int) -> int:
+    """Bytes of one launch's `megakernel.Record`: max_bounces + 1 slots a
+    ray and its end word."""
+    slots = settings.max_bounces + 1
+    return 4 * n_rays * (1 + slots * record_words(scene, settings))
+
+
+def record_budget(device) -> int:
+    """RECORD_BUDGET, or RECORD_SHARE of the memory of `device` (a CUDA
+    device; 0 elsewhere: the plain versions run there)."""
+    if RECORD_BUDGET is not None:
+        return int(RECORD_BUDGET)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return int(RECORD_SHARE * _total_memory(device.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _total_memory(index: int | None) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index).total_memory
+
+
+def record_plan(scene: SceneData, settings: RenderSettings, n_rays: int,
+                launches: int, budget: int | None = None) -> str:
+    """The adjoint's route for a step of `launches` forward launches of
+    `n_rays` rays each, from sizes alone, before any launch: 'recorded'
+    on the BVH tier where the step's records (`record_bytes` x launches,
+    all alive until the backward) fit `budget` (default `record_budget`
+    of the scene's device) beside the records of earlier forwards still
+    alive there (`megakernel.live_record_bytes`: several frames before one
+    backward); else the replay's route (`transcript_route`)."""
+    if mk.uses_bvh(scene) and adjoint_covers(scene, settings):
+        budget = record_budget(scene.device) if budget is None else budget
+        if (launches * record_bytes(scene, settings, n_rays)
+                + mk.live_record_bytes(scene.device) <= budget):
+            return "recorded"
+    return transcript_route(scene, settings)
 
 
 def adjoint_covers(scene: SceneData, settings: RenderSettings) -> bool:
@@ -134,9 +206,14 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
             replay_color: torch.Tensor | None = None,
             route: str | None = None, gsky: torch.Tensor | None = None,
             env_tab: torch.Tensor | None = None,
-            records: tuple | None = None) -> torch.Tensor:
+            records: tuple | None = None,
+            record: "mk.Record | None" = None) -> torch.Tensor:
     """Launch the adjoint on the current stream; returns [K, 12], or
     [K, 13] with an envmap in use.
+
+    With `record` (the transcript a forward launch on these rays recorded,
+    `megakernel.Record`) the route is 'recorded': the sweep alone, which
+    reads no rays (origin to seed may be None).
 
     `ct` [N, 3] is the cotangent of the path color; with an envmap in use
     `gsky` [N, 4] those of the miss attenuation and of the accumulated
@@ -148,6 +225,10 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
     ('shared' or 'global') overrides `transcript_route`; the shared route
     raises where the block would exceed SMEM_BUDGET."""
     global LAUNCHES
+    if record is not None or route == "recorded":
+        if record is None:
+            raise ValueError("the recorded route needs the forward's record")
+        return _sweep(scene, record, ct, settings, tables, gsky, records)
     sidx, sd, far_t, tables, scalars = mk.kernel_inputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables)
     _check_covered(scene, settings)
@@ -233,6 +314,225 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
     return out
 
 
+def _sweep(scene, record, ct, settings: RenderSettings, tables, gsky,
+           records) -> torch.Tensor:
+    """The record route: `adjoint_sweep` over `record` on the current
+    stream (see `_launch`)."""
+    global SWEEP_LAUNCHES
+    _check_covered(scene, settings)
+    n, dev = record.n, record.end.device
+    env = env_mode(scene, settings)
+    mk.check_record(record, n, settings, env == 2, dev)
+    tables = tables if tables is not None else mk._scene_tables(scene)
+    mat_tab = tables[3]
+    f32 = dict(dtype=torch.float32, device=dev)
+    if env and gsky is None:
+        gsky = torch.zeros((n, 4), **f32)
+    slots = settings.max_bounces + 1
+    if env == 2 and records is None:
+        records = (torch.empty((n, slots), dtype=torch.int32, device=dev),
+                   torch.empty((n, slots, 3), **f32))
+    k = scene.materials.count
+    cols = n_grad(scene, settings)
+    buffers = {"ct": (ct, (n, 3), torch.float32),
+               "gsky": (gsky if env else None, (n, 4), torch.float32),
+               "material table": (mat_tab, (k, 17), torch.float32)}
+    if env == 2:
+        buffers["record keys"] = (records[0], (n, slots), torch.int32)
+        buffers["record weights"] = (records[1], (n, slots, 3),
+                                     torch.float32)
+    for name, (t, shape, dtype) in buffers.items():
+        if t is not None and (t.shape != shape or t.dtype != dtype
+                              or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{name} must be a contiguous {dtype} "
+                             f"{list(shape)} on {dev}")
+    if n == 0:
+        return torch.zeros((k, cols), **f32)
+    blocks = -(-n // THREADS)
+    partial = torch.empty((blocks, k * cols), **f32)
+    out = torch.empty((k, cols), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = mk.load_library("adjoint")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.halogen_adjoint_sweep(
+            mat_tab.data_ptr(), ct.data_ptr(), ptr(gsky if env else None),
+            *(ptr(t) for t in (record.a, record.word, record.nq, record.ngw,
+                               record.texel, record.end)),
+            partial.data_ptr(), out.data_ptr(),
+            ptr(records[0] if env == 2 else None),
+            ptr(records[1] if env == 2 else None), n, k,
+            settings.max_bounces, int(settings.russian_roulette),
+            int(scene.any_transmissive), env, stream)
+    if err != 0:
+        raise RuntimeError(f"adjoint sweep launch failed: CUDA error {err}")
+    SWEEP_LAUNCHES += 1
+    return out
+
+
+_SPEC, _ABSORBING, _SURVIVE, _TRUE_HIT, _REFR = (1 << b for b in
+                                                  range(16, 21))
+
+
+def record_transcript_reference(scene: SceneData, origin, direction, far,
+                                sample_idx, seed, settings: RenderSettings
+                                ) -> "mk.Record":
+    """Plain version of the forward's record: the lockstep `trace_rays`
+    (closest hits by brute force) on the same rays, its transcript packed
+    into the kernel's `megakernel.Record` layout. Slots at or past a ray's
+    shaded count hold zeros (the kernel leaves them unwritten)."""
+    from halogen_tpu_torch.integrator.trace import trace_rays
+
+    n, dev = origin.shape[0], origin.device
+    tape = []
+    far_b = torch.as_tensor(far, dtype=torch.float32,
+                            device=dev).reshape(-1)[0].expand(n)
+    with torch.no_grad():
+        trace_rays(scene, origin, direction, far_b, sample_idx, seed,
+                   settings.replace(intersector=Intersector.BRUTE), tape)
+    nee = env_mode(scene, settings) == 2
+    rec = mk.empty_record(n, settings, nee, dev)
+    n_shaded = torch.zeros((n,), dtype=torch.int64, device=dev)
+    missed = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for k, e in enumerate(tape):
+        sh = e["shaded"]
+        n_shaded += sh.to(torch.int64)
+        missed |= e["missed"]
+        zero = lambda x: torch.where(sh.reshape(-1, *[1] * (x.dim() - 1)),
+                                     x, torch.zeros_like(x))
+        rec.a[k] = zero(torch.cat([e["a_prev"], e["t"][:, None]], dim=1))
+        ab = e["absorbing"]
+        word = (e["mat"].to(torch.int64)
+                | torch.where(ab, e["ab_mat"].to(torch.int64) << 8, 0)
+                | e["spec"].to(torch.int64) * _SPEC
+                | ab.to(torch.int64) * _ABSORBING
+                | e["survive"].to(torch.int64) * _SURVIVE
+                | e["true_hit"].to(torch.int64) * _TRUE_HIT
+                | e["refr"].to(torch.int64) * _REFR)
+        rec.word[k] = zero(word).to(torch.int32)
+        if nee:
+            texel, rad, wfac, dterm, gterm = e["nee"]
+            lit = sh & (texel >= 0)
+            z = torch.zeros_like(wfac)
+            rec.nq[k] = torch.cat([torch.where(lit[:, None],
+                                               rad * wfac[:, None], 0.0),
+                                   torch.where(lit, dterm, z)[:, None]],
+                                  dim=1)
+            rec.ngw[k] = torch.stack([torch.where(lit, gterm, z),
+                                      torch.where(lit, wfac, z)], dim=1)
+            rec.texel[k] = torch.where(sh, texel, -1).to(torch.int32)
+    rec.end.copy_(mk._as_i32(n_shaded | (missed.to(torch.int64) << 31)))
+    return rec
+
+
+def sweep_reference(scene: SceneData, settings: RenderSettings, record,
+                    d_out: torch.Tensor):
+    """Plain version of `adjoint_sweep`: the same reverse sweep over
+    `record` (`megakernel.Record`), vectorised over rays, bounce by bounce
+    from the last slot: Russian roulette's 1/max with its argmax ties
+    split evenly and the 1e-20 gate, Beer-Lambert, with the sky its
+    cotangents at the miss and the roughness column, with env NEE its
+    term. `d_out` [N, >= 3]: the color's cotangent, with an envmap in use
+    then those of the miss attenuation and the accumulated roughness
+    (columns 3-6). The sums per material run in float64. Returns
+    ([K, 12|13], with env NEE the records (keys [N, B + 1] int32, weights
+    [N, B + 1, 3]; zeros where the key is -1), else None)."""
+    env = env_mode(scene, settings)
+    k_mat = scene.materials.count
+    cols = n_grad(scene, settings)
+    tab = mk._scene_tables(scene)[3].detach().to(record.a.device)
+    n = record.n
+    ct = d_out[:, 0:3].detach().to(torch.float32)
+    end = record.end.to(torch.int64) & 0xFFFFFFFF
+    n_shaded = end & 0xFFFF
+    missed = (end >> 31) != 0
+    zero3 = torch.zeros_like(ct)
+    g_a = torch.where(missed[:, None], d_out[:, 3:6], zero3) if env else zero3
+    g_rough = d_out[:, 6] if env else None
+    acc = torch.zeros((k_mat, cols), dtype=torch.float64, device=ct.device)
+    slots = settings.max_bounces + 1
+    keys = weights = None
+    if env == 2:
+        keys = torch.full((n, slots), -1, dtype=torch.int32,
+                          device=ct.device)
+        weights = torch.zeros((n, slots, 3), device=ct.device)
+    for k in reversed(range(slots)):
+        live = n_shaded > k
+        if not bool(live.any()):
+            continue
+        a_prev, t = record.a[k, :, 0:3], record.a[k, :, 3]
+        word = record.word[k].to(torch.int64) & 0xFFFFFFFF
+        mat = torch.where(live, word & 0xFF, 0)
+        ab_mat = (word >> 8) & 0xFF
+        spec = (word & _SPEC) != 0
+        absorbing = live & ((word & _ABSORBING) != 0)
+        survive = (word & _SURVIVE) != 0
+        # a refraction or a false hit scatters with color 1
+        surf = ((((word & _TRUE_HIT) != 0) & ((word & _REFR) == 0))
+                if scene.any_transmissive else torch.ones_like(live))
+        m = tab[mat]
+        one = torch.ones_like(a_prev)
+        base = torch.where(surf[:, None],
+                           torch.where(spec[:, None], m[:, 4:7], m[:, 0:3]),
+                           one)
+        ab_row = tab[torch.where(absorbing, ab_mat, mat)]
+        beer = torch.where(absorbing[:, None],
+                           torch.exp(-ab_row[:, 13:16] * t[:, None]), one)
+        scf = base * beer
+        a_post = a_prev * scf
+        gp = g_a
+        if settings.russian_roulette:
+            c = torch.amax(a_post, dim=1)
+            inv_c = 1.0 / torch.clamp_min(c, 1e-20)
+            tie = (a_post == c[:, None]).to(torch.float32)
+            n_tie = torch.clamp_min(tie.sum(dim=1), 1.0)
+            inv_tie = torch.where(n_tie == 1.0, 1.0,
+                                  torch.where(n_tie == 2.0, 0.5, 1.0 / 3.0))
+            gate = (c > 1e-20).to(torch.float32)
+            dot_ga = ((g_a[:, 0] * a_post[:, 0] + g_a[:, 1] * a_post[:, 1])
+                      + g_a[:, 2] * a_post[:, 2])
+            split = (tie * inv_tie[:, None] * gate[:, None]
+                     * dot_ga[:, None] * inv_c[:, None] * inv_c[:, None])
+            gp = torch.where(survive[:, None],
+                             g_a * inv_c[:, None] - split, g_a)
+        g = torch.zeros((n, cols), device=ct.device)
+        if env:
+            gp = torch.cat([(gp[:, 0] + g_rough * m[:, 8])[:, None],
+                            gp[:, 1:3]], dim=1)
+            g[:, 12] = g_rough * a_post[:, 0]
+        g_sc = gp * a_prev
+        g_new = gp * scf + ct * m[:, 9:12]
+        g_base = g_sc * beer
+        g_beer = g_sc * base
+        g[:, 0:3] = ct * a_prev
+        g[:, 3:6] = torch.where((surf & ~spec)[:, None], g_base, 0.0)
+        g[:, 6:9] = torch.where((surf & spec)[:, None], g_base, 0.0)
+        g[:, 9:12] = torch.where(absorbing[:, None], -t[:, None] * beer
+                                 * g_beer, 0.0)
+        if env == 2:
+            q, dterm = record.nq[k, :, 0:3], record.nq[k, :, 3]
+            gterm, wfac = record.ngw[k, :, 0], record.ngw[k, :, 1]
+            cq = ct * q
+            f = m[:, 0:3] * dterm[:, None] + m[:, 4:7] * gterm[:, None]
+            g_new = g_new + cq * f
+            ca = cq * a_prev
+            g[:, 3:6] = g[:, 3:6] + ca * dterm[:, None]
+            g[:, 6:9] = g[:, 6:9] + ca * gterm[:, None]
+            texel = record.texel[k]
+            lit = live & (texel >= 0)
+            keys[:, k] = torch.where(live, texel, -1)
+            weights[:, k] = torch.where(lit[:, None],
+                                        ct * a_prev * f * wfac[:, None], 0.0)
+        g_a = torch.where(live[:, None], g_new, g_a)
+        # absorption to the Beer material, the rest to the hit material
+        g = torch.where(live[:, None], g, 0.0).to(torch.float64)
+        by_mat = torch.zeros_like(acc).index_add_(0, mat, g)
+        by_mat[:, 9:12] = torch.zeros_like(acc[:, 9:12]).index_add_(
+            0, torch.where(absorbing, ab_mat, 0), g[:, 9:12])
+        acc += by_mat
+    return acc.to(torch.float32), (None if env != 2 else (keys, weights))
+
+
 def _backward_settings(settings: RenderSettings) -> RenderSettings:
     """The plain backward's settings: AUTO pinned to the dense BRUTE
     intersector, as the JAX lockstep backward pins it (the same radiance;
@@ -314,14 +614,20 @@ def trace_grad_outputs_reference(scene: SceneData, origin, direction, far,
 
 def trace_grad_outputs(scene: SceneData, origin, direction, far, sample_idx,
                        seed, d_out, settings: RenderSettings, tables=None,
-                       env_tab=None, want_env: bool = False):
+                       env_tab=None, want_env: bool = False,
+                       record: "mk.Record | None" = None):
     """Backward of the megakernel's per-ray outputs: for their cotangent
     `d_out` [N, C] (the color's in columns 0-2; with an envmap the miss
     attenuation's in 3-5 and the accumulated roughness's in 6), ([K, 12|13]
     per-material cotangents, and with `want_env` and env NEE the finest
     mip's cotangent [H, W, 3], else None). The adjoint kernel (and, for the
     mip, the sky's per-texel sum) on a CUDA device, the plain version on
-    the CPU."""
+    the CPU. With `record` (a CUDA forward's transcript of these rays) the
+    record route's sweep, which reads no rays (origin to seed may be
+    None); without, the replay."""
+    if record is not None:
+        return _outputs_backward(scene, None, None, None, None, None, d_out,
+                                 settings, tables, env_tab, want_env, record)
     if origin.device.type == "cpu":
         _check_covered(scene, settings)
         return trace_grad_outputs_reference(scene, origin, direction, far,
@@ -329,20 +635,29 @@ def trace_grad_outputs(scene: SceneData, origin, direction, far, sample_idx,
                                             settings, want_env)
     if origin.device.type != "cuda":
         raise ValueError(f"no adjoint kernel for device {origin.device}")
+    return _outputs_backward(scene, origin, direction, far, sample_idx, seed,
+                             d_out, settings, tables, env_tab, want_env, None)
+
+
+def _outputs_backward(scene, origin, direction, far, sample_idx, seed, d_out,
+                      settings: RenderSettings, tables, env_tab, want_env,
+                      record):
+    """`trace_grad_outputs` on a CUDA device: the replay, or with `record`
+    the sweep."""
     env = env_mode(scene, settings)
     ct = d_out[:, 0:3].contiguous()
     gsky = d_out[:, 3:7].contiguous() if env else None
     records = None
-    n = origin.shape[0]
+    n = d_out.shape[0]
     if env == 2:
         slots = settings.max_bounces + 1
         records = (torch.empty((n, slots), dtype=torch.int32,
-                               device=origin.device),
+                               device=d_out.device),
                    torch.empty((n, slots, 3), dtype=torch.float32,
-                               device=origin.device))
+                               device=d_out.device))
     dmat = _launch(scene, origin, direction, far, sample_idx, seed, ct,
                    settings, tables, gsky=gsky, env_tab=env_tab,
-                   records=records)
+                   records=records, record=record)
     d_env = None
     if want_env and env == 2:
         h, w = scene.env_cdf.pdf.shape

@@ -11,6 +11,10 @@ and in the BVH tier (B1d: the closest hit and the shadow ray walk the
 scene's world BVH, `csrc/bvh_traverse.cuh`, in global memory); and each
 of those eight with area-light next-event estimation (B1e, the light
 table of `light_table`), which the JAX package runs only in its lockstep.
+Where a gradient follows on the adjoint's record route
+(`adjoint.record_plan`), the BVH tier's launch also records the
+transcript the adjoint's sweep reads (`Record`, `empty_record`), so the
+backward does not walk the BVH again.
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
@@ -55,6 +59,7 @@ import tempfile
 import time
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from halogen_tpu_torch.config import DebugMode, RenderSettings, SamplerKind
 from halogen_tpu_torch.core.types import SceneData
@@ -80,6 +85,7 @@ N_OUTPUTS = 10
 N_OUTPUTS_NEE = 12
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
+RECORD_LAUNCHES = 0  # of them, launches that recorded the transcript
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -93,8 +99,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # path_common.cuh; it and the traversal kernel include the walk in
 # bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": {"halogen_megakernel_launch": (18, 22, 0)},
-    "adjoint": {"halogen_adjoint_launch": (19, 15, 0)},
+    "megakernel": {"halogen_megakernel_launch": (24, 22, 0)},
+    "adjoint": {"halogen_adjoint_launch": (19, 15, 0),
+                "halogen_adjoint_sweep": (13, 6, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
     "sky": {"halogen_sky_forward": (5, 6, 2),
             "halogen_sky_backward": (9, 8, 2),
@@ -273,6 +280,81 @@ def light_table(scene: SceneData) -> LightRows | None:
                      dens.detach().to(f32).contiguous())
 
 
+class Record(NamedTuple):
+    """The transcript a forward launch records for the adjoint's sweep
+    (`csrc/path_common.cuh` `RecordView`), slot-major: slot k of ray i is
+    row [k, i]. Slots at or past a ray's shaded count are never written."""
+
+    a: torch.Tensor  # [B + 1, N, 4] float32: attenuation before, t
+    word: torch.Tensor  # [B + 1, N] int32: materials and masks
+    end: torch.Tensor  # [N] int32: shaded bounces | missed << 31
+    # with env NEE: the NEE radiance * weight rgb, dterm | gterm, weight |
+    # the drawn texel (-1: none); else None
+    nq: torch.Tensor | None  # [B + 1, N, 4] float32
+    ngw: torch.Tensor | None  # [B + 1, N, 2] float32
+    texel: torch.Tensor | None  # [B + 1, N] int32
+
+    @property
+    def n(self) -> int:
+        return self.end.shape[0]
+
+
+# Every record allocated and not yet freed: (a weak reference to the
+# storage of its largest buffer, its device, its bytes). A record lives
+# until the backward that reads it, or until its graph is dropped, so a
+# plan (`adjoint.record_plan`) counts those of earlier forwards.
+_LIVE_RECORDS: list = []
+
+
+def empty_record(n: int, settings: RenderSettings, env_nee: bool,
+                 device) -> Record:
+    """Buffers of a `Record` of n rays and max_bounces + 1 slots (4 bytes
+    a ray, and 20 a slot, 48 with env NEE), counted by
+    `live_record_bytes` until they are freed."""
+    slots = settings.max_bounces + 1
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    rec = Record(
+        torch.empty((slots, n, 4), **f32), torch.empty((slots, n), **i32),
+        torch.empty((n,), **i32),
+        torch.empty((slots, n, 4), **f32) if env_nee else None,
+        torch.empty((slots, n, 2), **f32) if env_nee else None,
+        torch.empty((slots, n), **i32) if env_nee else None)
+    _LIVE_RECORDS.append((StorageWeakRef(rec.a.untyped_storage()),
+                          rec.a.device,
+                          4 * n * (1 + slots * (12 if env_nee else 5))))
+    return rec
+
+
+def live_record_bytes(device) -> int:
+    """Bytes of the records on `device` still alive (`empty_record`)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    _LIVE_RECORDS[:] = [r for r in _LIVE_RECORDS if not r[0].expired()]
+    return sum(b for _, d, b in _LIVE_RECORDS if d == device)
+
+
+def check_record(rec: Record, n: int, settings: RenderSettings,
+                 env_nee: bool, dev) -> None:
+    """Raise unless `rec` is a `Record` of n rays for these settings on
+    `dev`: contiguous buffers of `empty_record`'s shapes and types."""
+    slots = settings.max_bounces + 1
+    f32, i32 = torch.float32, torch.int32
+    want = (((slots, n, 4), f32), ((slots, n), i32), ((n,), i32),
+            ((slots, n, 4), f32) if env_nee else None,
+            ((slots, n, 2), f32) if env_nee else None,
+            ((slots, n), i32) if env_nee else None)
+    for name, t, w in zip(Record._fields, rec, want):
+        if w is None:
+            if t is not None:
+                raise ValueError(f"record {name}: only with env NEE")
+        elif (t is None or t.shape != w[0] or t.dtype != w[1]
+              or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"record {name} must be a contiguous {w[1]} "
+                             f"{list(w[0])} on {dev}")
+
+
 def _scene_tables(scene: SceneData):
     """Pack the scene into the kernel's tables: tri [T, 12] (v0, e1, e2
     and 3 zeros: three 16-byte loads a row), trin [T, 10] (n0, n1 - n0,
@@ -420,10 +502,13 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             settings: RenderSettings, tables, env_tab=None, *,
             view: PixelView | None = None, lane0: int = 0,
             spp_block: int = 1, write_rays: bool = False,
-            refill: bool = True, light_tab: LightRows | None = None):
+            refill: bool = True, light_tab: LightRows | None = None,
+            record: Record | None = None):
     """Launch the kernel variant the scene and settings select, on the
     current stream; returns [N, 10], or [N, 12] with env NEE. With
-    area-light NEE `light_tab` may carry `light_table(scene)`.
+    area-light NEE `light_tab` may carry `light_table(scene)`. With
+    `record` (`empty_record`; the BVH tier without light NEE) the launch
+    also writes the adjoint's transcript into it.
 
     With `view` the kernel makes its own rays, those of
     `group_rays(view.camera, settings, view.frame, view.pix, lane0,
@@ -437,7 +522,7 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
     instead, which gives the same bits (kept for the comparison). The BVH
     tier's glass variants always run so: their walk measured faster on the
     coherent rays of neighbouring threads than in full warps."""
-    global LAUNCHES
+    global LAUNCHES, RECORD_LAUNCHES
     rays = (None,) * 4
     if view is None:
         sidx, sd, far_t, tables, scalars = kernel_inputs(
@@ -498,6 +583,11 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             raise ValueError("the light table must be contiguous float32 "
                              f"[L, 16] (16-byte aligned) and [{n_dens}] on "
                              f"{dev}")
+    if record is not None:
+        if not bvh or light:
+            raise ValueError("only the BVH tier without area-light NEE "
+                             "records the adjoint's transcript")
+        check_record(record, scalars[0], settings, env_nee, dev)
     out = torch.empty(
         (scalars[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
         dtype=torch.float32, device=dev)
@@ -516,11 +606,16 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             *cam_ptrs, ptr(counter),
             *((light_tab.rows.data_ptr(), light_tab.dens.data_ptr())
               if light else (None, None)),
+            *((ptr(t) for t in (record.a, record.word, record.nq,
+                                record.ngw, record.texel, record.end))
+              if record is not None else (None,) * 6),
             *scalars, int(env_nee), env_h, env_w, int(bvh), *cam_ints,
             int(light), n_lights, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    if record is not None:
+        RECORD_LAUNCHES += 1
     return (out, *rays) if view is not None and write_rays else out
 
 
@@ -544,15 +639,17 @@ def trace_color_fused_reference(scene: SceneData, origin, direction, far,
 
 def trace_fused_outputs(scene: SceneData, origin, direction, far, sample_idx,
                         seed, settings: RenderSettings, tables=None,
-                        env_tab=None, light_tab=None) -> torch.Tensor:
+                        env_tab=None, light_tab=None,
+                        record: Record | None = None) -> torch.Tensor:
     """[N, 10] per-ray outputs: color rgb gathered along the path (the sky
     excluded), miss attenuation rgb, accumulated roughness, final
     direction xyz; with env NEE [N, 12], adding the continuation pdf and
-    NEE flag at the miss. The kernel on a CUDA device, its plain version
-    on the CPU."""
+    NEE flag at the miss. The kernel on a CUDA device (with `record`, also
+    the adjoint's transcript), its plain version on the CPU."""
     if origin.device.type == "cuda":
         return _launch(scene, origin, direction, far, sample_idx, seed,
-                       settings, tables, env_tab, light_tab=light_tab)
+                       settings, tables, env_tab, light_tab=light_tab,
+                       record=record)
     if origin.device.type != "cpu":
         raise ValueError(f"no megakernel for device {origin.device}")
     return trace_color_fused_reference(scene, origin, direction, far,
@@ -577,18 +674,21 @@ def trace_color_fused(scene: SceneData, origin, direction, far, sample_idx,
 def trace_pixels_outputs(scene: SceneData, view: PixelView, lane0: int,
                          spp_block: int, settings: RenderSettings,
                          tables=None, env_tab=None,
-                         write_rays: bool = False, light_tab=None):
+                         write_rays: bool = False, light_tab=None,
+                         record: Record | None = None):
     """`trace_fused_outputs` on the rays of one group of pixels,
     `group_rays(view.camera, settings, view.frame, view.pix, lane0,
     spp_block)`: on a CUDA device the kernel makes them itself (one launch,
     no ray tensors); on the CPU they are made by `group_rays` and traced by
     the plain version. With `write_rays` the result is (outputs, origin,
-    direction, sample_idx, seed)."""
+    direction, sample_idx, seed); with `record` (CUDA only) the launch also
+    writes the adjoint's transcript."""
     dev = view.pix.device
     if dev.type == "cuda":
         return _launch(scene, None, None, None, None, None, settings, tables,
                        env_tab, view=view, lane0=lane0, spp_block=spp_block,
-                       write_rays=write_rays, light_tab=light_tab)
+                       write_rays=write_rays, light_tab=light_tab,
+                       record=record)
     if dev.type != "cpu":
         raise ValueError(f"no megakernel for device {dev}")
     rays = group_rays(view.camera, settings, view.frame, view.pix, lane0,
@@ -615,32 +715,46 @@ class _FusedDiff(torch.autograd.Function):
     `group` is None for explicit rays, or (view, lane0, spp_block,
     want_rays) for a launch from pixels: the kernel then makes the rays
     and, where a backward may follow (`want_rays`), writes them out for
-    the adjoint's replay (on both tiers). `aux` is (env_tab, light_tab),
-    either None."""
+    the adjoint's replay (on both tiers). `aux` is (env_tab, light_tab,
+    record): the tables, either None, and whether the launch records the
+    adjoint's transcript (the record route, `adjoint.record_plan`; the
+    backward is then the sweep alone, and no rays are written)."""
 
     @staticmethod
     def forward(ctx, scene, settings, aux, group, tri_tab, trin_tab,
                 sph_tab, mat_tab, origin, direction, far, sample_idx, seed,
                 *env_mips):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
-        env_tab, light_tab = aux
+        env_tab, light_tab, record = aux
         ctx.scene, ctx.settings, ctx.env_tab = scene, settings, env_tab
         ctx.n_env = len(env_mips)
+        rec = None
+        if record:
+            n = (origin.shape[0] if group is None
+                 else group[0].pix.shape[0] * group[2])
+            dev = mat_tab.device
+            rec = empty_record(n, settings, _use_nee(scene, settings), dev)
         if group is None:
             out = trace_fused_outputs(scene, origin, direction, far,
                                       sample_idx, seed, settings, tables,
-                                      env_tab, light_tab)
+                                      env_tab, light_tab, record=rec)
         else:
             view, lane0, spp_block, want_rays = group
+            want_rays = want_rays and rec is None
             out = trace_pixels_outputs(scene, view, lane0, spp_block,
                                        settings, tables, env_tab,
                                        write_rays=want_rays,
-                                       light_tab=light_tab)
+                                       light_tab=light_tab, record=rec)
             if want_rays:
                 out, origin, direction, sample_idx, seed = out
                 far = view.camera.far
-        if origin is not None:
-            # the rays of this launch, not a graph of its bounces
+        # the transcript, or the rays of this launch for the replay; not a
+        # graph of its bounces
+        ctx.record_fields = None
+        if rec is not None:
+            ctx.record_fields = tuple(t is not None for t in rec)
+            ctx.save_for_backward(*tables, *(t for t in rec if t is not None))
+        elif origin is not None:
             ctx.save_for_backward(*tables, origin, direction, far,
                                   sample_idx, seed)
         return out
@@ -649,7 +763,14 @@ class _FusedDiff(torch.autograd.Function):
     def backward(ctx, grad_out):
         from halogen_tpu_torch.kernels import adjoint as adj
 
-        *tables, origin, direction, far, sample_idx, seed = ctx.saved_tensors
+        tables, saved = ctx.saved_tensors[:4], ctx.saved_tensors[4:]
+        rec, rays = None, saved
+        if ctx.record_fields is not None:
+            it = iter(saved)
+            rec = Record(*(next(it) if f else None
+                           for f in ctx.record_fields))
+            rays = (None,) * 5
+        origin, direction, far, sample_idx, seed = rays
         mat_tab = tables[3]
         want_env = ctx.n_env > 0 and ctx.needs_input_grad[13]
         d_mat = d_env0 = None
@@ -659,7 +780,7 @@ class _FusedDiff(torch.autograd.Function):
             dmat, d_env0 = adj.trace_grad_outputs(
                 ctx.scene, origin, direction, far, sample_idx, seed,
                 grad_out.contiguous(), ctx.settings, tables=tuple(tables),
-                env_tab=ctx.env_tab, want_env=want_env)
+                env_tab=ctx.env_tab, want_env=want_env, record=rec)
             # [K, 12|13] columns onto _scene_tables' [K, 17] layout;
             # autograd chains col 9:12 through the rgb * intensity product
             d_mat = torch.zeros_like(mat_tab)
@@ -680,17 +801,36 @@ def _nee_mips(scene: SceneData, settings: RenderSettings) -> tuple:
     return scene.env_mips[:1] if _use_nee(scene, settings) else ()
 
 
+def records_wanted(scene: SceneData, settings: RenderSettings, tables,
+                   dev, n_rays: int, launches: int) -> bool:
+    """The plan of a step of `launches` differentiable launches of
+    `n_rays` rays each, made once before the first: whether they record
+    the adjoint's transcript. They do where a gradient may follow on a
+    CUDA device and the adjoint's plan takes the record route
+    (`adjoint.record_plan`: the BVH tier, where the step's records fit its
+    budget beside those still alive)."""
+    from halogen_tpu_torch.kernels import adjoint as adj
+
+    tables = tables if tables is not None else _scene_tables(scene)
+    return (torch.device(dev).type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (*tables,
+                                              *_nee_mips(scene, settings)))
+            and adj.record_plan(scene, settings, n_rays, launches)
+            == "recorded")
+
+
 def trace_color_fused_diff(scene: SceneData, origin, direction, far,
                            sample_idx, seed, settings: RenderSettings,
-                           tables=None, env_tab=None,
-                           light_tab=None) -> torch.Tensor:
+                           tables=None, env_tab=None, light_tab=None,
+                           record: bool | None = None) -> torch.Tensor:
     """Differentiable fused tracer (port of the JAX
     `trace_color_fused_diff`, `megakernel.py:1981-1993`): [N, 3] radiance
     from the kernel and the sky pass, whose backwards are the adjoint
     kernel (`kernels/adjoint.py`) and the sky backward kernel
     (`kernels/sky.py`), or their plain versions on the CPU. Gradients
     reach the scene's material table through `_scene_tables(scene)` and
-    its envmap's mips."""
+    its envmap's mips. `record`: the step's plan (`records_wanted`), or
+    None to plan this launch alone."""
     from halogen_tpu_torch.kernels import sky
 
     dev = origin.device
@@ -698,27 +838,37 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
     far = torch.as_tensor(far, dtype=torch.float32, device=dev)
     sample_idx = torch.as_tensor(sample_idx, device=dev)
     seed = torch.as_tensor(seed, device=dev)
-    out = _FusedDiff.apply(scene, settings, (env_tab, light_tab), None,
-                           *tables, origin, direction, far, sample_idx, seed,
-                           *_nee_mips(scene, settings))
+    mips = _nee_mips(scene, settings)
+    if record is None:
+        record = records_wanted(scene, settings, tables, dev,
+                                origin.shape[0], 1)
+    out = _FusedDiff.apply(scene, settings, (env_tab, light_tab, record),
+                           None, *tables, origin, direction, far, sample_idx,
+                           seed, *mips)
     return sky.sky_color(scene, settings, out)
 
 
 def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
                             spp_block: int, settings: RenderSettings,
-                            tables=None, env_tab=None,
-                            light_tab=None) -> torch.Tensor:
+                            tables=None, env_tab=None, light_tab=None,
+                            record: bool | None = None) -> torch.Tensor:
     """`trace_color_fused_diff` on the rays of one group of pixels (see
     `trace_pixels_outputs`): [N, 3] radiance from one kernel launch that
-    makes its own rays, and the sky pass. The rays are written out, and
-    kept for the adjoint, only where a gradient is wanted."""
+    makes its own rays, and the sky pass. Only where a gradient is wanted,
+    the launch records the adjoint's transcript (where `record`, the
+    step's plan, says so; None: plan this launch alone) or else writes its
+    rays out for the adjoint's replay."""
     from halogen_tpu_torch.kernels import sky
 
     tables = tables if tables is not None else _scene_tables(scene)
     mips = _nee_mips(scene, settings)
     want_rays = torch.is_grad_enabled() and any(
         t.requires_grad for t in (*tables, *mips))
-    out = _FusedDiff.apply(scene, settings, (env_tab, light_tab),
+    record = want_rays and (
+        records_wanted(scene, settings, tables, view.pix.device,
+                       view.pix.shape[0] * spp_block, 1)
+        if record is None else record)
+    out = _FusedDiff.apply(scene, settings, (env_tab, light_tab, record),
                            (view, lane0, spp_block, want_rays), *tables,
                            None, None, None, None, None, *mips)
     return sky.sky_color(scene, settings, out)

@@ -6,31 +6,38 @@ Run from the root of a checkout:
     python3 -m halogen_tpu_torch.profile_frame [--scene S] [--grad]
         [--frames 10] [--out FILE]
 
-with S one of cornell, glass, envmap_1024, glass_dragon.
+with S one of cornell, glass, envmap_1024, glass_dragon, metal_dragon.
 
 The frame is a forward path of `chip_smoke.py`: by default the main path,
 Cornell glossy, 512x512, 32 spp, 6 bounces, 262144-ray chunks, so 32
-groups of 262144 rays, each one megakernel launch that makes its own rays; `--scene glass` the glass-in-glass box at 512x512, 32 spp, 8
+groups of 262144 rays, each one megakernel launch that makes its own
+rays; `--scene glass` the glass-in-glass box at 512x512, 32 spp, 8
 bounces (the medium-stack variant); `--scene envmap_1024` the JAX CLI
 preset, material spheres under the gradient sky at 1024x1024, 16 spp, 4
 bounces with env NEE (64 groups, each also a sky pass after the kernel);
 `--scene glass_dragon` `bench.py`'s glass dragon (the reference's
 Dragon_8k in glass around an air bubble, in the Cornell shell: 8,724
 triangles) at 512x512, 32 spp, 12 bounces, through the megakernel's BVH
-tier (B1d); with an envmap, each group's sky pass is one launch of the
-sky kernel (`kernels/sky.py`).
+tier (B1d); `--scene metal_dragon` a 1,280-triangle metal dragon in the
+Cornell shell (`chip_smoke.py` phase 31's) at 256x256, 32 spp, 12
+bounces (the opaque BVH tier); with an envmap, each group's sky pass is
+one launch of the sky kernel (`kernels/sky.py`).
 With `--grad` the step is `diff.render_loss_grad` instead: for Cornell
 and glass at `bench.py`'s forward-plus-backward configuration, 256x256,
 256 spp, so 64 groups, each one megakernel launch (which writes out the
 rays it made) and, in the backward, one adjoint launch; for the glass
 dragon at its frame's configuration (512x512, 32 spp, 12 bounces: the
-adjoint's BVH tier, B2b+d); for `envmap_1024` at the preset's frame with
+adjoint's BVH tier, B2b+d, on its record route: each forward launch also
+records the transcript, and the backward is the sweep alone), and the
+metal dragon at its frame's (B2+d, likewise); for
+`envmap_1024` at the preset's frame with
 {"materials", "env_mips"} (each group also the sky forward, the sky
 backward and its per-texel sums, and the adjoint's sky and env-NEE
 variant). Printed:
 
   - the host-clock time of each of `--frames` steps (no profiler), with
-    `torch.cuda.synchronize()` around each;
+    `torch.cuda.synchronize()` around each, and the peak device memory
+    they allocate (`torch.cuda.max_memory_allocated`);
   - one group's rays by `group_rays`, the plain version of the kernel's
     ray prologue (off the kernel route): host time to issue it, and its
     time to complete (host clock, synchronized); one launch from pixels:
@@ -83,6 +90,21 @@ ENVMAP_1024 = dict(width=1024, height=1024, samples_per_pixel=16,
                    max_bounces=4, use_envmap=True,
                    env_importance_sampling=True, env_mip_level=0,
                    ray_chunk_size=262144)
+
+
+def _metal_dragon():
+    """A 1,280-triangle metal dragon in the Cornell shell (`chip_smoke.py`
+    phases 28 and 31)."""
+    from halogen_tpu_torch.scene.material import Material
+
+    box = cornell.cornell_box(with_spheres=False)
+    verts, faces = meshes.dragon_mesh(3)
+    box.add_mesh(verts, faces, Material.metal((0.9, 0.6, 0.5),
+                                              roughness=0.4),
+                 transform=meshes._scale_translate(0.55, (0.0, -0.45, 0.0)))
+    return box
+
+
 # scene -> (build, camera, frame settings, step settings for --grad)
 SCENES = {
     "cornell": (lambda dev: cornell.cornell_box(glossy=True).build(
@@ -95,6 +117,10 @@ SCENES = {
     "glass_dragon": (lambda dev: meshes.glass_dragon_scene().build(
         device=dev), DRAGON_CAM, dict(SETTINGS, max_bounces=12),
         dict(SETTINGS, max_bounces=12)),
+    "metal_dragon": (lambda dev: _metal_dragon().build(device=dev),
+                     DRAGON_CAM, dict(SETTINGS, max_bounces=12, width=256,
+                                      height=256),
+                     dict(SETTINGS, max_bounces=12, width=256, height=256)),
     "envmap_1024": (lambda dev: cornell.material_demo_spheres().build(
         envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM, ENVMAP_1024,
         ENVMAP_1024),
@@ -133,7 +159,7 @@ def _sky_scatters(prof) -> dict:
     for e in events:
         if "sky_backward_taps" in e.name:
             owner = "taps"
-        elif "adjoint_kernel" in e.name:
+        elif "adjoint_kernel" in e.name or "adjoint_sweep" in e.name:
             owner = "records"
         stage = ("ordering" if "sky_radix_" in e.name else
                  "sums" if "sky_reduce_texels" in e.name else None)
@@ -180,12 +206,14 @@ def main(argv=None) -> int:
 
     step(0)  # build, warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     frame_ms = []
     for f in range(args.frames):
         t0 = time.perf_counter()
         step(f + 1)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
 
     # one group: 262144 pixels x 1 spp lane
     perm, _ = _morton_pixel_order(st.width, st.height)
@@ -233,11 +261,14 @@ def main(argv=None) -> int:
     top = sorted((r for r in rows if _self_device_us(r) > 0),
                  key=_self_device_us, reverse=True)[:8]
     # the kernels are templates: megakernel<false, false>(...),
-    # megakernel_bvh<...> (the BVH tier) and so on
+    # megakernel_bvh<...> (the BVH tier; megakernel_bvh_record<...> where
+    # it records the adjoint's transcript) and so on; the adjoint is the
+    # replay (adjoint_kernel) or the record route's sweep (adjoint_sweep)
     kernel_rows = lambda *names: [r for r in rows if _self_device_us(r) > 0
                                   and any(f"{n}<" in r.key for n in names)]
-    mega = kernel_rows("megakernel", "megakernel_bvh")
-    adjoint = kernel_rows("adjoint_kernel")
+    mega = kernel_rows("megakernel", "megakernel_bvh",
+                       "megakernel_bvh_record")
+    adjoint = kernel_rows("adjoint_kernel", "adjoint_sweep")
     sky_rows = [r for r in rows if _self_device_us(r) > 0
                 and "sky_" in r.key]
     scatters = _sky_scatters(prof)
@@ -256,6 +287,7 @@ def main(argv=None) -> int:
         "launch_issue_ms": launch_issue_ms,
         "kernel_ms": kernel_ms,
         "profiled_frame_ms": prof_frame_ms,
+        "peak_memory_bytes": peak_bytes,
         "device_busy_ms": busy_ms,
         "device_idle_share_profiled": 1.0 - busy_ms / prof_frame_ms,
         # the device's work per frame is the same with and without the

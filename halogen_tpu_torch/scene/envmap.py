@@ -301,10 +301,12 @@ def _texel_direction(texel, h: int, w: int) -> torch.Tensor:
                         -sin_t * torch.cos(phi)], dim=-1)
 
 
-def sample_env_draw(cdf: EnvCDF, env0: torch.Tensor, u1, u2):
+def sample_env_draw(cdf: EnvCDF, env0: torch.Tensor, u1, u2,
+                    with_texel: bool = False):
     """One-row NEE draw: ([..., 3] direction, pdf [...], radiance
-    [..., 3]). The radiance is the exact texel value of the finest mip
-    `env0`. The row is the one the CUDA kernel reads
+    [..., 3]), and with `with_texel` the drawn texel [...] (int64, the
+    alias's where the draw took it). The radiance is the exact texel value
+    of the finest mip `env0`. The row is the one the CUDA kernel reads
     (`env_draw_table`)."""
     h, w = cdf.pdf.shape
     n = h * w
@@ -315,6 +317,8 @@ def sample_env_draw(cdf: EnvCDF, env0: torch.Tensor, u1, u2):
     texel = torch.where(stay, idx, row[..., 1].to(torch.int64))
     pdf = torch.where(stay, row[..., 2], row[..., 3])
     rad = torch.where(stay[..., None], row[..., 4:7], row[..., 7:10])
+    if with_texel:
+        return _texel_direction(texel, h, w), pdf, rad, texel
     return _texel_direction(texel, h, w), pdf, rad
 
 

@@ -400,3 +400,179 @@ def test_env_nee_transcript_routes_give_the_same_bits(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(out[0], out[1])
     assert adj.transcript_route(scene, st.replace(max_bounces=12)) == "global"
+
+
+# the record route's variants: (scene, sky, settings)
+RECORD_CASES = {
+    "B2+d": ("metal_dragon", False, dict(max_bounces=12)),
+    "B2b+d": ("glass_dragon", False, dict(max_bounces=12)),
+    "B2c+d": ("hero", True, dict(max_bounces=4, **ENV_CASES["sky"])),
+    "B2c+n+d": ("hero", True, dict(max_bounces=4, **ENV_CASES["sky_nee"])),
+    "B2b+c+n+d": ("glass_dragon", True,
+                  dict(max_bounces=12, **ENV_CASES["sky_nee"])),
+}
+
+
+def _recorded(name, dev):
+    """(scene, settings, camera, rays, ct, gsky, the forward's outputs
+    with and without the record, the record) for a record-route case."""
+    kind, env, kw = RECORD_CASES[name]
+    scene, cam_kw = _scene(kind, env, dev)
+    st = ht.RenderSettings(width=16, height=16, samples_per_pixel=2, **kw)
+    cam, o, d, sidx, seed, ct = _scene_rays(dev, st, cam_kw)
+    gsky = torch.rand((o.shape[0], 4),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    nee = adj.env_mode(scene, st) == 2
+    rec = mk.empty_record(o.shape[0], st, nee, dev)
+    before = mk.RECORD_LAUNCHES
+    out_rec = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st,
+                                     record=rec)
+    assert mk.RECORD_LAUNCHES == before + 1
+    out = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
+    return scene, st, cam, (o, d, sidx, seed), ct, gsky, out_rec, out, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RECORD_CASES))
+def test_recorded_route_equals_the_replay_bit_for_bit(name, cuda_device):
+    """The forward's outputs with the record equal those without; the
+    sweep over the record gives the replay's [K, 12|13] and env-NEE
+    records bit for bit, and is bitwise repeatable."""
+    scene, st, cam, (o, d, sidx, seed), ct, gsky, out_rec, out, rec = (
+        _recorded(name, cuda_device))
+    env = adj.env_mode(scene, st)
+    slots = st.max_bounces + 1
+    n = o.shape[0]
+
+    def nee_buffers():
+        return (torch.full((n, slots), -7, dtype=torch.int32,
+                           device=cuda_device),
+                torch.zeros((n, slots, 3), device=cuda_device))
+
+    got_recs, ref_recs = nee_buffers(), nee_buffers()
+    kw = dict(gsky=gsky if env else None)
+    before = adj.SWEEP_LAUNCHES
+    got = adj._launch(scene, None, None, None, None, None, ct, st, None,
+                      record=rec, records=got_recs if env == 2 else None,
+                      **kw)
+    again = adj._launch(scene, None, None, None, None, None, ct, st, None,
+                        record=rec, **kw)
+    assert adj.SWEEP_LAUNCHES == before + 2
+    ref = adj._launch(scene, o, d, cam.far, sidx, seed, ct, st, None,
+                      records=ref_recs if env == 2 else None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_rec, out)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    if env == 2:
+        keys = got_recs[0]
+        assert torch.equal(keys, ref_recs[0]) and int((keys >= 0).sum()) > 0
+        lit = keys >= 0
+        assert torch.equal(got_recs[1][lit], ref_recs[1][lit])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RECORD_CASES))
+def test_sweep_and_record_match_their_plain_versions(name, cuda_device):
+    """The kernel's record against `record_transcript_reference` on the
+    rays whose forward outputs kernel and plain agree on (ids and masks
+    equal, floats within 1e-4), and the sweep against `sweep_reference`
+    over the same record within 1e-5 * max |column| + 1e-7."""
+    scene, st, cam, (o, d, sidx, seed), ct, gsky, out_rec, _, rec = (
+        _recorded(name, cuda_device))
+    env = adj.env_mode(scene, st)
+    plain = mk.trace_color_fused_reference(scene, o, d, cam.far, sidx, seed,
+                                           st)
+    agree = ((out_rec[:, 0:7] - plain[:, 0:7]).abs()
+             <= 1e-4 + 1e-4 * plain[:, 0:7].abs()).all(dim=1)
+    assert int((~agree).sum()) <= max(1.0, 1e-3 * o.shape[0])
+    ref_rec = adj.record_transcript_reference(scene, o, d, cam.far, sidx,
+                                              seed, st)
+    assert torch.equal(rec.end[agree], ref_rec.end[agree])
+    n_shaded = (rec.end.to(torch.int64) & 0xFFFF)
+    for k in range(st.max_bounces + 1):
+        live = agree & (n_shaded > k)
+        assert torch.equal(rec.word[k][live], ref_rec.word[k][live]), k
+        for a, b in ((rec.a, ref_rec.a), (rec.nq, ref_rec.nq),
+                     (rec.ngw, ref_rec.ngw)):
+            if a is not None and bool(live.any()):
+                a, b = a[k][live], b[k][live]
+                assert float((a - b).abs().max()) <= 1e-4 * (
+                    1.0 + float(b.abs().max())), k
+        if rec.texel is not None:
+            assert torch.equal(rec.texel[k][live], ref_rec.texel[k][live])
+    d_out = torch.cat([ct, gsky], dim=1)
+    got = adj._launch(scene, None, None, None, None, None, ct, st, None,
+                      record=rec, gsky=gsky if env else None)
+    ref, _ = adj.sweep_reference(scene, st, rec, d_out)
+    torch.cuda.synchronize()
+    bound = 1e-5 * ref.abs().amax(dim=0) + 1e-7
+    assert ((got - ref).abs() <= bound).all(), (got - ref).abs().amax(dim=0)
+
+
+@pytest.mark.cuda
+def test_render_loss_grad_takes_the_record_route(cuda_device):
+    """A BVH-tier step records in its forward and sweeps in its backward
+    (no replay launch); with RECORD_BUDGET = 0 the same step replays; both
+    give the same material gradients bit for bit."""
+    scene, cam_kw = _scene("glass_dragon", False, cuda_device)
+    cam = ht.make_camera(**cam_kw, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
+                           max_bounces=12, ray_chunk_size=2048)
+    target = torch.zeros((32, 32, 3), device=cuda_device)
+    params = {"materials": scene.materials}
+    counts = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.LAUNCHES,
+                      adj.SWEEP_LAUNCHES)
+    assert adj.record_plan(scene, st, 2048, 2) == "recorded"
+    before = counts()
+    _, g_rec = render_loss_grad(params, scene, cam, st, target, 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 0, 2)
+    saved = adj.RECORD_BUDGET
+    adj.RECORD_BUDGET = 0
+    try:
+        before = counts()
+        _, g_rep = render_loss_grad(params, scene, cam, st, target, 1)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 2, 0)
+    finally:
+        adj.RECORD_BUDGET = saved
+    for f in FLOAT_MATERIAL_FIELDS:
+        assert torch.equal(getattr(g_rec["materials"], f),
+                           getattr(g_rep["materials"], f)), f
+    assert float(g_rec["materials"].albedo.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_two_frames_before_one_backward_share_the_budget(cuda_device):
+    """A loss over two frames keeps the first frame's records alive while
+    the second is planned: with a budget of one frame's records the first
+    frame records, the second replays, and the gradients equal those of
+    two replayed frames bit for bit; the backward frees the records."""
+    scene, cam_kw = _scene("glass_dragon", False, cuda_device)
+    cam = ht.make_camera(**cam_kw, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
+                           max_bounces=12, ray_chunk_size=2048)
+    counts = lambda: (mk.RECORD_LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES)
+
+    def grad_of_two_frames():
+        leaf = scene.materials.albedo.detach().requires_grad_(True)
+        sc = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials, albedo=leaf))
+        loss = (ht.render_frame(sc, cam, st, 1).square().sum()
+                + ht.render_frame(sc, cam, st, 2).sum())
+        return torch.autograd.grad(loss, leaf)[0]
+
+    live0 = mk.live_record_bytes(cuda_device)
+    saved = adj.RECORD_BUDGET
+    try:
+        adj.RECORD_BUDGET = live0 + 2 * adj.record_bytes(scene, st, 2048)
+        before = counts()
+        g_mixed = grad_of_two_frames()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 2)
+        assert mk.live_record_bytes(cuda_device) == live0
+        adj.RECORD_BUDGET = 0
+        before = counts()
+        g_replay = grad_of_two_frames()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (0, 4, 0)
+    finally:
+        adj.RECORD_BUDGET = saved
+    assert torch.equal(g_mixed, g_replay)
+    assert float(g_mixed.abs().sum()) > 0

@@ -1,0 +1,358 @@
+"""The adjoint's record route on the CPU: the transcript a forward records
+(`adjoint.record_transcript_reference`, the lockstep's transcript in the
+kernel's `megakernel.Record` layout), the sweep over it
+(`adjoint.sweep_reference`, the plain version of `csrc/adjoint.cu`
+`adjoint_sweep`), and the rule that picks the route (`adjoint.record_plan`).
+
+The sweep of the lockstep's transcript must give the [K, 12|13] of
+autograd through the port's lockstep (`trace_grad_outputs_reference`)
+within 1e-5 * max |column| + 1e-7, and the material gradients of
+`jax.grad` through the JAX lockstep `trace_rays` (what the JAX package's
+big-scene backward runs, `halogen_tpu/kernels/megakernel.py:1953-1975`)
+at atol 1e-6, rtol 1e-5, as `tests/test_torch_grad_big.py` holds them: the
+two sweeps and autograd sum the same products in other orders. Scenes are
+the BVH tier's (over 128 triangles): a 1,280-triangle metal dragon in the
+Cornell shell (B2+d), the glass dragon at 1,280 triangles (B2b+d), the
+metal dragon under the gradient sky (B2c+d) and with env NEE (B2c+n+d),
+and a grey dragon in a grey shell, whose attenuations tie in Russian
+roulette's max. The kernels are held to these plain versions on the card
+(`tests/test_torch_adjoint_cuda.py`, `chip_smoke.py` phases 28, 30, 31).
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+from jax_native_sah import jax_native_sah  # noqa: F401  (autouse)
+import torch
+
+import halogen_tpu as jht
+from halogen_tpu.config import Intersector as JIntersector
+from halogen_tpu.integrator.camera import generate_rays as j_generate_rays
+from halogen_tpu.integrator.trace import trace_rays as j_trace_rays
+from halogen_tpu.sampler import sobol as jsob
+from halogen_tpu.scene import cornell as jcornell
+from halogen_tpu.scene import meshes as jmeshes
+from halogen_tpu.scene.envmap import Envmap as JEnvmap
+from halogen_tpu.scene.material import Material as JMaterial
+from halogen_tpu_torch import interop
+from halogen_tpu_torch.config import RenderSettings
+from halogen_tpu_torch.diff.grad import FLOAT_MATERIAL_FIELDS
+from halogen_tpu_torch.integrator.trace import deferred_sky
+from halogen_tpu_torch.kernels import adjoint as adj
+from halogen_tpu_torch.kernels import megakernel as mk
+from halogen_tpu_torch.scene.envmap import Envmap as TEnvmap
+
+CPU = "cpu"  # the port builds on the card unless asked for the CPU
+DRAGON_CAM = dict(position=(0, 1.5, 5.0), target=(0, -0.3, 0), fov_deg=45)
+W, LANES = 12, 2
+ATOL, RTOL = 1e-6, 1e-5  # tests/test_torch_grad_big.py
+SKY = dict(use_envmap=True)
+NEE = dict(use_envmap=True, env_importance_sampling=True, env_mip_level=0)
+# name: (scene, sky, settings)
+CASES = {
+    "B2+d": ("metal", False, {}),
+    "B2b+d": ("glass", False, dict(max_transmission_bounces=6)),
+    "B2c+d": ("metal", True, SKY),
+    "B2c+n+d": ("metal", True, NEE),
+    "rr_ties": ("grey", False, {}),
+}
+
+
+def _grey_shell():
+    """The Cornell box's floor, ceiling, back wall and light, all grey: a
+    path's attenuation keeps three equal channels, so Russian roulette's
+    max ties on every bounce."""
+    s = jht.Scene()
+    white = JMaterial.diffuse((0.73, 0.73, 0.73))
+    for quad in ([(-1, -1, -1), (1, -1, -1), (1, -1, 1), (-1, -1, 1)],
+                 [(-1, 1, -1), (-1, 1, 1), (1, 1, 1), (1, 1, -1)],
+                 [(-1, -1, -1), (-1, 1, -1), (1, 1, -1), (1, -1, -1)]):
+        jcornell._quad(s, quad, white)
+    jcornell._quad(s, [(-0.4, 0.995, -0.4), (-0.4, 0.995, 0.4),
+                       (0.4, 0.995, 0.4), (0.4, 0.995, -0.4)],
+                   JMaterial.emissive((1.0, 1.0, 1.0), 10.0))
+    return s
+
+
+def _dragon_box(material, grey=False):
+    s = _grey_shell() if grey else jcornell.cornell_box(with_spheres=False)
+    verts, faces = jmeshes.dragon_mesh(3)
+    s.add_mesh(verts, faces, material,
+               transform=jmeshes._scale_translate(0.55, (0.0, -0.45, 0.0)))
+    return s
+
+
+def _jax_scene(kind, sky):
+    env = JEnvmap.gradient_sky() if sky else None
+    if kind == "glass":
+        return jmeshes.glass_dragon_scene(tris=1280).build(envmap=env)
+    if kind == "grey":
+        return _dragon_box(JMaterial.metal((0.7, 0.7, 0.7), roughness=0.4),
+                           grey=True).build(envmap=env)
+    return _dragon_box(JMaterial.metal((0.9, 0.6, 0.5), roughness=0.4)
+                       ).build(envmap=env)
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    """(name, JAX scene, its port, settings kwargs, rays as numpy with a
+    cotangent of the outputs from a numpy seed)."""
+    kind, sky, kw = CASES[request.param]
+    js = _jax_scene(kind, sky)
+    scene = interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU)
+    cam = jht.make_camera(**DRAGON_CAM)
+    pix = jnp.repeat(jnp.arange(W * W, dtype=jnp.int32), LANES)
+    lane = jnp.tile(jnp.arange(LANES, dtype=jnp.uint32), W * W)
+    seed = jsob.pixel_seed(pix.astype(jnp.uint32))
+    sidx = jsob.sample_index(jnp.uint32(1), lane, 2)
+    o, d = j_generate_rays(cam, pix % W, pix // W, W, W, 1.0, sidx, seed,
+                           jsob.ld_sample_2d)
+    n = W * W * LANES
+    rng = np.random.default_rng(0)
+    rays = dict(o=np.array(o), d=np.array(d), sidx=np.asarray(sidx),
+                seed=np.asarray(seed), far=np.float32(np.asarray(cam.far)),
+                ct=rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32),
+                gsky=rng.uniform(0.0, 1.0, (n, 4)).astype(np.float32))
+    kw = dict(width=W, height=W, samples_per_pixel=LANES, max_bounces=6,
+              **kw)
+    return request.param, js, scene, kw, rays
+
+
+def _port_rays(rays):
+    return (torch.from_numpy(rays["o"]), torch.from_numpy(rays["d"]),
+            torch.tensor(rays["far"]),
+            torch.from_numpy(rays["sidx"].astype(np.int64)),
+            torch.from_numpy(rays["seed"].astype(np.int64)))
+
+
+def _assert_columns(got, ref):
+    bound = 1e-5 * ref.abs().amax(dim=0) + 1e-7
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= bound).all(), (
+        ((got - ref).abs() / bound).amax(dim=0))
+
+
+def _rr_ties(scene, rec, st):
+    """Russian-roulette decisions of the record whose attenuation's max
+    ties over two or three channels (the max's cotangent splits)."""
+    tab = mk._scene_tables(scene)[3]
+    n_shaded = rec.end.to(torch.int64) & 0xFFFF
+    ties = 0
+    for k in range(st.max_bounces + 1):
+        word = rec.word[k].to(torch.int64)
+        live = (n_shaded > k) & ((word & (1 << 18)) != 0)
+        m = tab[torch.where(live, word & 0xFF, 0)]
+        spec = (word & (1 << 16)) != 0
+        lobe = torch.where(spec[:, None], m[:, 4:7], m[:, 0:3])
+        a_post = rec.a[k, :, 0:3] * lobe
+        top = a_post.amax(dim=1, keepdim=True)
+        ties += int((live & ((a_post == top).sum(dim=1) > 1)).sum())
+    return ties
+
+
+def test_sweep_of_the_record_matches_lockstep_autograd(case):
+    """sweep_reference(record_transcript_reference(...)) against autograd
+    through the port's lockstep, on the outputs' cotangent (the color's;
+    with the sky also the miss attenuation's and roughness's)."""
+    name, _, scene, kw, rays = case
+    st = RenderSettings(**kw)
+    assert mk.uses_bvh(scene) and adj.adjoint_covers(scene, st)
+    o, d, far, sidx, seed = _port_rays(rays)
+    env = adj.env_mode(scene, st)
+    d_out = torch.from_numpy(np.concatenate([rays["ct"], rays["gsky"]], 1))
+    if not env:
+        d_out[:, 3:] = 0.0  # no sky: the kernel reads the color's alone
+    rec = adj.record_transcript_reference(scene, o, d, far, sidx, seed, st)
+    n_shaded = rec.end.to(torch.int64) & 0xFFFF
+    assert int(n_shaded.max()) >= 3 and int((n_shaded > 0).sum()) > 0
+    got, records = adj.sweep_reference(scene, st, rec, d_out)
+    ref, _ = adj.trace_grad_outputs_reference(scene, o, d, far, sidx, seed,
+                                              d_out, st)
+    assert got.shape == (scene.materials.count, adj.n_grad(scene, st))
+    assert got[:, 0:6].abs().max() > 0
+    _assert_columns(got, ref)
+    if name == "B2b+d":
+        assert got[:, 9:12].abs().max() > 0  # Beer-Lambert's column
+    if name == "rr_ties":
+        assert _rr_ties(scene, rec, st) > 0
+    assert (records is None) == (env != 2)
+    if env == 2:  # the env-NEE records, summed per texel, give the mip's
+        keys, weights = records
+        assert int((keys >= 0).sum()) > 0
+        h, w = scene.env_cdf.pdf.shape
+        keep = keys.reshape(-1) >= 0
+        sums = torch.zeros((h * w, 3), dtype=torch.float64).index_add_(
+            0, keys.reshape(-1)[keep].to(torch.int64),
+            weights.reshape(-1, 3)[keep].to(torch.float64))
+        _, ref_env = adj.trace_grad_outputs_reference(
+            scene, o, d, far, sidx, seed, d_out, st, want_env=True)
+        ref_env = ref_env.reshape(-1, 3).to(torch.float64)
+        assert float((sums - ref_env).abs().max()) <= (
+            1e-5 * float(ref_env.abs().max()) + 1e-7)
+
+
+def _jax_material_grads(js, kw, rays):
+    """jax.grad of sum(color * ct) through the JAX lockstep tracer (brute
+    force hits, as the port's plain backward pins) w.r.t. the materials."""
+    st = jht.RenderSettings(**kw, intersector=JIntersector.BRUTE)
+    n = rays["o"].shape[0]
+
+    def loss(mats):
+        col = j_trace_rays(dataclasses.replace(js, materials=mats),
+                           jnp.asarray(rays["o"]), jnp.asarray(rays["d"]),
+                           jnp.full((n,), rays["far"]),
+                           jnp.asarray(rays["sidx"]),
+                           jnp.asarray(rays["seed"]), st).color
+        return jnp.sum(col * jnp.asarray(rays["ct"]))
+
+    g = jax.jit(jax.grad(loss, allow_int=True))(js.materials)
+    return interop.material_table_to_numpy(g)
+
+
+def test_sweep_of_the_record_matches_jax_grad(case):
+    """The record route's plain halves against jax.grad through the JAX
+    lockstep on the same numpy rays: with the sky, the sweep takes the
+    cotangents that autograd of the port's sky pass gives the outputs."""
+    name, js, scene, kw, rays = case
+    st = RenderSettings(**kw)
+    o, d, far, sidx, seed = _port_rays(rays)
+    ct = torch.from_numpy(rays["ct"])
+    rec = adj.record_transcript_reference(scene, o, d, far, sidx, seed, st)
+    d_out = torch.cat([ct, torch.zeros((ct.shape[0], 4))], dim=1)
+    if adj.env_mode(scene, st):
+        out = mk.trace_color_fused_reference(scene, o, d, far, sidx, seed,
+                                             st).requires_grad_(True)
+        g_out, = torch.autograd.grad((deferred_sky(scene, st, out)
+                                      * ct).sum(), out)
+        d_out = g_out[:, 0:7]
+    dmat, _ = adj.sweep_reference(scene, st, rec, d_out)
+    got = interop.material_table_to_numpy(
+        adj.material_cotangents(scene, dmat))
+    ref = _jax_material_grads(js, kw, rays)
+    assert np.abs(ref["albedo"]).max() > 0
+    for f in FLOAT_MATERIAL_FIELDS:
+        np.testing.assert_allclose(got[f], ref[f], atol=ATOL, rtol=RTOL,
+                                   err_msg=f)
+
+
+GLASS_DRAGON_STEP = dict(width=512, height=512, samples_per_pixel=32,
+                         max_bounces=12)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    from halogen_tpu_torch.scene import cornell, meshes
+
+    return dict(
+        dragon=meshes.glass_dragon_scene(tris=1280).build(device=CPU),
+        cornell=cornell.cornell_box(glossy=True).build(device=CPU),
+        sky_dragon=meshes.glass_dragon_scene(tris=1280).build(
+            envmap=TEnvmap.gradient_sky(), device=CPU))
+
+
+# the share of an 80 GB card RECORD_SHARE gives
+CARD_BUDGET = int(adj.RECORD_SHARE * 80e9)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_record_words_a_bounce(scenes, nee):
+    """5 words a shaded bounce (a_prev rgb, t, the packed word), 12 with
+    env NEE; a ray's record is its slots and an end word."""
+    sc = scenes["sky_dragon"]
+    st = RenderSettings(**GLASS_DRAGON_STEP, **(NEE if nee else SKY))
+    assert adj.record_words(sc, st) == (12 if nee else 5)
+    assert adj.record_bytes(sc, st, 262144) == 4 * 262144 * (
+        1 + 13 * (12 if nee else 5))
+    rec = mk.empty_record(7, st, nee, CPU)
+    assert sum(t.numel() for t in rec if t is not None) == 7 * (
+        1 + 13 * (12 if nee else 5))
+
+
+def test_record_plan_records_the_glass_dragon_step(scenes):
+    """bench.py's glass dragon step (512x512, 32 spp, 12 bounces: 32
+    launches of 262144 rays, 2.2 GB of records) takes the record route on
+    an 80 GB card's share, and the replay past the budget."""
+    sc, st = scenes["dragon"], RenderSettings(**GLASS_DRAGON_STEP)
+    step = 32 * adj.record_bytes(sc, st, 262144)
+    assert 2.1e9 < step < 2.3e9
+    assert adj.record_plan(sc, st, 262144, 32, CARD_BUDGET) == "recorded"
+    assert adj.record_plan(sc, st, 262144, 32, step) == "recorded"
+    assert adj.record_plan(sc, st, 262144, 32, step - 1) == (
+        adj.transcript_route(sc, st))
+    assert adj.record_plan(sc, st, 262144, 32, 0) in ("shared", "global")
+    # a 1024x1024 step of 256 spp: 4 chunks x 256 groups, ~71 GB
+    assert adj.record_plan(sc, st.replace(width=1024, height=1024,
+                                          samples_per_pixel=256),
+                           262144, 1024, CARD_BUDGET) != "recorded"
+
+
+def test_record_plan_follows_the_module_budget(scenes, monkeypatch):
+    """Without an explicit budget the plan reads RECORD_BUDGET (set to 0
+    it forces the replay, as chip_smoke.py phase 31 does); on a CPU scene
+    with RECORD_BUDGET None the budget is 0: the plain versions run."""
+    sc, st = scenes["dragon"], RenderSettings(**GLASS_DRAGON_STEP)
+    monkeypatch.setattr(adj, "RECORD_BUDGET", CARD_BUDGET)
+    assert adj.record_plan(sc, st, 262144, 32) == "recorded"
+    monkeypatch.setattr(adj, "RECORD_BUDGET", 0)
+    assert adj.record_plan(sc, st, 262144, 32) != "recorded"
+    monkeypatch.setattr(adj, "RECORD_BUDGET", None)
+    assert adj.record_budget(sc.device) == 0
+    assert adj.record_plan(sc, st, 262144, 32) != "recorded"
+
+
+def test_record_plan_counts_the_records_still_alive(scenes):
+    """A step's plan counts the records of earlier forwards still alive on
+    its device (a loss over several frames keeps every frame's records
+    until its one backward): with a budget of one step's records, the
+    plan replays while an earlier step's record lives and records again
+    once it is freed."""
+    sc, st = scenes["dragon"], RenderSettings(**GLASS_DRAGON_STEP)
+    live0 = mk.live_record_bytes(CPU)
+    step = 2 * adj.record_bytes(sc, st, 1024)
+    budget = live0 + step
+    assert adj.record_plan(sc, st, 1024, 2, budget) == "recorded"
+    earlier = [mk.empty_record(1024, st, False, CPU) for _ in range(2)]
+    assert mk.live_record_bytes(CPU) == live0 + step
+    assert adj.record_plan(sc, st, 1024, 2, budget) == (
+        adj.transcript_route(sc, st))
+    assert adj.record_plan(sc, st, 1024, 2, budget + step) == "recorded"
+    del earlier
+    assert mk.live_record_bytes(CPU) == live0
+    assert adj.record_plan(sc, st, 1024, 2, budget) == "recorded"
+
+
+@pytest.mark.parametrize("why", ["brute_tier", "light_nee"])
+def test_record_plan_replays_off_the_bvh_tier(scenes, why):
+    """The brute tier always replays (its replay keeps the transcript on
+    chip), and light NEE, whose adjoint is ROADMAP B2+l, is not
+    recorded."""
+    if why == "brute_tier":
+        sc, st = scenes["cornell"], RenderSettings(max_bounces=6)
+        assert not mk.uses_bvh(sc)
+    else:
+        sc = scenes["dragon"]
+        st = RenderSettings(**GLASS_DRAGON_STEP,
+                            light_importance_sampling=True)
+        assert sc.lights is not None and not adj.adjoint_covers(sc, st)
+    assert adj.record_plan(sc, st, 262144, 1, CARD_BUDGET) == (
+        adj.transcript_route(sc, st))
+
+
+def test_wrappers_take_no_record_on_cpu(scenes):
+    """On CPU tensors the differentiable entry points never record (the
+    plain versions run), and the forward refuses a record off the BVH
+    tier before any launch."""
+    sc = scenes["cornell"]
+    st = RenderSettings(max_bounces=2)
+    rec = mk.empty_record(4, st, False, CPU)
+    with pytest.raises(ValueError, match="BVH tier"):
+        mk._launch(sc, torch.zeros((4, 3)), torch.ones((4, 3)),
+                   torch.tensor(10.0), torch.zeros(4, dtype=torch.int64),
+                   torch.zeros(4, dtype=torch.int64), st, None,
+                   record=rec)
+    with pytest.raises(ValueError, match="needs the forward's record"):
+        adj._launch(sc, None, None, None, None, None, torch.zeros((4, 3)),
+                    st, None, route="recorded")

@@ -473,7 +473,9 @@ def test_big_scene_frame_launches_bvh_tier(cuda_device):
     """render_frame on the glass dragon goes through B1d (one launch per
     group); under Fused.OFF the lockstep's AUTO takes B3; the backward of
     the kernel route (it raised before the adjoint's BVH tier) is one
-    launch of B2b+d a group, with finite gradients."""
+    launch of B2b+d a group, with finite gradients: on the record route
+    the forward records the transcript and the backward is the sweep
+    alone, no replay."""
     from halogen_tpu_torch.diff import render_loss_grad
 
     scene = meshes.glass_dragon_scene().build(device=cuda_device)
@@ -490,11 +492,13 @@ def test_big_scene_frame_launches_bvh_tier(cuda_device):
     assert rel < 2e-2
     from halogen_tpu_torch.kernels import adjoint as adj
 
-    b = adj.LAUNCHES
+    b, s, r = adj.LAUNCHES, adj.SWEEP_LAUNCHES, mk.RECORD_LAUNCHES
     loss, grads = render_loss_grad(
         {"materials": scene.materials}, scene, cam, st,
         torch.zeros((16, 16, 3), device=cuda_device), 1)
-    assert adj.LAUNCHES - b == 1 and bool(torch.isfinite(loss))
+    assert (mk.RECORD_LAUNCHES - r, adj.SWEEP_LAUNCHES - s,
+            adj.LAUNCHES - b) == (1, 1, 0)
+    assert bool(torch.isfinite(loss))
     assert bool(torch.isfinite(grads["materials"].albedo).all())
     assert float(grads["materials"].absorption.abs().max()) > 0
 
@@ -618,7 +622,7 @@ def test_grad_with_in_kernel_rays_equals_explicit_rays(glass, cuda_device):
     _, g_pix = render_loss_grad(params, scene, cam, st, target, 3)
 
     def explicit(sc, view, lane0, spp_block, settings, tables=None,
-                 env_tab=None, light_tab=None):
+                 env_tab=None, light_tab=None, record=None):
         # the rays as the kernel makes them (its written-out rays), then
         # the explicit-ray route
         _, o, d, sidx, seed = mk.trace_pixels_outputs(
@@ -626,7 +630,7 @@ def test_grad_with_in_kernel_rays_equals_explicit_rays(glass, cuda_device):
             light_tab=light_tab)
         return mk.trace_color_fused_diff(sc, o, d, view.camera.far, sidx,
                                          seed, settings, tables, env_tab,
-                                         light_tab)
+                                         light_tab, record)
 
     saved = mk.trace_color_pixels_diff
     mk.trace_color_pixels_diff = explicit
