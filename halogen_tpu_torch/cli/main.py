@@ -236,7 +236,9 @@ def cmd_bench(args) -> int:
     mrays = rays / dt / 1e6
     print(json.dumps({
         "metric": f"fwd_throughput_{args.preset or args.scene}",
-        "value": round(mrays, 3),
+        # 6 decimals: a 256-ray frame on a loaded CPU can take over 0.5 s,
+        # and 3 (the JAX CLI's) round that real rate down to 0.0
+        "value": round(mrays, 6),
         "unit": f"Mrays/s/{scene.device.type}",
         "vs_baseline": round(mrays / TARGET_MRAYS, 4),
     }))

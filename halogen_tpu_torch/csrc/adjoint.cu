@@ -29,10 +29,10 @@
 //     device buffer of the same layout, past that budget;
 //   record (`adjoint_sweep<kTransmissive, kEnv>`): no replay.
 //     The forward kernel recorded the transcript as it traced
-//     (megakernel.cu `megakernel_bvh_record`, path_common.cuh
-//     `RecordView`). The BVH tier takes it where a step's records fit
-//     `adjoint.RECORD_BUDGET` (`adjoint.record_plan`), else it replays;
-//     the brute tier always replays.
+//     (megakernel.cu `megakernel_record`, `megakernel_bvh_record`,
+//     path_common.cuh `RecordView`). Both tiers take it where a step's
+//     records fit `adjoint.RECORD_BUDGET` (`adjoint.record_plan`), else
+//     they replay.
 // All three give the same bits. On the replay routes, for every path it
 //   1. replays the forward kernel's path through the same `path_bounce`
 //      (path_common.cuh; with the same switches as the forward variant),
@@ -90,10 +90,12 @@
 //     ([N, B + 1]), where the sky backward's stable ordering by texel
 //     keeps them in ray order; a float atomic per record would sum in
 //     another order on every call.
-// On the BVH tier the replay re-walks the world BVH that the forward has
-// just walked (B2b+d takes 0.68-0.70 ms a 262144-ray launch of the glass
+// The replay traces again the paths the forward has just traced (on the
+// BVH tier B2b+d takes 0.68-0.70 ms a 262144-ray launch of the glass
 // dragon on an NVIDIA H100 80GB HBM3 at 700 W, of which the walk ~0.53;
-// PERF.md §6). The record route trades that walk for the
+// on the brute tier B2c+n re-runs every primitive test, draw and shadow
+// ray of the `envmap_1024` paths; PERF.md §6). The record route trades
+// that work for the
 // transcript's bytes: 20 a shaded bounce (48 with env NEE) written by the
 // forward and read once here, a dependent stream of ~60 flops a bounce,
 // bound by memory latency. Its design: ray i on thread i % 128 of block
@@ -536,7 +538,7 @@ struct SweepParams {
 };
 
 // The sweep of adjoint_kernel over the transcript its forward recorded
-// (B2+d, B2b+d and their sky variants on the record route): no replay, so
+// (every variant, either tier, on the record route): no replay, so
 // no triangles, BVH or rays; the material table in shared memory. Ray i
 // is thread i % 128 of block i / 128, and the sweep, the warp sums and the
 // block partials are adjoint_kernel's (`sweep_bounce`, `warp_sums`), so

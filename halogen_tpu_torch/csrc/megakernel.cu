@@ -20,19 +20,23 @@
 //       Pallas kernel's raylet tier (`_make_raylet_traversal`, :523); a
 //       kernel of its own, `megakernel_bvh`, for its launch bounds;
 //   B1e area-light NEE (light_nee=True): each of the above with a light
-//       drawn from the light table and a closest-hit shadow ray per
-//       bounce, `megakernel_light` and `megakernel_bvh_light` (kernels of
+//       drawn from the light table and a shadow ray per bounce (on the
+//       BVH tier an any-hit walk, path_common.cuh `light_visible`),
+//       `megakernel_light` and `megakernel_bvh_light` (kernels of
 //       their own, so that the other variants keep their names). The
 //       Pallas kernel has no such variant (`megakernel.py:1622-1635`); it
 //       replaces the JAX lockstep's light NEE, `trace.py:200-229, 332-432`;
-//   B1d with kRecord (`megakernel_bvh_record`), where a gradient follows
-//       on the record route (`kernels/adjoint.py` record_plan): each shaded
-//       bounce also writes the transcript the adjoint's sweep reads
-//       (`RecordView`, path_common.cuh; 20 bytes, 48 with env NEE) and
-//       each path one word, so that the backward (adjoint.cu
-//       `adjoint_sweep`) need not walk the BVH again. The stores are
-//       indexed by ray and slot-major: coalesced where a thread holds one
-//       ray (the glass variants), scattered where lanes refill.
+//       `megakernel_bvh_light_probe` is B1e+d counting its shadow walks
+//       under both rules (`LightProbe`), a measurement, never a render's;
+//   kRecord, on both tiers (`megakernel_record`, `megakernel_bvh_record`),
+//       where a gradient follows on the record route (`kernels/adjoint.py`
+//       record_plan): each shaded bounce also writes the transcript the
+//       adjoint's sweep reads (`RecordView`, path_common.cuh; 20 bytes, 48
+//       with env NEE) and each path one word, so that the backward
+//       (adjoint.cu `adjoint_sweep`) need not trace the path again. The
+//       stores are indexed by ray and slot-major: coalesced where a thread
+//       holds one ray (the BVH tier's glass variants), scattered where
+//       lanes refill (every brute-tier variant).
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
@@ -97,7 +101,10 @@
 // apart; a 4-light table is one cache line, the testing scene's 77k
 // triangles' table a few KB of it in L1/L2), one 64-byte row, ~120 float
 // ops (the point or cone direction, the pdfs and the weight) and a
-// closest-hit shadow ray: the primitive tests of a second ray.
+// shadow ray: the primitive tests of a second ray on the brute tier; on the
+// BVH tier the light's own triangle and an any-hit walk in front of it,
+// which stops at the first blocker (a closest-hit walk, as before, went on
+// down the tree past it; PERF.md §6 has both walks' tests and times).
 // B1d is bound by the walk instead: a dependent node or leaf load per step
 // (latency; the ~1 MB of nodes and triangles of an 8.7k-triangle scene
 // stay in L2) and the divergence of a warp's rays through the tree,
@@ -137,6 +144,9 @@ struct Params {
   float* out;            // [N, 10], or [N, 12] with env NEE
   LightView light;       // light NEE's tables (B1e)
   RecordView rec;        // the transcript for the adjoint (kRecord)
+  // the light-NEE probe's [N, kProbeWords] counters and mode (kProbe)
+  int* probe;
+  int probe_mode;
   // [1], zero at launch: the next ray to hand out (warps draw their rays
   // from it); null: thread t of the grid takes ray t
   int* counter;
@@ -199,9 +209,10 @@ __device__ __forceinline__ void store_path(const Params& p, int i,
 // terminated rays", Aila and Laine 2009). A ray's result does not depend
 // on its lane. With kRecord the lane also writes each shaded bounce's
 // transcript and, at the path's end, its shaded count and miss flag to
-// p.rec, indexed by ray, for the sweep-only adjoint.
+// p.rec, indexed by ray, for the sweep-only adjoint. With kProbe it
+// counts its light shadow walks (`LightProbe`) into p.probe, by ray.
 template <bool kTransmissive, bool kEnvNee, bool kBvh, bool kLightNee,
-          bool kRecord = false>
+          bool kRecord = false, bool kProbe = false>
 __device__ __forceinline__ void trace_path(const Params& p) {
   extern __shared__ float4 smem4[];
   const SceneView sc =
@@ -213,6 +224,7 @@ __device__ __forceinline__ void trace_path(const Params& p) {
   const unsigned lane = threadIdx.x & 31u;
   PathState s;
   BounceRecord rec;
+  LightProbe probe;
   uint32_t sidx = 0u, seed = 0u;
   int ray = -1;      // the ray this lane holds, -1: none
   int k = 0;         // its next bounce
@@ -237,14 +249,17 @@ __device__ __forceinline__ void trace_path(const Params& p) {
         k = 0;
         s = PathState();
         if constexpr (kTransmissive) s.stack.init();
+        if constexpr (kProbe) probe = LightProbe{p.probe_mode, {}};
         load_ray(p, ray, s, sidx, seed);
       }
       live = __ballot_sync(kFullWarp, ray >= 0);
     }
     if (live == 0u) break;
     if (ray >= 0) {
-      const int res = path_bounce<kTransmissive, kEnvNee, kBvh, kLightNee>(
-          sc, cfg, sidx, seed, k, s, rec, p.light);
+      const int res =
+          path_bounce<kTransmissive, kEnvNee, kBvh, kLightNee, kProbe>(
+              sc, cfg, sidx, seed, k, s, rec, p.light,
+              kProbe ? &probe : nullptr);
       const bool shaded = res == kShadedEnded || res == kShadedGoesOn;
       if constexpr (kRecord) {
         if (shaded) record_bounce<kEnvNee>(p.rec, ray, k, rec);
@@ -256,6 +271,12 @@ __device__ __forceinline__ void trace_path(const Params& p) {
           p.rec.end[ray] = static_cast<uint32_t>(shaded ? k : k - 1) |
                            (res == kMissed ? kEndMissed : 0u);
         }
+        if constexpr (kProbe) {
+#pragma unroll
+          for (int j = 0; j < kProbeWords; ++j)
+            p.probe[static_cast<size_t>(ray) * kProbeWords + j] =
+                probe.count[j];
+        }
         ray = -1;
       }
     }
@@ -266,6 +287,12 @@ __device__ __forceinline__ void trace_path(const Params& p) {
 template <bool kTransmissive, bool kEnvNee>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   trace_path<kTransmissive, kEnvNee, false, false>(p);
+}
+
+// The brute tier recording the adjoint's transcript (B1a-c with kRecord).
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads) megakernel_record(Params p) {
+  trace_path<kTransmissive, kEnvNee, false, false, true>(p);
 }
 
 // The BVH tier (B1d), kBvhMinBlocks blocks per SM.
@@ -294,6 +321,13 @@ __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
   trace_path<kTransmissive, kEnvNee, true, true>(p);
 }
 
+// B1e+d without env NEE counting its light shadow walks (the probe).
+template <bool kTransmissive>
+__global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
+    megakernel_bvh_light_probe(Params p) {
+  trace_path<kTransmissive, false, true, true, false, true>(p);
+}
+
 // Launches `kernel`: one thread a ray without a counter; with one, as many
 // blocks as the card holds at once (never more than the rays need).
 template <typename Kernel>
@@ -320,9 +354,19 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem,
 template <bool kTransmissive, bool kEnvNee>
 cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
                         size_t smem, cudaStream_t st) {
-  if (record)
-    return launch(megakernel_bvh_record<kTransmissive, kEnvNee>, p, smem,
-                  st);
+  if (record) {
+    if (bvh)
+      return launch(megakernel_bvh_record<kTransmissive, kEnvNee>, p, smem,
+                    st);
+    return launch(megakernel_record<kTransmissive, kEnvNee>, p, smem, st);
+  }
+  if (p.probe != nullptr) {
+    if constexpr (kEnvNee) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch(megakernel_bvh_light_probe<kTransmissive>, p, smem, st);
+    }
+  }
   if (light) {
     if (bvh)
       return launch(megakernel_bvh_light<kTransmissive, kEnvNee>, p, smem,
@@ -342,10 +386,12 @@ cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
 // ([1] int32, zero) selects persistent warps that refill; null: one ray
 // a thread. With light_nee, `light_rows` [num_lights, 16] and `light_dens`
 // [num_tris + num_spheres] (`LightView`). `rec_a` not null: record the
-// adjoint's transcript (the BVH tier without light NEE): `rec_a` [B + 1,
+// adjoint's transcript (either tier, without light NEE): `rec_a` [B + 1,
 // n] float4, `rec_word` [B + 1, n], `rec_end` [n], with env NEE also
 // `rec_nq` [B + 1, n] float4, `rec_ngw` [B + 1, n] float2 and `rec_texel`
-// [B + 1, n] (`RecordView`).
+// [B + 1, n] (`RecordView`). `probe` not null (the BVH tier with light NEE
+// and without env NEE): the light-NEE probe, [n, kProbeWords] counters,
+// `probe_mode` a `ProbeMode`.
 extern "C" int halogen_megakernel_launch(
     float* origin, float* direction, const float* far, int* sample_idx,
     int* seed, const float* tri, const float* trin, const float* sph,
@@ -353,12 +399,12 @@ extern "C" int halogen_megakernel_launch(
     const float* cam, const long long* pix, const int* frame, int* counter,
     const float* light_rows, const float* light_dens, float* rec_a,
     int* rec_word, float* rec_nq, float* rec_ngw, int* rec_texel,
-    int* rec_end, int n, int num_tris,
+    int* rec_end, int* probe, int n, int num_tris,
     int num_spheres, int num_materials, int max_bounces, int lim_d,
     int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
     int env_nee, int env_h, int env_w, int use_bvh, int width, int height,
     int spp_block, int lane0, int spp, int light_nee, int num_lights,
-    void* stream) {
+    int probe_mode, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (env_nee && (env_tab == nullptr || env_h <= 0 || env_w <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -373,10 +419,14 @@ extern "C" int halogen_megakernel_launch(
   if (use_bvh && nodes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool record = rec_a != nullptr;
-  if (record && (!use_bvh || light_nee || rec_word == nullptr ||
+  if (record && (light_nee || rec_word == nullptr ||
                  rec_end == nullptr ||
                  (env_nee && (rec_nq == nullptr || rec_ngw == nullptr ||
                               rec_texel == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (probe != nullptr &&
+      (!use_bvh || !light_nee || env_nee || record || probe_mode < 0 ||
+       probe_mode > kProbeNoWalk))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.origin = origin;
@@ -401,6 +451,8 @@ extern "C" int halogen_megakernel_launch(
            rec_texel,
            reinterpret_cast<uint32_t*>(rec_end),
            n};
+  p.probe = probe;
+  p.probe_mode = probe_mode;
   p.counter = counter;
   p.n = n;
   p.cfg = {0.0f,      max_bounces, lim_d,   lim_g, lim_t, sobol != 0,

@@ -576,19 +576,102 @@ __device__ __forceinline__ bool shadow_visible(const SceneView& sc, V3 o,
   }
 }
 
+// What the light-NEE probe (megakernel.cu `megakernel_bvh_light_probe`, a
+// measurement variant of B1e+d, never on a render's path) counts of one
+// ray's light shadow rays, and which decision drives its path (`mode`):
+//   kProbeClosest: both walks, counted; the closest-hit decision drives
+//     (the rule of B1e+d before its any-hit walk);
+//   kProbeAny: both walks, counted; the any-hit decision drives (B1e+d's);
+//   kProbeClosestOnly, kProbeAnyOnly: that walk alone (for its time);
+//   kProbeNoWalk: no walk, every draw visible (the draw's own time).
+// Counters: shadow rays, those the driving decision blocks, the closest-hit
+// walk's triangle and box tests, the any-hit walk's (the light's own
+// triangle test included), the rays whose two decisions differ, and of
+// those the ones where the closest-hit walk met another triangle at
+// exactly the light's t (a tie).
+enum ProbeMode {
+  kProbeClosest = 0,
+  kProbeAny = 1,
+  kProbeClosestOnly = 2,
+  kProbeAnyOnly = 3,
+  kProbeNoWalk = 4,
+};
+enum ProbeCount {
+  kProbeRays = 0,
+  kProbeBlocked,
+  kProbeTriClosest,
+  kProbeBoxClosest,
+  kProbeTriAny,
+  kProbeBoxAny,
+  kProbeDiffer,
+  kProbeTies,
+  kProbeWords,
+};
+
+struct LightProbe {
+  int mode = kProbeAny;
+  int count[kProbeWords] = {};
+};
+
+// The sphere rule of a light shadow ray that no triangle under its bound
+// occludes: visible iff the sphere hit is the light itself or lies at or
+// past `bound`.
+__device__ __forceinline__ bool sphere_rule(bool is_tri, int idx, float sp_t,
+                                            int sp_i, float bound) {
+  return (!is_tri && sp_i == idx && sp_t < INFINITY) || sp_t >= bound;
+}
+
+// The BVH tier's light shadow ray by a closest-hit walk under `b` (B1e+d's
+// rule before its any-hit walk, kept for the probe): a triangle found is
+// the closest hit and lies before the bound.
+template <bool kCount>
+__device__ __forceinline__ bool light_visible_closest(
+    const SceneView& sc, V3 o, V3 d, float b, bool is_tri, int idx,
+    float sp_t, int sp_i, float bound, BvhHit& h) {
+  h = {b, 0.0f, 0.0f, 0.0f, -1, 0, 0};
+  if (bvh_walk<false, kCount>(sc.bvh, o, d, h)) return is_tri && h.slot == idx;
+  return sphere_rule(is_tri, idx, sp_t, sp_i, bound);
+}
+
+// The same decision by an any-hit walk. A triangle light's own row is
+// tested first, with the walk's `triangle_hit` on the walk's row, which
+// gives its t_l; the walk under min(b, t_l) then stops at the first
+// triangle, which lies in front of the light (or of the bound): occluded.
+// Where none does and t_l < b, the light is the closest hit: visible.
+// Else the sphere rule. A sphere light's walk runs under b. This is the
+// closest-hit walk's answer but where another triangle lies at exactly
+// t_l (the closest-hit walk takes the first it meets of two at one t).
+template <bool kCount>
+__device__ __forceinline__ bool light_visible_any(
+    const SceneView& sc, V3 o, V3 d, float b, bool is_tri, int idx,
+    float sp_t, int sp_i, float bound, BvhHit& h, float& t_l) {
+  t_l = INFINITY;
+  if (is_tri) {
+    float t, u, v, det;
+    if (triangle_hit(sc.bvh.tri + static_cast<size_t>(idx) * kTriRow4, o, d,
+                     t, u, v, det))
+      t_l = t;
+  }
+  h = {fminf(b, t_l), 0.0f, 0.0f, 0.0f, -1, is_tri ? 1 : 0, 0};
+  if (bvh_walk<true, kCount>(sc.bvh, o, d, h)) return false;
+  return t_l < b || sphere_rule(is_tri, idx, sp_t, sp_i, bound);
+}
+
 // Whether the light NEE shadow ray from `o` along `d` reaches its light
 // (trace.py:394-402): the closest hit (the mesh-beats-sphere-by-HIT_EPS
 // rule inside `far`) is the light itself (`is_tri`, `idx`), or lies at or
 // past kVisScale * dist. The brute tier takes the closest hit over every
-// primitive; the BVH tier walks for the closest triangle under
-// min(far, sphere t - HIT_EPS, kVisScale * dist): a triangle found is the
-// closest hit and lies before the bound, and where none is, the closest
-// hit is the sphere's or lies past the bound. Both give the brute answer
-// up to exact ties in t.
-template <bool kBvh>
+// primitive. The BVH tier decides under b = min(far, sphere t - HIT_EPS,
+// kVisScale * dist) by the any-hit walk (`light_visible_any`), which stops
+// at the first blocker; a closest-hit walk keeps descending the tree past
+// it. Both give the brute answer up to exact ties in t. With kProbe
+// (`LightProbe`, the BVH tier only) the probe's mode picks the walks and
+// the decision, and its counters add up what they did.
+template <bool kBvh, bool kProbe = false>
 __device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
                                               V3 d, float far, bool is_tri,
-                                              int idx, float dist) {
+                                              int idx, float dist,
+                                              LightProbe* pr = nullptr) {
   const V3 inv_d = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
   float sp_t = INFINITY;
   int sp_i = -1;
@@ -603,10 +686,45 @@ __device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
   }
   const float bound = dist * kVisScale;
   if constexpr (kBvh) {
-    BvhHit h = {fminf(fminf(far, sp_t - kHitEps), bound), 0.0f, 0.0f, 0.0f,
-                -1, 0, 0};
-    if (bvh_walk<false, false>(sc.bvh, o, d, h)) return is_tri && h.slot == idx;
-    return (!is_tri && sp_i == idx && sp_t < INFINITY) || sp_t >= bound;
+    const float b = fminf(fminf(far, sp_t - kHitEps), bound);
+    BvhHit h;
+    float t_l;
+    if constexpr (kProbe) {
+      const int mode = pr->mode;
+      const bool closest = mode != kProbeAnyOnly && mode != kProbeNoWalk;
+      const bool any = mode != kProbeClosestOnly && mode != kProbeNoWalk;
+      BvhHit hc = {0.0f, 0.0f, 0.0f, 0.0f, -1, 0, 0};
+      bool vc = true, va = true;
+      t_l = INFINITY;
+      h = hc;
+      if (closest)
+        vc = light_visible_closest<true>(sc, o, d, b, is_tri, idx, sp_t,
+                                         sp_i, bound, hc);
+      if (any)
+        va = light_visible_any<true>(sc, o, d, b, is_tri, idx, sp_t, sp_i,
+                                     bound, h, t_l);
+      const bool vis = (mode == kProbeClosest || mode == kProbeClosestOnly)
+                           ? vc
+                           : va;
+      int* c = pr->count;
+      c[kProbeRays] += 1;
+      c[kProbeBlocked] += vis ? 0 : 1;
+      c[kProbeTriClosest] += hc.tri_tests;
+      c[kProbeBoxClosest] += hc.box_tests;
+      c[kProbeTriAny] += h.tri_tests;
+      c[kProbeBoxAny] += h.box_tests;
+      if (closest && any && vc != va) {
+        c[kProbeDiffer] += 1;
+        c[kProbeTies] += (is_tri && hc.slot >= 0 && hc.slot != idx &&
+                          hc.t == t_l)
+                             ? 1
+                             : 0;
+      }
+      return vis;
+    } else {
+      return light_visible_any<false>(sc, o, d, b, is_tri, idx, sp_t, sp_i,
+                                      bound, h, t_l);
+    }
   } else {
     float tr_t = INFINITY;
     int tr_i = -1;
@@ -667,7 +785,7 @@ __device__ __forceinline__ float emission_weight(const SceneView& sc,
 // sphere's cone, the shadow ray, the balance heuristic. `hit_tri` and
 // `hit_sph` are the primitive shaded (-1 where none), which is never its
 // own light.
-template <bool kBvh>
+template <bool kBvh, bool kProbe = false>
 __device__ __forceinline__ void light_nee(const SceneView& sc,
                                           const LightView& lv,
                                           const PathConfig& cfg,
@@ -675,7 +793,8 @@ __device__ __forceinline__ void light_nee(const SceneView& sc,
                                           uint32_t stride, V3 pos, V3 normal,
                                           V3 refl, float r2, float ps,
                                           const float* m, int hit_tri,
-                                          int hit_sph, PathState& s) {
+                                          int hit_sph, PathState& s,
+                                          LightProbe* pr = nullptr) {
   const float u_sel = sample_1d(cfg.sobol, sidx, kDimLightNeeSel + stride,
                                 seed);
   float pu, pv;
@@ -746,7 +865,9 @@ __device__ __forceinline__ void light_nee(const SceneView& sc,
   if (!ok || !(cos_s > 0.0f)) return;
   const V3 sh_o = {pos.x + normal.x * 1e-4f, pos.y + normal.y * 1e-4f,
                    pos.z + normal.z * 1e-4f};
-  if (!light_visible<kBvh>(sc, sh_o, wi, cfg.far, is_tri, idx, dist)) return;
+  if (!light_visible<kBvh, kProbe>(sc, sh_o, wi, cfg.far, is_tri, idx, dist,
+                                   pr))
+    return;
   const float p_gl = glossy_pdf(wi, refl, r2, normal);
   const float p_mix = (1.0f - ps) * fmaxf(cos_s, 0.0f) * kInvPi + ps * p_gl;
   const float w_l = pdf_sa / fmaxf(pdf_sa + p_mix, 1e-12f);
@@ -765,13 +886,14 @@ __device__ __forceinline__ void light_nee(const SceneView& sc,
 // kLightNee (`lv` its tables) s.prev_nee is the flag of the JAX lockstep's
 // prev_lnee too: both are the previous bounce's `covered`.
 template <bool kTransmissive, bool kEnvNee, bool kBvh = false,
-          bool kLightNee = false>
+          bool kLightNee = false, bool kProbe = false>
 __device__ __forceinline__ int path_bounce(const SceneView& sc,
                                            const PathConfig& cfg,
                                            uint32_t sidx, uint32_t seed,
                                            int k, PathState& s,
                                            BounceRecord& rec,
-                                           const LightView& lv = LightView()) {
+                                           const LightView& lv = LightView(),
+                                           LightProbe* pr = nullptr) {
   // --- per-type termination (compute:869-871, `>` semantics)
   const int n_transmit = kTransmissive ? s.n_transmit : 0;  // opaque: 0
   if (s.n_diffuse > cfg.lim_d || s.n_glossy > cfg.lim_g ||
@@ -1090,9 +1212,9 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
       s.prev_nee = covered;
     }
     if (surf)
-      light_nee<kBvh>(sc, lv, cfg, sidx, seed, stride, pos, normal, refl, r2,
-                      spec_prob, m, mesh_wins ? tr_i : -1,
-                      mesh_wins ? -1 : sp_i, s);
+      light_nee<kBvh, kProbe>(sc, lv, cfg, sidx, seed, stride, pos, normal,
+                              refl, r2, spec_prob, m, mesh_wins ? tr_i : -1,
+                              mesh_wins ? -1 : sp_i, s, pr);
   }
 
   rec.a_prev = s.atten;

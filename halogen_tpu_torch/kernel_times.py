@@ -28,8 +28,12 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     under the sky, 4 bounces, without and with env NEE), B1b+c+d (the
     glass dragon under the sky with env NEE, 12 bounces);
   - B3 on those camera rays and on one bounce's rays of the glass dragon;
-  - where the tree has area-light NEE, B1e on B1a's rays with light NEE
-    and B1b+e+d on B1b+d's (`chip_smoke.py` phase 32);
+  - where the tree has area-light NEE, B1e on B1a's rays with light NEE,
+    B1b+e+d on B1b+d's (`chip_smoke.py` phase 32), B1e+d on the same
+    rays through the 1,280-triangle metal dragon in the Cornell shell (its
+    ceiling panel the light), 12 bounces, and on the testing scene
+    (`testing_scene(False)`, its camera's first 262144 rays of a 512x512
+    32 spp frame, 4 bounces: `B1e+d testing`);
   - where the tree has them, the adjoint's BVH and sky variants on the
     same rays as their forward kernels: B2b+d (the glass dragon, 12
     bounces), B2+d (a 1,280-triangle metal dragon in the Cornell shell, 12
@@ -40,7 +44,13 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     the record route, the forward recording the transcript (`B1b+d
     record`) and the sweep over it (`B2b+d sweep`, `B2+d sweep`, `B2c+d
     sweep` and `B2c+n+d sweep`) on the same rays and cotangents as the
-    replay's jobs of the same names; and the sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
+    replay's jobs of the same names; where the tree's brute tier records
+    too, its recording forwards (`B1a record`, `B1b record`, `B1c record`)
+    on B1a's, B1b's and B1c's rays and its sweeps (`B2 sweep`, `B2b
+    sweep`, `B2c sweep`, `B2c+n sweep`) on the rays and cotangents of the
+    replay's jobs of the same names, and B1e+d's light-NEE probe on
+    B1b+e+d's rays, the shadow walks alone (`B1b+e+d probe: closest only`,
+    `any only`, `no walk`: every draw visible); and the sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
     backward`, its taps, the ordering by texel and the per-texel sums),
     and the backward's stages alone: `sky backward taps` (where the tree's
     taps kernel counts the ordering's first pass, with it), `sky
@@ -53,8 +63,9 @@ kernel itself (the adjoint's block-sum kernel is in its event time only);
 the sky backward and its stages by the device time of every kernel a call
 launches, per call, split by kernel name.
 Printed: the card's name and power limit, each kernel's registers and
-spills from nvcc's `-Xptxas -v`, the times, a hash of each adjoint job's
-[K, 12|13] result (equal hashes: equal bits, across trees and routes),
+spills from nvcc's `-Xptxas -v`, the times, a hash of each job's result
+(the adjoint's [K, 12|13], the forward's [N, 10|12] outputs; equal
+hashes: equal bits, across trees and routes),
 and as the last line one JSON object of them; `--out` also writes that
 line to a file.
 """
@@ -194,15 +205,18 @@ def main(argv=None) -> int:
     res = _resources(mk.BUILD_LOG)
 
     def rays(cam_kw, spp=32, size=512):
-        st = ht.RenderSettings(width=size, height=size, samples_per_pixel=spp)
         cam = ht.make_camera(**cam_kw, device=dev)
+        return (cam, *rays_at(cam, spp, size))
+
+    def rays_at(cam, spp=32, size=512):
+        st = ht.RenderSettings(width=size, height=size, samples_per_pixel=spp)
         perm, _ = _morton_pixel_order(size, size)
         pix = torch.from_numpy(perm[:262144].astype(np.int64)).to(dev)
         sidx = sob.sample_index(1, torch.zeros_like(pix), spp)
         seed = sob.pixel_seed(pix)
         o, d = generate_rays(cam, pix % size, pix // size, size, size,
                              st.filter_radius, sidx, seed, _sampler_2d(st))
-        return cam, o, d, sidx, seed
+        return o, d, sidx, seed
 
     cam_kw = dict(position=(0.0, 0.0, 3.2), target=(0.0, 0.0, 0.0),
                   fov_deg=40.0)
@@ -253,14 +267,16 @@ def main(argv=None) -> int:
         return lambda: adj._launch(sc, o_, d_, c.far, s_, e_, ct_, st, tab,
                                    gsky=gsky if env else None, env_tab=et)
 
-    def sweep_at(sc, st, r):
-        """The record route's sweep on rays r, the cotangents of bwd_at,
-        over the transcript a forward launch recorded on them once."""
+    def sweep_at(sc, st, r, ct_=None):
+        """The record route's sweep on rays r, the cotangents of bwd_at
+        (or of the color alone, `ct_`, as bwd's), over the transcript a
+        forward launch recorded on them once."""
         tab, et = mk._scene_tables(sc), mk.env_table(sc)
         c, o_, d_, s_, e_ = r
         n = o_.shape[0]
         g = torch.Generator().manual_seed(1)
-        ct_ = torch.rand((n, 3), generator=g).to(dev)
+        drawn = torch.rand((n, 3), generator=g).to(dev)  # gsky's draw follows
+        ct_ = drawn if ct_ is None else ct_
         gsky = torch.rand((n, 4), generator=g).to(dev)
         env = adj.env_mode(sc, st)
         rec = mk.empty_record(n, st, env == 2, dev)
@@ -358,10 +374,46 @@ def main(argv=None) -> int:
             "B2c+n+d sweep": (sweep_at(hero, st_e, r_d), "adjoint_sweep<"),
         })
     if hasattr(mk, "light_table"):  # area-light NEE (B1e), where it is
+        st_l = st_d.replace(light_importance_sampling=True)
         jobs["B1e"] = (fwd(cornell_sc, st_a.replace(
             light_importance_sampling=True), r_c), "megakernel")
-        jobs["B1b+e+d"] = (fwd(dragon, st_d.replace(
-            light_importance_sampling=True), r_d), "megakernel")
+        jobs["B1b+e+d"] = (fwd(dragon, st_l, r_d), "megakernel")
+        jobs["B1e+d"] = (fwd(metal_dragon, st_l, r_d), "megakernel")
+        from halogen_tpu_torch.scene import testing_scene
+
+        testing = testing_scene.testing_scene(False).build(device=dev)
+        tcam = testing_scene.testing_scene_camera(device=dev)
+        jobs["B1e+d testing"] = (fwd(testing, st_l.replace(max_bounces=4),
+                                     (tcam, *rays_at(tcam))), "megakernel")
+    if hasattr(mk, "light_probe"):  # the brute tier records; the probe
+        def rec_fwd(sc, st, r):
+            tab, et = mk._scene_tables(sc), mk.env_table(sc)
+            c, o_, d_, s_, e_ = r
+            rec = mk.empty_record(o_.shape[0], st, adj.env_mode(sc, st) == 2,
+                                  dev)
+            return lambda: mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_,
+                                                  st, tab, et, record=rec)
+
+        st_c = st_d.replace(max_bounces=4, env_importance_sampling=True,
+                            **sky_kw)
+        jobs.update({
+            "B1a record": (rec_fwd(cornell_sc, st_a, r_c),
+                           "megakernel_record<"),
+            "B1b record": (rec_fwd(glass, st_g, r_c), "megakernel_record<"),
+            "B1c record": (rec_fwd(spheres, st_c, r_e),
+                           "megakernel_record<"),
+            "B2 sweep": (sweep_at(cornell_sc, st_a, r_c, ct),
+                         "adjoint_sweep<"),
+            "B2b sweep": (sweep_at(glass, st_g, r_c, ct), "adjoint_sweep<"),
+            "B2c sweep": (sweep_at(spheres, st_sky, r_e), "adjoint_sweep<"),
+            "B2c+n sweep": (sweep_at(spheres, st_e, r_e), "adjoint_sweep<"),
+        })
+        tab_l, lt = mk._scene_tables(dragon), mk.light_table(dragon)
+        for mode in ("closest only", "any only", "no walk"):
+            jobs[f"B1b+e+d probe: {mode}"] = (
+                lambda mode=mode: mk.light_probe(
+                    dragon, o_d, d_d, dcam.far, sidx_d, seed_d, st_l, mode,
+                    tab_l, lt), "megakernel_bvh_light_probe<")
     if hasattr(adj, "transcript_route"):  # the routes, where there are two
         for name, sc, st in (("B2", cornell_sc, st_a), ("B2b", glass, st_g),
                              ("B2b@16", glass, st_g16)):
@@ -411,7 +463,7 @@ def main(argv=None) -> int:
         out = fn()
         torch.cuda.synchronize()
         digest = None
-        if key is not None and key.startswith("adjoint"):
+        if isinstance(out, torch.Tensor):
             digest = hashlib.sha256(
                 out.detach().cpu().numpy().tobytes()).hexdigest()[:16]
         ev = [events_ms(fn), events_ms(fn)]

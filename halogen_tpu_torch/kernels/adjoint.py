@@ -20,11 +20,12 @@ sweep its transcript, and all three give the same bits:
   - 'global': the same replay with the transcript in a device buffer of
     the same layout, past that budget;
   - 'recorded': no replay. The forward launch recorded the transcript as
-    it traced (`megakernel.Record`), and `adjoint_sweep` reads it. The BVH
-    tier takes it where a step's records fit `RECORD_BUDGET`
-    (`record_plan`, decided from sizes before any launch); the brute
-    tier, and callers that bring rays without a record, replay
-    (`transcript_route`).
+    it traced (`megakernel.Record`), and `adjoint_sweep` reads it. Both
+    tiers take it where a step's records fit `RECORD_BUDGET`
+    (`record_plan`, decided from sizes before any launch); steps past the
+    budget, and callers that bring rays without a record, replay
+    (`transcript_route`). The sweep puts ray i on thread i % 128, as the
+    replay does on both tiers, so the two give the same bits.
 
 With an envmap in use the kernel takes the cotangents of the path's
 outputs (`trace_grad_outputs`): of its color, of its miss attenuation and
@@ -87,7 +88,10 @@ SMEM_BUDGET = 48 * 1024
 # bytes, or None for RECORD_SHARE of the card's memory. At 12 bounces a ray
 # keeps 4 + 13 * 20 bytes (13 * 48 with env NEE): 69 MB a 262144-ray
 # launch, 2.2 GB the glass dragon's 32-launch step, ~71 GB a 1024x1024
-# step of 256 spp (which therefore replays).
+# step of 256 spp (which therefore replays). On the brute tier the Cornell
+# 256x256, 256 spp step (6 bounces) keeps 2.4 GB, `envmap_1024`'s (4
+# bounces, env NEE) 4.1 GB; a 1024x1024, 256 spp Cornell step ~38 GB
+# replays.
 RECORD_BUDGET = None
 RECORD_SHARE = 0.25
 
@@ -166,12 +170,13 @@ def record_plan(scene: SceneData, settings: RenderSettings, n_rays: int,
                 launches: int, budget: int | None = None) -> str:
     """The adjoint's route for a step of `launches` forward launches of
     `n_rays` rays each, from sizes alone, before any launch: 'recorded'
-    on the BVH tier where the step's records (`record_bytes` x launches,
+    on either tier where the step's records (`record_bytes` x launches,
     all alive until the backward) fit `budget` (default `record_budget`
     of the scene's device) beside the records of earlier forwards still
     alive there (`megakernel.live_record_bytes`: several frames before one
-    backward); else the replay's route (`transcript_route`)."""
-    if mk.uses_bvh(scene) and adjoint_covers(scene, settings):
+    backward); else the replay's route (`transcript_route`). Area-light
+    NEE has no adjoint yet (ROADMAP B2+l), so it never records."""
+    if adjoint_covers(scene, settings):
         budget = record_budget(scene.device) if budget is None else budget
         if (launches * record_bytes(scene, settings, n_rays)
                 + mk.live_record_bytes(scene.device) <= budget):

@@ -12,9 +12,9 @@ scene's world BVH, `csrc/bvh_traverse.cuh`, in global memory); and each
 of those eight with area-light next-event estimation (B1e, the light
 table of `light_table`), which the JAX package runs only in its lockstep.
 Where a gradient follows on the adjoint's record route
-(`adjoint.record_plan`), the BVH tier's launch also records the
+(`adjoint.record_plan`), the launch, on either tier, also records the
 transcript the adjoint's sweep reads (`Record`, `empty_record`), so the
-backward does not walk the BVH again.
+backward does not trace the paths again.
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
@@ -87,6 +87,16 @@ N_OUTPUTS_NEE = 12
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 RECORD_LAUNCHES = 0  # of them, launches that recorded the transcript
 
+# The light-NEE probe (`light_probe`; csrc/path_common.cuh `LightProbe`):
+# the counters it keeps a ray, and its modes (which shadow walks run and
+# which decides)
+PROBE_COUNTERS = ("shadow_rays", "blocked", "tri_tests_closest",
+                  "box_tests_closest", "tri_tests_any", "box_tests_any",
+                  "decisions_differ", "ties")
+PROBE_WORDS = len(PROBE_COUNTERS)  # path_common.cuh kProbeWords
+PROBE_MODES = {"closest": 0, "any": 1, "closest only": 2, "any only": 3,
+               "no walk": 4}
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -99,7 +109,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # path_common.cuh; it and the traversal kernel include the walk in
 # bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": {"halogen_megakernel_launch": (24, 22, 0)},
+    "megakernel": {"halogen_megakernel_launch": (25, 23, 0)},
     "adjoint": {"halogen_adjoint_launch": (19, 15, 0),
                 "halogen_adjoint_sweep": (13, 6, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
@@ -355,6 +365,28 @@ def check_record(rec: Record, n: int, settings: RenderSettings,
                              f"{list(w[0])} on {dev}")
 
 
+def light_probe(scene: SceneData, origin, direction, far, sample_idx, seed,
+                settings: RenderSettings, mode: str = "any", tables=None,
+                light_tab=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A measurement of B1e+d's light shadow rays, not a render's path:
+    the probe variant of the kernel (CUDA only; the BVH tier with area-light
+    NEE, without env NEE) on explicit rays. `mode` (PROBE_MODES): "closest"
+    and "any" run both walks of every light shadow ray, the closest-hit
+    walk under the bound (B1e+d's rule before its any-hit walk) and the
+    any-hit walk, and let that one decide; "closest only", "any only" and
+    "no walk" (every draw visible) run one walk or none, for their times.
+    Returns ([N, 10] outputs, [N, PROBE_WORDS] int32 counters of each ray:
+    PROBE_COUNTERS)."""
+    if origin.device.type != "cuda":
+        raise ValueError("the light-NEE probe runs on a CUDA device")
+    counts = torch.empty((origin.shape[0], PROBE_WORDS), dtype=torch.int32,
+                         device=origin.device)
+    out = _launch(scene, origin, direction, far, sample_idx, seed, settings,
+                  tables, light_tab=light_tab,
+                  probe=(counts, PROBE_MODES[mode]))
+    return out, counts
+
+
 def _scene_tables(scene: SceneData):
     """Pack the scene into the kernel's tables: tri [T, 12] (v0, e1, e2
     and 3 zeros: three 16-byte loads a row), trin [T, 10] (n0, n1 - n0,
@@ -503,12 +535,14 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             view: PixelView | None = None, lane0: int = 0,
             spp_block: int = 1, write_rays: bool = False,
             refill: bool = True, light_tab: LightRows | None = None,
-            record: Record | None = None):
+            record: Record | None = None,
+            probe: tuple[torch.Tensor, int] | None = None):
     """Launch the kernel variant the scene and settings select, on the
     current stream; returns [N, 10], or [N, 12] with env NEE. With
     area-light NEE `light_tab` may carry `light_table(scene)`. With
-    `record` (`empty_record`; the BVH tier without light NEE) the launch
-    also writes the adjoint's transcript into it.
+    `record` (`empty_record`; either tier, without light NEE) the launch
+    also writes the adjoint's transcript into it. `probe` (a measurement,
+    `light_probe`): (counters, mode) for B1e+d's probe variant.
 
     With `view` the kernel makes its own rays, those of
     `group_rays(view.camera, settings, view.frame, view.pix, lane0,
@@ -584,10 +618,20 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
                              f"[L, 16] (16-byte aligned) and [{n_dens}] on "
                              f"{dev}")
     if record is not None:
-        if not bvh or light:
-            raise ValueError("only the BVH tier without area-light NEE "
-                             "records the adjoint's transcript")
+        if light:
+            raise ValueError("a launch with area-light NEE records no "
+                             "transcript (its adjoint is ROADMAP B2+l)")
         check_record(record, scalars[0], settings, env_nee, dev)
+    if probe is not None:
+        counts, mode = probe
+        if (not (bvh and light) or env_nee or record is not None
+                or counts.shape != (scalars[0], PROBE_WORDS)
+                or counts.dtype != torch.int32 or counts.device != dev
+                or not counts.is_contiguous()
+                or mode not in PROBE_MODES.values()):
+            raise ValueError("the light-NEE probe runs B1e+d without env "
+                             f"NEE, counters int32 [{scalars[0]}, "
+                             f"{PROBE_WORDS}], a mode of PROBE_MODES")
     out = torch.empty(
         (scalars[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
         dtype=torch.float32, device=dev)
@@ -609,8 +653,10 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             *((ptr(t) for t in (record.a, record.word, record.nq,
                                 record.ngw, record.texel, record.end))
               if record is not None else (None,) * 6),
+            probe[0].data_ptr() if probe is not None else None,
             *scalars, int(env_nee), env_h, env_w, int(bvh), *cam_ints,
-            int(light), n_lights, stream)
+            int(light), n_lights, probe[1] if probe is not None else 0,
+            stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -807,7 +853,7 @@ def records_wanted(scene: SceneData, settings: RenderSettings, tables,
     `n_rays` rays each, made once before the first: whether they record
     the adjoint's transcript. They do where a gradient may follow on a
     CUDA device and the adjoint's plan takes the record route
-    (`adjoint.record_plan`: the BVH tier, where the step's records fit its
+    (`adjoint.record_plan`: either tier, where the step's records fit its
     budget beside those still alive)."""
     from halogen_tpu_torch.kernels import adjoint as adj
 

@@ -22,14 +22,16 @@ tier (B1d); `--scene metal_dragon` a 1,280-triangle metal dragon in the
 Cornell shell (`chip_smoke.py` phase 31's) at 256x256, 32 spp, 12
 bounces (the opaque BVH tier); with an envmap, each group's sky pass is
 one launch of the sky kernel (`kernels/sky.py`).
-With `--grad` the step is `diff.render_loss_grad` instead: for Cornell
+With `--grad` the step is `diff.render_loss_grad` instead, on the
+adjoint's record route (each forward launch also records the transcript,
+and the backward is the sweep alone; past `adjoint.RECORD_BUDGET` the
+forward writes out its rays and the backward replays): for Cornell
 and glass at `bench.py`'s forward-plus-backward configuration, 256x256,
-256 spp, so 64 groups, each one megakernel launch (which writes out the
-rays it made) and, in the backward, one adjoint launch; for the glass
+256 spp, so 64 groups, each one megakernel launch and, in the backward,
+one adjoint launch; for the glass
 dragon at its frame's configuration (512x512, 32 spp, 12 bounces: the
-adjoint's BVH tier, B2b+d, on its record route: each forward launch also
-records the transcript, and the backward is the sweep alone), and the
-metal dragon at its frame's (B2+d, likewise); for
+adjoint's BVH tier, B2b+d), and the
+metal dragon at its frame's (B2+d); for
 `envmap_1024` at the preset's frame with
 {"materials", "env_mips"} (each group also the sky forward, the sky
 backward and its per-texel sums, and the adjoint's sky and env-NEE
@@ -261,12 +263,13 @@ def main(argv=None) -> int:
     top = sorted((r for r in rows if _self_device_us(r) > 0),
                  key=_self_device_us, reverse=True)[:8]
     # the kernels are templates: megakernel<false, false>(...),
-    # megakernel_bvh<...> (the BVH tier; megakernel_bvh_record<...> where
-    # it records the adjoint's transcript) and so on; the adjoint is the
-    # replay (adjoint_kernel) or the record route's sweep (adjoint_sweep)
+    # megakernel_bvh<...> (the BVH tier; megakernel_record<...> and
+    # megakernel_bvh_record<...> where they record the adjoint's
+    # transcript) and so on; the adjoint is the replay (adjoint_kernel) or
+    # the record route's sweep (adjoint_sweep)
     kernel_rows = lambda *names: [r for r in rows if _self_device_us(r) > 0
                                   and any(f"{n}<" in r.key for n in names)]
-    mega = kernel_rows("megakernel", "megakernel_bvh",
+    mega = kernel_rows("megakernel", "megakernel_bvh", "megakernel_record",
                        "megakernel_bvh_record")
     adjoint = kernel_rows("adjoint_kernel", "adjoint_sweep")
     sky_rows = [r for r in rows if _self_device_us(r) > 0

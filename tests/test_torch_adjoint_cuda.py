@@ -187,8 +187,10 @@ def test_global_route_above_the_shared_cap(cuda_device):
 def test_render_loss_grad_launches_both_kernels(cuda_device):
     """On a CUDA scene the image has a grad_fn, and render_loss_grad runs
     the megakernel forward and the adjoint backward, one launch of each
-    per spp group; its grads agree with the plain route (Fused.OFF) at the
-    tolerance above."""
+    per spp group: on the record route (the brute tier records too) a
+    recording forward and a sweep, no replay; with RECORD_BUDGET = 0 a
+    forward and a replay, with the same gradients bit for bit. Its grads
+    agree with the plain route (Fused.OFF) at the tolerance above."""
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
                            max_bounces=4, ray_chunk_size=2048)
     scene = cornell.cornell_box(glossy=True).build(device=cuda_device)
@@ -201,12 +203,31 @@ def test_render_loss_grad_launches_both_kernels(cuda_device):
     img = ht.render_frame(dataclasses.replace(scene, materials=mats), cam,
                           st, 1)
     assert img.grad_fn is not None
-    f0, b0 = mk.LAUNCHES, adj.LAUNCHES
+    counts = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.LAUNCHES,
+                      adj.SWEEP_LAUNCHES)
+    assert not mk.uses_bvh(scene)
+    assert adj.record_plan(scene, st, 2048, 2) == "recorded"
+    before = counts()
     loss, grads = render_loss_grad(params, scene, cam, st, target, 1)
-    assert (mk.LAUNCHES - f0, adj.LAUNCHES - b0) == (2, 2)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 0, 2)
+    saved = adj.RECORD_BUDGET
+    adj.RECORD_BUDGET = 0
+    try:
+        before = counts()
+        loss_rep, grads_rep = render_loss_grad(params, scene, cam, st,
+                                               target, 1)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (
+            2, 0, 2, 0)
+    finally:
+        adj.RECORD_BUDGET = saved
+    assert torch.equal(loss, loss_rep)
+    for f in FLOAT_MATERIAL_FIELDS:
+        assert torch.equal(getattr(grads["materials"], f),
+                           getattr(grads_rep["materials"], f)), f
+    before = counts()
     loss_off, grads_off = render_loss_grad(
         params, scene, cam, st.replace(fused=ht.Fused.OFF), target, 1)
-    assert (mk.LAUNCHES - f0, adj.LAUNCHES - b0) == (2, 2)
+    assert counts() == before
     assert torch.isfinite(loss) and abs(float(loss) - float(loss_off)) <= (
         1e-4 * float(loss_off))
     for f in FLOAT_MATERIAL_FIELDS:
@@ -239,10 +260,11 @@ def test_gradient_over_kernel_caps_raises_on_card(cuda_device):
 def test_envmap_backward_runs_on_card(cuda_device, nee):
     """An envmap scene's backward runs on the card, with and without env
     NEE: render_loss_grad with {"materials", "env_mips"} launches the
-    megakernel, the sky forward, the sky backward and the adjoint once a
-    group, and its grads agree with the plain route (Fused.OFF): materials
-    per column, every mip at 1e-4 of its largest + 1e-6 (with env NEE the
-    finest mip also sums the adjoint's records)."""
+    megakernel (recording), the sky forward, the sky backward and the
+    adjoint's sweep once a group, no replay, and its grads agree with the
+    plain route (Fused.OFF): materials per column, every mip at 1e-4 of
+    its largest + 1e-6 (with env NEE the finest mip also sums the
+    adjoint's records)."""
     st = ht.RenderSettings(width=16, height=16, samples_per_pixel=2,
                            max_bounces=3, use_envmap=True,
                            env_importance_sampling=nee, env_mip_level=0,
@@ -253,11 +275,13 @@ def test_envmap_backward_runs_on_card(cuda_device, nee):
     assert adj.adjoint_covers(scene, st)
     params = {"materials": scene.materials, "env_mips": scene.env_mips}
     target = torch.zeros((16, 16, 3), device=cuda_device)
-    counts = lambda: (mk.LAUNCHES, adj.LAUNCHES, sky.FORWARD_LAUNCHES,
-                      sky.BACKWARD_LAUNCHES)
+    counts = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.SWEEP_LAUNCHES,
+                      sky.FORWARD_LAUNCHES, sky.BACKWARD_LAUNCHES,
+                      adj.LAUNCHES)
     before = counts()
     loss, grads = render_loss_grad(params, scene, cam, st, target, 1)
-    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 2, 2)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        2, 2, 2, 2, 2, 0)
     _, ref = render_loss_grad(params, scene, cam,
                               st.replace(fused=ht.Fused.OFF), target, 1)
     assert torch.isfinite(loss)
@@ -287,6 +311,10 @@ def _scene(name, env, dev):
     if name == "glass":
         return cornell.glass_sphere_box().build(envmap=sky_map,
                                                 device=dev), CAM
+    if name == "spheres":  # the envmap_1024 preset's scene
+        return cornell.material_demo_spheres().build(
+            envmap=sky_map, device=dev), dict(position=(0, 1, 6),
+                                              target=(0, 0.5, 0), fov_deg=40)
     dcam = dict(position=(0, 1.5, 5.0), target=(0, -0.3, 0), fov_deg=45)
     if name == "glass_dragon":
         return meshes.glass_dragon_scene().build(envmap=sky_map,
@@ -402,8 +430,17 @@ def test_env_nee_transcript_routes_give_the_same_bits(cuda_device):
     assert adj.transcript_route(scene, st.replace(max_bounces=12)) == "global"
 
 
-# the record route's variants: (scene, sky, settings)
+# the record route's variants on both tiers: (scene, sky, settings); the
+# brute tier's forward variants B1a (B2), B1b (B2b), B1c (B2c+n) and B1b+c
+# (B2b+c+n) record as the BVH tier's do
 RECORD_CASES = {
+    "B2": ("cornell", False, dict(max_bounces=6)),
+    "B2b": ("glass", False, dict(max_bounces=8, max_transmission_bounces=8)),
+    "B2c": ("cornell", True, dict(max_bounces=4, **ENV_CASES["sky"])),
+    "B2c+n": ("spheres", True, dict(max_bounces=4, **ENV_CASES["sky_nee"])),
+    "B2b+c+n": ("glass", True, dict(max_bounces=8,
+                                    max_transmission_bounces=8,
+                                    **ENV_CASES["sky_nee"])),
     "B2+d": ("metal_dragon", False, dict(max_bounces=12)),
     "B2b+d": ("glass_dragon", False, dict(max_bounces=12)),
     "B2c+d": ("hero", True, dict(max_bounces=4, **ENV_CASES["sky"])),
@@ -418,6 +455,7 @@ def _recorded(name, dev):
     with and without the record, the record) for a record-route case."""
     kind, env, kw = RECORD_CASES[name]
     scene, cam_kw = _scene(kind, env, dev)
+    assert mk.uses_bvh(scene) == name.endswith("+d")
     st = ht.RenderSettings(width=16, height=16, samples_per_pixel=2, **kw)
     cam, o, d, sidx, seed, ct = _scene_rays(dev, st, cam_kw)
     gsky = torch.rand((o.shape[0], 4),

@@ -10,13 +10,17 @@ within 1e-5 * max |column| + 1e-7, and the material gradients of
 `jax.grad` through the JAX lockstep `trace_rays` (what the JAX package's
 big-scene backward runs, `halogen_tpu/kernels/megakernel.py:1953-1975`)
 at atol 1e-6, rtol 1e-5, as `tests/test_torch_grad_big.py` holds them: the
-two sweeps and autograd sum the same products in other orders. Scenes are
-the BVH tier's (over 128 triangles): a 1,280-triangle metal dragon in the
-Cornell shell (B2+d), the glass dragon at 1,280 triangles (B2b+d), the
-metal dragon under the gradient sky (B2c+d) and with env NEE (B2c+n+d),
-and a grey dragon in a grey shell, whose attenuations tie in Russian
-roulette's max. The kernels are held to these plain versions on the card
-(`tests/test_torch_adjoint_cuda.py`, `chip_smoke.py` phases 28, 30, 31).
+two sweeps and autograd sum the same products in other orders. Both tiers
+record. The BVH tier's scenes (over 128 triangles): a 1,280-triangle metal
+dragon in the Cornell shell (B2+d), the glass dragon at 1,280 triangles
+(B2b+d), the metal dragon under the gradient sky (B2c+d) and with env NEE
+(B2c+n+d), and a grey dragon in a grey shell, whose attenuations tie in
+Russian roulette's max. The brute tier's: Cornell glossy (B2), the glass
+box at 8 bounces (B2b), Cornell glossy under the sky (B2c) and the
+material spheres under the sky with env NEE (B2c+n, the `envmap_1024`
+preset's scene). The kernels are held to these plain versions on the card
+(`tests/test_torch_adjoint_cuda.py`, `chip_smoke.py` phases 28, 30, 31,
+35).
 """
 
 import dataclasses
@@ -47,17 +51,41 @@ from halogen_tpu_torch.scene.envmap import Envmap as TEnvmap
 
 CPU = "cpu"  # the port builds on the card unless asked for the CPU
 DRAGON_CAM = dict(position=(0, 1.5, 5.0), target=(0, -0.3, 0), fov_deg=45)
+BOX_CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
+# the envmap_nee golden's camera (scripts/gen_goldens.py:66-67)
+SKY_CAM = dict(position=(0, 1.0, 6.0), target=(0, 0.5, 0), fov_deg=40)
 W, LANES = 12, 2
 ATOL, RTOL = 1e-6, 1e-5  # tests/test_torch_grad_big.py
 SKY = dict(use_envmap=True)
 NEE = dict(use_envmap=True, env_importance_sampling=True, env_mip_level=0)
-# name: (scene, sky, settings)
+GLASS8 = dict(max_bounces=8, max_transmission_bounces=8)
+# The brute tier's sky cases against jax.grad. On a few of their rays the
+# port's lockstep forward and the JAX package's round the color apart
+# (Cornell glossy under the sky: 1 ray of 288 by 7.7e-5 relative, the sky
+# at mip level 4.4; the spheres with env NEE: 11 rays past 1e-6, up to
+# 3.4e-4; ROADMAP §C), and through such a ray the port's own lockstep
+# autograd differs from jax.grad by up to 18.8x atol + rtol |entry|
+# (roughness, B2c). As `chip_smoke.py` holds the backward where the
+# forwards agree, these cases give a zero cotangent to the rays whose
+# colors part by more than 1e-6 + 1e-6 |JAX| (at most 5% of the rays).
+# Their per-material sums also cancel (an entry of ~0.19 from terms of up
+# to ~12): on the rays that agree, 2 of B2c's 15 absorption entries still
+# differ by up to 2.7e-5 of the entry, the two packages summing the same
+# products in other orders; so each column is held to ATOL + RTOL * its
+# largest |entry|.
+HELD_WHERE_FORWARDS_AGREE = ("B2c", "B2c+n")
+# name: (scene, sky, settings, camera); the names ending in +d (and
+# rr_ties) are the BVH tier's, the others the brute tier's
 CASES = {
-    "B2+d": ("metal", False, {}),
-    "B2b+d": ("glass", False, dict(max_transmission_bounces=6)),
-    "B2c+d": ("metal", True, SKY),
-    "B2c+n+d": ("metal", True, NEE),
-    "rr_ties": ("grey", False, {}),
+    "B2+d": ("metal", False, {}, DRAGON_CAM),
+    "B2b+d": ("glass", False, dict(max_transmission_bounces=6), DRAGON_CAM),
+    "B2c+d": ("metal", True, SKY, DRAGON_CAM),
+    "B2c+n+d": ("metal", True, NEE, DRAGON_CAM),
+    "rr_ties": ("grey", False, {}, DRAGON_CAM),
+    "B2": ("cornell", False, {}, BOX_CAM),
+    "B2b": ("glass_box", False, GLASS8, BOX_CAM),
+    "B2c": ("cornell", True, SKY, BOX_CAM),
+    "B2c+n": ("spheres", True, NEE, SKY_CAM),
 }
 
 
@@ -87,6 +115,12 @@ def _dragon_box(material, grey=False):
 
 def _jax_scene(kind, sky):
     env = JEnvmap.gradient_sky() if sky else None
+    if kind == "cornell":
+        return jcornell.cornell_box(glossy=True).build(envmap=env)
+    if kind == "glass_box":
+        return jcornell.glass_sphere_box().build(envmap=env)
+    if kind == "spheres":
+        return jcornell.material_demo_spheres().build(envmap=env)
     if kind == "glass":
         return jmeshes.glass_dragon_scene(tris=1280).build(envmap=env)
     if kind == "grey":
@@ -100,10 +134,10 @@ def _jax_scene(kind, sky):
 def case(request):
     """(name, JAX scene, its port, settings kwargs, rays as numpy with a
     cotangent of the outputs from a numpy seed)."""
-    kind, sky, kw = CASES[request.param]
+    kind, sky, kw, cam_kw = CASES[request.param]
     js = _jax_scene(kind, sky)
     scene = interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU)
-    cam = jht.make_camera(**DRAGON_CAM)
+    cam = jht.make_camera(**cam_kw)
     pix = jnp.repeat(jnp.arange(W * W, dtype=jnp.int32), LANES)
     lane = jnp.tile(jnp.arange(LANES, dtype=jnp.uint32), W * W)
     seed = jsob.pixel_seed(pix.astype(jnp.uint32))
@@ -116,8 +150,8 @@ def case(request):
                 seed=np.asarray(seed), far=np.float32(np.asarray(cam.far)),
                 ct=rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32),
                 gsky=rng.uniform(0.0, 1.0, (n, 4)).astype(np.float32))
-    kw = dict(width=W, height=W, samples_per_pixel=LANES, max_bounces=6,
-              **kw)
+    kw = {**dict(width=W, height=W, samples_per_pixel=LANES, max_bounces=6),
+          **kw}
     return request.param, js, scene, kw, rays
 
 
@@ -159,7 +193,8 @@ def test_sweep_of_the_record_matches_lockstep_autograd(case):
     with the sky also the miss attenuation's and roughness's)."""
     name, _, scene, kw, rays = case
     st = RenderSettings(**kw)
-    assert mk.uses_bvh(scene) and adj.adjoint_covers(scene, st)
+    bvh_tier = name.endswith("+d") or name == "rr_ties"
+    assert mk.uses_bvh(scene) == bvh_tier and adj.adjoint_covers(scene, st)
     o, d, far, sidx, seed = _port_rays(rays)
     env = adj.env_mode(scene, st)
     d_out = torch.from_numpy(np.concatenate([rays["ct"], rays["gsky"]], 1))
@@ -174,7 +209,7 @@ def test_sweep_of_the_record_matches_lockstep_autograd(case):
     assert got.shape == (scene.materials.count, adj.n_grad(scene, st))
     assert got[:, 0:6].abs().max() > 0
     _assert_columns(got, ref)
-    if name == "B2b+d":
+    if name in ("B2b+d", "B2b"):
         assert got[:, 9:12].abs().max() > 0  # Beer-Lambert's column
     if name == "rr_ties":
         assert _rr_ties(scene, rec, st) > 0
@@ -194,19 +229,23 @@ def test_sweep_of_the_record_matches_lockstep_autograd(case):
             1e-5 * float(ref_env.abs().max()) + 1e-7)
 
 
-def _jax_material_grads(js, kw, rays):
-    """jax.grad of sum(color * ct) through the JAX lockstep tracer (brute
-    force hits, as the port's plain backward pins) w.r.t. the materials."""
+def _jax_color(js, kw, rays, mats=None):
+    """The JAX lockstep tracer's color (brute force hits, as the port's
+    plain backward pins)."""
     st = jht.RenderSettings(**kw, intersector=JIntersector.BRUTE)
     n = rays["o"].shape[0]
+    sc = js if mats is None else dataclasses.replace(js, materials=mats)
+    return j_trace_rays(sc, jnp.asarray(rays["o"]), jnp.asarray(rays["d"]),
+                        jnp.full((n,), rays["far"]), jnp.asarray(rays["sidx"]),
+                        jnp.asarray(rays["seed"]), st).color
 
+
+def _jax_material_grads(js, kw, rays):
+    """jax.grad of sum(color * ct) through the JAX lockstep tracer w.r.t.
+    the materials."""
     def loss(mats):
-        col = j_trace_rays(dataclasses.replace(js, materials=mats),
-                           jnp.asarray(rays["o"]), jnp.asarray(rays["d"]),
-                           jnp.full((n,), rays["far"]),
-                           jnp.asarray(rays["sidx"]),
-                           jnp.asarray(rays["seed"]), st).color
-        return jnp.sum(col * jnp.asarray(rays["ct"]))
+        return jnp.sum(_jax_color(js, kw, rays, mats)
+                       * jnp.asarray(rays["ct"]))
 
     g = jax.jit(jax.grad(loss, allow_int=True))(js.materials)
     return interop.material_table_to_numpy(g)
@@ -219,6 +258,14 @@ def test_sweep_of_the_record_matches_jax_grad(case):
     name, js, scene, kw, rays = case
     st = RenderSettings(**kw)
     o, d, far, sidx, seed = _port_rays(rays)
+    if name in HELD_WHERE_FORWARDS_AGREE:
+        ref_col = np.asarray(_jax_color(js, kw, rays))
+        col = deferred_sky(scene, st, mk.trace_color_fused_reference(
+            scene, o, d, far, sidx, seed, st)).numpy()
+        agree = (np.abs(col - ref_col) <= 1e-6 + 1e-6 * np.abs(ref_col)
+                 ).all(axis=1)
+        assert (~agree).sum() <= 0.05 * agree.shape[0], (~agree).sum()
+        rays = dict(rays, ct=rays["ct"] * agree[:, None])
     ct = torch.from_numpy(rays["ct"])
     rec = adj.record_transcript_reference(scene, o, d, far, sidx, seed, st)
     d_out = torch.cat([ct, torch.zeros((ct.shape[0], 4))], dim=1)
@@ -234,8 +281,13 @@ def test_sweep_of_the_record_matches_jax_grad(case):
     ref = _jax_material_grads(js, kw, rays)
     assert np.abs(ref["albedo"]).max() > 0
     for f in FLOAT_MATERIAL_FIELDS:
-        np.testing.assert_allclose(got[f], ref[f], atol=ATOL, rtol=RTOL,
-                                   err_msg=f)
+        if name in HELD_WHERE_FORWARDS_AGREE:
+            bound = ATOL + RTOL * np.abs(ref[f]).max(axis=0)
+            assert (np.abs(got[f] - ref[f]) <= bound).all(), (
+                f, (np.abs(got[f] - ref[f]) / bound).max())
+        else:
+            np.testing.assert_allclose(got[f], ref[f], atol=ATOL, rtol=RTOL,
+                                       err_msg=f)
 
 
 GLASS_DRAGON_STEP = dict(width=512, height=512, samples_per_pixel=32,
@@ -246,9 +298,13 @@ GLASS_DRAGON_STEP = dict(width=512, height=512, samples_per_pixel=32,
 def scenes():
     from halogen_tpu_torch.scene import cornell, meshes
 
+    sky = TEnvmap.gradient_sky()
     return dict(
         dragon=meshes.glass_dragon_scene(tris=1280).build(device=CPU),
         cornell=cornell.cornell_box(glossy=True).build(device=CPU),
+        glass_box=cornell.glass_sphere_box().build(device=CPU),
+        spheres=cornell.material_demo_spheres().build(envmap=sky,
+                                                      device=CPU),
         sky_dragon=meshes.glass_dragon_scene(tris=1280).build(
             envmap=TEnvmap.gradient_sky(), device=CPU))
 
@@ -326,29 +382,73 @@ def test_record_plan_counts_the_records_still_alive(scenes):
 
 @pytest.mark.parametrize("why", ["brute_tier", "light_nee"])
 def test_record_plan_replays_off_the_bvh_tier(scenes, why):
-    """The brute tier always replays (its replay keeps the transcript on
-    chip), and light NEE, whose adjoint is ROADMAP B2+l, is not
-    recorded."""
+    """Off the BVH tier the brute tier records too: bench.py's Cornell
+    256-spp step (64 launches of 262144 rays, 6 bounces) takes the record
+    route on an 80 GB card's share, and a 1024x1024 step of 256 spp (1,024
+    launches, ~38 GB of records) replays. Light NEE, whose adjoint is
+    ROADMAP B2+l, is not recorded on either tier."""
     if why == "brute_tier":
-        sc, st = scenes["cornell"], RenderSettings(max_bounces=6)
+        sc = scenes["cornell"]
+        st = RenderSettings(width=256, height=256, samples_per_pixel=256,
+                            max_bounces=6)
         assert not mk.uses_bvh(sc)
+        assert adj.record_plan(sc, st, 262144, 64, CARD_BUDGET) == "recorded"
+        big = st.replace(width=1024, height=1024)
+        assert 38e9 < 1024 * adj.record_bytes(sc, big, 262144) < 39e9
+        assert adj.record_plan(sc, big, 262144, 1024, CARD_BUDGET) == (
+            adj.transcript_route(sc, big))
     else:
-        sc = scenes["dragon"]
-        st = RenderSettings(**GLASS_DRAGON_STEP,
-                            light_importance_sampling=True)
-        assert sc.lights is not None and not adj.adjoint_covers(sc, st)
-    assert adj.record_plan(sc, st, 262144, 1, CARD_BUDGET) == (
+        for sc in (scenes["dragon"], scenes["cornell"]):
+            st = RenderSettings(**GLASS_DRAGON_STEP,
+                                light_importance_sampling=True)
+            assert sc.lights is not None and not adj.adjoint_covers(sc, st)
+            assert adj.record_plan(sc, st, 262144, 1, CARD_BUDGET) == (
+                adj.transcript_route(sc, st))
+
+
+# bench.py's and the JAX CLI's brute-tier fwd+bwd steps: (scene, settings,
+# launches of 262144 rays, GB of records)
+BRUTE_STEPS = {
+    "cornell_256spp": ("cornell", dict(width=256, height=256,
+                                       samples_per_pixel=256, max_bounces=6),
+                       64, 2.42),
+    "glass_box_256spp": ("glass_box", dict(width=256, height=256,
+                                           samples_per_pixel=256, **GLASS8),
+                         64, 3.09),
+    "envmap_1024": ("spheres", dict(width=1024, height=1024,
+                                    samples_per_pixel=16, max_bounces=4,
+                                    **NEE), 64, 4.09),
+}
+
+
+@pytest.mark.parametrize("step", sorted(BRUTE_STEPS))
+def test_record_plan_records_the_brute_tier_steps(scenes, step):
+    """The brute tier's full-width fwd+bwd steps keep their records within
+    an 80 GB card's share (4 bytes a ray and 20 a slot, 48 with env NEE),
+    so they take the record route; with RECORD_BUDGET's 0 they replay."""
+    kind, kw, launches, gb = BRUTE_STEPS[step]
+    sc, st = scenes[kind], RenderSettings(**kw)
+    assert not mk.uses_bvh(sc)
+    assert launches * 262144 == st.num_pixels * st.samples_per_pixel
+    words = 12 if st.env_importance_sampling else 5
+    one = adj.record_bytes(sc, st, 262144)
+    assert one == 4 * 262144 * (1 + (st.max_bounces + 1) * words)
+    assert abs(launches * one / 1e9 - gb) < 0.01
+    assert adj.record_plan(sc, st, 262144, launches, CARD_BUDGET) == (
+        "recorded")
+    assert adj.record_plan(sc, st, 262144, launches, 0) == (
         adj.transcript_route(sc, st))
 
 
 def test_wrappers_take_no_record_on_cpu(scenes):
     """On CPU tensors the differentiable entry points never record (the
-    plain versions run), and the forward refuses a record off the BVH
-    tier before any launch."""
+    plain versions run), and the forward refuses a record under area-light
+    NEE, whose adjoint is ROADMAP B2+l, before any launch."""
     sc = scenes["cornell"]
-    st = RenderSettings(max_bounces=2)
+    st = RenderSettings(max_bounces=2, light_importance_sampling=True)
+    assert sc.lights is not None
     rec = mk.empty_record(4, st, False, CPU)
-    with pytest.raises(ValueError, match="BVH tier"):
+    with pytest.raises(ValueError, match="area-light NEE"):
         mk._launch(sc, torch.zeros((4, 3)), torch.ones((4, 3)),
                    torch.tensor(10.0), torch.zeros(4, dtype=torch.int64),
                    torch.zeros(4, dtype=torch.int64), st, None,

@@ -262,14 +262,19 @@ def test_bvh_sky_kernel_matches_plain_on_card(nee, cuda_device):
     _check_kernel_vs_plain(scene, DRAGON_CAM, st, cuda_device, as_read=True)
 
 
-def _blocked_plate():
+def _blocked_plate(cells=1):
     """tests/test_light_nee.py:74-92: a dark plate between the floor and
-    the Cornell box's panel."""
+    the Cornell box's panel, as cells x cells quads (2 * cells^2
+    triangles: 9 cells put the scene on the BVH tier, B1e+d)."""
     s = cornell.cornell_box(with_spheres=False)
-    v = np.array([(-0.5, 0.2, -0.5), (0.5, 0.2, -0.5), (0.5, 0.2, 0.5),
-                  (-0.5, 0.2, 0.5)], np.float32)
-    s.add_mesh(v, np.array([[0, 1, 2], [0, 2, 3]], np.int32),
-               cornell.Material.diffuse((0.1, 0.1, 0.1)))
+    g = np.linspace(-0.5, 0.5, cells + 1, dtype=np.float32)
+    v = np.array([(x, 0.2, z) for z in g for x in g], np.float32)
+    q = [(r * (cells + 1) + c, r * (cells + 1) + c + 1,
+          (r + 1) * (cells + 1) + c + 1, (r + 1) * (cells + 1) + c)
+         for r in range(cells) for c in range(cells)]
+    f = np.array([t for a, b, c, d in q for t in ((a, b, c), (a, c, d))],
+                 np.int32)
+    s.add_mesh(v, f, cornell.Material.diffuse((0.1, 0.1, 0.1)))
     return s
 
 
@@ -294,6 +299,8 @@ LIGHT_CASES = {
                                  env_mip_level=0)),
     "glass_dragon": (lambda: meshes.glass_dragon_scene(), DRAGON_CAM,
                      dict(max_bounces=12)),
+    "blocked_plate_bvh": (lambda: _blocked_plate(9), CAM,
+                          dict(max_bounces=2)),
     "dragon_sky_env_light": (lambda: meshes.glass_dragon_scene(tris=1280),
                              DRAGON_CAM,
                              dict(max_bounces=4, use_envmap=True,
@@ -307,8 +314,10 @@ LIGHT_CASES = {
 def test_light_nee_kernel_matches_plain_on_card(name, cuda_device):
     """B1e on the brute tier (the Cornell panel, the Glow Orbs' sphere
     emitters, a blocked panel, glass, env NEE and light NEE together) and
-    on the BVH tier (B1e+d: the glass dragon, and a dragon under the sky
-    with both NEEs), against the lockstep's light NEE. With env NEE the
+    on the BVH tier (B1e+d: the glass dragon, the blocked plate as 162
+    triangles, whose shadow rays the any-hit walk stops at the plate, and
+    a dragon under the sky with both NEEs), against the lockstep's light
+    NEE. With env NEE the
     final direction and the continuation pdf are held where and as the sky
     pass reads them (`as_read`): Cornell glossy's 0.1-roughness metal
     sphere has the near-mirror lobe whose pdf amplifies an ulp of
@@ -320,13 +329,56 @@ def test_light_nee_kernel_matches_plain_on_card(name, cuda_device):
                            light_importance_sampling=True, **kw)
     assert scene.lights is not None and mk.fused_supported(scene, st)
     bvh = mk.uses_bvh(scene)
-    assert bvh == name.startswith(("glass_dragon", "dragon"))
+    assert bvh == (name.startswith(("glass_dragon", "dragon"))
+                   or name.endswith("_bvh"))
     if bvh:
         st = st.replace(width=64, height=64)
     got = _check_kernel_vs_plain(scene, cam_kw, st, cuda_device,
                                  as_read=bvh or st.env_importance_sampling)
     assert got.shape[1] == (mk.N_OUTPUTS_NEE if st.env_importance_sampling
                             else mk.N_OUTPUTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["blocked_plate_bvh", "glass_dragon"])
+def test_light_probe_counts_both_walks(name, cuda_device):
+    """The light-NEE probe (`megakernel.light_probe`) on B1e+d (the blocked
+    plate) and B1b+e+d (the glass dragon): letting the any-hit walk decide
+    it gives the kernel's outputs bit for bit; letting the closest-hit
+    walk decide (the rule before the any-hit walk) it gives the same
+    outputs but on rays where the two decisions differed, each of which
+    it counts; the two walks count the same shadow rays, the blocked ones
+    among them, and their tests."""
+    make, cam_kw, kw = LIGHT_CASES[name]
+    scene = make().build(device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2,
+                           light_importance_sampling=True, **kw)
+    assert mk.uses_bvh(scene)
+    cam = ht.make_camera(**cam_kw, device=cuda_device)
+    pix = torch.arange(st.num_pixels, device=cuda_device).repeat_interleave(2)
+    lane = torch.arange(2, device=cuda_device).repeat(st.num_pixels)
+    sidx = sob.sample_index(1, lane, st.samples_per_pixel)
+    seed = sob.pixel_seed(pix)
+    o, d = generate_rays(cam, pix % st.width, pix // st.width, st.width,
+                         st.height, st.filter_radius, sidx, seed,
+                         _sampler_2d(st))
+    out = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
+    out_any, c_any = mk.light_probe(scene, o, d, cam.far, sidx, seed, st,
+                                    "any")
+    out_old, c_old = mk.light_probe(scene, o, d, cam.far, sidx, seed, st,
+                                    "closest")
+    torch.cuda.synchronize()
+    assert torch.equal(out_any, out)
+    apart = (out_old != out).any(dim=1)
+    col = {k: i for i, k in enumerate(mk.PROBE_COUNTERS)}
+    assert bool((c_old[apart, col["decisions_differ"]] > 0).all())
+    tot = c_any.sum(dim=0)
+    assert int(tot[col["shadow_rays"]]) > 0
+    assert int(tot[col["blocked"]]) > 0
+    assert int(tot[col["tri_tests_any"]]) > 0
+    assert int(tot[col["tri_tests_closest"]]) > 0
+    same = ~apart
+    assert torch.equal(c_any[same, :2], c_old[same, :2])
 
 
 @pytest.mark.cuda
