@@ -65,7 +65,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      of `RESOURCES_SINCE_SHARED_SWEEP`; the record route's forward
      variants on both tiers and its sweeps printed, and no sweep may
      spill; B1e+d's light variants, whose shadow ray is an any-hit walk,
-     and its light-NEE probe printed), and the forward
+     B1e's brute-tier variants, whose shadow scan culls, and the light-NEE
+     probes of both tiers printed), and the forward
      variants' and their plain versions' times at the launch shape
      (262144 rays): B1a at 6 bounces, the glass variant at 8, the env-NEE
      variant at 4;
@@ -262,14 +263,25 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      rays need and their bound; B1e+d's light shadow rays through the
      light-NEE probe (`megakernel.light_probe`, both walks counted) on the
      glass dragon and the testing scene and at the glass dragon's launch
-     shape: the probe deciding by the any-hit walk equals the kernel bit
+     shape: the probe deciding by the kernel's any-hit walk equals it bit
      for bit, and deciding by the closest-hit walk (the rule it replaced) its
      outputs part from the kernel's only on rays whose two decisions
      differed, which are counted with the exact ties among them; the
      blocked share and the tests a shadow walk makes under each walk;
      the launch shape's walks timed alone (the probe with one walk or
-     none) in turns with B1b+e+d; and `render_loss_grad` with light NEE
-     raising NotImplementedError (ROADMAP B2+l) before any launch;
+     none) in turns with B1b+e+d; B1e's light shadow rays through the
+     brute tier's probe (the full scan and the culled one, both counted)
+     on the Cornell box, `glow_orbs`, the blocked plate and the glass box
+     (B1b+e) and at the launch shape of Cornell glossy and of `glow_orbs`
+     (phase 5's rays, 6 bounces): deciding by either rule it equals the
+     kernel bit for bit, its two decisions never apart; the blocked share,
+     the Möller-Trumbore tests and culls a shadow ray, and B1e's bound
+     counted from the culled scan's work (beside the full scan's, the
+     bound of earlier PRs); each launch shape's
+     split (every draw visible, the full scan alone, the culled scan
+     alone) timed in turns with B1a and B1e; and `render_loss_grad` with
+     light NEE raising NotImplementedError (ROADMAP B2+l) before any
+     launch;
  33. light NEE at full width: Cornell glossy (512x512, 32 spp, 6
      bounces, `bench.py`'s), `glow_orbs` at 512x512 and the glass dragon
      (512x512, 32 spp, 12 bounces): a warm-up and 2 timed frames each, the
@@ -336,6 +348,10 @@ DRAGON_CAM = dict(position=(0.0, 1.5, 5.0), target=(0.0, -0.3, 0.0),
 # (node_entry) and path_common.cuh (path_bounce; sinf, cosf, expf and
 # sqrtf as ~20 each)
 OPS_TRI, OPS_SPHERE, OPS_BOX = 55, 55, 27
+# B1e's cull of a triangle (path_common.cuh shadow_tris): two dot products
+# with the normal, the margin's 1-norms (abs an operand modifier) and
+# products, four compares; its tvec is Möller-Trumbore's, counted there
+OPS_CULL = 27
 OPS_SHADE = 230  # an opaque hit: normals, draws, Fresnel, lobes, RR
 OPS_GLASS = 50  # + the refraction branch and Beer-Lambert
 OPS_NEE = 150  # + two glossy pdfs and the MIS weight (the draw is a row)
@@ -502,6 +518,8 @@ def _resources(log: str) -> dict:
              "megakernel_recordILb1ELb1EE": "B1b+c record",
              "megakernel_bvh_light_probeILb0EE": "B1e+d probe",
              "megakernel_bvh_light_probeILb1EE": "B1b+e+d probe",
+             "megakernel_light_probeILb0EE": "B1e probe",
+             "megakernel_light_probeILb1EE": "B1b+e probe",
              "megakernel_bvh_recordILb0ELb0EE": "B1d record",
              "megakernel_bvh_recordILb1ELb0EE": "B1b+d record",
              "megakernel_bvh_recordILb0ELb1EE": "B1c+d record",
@@ -1196,7 +1214,8 @@ def main() -> int:
     record_variants = {f"B1{v}d record" for v in ("", "b+", "c+", "b+c+")}
     record_variants |= {"B1a record", "B1b record", "B1c record",
                         "B1b+c record"}
-    probe_variants = {"B1e+d probe", "B1b+e+d probe"}
+    probe_variants = {"B1e+d probe", "B1b+e+d probe", "B1e probe",
+                      "B1b+e probe"}
     sweep_variants = {f"{base}{env} sweep" for base, env in (
         ("B2", ""), ("B2", "c"), ("B2", "c+n"), ("B2b", ""), ("B2b", "+c"),
         ("B2b", "+c+n"))}
@@ -1226,8 +1245,16 @@ def main() -> int:
           f"with the closest-hit walk it replaced: 104, 110, 108, 114 "
           f"registers, no spills) "
           f"{ {k: res[k] for k in sorted(light_variants) if '+d' in k} }; "
-          f"its probe (both walks, counted) "
+          f"the probes (both walks or scans, counted) "
           f"{ {k: res[k] for k in sorted(probe_variants)} }", flush=True)
+    print(f"[13] B1e's brute-tier light variants (the culled shadow scan; "
+          f"before: 94, 95, 95, 96 registers, no spills): "
+          f"{ {k: res[k] for k in sorted(light_variants) if '+d' not in k} }"
+          f" (registers, spill-store bytes); their dynamic shared memory is "
+          f"the scene's tables, as the variants without light NEE take",
+          flush=True)
+    light_spill = {k: res[k] for k in light_variants if res[k][1]}
+    assert not light_spill, light_spill
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -3078,8 +3105,8 @@ def main() -> int:
                                          lnee=True))
         times32[name] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
                              plain_rays=int(ref.shape[0]), err=err,
-                             outside=int(n_bad), work=w, bound=bound,
-                             res=res[name])
+                             outside=int(n_bad), work=w, bytes=nbytes,
+                             bound=bound, res=res[name])
         print(f"[32] {name}: one launch of {o32.shape[0]} rays, "
               f"{st32.max_bounces} bounces: {k_ms} ms (events), "
               f"{ms4(dev_ms)} ms (device), beside {beside} in phases 13 and "
@@ -3095,12 +3122,12 @@ def main() -> int:
     # B1e+d's light shadow rays through the light-NEE probe (a measurement
     # variant of the kernel that runs both walks of every light shadow ray
     # and counts them): on phase 32's BVH-tier scenes and at the glass
-    # dragon's launch shape. With the any-hit walk deciding it must give
-    # the kernel's bits; with the closest-hit walk deciding (the rule the
+    # dragon's launch shape. With the any-hit walk (the kernel's) deciding
+    # it must give the kernel's bits; with the closest-hit walk deciding (the rule the
     # any-hit walk replaced) its outputs may part from the kernel's only on
     # rays where the two decisions differed, which it counts, and of those
     # the exact ties in t. Then the launch shape's walks timed alone, in
-    # turns with the kernel (the probe's "no walk": every draw visible).
+    # turns with the kernel (the probe's "no test": every draw visible).
     col = {k: i for i, k in enumerate(mk.PROBE_COUNTERS)}
     pix32 = torch.arange(64 * 64, device=dev)
     st_dl = st_d.replace(light_importance_sampling=True)
@@ -3123,7 +3150,7 @@ def main() -> int:
         new = mk.trace_fused_outputs(sc, o_p, d_p, cm.far, s_p, e_p, stp,
                                      tab_p, None, lt_p)
         out_a, c_a = mk.light_probe(sc, o_p, d_p, cm.far, s_p, e_p, stp,
-                                    "any", tab_p, lt_p)
+                                    "kernel", tab_p, lt_p)
         out_c, c_c = mk.light_probe(sc, o_p, d_p, cm.far, s_p, e_p, stp,
                                     "closest", tab_p, lt_p)
         torch.cuda.synchronize()
@@ -3137,8 +3164,8 @@ def main() -> int:
             blocked_share=tot[col["blocked"]] / walks,
             tests_per_walk_closest=[tot[col["tri_tests_closest"]] / walks,
                                     tot[col["box_tests_closest"]] / walks],
-            tests_per_walk_any=[tot[col["tri_tests_any"]] / walks,
-                                tot[col["box_tests_any"]] / walks],
+            tests_per_walk_any=[tot[col["tri_tests_kernel"]] / walks,
+                                tot[col["box_tests_kernel"]] / walks],
             decisions_differ=tot[col["decisions_differ"]],
             ties=tot[col["ties"]], rays_apart=int(apart.sum()),
             rays_apart_with_a_tie=int((apart & tied).sum()),
@@ -3156,7 +3183,8 @@ def main() -> int:
             None, lt_p),
         **{f"probe: {m}": (lambda m=m: mk.light_probe(
             dragon, o_cam, d_cam, dcam.far, sidx_cam, seed_cam, st_dl, m,
-            tab_p, lt_p)) for m in ("no walk", "closest only", "any only")}}
+            tab_p, lt_p))
+          for m in ("no test", "closest only", "kernel only")}}
     split32 = {k: [] for k in split_fns}
     for order in (list(split_fns), list(split_fns)[::-1]):
         for k in order:
@@ -3165,6 +3193,104 @@ def main() -> int:
     print(f"[32] the glass dragon's light-NEE launch (B1b+e+d, {n28} rays, "
           f"12 bounces), ms (events, in turns): {split32}; B1b+d beside it "
           f"(phase 19): {b1d['B1b+d']['ms']} | {card}", flush=True)
+
+    # B1e's light shadow rays through the brute tier's probe, which runs
+    # both scans of every light shadow ray and counts them: the full one
+    # (Möller-Trumbore on every triangle, B1e's rule before the cull) and
+    # the culled one (B1e's). On the Cornell box, glow_orbs, the blocked
+    # plate and the glass box (B1b+e; 64x64 x 4 lanes) and at the launch
+    # shape of Cornell glossy and of glow_orbs (phase 5's rays, 6
+    # bounces): deciding by either it must give the kernel's bits, its two
+    # decisions never apart. B1e's bound then counts the culled scan's
+    # work on the launch shape's rays: each light shadow ray's plane tests
+    # and the Möller-Trumbore tests they let through, where the full
+    # scan's (the bound of earlier PRs, kept beside it) counts 12 of those.
+    # Then each launch shape's split, in turns with B1a and B1e: every
+    # draw visible ("no test"), the full scan alone, the culled scan alone.
+    st_al = st_a.replace(light_importance_sampling=True)
+    orbs = light32["glow_orbs"][1]
+    cases_b = {
+        **{f"{k} ({light32[k][0]})": (
+            light32[k][1], cam, light32[k][3],
+            rays(pix32, 4, 4, light32[k][3], 1, cam))
+           for k in ("cornell", "glow_orbs", "blocked_plate", "glass_box")},
+        "cornell_glossy at the launch shape (B1e)": (
+            scene, cam, st_al, (o, d, sidx, seed)),
+        "glow_orbs at the launch shape (B1e)": (
+            orbs, cam, st_al, (o, d, sidx, seed)),
+    }
+    probe32b, totals32b = {}, {}
+    for name, (sc, cm, stp, (o_p, d_p, s_p, e_p)) in cases_b.items():
+        tab_p, lt_p = mk._scene_tables(sc), mk.light_table(sc)
+        new = mk.trace_fused_outputs(sc, o_p, d_p, cm.far, s_p, e_p, stp,
+                                     tab_p, None, lt_p)
+        out_c, c_c = mk.light_probe(sc, o_p, d_p, cm.far, s_p, e_p, stp,
+                                    "closest", tab_p, lt_p)
+        out_u, c_u = mk.light_probe(sc, o_p, d_p, cm.far, s_p, e_p, stp,
+                                    "kernel", tab_p, lt_p)
+        torch.cuda.synchronize()
+        tot = c_u.sum(dim=0).tolist()
+        walks = max(tot[col["shadow_rays"]], 1)
+        probe32b[name] = dict(
+            rays=int(o_p.shape[0]), shadow_rays=tot[col["shadow_rays"]],
+            blocked_share=tot[col["blocked"]] / walks,
+            mt_tests_per_shadow_ray_full=tot[col["tri_tests_closest"]]
+            / walks,
+            mt_tests_per_shadow_ray_culled=tot[col["tri_tests_kernel"]]
+            / walks,
+            culls_per_shadow_ray=tot[col["tris_culled"]] / walks,
+            culled_share=tot[col["tris_culled"]] / max(
+                tot[col["tri_tests_closest"]], 1),
+            decisions_differ=tot[col["decisions_differ"]],
+            decisions_differ_closest=int(
+                c_c[:, col["decisions_differ"]].sum()),
+            rays_apart=int((out_c != new).any(dim=1).sum()),
+            closest_equals_kernel=torch.equal(out_c, new),
+            culled_equals_kernel=torch.equal(out_u, new))
+        print(f"[32] {name}: light shadow rays through the brute probe: "
+              f"{probe32b[name]} | {card}", flush=True)
+        assert probe32b[name]["closest_equals_kernel"], name
+        assert probe32b[name]["culled_equals_kernel"], name
+        assert probe32b[name]["decisions_differ"] == 0, name
+        assert probe32b[name]["decisions_differ_closest"] == 0, name
+        totals32b[name] = tot
+    # B1e's bound from the culled scan (phase 32's B1e timed these rays)
+    t_e = times32["B1e"]
+    tot = totals32b["cornell_glossy at the launch shape (B1e)"]
+    w = t_e["work"]
+    ops_full = _path_ops(w, scene.any_transmissive, False, lnee=True)
+    ops_culled = (ops_full - w["lshadow"] * scene.num_triangles * OPS_TRI
+                  + tot[col["tri_tests_kernel"]] * OPS_TRI
+                  + (tot[col["tri_tests_kernel"]] + tot[col["tris_culled"]])
+                  * OPS_CULL)
+    t_e["bound_full_scan"] = t_e["bound"]
+    t_e["bound"] = _bound(t_e["bytes"], ops_culled)
+    print(f"[32] B1e's bound from the culled scan's work: "
+          f"{t_e['bound'][0]:.4f} ms by {t_e['bound'][1]} ({ops_culled:.4g} "
+          f"operations; the full scan's, as counted before the cull: "
+          f"{t_e['bound_full_scan'][0]:.4f} ms, {ops_full:.4g}); the "
+          f"kernel {ms4(t_e['device_ms'])} ms (device) | {card}", flush=True)
+    split32b = {}
+    for sname, sc in (("cornell_glossy", scene), ("glow_orbs", orbs)):
+        tab_p, lt_p = mk._scene_tables(sc), mk.light_table(sc)
+        fns = {
+            "B1a": lambda sc=sc, tab_p=tab_p: mk.trace_fused_outputs(
+                sc, o, d, cam.far, sidx, seed, st_a, tab_p),
+            "B1e": lambda sc=sc, tab_p=tab_p, lt_p=lt_p:
+                mk.trace_fused_outputs(sc, o, d, cam.far, sidx, seed, st_al,
+                                       tab_p, None, lt_p),
+            **{f"probe: {m}": (lambda sc=sc, m=m, tab_p=tab_p, lt_p=lt_p:
+                               mk.light_probe(sc, o, d, cam.far, sidx, seed,
+                                              st_al, m, tab_p, lt_p))
+               for m in ("no test", "closest only", "kernel only")}}
+        split32b[sname] = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                fns[k]()
+                split32b[sname][k].append(_cuda_ms(fns[k], 5))
+        print(f"[32] B1e's split on {sname} ({o.shape[0]} rays, 6 bounces), "
+              f"ms (events, in turns): {split32b[sname]} | {card}",
+              flush=True)
 
     # its gradient has no adjoint kernel yet: refused before any launch
     before = mk.LAUNCHES, adj.LAUNCHES
@@ -3666,6 +3792,16 @@ def main() -> int:
                 k: means32[k] for k, v in parity32.items()
                 if v[0].endswith("+d") == bvh_tier},
             main_path=f"{path} with light NEE (phase 33)",
+            **({"bound_counts": "the culled shadow scan: a plane test a "
+                "triangle, Möller-Trumbore where it does not cull",
+                "bound_ms_full_scan": t["bound_full_scan"][0],
+                "mt_tests_per_shadow_ray": probe32b[
+                    "cornell_glossy at the launch shape (B1e)"][
+                    "mt_tests_per_shadow_ray_culled"],
+                "mt_tests_per_shadow_ray_full": probe32b[
+                    "cornell_glossy at the launch shape (B1e)"][
+                    "mt_tests_per_shadow_ray_full"],
+                "split_ms": split32b} if not bvh_tier else {}),
             frame_ms=m33["frame_ms"], mrays_per_s=m33["mrays_per_s"],
             frame_cuda_launches=m33["profile"]["cuda_launches"],
             frame_device_busy_ms=m33["profile"]["busy_ms"],

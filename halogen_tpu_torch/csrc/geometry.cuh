@@ -11,7 +11,10 @@
 
 namespace halogen {
 
-constexpr int kTriStride = 12;   // v0, e1, e2, 3 pad: three 16-byte loads
+// v0, e1, e2, then 3 floats: on the brute tier the geometric normal
+// cross(e1, e2) (its light shadow test's plane), on the BVH tier zeros;
+// three 16-byte loads
+constexpr int kTriStride = 12;
 constexpr int kTriRow4 = 3;      // a row in float4s
 constexpr int kTrinStride = 10;  // n0, n1 - n0, n2 - n0, material
 constexpr float kHitEps = 1e-4f;
@@ -105,7 +108,7 @@ __device__ __forceinline__ bool triangle_hit(V3 v0, V3 e1, V3 e2, V3 o, V3 d,
 }
 
 // The same test on a brute-tier row `tv` in shared memory: 12 floats (v0,
-// e1, e2, 3 pad), 16-byte aligned, read as three 16-byte loads.
+// e1, e2, the normal), 16-byte aligned, read as three 16-byte loads.
 __device__ __forceinline__ bool triangle_hit(const float* tv, V3 o, V3 d,
                                              float& t, float& u, float& v,
                                              float& det) {

@@ -27,7 +27,9 @@
 //       Pallas kernel has no such variant (`megakernel.py:1622-1635`); it
 //       replaces the JAX lockstep's light NEE, `trace.py:200-229, 332-432`;
 //       `megakernel_bvh_light_probe` is B1e+d counting its shadow walks
-//       under both rules (`LightProbe`), a measurement, never a render's;
+//       under both rules (`LightProbe`), `megakernel_light_probe` B1e
+//       counting its shadow scans with and without the cull, measurements,
+//       never a render's;
 //   kRecord, on both tiers (`megakernel_record`, `megakernel_bvh_record`),
 //       where a gradient follows on the record route (`kernels/adjoint.py`
 //       record_plan): each shaded bounce also writes the transcript the
@@ -101,10 +103,15 @@
 // apart; a 4-light table is one cache line, the testing scene's 77k
 // triangles' table a few KB of it in L1/L2), one 64-byte row, ~120 float
 // ops (the point or cone direction, the pdfs and the weight) and a
-// shadow ray: the primitive tests of a second ray on the brute tier; on the
-// BVH tier the light's own triangle and an any-hit walk in front of it,
-// which stops at the first blocker (a closest-hit walk, as before, went on
-// down the tree past it; PERF.md §6 has both walks' tests and times).
+// shadow ray. On the brute tier the shadow ray tests a triangle only
+// where its segment can cross the triangle's plane (path_common.cuh
+// `shadow_tris`: two dot products with the normal the row carries, ~27
+// ops, in place of Möller-Trumbore's ~55 on a triangle it cannot hit; a
+// Cornell shadow segment runs inside the box, short of the panel, so it
+// crosses none; the spheres keep their test). On the BVH tier the
+// light's own triangle and an any-hit walk in front of it, which stops at
+// the first blocker (a closest-hit walk, as before, went on down the tree
+// past it; PERF.md §6 has both walks' tests and times, and B1e's split).
 // B1d is bound by the walk instead: a dependent node or leaf load per step
 // (latency; the ~1 MB of nodes and triangles of an 8.7k-triangle scene
 // stay in L2) and the divergence of a warp's rays through the tree,
@@ -328,6 +335,13 @@ __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
   trace_path<kTransmissive, false, true, true, false, true>(p);
 }
 
+// B1e without env NEE counting its light shadow tests, the full scan and
+// the culled one (the brute tier's probe).
+template <bool kTransmissive>
+__global__ void __launch_bounds__(kThreads) megakernel_light_probe(Params p) {
+  trace_path<kTransmissive, false, false, true, false, true>(p);
+}
+
 // Launches `kernel`: one thread a ray without a counter; with one, as many
 // blocks as the card holds at once (never more than the rays need).
 template <typename Kernel>
@@ -364,7 +378,10 @@ cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
     if constexpr (kEnvNee) {
       return cudaErrorInvalidValue;
     } else {
-      return launch(megakernel_bvh_light_probe<kTransmissive>, p, smem, st);
+      if (bvh)
+        return launch(megakernel_bvh_light_probe<kTransmissive>, p, smem,
+                      st);
+      return launch(megakernel_light_probe<kTransmissive>, p, smem, st);
     }
   }
   if (light) {
@@ -389,7 +406,7 @@ cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
 // adjoint's transcript (either tier, without light NEE): `rec_a` [B + 1,
 // n] float4, `rec_word` [B + 1, n], `rec_end` [n], with env NEE also
 // `rec_nq` [B + 1, n] float4, `rec_ngw` [B + 1, n] float2 and `rec_texel`
-// [B + 1, n] (`RecordView`). `probe` not null (the BVH tier with light NEE
+// [B + 1, n] (`RecordView`). `probe` not null (either tier, with light NEE
 // and without env NEE): the light-NEE probe, [n, kProbeWords] counters,
 // `probe_mode` a `ProbeMode`.
 extern "C" int halogen_megakernel_launch(
@@ -425,8 +442,8 @@ extern "C" int halogen_megakernel_launch(
                               rec_texel == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (probe != nullptr &&
-      (!use_bvh || !light_nee || env_nee || record || probe_mode < 0 ||
-       probe_mode > kProbeNoWalk))
+      (!light_nee || env_nee || record || probe_mode < 0 ||
+       probe_mode > kProbeNone))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.origin = origin;

@@ -27,11 +27,14 @@
 //     its megakernel refuses light NEE, `megakernel.py:1622-1635`, and
 //     runs the lockstep `integrator/trace.py:200-229, 332-432`): one
 //     emitter a bounce from the light table by its power CDF, a point on
-//     a triangle or a direction in a sphere's cone, a closest-hit shadow
-//     ray, the balance heuristic against the continuation pdf, and the
-//     emission's MIS weight where light NEE covered the previous scatter.
-//     Its table is one 64-byte row a light (`LightView`), so a draw is a
-//     binary search over the CDF column and four 16-byte loads.
+//     a triangle or a direction in a sphere's cone, a shadow ray that
+//     decides as the closest hit would, the balance heuristic against the
+//     continuation pdf, and the emission's MIS weight where light NEE
+//     covered the previous scatter. Its table is one 64-byte row a light
+//     (`LightView`), so a draw is a binary search over the CDF column and
+//     four 16-byte loads; the brute tier's shadow ray skips
+//     Möller-Trumbore on the triangles whose plane its segment cannot
+//     cross (`shadow_tris`).
 // With all four off the body is B1a's, op for op. Because the code is one,
 // and both files are built with the same flags (-fmad=false, no fast
 // math), the adjoint's replay takes the forward kernel's path bit for
@@ -576,40 +579,48 @@ __device__ __forceinline__ bool shadow_visible(const SceneView& sc, V3 o,
   }
 }
 
-// What the light-NEE probe (megakernel.cu `megakernel_bvh_light_probe`, a
-// measurement variant of B1e+d, never on a render's path) counts of one
-// ray's light shadow rays, and which decision drives its path (`mode`):
-//   kProbeClosest: both walks, counted; the closest-hit decision drives
-//     (the rule of B1e+d before its any-hit walk);
-//   kProbeAny: both walks, counted; the any-hit decision drives (B1e+d's);
-//   kProbeClosestOnly, kProbeAnyOnly: that walk alone (for its time);
-//   kProbeNoWalk: no walk, every draw visible (the draw's own time).
-// Counters: shadow rays, those the driving decision blocks, the closest-hit
-// walk's triangle and box tests, the any-hit walk's (the light's own
-// triangle test included), the rays whose two decisions differ, and of
-// those the ones where the closest-hit walk met another triangle at
-// exactly the light's t (a tie).
+// What the light-NEE probes (megakernel.cu `megakernel_bvh_light_probe`
+// and `megakernel_light_probe`, measurement variants of B1e+d and B1e,
+// never on a render's path) count of one ray's light shadow rays, and
+// which decision drives its path (`mode`). Each ray has two shadow tests:
+// the closest-hit rule's (the tier's rule before its redesign: on the
+// BVH tier a closest-hit walk under the bound, on the brute tier
+// Möller-Trumbore on every triangle) and the kernel's own (the any-hit
+// walk, `light_visible_any`; the culled scan, `shadow_tris<true>`).
+//   kProbeClosest: both tests, counted; the closest-hit rule decides;
+//   kProbeKernel: both tests, counted; the kernel's test decides (its
+//     bits);
+//   kProbeClosestOnly, kProbeKernelOnly: that test alone (for its time);
+//   kProbeNone: no test, every draw visible (the draw's own time).
+// Counters: shadow rays, those the deciding test blocks, each test's
+// triangle tests (the kernel's any-hit walk's with the light's own
+// triangle) and box tests (0 on the brute tier), the triangles the culled
+// scan skipped (0 on the BVH tier), the rays whose two decisions differ,
+// and of those the ones where the closest-hit walk met another triangle at
+// exactly the light's t (a tie; the brute tier's two rules decide alike on
+// every ray).
 enum ProbeMode {
   kProbeClosest = 0,
-  kProbeAny = 1,
+  kProbeKernel = 1,
   kProbeClosestOnly = 2,
-  kProbeAnyOnly = 3,
-  kProbeNoWalk = 4,
+  kProbeKernelOnly = 3,
+  kProbeNone = 4,
 };
 enum ProbeCount {
   kProbeRays = 0,
   kProbeBlocked,
   kProbeTriClosest,
   kProbeBoxClosest,
-  kProbeTriAny,
-  kProbeBoxAny,
+  kProbeTriKernel,
+  kProbeBoxKernel,
+  kProbeCulled,
   kProbeDiffer,
   kProbeTies,
   kProbeWords,
 };
 
 struct LightProbe {
-  int mode = kProbeAny;
+  int mode = kProbeKernel;
   int count[kProbeWords] = {};
 };
 
@@ -657,16 +668,111 @@ __device__ __forceinline__ bool light_visible_any(
   return t_l < b || sphere_rule(is_tri, idx, sp_t, sp_i, bound);
 }
 
+// The light shadow rule of the brute tier (trace.py:394-402) on the
+// closest triangle hit (tr_t, tr_i) and sphere hit (sp_t, sp_i): the
+// closest hit (the mesh-beats-sphere-by-HIT_EPS rule inside `far`) is the
+// light itself (`is_tri`, `idx`), or lies at or past `bound`.
+__device__ __forceinline__ bool closest_rule(float tr_t, int tr_i, float sp_t,
+                                             int sp_i, float far, bool is_tri,
+                                             int idx, float bound) {
+  const bool mesh_wins = (tr_t < sp_t - kHitEps) && (tr_t < far);
+  const bool self = is_tri ? (mesh_wins && tr_i == idx)
+                           : (!mesh_wins && sp_t < INFINITY && sp_i == idx);
+  return self || (mesh_wins ? tr_t : sp_t) >= bound;
+}
+
+// The cull's margin over u M1 S (see `shadow_tris`): 32 u = 2^-19.
+constexpr float kCullMargin = 1.9073486328125e-6f;
+
+// The closest triangle hit (tr_t, tr_i, first-min) of a brute-tier light
+// shadow ray from `o` along `d`, over the triangles that can lie on its
+// segment [o, o + d b], b = min(far, sphere t - HIT_EPS, kVisScale dist),
+// with the Möller-Trumbore tests run and (kCull) the triangles culled.
+//
+// With kCull each triangle is first held against its plane: n = cross(e1,
+// e2) (the row's last three floats), s0 = tvec . n and s1 = s0 + b (d . n)
+// the two ends' signed distances times |n|. Where both exceed a margin m
+// on one side, the segment cannot cross the plane, Möller-Trumbore is
+// skipped, and the loop goes on to the next triangle: a warp whose lanes
+// all cull it skips the test; the loop still takes every triangle, in
+// order. Skipping is exact: a culled triangle's Möller-Trumbore t, had it
+// run, is no hit or >= b. The closest hit over the other triangles then
+// decides as the full scan's does (`closest_rule`): where the full scan's
+// hit lies under b it is not culled, and both scans find it (the same t,
+// the same first index); where it does not, it lies at or past the bound
+// or behind the sphere hit (then past the bound too), and both decide by
+// the spheres alone. So the light's own triangle, which lies at dist past
+// the bound, may be culled as any other.
+//
+// The margin, for a float32 op rounding by at most u = 2^-24 (-fmad=false),
+// tvec, d, e1, e2 the floats both tests read, N = tvec . n and D = d . n
+// exactly, M1 = |e1|_1 |e2|_1 (>= |n_i|), S = |tvec|_1 + b |d|_1:
+//   Möller-Trumbore's numerator e2 . (tvec x e1) is N within 5 u M1
+//   |tvec|_1 (two roundings in each cross component, three in the dot),
+//   its determinant e1 . (d x e2) is -D within 5 u M1 |d|_1, and 1 / det
+//   and the product round twice more;
+//   n, rounded once from the exact cross product, and the two dot products
+//   give s0 within 4 u M1 |tvec|_1, and s1 within 6 u M1 S.
+// Both ends beyond m = K u M1 S on the positive side (the negative side is
+// the mirror) give N > (K - 4) u M1 S > 5 u M1 |tvec|_1, so the numerator
+// is > 0, and N + b D > (K - 6) u M1 S >= 5 u M1 S + 2 u |N| (|N| <= M1
+// |tvec|_1), so any t > 0 the test returns is >= (N - 5 u M1 |tvec|_1)(1
+// - 2 u) / (-D + 5 u M1 |d|_1) >= b. That needs K >= 13 with the terms in
+// u^2 neglected; K = 32 leaves room for them and for m's own rounding.
+// No underflow matters: a hit needs |det| >= DET_EPS and t > HIT_EPS, so
+// where b > HIT_EPS every term is far above float32's subnormals, and
+// where b <= HIT_EPS no hit lies under b anyway. A NaN or an infinity
+// fails both comparisons, and the test runs.
+template <bool kCull>
+__device__ __forceinline__ void shadow_tris(const SceneView& sc, V3 o, V3 d,
+                                            float b, float& tr_t, int& tr_i,
+                                            int& tests, int& culled) {
+  tr_t = INFINITY;
+  tr_i = -1;
+  const float bd = b * (fabsf(d.x) + fabsf(d.y) + fabsf(d.z));
+  for (int ti = 0; ti < sc.num_tris; ++ti) {
+    const float4* row =
+        reinterpret_cast<const float4*>(sc.tri + ti * kTriStride);
+    const float4 r0 = row[0], r1 = row[1], r2 = row[2];
+    const V3 v0 = {r0.x, r0.y, r0.z};
+    const V3 e1 = {r0.w, r1.x, r1.y}, e2 = {r1.z, r1.w, r2.x};
+    if constexpr (kCull) {
+      // Möller-Trumbore's own tvec: the compiler computes it once
+      const V3 tvec = {o.x - v0.x, o.y - v0.y, o.z - v0.z};
+      const V3 n = {r2.y, r2.z, r2.w};
+      const float s0 = dot3(tvec, n);
+      const float s1 = s0 + b * dot3(d, n);
+      const float m =
+          kCullMargin *
+          ((fabsf(e1.x) + fabsf(e1.y) + fabsf(e1.z)) *
+           (fabsf(e2.x) + fabsf(e2.y) + fabsf(e2.z))) *
+          (fabsf(tvec.x) + fabsf(tvec.y) + fabsf(tvec.z) + bd);
+      if ((s0 > m && s1 > m) || (s0 < -m && s1 < -m)) {
+        ++culled;
+        continue;
+      }
+    }
+    ++tests;
+    float t, u, v, det;
+    if (triangle_hit(v0, e1, e2, o, d, t, u, v, det) && t < tr_t) {
+      tr_t = t;
+      tr_i = ti;
+    }
+  }
+}
+
 // Whether the light NEE shadow ray from `o` along `d` reaches its light
 // (trace.py:394-402): the closest hit (the mesh-beats-sphere-by-HIT_EPS
 // rule inside `far`) is the light itself (`is_tri`, `idx`), or lies at or
-// past kVisScale * dist. The brute tier takes the closest hit over every
-// primitive. The BVH tier decides under b = min(far, sphere t - HIT_EPS,
-// kVisScale * dist) by the any-hit walk (`light_visible_any`), which stops
-// at the first blocker; a closest-hit walk keeps descending the tree past
-// it. Both give the brute answer up to exact ties in t. With kProbe
-// (`LightProbe`, the BVH tier only) the probe's mode picks the walks and
-// the decision, and its counters add up what they did.
+// past kVisScale * dist. Both tiers decide under b = min(far, sphere t -
+// HIT_EPS, kVisScale * dist). The brute tier takes the closest hit over
+// the triangles its segment can cross (`shadow_tris<true>`), which
+// decides as the closest hit over every triangle does. The BVH tier
+// decides by the any-hit walk (`light_visible_any`), which stops at the
+// first blocker; a closest-hit walk keeps descending the tree past it.
+// It gives the brute answer up to exact ties in t. With kProbe
+// (`LightProbe`) the probe's mode picks the tests and the decision, and
+// its counters add up what they did.
 template <bool kBvh, bool kProbe = false>
 __device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
                                               V3 d, float far, bool is_tri,
@@ -691,8 +797,8 @@ __device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
     float t_l;
     if constexpr (kProbe) {
       const int mode = pr->mode;
-      const bool closest = mode != kProbeAnyOnly && mode != kProbeNoWalk;
-      const bool any = mode != kProbeClosestOnly && mode != kProbeNoWalk;
+      const bool closest = mode != kProbeKernelOnly && mode != kProbeNone;
+      const bool any = mode != kProbeClosestOnly && mode != kProbeNone;
       BvhHit hc = {0.0f, 0.0f, 0.0f, 0.0f, -1, 0, 0};
       bool vc = true, va = true;
       t_l = INFINITY;
@@ -711,8 +817,8 @@ __device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
       c[kProbeBlocked] += vis ? 0 : 1;
       c[kProbeTriClosest] += hc.tri_tests;
       c[kProbeBoxClosest] += hc.box_tests;
-      c[kProbeTriAny] += h.tri_tests;
-      c[kProbeBoxAny] += h.box_tests;
+      c[kProbeTriKernel] += h.tri_tests;
+      c[kProbeBoxKernel] += h.box_tests;
       if (closest && any && vc != va) {
         c[kProbeDiffer] += 1;
         c[kProbeTies] += (is_tri && hc.slot >= 0 && hc.slot != idx &&
@@ -726,20 +832,39 @@ __device__ __forceinline__ bool light_visible(const SceneView& sc, V3 o,
                                       bound, h, t_l);
     }
   } else {
-    float tr_t = INFINITY;
-    int tr_i = -1;
-    for (int ti = 0; ti < sc.num_tris; ++ti) {
-      float t, u, v, det;
-      if (triangle_hit(sc.tri + ti * kTriStride, o, d, t, u, v, det) &&
-          t < tr_t) {
-        tr_t = t;
-        tr_i = ti;
+    const float b = fminf(fminf(far, sp_t - kHitEps), bound);
+    float tr_t;
+    int tr_i, tests = 0, culled = 0;
+    if constexpr (kProbe) {
+      const int mode = pr->mode;
+      const bool full = mode != kProbeKernelOnly && mode != kProbeNone;
+      const bool cull = mode != kProbeClosestOnly && mode != kProbeNone;
+      float tf;
+      int fi, tests_f = 0, none = 0;
+      bool vf = true, vc = true;
+      if (full) {
+        shadow_tris<false>(sc, o, d, b, tf, fi, tests_f, none);
+        vf = closest_rule(tf, fi, sp_t, sp_i, far, is_tri, idx, bound);
       }
+      if (cull) {
+        shadow_tris<true>(sc, o, d, b, tr_t, tr_i, tests, culled);
+        vc = closest_rule(tr_t, tr_i, sp_t, sp_i, far, is_tri, idx, bound);
+      }
+      const bool vis = (mode == kProbeClosest || mode == kProbeClosestOnly)
+                           ? vf
+                           : vc;
+      int* c = pr->count;
+      c[kProbeRays] += 1;
+      c[kProbeBlocked] += vis ? 0 : 1;
+      c[kProbeTriClosest] += tests_f;
+      c[kProbeTriKernel] += tests;
+      c[kProbeCulled] += culled;
+      c[kProbeDiffer] += (full && cull && vf != vc) ? 1 : 0;
+      return vis;
+    } else {
+      shadow_tris<true>(sc, o, d, b, tr_t, tr_i, tests, culled);
+      return closest_rule(tr_t, tr_i, sp_t, sp_i, far, is_tri, idx, bound);
     }
-    const bool mesh_wins = (tr_t < sp_t - kHitEps) && (tr_t < far);
-    const bool self = is_tri ? (mesh_wins && tr_i == idx)
-                             : (!mesh_wins && sp_t < INFINITY && sp_i == idx);
-    return self || (mesh_wins ? tr_t : sp_t) >= bound;
   }
 }
 

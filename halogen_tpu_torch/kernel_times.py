@@ -29,7 +29,14 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     glass dragon under the sky with env NEE, 12 bounces);
   - B3 on those camera rays and on one bounce's rays of the glass dragon;
   - where the tree has area-light NEE, B1e on B1a's rays with light NEE,
-    B1b+e+d on B1b+d's (`chip_smoke.py` phase 32), B1e+d on the same
+    and on the same rays B1a and B1e through `glow_orbs` (`B1a glow_orbs`,
+    `B1e glow_orbs`: its emitters are spheres), B1b+e (the glass box, 8
+    bounces), B1c+e (Cornell glossy under the sky with env NEE and light
+    NEE) and B1b+c+e (the glass box so, 8 bounces); where the tree has the
+    brute tier's light-NEE probe, B1e's shadow tests alone on both scenes
+    (`B1e probe: no test`, every draw visible; `closest only`, the full
+    scan; `kernel only`, the culled one; likewise `B1e glow_orbs probe:
+    ...`); B1b+e+d on B1b+d's (`chip_smoke.py` phase 32), B1e+d on the same
     rays through the 1,280-triangle metal dragon in the Cornell shell (its
     ceiling panel the light), 12 bounces, and on the testing scene
     (`testing_scene(False)`, its camera's first 262144 rays of a 512x512
@@ -50,7 +57,7 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     sweep`, `B2c sweep`, `B2c+n sweep`) on the rays and cotangents of the
     replay's jobs of the same names, and B1e+d's light-NEE probe on
     B1b+e+d's rays, the shadow walks alone (`B1b+e+d probe: closest only`,
-    `any only`, `no walk`: every draw visible); and the sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
+    `kernel only`, the any-hit walk, `no test`: every draw visible); and the sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
     backward`, its taps, the ordering by texel and the per-texel sums),
     and the backward's stages alone: `sky backward taps` (where the tree's
     taps kernel counts the ordering's first pass, with it), `sky
@@ -375,8 +382,20 @@ def main(argv=None) -> int:
         })
     if hasattr(mk, "light_table"):  # area-light NEE (B1e), where it is
         st_l = st_d.replace(light_importance_sampling=True)
-        jobs["B1e"] = (fwd(cornell_sc, st_a.replace(
+        st_al = st_a.replace(light_importance_sampling=True)
+        orbs = cornell.glow_orbs().build(device=dev)
+        sky_cornell = cornell.cornell_box(glossy=True).build(envmap=sky,
+                                                             device=dev)
+        glass_sky = cornell.glass_sphere_box().build(envmap=sky, device=dev)
+        st_both = st_al.replace(env_importance_sampling=True, **sky_kw)
+        jobs["B1e"] = (fwd(cornell_sc, st_al, r_c), "megakernel")
+        jobs["B1a glow_orbs"] = (fwd(orbs, st_a, r_c), "megakernel")
+        jobs["B1e glow_orbs"] = (fwd(orbs, st_al, r_c), "megakernel")
+        jobs["B1b+e"] = (fwd(glass, st_g.replace(
             light_importance_sampling=True), r_c), "megakernel")
+        jobs["B1c+e"] = (fwd(sky_cornell, st_both, r_c), "megakernel")
+        jobs["B1b+c+e"] = (fwd(glass_sky, st_both.replace(
+            max_bounces=8, max_transmission_bounces=8), r_c), "megakernel")
         jobs["B1b+e+d"] = (fwd(dragon, st_l, r_d), "megakernel")
         jobs["B1e+d"] = (fwd(metal_dragon, st_l, r_d), "megakernel")
         from halogen_tpu_torch.scene import testing_scene
@@ -409,11 +428,25 @@ def main(argv=None) -> int:
             "B2c+n sweep": (sweep_at(spheres, st_e, r_e), "adjoint_sweep<"),
         })
         tab_l, lt = mk._scene_tables(dragon), mk.light_table(dragon)
-        for mode in ("closest only", "any only", "no walk"):
-            jobs[f"B1b+e+d probe: {mode}"] = (
+        # the modes by this tree's names (before the brute tier's probe the
+        # kernel's walk was "any" and no test "no walk")
+        named = {"closest only": "closest only", "kernel only": "any only",
+                 "no test": "no walk"}
+        for job, mode in named.items():
+            mode = job if job in mk.PROBE_MODES else mode
+            jobs[f"B1b+e+d probe: {job}"] = (
                 lambda mode=mode: mk.light_probe(
                     dragon, o_d, d_d, dcam.far, sidx_d, seed_d, st_l, mode,
                     tab_l, lt), "megakernel_bvh_light_probe<")
+    if hasattr(mk, "light_cull_reference"):  # the brute tier's probe
+        c_, o_, d_, s_, e_ = r_c
+        for name, sc in (("B1e", cornell_sc), ("B1e glow_orbs", orbs)):
+            tab_b, lt_b = mk._scene_tables(sc), mk.light_table(sc)
+            for mode in ("no test", "closest only", "kernel only"):
+                jobs[f"{name} probe: {mode}"] = (
+                    lambda sc=sc, mode=mode, tab_b=tab_b, lt_b=lt_b:
+                    mk.light_probe(sc, o_, d_, c_.far, s_, e_, st_al, mode,
+                                   tab_b, lt_b)[0], "megakernel_light_probe<")
     if hasattr(adj, "transcript_route"):  # the routes, where there are two
         for name, sc, st in (("B2", cornell_sc, st_a), ("B2b", glass, st_g),
                              ("B2b@16", glass, st_g16)):

@@ -10,7 +10,10 @@ those in the brute tier (every triangle tested, tables in shared memory)
 and in the BVH tier (B1d: the closest hit and the shadow ray walk the
 scene's world BVH, `csrc/bvh_traverse.cuh`, in global memory); and each
 of those eight with area-light next-event estimation (B1e, the light
-table of `light_table`), which the JAX package runs only in its lockstep.
+table of `light_table`), which the JAX package runs only in its lockstep;
+on the brute tier its shadow ray skips the triangles whose plane its
+segment cannot cross (`light_cull_reference` is that test's plain
+version).
 Where a gradient follows on the adjoint's record route
 (`adjoint.record_plan`), the launch, on either tier, also records the
 transcript the adjoint's sweep reads (`Record`, `empty_record`), so the
@@ -57,6 +60,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -88,14 +92,18 @@ LAUNCHES = 0  # kernel launches since the count was last set to 0
 RECORD_LAUNCHES = 0  # of them, launches that recorded the transcript
 
 # The light-NEE probe (`light_probe`; csrc/path_common.cuh `LightProbe`):
-# the counters it keeps a ray, and its modes (which shadow walks run and
-# which decides)
+# the counters it keeps a ray, and its modes (which of the two shadow
+# tests run, the closest-hit rule's and the kernel's own, and which
+# decides), on either tier
 PROBE_COUNTERS = ("shadow_rays", "blocked", "tri_tests_closest",
-                  "box_tests_closest", "tri_tests_any", "box_tests_any",
-                  "decisions_differ", "ties")
+                  "box_tests_closest", "tri_tests_kernel",
+                  "box_tests_kernel", "tris_culled", "decisions_differ",
+                  "ties")
 PROBE_WORDS = len(PROBE_COUNTERS)  # path_common.cuh kProbeWords
-PROBE_MODES = {"closest": 0, "any": 1, "closest only": 2, "any only": 3,
-               "no walk": 4}
+PROBE_MODES = {"closest": 0, "kernel": 1, "closest only": 2,
+               "kernel only": 3, "no test": 4}
+# the cull's margin factor (path_common.cuh kCullMargin): 32 u, u = 2^-24
+CULL_MARGIN = 2.0 ** -19
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -366,16 +374,19 @@ def check_record(rec: Record, n: int, settings: RenderSettings,
 
 
 def light_probe(scene: SceneData, origin, direction, far, sample_idx, seed,
-                settings: RenderSettings, mode: str = "any", tables=None,
+                settings: RenderSettings, mode: str = "kernel", tables=None,
                 light_tab=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """A measurement of B1e+d's light shadow rays, not a render's path:
-    the probe variant of the kernel (CUDA only; the BVH tier with area-light
-    NEE, without env NEE) on explicit rays. `mode` (PROBE_MODES): "closest"
-    and "any" run both walks of every light shadow ray, the closest-hit
-    walk under the bound (B1e+d's rule before its any-hit walk) and the
-    any-hit walk, and let that one decide; "closest only", "any only" and
-    "no walk" (every draw visible) run one walk or none, for their times.
-    Returns ([N, 10] outputs, [N, PROBE_WORDS] int32 counters of each ray:
+    """A measurement of B1e's light shadow rays, not a render's path: the
+    probe variant of the kernel (CUDA only; either tier, with area-light
+    NEE, without env NEE) on explicit rays. Each light shadow ray has two
+    tests: the closest-hit rule's (B1e's rule before its redesign: on the
+    BVH tier a closest-hit walk under the bound, on the brute tier
+    Möller-Trumbore on every triangle) and the kernel's own (the any-hit
+    walk; the culled scan, whose plain version is `light_cull_reference`).
+    `mode` (PROBE_MODES): "closest" and "kernel" run both and let that one
+    decide; "closest only", "kernel only" and "no test" (every draw
+    visible) run one test or none, for their times. Returns ([N, 10]
+    outputs, [N, PROBE_WORDS] int32 counters of each ray:
     PROBE_COUNTERS)."""
     if origin.device.type != "cuda":
         raise ValueError("the light-NEE probe runs on a CUDA device")
@@ -387,12 +398,39 @@ def light_probe(scene: SceneData, origin, direction, far, sample_idx, seed,
     return out, counts
 
 
+def light_cull_reference(tri_tab: torch.Tensor, origin: torch.Tensor,
+                         direction: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the brute tier's light shadow cull
+    (`csrc/path_common.cuh` `shadow_tris`, the same float32 ops in the same
+    order): [N, T] bool, whether ray i's segment [o, o + d b_i] lies beyond
+    the margin on one side of triangle j's plane, so that Möller-Trumbore
+    is skipped. `tri_tab` [T, 12] is `_scene_tables`' brute-tier table
+    (v0, e1, e2, the normal cross(e1, e2)); origin, direction [N, 3]; b
+    [N]."""
+    v0, e1, e2, n = (tri_tab[None, :, k:k + 3] for k in (0, 3, 6, 9))
+    o, d = origin[:, None, :], direction[:, None, :]
+    dot = lambda a, c: (a[..., 0] * c[..., 0] + a[..., 1] * c[..., 1]
+                        + a[..., 2] * c[..., 2])
+    l1 = lambda a: a[..., 0].abs() + a[..., 1].abs() + a[..., 2].abs()
+    tvec = o - v0
+    bd = b * l1(direction)
+    s0 = dot(tvec, n)
+    s1 = s0 + b[:, None] * dot(d, n)
+    m = CULL_MARGIN * (l1(e1) * l1(e2)) * (l1(tvec) + bd[:, None])
+    return ((s0 > m) & (s1 > m)) | ((s0 < -m) & (s1 < -m))
+
+
 def _scene_tables(scene: SceneData):
     """Pack the scene into the kernel's tables: tri [T, 12] (v0, e1, e2
-    and 3 zeros: three 16-byte loads a row), trin [T, 10] (n0, n1 - n0,
+    and the geometric normal cross(e1, e2), which the light shadow test's
+    cull reads: three 16-byte loads a row), trin [T, 10] (n0, n1 - n0,
     n2 - n0, material), sph [S, 5] (center, radius, material) and mat
-    [K, 17], all float32 and contiguous. On the BVH tier tri and trin are
-    the world BVH's own, in its slot order."""
+    [K, 17], all float32 and contiguous. The normal is the cross product
+    of the stored e1 and e2 in float64, rounded once to float32 (the
+    cull's margin counts that rounding). On the BVH tier tri and trin are
+    the world BVH's own, in its slot order, with zeros there; on the brute
+    tier they are made once for the scene's triangles (`_tri_tables`)."""
     mats = scene.materials
     f32 = torch.float32
     mat_tab = torch.cat(
@@ -411,19 +449,52 @@ def _scene_tables(scene: SceneData):
     if uses_bvh(scene):
         tri_tab, trin_tab = scene.wbvh.tris, scene.wbvh.trin
     else:
-        tv = scene.tri_verts_world
-        v0 = tv[:, 0]
-        tri_tab = torch.cat([v0, tv[:, 1] - v0, tv[:, 2] - v0,
-                             torch.zeros_like(v0)], dim=1).contiguous()
-        tn = scene.tri_normals_world
-        n0 = tn[:, 0]
-        trin_tab = torch.cat([n0, tn[:, 1] - n0, tn[:, 2] - n0,
-                              scene.tri_material.to(f32)[:, None]],
-                             dim=1).contiguous()
+        tri_tab, trin_tab = _tri_tables(scene)
     sph_tab = torch.cat([scene.sphere_center, scene.sphere_radius[:, None],
                          scene.sphere_material.to(f32)[:, None]],
                         dim=1).contiguous()
     return tri_tab, trin_tab, sph_tab, mat_tab
+
+
+# The brute tier's triangle tables of each scene (`_tri_tables`), by the
+# ids of the tensors they are made from: (weak references to those
+# tensors, their versions, the tables)
+_TRI_TABLES: dict = {}
+
+
+def _tri_tables(scene: SceneData) -> tuple:
+    """`_scene_tables`' brute-tier tri and trin. A frame and each step of
+    a gradient ask for them again, so they are made once for the scene's
+    triangle tensors and kept while those live, unchanged: a new tensor
+    (a scene built or replaced anew) or one changed in place makes them
+    anew. Made from tensors that require grad (the tables then join
+    their graph) or from inference tensors (which keep no version), they
+    are made on every call."""
+    src = (scene.tri_verts_world, scene.tri_normals_world,
+           scene.tri_material)
+    key = tuple(id(t) for t in src)
+    keep = not any(t.is_inference() or t.requires_grad for t in src)
+    stamp = tuple(t._version for t in src) if keep else None
+    kept = _TRI_TABLES.get(key)
+    if (keep and kept is not None and kept[1] == stamp
+            and all(r() is t for r, t in zip(kept[0], src))):
+        return kept[2]
+    f32 = torch.float32
+    tv, tn, tm = src
+    v0 = tv[:, 0]
+    e1, e2 = tv[:, 1] - v0, tv[:, 2] - v0
+    normal = torch.linalg.cross(e1.double(), e2.double()).to(f32)
+    tri_tab = torch.cat([v0, e1, e2, normal], dim=1).contiguous()
+    n0 = tn[:, 0]
+    trin_tab = torch.cat([n0, tn[:, 1] - n0, tn[:, 2] - n0,
+                          tm.to(f32)[:, None]], dim=1).contiguous()
+    for k in [k for k, v in _TRI_TABLES.items()
+              if any(r() is None for r in v[0])]:
+        del _TRI_TABLES[k]
+    if keep:
+        _TRI_TABLES[key] = (tuple(weakref.ref(t) for t in src), stamp,
+                            (tri_tab, trin_tab))
+    return tri_tab, trin_tab
 
 
 def _as_i32(u: torch.Tensor) -> torch.Tensor:
@@ -542,7 +613,8 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
     area-light NEE `light_tab` may carry `light_table(scene)`. With
     `record` (`empty_record`; either tier, without light NEE) the launch
     also writes the adjoint's transcript into it. `probe` (a measurement,
-    `light_probe`): (counters, mode) for B1e+d's probe variant.
+    `light_probe`): (counters, mode) for B1e's probe variant on either
+    tier.
 
     With `view` the kernel makes its own rays, those of
     `group_rays(view.camera, settings, view.frame, view.pix, lane0,
@@ -624,12 +696,12 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
         check_record(record, scalars[0], settings, env_nee, dev)
     if probe is not None:
         counts, mode = probe
-        if (not (bvh and light) or env_nee or record is not None
+        if (not light or env_nee or record is not None
                 or counts.shape != (scalars[0], PROBE_WORDS)
                 or counts.dtype != torch.int32 or counts.device != dev
                 or not counts.is_contiguous()
                 or mode not in PROBE_MODES.values()):
-            raise ValueError("the light-NEE probe runs B1e+d without env "
+            raise ValueError("the light-NEE probe runs B1e without env "
                              f"NEE, counters int32 [{scalars[0]}, "
                              f"{PROBE_WORDS}], a mode of PROBE_MODES")
     out = torch.empty(

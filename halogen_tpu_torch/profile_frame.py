@@ -6,7 +6,8 @@ Run from the root of a checkout:
     python3 -m halogen_tpu_torch.profile_frame [--scene S] [--grad]
         [--frames 10] [--out FILE]
 
-with S one of cornell, glass, envmap_1024, glass_dragon, metal_dragon.
+with S one of cornell, glass, envmap_1024, glass_dragon, metal_dragon,
+cornell_light, glow_orbs_light.
 
 The frame is a forward path of `chip_smoke.py`: by default the main path,
 Cornell glossy, 512x512, 32 spp, 6 bounces, 262144-ray chunks, so 32
@@ -20,8 +21,11 @@ Dragon_8k in glass around an air bubble, in the Cornell shell: 8,724
 triangles) at 512x512, 32 spp, 12 bounces, through the megakernel's BVH
 tier (B1d); `--scene metal_dragon` a 1,280-triangle metal dragon in the
 Cornell shell (`chip_smoke.py` phase 31's) at 256x256, 32 spp, 12
-bounces (the opaque BVH tier); with an envmap, each group's sky pass is
-one launch of the sky kernel (`kernels/sky.py`).
+bounces (the opaque BVH tier); `--scene cornell_light` the main path
+with area-light NEE (B1e, `chip_smoke.py` phase 33's
+cornell_glossy_512_light) and `--scene glow_orbs_light` `glow_orbs`
+(emissive spheres) so (its glow_orbs_512_light); with an envmap, each
+group's sky pass is one launch of the sky kernel (`kernels/sky.py`).
 With `--grad` the step is `diff.render_loss_grad` instead, on the
 adjoint's record route (each forward launch also records the transcript,
 and the backward is the sweep alone; past `adjoint.RECORD_BUDGET` the
@@ -126,6 +130,13 @@ SCENES = {
     "envmap_1024": (lambda dev: cornell.material_demo_spheres().build(
         envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM, ENVMAP_1024,
         ENVMAP_1024),
+    # light NEE has no gradient on the card yet (ROADMAP B2+l): frames only
+    "cornell_light": (lambda dev: cornell.cornell_box(glossy=True).build(
+        device=dev), CAM, dict(SETTINGS, light_importance_sampling=True),
+        None),
+    "glow_orbs_light": (lambda dev: cornell.glow_orbs().build(device=dev),
+                        CAM, dict(SETTINGS, light_importance_sampling=True),
+                        None),
 }
 
 
@@ -187,6 +198,10 @@ def main(argv=None) -> int:
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 1
     build, cam_kw, frame_kw, grad_kw = SCENES[args.scene]
+    if args.grad and grad_kw is None:
+        print(f"profile_frame: {args.scene} has no gradient step",
+              file=sys.stderr)
+        return 1
     kw = grad_kw if args.grad else frame_kw
 
     dev = torch.device("cuda", 0)
@@ -265,12 +280,14 @@ def main(argv=None) -> int:
     # the kernels are templates: megakernel<false, false>(...),
     # megakernel_bvh<...> (the BVH tier; megakernel_record<...> and
     # megakernel_bvh_record<...> where they record the adjoint's
-    # transcript) and so on; the adjoint is the replay (adjoint_kernel) or
+    # transcript; megakernel_light<...> and megakernel_bvh_light<...> with
+    # light NEE) and so on; the adjoint is the replay (adjoint_kernel) or
     # the record route's sweep (adjoint_sweep)
     kernel_rows = lambda *names: [r for r in rows if _self_device_us(r) > 0
                                   and any(f"{n}<" in r.key for n in names)]
     mega = kernel_rows("megakernel", "megakernel_bvh", "megakernel_record",
-                       "megakernel_bvh_record")
+                       "megakernel_bvh_record", "megakernel_light",
+                       "megakernel_bvh_light")
     adjoint = kernel_rows("adjoint_kernel", "adjoint_sweep")
     sky_rows = [r for r in rows if _self_device_us(r) > 0
                 and "sky_" in r.key]

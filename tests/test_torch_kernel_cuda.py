@@ -4,7 +4,8 @@ the glass-in-glass box, the envmap variants (B1c) with the sky shaded
 after the kernel, with and without env NEE, and the BVH tier (B1d) on the
 glass dragon, on a dragon under the sky with env NEE and on a strip
 whose walks keep 19 entries on the stack; the area-light NEE variants
-(B1e) on both tiers, with glass and with env NEE; and the world-BVH
+(B1e) on both tiers, with glass and with env NEE, and their light-NEE
+probes on both tiers; and the world-BVH
 traversal kernel (B3) against its plain version, with every
 `Intersector` route that reaches it.
 
@@ -364,7 +365,7 @@ def test_light_probe_counts_both_walks(name, cuda_device):
                          _sampler_2d(st))
     out = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
     out_any, c_any = mk.light_probe(scene, o, d, cam.far, sidx, seed, st,
-                                    "any")
+                                    "kernel")
     out_old, c_old = mk.light_probe(scene, o, d, cam.far, sidx, seed, st,
                                     "closest")
     torch.cuda.synchronize()
@@ -375,10 +376,60 @@ def test_light_probe_counts_both_walks(name, cuda_device):
     tot = c_any.sum(dim=0)
     assert int(tot[col["shadow_rays"]]) > 0
     assert int(tot[col["blocked"]]) > 0
-    assert int(tot[col["tri_tests_any"]]) > 0
+    assert int(tot[col["tri_tests_kernel"]]) > 0
+    assert int(tot[col["tris_culled"]]) == 0
     assert int(tot[col["tri_tests_closest"]]) > 0
     same = ~apart
     assert torch.equal(c_any[same, :2], c_old[same, :2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "glow_orbs", "blocked_plate",
+                                  "glass_box"])
+def test_brute_light_probe_equals_kernel(name, cuda_device):
+    """The brute tier's light-NEE probe (`megakernel.light_probe` on B1e,
+    and on B1b+e in the glass box) at 64x64 pixels x 4 lanes: deciding by
+    the closest-hit rule over every triangle (B1e's rule before the cull)
+    and deciding by the culled scan (B1e's) it gives the kernel's outputs
+    bit for bit, the two decisions never apart; the culled scan skips
+    triangles and runs fewer Möller-Trumbore tests than the full one; with
+    no test every draw is visible."""
+    make, cam_kw, kw = LIGHT_CASES[name]
+    scene = make().build(device=cuda_device)
+    st = ht.RenderSettings(width=64, height=64, samples_per_pixel=4,
+                           light_importance_sampling=True, **kw)
+    assert not mk.uses_bvh(scene)
+    cam = ht.make_camera(**cam_kw, device=cuda_device)
+    pix = torch.arange(st.num_pixels, device=cuda_device).repeat_interleave(4)
+    lane = torch.arange(4, device=cuda_device).repeat(st.num_pixels)
+    sidx = sob.sample_index(1, lane, st.samples_per_pixel)
+    seed = sob.pixel_seed(pix)
+    o, d = generate_rays(cam, pix % st.width, pix // st.width, st.width,
+                         st.height, st.filter_radius, sidx, seed,
+                         _sampler_2d(st))
+    out = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st)
+    probe = {m: mk.light_probe(scene, o, d, cam.far, sidx, seed, st, m)
+             for m in ("closest", "kernel", "no test")}
+    torch.cuda.synchronize()
+    col = {k: i for i, k in enumerate(mk.PROBE_COUNTERS)}
+    for m in ("closest", "kernel"):
+        got, counts = probe[m]
+        assert torch.equal(got, out), m
+        assert int(counts[:, col["decisions_differ"]].sum()) == 0, m
+    tot = probe["kernel"][1].sum(dim=0)
+    rays = int(tot[col["shadow_rays"]])
+    assert rays > 0
+    assert int(tot[col["tri_tests_closest"]]) == rays * scene.num_triangles
+    assert (int(tot[col["tri_tests_kernel"]]) + int(tot[col["tris_culled"]])
+            == rays * scene.num_triangles)
+    assert int(tot[col["tris_culled"]]) > 0
+    assert int(tot[col["box_tests_closest"]]) == 0
+    assert int(tot[col["box_tests_kernel"]]) == int(tot[col["ties"]]) == 0
+    if name == "blocked_plate":
+        assert int(tot[col["blocked"]]) > 0
+    none = probe["no test"][1].sum(dim=0)
+    assert int(none[col["shadow_rays"]]) > 0
+    assert int(none[col["blocked"]]) == 0
 
 
 @pytest.mark.cuda
