@@ -280,8 +280,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      bound of earlier PRs); each launch shape's
      split (every draw visible, the full scan alone, the culled scan
      alone) timed in turns with B1a and B1e; and `render_loss_grad` with
-     light NEE raising NotImplementedError (ROADMAP B2+l) before any
-     launch;
+     light NEE on the card: one recording B1e and one light sweep (B2+l)
+     a group, no replay (phase 36 holds it to plain);
  33. light NEE at full width: Cornell glossy (512x512, 32 spp, 6
      bounces, `bench.py`'s), `glow_orbs` at 512x512 and the glass dragon
      (512x512, 32 spp, 12 bounces): a warm-up and 2 timed frames each, the
@@ -291,7 +291,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      `render --preset cornell_glossy_512 --light-nee --frames 2` (the
      preset's frames win, as in the JAX CLI), `bench --preset glass_dragon
      --light-nee` (its JSON line), `debug-sobol`, `fit --steps 3 --width
-     64`, a render resumed from its checkpoint, and `--sharded` raising
+     64` and the same with `--light-nee` (on the kernels, finite losses),
+     a render resumed from its checkpoint, and `--sharded` raising
      NotImplementedError (ROADMAP A11); its files in a temporary
      directory, removed after;
  35. the brute tier's record route, phase 28's checks at the launch
@@ -303,10 +304,37 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      `sweep_reference`, the record against `record_transcript_reference`,
      the route against the plain backward; times of the forward with and
      without the record, the sweep and the replay, and the sweep's bound;
+ 36. the light-NEE adjoint (B2+l: B1e's recording variants and the light
+     sweep; no replay), 64x64 pixels x 4 lanes on the Cornell box,
+     `glow_orbs`, the blocked plate, the glass box (B1b+e), Cornell glossy
+     under the sky with env NEE and light NEE (B1c+e), the 1,280-triangle
+     metal dragon (B1e+d) and the glass dragon (B1b+e+d): the forward's
+     outputs with the record equal those without bit for bit; the sweep
+     bitwise repeatable and within phase 7's tolerance of
+     `sweep_reference` on the same record; the record against
+     `record_transcript_reference` where the forwards agree (ids and masks
+     equal, floats at phase 11's tolerance, on at most 0.1% of the rays
+     apart in glass, glossy or env-NEE scenes); `render_loss_grad`
+     against `Fused.OFF`'s autograd through the lockstep at phase 7's
+     tolerance (each route's target its own image + c, c zero on the
+     pixels whose forwards round apart), one recording forward and one
+     sweep a group, no replay; `glow_orbs`' emitters a d emission; then
+     the recording B1e (phase 5's rays) and B1b+e+d (the glass dragon's)
+     timed in turns with them without the record, beside their plain
+     version, and the light sweep over the Cornell record beside
+     `sweep_reference`, with their bounds; the full-width steps
+     `cornell_glossy_256_fwd_bwd_light` (`bench.py:128-158`'s step with
+     light NEE), `glow_orbs_256_fwd_bwd_light` and
+     `glass_dragon_512_fwd_bwd_light` (512x512, 32 spp, 12 bounces), a
+     warm-up and 2 timed steps each, every count set to 0 before (the
+     recording forward and the sweep must launch, the replay never):
+     launches, Mrays/s (fwd+bwd), busy and idle share, peak memory; and a
+     10-step `fit_materials` of `glow_orbs` with light NEE at 256x256 from
+     a perturbed albedo and emission, whose held-out loss must fall;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
-Phases 6, 9, 14, 15, 20, 31 and 33 also profile one frame or step: the
+Phases 6, 9, 14, 15, 20, 31, 33 and 36 also profile one frame or step: the
 `cudaLaunchKernel` calls, the device's busy time and its idle share; a
 Cornell and a glass-box frame must stay under 3,350 launches (a tenth of
 what they took when torch made the rays). A kernel's device time is the
@@ -314,12 +342,13 @@ profiler's mean over the launches it kept; where it kept none in five
 sessions (it can drop events late in a long process) the time reads "not
 recorded" (null in the record) beside the CUDA-event time.
 The last lines are a JSON record of every kernel (B1a-e, B1e+d, B2, B2b,
-B2b+d, B2+d, B2c, B2c+n, the sky forward and backward, B3, and the routes
-B4-B6 that B3's kernel serves) with its launches on its main
-path, error, times, plain time, bound and library call (B2, B2b, B2c,
-B2c+n, B2b+d and B2+d are the record route's sweep, which their steps
-launch, with the replay and the recording forward beside them), the
-card's name and power limit, and {"ok": true, "device": {...}}.
+B2b+d, B2+d, B2c, B2c+n, the sky forward and backward, B3, the routes
+B4-B6 that B3's kernel serves, and B2+l's kernels: "B1e recording",
+"B1e+d recording" and "B2+l", the light sweep) with its launches on its
+main path, error, times, plain time, bound and library call (B2, B2b,
+B2c, B2c+n, B2b+d and B2+d are the record route's sweep, which their
+steps launch, with the replay and the recording forward beside them),
+the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -362,6 +391,9 @@ OPS_LNEE = 200
 OPS_ADJ = 100  # + the adjoint's reverse sweep of the bounce
 OPS_SWEEP = 60  # the record route's sweep of a shaded bounce, alone
 OPS_SWEEP_NEE = 25  # + its env-NEE term and record
+# + the light-NEE term (the emission's weight, the BRDF factor, the three
+# cotangents) and the third key's sums
+OPS_SWEEP_LIGHT = 50
 OPS_RAY = 90  # a primary ray made in the kernel (camera_ray; logf x 2)
 # the sky pass (csrc/sky.cu): a ray's lookup (normalize, atan2 and acos as
 # ~20 each, two bilinear lookups of 3 channels and the blend, the MIS
@@ -440,8 +472,9 @@ def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
     |diff| / (1 + |plain|) (`err`), and where floats differ (`drift`): for
     those rays the first slot that differs, as bounces before the path's
     last; whether t alone differs there; which words differ there (the
-    attenuation, t, the env-NEE words nq and ngw: rays a word); |dt| /
-    (1 + t) there, and the largest at the slots before it."""
+    attenuation, t, the env-NEE words nq and ngw, the light-NEE words lq:
+    rays a word); |dt| / (1 + t) there, and the largest at the slots
+    before it."""
     import torch
     from halogen_tpu_torch.kernels import adjoint as adj
     from halogen_tpu_torch.kernels import megakernel as mk
@@ -455,7 +488,8 @@ def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
     ids_apart = agree & (rec.end != ref.end)
     first = torch.full_like(n_sh, -1)
     t_only = torch.zeros_like(agree)
-    words = torch.zeros_like(n_sh)  # at the first slot: a 1, t 2, nq 4, ngw 8
+    # at the first slot: a 1, t 2, nq 4, ngw 8, lq 16
+    words = torch.zeros_like(n_sh)
     dt = torch.zeros((st.max_bounces + 1, agree.shape[0]),
                      device=agree.device)
     err = 0.0
@@ -470,7 +504,7 @@ def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
         other_bad = torch.zeros_like(agree)
         bad = torch.zeros_like(n_sh)
         for j, (a, b) in enumerate(((rec.a, ref.a), (rec.nq, ref.nq),
-                                    (rec.ngw, ref.ngw))):
+                                    (rec.ngw, ref.ngw), (rec.lq, ref.lq))):
             if a is None:
                 continue
             a, b = a[k], b[k]
@@ -480,7 +514,7 @@ def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
                 out = out[:, 0:3]
                 bad |= t_bad.to(torch.int64) * 2
             other_bad |= out.any(dim=1)
-            bad |= out.any(dim=1).to(torch.int64) * (1, 4, 8)[j]
+            bad |= out.any(dim=1).to(torch.int64) * (1, 4, 8, 16)[j]
             err = max(err, float(((a - b).abs() / (1.0 + b.abs()))[live]
                                  .max()))
         dt[k] = torch.where(live, (rec.a[k, :, 3] - ref.a[k, :, 3]).abs()
@@ -494,7 +528,7 @@ def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
              "t_alone": int(t_only[first >= 0].sum()),
              "words": {w: int(((words[first >= 0] & bit) != 0).sum())
                        for w, bit in (("attenuation", 1), ("t", 2),
-                                      ("nq", 4), ("ngw", 8))}}
+                                      ("nq", 4), ("ngw", 8), ("lq", 16))}}
     if rays:
         k = first[rays]
         at = dt[k, rays]
@@ -512,7 +546,15 @@ def _record_vs_plain(sc, st, sub, rec, out_sub) -> dict:
 def _resources(log: str) -> dict:
     """Registers and spill-store bytes of every kernel variant, from
     nvcc's `-Xptxas -v` output: {name: (registers, spill bytes)}."""
-    names = {"megakernel_recordILb0ELb0EE": "B1a record",
+    names = {"megakernel_light_recordILb0ELb0EE": "B1e record",
+             "megakernel_light_recordILb1ELb0EE": "B1b+e record",
+             "megakernel_light_recordILb0ELb1EE": "B1c+e record",
+             "megakernel_light_recordILb1ELb1EE": "B1b+c+e record",
+             "megakernel_bvh_light_recordILb0ELb0EE": "B1e+d record",
+             "megakernel_bvh_light_recordILb1ELb0EE": "B1b+e+d record",
+             "megakernel_bvh_light_recordILb0ELb1EE": "B1c+e+d record",
+             "megakernel_bvh_light_recordILb1ELb1EE": "B1b+c+e+d record",
+             "megakernel_recordILb0ELb0EE": "B1a record",
              "megakernel_recordILb1ELb0EE": "B1b record",
              "megakernel_recordILb0ELb1EE": "B1c record",
              "megakernel_recordILb1ELb1EE": "B1b+c record",
@@ -549,16 +591,17 @@ def _resources(log: str) -> dict:
         """adjoint_kernel<kTransmissive, kSmemTranscript, kBvh, kEnv>: B2
         or B2b; c with the sky, +n with env NEE; +d on the BVH tier;
         " global" with the transcript in device memory. adjoint_sweep<
-        kTransmissive, kEnv>: the record route's sweep, one kernel for
-        both tiers' variants, " sweep" (`sweep_name`)."""
+        kTransmissive, kEnv, kLight>: the record route's sweep, one kernel
+        for both tiers' variants, " sweep" (`sweep_name`); +l with
+        area-light NEE (B2+l)."""
         def variant(t, env):
             return ("B2b" if t else "B2") + (("+c" if t else "c") if env
                                               else "") + ("+n" if env == 2
                                                           else "")
-        m = re.search(r"adjoint_sweepILb(\d)ELi(\d)EE", mangled)
+        m = re.search(r"adjoint_sweepILb(\d)ELi(\d)ELb(\d)EE", mangled)
         if m:
-            t, env = (int(x) for x in m.groups())
-            return sweep_name(variant(t, env))
+            t, env, light = (int(x) for x in m.groups())
+            return sweep_name(variant(t, env) + ("+l" if light else ""))
         m = re.search(r"adjoint_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E",
                       mangled)
         if not m:
@@ -728,6 +771,7 @@ def _profile_step(fn, step_ms: float) -> dict:
     own = ("megakernel<", "megakernel_bvh<", "megakernel_light<",
            "megakernel_bvh_light<", "megakernel_bvh_record<",
            "megakernel_record<", "megakernel_bvh_light_probe<",
+           "megakernel_light_record<", "megakernel_bvh_light_record<",
            "adjoint_kernel<", "adjoint_sweep<",
            "traverse_kernel", "sky_forward", "sky_backward_taps",
            "sky_radix_", "sky_reduce_texels")
@@ -1219,6 +1263,11 @@ def main() -> int:
     sweep_variants = {f"{base}{env} sweep" for base, env in (
         ("B2", ""), ("B2", "c"), ("B2", "c+n"), ("B2b", ""), ("B2b", "+c"),
         ("B2b", "+c+n"))}
+    # the light-NEE adjoint (B2+l): B1e's recording variants on both tiers
+    # and the light sweeps
+    light_record_variants = {f"{v} record" for v in light_variants}
+    light_sweep_variants = {k.replace(" sweep", "+l sweep")
+                            for k in sweep_variants}
     assert set(res) == {"B1a", "B1b", "B1c", "B1b+c", "B1d", "B1b+d",
                         "B1c+d", "B1b+c+d", *light_variants, "B3",
                         "sky forward",
@@ -1226,7 +1275,8 @@ def main() -> int:
                         "sky ordering scan", "sky ordering scatter",
                         "sky backward sums",
                         *adjoint_variants, *record_variants,
-                        *sweep_variants, *probe_variants}, res
+                        *sweep_variants, *probe_variants,
+                        *light_record_variants, *light_sweep_variants}, res
     expected = {**RESOURCES_BEFORE_B1E, **RESOURCES_SINCE_SHARED_SWEEP}
     changed = {k: (v, res[k]) for k, v in expected.items()
                if tuple(res[k]) != v}
@@ -1255,6 +1305,15 @@ def main() -> int:
           flush=True)
     light_spill = {k: res[k] for k in light_variants if res[k][1]}
     assert not light_spill, light_spill
+    spilled_l = {k: res[k] for k in light_sweep_variants if res[k][1]}
+    print(f"[13] the light-NEE adjoint (B2+l): B1e's recording variants "
+          f"{ {k: res[k] for k in sorted(light_record_variants)} } (beside "
+          f"them without the record "
+          f"{ {k: res[k] for k in sorted(light_variants)} }), the light "
+          f"sweeps { {k: res[k] for k in sorted(light_sweep_variants)} } "
+          f"(registers, spill-store bytes); light sweeps that spill: "
+          f"{spilled_l}", flush=True)
+    assert not spilled_l, spilled_l
     st_g = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
                              max_bounces=8, max_transmission_bounces=8,
                              ray_chunk_size=262144)
@@ -3101,12 +3160,12 @@ def main() -> int:
         nbytes = (o32.shape[0] * (32 + 4 * got.shape[1])
                   + _table_bytes((*tab32, *lt32, sc.wbvh.nodes
                                   if mk.uses_bvh(sc) else None)))
-        bound = _bound(nbytes, _path_ops(w, sc.any_transmissive, False,
-                                         lnee=True))
+        ops = _path_ops(w, sc.any_transmissive, False, lnee=True)
+        bound = _bound(nbytes, ops)
         times32[name] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
                              plain_rays=int(ref.shape[0]), err=err,
                              outside=int(n_bad), work=w, bytes=nbytes,
-                             bound=bound, res=res[name])
+                             ops=ops, bound=bound, res=res[name])
         print(f"[32] {name}: one launch of {o32.shape[0]} rays, "
               f"{st32.max_bounces} bounces: {k_ms} ms (events), "
               f"{ms4(dev_ms)} ms (device), beside {beside} in phases 13 and "
@@ -3265,6 +3324,7 @@ def main() -> int:
                   * OPS_CULL)
     t_e["bound_full_scan"] = t_e["bound"]
     t_e["bound"] = _bound(t_e["bytes"], ops_culled)
+    t_e["ops"] = ops_culled
     print(f"[32] B1e's bound from the culled scan's work: "
           f"{t_e['bound'][0]:.4f} ms by {t_e['bound'][1]} ({ops_culled:.4g} "
           f"operations; the full scan's, as counted before the cull: "
@@ -3292,18 +3352,23 @@ def main() -> int:
               f"ms (events, in turns): {split32b[sname]} | {card}",
               flush=True)
 
-    # its gradient has no adjoint kernel yet: refused before any launch
-    before = mk.LAUNCHES, adj.LAUNCHES
-    try:
-        render_loss_grad({"materials": cornell_d.materials}, cornell_d, cam,
-                         light32["cornell"][3],
-                         torch.zeros((64, 64, 3), device=dev), 1)
-        raise AssertionError("render_loss_grad with light NEE did not raise")
-    except NotImplementedError as e:
-        assert "B2+l" in str(e), e
-    assert (mk.LAUNCHES, adj.LAUNCHES) == before
-    print("[32] render_loss_grad with light NEE on the card raises "
-          "NotImplementedError naming ROADMAP B2+l, before any launch",
+    # its gradient on the card (B2+l; phase 36 holds it to plain): a step
+    # of the Cornell case is one recording B1e and one light sweep a group,
+    # no replay
+    counts32 = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.LAUNCHES,
+                        adj.SWEEP_LAUNCHES)
+    before = counts32()
+    loss32, g32 = render_loss_grad(
+        {"materials": cornell_d.materials}, cornell_d, cam,
+        light32["cornell"][3], torch.zeros((64, 64, 3), device=dev), 1)
+    launched32 = tuple(a - b for a, b in zip(counts32(), before))
+    assert (launched32[0] == launched32[1] == launched32[3] > 0
+            and launched32[2] == 0), launched32
+    assert bool(torch.isfinite(loss32)) and float(
+        g32["materials"].emissive.abs().max()) > 0
+    print(f"[32] render_loss_grad with light NEE on the card: launches "
+          f"(megakernel, recording, replay, sweep) {launched32}: the "
+          f"recording B1e and the light sweep (B2+l), no replay",
           flush=True)
 
     # --- 33. light NEE at full width
@@ -3373,7 +3438,10 @@ def main() -> int:
              ["bench", "--preset", "glass_dragon", "--light-nee"]),
             ("debug-sobol", ["debug-sobol", "--out", str(out34 / "s.png")]),
             ("fit", ["fit", "--steps", "3", "--width", "64", "--out",
-                     str(out34 / "fit.png")])):
+                     str(out34 / "fit.png")]),
+            ("fit light NEE", ["fit", "--light-nee", "--steps", "3",
+                               "--width", "64", "--out",
+                               str(out34 / "fit_light.png")])):
         mk.LAUNCHES = 0
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -3392,8 +3460,11 @@ def main() -> int:
                          .splitlines()[-1])
     assert set(bench34) == {"metric", "value", "unit", "vs_baseline"}
     assert bench34["value"] > 0 and bench34["unit"] == "Mrays/s/cuda"
-    fit34 = json.loads(cli34["fit"][3].splitlines()[-1])
-    assert np.isfinite([fit34["initial_loss"], fit34["final_loss"]]).all()
+    for name in ("fit", "fit light NEE"):
+        fit34 = json.loads(cli34[name][3].splitlines()[-1])
+        assert np.isfinite([fit34["initial_loss"],
+                            fit34["final_loss"]]).all(), name
+        assert cli34[name][2] > 0, name  # on the kernels
     ck34 = out34 / "state.npz"
     for _ in range(2):
         assert cli(["render", "--width", "64", "--spp", "2", "--frames", "2",
@@ -3445,6 +3516,319 @@ def main() -> int:
           f"{ {k: dict(sweep_ms=v['times']['sweep'][0], replay_ms=v['times']['replay'][0], forward_ms=v['times']['forward'][0], forward_record_ms=v['times']['forward with the record'][0], bound_ms=v['bound'][0]) for k, v in rec35.items()} }"
           f"; phase 35 took {time.perf_counter() - t35:.1f} s | {card}",
           flush=True)
+
+    # --- 36. the light-NEE adjoint (B2+l): the recording B1e and the light
+    # sweep against their plain versions on seven scenes, 64x64 x 4 lanes;
+    # then their times at the launch shapes, the three full-width fwd+bwd
+    # steps with light NEE and a glow_orbs fit
+    t36 = time.perf_counter()
+    cases36 = {  # name: (forward variant, scene, camera, settings)
+        **{k: light32[k] for k in ("cornell", "glow_orbs", "blocked_plate",
+                                   "glass_box", "sky_env_light")},
+        "metal_dragon": ("B1e+d", metal_dragon, dcam,
+                         ht.RenderSettings(**lbase, max_bounces=12)),
+        "glass_dragon": light32["glass_dragon"],
+    }
+    g36 = torch.Generator().manual_seed(36)
+    check36 = {}
+    for name, (variant, sc, cm, st36) in cases36.items():
+        pix = torch.arange(st36.num_pixels, device=dev)
+        o36, d36, s36, e36 = rays(pix, 4, 4, st36, 1, cm)
+        r36 = (o36, d36, cm.far, s36, e36)
+        n36 = o36.shape[0]
+        tab, et, lt = (mk._scene_tables(sc), mk.env_table(sc),
+                       mk.light_table(sc))
+        env = adj.env_mode(sc, st36)
+        nee = env == 2
+        ct36 = torch.rand((n36, 3), generator=g36).to(dev)
+        gsky36 = torch.rand((n36, 4), generator=g36).to(dev) if env else None
+        rec = mk.empty_record(n36, st36, nee, dev, True)
+        before = mk.RECORD_LAUNCHES
+        out_rec = mk.trace_fused_outputs(sc, *r36, st36, tab, et, lt,
+                                         record=rec)
+        out = mk.trace_fused_outputs(sc, *r36, st36, tab, et, lt)
+        assert mk.RECORD_LAUNCHES == before + 1, name
+
+        def nee_bufs():
+            slots = st36.max_bounces + 1
+            return ((torch.empty((n36, slots), dtype=torch.int32,
+                                 device=dev),
+                     torch.empty((n36, slots, 3), device=dev))
+                    if nee else None)
+
+        before = adj.SWEEP_LAUNCHES, adj.LAUNCHES
+        recs_a, recs_b = nee_bufs(), nee_bufs()
+        got = adj._launch(sc, None, None, None, None, None, ct36, st36, tab,
+                          gsky=gsky36, env_tab=et, records=recs_a,
+                          record=rec)
+        again = adj._launch(sc, None, None, None, None, None, ct36, st36,
+                            tab, gsky=gsky36, env_tab=et, records=recs_b,
+                            record=rec)
+        torch.cuda.synchronize()
+        assert (adj.SWEEP_LAUNCHES, adj.LAUNCHES) == (before[0] + 2,
+                                                      before[1]), name
+        fwd_same = torch.equal(out_rec, out)
+        repeat = torch.equal(got, again) and (not nee or (
+            torch.equal(recs_a[0], recs_b[0])
+            and torch.equal(recs_a[1][recs_a[0] >= 0],
+                            recs_b[1][recs_b[0] >= 0])))
+        # the sweep against its plain version on the same record
+        d_out = torch.cat([ct36, gsky36 if env else torch.zeros(
+            (n36, 4), device=dev)], dim=1)
+        ref_s, ref_recs = adj.sweep_reference(sc, st36, rec, d_out)
+        sweep_err, sweep_ratio = _grad_compare(got, ref_s)
+        tight = float(((got - ref_s).abs() / (
+            1e-5 * ref_s.abs().amax(dim=0) + 1e-7)).max())
+        # the record against the lockstep's, where the forwards agree;
+        # the light words hold the glossy pdf (through the MIS weights), as
+        # env NEE's do: floats past 1e-4 on at most 0.1% of the rays where
+        # the scene has glass, a glossy lobe or env NEE
+        c36 = _record_vs_plain(sc, st36, r36, rec, out_rec)
+        agree = c36["agree"]
+        glossy = bool((sc.materials.metallic > 0).any())
+        rec_ok = (c36["ids"] == 0 and int((~agree).sum())
+                  <= 0.01 * agree.shape[0] and c36["floats"] <= (
+                      PARITY_MAX_OUTSIDE * agree.shape[0]
+                      if sc.any_transmissive or nee or glossy else 0))
+        n_sh = rec.end.to(torch.int64) & 0xFFFF
+        slot = torch.arange(rec.word.shape[0], device=dev)[:, None]
+        lit = (slot < n_sh[None]) & ((rec.word.to(torch.int64)
+                                      & (1 << 27)) != 0)
+        # the route against the plain backward: render_loss_grad against
+        # Fused.OFF's autograd through the lockstep on the card, each
+        # route's target its own image + c, c zero on the pixels whose
+        # forwards round apart
+        params36 = {"materials": sc.materials}
+        img_k = ht.render_frame(sc, cm, st36, 1)
+        img_p = ht.render_frame(sc, cm, st36.replace(fused=ht.Fused.OFF), 1)
+        agree_px = ((img_k - img_p).abs() <= PARITY_TOL + PARITY_TOL
+                    * img_p.abs()).all(dim=2, keepdim=True)
+        assert int((~agree_px).sum()) <= PARITY_MAX_OUTSIDE * (
+            agree_px.numel()), name
+        c36px = torch.rand(tuple(img_k.shape), generator=g36).to(dev) * (
+            agree_px)
+        before = counts32()
+        _, g_k = render_loss_grad(params36, sc, cm, st36, img_k + c36px, 1)
+        launched = tuple(a - b for a, b in zip(counts32(), before))
+        _, g_p = render_loss_grad(params36, sc, cm,
+                                  st36.replace(fused=ht.Fused.OFF),
+                                  img_p + c36px, 1)
+        route36 = {}
+        for f in ("albedo", "specular", "emissive", "absorption",
+                  "roughness", "metallic", "ior"):
+            route36[f] = _grad_compare(getattr(g_k["materials"], f),
+                                       getattr(g_p["materials"], f))
+        check36[name] = dict(
+            variant=variant, rays=n36, fwd_same=fwd_same, repeat=repeat,
+            sweep_max_abs_err=sweep_err, sweep_worst_ratio=sweep_ratio,
+            sweep_worst_ratio_1e5=tight, lit_bounces=int(lit.sum()),
+            record_rays_held_out=int((~agree).sum()),
+            record_ids_apart=c36["ids"], record_floats_apart=c36["floats"],
+            record_max_rel_err=c36["err"], record_drift=c36["drift"],
+            step_launches=launched,
+            route_vs_plain={k: v[0] for k, v in route36.items()},
+            route_worst_ratio=max(v[1] for v in route36.values()),
+            pixels_apart=int((~agree_px).sum()))
+        print(f"[36] {name} ({variant} recording, B2+l): {n36} rays, "
+              f"{check36[name]['lit_bounces']} lit bounces; outputs with "
+              f"the record == without {fwd_same}; the sweep bitwise "
+              f"repeatable {repeat}, vs sweep_reference max |diff| "
+              f"{sweep_err:.3e}, worst diff/bound {sweep_ratio:.3e} "
+              f"(phase 7's, <= 1; at 1e-5 of the column {tight:.3e}); the "
+              f"record vs the lockstep's on {agree.shape[0]} rays "
+              f"({check36[name]['record_rays_held_out']} held out): ids or "
+              f"masks apart {c36['ids']} (none), floats apart "
+              f"{c36['floats']} {c36['drift']}, max |diff| / (1 + |plain|) "
+              f"{c36['err']:.3e}; render_loss_grad launches (megakernel, "
+              f"recording, replay, sweep) {launched}, vs Fused.OFF max "
+              f"|diff| {check36[name]['route_vs_plain']}, worst diff/bound "
+              f"{check36[name]['route_worst_ratio']:.3e} (<= 1; "
+              f"{check36[name]['pixels_apart']} pixels held out) | {card}",
+              flush=True)
+        assert fwd_same and repeat and rec_ok, name
+        assert sweep_ratio <= 1.0 and check36[name]["lit_bounces"] > 0, name
+        assert launched[1] == launched[3] > 0 and launched[2] == 0, name
+        assert check36[name]["route_worst_ratio"] <= 1.0, name
+        # glow_orbs: the emitters' d emission, which few paths shade
+        if name == "glow_orbs":
+            em = sc.materials.emissive
+            emitters = torch.nonzero(em[:, 3] > 0).flatten()
+            assert float(g_k["materials"].emissive[emitters].abs().amax(
+                dim=1).min()) > 0, name
+
+    # the recording forwards and the light sweep at the launch shapes:
+    # B1e on phase 5's rays (Cornell glossy, 6 bounces) and B1b+e+d on the
+    # glass dragon's (12 bounces), each in turns with its forward without
+    # the record (phase 32's B1e and B1b+e+d); the light sweep (B2+l) over
+    # the Cornell record, beside its plain version; their bounds
+    times36 = {}
+    for name, (sc, cm, st36, r36, base, key) in {
+            "B1e recording": (scene, cam, st_al, (o, d, cam.far, sidx, seed),
+                              "B1e", "megakernel_light_record<"),
+            "B1e+d recording": (dragon, dcam, st_dl,
+                                (o_cam, d_cam, dcam.far, sidx_cam,
+                                 seed_cam), "B1b+e+d",
+                                "megakernel_bvh_light_record<")}.items():
+        tab, lt = mk._scene_tables(sc), mk.light_table(sc)
+        n36 = r36[0].shape[0]
+        rec = mk.empty_record(n36, st36, False, dev, True)
+        fns = {"forward": lambda sc=sc, r36=r36, st36=st36, tab=tab, lt=lt:
+               mk.trace_fused_outputs(sc, *r36, st36, tab, None, lt),
+               "recording": lambda sc=sc, r36=r36, st36=st36, tab=tab,
+               lt=lt, rec=rec: mk.trace_fused_outputs(
+                   sc, *r36, st36, tab, None, lt, record=rec)}
+        turns = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                fns[k]()
+                turns[k].append(_cuda_ms(fns[k], 5))
+        dev_ms = profiled_ms(fns["recording"], key, reps=5)
+        small = slice(0, 16384) if mk.uses_bvh(sc) else slice(None)
+        sub = [x[small] if x.dim() else x for x in r36]
+        plain = lambda sc=sc, sub=sub, st36=st36: (
+            adj.record_transcript_reference(sc, *sub, st36))
+        p_ms = [_cuda_ms(plain, 1), _cuda_ms(plain, 1)]
+        out_rec = fns["recording"]()
+        c36 = _record_vs_plain(sc, st36, sub, mk.Record(*(
+            None if t is None else (t[small] if t.dim() == 1 else t[:, small])
+            for t in rec)), out_rec[small])
+        shaded = int((rec.end.to(torch.int64) & 0xFFFF).sum())
+        words = adj.record_words(sc, st36)
+        t_b = times32[base]
+        written = shaded * 4 * words + 4 * n36
+        bound = _bound(t_b["bytes"] + written, t_b["ops"])
+        times36[name] = dict(
+            ms=turns["recording"], forward_ms=turns["forward"],
+            device_ms=dev_ms, plain_ms=p_ms, plain_rays=int(sub[0].shape[0]),
+            err=c36["err"], ids_apart=c36["ids"], floats_apart=c36["floats"],
+            bound=bound, shaded=shaded, record_written_bytes=written,
+            record_bytes=adj.record_bytes(sc, st36, n36),
+            res=res[f"{base} record"], forward_res=res[base], timed=base)
+        print(f"[36] {name} ({base} with the record) at {n36} rays, "
+              f"{st36.max_bounces} bounces: ms (events, in turns) {turns}, "
+              f"{ms4(dev_ms)} ms (device); registers, spill bytes "
+              f"{res[f'{base} record']} (without the record {res[base]}); "
+              f"its plain version (record_transcript_reference) at "
+              f"{sub[0].shape[0]} rays {p_ms} ms, ids or masks apart "
+              f"{c36['ids']}, floats apart {c36['floats']}, max |diff| / "
+              f"(1 + |plain|) {c36['err']:.3e}; {shaded} shaded bounces, "
+              f"record {times36[name]['record_bytes'] / 1e6:.1f} MB a "
+              f"launch; bound {bound[0]:.4f} ms by {bound[1]} | {card}",
+              flush=True)
+        assert c36["ids"] == 0, name
+        if name == "B1e recording":
+            rec_c, ct_c = rec, torch.rand((n36, 3), generator=g36).to(dev)
+            sc_c, st_c36, tab_c = sc, st36, tab
+    sweep36 = lambda: adj._launch(sc_c, None, None, None, None, None, ct_c,
+                                  st_c36, tab_c, record=rec_c)
+    sweep36_plain = lambda: adj.sweep_reference(
+        sc_c, st_c36, rec_c, torch.cat([ct_c, torch.zeros(
+            (ct_c.shape[0], 4), device=dev)], dim=1))
+    got36, ref36 = sweep36(), sweep36_plain()[0]
+    err36, ratio36 = _grad_compare(got36, ref36)
+    assert ratio36 <= 1.0 and torch.equal(got36, sweep36())
+    sweep36()
+    s_ms = [_cuda_ms(sweep36, 5), _cuda_ms(sweep36, 5)]
+    s_dev = profiled_ms(sweep36, "adjoint_sweep<", reps=5)
+    sp_ms = [_cuda_ms(sweep36_plain, 1), _cuda_ms(sweep36_plain, 1)]
+    # the sweep's bound, counted as phase 28's: the words of the shaded
+    # bounces, a ray's end word and cotangent, the table, the partials and
+    # the result, against its flops (the light term's too)
+    n_c = ct_c.shape[0]
+    shaded_c = times36["B1e recording"]["shaded"]
+    kmat = sc_c.materials.count
+    blocks = -(-n_c // adj.THREADS)
+    sweep_bytes = (shaded_c * 4 * adj.record_words(sc_c, st_c36)
+                   + n_c * (4 + 12) + 4 * kmat * 17
+                   + 4 * (blocks + 1) * kmat * 12)
+    bound36 = _bound(sweep_bytes, shaded_c * (OPS_SWEEP + OPS_SWEEP_LIGHT))
+    times36["B2+l"] = dict(
+        ms=s_ms, device_ms=s_dev, plain_ms=sp_ms, err=err36, ratio=ratio36,
+        bound=bound36, shaded=shaded_c, res=res["B2+l sweep"],
+        ops_ms=shaded_c * (OPS_SWEEP + OPS_SWEEP_LIGHT) / PEAK_FLOPS * 1e3,
+        bytes=sweep_bytes)
+    print(f"[36] B2+l, the light sweep over the Cornell glossy record "
+          f"({n_c} rays, {shaded_c} shaded bounces): {s_ms} ms (events), "
+          f"{ms4(s_dev)} ms (device); registers, spill bytes "
+          f"{res['B2+l sweep']}; plain (sweep_reference) {sp_ms} ms, max "
+          f"|diff| {err36:.3e}, worst diff/bound {ratio36:.3e}; bound "
+          f"{bound36[0]:.4f} ms by {bound36[1]} (its flops alone "
+          f"{times36['B2+l']['ops_ms']:.4f} ms) | {card}", flush=True)
+
+    # the full-width fwd+bwd steps with light NEE: bench.py's Cornell step
+    # (256x256, 256 spp, 6 bounces), glow_orbs so, the glass dragon (512x512,
+    # 32 spp, 12 bounces); each a warm-up and 2 timed steps, every group a
+    # recording forward and a light sweep, no replay
+    orbs36 = light32["glow_orbs"][1]
+    st36l = st9.replace(light_importance_sampling=True)
+    zeros36 = torch.zeros((256, 256, 3), device=dev)
+    zeros36d = torch.zeros((st_dl.height, st_dl.width, 3), device=dev)
+    jobs36 = {  # name: (scene, camera, settings, target)
+        "cornell_glossy_256_fwd_bwd_light": (scene, cam, st36l, zeros36),
+        "glow_orbs_256_fwd_bwd_light": (orbs36, cam, st36l, zeros36),
+        "glass_dragon_512_fwd_bwd_light": (dragon, dcam, st_dl, zeros36d),
+    }
+    steps36 = {}
+    for name, (sc, cm, st36, tgt) in jobs36.items():
+        fn = (lambda f, sc=sc, cm=cm, st36=st36, tgt=tgt: render_loss_grad(
+            {"materials": sc.materials}, sc, cm, st36, tgt, f))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dt36, counts, outs = timed_steps(fn, 2)
+        torch.cuda.synchronize()
+        peak36 = torch.cuda.max_memory_allocated()
+        prof36 = _profile_step(lambda: fn(3), dt36 * 1e3)
+        for loss, grads in outs:
+            assert bool(torch.isfinite(loss)), name
+            for f in dataclasses.fields(grads["materials"]):
+                g = getattr(grads["materials"], f.name)
+                assert bool(torch.isfinite(g.float()).all()), (name, f.name)
+        assert (counts["megakernel"] == counts["record"] == counts["sweep"]
+                > 0 and counts["adjoint"] == 0), (name, counts)
+        mr36 = st36.samples_per_pixel * st36.num_pixels / dt36 / 1e6
+        steps36[name] = dict(step_ms=dt36 * 1e3, mrays_fwd_bwd=mr36,
+                             launches=counts, profile=prof36,
+                             peak_bytes=peak36,
+                             record_bytes=adj.record_bytes(
+                                 sc, st36, 262144) * counts["record"] // 3)
+        print(f"[36] {name} {st36.width}x{st36.height} "
+              f"{st36.samples_per_pixel} spp {st36.max_bounces} bounces: "
+              f"{counts} launches in 3 steps; step {dt36 * 1e3:.1f} ms = "
+              f"{mr36:.3f} Mrays/s (fwd+bwd); {_profile_text(prof36)}; "
+              f"records {steps36[name]['record_bytes'] / 1e9:.2f} GB a step, "
+              f"peak memory {peak36 / 2**30:.3f} GiB | {card}", flush=True)
+
+    # a 10-step fit of glow_orbs with light NEE at 256x256 from a perturbed
+    # albedo and emission: the held-out loss must fall
+    st36f = st36l.replace(samples_per_pixel=16)
+    target36 = ht.render_frame(orbs36, cam, st36f, 0)
+    mats36 = orbs36.materials
+    pert36 = dataclasses.replace(
+        mats36, albedo=torch.clamp(mats36.albedo * 0.5 + 0.2, 0.0, 1.0),
+        emissive=torch.cat([mats36.emissive[:, :3] * 0.7,
+                            mats36.emissive[:, 3:]], dim=1))
+    before = counts32()
+    marks36 = [time.perf_counter()]
+    fitted36, losses36 = fit_materials(
+        dataclasses.replace(orbs36, materials=pert36), cam, st36f, target36,
+        steps=10, lr=5e-2,
+        callback=lambda i, p, l: marks36.append(time.perf_counter()))
+    fit_launched = tuple(a - b for a, b in zip(counts32(), before))
+    held36 = {k: float(np.mean([float(render_loss(
+        {"materials": m}, orbs36, cam, st36f, target36, f))
+        for f in range(1000, 1004)]))
+        for k, m in (("perturbed", pert36), ("fitted", fitted36["materials"]),
+                     ("true", mats36))}
+    fit36_ms = float(np.median(np.diff(marks36))) * 1e3
+    print(f"[36] fit_materials with light NEE, glow_orbs at 256x256 16 spp, "
+          f"10 steps: launches (megakernel, recording, replay, sweep) "
+          f"{fit_launched}; loss {losses36[0]:.6e} -> {losses36[-1]:.6e}; "
+          f"held-out loss {held36}; median step {fit36_ms:.1f} ms; phase 36 "
+          f"took {time.perf_counter() - t36:.1f} s | {card}", flush=True)
+    assert np.isfinite(losses36).all()
+    assert fit_launched[2] == 0 and fit_launched[3] > 0
+    assert held36["fitted"] < held36["perturbed"], (
+        "the light-NEE fit did not lower the loss")
 
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
@@ -3806,6 +4190,67 @@ def main() -> int:
             frame_cuda_launches=m33["profile"]["cuda_launches"],
             frame_device_busy_ms=m33["profile"]["busy_ms"],
             frame_device_idle_share=m33["profile"]["idle_share"]))
+    # B2+l: the recording B1e and B1e+d (timed on B1e's and B1b+e+d's
+    # rays, in turns with them without the record) and the light sweep,
+    # which the light-NEE fwd+bwd steps of phase 36 launch
+    for name, path in (("B1e recording", "cornell_glossy_256_fwd_bwd_light"),
+                       ("B1e+d recording",
+                        "glass_dragon_512_fwd_bwd_light")):
+        t, step36 = times36[name], steps36[path]
+        bounds[name] = t["bound"]
+        kernels.append(entry(
+            name, lnee, mega, step36["launches"]["record"], t["err"],
+            t["ms"], t["plain_ms"], registers=t["res"][0],
+            spill_store_bytes=t["res"][1],
+            timed_variant=f"{t['timed']} record", device_ms=t["device_ms"],
+            forward_ms=float(np.mean(t["forward_ms"])),
+            forward_registers=t["forward_res"][0],
+            plain_version="adjoint.record_transcript_reference",
+            plain_rays=t["plain_rays"], record_ids_apart=t["ids_apart"],
+            record_floats_apart=t["floats_apart"],
+            shaded_bounces=t["shaded"],
+            record_bytes_per_launch=t["record_bytes"],
+            record_written_bytes=t["record_written_bytes"],
+            variant_registers={k: res[k] for k in sorted(
+                light_record_variants)
+                if k.removesuffix(" record").endswith("+d")
+                == name.startswith("B1e+d")},
+            parity=check36, main_path=f"{path} (phase 36)",
+            step_ms=step36["step_ms"],
+            fwd_bwd_mrays_per_s=step36["mrays_fwd_bwd"],
+            step_cuda_launches=step36["profile"]["cuda_launches"],
+            step_device_busy_ms=step36["profile"]["busy_ms"],
+            step_device_idle_share=step36["profile"]["idle_share"],
+            step_peak_bytes=step36["peak_bytes"],
+            step_record_bytes=step36["record_bytes"]))
+    t = times36["B2+l"]
+    bounds["B2+l"] = t["bound"]
+    step36 = steps36["cornell_glossy_256_fwd_bwd_light"]
+    kernels.append(entry(
+        "B2+l", "halogen_tpu/kernels/adjoint.py:80", adjs,
+        step36["launches"]["sweep"], t["err"], t["ms"], t["plain_ms"],
+        registers=t["res"][0], spill_store_bytes=t["res"][1],
+        kernel="adjoint_sweep<*, *, true>", transcript_route="recorded",
+        extends="halogen_tpu/integrator/trace.py:332",
+        device_ms=t["device_ms"],
+        plain_version="adjoint.sweep_reference", worst_ratio=t["ratio"],
+        bound_ops_ms=t["ops_ms"], bound_bytes=t["bytes"],
+        shaded_bounces=t["shaded"],
+        variant_registers={k: res[k] for k in sorted(light_sweep_variants)},
+        parity={k: dict(sweep_max_abs_err=v["sweep_max_abs_err"],
+                        route_worst_ratio=v["route_worst_ratio"])
+                for k, v in check36.items()},
+        main_path="cornell_glossy_256_fwd_bwd_light (phase 36)",
+        steps={k: dict(step_ms=v["step_ms"],
+                       fwd_bwd_mrays_per_s=v["mrays_fwd_bwd"],
+                       launches=v["launches"],
+                       cuda_launches=v["profile"]["cuda_launches"],
+                       device_busy_ms=v["profile"]["busy_ms"],
+                       device_idle_share=v["profile"]["idle_share"],
+                       peak_bytes=v["peak_bytes"],
+                       record_bytes=v["record_bytes"])
+               for k, v in steps36.items()},
+        fit_held_out_loss=held36, fit_step_ms_median=fit36_ms))
     print(f"[24] chip_smoke took {time.perf_counter() - t_main:.1f} s "
           f"after its imports", flush=True)
     print(json.dumps({"kernels": kernels}))

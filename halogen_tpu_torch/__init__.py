@@ -11,8 +11,9 @@ The port so far covers the forward render of opaque and nested-dielectric
 estimation, with or without area-light next-event estimation, up to
 200,000 triangles (per-mesh and world BVHs, a world-BVH traversal kernel
 and the megakernel's BVH tier); material and envmap gradients and the
-fitting loop (`halogen_tpu_torch.diff`), on the card for every scene but
-those with area-light NEE (ROADMAP B2+l); and the command line,
+fitting loop (`halogen_tpu_torch.diff`), on the card for every scene it
+renders (with area-light NEE through the record route alone: a step whose
+records pass the budget raises, ROADMAP A13); and the command line,
 `python -m halogen_tpu_torch.cli`. Debug views, sharded rendering and
 the wavefront scheduler raise (see ROADMAP.md). The entry points build on
 the card unless the caller passes `device="cpu"`.

@@ -8,6 +8,7 @@ Usage:
     python -m halogen_tpu_torch.cli render --scene cornell --light-nee
     python -m halogen_tpu_torch.cli bench --preset cornell_glossy_512
     python -m halogen_tpu_torch.cli fit --steps 50 --out fitted.png
+    python -m halogen_tpu_torch.cli fit --light-nee --steps 3 --width 64
     python -m halogen_tpu_torch.cli debug-sobol --out sobol.png
 
 Every command runs on the card (`--device cuda`, the default) unless it is

@@ -27,12 +27,18 @@
 //     block fits `adjoint.SMEM_BUDGET`;
 //   global (`<*, false, *, *>`): the same replay with the transcript in a
 //     device buffer of the same layout, past that budget;
-//   record (`adjoint_sweep<kTransmissive, kEnv>`): no replay.
+//   record (`adjoint_sweep<kTransmissive, kEnv, kLight>`): no replay.
 //     The forward kernel recorded the transcript as it traced
 //     (megakernel.cu `megakernel_record`, `megakernel_bvh_record`,
 //     path_common.cuh `RecordView`). Both tiers take it where a step's
 //     records fit `adjoint.RECORD_BUDGET` (`adjoint.record_plan`), else
-//     they replay.
+//     they replay. With area-light NEE (kLight, B2+l; the JAX package
+//     differentiates it by its lockstep vjp, `trace.py:200-229, 332-432`)
+//     the record route is the only one: the forward's recording variants
+//     (`megakernel_light_record`, `megakernel_bvh_light_record`) also
+//     record each hit's emission weight and the light term's factors and
+//     material, 16 bytes more a bounce, and the sweep adds the light's d
+//     emission under a third key; past the budget such a step raises.
 // All three give the same bits. On the replay routes, for every path it
 //   1. replays the forward kernel's path through the same `path_bounce`
 //      (path_common.cuh; with the same switches as the forward variant),
@@ -226,17 +232,20 @@ struct RecordWords {
   float4 nq = {0.0f, 0.0f, 0.0f, 0.0f};  // env NEE: q rgb, dterm
   float2 ngw = {0.0f, 0.0f};             // env NEE: gterm, w_fac
   int texel = -1;                        // env NEE: the drawn texel
+  float4 lq = {0.0f, 0.0f, 0.0f, 1.0f};  // light NEE: f, dterm, gterm, em_w
   __device__ __forceinline__ V3 a_prev() const { return {a.x, a.y, a.z}; }
   __device__ __forceinline__ float t_safe() const { return a.w; }
   __device__ __forceinline__ uint32_t word() const { return w; }
   __device__ __forceinline__ V3 nee_q() const { return {nq.x, nq.y, nq.z}; }
   __device__ __forceinline__ float nee_dterm() const { return nq.w; }
   __device__ __forceinline__ float nee_gterm() const { return ngw.x; }
+  __device__ __forceinline__ float4 light_q() const { return lq; }
 };
 
 // Slot k of ray i of the recorded transcript: 16- and 4-byte loads, those
-// of consecutive rays consecutive (and with env NEE 16, 8 and 4 more).
-template <bool kNee>
+// of consecutive rays consecutive (and with env NEE 16, 8 and 4 more; with
+// light NEE 16 more).
+template <bool kNee, bool kLight = false>
 __device__ __forceinline__ RecordWords load_words(const RecordView& rv, int i,
                                                   int k) {
   const size_t s = static_cast<size_t>(k) * rv.n + i;
@@ -248,6 +257,7 @@ __device__ __forceinline__ RecordWords load_words(const RecordView& rv, int i,
     r.ngw = __ldg(rv.ngw + s);
     r.texel = __ldg(rv.texel + s);
   }
+  if constexpr (kLight) r.lq = __ldg(rv.lq + s);
   return r;
 }
 
@@ -268,14 +278,21 @@ __device__ __forceinline__ void store_nee_weight(float* out, const float* m,
 // cotangent gA of the attenuation after the bounce and g_rough that of the
 // accumulated roughness, its columns into g (zeros on entry), gA moved to
 // before the bounce, and the keys of its sums: the hit material `mid` and
-// the Beer material `abid` (-1: none).
-template <bool kTransmissive, int kEnv, typename Words>
+// the Beer material `abid` (-1: none). With kLight (area-light NEE, the
+// record route only; B2+l) the emission is scaled by its balance weight
+// em_w, and the light term a_prev * (albedo * dterm + specular * gterm) *
+// emission(l) * f adds to gA, to the hit material's albedo and specular
+// columns, and, as d emission of the light's material, to gl[0:3] with
+// key `lid` (-1 where no term was added): a third key.
+template <bool kTransmissive, int kEnv, bool kLight = false, typename Words>
 __device__ __forceinline__ void sweep_bounce(const float* mat_tab,
                                              bool use_rr, V3 ct,
                                              const Words& w, V3& gA,
                                              float g_rough,
                                              float (&g)[n_grad(kEnv)],
-                                             int& mid, int& abid) {
+                                             int& mid, int& abid,
+                                             float* gl = nullptr,
+                                             int* lid = nullptr) {
   constexpr bool kNee = kEnv == 2;
   const V3 a_prev = w.a_prev();
   const float t_safe = w.t_safe();
@@ -329,13 +346,24 @@ __device__ __forceinline__ void sweep_bounce(const float* mat_tab,
   // throughput product and emission (adjoint.py:551-574)
   const V3 em = {m[9], m[10], m[11]};
   const V3 g_sc = mul3(gp, a_prev);
-  gA = {gp.x * scf.x + ct.x * em.x, gp.y * scf.y + ct.y * em.y,
-        gp.z * scf.z + ct.z * em.z};
   const V3 g_base = mul3(g_sc, beer);
   const V3 g_beer = mul3(g_sc, base);
-  g[0] = ct.x * a_prev.x;
-  g[1] = ct.y * a_prev.y;
-  g[2] = ct.z * a_prev.z;
+  if constexpr (kLight) {
+    // the emission times its balance weight (trace.py:200-229)
+    const float em_w = w.light_q().w;
+    gA = {gp.x * scf.x + ct.x * em.x * em_w,
+          gp.y * scf.y + ct.y * em.y * em_w,
+          gp.z * scf.z + ct.z * em.z * em_w};
+    g[0] = ct.x * a_prev.x * em_w;
+    g[1] = ct.y * a_prev.y * em_w;
+    g[2] = ct.z * a_prev.z * em_w;
+  } else {
+    gA = {gp.x * scf.x + ct.x * em.x, gp.y * scf.y + ct.y * em.y,
+          gp.z * scf.z + ct.z * em.z};
+    g[0] = ct.x * a_prev.x;
+    g[1] = ct.y * a_prev.y;
+    g[2] = ct.z * a_prev.z;
+  }
   if (surf && spec) {
     g[6] = g_base.x;
     g[7] = g_base.y;
@@ -366,6 +394,30 @@ __device__ __forceinline__ void sweep_bounce(const float* mat_tab,
     g[6] = g[6] + ca.x * gterm;
     g[7] = g[7] + ca.y * gterm;
     g[8] = g[8] + ca.z * gterm;
+  }
+  if constexpr (kLight) {
+    // the light term (trace.py:420-431), after env NEE's as in the forward
+    const float4 lq = w.light_q();
+    const bool lit = (word & kLit) != 0u;
+    const int lmat = static_cast<int>((word >> kLightMatShift) &
+                                      kLightMatMask);
+    const float* lm = mat_tab + lmat * kMatStride;  // 0 where not lit
+    const float f = lq.x, dterm = lq.y, gterm = lq.z;
+    const V3 fr = {m[0] * dterm + m[4] * gterm, m[1] * dterm + m[5] * gterm,
+                   m[2] * dterm + m[6] * gterm};
+    const V3 cf = {ct.x * lm[9] * f, ct.y * lm[10] * f, ct.z * lm[11] * f};
+    gA = {gA.x + cf.x * fr.x, gA.y + cf.y * fr.y, gA.z + cf.z * fr.z};
+    const V3 ca = mul3(cf, a_prev);
+    g[3] = g[3] + ca.x * dterm;
+    g[4] = g[4] + ca.y * dterm;
+    g[5] = g[5] + ca.z * dterm;
+    g[6] = g[6] + ca.x * gterm;
+    g[7] = g[7] + ca.y * gterm;
+    g[8] = g[8] + ca.z * gterm;
+    gl[0] = ct.x * a_prev.x * fr.x * f;
+    gl[1] = ct.y * a_prev.y * fr.y * f;
+    gl[2] = ct.z * a_prev.z * fr.z * f;
+    *lid = lit ? lmat : -1;
   }
   mid = mat;
   abid = absorbing ? ab_mat : -1;
@@ -543,7 +595,11 @@ struct SweepParams {
 // is thread i % 128 of block i / 128, and the sweep, the warp sums and the
 // block partials are adjoint_kernel's (`sweep_bounce`, `warp_sums`), so
 // [K, 12|13] and the env-NEE records are the replay's bit for bit.
-template <bool kTransmissive, int kEnv>
+// kLight (B2+l, area-light NEE, which has no replay): the light term's
+// words too; per bounce the d emission of the drawn lights is summed by
+// light material after the hit and Beer materials' sums, in the same
+// fixed order (lane ranks, then warps, then blocks), with no atomics.
+template <bool kTransmissive, int kEnv, bool kLight>
 __global__ void __launch_bounds__(kThreads) adjoint_sweep(SweepParams p) {
   constexpr int kNG = n_grad(kEnv);
   constexpr bool kNee = kEnv == 2;
@@ -585,14 +641,15 @@ __global__ void __launch_bounds__(kThreads) adjoint_sweep(SweepParams p) {
   const int top = __reduce_max_sync(kFull, n_shaded) - 1;
   RecordWords cur;
   for (int k = top; k >= 0; --k) {
-    if (k < n_shaded) cur = load_words<kNee>(p.rec, i, k);
-    float g[kNG];
+    if (k < n_shaded) cur = load_words<kNee, kLight>(p.rec, i, k);
+    float g[kNG], gl[kNG];
 #pragma unroll
-    for (int j = 0; j < kNG; ++j) g[j] = 0.0f;
-    int mid = -1, abid = -1;
+    for (int j = 0; j < kNG; ++j) g[j] = gl[j] = 0.0f;
+    int mid = -1, abid = -1, lid = -1;
     if (k < n_shaded) {
-      sweep_bounce<kTransmissive, kEnv>(mat, p.use_rr, ct, cur, gA, g_rough,
-                                        g, mid, abid);
+      sweep_bounce<kTransmissive, kEnv, kLight>(mat, p.use_rr, ct, cur, gA,
+                                                g_rough, g, mid, abid, gl,
+                                                &lid);
       if constexpr (kNee) {
         const size_t slot = static_cast<size_t>(i) * p.slots + k;
         p.nee_key[slot] = cur.texel;
@@ -603,6 +660,9 @@ __global__ void __launch_bounds__(kThreads) adjoint_sweep(SweepParams p) {
       }
     }
     warp_sums<kTransmissive, kEnv>(mid, abid, g, acc);
+    if constexpr (kLight) {
+      if (__any_sync(kFull, lid >= 0)) warp_sum_by_key<0, 3>(lid, gl, acc);
+    }
   }
 
   // the block's partial table: its warps' tables added in warp order
@@ -659,9 +719,15 @@ cudaError_t launch_tier(bool bvh, int env, const Params& p, int blocks,
 }
 
 template <bool kTransmissive, int kEnv>
-cudaError_t launch_sweep(const SweepParams& p, int blocks, size_t smem,
-                         cudaStream_t st) {
-  adjoint_sweep<kTransmissive, kEnv><<<blocks, kThreads, smem, st>>>(p);
+cudaError_t launch_sweep(const SweepParams& p, bool light, int blocks,
+                         size_t smem, cudaStream_t st) {
+  if (light) {
+    adjoint_sweep<kTransmissive, kEnv, true>
+        <<<blocks, kThreads, smem, st>>>(p);
+  } else {
+    adjoint_sweep<kTransmissive, kEnv, false>
+        <<<blocks, kThreads, smem, st>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -743,13 +809,14 @@ extern "C" int halogen_adjoint_launch(
 // The record route: the sweep over the transcript a forward launch of the
 // megakernel recorded on these n rays (`rec_*`, path_common.cuh
 // `RecordView`, for max_bounces + 1 slots), then the block sums. `env`,
-// `gsky`, `nee_key` and `nee_w` as for halogen_adjoint_launch.
+// `gsky`, `nee_key` and `nee_w` as for halogen_adjoint_launch. `light`:
+// area-light NEE (B2+l), whose record has `rec_lq` [B + 1, n] float4.
 extern "C" int halogen_adjoint_sweep(
     const float* mat, const float* ct, const float* gsky, float* rec_a,
     int* rec_word, float* rec_nq, float* rec_ngw, int* rec_texel,
-    int* rec_end, float* partial, float* out, int* nee_key, float* nee_w,
-    int n, int num_materials, int max_bounces, int use_rr, int transmissive,
-    int env, void* stream) {
+    int* rec_end, float* rec_lq, float* partial, float* out, int* nee_key,
+    float* nee_w, int n, int num_materials, int max_bounces, int use_rr,
+    int transmissive, int env, int light, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_materials > kMaxMaterials || max_bounces < 0 || env < 0 || env > 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -758,7 +825,7 @@ extern "C" int halogen_adjoint_sweep(
     return static_cast<int>(
         cudaMemsetAsync(out, 0, sizeof(float) * n_acc, st));
   if (rec_a == nullptr || rec_word == nullptr || rec_end == nullptr ||
-      (env >= 1 && gsky == nullptr) ||
+      (env >= 1 && gsky == nullptr) || (light && rec_lq == nullptr) ||
       (env == 2 && (rec_nq == nullptr || rec_ngw == nullptr ||
                     rec_texel == nullptr || nee_key == nullptr ||
                     nee_w == nullptr)))
@@ -773,7 +840,8 @@ extern "C" int halogen_adjoint_sweep(
            reinterpret_cast<float2*>(rec_ngw),
            rec_texel,
            reinterpret_cast<uint32_t*>(rec_end),
-           n};
+           n,
+           reinterpret_cast<float4*>(rec_lq)};
   p.partial = partial;
   p.nee_key = nee_key;
   p.nee_w = nee_w;
@@ -786,14 +854,15 @@ extern "C" int halogen_adjoint_sweep(
                                        static_cast<size_t>(kWarps) * n_acc);
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaError_t err;
+  const bool lt = light != 0;
   if (transmissive) {
-    err = env == 2   ? launch_sweep<true, 2>(p, blocks, smem, st)
-          : env == 1 ? launch_sweep<true, 1>(p, blocks, smem, st)
-                     : launch_sweep<true, 0>(p, blocks, smem, st);
+    err = env == 2   ? launch_sweep<true, 2>(p, lt, blocks, smem, st)
+          : env == 1 ? launch_sweep<true, 1>(p, lt, blocks, smem, st)
+                     : launch_sweep<true, 0>(p, lt, blocks, smem, st);
   } else {
-    err = env == 2   ? launch_sweep<false, 2>(p, blocks, smem, st)
-          : env == 1 ? launch_sweep<false, 1>(p, blocks, smem, st)
-                     : launch_sweep<false, 0>(p, blocks, smem, st);
+    err = env == 2   ? launch_sweep<false, 2>(p, lt, blocks, smem, st)
+          : env == 1 ? launch_sweep<false, 1>(p, lt, blocks, smem, st)
+                     : launch_sweep<false, 0>(p, lt, blocks, smem, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_blocks<<<n_acc, kReduceThreads, 0, st>>>(partial, blocks, n_acc, out);

@@ -34,11 +34,16 @@
 //       where a gradient follows on the record route (`kernels/adjoint.py`
 //       record_plan): each shaded bounce also writes the transcript the
 //       adjoint's sweep reads (`RecordView`, path_common.cuh; 20 bytes, 48
-//       with env NEE) and each path one word, so that the backward
-//       (adjoint.cu `adjoint_sweep`) need not trace the path again. The
-//       stores are indexed by ray and slot-major: coalesced where a thread
-//       holds one ray (the BVH tier's glass variants), scattered where
-//       lanes refill (every brute-tier variant).
+//       with env NEE, 16 more with light NEE) and each path one word, so
+//       that the backward (adjoint.cu `adjoint_sweep`) need not trace the
+//       path again. The stores are indexed by ray and slot-major: coalesced
+//       where a thread holds one ray (the BVH tier's glass variants),
+//       scattered where lanes refill (every brute-tier variant). With
+//       area-light NEE the recording kernels are kernels of their own,
+//       `megakernel_light_record` and `megakernel_bvh_light_record` (B2+l's
+//       forward): they also write the emission's MIS weight at each hit and
+//       the light term's factors and material (the JAX package
+//       differentiates light NEE only through its lockstep).
 // The sky itself is shaded after the kernel, once per ray, from the miss
 // record (`kernels/megakernel.py`), as the Pallas wrapper does.
 //
@@ -269,7 +274,7 @@ __device__ __forceinline__ void trace_path(const Params& p) {
               kProbe ? &probe : nullptr);
       const bool shaded = res == kShadedEnded || res == kShadedGoesOn;
       if constexpr (kRecord) {
-        if (shaded) record_bounce<kEnvNee>(p.rec, ray, k, rec);
+        if (shaded) record_bounce<kEnvNee, kLightNee>(p.rec, ray, k, rec);
       }
       ++k;
       if (res != kShadedGoesOn || k > cfg.max_bounces) {
@@ -328,6 +333,19 @@ __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
   trace_path<kTransmissive, kEnvNee, true, true>(p);
 }
 
+// Light NEE recording the adjoint's transcript with the light term (B1e
+// and B1e+d with kRecord; B2+l's forward).
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads) megakernel_light_record(Params p) {
+  trace_path<kTransmissive, kEnvNee, false, true, true>(p);
+}
+
+template <bool kTransmissive, bool kEnvNee>
+__global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
+    megakernel_bvh_light_record(Params p) {
+  trace_path<kTransmissive, kEnvNee, true, true, true>(p);
+}
+
 // B1e+d without env NEE counting its light shadow walks (the probe).
 template <bool kTransmissive>
 __global__ void __launch_bounds__(kThreads, kBvhMinBlocks)
@@ -368,6 +386,13 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem,
 template <bool kTransmissive, bool kEnvNee>
 cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
                         size_t smem, cudaStream_t st) {
+  if (record && light) {
+    if (bvh)
+      return launch(megakernel_bvh_light_record<kTransmissive, kEnvNee>, p,
+                    smem, st);
+    return launch(megakernel_light_record<kTransmissive, kEnvNee>, p, smem,
+                  st);
+  }
   if (record) {
     if (bvh)
       return launch(megakernel_bvh_record<kTransmissive, kEnvNee>, p, smem,
@@ -403,10 +428,11 @@ cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
 // ([1] int32, zero) selects persistent warps that refill; null: one ray
 // a thread. With light_nee, `light_rows` [num_lights, 16] and `light_dens`
 // [num_tris + num_spheres] (`LightView`). `rec_a` not null: record the
-// adjoint's transcript (either tier, without light NEE): `rec_a` [B + 1,
-// n] float4, `rec_word` [B + 1, n], `rec_end` [n], with env NEE also
-// `rec_nq` [B + 1, n] float4, `rec_ngw` [B + 1, n] float2 and `rec_texel`
-// [B + 1, n] (`RecordView`). `probe` not null (either tier, with light NEE
+// adjoint's transcript (either tier): `rec_a` [B + 1, n] float4,
+// `rec_word` [B + 1, n], `rec_end` [n], with env NEE also `rec_nq` [B + 1,
+// n] float4, `rec_ngw` [B + 1, n] float2 and `rec_texel` [B + 1, n], with
+// light NEE `rec_lq` [B + 1, n] float4 (`RecordView`). `probe` not null
+// (either tier, with light NEE
 // and without env NEE): the light-NEE probe, [n, kProbeWords] counters,
 // `probe_mode` a `ProbeMode`.
 extern "C" int halogen_megakernel_launch(
@@ -416,7 +442,7 @@ extern "C" int halogen_megakernel_launch(
     const float* cam, const long long* pix, const int* frame, int* counter,
     const float* light_rows, const float* light_dens, float* rec_a,
     int* rec_word, float* rec_nq, float* rec_ngw, int* rec_texel,
-    int* rec_end, int* probe, int n, int num_tris,
+    int* rec_end, float* rec_lq, int* probe, int n, int num_tris,
     int num_spheres, int num_materials, int max_bounces, int lim_d,
     int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
     int env_nee, int env_h, int env_w, int use_bvh, int width, int height,
@@ -436,10 +462,10 @@ extern "C" int halogen_megakernel_launch(
   if (use_bvh && nodes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool record = rec_a != nullptr;
-  if (record && (light_nee || rec_word == nullptr ||
-                 rec_end == nullptr ||
+  if (record && (rec_word == nullptr || rec_end == nullptr ||
                  (env_nee && (rec_nq == nullptr || rec_ngw == nullptr ||
-                              rec_texel == nullptr))))
+                              rec_texel == nullptr)) ||
+                 (light_nee && rec_lq == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (probe != nullptr &&
       (!light_nee || env_nee || record || probe_mode < 0 ||
@@ -467,7 +493,8 @@ extern "C" int halogen_megakernel_launch(
            reinterpret_cast<float2*>(rec_ngw),
            rec_texel,
            reinterpret_cast<uint32_t*>(rec_end),
-           n};
+           n,
+           reinterpret_cast<float4*>(rec_lq)};
   p.probe = probe;
   p.probe_mode = probe_mode;
   p.counter = counter;

@@ -426,6 +426,12 @@ struct PathState {
 // the draw's pdf (w_fac) and the diffuse and glossy factors of the BRDF
 // (dterm, gterm), so that the contribution is
 // a_prev * (albedo * dterm + specular * gterm) * radiance * w_fac.
+// With area-light NEE also the balance weight of the emission at this hit
+// (em_w, 1 where light NEE did not cover the previous scatter) and the
+// light term, if its shadow ray reached the drawn light (l_mat >= 0): the
+// light's material, f = w_l / pdf_sa and the BRDF's factors, so that the
+// term is a_prev * (albedo * l_dterm + specular * l_gterm) * emission(l_mat)
+// * l_f.
 struct BounceRecord {
   V3 a_prev;
   int mat, ab_mat;
@@ -434,6 +440,9 @@ struct BounceRecord {
   int nee_texel;
   V3 nee_rad;
   float nee_wfac, nee_dterm, nee_gterm;
+  float em_w;
+  int l_mat;
+  float l_f, l_dterm, l_gterm;
 };
 
 enum BounceResult {
@@ -460,6 +469,19 @@ __device__ __forceinline__ uint32_t pack_bounce(const BounceRecord& r) {
          (r.refr ? kRefr : 0u);
 }
 
+// With area-light NEE the word's free bits also hold the light term's
+// material (bits 21-26: materials are capped at 64) and whether the term
+// was added (kLit); both 0 where it was not.
+constexpr int kLightMatShift = 21;
+constexpr uint32_t kLightMatMask = 0x3fu;
+constexpr uint32_t kLit = 1u << 27;
+
+__device__ __forceinline__ uint32_t pack_light(const BounceRecord& r) {
+  return r.l_mat >= 0 ? (static_cast<uint32_t>(r.l_mat) << kLightMatShift) |
+                            kLit
+                      : 0u;
+}
+
 // The transcript a forward kernel records for the sweep-only adjoint
 // (adjoint.cu `adjoint_sweep`): per shaded bounce what the replay would
 // rebuild, slot-major, so that the sweep's loads of one slot by
@@ -473,18 +495,28 @@ struct RecordView {
   int* texel = nullptr;      // env NEE: the drawn texel, -1 none
   uint32_t* end = nullptr;   // [n]: shaded bounces | missed << 31
   int n = 0;
+  float4* lq = nullptr;      // light NEE: l_f, l_dterm, l_gterm, em_w
 };
 
 constexpr uint32_t kEndMissed = 1u << 31;
 
 // Bounce k of ray i into `rv`. The NEE words of a bounce whose draw did
-// not reach the sky are zeros (the replay's transcript holds the same).
-template <bool kEnvNee>
+// not reach the sky are zeros (the replay's transcript holds the same);
+// with light NEE so are the light term's three factors where it was not
+// added (em_w is written on every shaded bounce).
+template <bool kEnvNee, bool kLightNee = false>
 __device__ __forceinline__ void record_bounce(const RecordView& rv, int i,
                                               int k, const BounceRecord& r) {
   const size_t s = static_cast<size_t>(k) * rv.n + i;
   rv.a[s] = make_float4(r.a_prev.x, r.a_prev.y, r.a_prev.z, r.t_safe);
-  rv.word[s] = pack_bounce(r);
+  if constexpr (kLightNee) {
+    rv.word[s] = pack_bounce(r) | pack_light(r);
+    const bool lit = r.l_mat >= 0;
+    rv.lq[s] = make_float4(lit ? r.l_f : 0.0f, lit ? r.l_dterm : 0.0f,
+                           lit ? r.l_gterm : 0.0f, r.em_w);
+  } else {
+    rv.word[s] = pack_bounce(r);
+  }
   if constexpr (kEnvNee) {
     const bool lit = r.nee_texel >= 0;
     rv.nq[s] = lit ? make_float4(r.nee_rad.x * r.nee_wfac,
@@ -909,7 +941,9 @@ __device__ __forceinline__ float emission_weight(const SceneView& sc,
 // to the last), a point on a triangle by area or a direction in a
 // sphere's cone, the shadow ray, the balance heuristic. `hit_tri` and
 // `hit_sph` are the primitive shaded (-1 where none), which is never its
-// own light.
+// own light. Where the term is added, its factors and the light's
+// material go to `rec` for the adjoint (the caller sets rec.l_mat = -1;
+// dead stores in a launch that records nothing).
 template <bool kBvh, bool kProbe = false>
 __device__ __forceinline__ void light_nee(const SceneView& sc,
                                           const LightView& lv,
@@ -919,6 +953,7 @@ __device__ __forceinline__ void light_nee(const SceneView& sc,
                                           V3 refl, float r2, float ps,
                                           const float* m, int hit_tri,
                                           int hit_sph, PathState& s,
+                                          BounceRecord& rec,
                                           LightProbe* pr = nullptr) {
   const float u_sel = sample_1d(cfg.sobol, sidx, kDimLightNeeSel + stride,
                                 seed);
@@ -1002,6 +1037,14 @@ __device__ __forceinline__ void light_nee(const SceneView& sc,
   s.color = {s.color.x + s.atten.x * (m[0] * dterm + m[4] * gterm) * b.x * f,
              s.color.y + s.atten.y * (m[1] * dterm + m[5] * gterm) * b.y * f,
              s.color.z + s.atten.z * (m[2] * dterm + m[6] * gterm) * b.z * f};
+  // the light's material: column 9 of its triangle's normal row (the
+  // tier's order, as `code`) or column 4 of its sphere's row
+  rec.l_mat = static_cast<int>(
+      is_tri ? sc.trin[static_cast<size_t>(idx) * kTrinStride + 9]
+             : sc.sph[idx * kSphStride + 4]);
+  rec.l_f = f;
+  rec.l_dterm = dterm;
+  rec.l_gterm = gterm;
 }
 
 // Advances `s` by bounce k of the path (trace_ray compute:876-950) and
@@ -1121,6 +1164,7 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
     s.color = {s.color.x + em.x * s.atten.x * w,
                s.color.y + em.y * s.atten.y * w,
                s.color.z + em.z * s.atten.z * w};
+    rec.em_w = w;  // for the adjoint (dead code in the forward kernel)
   } else {
     s.color = {s.color.x + em.x * s.atten.x, s.color.y + em.y * s.atten.y,
                s.color.z + em.z * s.atten.z};
@@ -1336,10 +1380,11 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
                             : 0.0f;
       s.prev_nee = covered;
     }
+    rec.l_mat = -1;
     if (surf)
       light_nee<kBvh, kProbe>(sc, lv, cfg, sidx, seed, stride, pos, normal,
                               refl, r2, spec_prob, m, mesh_wins ? tr_i : -1,
-                              mesh_wins ? -1 : sp_i, s, pr);
+                              mesh_wins ? -1 : sp_i, s, rec, pr);
   }
 
   rec.a_prev = s.atten;

@@ -11,12 +11,16 @@ exactly zero; so are roughness's, but where the sky's lookup takes its
 mip level from the accumulated roughness (`mip_importance_bias`).
 
 On a CUDA device each ray group's backward is the adjoint kernel
-(`kernels/adjoint.py`), which replays the paths instead of storing them:
-a step keeps the rays of each group, not a graph of every bounce. On the
-CPU and under `Fused.OFF` autograd runs through the lockstep integrator.
-Area-light NEE's gradient has no adjoint kernel yet (ROADMAP B2+l): on a
-CUDA device `render_loss_grad` and `fit_materials` refuse it before any
-launch; on the CPU autograd runs through the lockstep's light NEE.
+(`kernels/adjoint.py`): where the step's records fit the record budget
+the forward launch records each path's transcript and the backward
+sweeps it; past the budget the backward replays the paths from their
+rays. A step never keeps a graph of every bounce. On the CPU and under
+`Fused.OFF` autograd runs through the lockstep integrator. With
+area-light NEE the card's backward is the record route alone (B2+l): the
+forward records the light term's factors beside the transcript, and the
+sweep gives d emission of each drawn light's material and d albedo and
+d specular of the shaded one; a step whose records pass the budget raises
+before any launch (a light-NEE replay is ROADMAP A13).
 
 Envmap texels are parameters too (`"env_mips"`, a tuple of [H, W, 3] mips,
 finest first): they reach the image through the sky at the miss and, with
@@ -40,7 +44,7 @@ import torch
 from halogen_tpu_torch.config import RenderSettings
 from halogen_tpu_torch.core.types import MaterialTable, SceneData
 from halogen_tpu_torch.integrator.camera import Camera
-from halogen_tpu_torch.integrator.trace import _use_light_nee, render_frame
+from halogen_tpu_torch.integrator.trace import render_frame
 
 # Differentiable (float) fields of the material table; priority is a
 # structural int32 and stays out of the optimization surface.
@@ -90,16 +94,6 @@ def render_loss(params: dict, scene: SceneData, camera: Camera,
     return torch.mean((img - target) ** 2)
 
 
-def _check_light_nee_grad(scene: SceneData, settings: RenderSettings):
-    """Raise where a gradient would need the light-NEE adjoint: on a CUDA
-    device with area-light NEE on (the flag and emitters)."""
-    if scene.device.type == "cuda" and _use_light_nee(scene, settings):
-        raise NotImplementedError(
-            "gradients of area-light NEE on the card need the light-NEE "
-            "adjoint kernel, not ported yet (ROADMAP B2+l); on the CPU "
-            "(device='cpu') autograd runs through the lockstep")
-
-
 def render_loss_grad(params: dict, scene: SceneData, camera: Camera,
                      settings: RenderSettings, target, frame=0):
     """(loss, grads) of `render_loss` with respect to params
@@ -107,7 +101,6 @@ def render_loss_grad(params: dict, scene: SceneData, camera: Camera,
     grads["materials"] is a MaterialTable of float gradients, with int32
     zeros for priority (JAX's float0); grads["env_mips"] a tuple of one
     cotangent per mip."""
-    _check_light_nee_grad(scene, settings)
     mats = params.get("materials", scene.materials)
     leaves = {f: getattr(mats, f).detach().requires_grad_(True)
               for f in FLOAT_MATERIAL_FIELDS}
@@ -229,7 +222,6 @@ def fit_materials(scene: SceneData, camera: Camera,
     if mesh is not None:
         raise NotImplementedError(
             "sharded fits are not ported yet (ROADMAP A11)")
-    _check_light_nee_grad(scene, settings)
 
     params = {"material_params": {
         f: t.detach().clone().requires_grad_(True)

@@ -235,7 +235,8 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
     emission = mat.emissive_rgb * mat.emissive_intensity[:, None]
     lit = emission * carry.attenuation
     if use_lnee:
-        lit = lit * emission_weight(scene, carry, hit)[:, None]
+        em_w = emission_weight(scene, carry, hit)
+        lit = lit * em_w[:, None]
     color = carry.color + torch.where((active & is_hit)[:, None], lit, 0.0)
 
     # --- sampler dims for this bounce (base + 5*k, compute:921)
@@ -301,8 +302,10 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
 
     if use_lnee:
         prev_lnee = covered
-        color = color + light_nee(scene, settings, carry, hit, mat,
-                                  surf_lane, far_eff, mix_pdf, ps, stride)
+        l_contrib, l_term = light_nee(scene, settings, carry, hit, mat,
+                                      surf_lane, far_eff, mix_pdf, ps,
+                                      stride)
+        color = color + l_contrib
 
     # Bounce-type counts (compute:796,807)
     onehot = (torch.arange(3, device=shade_mask.device)[None, :]
@@ -332,8 +335,9 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
             lit = cand & visible
             nee = (torch.where(lit, texel, -1), radiance, w_fac,
                    (1.0 - ps) * cos_l * _INV_PI, ps * p_gl_l)
+        light = (*l_term, em_w) if use_lnee else None
         tape.append(_tape_entry(scene, carry, hit, shaded, shade_mask,
-                                killed, miss, nee))
+                                killed, miss, nee, light))
     miss_attenuation = torch.where(miss[:, None], carry.attenuation,
                                    carry.miss_attenuation)
     miss_pcos = torch.where(miss, carry.prev_pcos, carry.miss_pcos)
@@ -365,7 +369,7 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
 
 
 def _tape_entry(scene: SceneData, carry: Pool, hit, shaded, shade_mask,
-                killed, miss, nee) -> dict:
+                killed, miss, nee, light=None) -> dict:
     """What the adjoint's transcript holds of one bounce, per ray
     (detached; `kernels/adjoint.py` `record_transcript_reference` packs
     it): whether it shaded and whether it missed; the attenuation before
@@ -376,7 +380,10 @@ def _tape_entry(scene: SceneData, carry: Pool, hit, shaded, shade_mask,
     passed through a false hit, whether the hit was a true one, whether
     Russian roulette let the path go on; with env NEE `nee` (the texel
     whose radiance reached the hit, -1 none; its radiance, its weight over
-    the pdf, the BRDF's diffuse and glossy factors)."""
+    the pdf, the BRDF's diffuse and glossy factors); with area-light NEE
+    `light` (whether the light term was added, the light's material, its
+    weight over the pdf f, the BRDF's diffuse and glossy factors, and the
+    emission's balance weight at the hit)."""
     t_safe = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
     if shaded.medium is None:  # opaque: Beer-Lambert exiting the hit
         absorbing = ~(hit.orientation > 0)
@@ -390,7 +397,7 @@ def _tape_entry(scene: SceneData, carry: Pool, hit, shaded, shade_mask,
                  a_prev=carry.attenuation, t=t_safe, mat=hit.material,
                  ab_mat=ab_mat, absorbing=absorbing, spec=shaded.lobe == 1,
                  refr=shaded.bounce_type == 2, true_hit=true_hit,
-                 survive=~killed, nee=nee)
+                 survive=~killed, nee=nee, light=light)
     return {k: (tuple(x.detach() for x in v) if isinstance(v, tuple)
                 else None if v is None else v.detach())
             for k, v in entry.items()}
@@ -421,12 +428,16 @@ def emission_weight(scene: SceneData, carry: Pool, hit) -> torch.Tensor:
 
 
 def light_nee(scene: SceneData, settings: RenderSettings, carry: Pool, hit,
-              mat, surf_lane, far_eff, mix_pdf, ps, stride) -> torch.Tensor:
-    """[N, 3] area-light NEE term of one bounce (JAX `trace.py:332-431`):
-    one emissive triangle or sphere chosen by the power CDF, a point on a
-    triangle by area or a direction in a sphere's cone, a shadow ray whose
-    closest hit must be the light itself or lie past 0.999 of its
-    distance, and the balance heuristic against the continuation pdf."""
+              mat, surf_lane, far_eff, mix_pdf, ps, stride):
+    """([N, 3] area-light NEE term of one bounce, its factors) (JAX
+    `trace.py:332-431`): one emissive triangle or sphere chosen by the
+    power CDF, a point on a triangle by area or a direction in a sphere's
+    cone, a shadow ray whose closest hit must be the light itself or lie
+    past 0.999 of its distance, and the balance heuristic against the
+    continuation pdf. The term is a_prev * (albedo * dterm + specular *
+    gterm) * emission(lmat) * f; the factors, detached, are (where it was
+    added [N] bool, lmat [N], f = w_l / pdf, dterm, gterm), for the
+    adjoint's transcript."""
     s1, s2 = _sampler_1d(settings), _sampler_2d(settings)
     u_sel = s1(carry.sample_idx, sob.DIM_LIGHT_NEE_SEL + stride, carry.seed)
     pu, pv = s2(carry.sample_idx, sob.DIM_LIGHT_NEE_POINT + stride,
@@ -500,11 +511,15 @@ def light_nee(scene: SceneData, settings: RenderSettings, carry: Pool, hit,
     l_em = l_emissive[:, :3] * l_emissive[:, 3][:, None]
     p_mix, p_gl = mix_pdf(wi, cos_s)
     w_l = pdf_sa / torch.clamp_min(pdf_sa + p_mix, 1e-12)
-    f_cos = (mat.albedo * ((1.0 - ps) * cos_s * _INV_PI)[:, None]
-             + mat.specular * (ps * p_gl)[:, None])
-    contrib = (carry.attenuation * f_cos * l_em
-               * (w_l / torch.clamp_min(pdf_sa, 1e-12))[:, None])
-    return torch.where((cand & visible)[:, None], contrib, 0.0)
+    dterm = (1.0 - ps) * cos_s * _INV_PI
+    gterm = ps * p_gl
+    f_cos = mat.albedo * dterm[:, None] + mat.specular * gterm[:, None]
+    f = w_l / torch.clamp_min(pdf_sa, 1e-12)
+    contrib = carry.attenuation * f_cos * l_em * f[:, None]
+    lit = cand & visible
+    term = (lit, lmat, f, dterm, gterm)
+    return (torch.where(lit[:, None], contrib, 0.0),
+            tuple(x.detach() for x in term))
 
 
 class TraceOut(NamedTuple):

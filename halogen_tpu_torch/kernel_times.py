@@ -57,7 +57,13 @@ The launch shapes, 262144 rays each (`chip_smoke.py`'s phases):
     sweep`, `B2c sweep`, `B2c+n sweep`) on the rays and cotangents of the
     replay's jobs of the same names, and B1e+d's light-NEE probe on
     B1b+e+d's rays, the shadow walks alone (`B1b+e+d probe: closest only`,
-    `kernel only`, the any-hit walk, `no test`: every draw visible); and the sky pair on the `envmap_1024` rays' outputs (`sky forward`; `sky
+    `kernel only`, the any-hit walk, `no test`: every draw visible); where
+    the tree records area-light NEE (B2+l), the recording forwards `B1e
+    record` (B1e's rays), `B1e+d record` and `B1b+e+d record` (B1e+d's and
+    B1b+e+d's) and the light sweeps over their records, `B2+l sweep`,
+    `B2+l glow_orbs sweep` (B1e glow_orbs' rays), `B2+l+d sweep` and
+    `B2b+l+d sweep`; and the sky pair on the `envmap_1024` rays' outputs
+    (`sky forward`; `sky
     backward`, its taps, the ordering by texel and the per-texel sums),
     and the backward's stages alone: `sky backward taps` (where the tree's
     taps kernel counts the ordering's first pass, with it), `sky
@@ -274,6 +280,13 @@ def main(argv=None) -> int:
         return lambda: adj._launch(sc, o_, d_, c.far, s_, e_, ct_, st, tab,
                                    gsky=gsky if env else None, env_tab=et)
 
+    def empty_record(n, st, env_nee):
+        """A record of n rays; with area-light NEE (a tree that records
+        it) its light words too."""
+        if st.light_importance_sampling:
+            return mk.empty_record(n, st, env_nee, dev, True)
+        return mk.empty_record(n, st, env_nee, dev)
+
     def sweep_at(sc, st, r, ct_=None):
         """The record route's sweep on rays r, the cotangents of bwd_at
         (or of the color alone, `ct_`, as bwd's), over the transcript a
@@ -286,9 +299,11 @@ def main(argv=None) -> int:
         ct_ = drawn if ct_ is None else ct_
         gsky = torch.rand((n, 4), generator=g).to(dev)
         env = adj.env_mode(sc, st)
-        rec = mk.empty_record(n, st, env == 2, dev)
+        rec = empty_record(n, st, env == 2)
+        lt = ({"light_tab": mk.light_table(sc)}
+              if st.light_importance_sampling else {})
         mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_, st, tab, et,
-                               record=rec)
+                               record=rec, **lt)
         return lambda: adj._launch(sc, None, None, None, None, None, ct_, st,
                                    tab, gsky=gsky if env else None,
                                    env_tab=et, record=rec)
@@ -407,11 +422,13 @@ def main(argv=None) -> int:
     if hasattr(mk, "light_probe"):  # the brute tier records; the probe
         def rec_fwd(sc, st, r):
             tab, et = mk._scene_tables(sc), mk.env_table(sc)
+            lt = ({"light_tab": mk.light_table(sc)}
+                  if st.light_importance_sampling else {})
             c, o_, d_, s_, e_ = r
-            rec = mk.empty_record(o_.shape[0], st, adj.env_mode(sc, st) == 2,
-                                  dev)
+            rec = empty_record(o_.shape[0], st, adj.env_mode(sc, st) == 2)
             return lambda: mk.trace_fused_outputs(sc, o_, d_, c.far, s_, e_,
-                                                  st, tab, et, record=rec)
+                                                  st, tab, et, record=rec,
+                                                  **lt)
 
         st_c = st_d.replace(max_bounces=4, env_importance_sampling=True,
                             **sky_kw)
@@ -427,6 +444,23 @@ def main(argv=None) -> int:
             "B2c sweep": (sweep_at(spheres, st_sky, r_e), "adjoint_sweep<"),
             "B2c+n sweep": (sweep_at(spheres, st_e, r_e), "adjoint_sweep<"),
         })
+        if "lq" in mk.Record._fields:  # the light-NEE record (B2+l)
+            jobs.update({
+                "B1e record": (rec_fwd(cornell_sc, st_al, r_c),
+                               "megakernel_light_record<"),
+                "B1e+d record": (rec_fwd(metal_dragon, st_l, r_d),
+                                 "megakernel_bvh_light_record<"),
+                "B1b+e+d record": (rec_fwd(dragon, st_l, r_d),
+                                   "megakernel_bvh_light_record<"),
+                "B2+l sweep": (sweep_at(cornell_sc, st_al, r_c, ct),
+                               "adjoint_sweep<"),
+                "B2+l glow_orbs sweep": (sweep_at(orbs, st_al, r_c, ct),
+                                         "adjoint_sweep<"),
+                "B2+l+d sweep": (sweep_at(metal_dragon, st_l, r_d),
+                                 "adjoint_sweep<"),
+                "B2b+l+d sweep": (sweep_at(dragon, st_l, r_d),
+                                  "adjoint_sweep<"),
+            })
         tab_l, lt = mk._scene_tables(dragon), mk.light_table(dragon)
         # the modes by this tree's names (before the brute tier's probe the
         # kernel's walk was "any" and no test "no walk")

@@ -26,6 +26,14 @@ sweep its transcript, and all three give the same bits:
     budget, and callers that bring rays without a record, replay
     (`transcript_route`). The sweep puts ray i on thread i % 128, as the
     replay does on both tiers, so the two give the same bits.
+With area-light NEE (B2+l) the record route is the only one: the
+forward's recording variant also records each hit's emission weight and
+the light term's factors and material, and the sweep adds the light's d
+emission under a third key (its material), beside d albedo and d
+specular of the shaded one. A step past `RECORD_BUDGET` raises before any
+launch (a light-NEE replay is ROADMAP A13), and a caller on a CUDA device
+that brings rays without a record gets the recording forward on them,
+then the sweep.
 
 With an envmap in use the kernel takes the cotangents of the path's
 outputs (`trace_grad_outputs`): of its color, of its miss attenuation and
@@ -53,9 +61,10 @@ The gradient is the detached-sampling estimator of the lockstep tracer:
 emission, albedo and specular attenuation, Beer-Lambert absorption,
 Russian roulette's 1/max(attenuation), the env-NEE term and the sky's
 mip-bias level; metallic and IOR act only through sampling decisions
-and get zero. Scope (`adjoint_covers`): every scene the megakernel
-renders (`megakernel.fused_supported`) but with area-light NEE, whose
-adjoint is ROADMAP B2+l.
+and get zero; with area-light NEE the emission's balance weight and the
+light term (whose light emission, pdfs and weights are detached). Scope
+(`adjoint_covers`): every scene the megakernel renders
+(`megakernel.fused_supported`).
 """
 
 from __future__ import annotations
@@ -137,8 +146,10 @@ def transcript_route(scene: SceneData, settings: RenderSettings) -> str:
 def record_words(scene: SceneData, settings: RenderSettings) -> int:
     """32-bit words the forward records a shaded bounce: a_prev rgb, t and
     the packed word; with env NEE 7 more (its radiance * weight rgb,
-    dterm, gterm, weight, texel)."""
-    return 12 if env_mode(scene, settings) == 2 else 5
+    dterm, gterm, weight, texel); with area-light NEE 4 more (the light
+    term's f, dterm, gterm and the emission's weight): 5, 12, 9 or 16."""
+    return mk.record_words(env_mode(scene, settings) == 2,
+                           _use_light_nee(scene, settings))
 
 
 def record_bytes(scene: SceneData, settings: RenderSettings,
@@ -175,31 +186,35 @@ def record_plan(scene: SceneData, settings: RenderSettings, n_rays: int,
     of the scene's device) beside the records of earlier forwards still
     alive there (`megakernel.live_record_bytes`: several frames before one
     backward); else the replay's route (`transcript_route`). Area-light
-    NEE has no adjoint yet (ROADMAP B2+l), so it never records."""
+    NEE has no replay: past the budget its step raises
+    NotImplementedError, naming the step's bytes, the budget and ROADMAP
+    A13."""
     if adjoint_covers(scene, settings):
         budget = record_budget(scene.device) if budget is None else budget
-        if (launches * record_bytes(scene, settings, n_rays)
-                + mk.live_record_bytes(scene.device) <= budget):
+        step = launches * record_bytes(scene, settings, n_rays)
+        live = mk.live_record_bytes(scene.device)
+        if step + live <= budget:
             return "recorded"
+        if _use_light_nee(scene, settings):
+            raise NotImplementedError(
+                f"the area-light NEE adjoint (B2+l) records its transcript "
+                f"and has no replay (ROADMAP A13): this step's records take "
+                f"{step} bytes ({launches} launches of {n_rays} rays, "
+                f"{live} bytes of earlier records alive), past the record "
+                f"budget of {budget} bytes (adjoint.RECORD_BUDGET); render "
+                f"fewer rays a step")
     return transcript_route(scene, settings)
 
 
 def adjoint_covers(scene: SceneData, settings: RenderSettings) -> bool:
     """Whether the port differentiates `scene` through the fused route:
     every scene its megakernel renders (`megakernel.fused_supported`),
-    brute and BVH tier, glass, sky and env NEE, but area-light NEE (with
-    the flag and emitters, the JAX predicate), whose adjoint variant is
-    ROADMAP B2+l."""
-    return (mk.fused_supported(scene, settings)
-            and not _use_light_nee(scene, settings))
+    brute and BVH tier, glass, sky, env NEE and area-light NEE (B2+l,
+    the record route only)."""
+    return mk.fused_supported(scene, settings)
 
 
 def _check_covered(scene: SceneData, settings: RenderSettings) -> None:
-    if _use_light_nee(scene, settings):
-        raise NotImplementedError(
-            "the fused adjoint has no area-light NEE variant yet (ROADMAP "
-            "B2+l); on the CPU render_loss_grad differentiates it through "
-            "the lockstep")
     if not adjoint_covers(scene, settings):
         raise NotImplementedError(
             "the fused adjoint covers the megakernel's scenes (no debug "
@@ -218,7 +233,10 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
 
     With `record` (the transcript a forward launch on these rays recorded,
     `megakernel.Record`) the route is 'recorded': the sweep alone, which
-    reads no rays (origin to seed may be None).
+    reads no rays (origin to seed may be None). With area-light NEE and
+    no record (it has no replay) the recording forward runs on the rays
+    first (`record_plan` of that one launch must fit the budget), then
+    the sweep; `replay_color` then receives the forward's color.
 
     `ct` [N, 3] is the cotangent of the path color; with an envmap in use
     `gsky` [N, 4] those of the miss attenuation and of the accumulated
@@ -233,6 +251,19 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
     if record is not None or route == "recorded":
         if record is None:
             raise ValueError("the recorded route needs the forward's record")
+        return _sweep(scene, record, ct, settings, tables, gsky, records)
+    if _use_light_nee(scene, settings):
+        if route is not None:
+            raise ValueError("area-light NEE has no replay (ROADMAP A13): "
+                             "its adjoint takes the record route")
+        record_plan(scene, settings, origin.shape[0], 1)  # raises past it
+        record = mk.empty_record(origin.shape[0], settings,
+                                 _use_nee(scene, settings), origin.device,
+                                 True)
+        out = mk._launch(scene, origin, direction, far, sample_idx, seed,
+                         settings, tables, env_tab, record=record)
+        if replay_color is not None:
+            replay_color.copy_(out[:, 0:3])
         return _sweep(scene, record, ct, settings, tables, gsky, records)
     sidx, sd, far_t, tables, scalars = mk.kernel_inputs(
         scene, origin, direction, far, sample_idx, seed, settings, tables)
@@ -327,7 +358,8 @@ def _sweep(scene, record, ct, settings: RenderSettings, tables, gsky,
     _check_covered(scene, settings)
     n, dev = record.n, record.end.device
     env = env_mode(scene, settings)
-    mk.check_record(record, n, settings, env == 2, dev)
+    light = _use_light_nee(scene, settings)
+    mk.check_record(record, n, settings, env == 2, dev, light)
     tables = tables if tables is not None else mk._scene_tables(scene)
     mat_tab = tables[3]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -363,12 +395,12 @@ def _sweep(scene, record, ct, settings: RenderSettings, tables, gsky,
         err = lib.halogen_adjoint_sweep(
             mat_tab.data_ptr(), ct.data_ptr(), ptr(gsky if env else None),
             *(ptr(t) for t in (record.a, record.word, record.nq, record.ngw,
-                               record.texel, record.end)),
+                               record.texel, record.end, record.lq)),
             partial.data_ptr(), out.data_ptr(),
             ptr(records[0] if env == 2 else None),
             ptr(records[1] if env == 2 else None), n, k,
             settings.max_bounces, int(settings.russian_roulette),
-            int(scene.any_transmissive), env, stream)
+            int(scene.any_transmissive), env, int(light), stream)
     if err != 0:
         raise RuntimeError(f"adjoint sweep launch failed: CUDA error {err}")
     SWEEP_LAUNCHES += 1
@@ -377,6 +409,9 @@ def _sweep(scene, record, ct, settings: RenderSettings, tables, gsky,
 
 _SPEC, _ABSORBING, _SURVIVE, _TRUE_HIT, _REFR = (1 << b for b in
                                                   range(16, 21))
+# with area-light NEE: the light term's material in bits 21-26, and
+# whether the term was added (csrc/path_common.cuh `pack_light`)
+_LIGHT_MAT_SHIFT, _LIT = 21, 1 << 27
 
 
 def record_transcript_reference(scene: SceneData, origin, direction, far,
@@ -384,8 +419,9 @@ def record_transcript_reference(scene: SceneData, origin, direction, far,
                                 ) -> "mk.Record":
     """Plain version of the forward's record: the lockstep `trace_rays`
     (closest hits by brute force) on the same rays, its transcript packed
-    into the kernel's `megakernel.Record` layout. Slots at or past a ray's
-    shaded count hold zeros (the kernel leaves them unwritten)."""
+    into the kernel's `megakernel.Record` layout (with area-light NEE the
+    light term's words too). Slots at or past a ray's shaded count hold
+    zeros (the kernel leaves them unwritten)."""
     from halogen_tpu_torch.integrator.trace import trace_rays
 
     n, dev = origin.shape[0], origin.device
@@ -396,7 +432,8 @@ def record_transcript_reference(scene: SceneData, origin, direction, far,
         trace_rays(scene, origin, direction, far_b, sample_idx, seed,
                    settings.replace(intersector=Intersector.BRUTE), tape)
     nee = env_mode(scene, settings) == 2
-    rec = mk.empty_record(n, settings, nee, dev)
+    light = _use_light_nee(scene, settings)
+    rec = mk.empty_record(n, settings, nee, dev, light)
     n_shaded = torch.zeros((n,), dtype=torch.int64, device=dev)
     missed = torch.zeros((n,), dtype=torch.bool, device=dev)
     for k, e in enumerate(tape):
@@ -414,6 +451,14 @@ def record_transcript_reference(scene: SceneData, origin, direction, far,
                 | e["survive"].to(torch.int64) * _SURVIVE
                 | e["true_hit"].to(torch.int64) * _TRUE_HIT
                 | e["refr"].to(torch.int64) * _REFR)
+        if light:
+            lit, lmat, f, dterm, gterm, em_w = e["light"]
+            lit = sh & lit
+            word = word | torch.where(
+                lit, (lmat.to(torch.int64) << _LIGHT_MAT_SHIFT) | _LIT, 0)
+            rec.lq[k] = zero(torch.stack(
+                [torch.where(lit, x, 0.0) for x in (f, dterm, gterm)]
+                + [em_w], dim=1))
         rec.word[k] = zero(word).to(torch.int32)
         if nee:
             texel, rad, wfac, dterm, gterm = e["nee"]
@@ -437,12 +482,15 @@ def sweep_reference(scene: SceneData, settings: RenderSettings, record,
     from the last slot: Russian roulette's 1/max with its argmax ties
     split evenly and the 1e-20 gate, Beer-Lambert, with the sky its
     cotangents at the miss and the roughness column, with env NEE its
-    term. `d_out` [N, >= 3]: the color's cotangent, with an envmap in use
-    then those of the miss attenuation and the accumulated roughness
-    (columns 3-6). The sums per material run in float64. Returns
+    term, with area-light NEE the emission's balance weight and the light
+    term (d emission to the light's material, d albedo and d specular to
+    the shaded one). `d_out` [N, >= 3]: the color's cotangent, with an
+    envmap in use then those of the miss attenuation and the accumulated
+    roughness (columns 3-6). The sums per material run in float64. Returns
     ([K, 12|13], with env NEE the records (keys [N, B + 1] int32, weights
     [N, B + 1, 3]; zeros where the key is -1), else None)."""
     env = env_mode(scene, settings)
+    light = _use_light_nee(scene, settings)
     k_mat = scene.materials.count
     cols = n_grad(scene, settings)
     tab = mk._scene_tables(scene)[3].detach().to(record.a.device)
@@ -506,10 +554,15 @@ def sweep_reference(scene: SceneData, settings: RenderSettings, record,
                             gp[:, 1:3]], dim=1)
             g[:, 12] = g_rough * a_post[:, 0]
         g_sc = gp * a_prev
-        g_new = gp * scf + ct * m[:, 9:12]
         g_base = g_sc * beer
         g_beer = g_sc * base
-        g[:, 0:3] = ct * a_prev
+        if light:  # the emission times its balance weight
+            em_w = record.lq[k, :, 3:4]
+            g_new = gp * scf + ct * m[:, 9:12] * em_w
+            g[:, 0:3] = ct * a_prev * em_w
+        else:
+            g_new = gp * scf + ct * m[:, 9:12]
+            g[:, 0:3] = ct * a_prev
         g[:, 3:6] = torch.where((surf & ~spec)[:, None], g_base, 0.0)
         g[:, 6:9] = torch.where((surf & spec)[:, None], g_base, 0.0)
         g[:, 9:12] = torch.where(absorbing[:, None], -t[:, None] * beer
@@ -528,12 +581,29 @@ def sweep_reference(scene: SceneData, settings: RenderSettings, record,
             keys[:, k] = torch.where(live, texel, -1)
             weights[:, k] = torch.where(lit[:, None],
                                         ct * a_prev * f * wfac[:, None], 0.0)
+        g_light = None
+        if light:  # the light term, after env NEE's
+            l_lit = live & ((word & _LIT) != 0)
+            l_mat = torch.where(l_lit, (word >> _LIGHT_MAT_SHIFT) & 0x3F, 0)
+            f_l, dterm, gterm = (record.lq[k, :, j:j + 1] for j in range(3))
+            fr = m[:, 0:3] * dterm + m[:, 4:7] * gterm
+            cf = ct * tab[l_mat, 9:12] * f_l
+            g_new = g_new + cf * fr
+            ca = cf * a_prev
+            g[:, 3:6] = g[:, 3:6] + ca * dterm
+            g[:, 6:9] = g[:, 6:9] + ca * gterm
+            g_light = torch.where(l_lit[:, None], ct * a_prev * fr * f_l,
+                                  0.0).to(torch.float64)
         g_a = torch.where(live[:, None], g_new, g_a)
-        # absorption to the Beer material, the rest to the hit material
+        # absorption to the Beer material, the rest to the hit material;
+        # the light's d emission to the light's material
         g = torch.where(live[:, None], g, 0.0).to(torch.float64)
         by_mat = torch.zeros_like(acc).index_add_(0, mat, g)
         by_mat[:, 9:12] = torch.zeros_like(acc[:, 9:12]).index_add_(
             0, torch.where(absorbing, ab_mat, 0), g[:, 9:12])
+        if g_light is not None:
+            by_mat[:, 0:3] += torch.zeros_like(acc[:, 0:3]).index_add_(
+                0, l_mat, g_light)
         acc += by_mat
     return acc.to(torch.float32), (None if env != 2 else (keys, weights))
 

@@ -17,7 +17,9 @@ version).
 Where a gradient follows on the adjoint's record route
 (`adjoint.record_plan`), the launch, on either tier, also records the
 transcript the adjoint's sweep reads (`Record`, `empty_record`), so the
-backward does not trace the paths again.
+backward does not trace the paths again; with area-light NEE the record
+also holds each hit's emission weight and the light term's factors and
+material (its recording variants are B2+l's forward).
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
@@ -117,9 +119,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # path_common.cuh; it and the traversal kernel include the walk in
 # bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": {"halogen_megakernel_launch": (25, 23, 0)},
+    "megakernel": {"halogen_megakernel_launch": (26, 23, 0)},
     "adjoint": {"halogen_adjoint_launch": (19, 15, 0),
-                "halogen_adjoint_sweep": (13, 6, 0)},
+                "halogen_adjoint_sweep": (14, 7, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
     "sky": {"halogen_sky_forward": (5, 6, 2),
             "halogen_sky_backward": (9, 8, 2),
@@ -301,7 +303,9 @@ def light_table(scene: SceneData) -> LightRows | None:
 class Record(NamedTuple):
     """The transcript a forward launch records for the adjoint's sweep
     (`csrc/path_common.cuh` `RecordView`), slot-major: slot k of ray i is
-    row [k, i]. Slots at or past a ray's shaded count are never written."""
+    row [k, i]. Slots at or past a ray's shaded count are never written.
+    With area-light NEE the word also holds the light term's material
+    (bits 21-26) and whether the term was added (bit 27)."""
 
     a: torch.Tensor  # [B + 1, N, 4] float32: attenuation before, t
     word: torch.Tensor  # [B + 1, N] int32: materials and masks
@@ -311,6 +315,10 @@ class Record(NamedTuple):
     nq: torch.Tensor | None  # [B + 1, N, 4] float32
     ngw: torch.Tensor | None  # [B + 1, N, 2] float32
     texel: torch.Tensor | None  # [B + 1, N] int32
+    # with area-light NEE: the light term's f = w_l / pdf, dterm, gterm
+    # (zeros where it was not added) and the emission's balance weight at
+    # the hit; else None
+    lq: torch.Tensor | None = None  # [B + 1, N, 4] float32
 
     @property
     def n(self) -> int:
@@ -324,11 +332,20 @@ class Record(NamedTuple):
 _LIVE_RECORDS: list = []
 
 
+def record_words(env_nee: bool, light_nee: bool) -> int:
+    """32-bit words a `Record` keeps a slot: a_prev rgb, t and the packed
+    word; with env NEE 7 more (its radiance * weight rgb, dterm, gterm,
+    weight, texel); with area-light NEE 4 more (f, dterm, gterm, the
+    emission's weight)."""
+    return 5 + (7 if env_nee else 0) + (4 if light_nee else 0)
+
+
 def empty_record(n: int, settings: RenderSettings, env_nee: bool,
-                 device) -> Record:
+                 device, light_nee: bool = False) -> Record:
     """Buffers of a `Record` of n rays and max_bounces + 1 slots (4 bytes
-    a ray, and 20 a slot, 48 with env NEE), counted by
-    `live_record_bytes` until they are freed."""
+    a ray, and `record_words` a slot: 20 bytes, 48 with env NEE, 16 more
+    with area-light NEE), counted by `live_record_bytes` until they are
+    freed."""
     slots = settings.max_bounces + 1
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -337,10 +354,12 @@ def empty_record(n: int, settings: RenderSettings, env_nee: bool,
         torch.empty((n,), **i32),
         torch.empty((slots, n, 4), **f32) if env_nee else None,
         torch.empty((slots, n, 2), **f32) if env_nee else None,
-        torch.empty((slots, n), **i32) if env_nee else None)
+        torch.empty((slots, n), **i32) if env_nee else None,
+        torch.empty((slots, n, 4), **f32) if light_nee else None)
     _LIVE_RECORDS.append((StorageWeakRef(rec.a.untyped_storage()),
                           rec.a.device,
-                          4 * n * (1 + slots * (12 if env_nee else 5))))
+                          4 * n * (1 + slots * record_words(env_nee,
+                                                            light_nee))))
     return rec
 
 
@@ -354,7 +373,7 @@ def live_record_bytes(device) -> int:
 
 
 def check_record(rec: Record, n: int, settings: RenderSettings,
-                 env_nee: bool, dev) -> None:
+                 env_nee: bool, dev, light_nee: bool = False) -> None:
     """Raise unless `rec` is a `Record` of n rays for these settings on
     `dev`: contiguous buffers of `empty_record`'s shapes and types."""
     slots = settings.max_bounces + 1
@@ -362,11 +381,14 @@ def check_record(rec: Record, n: int, settings: RenderSettings,
     want = (((slots, n, 4), f32), ((slots, n), i32), ((n,), i32),
             ((slots, n, 4), f32) if env_nee else None,
             ((slots, n, 2), f32) if env_nee else None,
-            ((slots, n), i32) if env_nee else None)
+            ((slots, n), i32) if env_nee else None,
+            ((slots, n, 4), f32) if light_nee else None)
     for name, t, w in zip(Record._fields, rec, want):
         if w is None:
             if t is not None:
-                raise ValueError(f"record {name}: only with env NEE")
+                raise ValueError(
+                    f"record {name}: only with "
+                    f"{'area-light' if name == 'lq' else 'env'} NEE")
         elif (t is None or t.shape != w[0] or t.dtype != w[1]
               or t.device != dev or not t.is_contiguous()):
             raise ValueError(f"record {name} must be a contiguous {w[1]} "
@@ -611,8 +633,9 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
     """Launch the kernel variant the scene and settings select, on the
     current stream; returns [N, 10], or [N, 12] with env NEE. With
     area-light NEE `light_tab` may carry `light_table(scene)`. With
-    `record` (`empty_record`; either tier, without light NEE) the launch
-    also writes the adjoint's transcript into it. `probe` (a measurement,
+    `record` (`empty_record`; either tier; with light NEE its `lq` too)
+    the launch also writes the adjoint's transcript into it. `probe` (a
+    measurement,
     `light_probe`): (counters, mode) for B1e's probe variant on either
     tier.
 
@@ -690,10 +713,7 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
                              f"[L, 16] (16-byte aligned) and [{n_dens}] on "
                              f"{dev}")
     if record is not None:
-        if light:
-            raise ValueError("a launch with area-light NEE records no "
-                             "transcript (its adjoint is ROADMAP B2+l)")
-        check_record(record, scalars[0], settings, env_nee, dev)
+        check_record(record, scalars[0], settings, env_nee, dev, light)
     if probe is not None:
         counts, mode = probe
         if (not light or env_nee or record is not None
@@ -723,8 +743,9 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
             *((light_tab.rows.data_ptr(), light_tab.dens.data_ptr())
               if light else (None, None)),
             *((ptr(t) for t in (record.a, record.word, record.nq,
-                                record.ngw, record.texel, record.end))
-              if record is not None else (None,) * 6),
+                                record.ngw, record.texel, record.end,
+                                record.lq))
+              if record is not None else (None,) * 7),
             probe[0].data_ptr() if probe is not None else None,
             *scalars, int(env_nee), env_h, env_w, int(bvh), *cam_ints,
             int(light), n_lights, probe[1] if probe is not None else 0,
@@ -851,7 +872,8 @@ class _FusedDiff(torch.autograd.Function):
             n = (origin.shape[0] if group is None
                  else group[0].pix.shape[0] * group[2])
             dev = mat_tab.device
-            rec = empty_record(n, settings, _use_nee(scene, settings), dev)
+            rec = empty_record(n, settings, _use_nee(scene, settings), dev,
+                               _use_light_nee(scene, settings))
         if group is None:
             out = trace_fused_outputs(scene, origin, direction, far,
                                       sample_idx, seed, settings, tables,

@@ -7,7 +7,7 @@ Run from the root of a checkout:
         [--frames 10] [--out FILE]
 
 with S one of cornell, glass, envmap_1024, glass_dragon, metal_dragon,
-cornell_light, glow_orbs_light.
+cornell_light, glow_orbs_light, glass_dragon_light.
 
 The frame is a forward path of `chip_smoke.py`: by default the main path,
 Cornell glossy, 512x512, 32 spp, 6 bounces, 262144-ray chunks, so 32
@@ -24,8 +24,10 @@ Cornell shell (`chip_smoke.py` phase 31's) at 256x256, 32 spp, 12
 bounces (the opaque BVH tier); `--scene cornell_light` the main path
 with area-light NEE (B1e, `chip_smoke.py` phase 33's
 cornell_glossy_512_light) and `--scene glow_orbs_light` `glow_orbs`
-(emissive spheres) so (its glow_orbs_512_light); with an envmap, each
-group's sky pass is one launch of the sky kernel (`kernels/sky.py`).
+(emissive spheres) so (its glow_orbs_512_light); `--scene
+glass_dragon_light` the glass dragon's frame with area-light NEE (B1b+e+d);
+with an envmap, each group's sky pass is one launch of the sky kernel
+(`kernels/sky.py`).
 With `--grad` the step is `diff.render_loss_grad` instead, on the
 adjoint's record route (each forward launch also records the transcript,
 and the backward is the sweep alone; past `adjoint.RECORD_BUDGET` the
@@ -35,7 +37,10 @@ and glass at `bench.py`'s forward-plus-backward configuration, 256x256,
 one adjoint launch; for the glass
 dragon at its frame's configuration (512x512, 32 spp, 12 bounces: the
 adjoint's BVH tier, B2b+d), and the
-metal dragon at its frame's (B2+d); for
+metal dragon at its frame's (B2+d); for the light-NEE scenes (B2+l:
+the recording B1e and the light sweep, no replay) Cornell glossy and
+`glow_orbs` at 256x256, 256 spp, 6 bounces and the glass dragon at its
+frame's configuration; for
 `envmap_1024` at the preset's frame with
 {"materials", "env_mips"} (each group also the sky forward, the sky
 backward and its per-texel sums, and the adjoint's sky and env-NEE
@@ -130,13 +135,18 @@ SCENES = {
     "envmap_1024": (lambda dev: cornell.material_demo_spheres().build(
         envmap=ht.Envmap.gradient_sky(), device=dev), SKY_CAM, ENVMAP_1024,
         ENVMAP_1024),
-    # light NEE has no gradient on the card yet (ROADMAP B2+l): frames only
     "cornell_light": (lambda dev: cornell.cornell_box(glossy=True).build(
         device=dev), CAM, dict(SETTINGS, light_importance_sampling=True),
-        None),
+        dict(SETTINGS, light_importance_sampling=True, width=256,
+             height=256, samples_per_pixel=256)),
     "glow_orbs_light": (lambda dev: cornell.glow_orbs().build(device=dev),
                         CAM, dict(SETTINGS, light_importance_sampling=True),
-                        None),
+                        dict(SETTINGS, light_importance_sampling=True,
+                             width=256, height=256, samples_per_pixel=256)),
+    "glass_dragon_light": (lambda dev: meshes.glass_dragon_scene().build(
+        device=dev), DRAGON_CAM, dict(SETTINGS, max_bounces=12,
+                                      light_importance_sampling=True),
+        dict(SETTINGS, max_bounces=12, light_importance_sampling=True)),
 }
 
 
@@ -281,13 +291,16 @@ def main(argv=None) -> int:
     # megakernel_bvh<...> (the BVH tier; megakernel_record<...> and
     # megakernel_bvh_record<...> where they record the adjoint's
     # transcript; megakernel_light<...> and megakernel_bvh_light<...> with
-    # light NEE) and so on; the adjoint is the replay (adjoint_kernel) or
-    # the record route's sweep (adjoint_sweep)
+    # light NEE, megakernel_light_record<...> and
+    # megakernel_bvh_light_record<...> recording it) and so on; the adjoint
+    # is the replay (adjoint_kernel) or the record route's sweep
+    # (adjoint_sweep)
     kernel_rows = lambda *names: [r for r in rows if _self_device_us(r) > 0
                                   and any(f"{n}<" in r.key for n in names)]
     mega = kernel_rows("megakernel", "megakernel_bvh", "megakernel_record",
                        "megakernel_bvh_record", "megakernel_light",
-                       "megakernel_bvh_light")
+                       "megakernel_bvh_light", "megakernel_light_record",
+                       "megakernel_bvh_light_record")
     adjoint = kernel_rows("adjoint_kernel", "adjoint_sweep")
     sky_rows = [r for r in rows if _self_device_us(r) > 0
                 and "sky_" in r.key]

@@ -308,6 +308,10 @@ def _scene(name, env, dev):
     if name == "cornell":
         return cornell.cornell_box(glossy=True).build(envmap=sky_map,
                                                       device=dev), CAM
+    if name == "cornell_box":  # the diffuse box: a triangle light
+        return cornell.cornell_box().build(envmap=sky_map, device=dev), CAM
+    if name == "glow_orbs":  # sphere lights
+        return cornell.glow_orbs().build(envmap=sky_map, device=dev), CAM
     if name == "glass":
         return cornell.glass_sphere_box().build(envmap=sky_map,
                                                 device=dev), CAM
@@ -450,10 +454,24 @@ RECORD_CASES = {
 }
 
 
+# area-light NEE (B2+l): the record route alone, on both tiers
+LIGHT = dict(light_importance_sampling=True)
+LIGHT_CASES = {
+    "B2+l": ("cornell_box", False, dict(max_bounces=6, **LIGHT)),
+    "B2+l_orbs": ("glow_orbs", False, dict(max_bounces=6, **LIGHT)),
+    "B2b+l": ("glass", False, dict(max_bounces=8,
+                                   max_transmission_bounces=8, **LIGHT)),
+    "B2c+n+l": ("cornell", True, dict(max_bounces=4, **ENV_CASES["sky_nee"],
+                                      **LIGHT)),
+    "B2+l+d": ("metal_dragon", False, dict(max_bounces=12, **LIGHT)),
+    "B2b+l+d": ("glass_dragon", False, dict(max_bounces=12, **LIGHT)),
+}
+
+
 def _recorded(name, dev):
     """(scene, settings, camera, rays, ct, gsky, the forward's outputs
     with and without the record, the record) for a record-route case."""
-    kind, env, kw = RECORD_CASES[name]
+    kind, env, kw = {**RECORD_CASES, **LIGHT_CASES}[name]
     scene, cam_kw = _scene(kind, env, dev)
     assert mk.uses_bvh(scene) == name.endswith("+d")
     st = ht.RenderSettings(width=16, height=16, samples_per_pixel=2, **kw)
@@ -461,7 +479,8 @@ def _recorded(name, dev):
     gsky = torch.rand((o.shape[0], 4),
                       generator=torch.Generator().manual_seed(1)).to(dev)
     nee = adj.env_mode(scene, st) == 2
-    rec = mk.empty_record(o.shape[0], st, nee, dev)
+    rec = mk.empty_record(o.shape[0], st, nee, dev,
+                          st.light_importance_sampling)
     before = mk.RECORD_LAUNCHES
     out_rec = mk.trace_fused_outputs(scene, o, d, cam.far, sidx, seed, st,
                                      record=rec)
@@ -509,12 +528,13 @@ def test_recorded_route_equals_the_replay_bit_for_bit(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(RECORD_CASES))
+@pytest.mark.parametrize("name", sorted(RECORD_CASES) + sorted(LIGHT_CASES))
 def test_sweep_and_record_match_their_plain_versions(name, cuda_device):
     """The kernel's record against `record_transcript_reference` on the
     rays whose forward outputs kernel and plain agree on (ids and masks
-    equal, floats within 1e-4), and the sweep against `sweep_reference`
-    over the same record within 1e-5 * max |column| + 1e-7."""
+    equal, floats within 1e-4; with light NEE its light words too), and
+    the sweep against `sweep_reference` over the same record within 1e-5
+    * max |column| + 1e-7."""
     scene, st, cam, (o, d, sidx, seed), ct, gsky, out_rec, _, rec = (
         _recorded(name, cuda_device))
     env = adj.env_mode(scene, st)
@@ -531,7 +551,7 @@ def test_sweep_and_record_match_their_plain_versions(name, cuda_device):
         live = agree & (n_shaded > k)
         assert torch.equal(rec.word[k][live], ref_rec.word[k][live]), k
         for a, b in ((rec.a, ref_rec.a), (rec.nq, ref_rec.nq),
-                     (rec.ngw, ref_rec.ngw)):
+                     (rec.ngw, ref_rec.ngw), (rec.lq, ref_rec.lq)):
             if a is not None and bool(live.any()):
                 a, b = a[k][live], b[k][live]
                 assert float((a - b).abs().max()) <= 1e-4 * (
@@ -545,6 +565,40 @@ def test_sweep_and_record_match_their_plain_versions(name, cuda_device):
     torch.cuda.synchronize()
     bound = 1e-5 * ref.abs().amax(dim=0) + 1e-7
     assert ((got - ref).abs() <= bound).all(), (got - ref).abs().amax(dim=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIGHT_CASES))
+def test_light_nee_forward_records_and_sweep_repeats(name, cuda_device):
+    """With area-light NEE the recording forward (B1e's recording
+    variants) gives the outputs of B1e without the record bit for bit and
+    adds light terms to the record; the sweep (B2+l) is bitwise repeatable,
+    and a caller that brings rays without a record gets the recording
+    forward on them, then the sweep: the same bits, no replay."""
+    scene, st, cam, (o, d, sidx, seed), ct, gsky, out_rec, out, rec = (
+        _recorded(name, cuda_device))
+    env = adj.env_mode(scene, st)
+    kw = dict(gsky=gsky if env else None)
+    counts = lambda: (mk.RECORD_LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES)
+    got = adj._launch(scene, None, None, None, None, None, ct, st, None,
+                      record=rec, **kw)
+    again = adj._launch(scene, None, None, None, None, None, ct, st, None,
+                        record=rec, **kw)
+    before = counts()
+    color = torch.empty_like(o)
+    fresh = adj._launch(scene, o, d, cam.far, sidx, seed, ct, st, None,
+                        color, **kw)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out_rec, out)
+    assert torch.equal(color, out[:, 0:3])
+    assert torch.equal(got, again) and torch.equal(got, fresh)
+    n_shaded = rec.end.to(torch.int64) & 0xFFFF
+    slot = torch.arange(rec.word.shape[0], device=cuda_device)[:, None]
+    lit = (slot < n_shaded[None]) & (
+        (rec.word.to(torch.int64) & (1 << 27)) != 0)
+    assert int(lit.sum()) > 0
+    assert float(got[:, 0:3].abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -18,9 +18,13 @@ dragon in the Cornell shell (B2+d), the glass dragon at 1,280 triangles
 Russian roulette's max. The brute tier's: Cornell glossy (B2), the glass
 box at 8 bounces (B2b), Cornell glossy under the sky (B2c) and the
 material spheres under the sky with env NEE (B2c+n, the `envmap_1024`
-preset's scene). The kernels are held to these plain versions on the card
-(`tests/test_torch_adjoint_cuda.py`, `chip_smoke.py` phases 28, 30, 31,
-35).
+preset's scene). With area-light NEE (B2+l, whose record also holds the
+emission's weight and the light term): the Cornell box (a triangle
+light), `glow_orbs` (sphere lights, which few rays shade), the glass box,
+Cornell glossy under the sky with env NEE and light NEE, and the metal
+and glass dragons at 1,280 triangles. The kernels are held to these
+plain versions on the card (`tests/test_torch_adjoint_cuda.py`,
+`chip_smoke.py` phases 28, 30, 31, 35, 36).
 """
 
 import dataclasses
@@ -73,7 +77,14 @@ GLASS8 = dict(max_bounces=8, max_transmission_bounces=8)
 # differ by up to 2.7e-5 of the entry, the two packages summing the same
 # products in other orders; so each column is held to ATOL + RTOL * its
 # largest |entry|.
-HELD_WHERE_FORWARDS_AGREE = ("B2c", "B2c+n")
+# With area-light NEE: in glow_orbs one albedo entry (0.687, in a column
+# reaching 32.3) differs from jax.grad by 8.2e-5 through the port's own
+# lockstep autograd as well (its sums of terms of both signs, in another
+# order), and Cornell glossy under the sky with both NEEs parts on 5 rays
+# of 288 (up to 6.8e-5 relative; the metal sphere's near-mirror lobe,
+# `tests/light_nee_cases.py`): held as the sky cases.
+HELD_WHERE_FORWARDS_AGREE = ("B2c", "B2c+n", "B2+l_orbs", "B2c+n+l")
+LIGHT = dict(light_importance_sampling=True)
 # name: (scene, sky, settings, camera); the names ending in +d (and
 # rr_ties) are the BVH tier's, the others the brute tier's
 CASES = {
@@ -86,6 +97,14 @@ CASES = {
     "B2b": ("glass_box", False, GLASS8, BOX_CAM),
     "B2c": ("cornell", True, SKY, BOX_CAM),
     "B2c+n": ("spheres", True, NEE, SKY_CAM),
+    # area-light NEE (B2+l) on both tiers
+    "B2+l": ("cornell_box", False, LIGHT, BOX_CAM),
+    "B2+l_orbs": ("glow_orbs", False, LIGHT, BOX_CAM),
+    "B2b+l": ("glass_box", False, {**GLASS8, **LIGHT}, BOX_CAM),
+    "B2c+n+l": ("cornell", True, {**NEE, **LIGHT}, BOX_CAM),
+    "B2+l+d": ("metal", False, LIGHT, DRAGON_CAM),
+    "B2b+l+d": ("glass", False, dict(max_transmission_bounces=6, **LIGHT),
+                DRAGON_CAM),
 }
 
 
@@ -117,6 +136,10 @@ def _jax_scene(kind, sky):
     env = JEnvmap.gradient_sky() if sky else None
     if kind == "cornell":
         return jcornell.cornell_box(glossy=True).build(envmap=env)
+    if kind == "cornell_box":
+        return jcornell.cornell_box().build(envmap=env)
+    if kind == "glow_orbs":
+        return jcornell.glow_orbs().build(envmap=env)
     if kind == "glass_box":
         return jcornell.glass_sphere_box().build(envmap=env)
     if kind == "spheres":
@@ -132,9 +155,13 @@ def _jax_scene(kind, sky):
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
+    return _make_case(request.param)
+
+
+def _make_case(name):
     """(name, JAX scene, its port, settings kwargs, rays as numpy with a
     cotangent of the outputs from a numpy seed)."""
-    kind, sky, kw, cam_kw = CASES[request.param]
+    kind, sky, kw, cam_kw = CASES[name]
     js = _jax_scene(kind, sky)
     scene = interop.scene_from_numpy(interop.scene_to_numpy(js), device=CPU)
     cam = jht.make_camera(**cam_kw)
@@ -152,7 +179,7 @@ def case(request):
                 gsky=rng.uniform(0.0, 1.0, (n, 4)).astype(np.float32))
     kw = {**dict(width=W, height=W, samples_per_pixel=LANES, max_bounces=6),
           **kw}
-    return request.param, js, scene, kw, rays
+    return name, js, scene, kw, rays
 
 
 def _port_rays(rays):
@@ -213,6 +240,9 @@ def test_sweep_of_the_record_matches_lockstep_autograd(case):
         assert got[:, 9:12].abs().max() > 0  # Beer-Lambert's column
     if name == "rr_ties":
         assert _rr_ties(scene, rec, st) > 0
+    if st.light_importance_sampling:  # light terms and MIS-weighted hits
+        assert rec.lq is not None and int(_lit(rec).sum()) > 0
+        assert float((rec.lq[..., 3] < 1.0).to(torch.float32).sum()) > 0
     assert (records is None) == (env != 2)
     if env == 2:  # the env-NEE records, summed per texel, give the mip's
         keys, weights = records
@@ -227,6 +257,14 @@ def test_sweep_of_the_record_matches_lockstep_autograd(case):
         ref_env = ref_env.reshape(-1, 3).to(torch.float64)
         assert float((sums - ref_env).abs().max()) <= (
             1e-5 * float(ref_env.abs().max()) + 1e-7)
+
+
+def _lit(rec):
+    """[B + 1, N] whether each slot's light term was added (bit 27)."""
+    n_shaded = rec.end.to(torch.int64) & 0xFFFF
+    slot = torch.arange(rec.word.shape[0])[:, None]
+    return (slot < n_shaded[None]) & (
+        (rec.word.to(torch.int64) & (1 << 27)) != 0)
 
 
 def _jax_color(js, kw, rays, mats=None):
@@ -313,18 +351,30 @@ def scenes():
 CARD_BUDGET = int(adj.RECORD_SHARE * 80e9)
 
 
-@pytest.mark.parametrize("nee", [False, True])
-def test_record_words_a_bounce(scenes, nee):
+@pytest.mark.parametrize("nee,light", [
+    pytest.param(False, False, id="False"),
+    pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="light"),
+    pytest.param(True, True, id="True-light")])
+def test_record_words_a_bounce(scenes, nee, light):
     """5 words a shaded bounce (a_prev rgb, t, the packed word), 12 with
-    env NEE; a ray's record is its slots and an end word."""
+    env NEE; with area-light NEE 4 more (the light term's f, dterm,
+    gterm and the emission's weight): 9, or 16 with env NEE too; a ray's
+    record is its slots and an end word."""
     sc = scenes["sky_dragon"]
-    st = RenderSettings(**GLASS_DRAGON_STEP, **(NEE if nee else SKY))
-    assert adj.record_words(sc, st) == (12 if nee else 5)
+    assert sc.lights is not None  # the Cornell shell's panel
+    st = RenderSettings(**GLASS_DRAGON_STEP, **(NEE if nee else SKY),
+                        light_importance_sampling=light)
+    words = (12 if nee else 5) + (4 if light else 0)
+    assert words in (5, 12, 9, 16)
+    assert adj.record_words(sc, st) == words
     assert adj.record_bytes(sc, st, 262144) == 4 * 262144 * (
-        1 + 13 * (12 if nee else 5))
-    rec = mk.empty_record(7, st, nee, CPU)
+        1 + 13 * words)
+    rec = mk.empty_record(7, st, nee, CPU, light)
+    assert (rec.lq is not None) == light
     assert sum(t.numel() for t in rec if t is not None) == 7 * (
-        1 + 13 * (12 if nee else 5))
+        1 + 13 * words)
+    mk.check_record(rec, 7, st, nee, torch.device(CPU), light)
 
 
 def test_record_plan_records_the_glass_dragon_step(scenes):
@@ -385,8 +435,8 @@ def test_record_plan_replays_off_the_bvh_tier(scenes, why):
     """Off the BVH tier the brute tier records too: bench.py's Cornell
     256-spp step (64 launches of 262144 rays, 6 bounces) takes the record
     route on an 80 GB card's share, and a 1024x1024 step of 256 spp (1,024
-    launches, ~38 GB of records) replays. Light NEE, whose adjoint is
-    ROADMAP B2+l, is not recorded on either tier."""
+    launches, ~38 GB of records) replays. Light NEE (B2+l) records on
+    either tier, and never replays: past the budget the plan raises."""
     if why == "brute_tier":
         sc = scenes["cornell"]
         st = RenderSettings(width=256, height=256, samples_per_pixel=256,
@@ -401,9 +451,11 @@ def test_record_plan_replays_off_the_bvh_tier(scenes, why):
         for sc in (scenes["dragon"], scenes["cornell"]):
             st = RenderSettings(**GLASS_DRAGON_STEP,
                                 light_importance_sampling=True)
-            assert sc.lights is not None and not adj.adjoint_covers(sc, st)
+            assert sc.lights is not None and adj.adjoint_covers(sc, st)
             assert adj.record_plan(sc, st, 262144, 1, CARD_BUDGET) == (
-                adj.transcript_route(sc, st))
+                "recorded")
+            with pytest.raises(NotImplementedError, match="A13"):
+                adj.record_plan(sc, st, 262144, 1024, CARD_BUDGET)
 
 
 # bench.py's and the JAX CLI's brute-tier fwd+bwd steps: (scene, settings,
@@ -442,17 +494,87 @@ def test_record_plan_records_the_brute_tier_steps(scenes, step):
 
 def test_wrappers_take_no_record_on_cpu(scenes):
     """On CPU tensors the differentiable entry points never record (the
-    plain versions run), and the forward refuses a record under area-light
-    NEE, whose adjoint is ROADMAP B2+l, before any launch."""
+    plain versions run), and the forward refuses, before any launch, a
+    record without the light term's words under area-light NEE and one
+    with them without it; the adjoint refuses a light-NEE replay (ROADMAP
+    A13)."""
     sc = scenes["cornell"]
     st = RenderSettings(max_bounces=2, light_importance_sampling=True)
     assert sc.lights is not None
-    rec = mk.empty_record(4, st, False, CPU)
-    with pytest.raises(ValueError, match="area-light NEE"):
-        mk._launch(sc, torch.zeros((4, 3)), torch.ones((4, 3)),
-                   torch.tensor(10.0), torch.zeros(4, dtype=torch.int64),
-                   torch.zeros(4, dtype=torch.int64), st, None,
-                   record=rec)
+    rays = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.tensor(10.0),
+            torch.zeros(4, dtype=torch.int64),
+            torch.zeros(4, dtype=torch.int64))
+    before = mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES
+    for rec, st_r in ((mk.empty_record(4, st, False, CPU), st),
+                      (mk.empty_record(4, st, False, CPU, True),
+                       st.replace(light_importance_sampling=False))):
+        with pytest.raises(ValueError, match="record lq"):
+            mk._launch(sc, *rays, st_r, None, record=rec)
+    with pytest.raises(ValueError, match="A13"):
+        adj._launch(sc, *rays, torch.zeros((4, 3)), st, None,
+                    route="shared")
+    assert (mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES) == before
     with pytest.raises(ValueError, match="needs the forward's record"):
         adj._launch(sc, None, None, None, None, None, torch.zeros((4, 3)),
                     st, None, route="recorded")
+
+
+def test_light_nee_step_past_the_budget_raises_before_any_launch(scenes):
+    """Area-light NEE has no replay (ROADMAP A13): a step whose records
+    pass the budget raises NotImplementedError from its plan, naming the
+    step's bytes and the budget, before any launch; within it the step
+    records. bench.py's Cornell step with light NEE (256x256, 256 spp, 6
+    bounces: 64 launches, 9 words a slot) keeps 4.29 GB."""
+    sc = scenes["cornell"]
+    st = RenderSettings(width=256, height=256, samples_per_pixel=256,
+                        max_bounces=6, light_importance_sampling=True)
+    step = 64 * adj.record_bytes(sc, st, 262144)
+    assert step == 64 * 4 * 262144 * (1 + 7 * 9)
+    assert 4.28e9 < step < 4.30e9 < CARD_BUDGET
+    live = mk.live_record_bytes(CPU)
+    assert adj.record_plan(sc, st, 262144, 64, step + live) == "recorded"
+    before = mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES
+    with pytest.raises(NotImplementedError) as e:
+        adj.record_plan(sc, st, 262144, 64, step + live - 1)
+    assert "A13" in str(e.value) and str(step) in str(e.value)
+    assert str(step + live - 1) in str(e.value)
+    assert (mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES) == before
+
+
+def test_emitter_gets_its_emission_only_through_the_light_term():
+    """glow_orbs' emitters are spheres that few rays shade. On the rays
+    whose paths shade no emitter (the others get a zero cotangent), an
+    emitter's d emission comes from the light term alone, under the sweep's
+    third key (the drawn light's material): it is not zero, and the record
+    route's plain halves give it as jax.grad does (ATOL, RTOL) and as the
+    port's lockstep autograd does."""
+    name, js, scene, kw, rays = _make_case("B2+l_orbs")
+    st = RenderSettings(**kw)
+    o, d, far, sidx, seed = _port_rays(rays)
+    rec = adj.record_transcript_reference(scene, o, d, far, sidx, seed, st)
+    em = scene.materials.emissive
+    emitters = torch.nonzero(em[:, 3] * em[:, :3].amax(dim=1) > 0).flatten()
+    n_shaded = rec.end.to(torch.int64) & 0xFFFF
+    slot = torch.arange(rec.word.shape[0])[:, None]
+    mat = rec.word.to(torch.int64) & 0xFF
+    shades = ((slot < n_shaded[None]) & torch.isin(mat, emitters)).any(dim=0)
+    assert 0 < int(shades.sum()) < 0.1 * shades.shape[0]
+    keep = (~shades).numpy()
+    rays = dict(rays, ct=rays["ct"] * keep[:, None])
+    ct = torch.from_numpy(rays["ct"])
+    lit_by = (rec.word.to(torch.int64) >> 21) & 0x3F
+    assert bool(torch.isin(lit_by[_lit(rec) & torch.from_numpy(keep)[None]],
+                           emitters).all())
+    d_out = torch.cat([ct, torch.zeros((ct.shape[0], 4))], dim=1)
+    dmat, _ = adj.sweep_reference(scene, st, rec, d_out)
+    ref, _ = adj.trace_grad_outputs_reference(scene, o, d, far, sidx, seed,
+                                              d_out, st)
+    _assert_columns(dmat, ref)
+    assert bool((dmat[emitters, 0:3].abs().amax(dim=1) > 0).all())
+    got = interop.material_table_to_numpy(
+        adj.material_cotangents(scene, dmat))
+    want = _jax_material_grads(js, kw, rays)
+    e = emitters.numpy()
+    assert np.abs(want["emissive"][e]).min() > 0
+    np.testing.assert_allclose(got["emissive"][e], want["emissive"][e],
+                               atol=ATOL, rtol=RTOL)

@@ -433,11 +433,16 @@ def test_brute_light_probe_equals_kernel(name, cuda_device):
 
 
 @pytest.mark.cuda
-def test_light_nee_frame_launches_kernel_and_grad_raises(cuda_device):
+def test_light_nee_frame_and_step_launch_the_kernels(cuda_device):
     """A light-NEE frame on the card is one B1e launch a group (no plain
-    version on the main path), and its gradient, which has no adjoint
-    kernel yet, raises naming ROADMAP B2+l before any launch."""
+    version on the main path); its fwd+bwd step is one recording B1e and
+    one B2+l sweep a group (no replay), whose material gradients agree
+    with `Fused.OFF`'s autograd through the lockstep (1e-3 of each
+    column's largest + 1e-6; the cotangent is zero on the pixels whose
+    forwards part past 1e-4); `fit_materials` runs; and a step whose
+    records pass the budget raises naming ROADMAP A13 before any launch."""
     from halogen_tpu_torch.diff import fit_materials, render_loss_grad
+    from halogen_tpu_torch.kernels import adjoint as adj
 
     scene = cornell.cornell_box().build(device=cuda_device)
     cam = ht.make_camera(**CAM, device=cuda_device)
@@ -448,17 +453,40 @@ def test_light_nee_frame_launches_kernel_and_grad_raises(cuda_device):
     img = ht.render_frame(scene, cam, st, 1)
     assert mk.LAUNCHES - before == 2
     plain = ht.render_frame(scene, cam, st.replace(fused=ht.Fused.OFF), 1)
-    img, plain = img.cpu().numpy(), plain.cpu().numpy()
-    bad = (np.abs(img - plain) > 1e-4 + 1e-4 * np.abs(plain)).any(axis=-1)
+    img_n, plain_n = img.cpu().numpy(), plain.cpu().numpy()
+    bad = (np.abs(img_n - plain_n) > 1e-4 + 1e-4 * np.abs(plain_n)).any(
+        axis=-1)
     assert bad.sum() <= 1
-    before = mk.LAUNCHES
-    target = torch.zeros((32, 32, 3), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="B2\\+l"):
-        render_loss_grad({"materials": scene.materials}, scene, cam, st,
-                         target, 1)
-    with pytest.raises(NotImplementedError, match="B2\\+l"):
-        fit_materials(scene, cam, st, target, steps=1)
-    assert mk.LAUNCHES == before
+    # the target: the frame itself on the pixels where the forwards agree,
+    # so those pixels give both routes one cotangent (zero elsewhere)
+    keep = torch.from_numpy(~bad).to(cuda_device)[..., None]
+    target = torch.where(keep, img * 0.5, img)
+    counts = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.LAUNCHES,
+                      adj.SWEEP_LAUNCHES)
+    before = counts()
+    _, g_k = render_loss_grad({"materials": scene.materials}, scene, cam,
+                              st, target, 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 0, 2)
+    _, g_p = render_loss_grad({"materials": scene.materials}, scene, cam,
+                              st.replace(fused=ht.Fused.OFF), target, 1)
+    for f in ("albedo", "specular", "emissive", "absorption"):
+        a, b = (getattr(g["materials"], f).cpu().numpy() for g in (g_k, g_p))
+        assert np.isfinite(a).all()
+        bound = 1e-3 * np.abs(b).max(axis=0) + 1e-6
+        assert (np.abs(a - b) <= bound).all(), (f, np.abs(a - b).max())
+    assert np.abs(g_k["materials"].emissive.cpu().numpy()).max() > 0
+    _, losses = fit_materials(scene, cam, st, target, steps=2)
+    assert np.isfinite(losses).all()
+    saved = adj.RECORD_BUDGET
+    adj.RECORD_BUDGET = 1
+    try:
+        before = counts()
+        with pytest.raises(NotImplementedError, match="A13"):
+            render_loss_grad({"materials": scene.materials}, scene, cam, st,
+                             target, 1)
+        assert counts() == before
+    finally:
+        adj.RECORD_BUDGET = saved
 
 
 def _traverse_rays(scene, n, dev, seed=0):

@@ -1,9 +1,10 @@
 """The gradient of area-light NEE on the CPU: `render_loss_grad` through
 the port's light-NEE lockstep against `jax.grad` of the JAX lockstep, at
-`tests/test_torch_grad.py`'s atol 1e-6, rtol 1e-5; and the fused adjoint,
-which has no light-NEE variant yet, refusing it naming ROADMAP B2+l (on
-the card `render_loss_grad` refuses it before any launch:
-`tests/test_torch_kernel_cuda.py`)."""
+`tests/test_torch_grad.py`'s atol 1e-6, rtol 1e-5; and the fused
+adjoint's light-NEE route (B2+l), which records and sweeps and has no
+replay: on the CPU its entry points give the plain version's gradient,
+and they refuse a replay, or a step whose records pass the budget,
+naming ROADMAP A13 (on the card: `tests/test_torch_kernel_cuda.py`)."""
 
 import numpy as np
 import jax
@@ -54,13 +55,26 @@ def test_render_loss_grad_matches_jax():
 
 
 def test_adjoint_refuses_light_nee_naming_its_item():
-    """The fused adjoint has no light-NEE variant yet: its entry points
-    refuse the setting, naming ROADMAP B2+l, on either device."""
+    """The fused adjoint covers light NEE (B2+l) on the record route only:
+    on the CPU its entry point gives the plain version's gradient (the
+    lockstep's light NEE, whose emitter gets a d emission), while a
+    light-NEE replay and a step whose records pass the budget are refused,
+    naming ROADMAP A13, before any launch."""
     scene = tcornell.cornell_box().build(device=CPU)
     st = tht.RenderSettings(width=4, height=4, light_importance_sampling=True)
-    assert mk.fused_supported(scene, st) and not adj.adjoint_covers(scene, st)
+    assert mk.fused_supported(scene, st) and adj.adjoint_covers(scene, st)
     o = torch.zeros((2, 3))
-    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(2, 1)
-    with pytest.raises(NotImplementedError, match="B2\\+l"):
-        adj.trace_grad_fused_materials(scene, o, d, torch.tensor(10.0), 0, 1,
-                                       torch.ones((2, 3)), st)
+    d = torch.tensor([[0.0, -1.0, 0.0], [0.3, -0.8, -0.5]])
+    d = d / d.norm(dim=1, keepdim=True)
+    args = (scene, o, d, torch.tensor(10.0), 0, 1, torch.ones((2, 3)), st)
+    got = adj.trace_grad_fused_materials(*args)
+    ref = adj.trace_grad_fused_materials_reference(*args)
+    assert torch.equal(got, ref)
+    light = int(scene.tri_material[int(scene.lights.idx[0])])
+    assert float(got[light, 0:3].abs().max()) > 0  # the panel's d emission
+    before = mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES
+    with pytest.raises(ValueError, match="A13"):
+        adj._launch(*args[:7], st, None, route="global")
+    with pytest.raises(NotImplementedError, match="A13"):
+        adj.record_plan(scene, st, 2, 1, budget=0)
+    assert (mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES) == before
