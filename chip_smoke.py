@@ -292,9 +292,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      preset's frames win, as in the JAX CLI), `bench --preset glass_dragon
      --light-nee` (its JSON line), `debug-sobol`, `fit --steps 3 --width
      64` and the same with `--light-nee` (on the kernels, finite losses),
-     a render resumed from its checkpoint, and `--sharded` raising
-     NotImplementedError (ROADMAP A11); its files in a temporary
-     directory, removed after;
+     a render resumed from its checkpoint, and `render --sharded` at
+     64x64 over a group of this process alone (`nccl`); its files in a
+     temporary directory, removed after;
  35. the brute tier's record route, phase 28's checks at the launch
      shapes of phases 5, 13 and 29: B2 (Cornell glossy, 6 bounces), B2b
      (the glass box, 8 bounces, with a second frame's rays), B2c and B2c+n
@@ -331,6 +331,46 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      launches, Mrays/s (fwd+bwd), busy and idle share, peak memory; and a
      10-step `fit_materials` of `glow_orbs` with light NEE at 256x256 from
      a perturbed albedo and emission, whose held-out loss must fall;
+ 37. the debug views on the card (the lockstep, never the megakernel;
+     B3 above `brute_force_max_tris`): the five views of Cornell glossy
+     (BRUTE, 4 bounces) and of the glass dragon (4 bounces; through AUTO
+     and through `Intersector.PALLAS`, both B3 on the card) at 64x64, 1
+     spp, against the port's CPU render of the same settings through the
+     same route (`PALLAS` on the CPU for the dragon: its counts from
+     `traverse.traverse_world_walk_reference`): on every pixel whose first
+     hit and path outputs agree (at most 1% may not), albedo and normal
+     within 1e-5 and the count views and per-ray counts equal; B3's seven
+     outputs on the glass dragon's 262,144 camera rays equal to the plain
+     walk's on the card on every ray; `testing_scene(False)` (77,364
+     triangles) in RAY_BOX_TESTS at 512x512, 1 spp: its ms and B3
+     launches;
+ 38. an HDRI file: `procedural_hdri(2048)` written as an EXR and read by
+     `load_envmap` (bit for bit), lighting `meshes.outdoors_scene()` (2
+     triangles, 5 spheres, one of glass: B1b+c) with env NEE at mip level
+     0: a 256x256 16 spp frame's mean within 2% of `Fused.OFF`'s; the
+     `envmap_1024` preset's settings (1024x1024, 16 spp, 4 bounces): a
+     warm-up and 2 timed frames, launches, Mrays/s, a profiled frame
+     (busy ms, idle share); `render_loss_grad` with the mips at 256x256,
+     16 spp against `Fused.OFF` at phase 15's tolerances (up to 1% of the
+     pixels, whose forwards round apart under the 2000-radiance sun, held
+     out), the record route and the sky backward launched, and two more
+     steps timed;
+ 39. sharding: two ranks on the one card (`chip_smoke.py --rank-worker`
+     processes, `gloo`) render `dragons_hero` (512x512, 64 spp, 8 bounces)
+     under its sky (`--envmap`, B1b+c+d: the preset's own image is black,
+     as the JAX CLI's, for no material emits and it leaves use_envmap off)
+     over meshes (2, 1) and (1, 2): the ranks' images equal, and
+     within atol 2e-5, rtol 1e-4 of one process's `render_frame`; a
+     sharded gradient step at 16 spp on each mesh, twice: bit for bit on
+     both ranks and on the rerun, against one process's
+     `render_loss_grad` at atol 1e-4, rtol 1e-3 (loss rtol 1e-5), each
+     rank's backward recording forwards and sweeps, no replay, its peak
+     memory printed; then `python -m halogen_tpu_torch.cli render --preset
+     dragons_hero --sharded` in this process, one rank over `nccl`, as the
+     preset has it (B1b+d, black) and with `--envmap`: its 64 frames each
+     equal to `render_frame`'s bit for bit, Mrays/s and seconds; and
+     `parallel.scaling_bench` (strong and weak) on the one card, each
+     record naming the card and its power limit;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
@@ -349,6 +389,8 @@ main path, error, times, plain time, bound and library call (B2, B2b,
 B2c, B2c+n, B2b+d and B2+d are the record route's sweep, which their
 steps launch, with the replay and the recording forward beside them),
 the card's name and power limit, and {"ok": true, "device": {...}}.
+B3's record carries phase 37's results, the sky backward's phase 38's and
+B1d's phase 39's.
 """
 
 import dataclasses
@@ -791,6 +833,554 @@ def _profile_text(p: dict) -> str:
             f"launches of the port's kernels, device busy "
             f"{p['busy_ms']:.3f} ms, idle share {p['idle_share']:.3f} "
             f"(profiled {p['profiled_ms']:.1f} ms)")
+
+
+def _views():
+    import halogen_tpu_torch as ht
+
+    D = ht.DebugMode
+    return (D.ALBEDO, D.NORMAL, D.RAY_TRIANGLE_TESTS, D.RAY_BOX_TESTS,
+            D.COMBINED)
+
+
+def phase37(dev, card: str) -> dict:
+    """37. Debug views on the card (the lockstep, with B3 above
+    `brute_force_max_tris`) against the port's CPU render of the same
+    settings through the same route; B3's per-ray counts against the
+    plain walk; the testing scene's box view at 512x512."""
+    import numpy as np
+    import torch
+
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.integrator.trace import group_rays, trace_rays
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import traverse
+    from halogen_tpu_torch.scene import cornell, meshes, testing_scene
+
+    t37 = time.perf_counter()
+    cpu = torch.device("cpu")
+    D = ht.DebugMode
+    base = dict(width=64, height=64, samples_per_pixel=1,
+                ray_chunk_size=262144)
+    cases = {  # name: (builder, camera, settings on the card, on the CPU)
+        "cornell glossy (BRUTE)": (
+            lambda d: cornell.cornell_box(glossy=True).build(device=d),
+            CAM, ht.RenderSettings(**base, max_bounces=4),
+            ht.RenderSettings(**base, max_bounces=4)),
+        "glass dragon (AUTO: B3)": (
+            lambda d: meshes.glass_dragon_scene().build(device=d),
+            DRAGON_CAM, ht.RenderSettings(**base, max_bounces=4),
+            ht.RenderSettings(**base, max_bounces=4,
+                              intersector=ht.Intersector.PALLAS)),
+        "glass dragon (PALLAS: B3)": (
+            lambda d: meshes.glass_dragon_scene().build(device=d),
+            DRAGON_CAM, ht.RenderSettings(
+                **base, max_bounces=4, intersector=ht.Intersector.PALLAS),
+            ht.RenderSettings(**base, max_bounces=4,
+                              intersector=ht.Intersector.PALLAS)),
+    }
+    out37, on_cpu = {}, {}  # the CPU's renders, by scene and settings
+    for name, (build, cam_kw, st_k, st_c) in cases.items():
+        scenes = {d: build(d) for d in (dev, cpu)}
+        cams = {d: ht.make_camera(**cam_kw, device=d) for d in (dev, cpu)}
+        key = (cam_kw["position"], st_c)
+        # every pixel's one ray through the lockstep on each device: where
+        # the first hit and the path's outputs agree, the views must too
+        pix = {d: torch.arange(st_k.num_pixels, device=d) for d in (dev, cpu)}
+        o, dd, s, e = group_rays(cams[dev], st_k, 1, pix[dev], 0, 1)
+        k = trace_rays(scenes[dev], o, dd, cams[dev].far.expand(o.shape[0]),
+                       s, e, st_k.replace(debug_mode=D.COMBINED))
+        if key not in on_cpu:
+            o, dd, s, e = group_rays(cams[cpu], st_c, 1, pix[cpu], 0, 1)
+            on_cpu[key] = {"traced": trace_rays(
+                scenes[cpu], o, dd, cams[cpu].far.expand(o.shape[0]), s, e,
+                st_c.replace(debug_mode=D.COMBINED))}
+            for view in _views():
+                on_cpu[key][view] = ht.render_frame(
+                    scenes[cpu], cams[cpu], st_c.replace(debug_mode=view), 1)
+        c = on_cpu[key]["traced"]
+        tk, tc = k.first_hit_t.cpu().numpy(), c.first_hit_t.numpy()
+        first_ok = (np.isinf(tk) & np.isinf(tc)) | np.isclose(
+            tk, tc, atol=1e-5, rtol=1e-5)
+        outs_ok = (np.abs(k.outputs.cpu().numpy() - c.outputs.numpy())
+                   <= PARITY_TOL + PARITY_TOL * np.abs(c.outputs.numpy())
+                   ).all(axis=1)
+        agree = first_ok & outs_ok
+        counts_eq = {key: int((getattr(k, key).cpu().numpy()[agree]
+                               != getattr(c, key).numpy()[agree]).sum())
+                     for key in ("tri_tests", "box_tests")}
+        views = {}
+        for view in _views():
+            mk.LAUNCHES = traverse.LAUNCHES = 0
+            img_k = ht.render_frame(scenes[dev], cams[dev],
+                                    st_k.replace(debug_mode=view), 1)
+            torch.cuda.synchronize()
+            launched = (mk.LAUNCHES, traverse.LAUNCHES)
+            img_c = on_cpu[key][view]
+            a = img_k.reshape(-1, 3).cpu().numpy()
+            b = img_c.reshape(-1, 3).numpy()
+            assert np.isfinite(a).all(), (name, view)
+            if view in (D.ALBEDO, D.NORMAL):
+                bad = ~(np.abs(a - b) <= 1e-5).all(axis=1)
+            else:
+                bad = ~(a == b).all(axis=1)
+            views[view.name] = dict(apart=int(bad[agree].sum()),
+                                    apart_anywhere=int(bad.sum()),
+                                    launches=launched)
+            assert launched[0] == 0, "a debug view launched the megakernel"
+            if scenes[dev].num_triangles > st_k.brute_force_max_tris:
+                assert launched[1] > 0, "the debug view did not launch B3"
+            else:
+                assert launched[1] == 0, launched
+            assert views[view.name]["apart"] == 0, (name, view.name)
+        n = agree.shape[0]
+        out37[name] = dict(pixels=n, first_hit_apart=int((~first_ok).sum()),
+                           path_apart=int((~agree).sum()),
+                           counts_apart=counts_eq, views=views)
+        print(f"[37] {name}, 64x64 1 spp, {st_k.max_bounces} bounces: "
+              f"{int((~first_ok).sum())} pixels whose first hits disagree "
+              f"with the CPU's, {int((~agree).sum())} whose path outputs "
+              f"do (of {n}); on the rest the per-ray counts apart "
+              f"{counts_eq}; views (pixels apart where the paths agree, "
+              f"anywhere; megakernel and B3 launches): {views}", flush=True)
+        assert (~agree).sum() <= 0.01 * n, name
+        assert not any(counts_eq.values()), name
+
+    # B3's per-ray counts at the glass dragon's launch shape vs the walk
+    dragon = meshes.glass_dragon_scene().build(device=dev)
+    dcam = ht.make_camera(**DRAGON_CAM, device=dev)
+    st_d = ht.RenderSettings(width=512, height=512, samples_per_pixel=1)
+    pix = torch.arange(st_d.num_pixels, device=dev)
+    o, d, _, _ = group_rays(dcam, st_d, 1, pix, 0, 1)
+    seed = torch.full((o.shape[0],), float("inf"), device=dev)
+    got = traverse._launch(dragon.wbvh, o, d, seed)
+    t0 = time.perf_counter()
+    ref = traverse.traverse_world_walk_reference(dragon.wbvh, o, d, seed)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    apart = {key: int((a != b).sum()) for key, a, b in zip(
+        ("t", "tri", "u", "v", "sign", "tri_tests", "box_tests"), got, ref)}
+    print(f"[37] B3 vs traverse_world_walk_reference on the glass dragon's "
+          f"{o.shape[0]} camera rays (every ray; the plain walk took "
+          f"{walk_s:.2f} s on the card): rays apart per output {apart}; "
+          f"mean tests a ray: {float(got[5].float().mean()):.3f} triangles, "
+          f"{float(got[6].float().mean()):.3f} boxes", flush=True)
+    assert not any(apart.values()), "B3's walk differs from the plain walk"
+
+    # the testing scene's box view at 512x512, 1 spp
+    testing = testing_scene.testing_scene(False).build(device=dev)
+    tcam = testing_scene.testing_scene_camera(device=dev)
+    st_t = ht.RenderSettings(width=512, height=512, samples_per_pixel=1,
+                             debug_mode=D.RAY_BOX_TESTS)
+    ht.render_frame(testing, tcam, st_t.replace(width=64, height=64), 0)
+    torch.cuda.synchronize()
+    mk.LAUNCHES = traverse.LAUNCHES = 0
+    t0 = time.perf_counter()
+    img = ht.render_frame(testing, tcam, st_t, 1)
+    torch.cuda.synchronize()
+    box_ms = (time.perf_counter() - t0) * 1e3
+    b3 = traverse.LAUNCHES
+    assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
+    assert mk.LAUNCHES == 0 and b3 > 0
+    out37["testing box view"] = dict(
+        triangles=testing.num_triangles, ms=box_ms, b3_launches=b3,
+        over_range_share=float((img == 1.0).all(dim=2).float().mean()))
+    print(f"[37] testing_scene(False) ({testing.num_triangles} triangles) "
+          f"RAY_BOX_TESTS 512x512 1 spp {st_t.max_bounces} bounces: "
+          f"{box_ms:.1f} ms, {b3} B3 launches, "
+          f"{out37['testing box view']['over_range_share']:.3f} of the "
+          f"pixels past the display range; phase 37 took "
+          f"{time.perf_counter() - t37:.1f} s | {card}", flush=True)
+    out37["b3_vs_walk_apart"] = apart
+    return out37
+
+
+def phase38(dev, card: str) -> dict:
+    """38. An HDRI file: a 2048-px EXR loaded by `load_envmap` lights the
+    outdoors group (B1b+c); its frame against plain, the `envmap_1024`
+    preset's settings at full size, and a gradient step with the mips
+    against `Fused.OFF`."""
+    import numpy as np
+    import torch
+
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.diff import render_loss_grad
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import sky as skyk
+    from halogen_tpu_torch.scene import hdr_io, meshes
+
+    t38 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        hdri = hdr_io.procedural_hdri(2048)
+        path = os.path.join(tmp, "sky_2048.exr")
+        hdr_io.write_exr(path, hdri)
+        size = os.path.getsize(path)
+        env = hdr_io.load_envmap(path)
+    assert np.array_equal(env.mips[0], hdri)
+    scene = meshes.outdoors_scene().build(envmap=env, device=dev)
+    load_s = time.perf_counter() - t38
+    cam = ht.make_camera(position=(0.0, 0.6, 7.0), target=(0, -0.4, 0),
+                         fov_deg=50, device=dev)
+    st = ht.RenderSettings(width=1024, height=1024, samples_per_pixel=16,
+                           max_bounces=4, use_envmap=True,
+                           env_importance_sampling=True, env_mip_level=0,
+                           ray_chunk_size=262144)
+    assert scene.any_transmissive and mk.fused_supported(scene, st)
+    texels = sum(int(m.shape[0] * m.shape[1]) for m in scene.env_mips)
+    print(f"[38] procedural_hdri(2048) as a {size / 2**20:.1f} MiB EXR, "
+          f"loaded by load_envmap: {len(scene.env_mips)} mips, {texels} "
+          f"texels, the outdoors group ({scene.num_triangles} triangles, "
+          f"{scene.num_spheres} spheres) built on the card in "
+          f"{load_s:.2f} s", flush=True)
+
+    small = st.replace(width=256, height=256)
+    k_img = ht.render_frame(scene, cam, small, 1)
+    p_img = ht.render_frame(scene, cam, small.replace(fused=ht.Fused.OFF), 1)
+    rel = abs(float(k_img.mean()) - float(p_img.mean())) / abs(
+        float(p_img.mean()))
+    print(f"[38] 256x256 16 spp frame, kernels vs Fused.OFF: mean radiance "
+          f"{float(k_img.mean()):.6f} vs {float(p_img.mean()):.6f}, rel "
+          f"{rel:.2e} (< 2e-2)", flush=True)
+    assert bool(torch.isfinite(k_img).all()) and rel < 2e-2
+
+    mk.LAUNCHES = skyk.FORWARD_LAUNCHES = adj.LAUNCHES = 0
+    ht.render_frame(scene, cam, st, 0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(2):
+        img = ht.render_frame(scene, cam, st, f + 1)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 2
+    launches = (mk.LAUNCHES, skyk.FORWARD_LAUNCHES)
+    assert launches[0] > 0 and launches[1] == launches[0]
+    assert bool(torch.isfinite(img).all())
+    mrays = st.samples_per_pixel * st.num_pixels / dt / 1e6
+    prof = _profile_step(lambda: ht.render_frame(scene, cam, st, 3),
+                         dt * 1e3)
+    print(f"[38] the outdoors group under the 2048-px HDRI at envmap_1024's "
+          f"settings (1024x1024, 16 spp, 4 bounces, env NEE, mip level 0; "
+          f"B1b+c): {launches[0]} megakernel and {launches[1]} sky "
+          f"launches in 3 frames; {dt * 1e3:.2f} ms a frame = {mrays:.3f} "
+          f"Mrays/s; {_profile_text(prof)} | {card}", flush=True)
+
+    # the gradient step with the mips vs Fused.OFF (phase 15's rule, but
+    # up to 1% of the pixels may round apart and be held out, not 0.1%:
+    # env NEE draws the 2000-radiance sun disc, and where a glossy lobe's
+    # pdf turns an ulp of direction into a change of its MIS weight
+    # (phase 17) a sample moves the pixel by more than 1e-4 of it)
+    st_g = st.replace(width=256, height=256)
+    st_off = st_g.replace(fused=ht.Fused.OFF)
+    p = {"materials": scene.materials, "env_mips": scene.env_mips}
+    img_k = ht.render_frame(scene, cam, st_g, 1)
+    img_p = ht.render_frame(scene, cam, st_off, 1)
+    diff = (img_k - img_p).abs()
+    agree = (diff <= PARITY_TOL + PARITY_TOL * img_p.abs()).all(
+        dim=2, keepdim=True)
+    n_apart = int((~agree).sum())
+    rel_apart = (diff / (img_p.abs() + 1e-6)).amax(dim=2)[~agree[..., 0]]
+    print(f"[38] the 256x256 forwards, kernels vs Fused.OFF: {n_apart} "
+          f"pixels apart past 1e-4; their relative difference median "
+          f"{float(rel_apart.median()) if n_apart else 0.0:.3e}, max "
+          f"{float(rel_apart.max()) if n_apart else 0.0:.3e}", flush=True)
+    assert n_apart <= 0.01 * agree.numel(), n_apart
+    c = torch.rand(tuple(img_k.shape),
+                   generator=torch.Generator().manual_seed(38)).to(dev)
+    c = c * agree
+    counts = lambda: (mk.RECORD_LAUNCHES, adj.SWEEP_LAUNCHES, adj.LAUNCHES,
+                      skyk.BACKWARD_LAUNCHES, skyk.ORDER_LAUNCHES,
+                      skyk.SCATTER_LAUNCHES)
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, g_k = render_loss_grad(p, scene, cam, st_g, img_k + c, 1)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    t0 = time.perf_counter()
+    for f in range(2):
+        render_loss_grad(p, scene, cam, st_g, img_k + c, f + 2)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    _, g_p = render_loss_grad(p, scene, cam, st_off, img_p + c, 1)
+    mats = {}
+    for f in ("albedo", "specular", "roughness", "emissive", "absorption"):
+        mats[f], ratio = _grad_compare(getattr(g_k["materials"], f),
+                                       getattr(g_p["materials"], f))
+        assert ratio <= 1.0, f"the HDRI step's {f} gradient disagrees"
+    mips = [(float((a - b).abs().max()), float(b.abs().max()))
+            for a, b in zip(g_k["env_mips"], g_p["env_mips"])]
+    assert all(bool(torch.isfinite(m).all()) for m in g_k["env_mips"])
+    assert all(err <= 1e-4 * top + 1e-6 for err, top in mips), mips
+    assert launched[0] > 0 and launched[1] > 0 and launched[2] == 0
+    assert min(launched[3:]) > 0, launched
+    print(f"[38] render_loss_grad with the mips at 256x256 16 spp "
+          f"({n_apart} pixels whose forwards round apart, held out): "
+          f"launches (recording megakernel, sweep, replay, sky backward, "
+          f"sky ordering, sky sums) {launched}; the first step "
+          f"{first_ms:.1f} ms, then {step_ms:.1f} ms a step; vs "
+          f"Fused.OFF max |diff| {mats}; mips (max |diff|, max |ref|) "
+          f"{mips}; phase 38 took {time.perf_counter() - t38:.1f} s | "
+          f"{card}", flush=True)
+    return dict(texels=texels, frame_ms=dt * 1e3, mrays_per_s=mrays,
+                frame_profile=prof, mean_rel_vs_plain=rel,
+                pixels_apart=n_apart, first_step_ms=first_ms,
+                step_ms=step_ms, step_launches=launched,
+                step_max_abs_diff=mats, mips_max_abs_diff=mips)
+
+
+def _hero_args(*extra):
+    """The CLI's arguments of `render --preset dragons_hero` (its scene,
+    camera and settings)."""
+    import argparse
+    import importlib
+
+    cli = importlib.import_module("halogen_tpu_torch.cli.main")
+    p = argparse.ArgumentParser()
+    cli._add_render_args(p)
+    args = cli._apply_preset(p.parse_args(["--preset", "dragons_hero",
+                                           *extra]))
+    return cli, args
+
+
+def _rank_worker(rank: int, port: int, out: str) -> int:
+    """One of phase 39's two ranks on the one card (`gloo`: NCCL refuses
+    two ranks on one device): dragons_hero frames over meshes (2, 1) and
+    (1, 2), and a sharded gradient step twice on each, saved to `out`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from halogen_tpu_torch.diff.grad import material_params
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.parallel import sharding
+
+    assert sharding.init_distributed(
+        backend="gloo", init_method=f"tcp://localhost:{port}",
+        world_size=2, rank=rank)
+    cli, args = _hero_args("--envmap")
+    scene = cli._build_scene(args.scene, args.envmap, args.device)
+    cam, st = cli._camera(args), cli._settings(args)
+    st_g = st.replace(samples_per_pixel=16)
+    zeros = torch.zeros((st.height, st.width, 3), device=scene.device)
+    res = {}
+    for px, spp in ((2, 1), (1, 2)):
+        tag = f"{px}x{spp}"
+        mesh = sharding.make_render_mesh(px, spp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sharding.render_frame_sharded(scene, cam, st, 1, mesh)
+        torch.cuda.synchronize()
+        res[f"frame_s_{tag}"] = time.perf_counter() - t0
+        res[f"img_{tag}"] = img.cpu().numpy()
+        params = material_params(scene.materials)
+        for rep in range(2):
+            mk.RECORD_LAUNCHES = adj.SWEEP_LAUNCHES = adj.LAUNCHES = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads = sharding.loss_and_grads_sharded(
+                params, scene, cam, st_g, zeros, 1, mesh)
+            torch.cuda.synchronize()
+            res[f"step_s_{tag}_{rep}"] = time.perf_counter() - t0
+            res[f"peak_{tag}_{rep}"] = torch.cuda.max_memory_allocated()
+            res[f"launches_{tag}_{rep}"] = np.array(
+                [mk.RECORD_LAUNCHES, adj.SWEEP_LAUNCHES, adj.LAUNCHES])
+            res[f"loss_{tag}_{rep}"] = loss.cpu().numpy()
+            for k, g in grads.items():
+                res[f"g_{k}_{tag}_{rep}"] = g.cpu().numpy()
+    res["backend"] = np.array(dist.get_backend())
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+    print(f"rank {rank}: OK", flush=True)
+    return 0
+
+
+def phase39(dev, card: str) -> dict:
+    """39. Sharding: two ranks on the one card over `gloo` against one
+    process, then `render --preset dragons_hero --sharded` over one rank
+    and `nccl`, every frame against `render_frame` bit for bit."""
+    import contextlib
+    import io
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from halogen_tpu_torch.diff import render_loss_grad
+    from halogen_tpu_torch.integrator.trace import render_frame
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.parallel import sharding
+
+    t39 = time.perf_counter()
+    # the preset's own image is black, as the JAX CLI's: no material of
+    # its three dragons and floor emits, and it leaves use_envmap off; the
+    # comparisons run under its sky (`--envmap`: B1b+c+d) as well
+    cli, args = _hero_args("--envmap")
+    scene = cli._build_scene(args.scene, args.envmap, args.device)
+    cam, st = cli._camera(args), cli._settings(args)
+    st_g = st.replace(samples_per_pixel=16)
+    print(f"[39] dragons_hero: {scene.num_triangles} triangles, "
+          f"{scene.num_spheres} spheres, {scene.materials.count} materials, "
+          f"{st.width}x{st.height} {st.samples_per_pixel} spp "
+          f"{st.max_bounces} bounces, {args.frames} frames; the two ranks "
+          f"under its sky (use_envmap {st.use_envmap})", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--rank-worker", str(r), str(port), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0 and f"rank {r}: OK" in o, o[-4000:]
+        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+               for r in range(2)]
+
+    ref_img = render_frame(scene, cam, st, 1).cpu().numpy()
+    assert ref_img.max() > 0.05, "the sky-lit hero frame is black"
+    zeros = torch.zeros((st.height, st.width, 3), device=dev)
+    loss_ref, g_ref = render_loss_grad({"materials": scene.materials},
+                                       scene, cam, st_g, zeros, 1)
+    two = {}
+    for tag in ("2x1", "1x2"):
+        a, b = res[0][f"img_{tag}"], res[1][f"img_{tag}"]
+        assert np.array_equal(a, b), f"the ranks' {tag} images differ"
+        img_err = float(np.abs(a - ref_img).max())
+        img_bits = bool(np.array_equal(a, ref_img))
+        np.testing.assert_allclose(a, ref_img, atol=2e-5, rtol=1e-4)
+        grads = {}
+        for key in [k for k in res[0] if k.startswith("g_")
+                    and k.endswith(f"{tag}_0")]:
+            f = key[2:-len(f"_{tag}_0")]
+            for r in res:
+                assert np.array_equal(r[key], r[key[:-1] + "1"]), (
+                    f"{key}: the rerun gave other bits")
+                assert np.array_equal(r[key], res[0][key]), key
+            ref = getattr(g_ref["materials"], f).cpu().numpy()
+            grads[f] = float(np.abs(res[0][key] - ref).max())
+            np.testing.assert_allclose(res[0][key], ref, atol=1e-4,
+                                       rtol=1e-3, err_msg=f)
+        loss = float(res[0][f"loss_{tag}_0"])
+        np.testing.assert_allclose(loss, float(loss_ref), rtol=1e-5)
+        launches = [r[f"launches_{tag}_0"].tolist() for r in res]
+        for rec, sweep, replay in launches:
+            assert rec > 0 and sweep > 0 and replay == 0, launches
+        two[tag] = dict(
+            image_max_abs_diff=img_err, image_bit_for_bit=img_bits,
+            grads_max_abs_diff=grads, loss=loss, loss_ref=float(loss_ref),
+            launches=launches,
+            frame_s=[float(r[f"frame_s_{tag}"]) for r in res],
+            step_s=[float(r[f"step_s_{tag}_1"]) for r in res],
+            peak_bytes=[int(r[f"peak_{tag}_0"]) for r in res])
+        print(f"[39] 2 ranks over {res[0]['backend']} on the one card, mesh "
+              f"{tag}: the ranks' images equal; vs one process's "
+              f"render_frame max |diff| {img_err:.3e} (bit for bit "
+              f"{img_bits}); the sharded step at 16 spp on both ranks "
+              f"bit for bit and repeatable, vs render_loss_grad max |diff| "
+              f"{grads}, loss {loss:.8e} vs {float(loss_ref):.8e}; launches "
+              f"a rank (recording forwards, sweeps, replays) {launches}; "
+              f"frame s {two[tag]['frame_s']}, step s {two[tag]['step_s']}; "
+              f"peak memory a rank "
+              f"{[p / 2**30 for p in two[tag]['peak_bytes']]} GiB "
+              f"(RECORD_SHARE {adj.RECORD_SHARE}) | {card}", flush=True)
+    print(f"[39] the two ranks took {ranks_s:.1f} s with their start-up",
+          flush=True)
+
+    # one rank over nccl: the CLI's dragons_hero as the preset has it
+    # (black) and under its sky, every frame captured
+    one = {}
+    plain_render = sharding.render_frame_sharded
+    for extra in ((), ("--envmap",)):
+        frames, marks = [], []
+
+        def capture(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = plain_render(*a, **kw)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter() - t0)
+            frames.append(img.clone())
+            assert (dist.get_backend() == "nccl"
+                    and dist.get_world_size() == 1)
+            return img
+
+        mk.LAUNCHES = 0
+        sharding.render_frame_sharded = capture
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["render", "--preset", "dragons_hero",
+                                   "--sharded", *extra, "--out",
+                                   os.path.join(tmp, "hero.png")])
+                cli_s = time.perf_counter() - t0
+                written = any(os.path.exists(os.path.join(tmp, n))
+                              for n in ("hero.png", "hero.png.npy"))
+        finally:
+            sharding.render_frame_sharded = plain_render
+        assert rc == 0 and written and not dist.is_initialized()
+        assert len(frames) == args.frames, len(frames)
+        launches = mk.LAUNCHES
+        _, a1 = _hero_args(*extra)
+        sc1 = cli._build_scene(a1.scene, a1.envmap, a1.device)
+        st1 = cli._settings(a1)
+        rays = st1.samples_per_pixel * st1.num_pixels * len(frames)
+        mrays = rays / sum(marks) / 1e6
+        same = [bool(torch.equal(img, render_frame(sc1, cam, st1, f + 1)))
+                for f, img in enumerate(frames)]
+        top = max(float(img.max()) for img in frames)
+        name = "under its sky" if extra else "as the preset has it"
+        one[name] = dict(frames=len(frames), seconds=cli_s,
+                         frame_seconds=sum(marks), mrays_per_s=mrays,
+                         launches=launches, bit_for_bit=all(same),
+                         max_radiance=top)
+        print(f"[39] python -m halogen_tpu_torch.cli render --preset "
+              f"dragons_hero --sharded {' '.join(extra)}({name}), one rank "
+              f"over nccl: rc {rc}, {len(frames)} frames, {launches} "
+              f"megakernel launches, {cli_s:.1f} s in all, frames "
+              f"{sum(marks):.2f} s = {mrays:.3f} Mrays/s; the largest "
+              f"radiance {top:.4f}; frames bit for bit with render_frame: "
+              f"{sum(same)} of {len(same)} | {card}", flush=True)
+        assert all(same), "a sharded frame differs from render_frame"
+        assert launches > 0 and (top > 0.05 if extra else top == 0.0)
+    # the scaling benchmark on the one card (the one size it has), in
+    # this process over nccl, strong and weak
+    from halogen_tpu_torch.parallel import scaling_bench
+
+    bench = {}
+    for extra in ((), ("--weak",)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = scaling_bench.main(["--width", "256", "--spp", "8",
+                                     *extra])
+        recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        assert rc == 0 and len(recs) == 1 and not dist.is_initialized()
+        assert recs[0]["device"] == card, recs
+        bench["weak" if extra else "strong"] = recs[0]
+    print(f"[39] python -m halogen_tpu_torch.parallel.scaling_bench on one "
+          f"card: {bench}; phase 39 took {time.perf_counter() - t39:.1f} s "
+          f"| {card}", flush=True)
+    return dict(two_ranks=two, two_ranks_s=ranks_s, one_rank=one,
+                scaling_bench=bench)
 
 
 def main() -> int:
@@ -3472,16 +4062,15 @@ def main() -> int:
                     "--checkpoint", str(ck34)]) == 0
     frame_count = int(np.load(ck34)["frame_count"])
     assert frame_count >= 3, frame_count  # resumed past the first run
-    try:
-        cli(["render", "--sharded", "--out", str(out34 / "x.png")])
-        raise AssertionError("--sharded did not raise")
-    except NotImplementedError as e:
-        assert "A11" in str(e), e
+    mk.LAUNCHES = 0
+    assert cli(["render", "--sharded", "--width", "64", "--spp", "2",
+                "--out", str(out34 / "x.png")]) == 0
+    assert wrote(out34 / "x.png") and mk.LAUNCHES > 0
     tmp34.cleanup()
     print(f"[34] a checkpoint resumed to frame_count {frame_count}; "
-          f"--sharded raises NotImplementedError naming ROADMAP A11; bench "
-          f"{bench34}; phases 32-34 took {time.perf_counter() - t32:.1f} s "
-          f"| {card}", flush=True)
+          f"--sharded renders over a group of one ({mk.LAUNCHES} megakernel "
+          f"launches); bench {bench34}; phases 32-34 took "
+          f"{time.perf_counter() - t32:.1f} s | {card}", flush=True)
 
     # --- 35. the brute tier's record route at its launch shapes: phase
     # 28's checks for B2 (phase 5's Cornell rays, 6 bounces), B2b (phase
@@ -3829,6 +4418,14 @@ def main() -> int:
     assert fit_launched[2] == 0 and fit_launched[3] > 0
     assert held36["fitted"] < held36["perturbed"], (
         "the light-NEE fit did not lower the loss")
+
+    # --- 37-39. debug views, an HDRI file, sharding
+    t37 = time.perf_counter()
+    r37 = phase37(dev, card)
+    r38 = phase38(dev, card)
+    r39 = phase39(dev, card)
+    print(f"[39] phases 37-39 took {time.perf_counter() - t37:.1f} s",
+          flush=True)
 
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
@@ -4251,6 +4848,10 @@ def main() -> int:
                        record_bytes=v["record_bytes"])
                for k, v in steps36.items()},
         fit_held_out_loss=held36, fit_step_ms_median=fit36_ms))
+    by_name = {k["name"]: k for k in kernels}
+    by_name["B3"]["count_views"] = r37
+    by_name["sky backward"]["hdri_2048"] = r38
+    by_name["B1d"]["dragons_hero_sharded"] = r39
     print(f"[24] chip_smoke took {time.perf_counter() - t_main:.1f} s "
           f"after its imports", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -4262,4 +4863,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank-worker":
+        sys.exit(_rank_worker(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
     sys.exit(main())

@@ -13,10 +13,12 @@ estimation, with or without area-light next-event estimation, up to
 and the megakernel's BVH tier); material and envmap gradients and the
 fitting loop (`halogen_tpu_torch.diff`), on the card for every scene it
 renders (with area-light NEE through the record route alone: a step whose
-records pass the budget raises, ROADMAP A13); and the command line,
-`python -m halogen_tpu_torch.cli`. Debug views, sharded rendering and
-the wavefront scheduler raise (see ROADMAP.md). The entry points build on
-the card unless the caller passes `device="cpu"`.
+records pass the budget raises, ROADMAP A13); debug views; envmaps
+from HDR and EXR files (`scene.hdr_io`); rendering and fitting sharded
+over processes (`parallel`); and the command line, `python -m
+halogen_tpu_torch.cli`. The wavefront scheduler raises (see ROADMAP.md).
+The entry points build on the card unless the caller passes
+`device="cpu"`.
 """
 
 from halogen_tpu_torch.config import (

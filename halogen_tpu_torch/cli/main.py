@@ -10,11 +10,14 @@ Usage:
     python -m halogen_tpu_torch.cli fit --steps 50 --out fitted.png
     python -m halogen_tpu_torch.cli fit --light-nee --steps 3 --width 64
     python -m halogen_tpu_torch.cli debug-sobol --out sobol.png
+    python -m halogen_tpu_torch.cli render --preset dragons_hero
+    torchrun --nproc-per-node=4 -m halogen_tpu_torch.cli render --sharded
 
 Every command runs on the card (`--device cuda`, the default) unless it is
 given `--device cpu`, where the plain PyTorch versions of the kernels run.
-`--sharded` (and so the `dragons_hero` preset) raises NotImplementedError:
-sharded rendering is ROADMAP A11.
+`render --sharded` (the `dragons_hero` preset sets it) renders each frame
+over a process group (`parallel.sharding`): `torchrun`'s, one process a
+card, or without it this process alone; rank 0 writes the image.
 """
 
 from __future__ import annotations
@@ -152,8 +155,8 @@ def _add_render_args(p: argparse.ArgumentParser):
     p.add_argument("--no-rr", action="store_true",
                    help="disable Russian roulette")
     p.add_argument("--sharded", action="store_true",
-                   help="shard over all local devices (not ported, "
-                   "ROADMAP A11)")
+                   help="shard over the ranks of the process group "
+                   "(torchrun's, or this process alone)")
     p.add_argument("--chunk", type=int, default=262144)
     p.add_argument("--fov", type=float, default=40.0)
     p.add_argument("--aperture", type=float, default=0.0)
@@ -177,9 +180,6 @@ def _apply_preset(args):
     if args.preset:
         for k, v in PRESETS[args.preset].items():
             setattr(args, k, v)
-    if args.sharded:
-        raise NotImplementedError(
-            "sharded rendering is not ported yet (ROADMAP A11)")
     return args
 
 
@@ -193,6 +193,8 @@ def cmd_render(args) -> int:
 
     args = _apply_preset(args)
     log = get_logger()
+    if args.sharded:
+        return _render_sharded(args, log)
     scene = _build_scene(args.scene, args.envmap, args.device)
     cam = _camera(args)
     st = _settings(args)
@@ -213,6 +215,49 @@ def cmd_render(args) -> int:
     _save_png(r.image, args.out)
     log.info("wrote %s (%.1f Mrays/s trailing)", args.out,
              meter.mrays_per_sec)
+    return 0
+
+
+def _render_sharded(args, log) -> int:
+    """`render --sharded` (the JAX CLI's, `cli/main.py:164-182`): frames
+    1 .. frames through `render_frame_sharded` over a mesh of every rank,
+    their running mean, `RenderStats` a frame; rank 0 writes the image.
+    A group this call forms it also ends."""
+    import torch.distributed as dist
+
+    from halogen_tpu_torch.parallel.sharding import (
+        init_distributed,
+        make_render_mesh,
+        render_frame_sharded,
+    )
+    from halogen_tpu_torch.utils.metrics import RaysMeter, RenderStats
+
+    formed = init_distributed(device=args.device)
+    try:
+        scene = _build_scene(args.scene, args.envmap, args.device)
+        cam = _camera(args)
+        st = _settings(args)
+        mesh = make_render_mesh()
+        log.info("sharded over %d ranks, mesh %s", dist.get_world_size(),
+                 mesh.shape)
+        acc = None
+        meter = RaysMeter()
+        for f in range(args.frames):
+            t0 = time.perf_counter()
+            img = render_frame_sharded(scene, cam, st, f + 1, mesh)
+            _synchronize(args.device)
+            dt = time.perf_counter() - t0
+            meter.add(st.samples_per_pixel * st.num_pixels)
+            acc = img if acc is None else acc + (img - acc) / (f + 1)
+            RenderStats(f + 1, st.width, st.height, st.samples_per_pixel,
+                        dt).log(log)
+        if dist.get_rank() == 0:
+            _save_png(acc, args.out)
+            log.info("wrote %s (%.1f Mrays/s trailing)", args.out,
+                     meter.mrays_per_sec)
+    finally:
+        if formed:
+            dist.destroy_process_group()
     return 0
 
 

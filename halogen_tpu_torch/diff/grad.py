@@ -29,7 +29,9 @@ cotangents come from the sky pass's backward kernel (`kernels/sky.py`),
 which sums every ray's taps per texel in a fixed order.
 
 A fit's state is saved in the JAX package's npz layout, so a fit started
-there resumes here. Sharded fits (`mesh`) come with ROADMAP A11.
+there resumes here. A fit over a `parallel.sharding` mesh takes each
+step's gradient from `loss_and_grads_sharded`, summed over the mesh's
+ranks, with the same optimizer and projection.
 """
 
 from __future__ import annotations
@@ -218,10 +220,10 @@ def fit_materials(scene: SceneData, camera: Camera,
     renders another frame of the sample stream; env NEE draws by the alias
     tables as built and reads the radiance of the current finest mip. When
     `checkpoint_path` exists the run resumes from it; progress is saved
-    every `checkpoint_every` steps."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded fits are not ported yet (ROADMAP A11)")
+    every `checkpoint_every` steps. `mesh`: a (px, spp) mesh of
+    `parallel.sharding` (every rank of it runs the fit): each step's
+    gradient is `loss_and_grads_sharded`'s, the materials and mips
+    replicated (the JAX `fit_materials`, `grad.py:204-215`)."""
 
     params = {"material_params": {
         f: t.detach().clone().requires_grad_(True)
@@ -244,10 +246,20 @@ def fit_materials(scene: SceneData, camera: Camera,
 
     losses = []
     for i in range(start, steps):
-        loss = render_loss(to_render_params(params), scene, camera,
-                           settings, target, i)
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if mesh is None:
+            loss = render_loss(to_render_params(params), scene, camera,
+                               settings, target, i)
+            loss.backward()
+        else:
+            from halogen_tpu_torch.parallel.sharding import (
+                loss_and_grads_sharded,
+            )
+
+            loss, grads = loss_and_grads_sharded(params, scene, camera,
+                                                 settings, target, i, mesh)
+            for p, g in zip(_leaves(params), _leaves(grads)):
+                p.grad = g
         opt.step()
         # Projected gradient descent: stay inside the physical domain.
         mp = params["material_params"]

@@ -17,10 +17,18 @@ Three routes, picked by `intersect_scene` from `settings.intersector`:
   (its plain version on the CPU). AUTO takes it on the card.
 
 In every route a mesh hit must beat the sphere hit by HIT_EPS and lie
-inside the far plane (compute:452). The JAX package's Morton ray sort
-before the TPU kernel restored block coherence for its shared stack; a
-thread walks alone here and the image does not depend on the order, so
-it is not ported.
+inside the far plane (compute:452). With `counts=True` a route also
+returns each ray's intersection work, (hit, tri_tests [N], box_tests [N])
+int32, for the debug views (the JAX intersectors' second and third
+results): BRUTE charges every ray every triangle and no box, the per-mesh
+walk min(count, max_leaf) a leaf and 2 an inner node, the world BVH the
+walk of `csrc/bvh_traverse.cuh` per ray (on the CPU its plain walk,
+`traverse.traverse_world_walk_reference`, so a heatmap is the same on
+both devices), and a scene of spheres alone zeros.
+
+The JAX package's Morton ray sort before the TPU kernel restored block
+coherence for its shared stack; a thread walks alone here and the image
+does not depend on the order, so it is not ported.
 """
 
 from __future__ import annotations
@@ -154,19 +162,34 @@ def _sphere_normal_material(scene, pos, sp_i, sp_orient):
     return normal, scene.sphere_material[sp_i].to(torch.int64)
 
 
+def _with_counts(hit: HitRecord, tri_tests=None, box_tests=None):
+    """(hit, tri_tests, box_tests), zeros where a count is not given."""
+    zeros = torch.zeros(hit.t.shape, dtype=torch.int32, device=hit.t.device)
+    return (hit, zeros if tri_tests is None else tri_tests,
+            zeros if box_tests is None else box_tests)
+
+
 def intersect_brute(scene: SceneData, origin: torch.Tensor,
-                    direction: torch.Tensor, far: torch.Tensor) -> HitRecord:
-    """Full-scene brute-force closest hit."""
+                    direction: torch.Tensor, far: torch.Tensor,
+                    counts: bool = False):
+    """Full-scene brute-force closest hit; with `counts` every ray is
+    charged every triangle and no box (JAX `intersect.py:255-257`)."""
     sp_t, sp_i, sp_orient = _intersect_spheres(scene, origin, direction, far)
     if scene.num_triangles == 0:
-        return _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient)
+        hit = _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient)
+        return _with_counts(hit) if counts else hit
     tr_t, tr_i, tr_u, tr_v, tr_s = intersect_tris_brute(
         origin, direction, scene.tri_verts_world)
     # Mesh hit must beat the sphere hit by epsilon and lie inside the far
     # plane (compute:452).
     mesh_wins = (tr_t < sp_t - HIT_EPS) & (tr_t < far)
-    return _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
-                     mesh_wins, tr_t, tr_i, tr_u, tr_v, tr_s)
+    hit = _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
+                    mesh_wins, tr_t, tr_i, tr_u, tr_v, tr_s)
+    if not counts:
+        return hit
+    return _with_counts(hit, torch.full(
+        hit.t.shape, scene.num_triangles, dtype=torch.int32,
+        device=origin.device))
 
 
 def _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
@@ -204,7 +227,7 @@ def _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient):
 
 def intersect_bvh(scene: SceneData, origin: torch.Tensor,
                   direction: torch.Tensor, far: torch.Tensor,
-                  max_leaf: int = 5) -> HitRecord:
+                  max_leaf: int = 5, counts: bool = False):
     """Per-mesh stack-based BVH traversal (get_ray_scene_intersection_mesh,
     compute:378-472; the JAX `intersect_bvh`): for each mesh, every ray
     walks the mesh's tree in local space with its own 32-deep stack,
@@ -212,13 +235,16 @@ def intersect_bvh(scene: SceneData, origin: torch.Tensor,
     hit). The JAX package steps all rays in lockstep under masks; here
     each step takes only the rays whose stacks are not empty, which gives
     every ray the same operations. A leaf tests at most `max_leaf`
-    triangles, as there."""
+    triangles, as there. With `counts` a ray is charged min(count,
+    max_leaf) triangles at each leaf it visits and 2 boxes at each inner
+    node (JAX `intersect.py:369-371, 382`)."""
     n = origin.shape[0]
     dev = origin.device
     far = torch.as_tensor(far, dtype=torch.float32, device=dev).expand(n)
     sp_t, sp_i, sp_orient = _intersect_spheres(scene, origin, direction, far)
     if scene.num_triangles == 0 or scene.num_meshes == 0:
-        return _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient)
+        hit = _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient)
+        return _with_counts(hit) if counts else hit
 
     # The running closest t starts at the sphere hit (the reference
     # traverses with closestHit.rayT already holding it)
@@ -228,6 +254,8 @@ def intersect_bvh(scene: SceneData, origin: torch.Tensor,
     best_v = torch.zeros((n,), device=dev)
     best_s = torch.zeros((n,), device=dev)
     best_mesh = torch.zeros((n,), dtype=torch.int64, device=dev)
+    tri_tests = torch.zeros((n,), dtype=torch.int32, device=dev)
+    box_tests = torch.zeros((n,), dtype=torch.int32, device=dev)
     tri_off_all = scene.mesh_tri_offset.tolist()
     bvh_off_all = scene.mesh_bvh_offset.tolist()
     bvh_count = scene.bvh_count.to(torch.int64)
@@ -280,6 +308,11 @@ def intersect_bvh(scene: SceneData, origin: torch.Tensor,
             best_t[live], best_tri[live] = bt, btri
             best_u[live], best_v[live], best_s[live] = bu, bv, bs
             best_mesh[live] = bmesh
+            if counts:
+                tri_tests[live] += torch.where(
+                    is_leaf, torch.clamp_max(count, max_leaf), 0).to(
+                        torch.int32)
+                box_tests[live] += torch.where(is_leaf, 0, 2).to(torch.int32)
 
             # ---- inner: ordered near-first descent (compute:422-444)
             is_inner = ~is_leaf
@@ -317,17 +350,22 @@ def intersect_bvh(scene: SceneData, origin: torch.Tensor,
     w2l = scene.mesh_world_to_local[best_mesh][:, :3, :3]
     tri_normal = normalize((nrm[:, :, None] * w2l).sum(dim=1), eps=1e-20)
     material = scene.mesh_material[best_mesh].to(torch.int64)
-    return _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
-                     mesh_wins, best_t, best_tri, best_u, best_v, best_s,
-                     tri_normal, material)
+    hit = _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
+                    mesh_wins, best_t, best_tri, best_u, best_v, best_s,
+                    tri_normal, material)
+    return (hit, tri_tests, box_tests) if counts else hit
 
 
 def intersect_world(scene: SceneData, origin: torch.Tensor,
-                    direction: torch.Tensor, far: torch.Tensor) -> HitRecord:
+                    direction: torch.Tensor, far: torch.Tensor,
+                    counts: bool = False):
     """Closest hit through the world BVH (the JAX `intersect_pallas`,
     `intersect.py:473-556`): the sphere pass, then the B3 walk seeded with
     min(far, sphere t - HIT_EPS), so a triangle it returns beats the
-    sphere by HIT_EPS inside far (compute:452)."""
+    sphere by HIT_EPS inside far (compute:452). With `counts` the walk's
+    own tests: the kernel's on the card, its plain walk's on the CPU (the
+    JAX TPU kernels charged every ray its 1024-ray block's union; a
+    thread here walks alone, so the counts are per ray)."""
     from halogen_tpu_torch.kernels import traverse
 
     n = origin.shape[0]
@@ -335,24 +373,29 @@ def intersect_world(scene: SceneData, origin: torch.Tensor,
                           device=origin.device).expand(n)
     sp_t, sp_i, sp_orient = _intersect_spheres(scene, origin, direction, far)
     if scene.num_triangles == 0:
-        return _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient)
+        hit = _sphere_only(scene, origin, direction, sp_t, sp_i, sp_orient)
+        return _with_counts(hit) if counts else hit
     seed = torch.minimum(far, torch.where(sp_t < INF, sp_t - HIT_EPS, INF))
-    t, tri, u, v, s, _, _ = traverse.traverse_world(
-        scene.wbvh, origin, direction, seed)
+    walk = (traverse.traverse_world_walk_reference
+            if counts and origin.device.type == "cpu"
+            else traverse.traverse_world)
+    t, tri, u, v, s, tt, bt = walk(scene.wbvh, origin, direction, seed)
     mesh_wins = t < seed  # the walk already enforced t < seed
-    return _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
-                     mesh_wins, t, torch.clamp_min(tri, 0).to(torch.int64),
-                     u, v, s)
+    hit = _mesh_hit(scene, origin, direction, sp_t, sp_i, sp_orient,
+                    mesh_wins, t, torch.clamp_min(tri, 0).to(torch.int64),
+                    u, v, s)
+    return (hit, tt, bt) if counts else hit
 
 
 def intersect_scene(scene: SceneData, origin, direction, far,
-                    settings: RenderSettings) -> HitRecord:
+                    settings: RenderSettings, counts: bool = False):
     """Dispatch on `settings.intersector` (get_ray_intersection,
     compute:474-485; the JAX `intersect_scene`): AUTO is BRUTE up to
     `brute_force_max_tris`, above it the world BVH's kernel on the card
     (never the lockstep walk there) and the lockstep BVH walk on the CPU;
     PALLAS, TREELET, FLATLET and RAYLET take the world BVH on every device
-    (its kernel on the card, its plain version on the CPU)."""
+    (its kernel on the card, its plain version on the CPU). With `counts`
+    it returns (hit, tri_tests, box_tests)."""
     kind = settings.intersector
     if kind == Intersector.AUTO:
         if scene.num_triangles <= settings.brute_force_max_tris:
@@ -362,7 +405,7 @@ def intersect_scene(scene: SceneData, origin, direction, far,
         else:
             kind = Intersector.BVH
     if kind == Intersector.BRUTE:
-        return intersect_brute(scene, origin, direction, far)
+        return intersect_brute(scene, origin, direction, far, counts=counts)
     if kind == Intersector.BVH:
-        return intersect_bvh(scene, origin, direction, far)
-    return intersect_world(scene, origin, direction, far)
+        return intersect_bvh(scene, origin, direction, far, counts=counts)
+    return intersect_world(scene, origin, direction, far, counts=counts)

@@ -26,8 +26,11 @@ Semantics preserved (trace_ray, HalgoenCompute.compute:876-950):
   bounce, env first, as in the JAX package
 - sampler dimensions advance by 5 per bounce (compute:921)
 
-Debug views raise NotImplementedError naming the ROADMAP item that brings
-them.
+Debug views (albedo, normal, and the ray-triangle and ray-box tests as
+heatmaps; trace_ray_debug*, compute:819-863,952-982) render through the
+lockstep on every device, the CUDA megakernel never: on the card that is
+PyTorch plus the world-BVH traversal kernel above `brute_force_max_tris`,
+whose per-ray counts the views read.
 """
 
 from __future__ import annotations
@@ -86,12 +89,6 @@ def _use_light_nee(scene: SceneData, settings: RenderSettings) -> bool:
     emitters (JAX `trace.py:89-92`): with the flag and no emitter a scene
     renders as without the flag."""
     return settings.light_importance_sampling and scene.lights is not None
-
-
-def check_slice(scene: SceneData, settings: RenderSettings) -> None:
-    """Raise NotImplementedError for what the port does not have yet."""
-    if settings.debug_mode != DebugMode.NONE:
-        raise NotImplementedError("not ported yet: debug views (ROADMAP A8)")
 
 
 def sample_sky(scene: SceneData, direction: torch.Tensor, level,
@@ -166,13 +163,20 @@ class Pool(NamedTuple):
     miss_attenuation: torch.Tensor  # [N, 3]
     miss_pcos: torch.Tensor  # [N]
     miss_nee: torch.Tensor  # [N] bool
+    # The debug views' state: the intersection tests of every bounce
+    # (None unless a debug view is on), and the first segment's hit
+    tri_tests: torch.Tensor | None  # [N] int32
+    box_tests: torch.Tensor | None  # [N] int32
+    first_t: torch.Tensor  # [N]
+    first_albedo: torch.Tensor  # [N, 3]
+    first_normal: torch.Tensor  # [N, 3]
     sample_idx: torch.Tensor  # [N] uint32 in int64
     seed: torch.Tensor  # [N] uint32 in int64
     far: torch.Tensor  # [N]
 
 
 def _make_pool(origin, direction, far, sample_idx, seed,
-               any_transmissive: bool) -> Pool:
+               any_transmissive: bool, counts: bool = False) -> Pool:
     n = origin.shape[0]
     dev = origin.device
     zeros = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
@@ -192,6 +196,11 @@ def _make_pool(origin, direction, far, sample_idx, seed,
         miss_attenuation=zeros(n, 3),
         miss_pcos=zeros(n),
         miss_nee=zeros(n, dtype=torch.bool),
+        tri_tests=zeros(n, dtype=torch.int32) if counts else None,
+        box_tests=zeros(n, dtype=torch.int32) if counts else None,
+        first_t=torch.full((n,), float("inf"), device=dev),
+        first_albedo=zeros(n, 3),
+        first_normal=zeros(n, 3),
         sample_idx=sob._u32(sample_idx).to(dev).expand(n),
         seed=sob._u32(seed).to(dev).expand(n),
         far=torch.as_tensor(far, dtype=torch.float32, device=dev).expand(n),
@@ -206,9 +215,9 @@ _VIS_SCALE = float(np.float32(1.0 - 1e-3))  # trace.py:402
 def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
                  k: int, tape: list | None = None) -> Pool:
     """One bounce of every ray in `carry` (trace_ray compute:876-950): the
-    JAX `_pool_bounce` without debug views, and with the sky deferred to
-    `deferred_sky`. With `tape` (a list) it also appends what the
-    adjoint's transcript records of the bounce (`_tape_entry`)."""
+    JAX `_pool_bounce`, with the sky deferred to `deferred_sky`. With
+    `tape` (a list) it also appends what the adjoint's transcript records
+    of the bounce (`_tape_entry`)."""
     s2 = _sampler_2d(settings)
     s1 = _sampler_1d(settings)
     use_nee = _use_nee(scene, settings)
@@ -223,10 +232,21 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
 
     # Dead lanes get far = 0; every consumer of their hit is masked.
     far_eff = torch.where(active, far, 0.0)
-    hit = intersect_scene(scene, carry.origin, carry.direction, far_eff,
-                          settings)
+    tri_tests, box_tests = carry.tri_tests, carry.box_tests
+    if tri_tests is None:
+        hit = intersect_scene(scene, carry.origin, carry.direction, far_eff,
+                              settings)
+    else:  # a debug view: every bounce's tests (JAX trace.py:495-496)
+        hit, tt, bt = intersect_scene(scene, carry.origin, carry.direction,
+                                      far_eff, settings, counts=True)
+        tri_tests = tri_tests + torch.where(active, tt, 0)
+        box_tests = box_tests + torch.where(active, bt, 0)
     is_hit = active & (hit.t < far)  # compute:898
     mat = gather_materials(scene.materials, hit.material)
+    first_t, first_albedo, first_normal = (carry.first_t, carry.first_albedo,
+                                           carry.first_normal)
+    if k == 0:  # the first segment's hit (JAX trace.py:196-198)
+        first_t, first_albedo, first_normal = hit.t, mat.albedo, hit.normal
 
     # --- emission (compute:901-902). With area-light NEE, emission reached
     # by a continuation that light NEE covered is weighted by the balance
@@ -365,6 +385,11 @@ def _pool_bounce(scene: SceneData, settings: RenderSettings, carry: Pool,
         miss_attenuation=miss_attenuation,
         miss_pcos=miss_pcos,
         miss_nee=miss_nee,
+        tri_tests=tri_tests,
+        box_tests=box_tests,
+        first_t=first_t,
+        first_albedo=first_albedo,
+        first_normal=first_normal,
     )
 
 
@@ -529,6 +554,15 @@ class TraceOut(NamedTuple):
     # direction; with env NEE [N, 12]: | miss continuation pdf | miss
     # NEE flag
     outputs: torch.Tensor
+    # The JAX TraceOut's debug fields. The counts sum the tests of every
+    # bounce (the JAX comment says "first segment"; its code adds every
+    # bounce's, as here; `first_interaction_only` limits them to the first
+    # by setting max_bounces to 0); None unless a debug view is on.
+    tri_tests: torch.Tensor | None  # [N] int32
+    box_tests: torch.Tensor | None  # [N] int32
+    first_hit_t: torch.Tensor  # [N], +inf on a miss
+    first_hit_albedo: torch.Tensor  # [N, 3]
+    first_hit_normal: torch.Tensor  # [N, 3]
 
     @property
     def direction(self) -> torch.Tensor:  # [N, 3] after the last bounce
@@ -541,10 +575,13 @@ def trace_rays(scene: SceneData, origin: torch.Tensor,
                ) -> TraceOut:
     """Lockstep scheduler: a loop over bounces on the full ray pool, then
     the sky pass. With `tape` (a list) each bounce appends what the
-    adjoint's transcript records of it (`_tape_entry`)."""
-    check_slice(scene, settings)
+    adjoint's transcript records of it (`_tape_entry`). Under a debug
+    view (`settings.debug_mode`) every bounce's intersection tests are
+    counted, so every view takes the same intersection route (on the CPU
+    a world-BVH intersector's is then the plain walk)."""
     pool = _make_pool(origin, direction, far, sample_idx, seed,
-                      scene.any_transmissive)
+                      scene.any_transmissive,
+                      counts=settings.debug_mode != DebugMode.NONE)
     for k in range(settings.max_bounces + 1):
         pool = _pool_bounce(scene, settings, pool, k, tape)
     cols = [pool.color, pool.miss_attenuation, pool.acc_roughness[:, None],
@@ -553,7 +590,44 @@ def trace_rays(scene: SceneData, origin: torch.Tensor,
         cols += [pool.miss_pcos[:, None],
                  pool.miss_nee.to(torch.float32)[:, None]]
     outputs = torch.cat(cols, dim=1)
-    return TraceOut(deferred_sky(scene, settings, outputs), outputs)
+    return TraceOut(deferred_sky(scene, settings, outputs), outputs,
+                    pool.tri_tests, pool.box_tests, pool.first_t,
+                    pool.first_albedo, pool.first_normal)
+
+
+def debug_color(out: TraceOut, scene: SceneData, direction: torch.Tensor,
+                far: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
+    """[N, 3] colour of a debug view (the JAX `_debug_color`,
+    `trace.py:688-713`; trace_ray_debug*, compute:819-863,952-982): the
+    first hit's albedo, or its normal mapped to [0, 1], or the tests as a
+    red (triangles) and blue (boxes) heatmap over the display range,
+    white past it. A primary ray that missed (`first_hit_t >= far`) shows
+    the sky along `direction` at `env_mip_level`."""
+    mode = settings.debug_mode
+    hit_mask = (out.first_hit_t < far)[:, None]
+    if mode in (DebugMode.ALBEDO, DebugMode.NORMAL):
+        level = torch.full(direction.shape[:-1],
+                           float(settings.env_mip_level),
+                           device=direction.device)
+        sky = sample_sky(scene, direction, level, settings)
+        if mode == DebugMode.ALBEDO:
+            return torch.where(hit_mask, out.first_hit_albedo, sky)
+        return torch.where(hit_mask, (out.first_hit_normal + 1.0) * 0.5, sky)
+    tri_range = settings.triangle_debug_display_range
+    box_range = settings.box_debug_display_range
+    tri_n = out.tri_tests.to(torch.float32) / tri_range
+    box_n = out.box_tests.to(torch.float32) / box_range
+    tri_over = out.tri_tests > tri_range
+    box_over = out.box_tests > box_range
+    zeros = torch.zeros_like(tri_n)
+    if mode == DebugMode.RAY_TRIANGLE_TESTS:
+        col, over = torch.stack([tri_n, zeros, zeros], dim=-1), tri_over
+    elif mode == DebugMode.RAY_BOX_TESTS:
+        col, over = torch.stack([box_n, zeros, zeros], dim=-1), box_over
+    else:  # COMBINED
+        col = torch.stack([tri_n, zeros, box_n], dim=-1)
+        over = tri_over | box_over
+    return torch.where(over[:, None], 1.0, col)
 
 
 def group_rays(camera: Camera, settings: RenderSettings, frame,
@@ -597,8 +671,11 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
 
     # The device decides the route: on a CUDA device AUTO and FORCE launch
     # the kernel, which raises for a scene outside its caps; on the CPU,
-    # and under OFF, the lockstep integrator runs.
-    use_kernel = pix.device.type == "cuda" and settings.fused != Fused.OFF
+    # and under OFF, the lockstep integrator runs. A debug view takes the
+    # lockstep on every device, as in the JAX package (its
+    # `fused_supported` refuses debug views).
+    debug = settings.debug_mode != DebugMode.NONE
+    use_kernel = _uses_kernel(pix.device, settings)
     if settings.wavefront and not (settings.fused != Fused.OFF
                                    and mk.fused_supported(scene, settings)):
         raise NotImplementedError(
@@ -632,9 +709,17 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         else:
             o, d, sidx, seed = group_rays(camera, settings, frame, pix,
                                           lane0, spp_block)
-            col = trace_rays(scene, o, d, farb, sidx, seed, settings).color
+            out = trace_rays(scene, o, d, farb, sidx, seed, settings)
+            col = (debug_color(out, scene, d, farb, settings) if debug
+                   else out.color)
         acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)
     return acc / spp
+
+
+def _uses_kernel(device: torch.device, settings: RenderSettings) -> bool:
+    """Whether `render_pixels` launches the megakernel on `device`."""
+    return (device.type == "cuda" and settings.fused != Fused.OFF
+            and settings.debug_mode == DebugMode.NONE)
 
 
 def _spp_block(n: int, spp: int, chunk_size: int) -> int:
@@ -686,22 +771,34 @@ def render_frame(scene: SceneData, camera: Camera, settings: RenderSettings,
     chunk = min(settings.ray_chunk_size, n_pixels)
     n_chunks = -(-n_pixels // chunk)
     pix, inv = _pixel_order_on(w, h, n_chunks * chunk, device)
+    img = render_pixel_chunks(scene, camera, settings, frame, pix)
+    return img[:n_pixels][inv].reshape(h, w, 3)
 
+
+def render_pixel_chunks(scene: SceneData, camera: Camera,
+                        settings: RenderSettings, frame, pix: torch.Tensor,
+                        spp_offset: int = 0,
+                        spp_count: int | None = None) -> torch.Tensor:
+    """`render_pixels` over flat pixel indices `pix` [n] in chunks of
+    `ray_chunk_size` pixels, to bound live ray-state memory, with one
+    record plan for all their launches, made before the first: [n, 3]."""
+    n = pix.shape[0]
+    chunk = min(settings.ray_chunk_size, n)
+    n_chunks = -(-n // chunk)
     record = None
-    if device.type == "cuda" and settings.fused != Fused.OFF:
-        # one plan for the frame's launches, before the first
+    if _uses_kernel(pix.device, settings):
         from halogen_tpu_torch.kernels import megakernel as mk
 
-        spp = settings.samples_per_pixel
+        spp = (settings.samples_per_pixel if spp_count is None
+               else spp_count)
         spp_block = _spp_block(chunk, spp, settings.ray_chunk_size)
-        record = mk.records_wanted(scene, settings, None, device,
+        record = mk.records_wanted(scene, settings, None, pix.device,
                                    chunk * spp_block,
                                    n_chunks * (spp // spp_block))
-    chunks = [render_pixels(scene, camera, settings, frame,
-                            pix[c * chunk:(c + 1) * chunk], record=record)
-              for c in range(n_chunks)]
-    img = torch.cat(chunks)[:n_pixels][inv]
-    return img.reshape(h, w, 3)
+    return torch.cat([render_pixels(scene, camera, settings, frame,
+                                    pix[c * chunk:(c + 1) * chunk],
+                                    spp_offset, spp_count, record=record)
+                      for c in range(n_chunks)])
 
 
 @functools.lru_cache(maxsize=8)

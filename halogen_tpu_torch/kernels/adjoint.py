@@ -217,8 +217,8 @@ def adjoint_covers(scene: SceneData, settings: RenderSettings) -> bool:
 def _check_covered(scene: SceneData, settings: RenderSettings) -> None:
     if not adjoint_covers(scene, settings):
         raise NotImplementedError(
-            "the fused adjoint covers the megakernel's scenes (no debug "
-            "views, within its caps; ROADMAP A8)")
+            "the fused adjoint covers the megakernel's scenes (within its "
+            "caps, without a debug view)")
 
 
 def _launch(scene, origin, direction, far, sample_idx, seed, ct,

@@ -572,15 +572,18 @@ def pixel_view(camera: Camera, settings: RenderSettings, frame,
                      word.contiguous(), frame, pix.contiguous())
 
 
+_NOT_COVERED = (
+    f"the CUDA megakernel covers scenes with <= {MAX_SPHERES} spheres, <= "
+    f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles (the JAX "
+    "package's fused tiers' caps), without a debug view: the lockstep "
+    "integrator renders those")
+
+
 def _scene_inputs(scene, settings: RenderSettings, tables, dev):
     """Check scene and tables for a launch on `dev`; returns (tables, the
     int arguments that follow the ray count in both C entry points)."""
     if not fused_supported(scene, settings):
-        raise NotImplementedError(
-            "the CUDA megakernel covers scenes without debug views (ROADMAP "
-            f"A8), with <= {MAX_SPHERES} spheres, <= "
-            f"{MAX_MATERIALS} materials and <= {MAX_BVH_TRIS} triangles "
-            "(the JAX package's fused tiers' caps)")
+        raise NotImplementedError(_NOT_COVERED)
     tables = tables if tables is not None else _scene_tables(scene)
     for t in tables:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
@@ -764,10 +767,13 @@ def trace_color_fused_reference(scene: SceneData, origin, direction, far,
     """Plain PyTorch version of the kernel: the same [N, 10] (or, with env
     NEE, [N, 12]) outputs from the lockstep integrator, its closest hits
     by brute force whatever the scene's size (independent of the BVH that
-    the kernel's BVH tier walks)."""
+    the kernel's BVH tier walks). Like the kernel it refuses a debug
+    view."""
     from halogen_tpu_torch.config import Intersector
     from halogen_tpu_torch.integrator.trace import trace_rays
 
+    if settings.debug_mode != DebugMode.NONE:
+        raise NotImplementedError(_NOT_COVERED)
     n = origin.shape[0]
     far_b = torch.as_tensor(far, dtype=torch.float32,
                             device=origin.device).reshape(-1)[0].expand(n)

@@ -3,7 +3,7 @@ utilities, as `tests/test_cli_utils.py` checks the JAX package's, on the
 CPU (`--device cpu`): the throughput meter and frame statistics, `render`
 (with light NEE too) and `bench`, `debug-sobol`, a checkpoint resume and a
 short `fit`, the images against the JAX CLI's on the same arguments, and
-the flags that are not ported (`--sharded`, ROADMAP A11) refused.
+`render --sharded` and the `dragons_hero` preset over a group of one.
 
 Images: the 8-bit PNGs of both CLIs may differ by one level where a
 pixel's radiance rounds across a level boundary (the renders agree at
@@ -114,12 +114,28 @@ def test_cli_fit_matches_jax(tmp_path, capsys):
     assert os.path.exists(out)
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """`--sharded` and the `dragons_hero` preset render (they raised
+    before): over a group of this process alone, formed and ended by the
+    command; the preset at a small size. Without a card the default
+    device raises."""
+    import torch.distributed as dist
+
+    import importlib
+
+    cli_main = importlib.import_module("halogen_tpu_torch.cli.main")
+
     out = str(tmp_path / "r.png")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        main(["render", *RENDER, "--sharded", *CPU, "--out", out])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        main(["render", "--preset", "dragons_hero", *CPU, "--out", out])
+    assert main(["render", *RENDER, "--sharded", *CPU, "--out", out]) == 0
+    assert os.path.exists(out) or os.path.exists(out + ".npy")
+    monkeypatch.setitem(cli_main.PRESETS, "dragons_hero", dict(
+        cli_main.PRESETS["dragons_hero"], width=8, spp=1, bounces=1,
+        frames=2))
+    hero = str(tmp_path / "hero.png")
+    assert main(["render", "--preset", "dragons_hero", *CPU, "--out",
+                 hero]) == 0
+    assert os.path.exists(hero) or os.path.exists(hero + ".npy")
+    assert not dist.is_initialized()
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["render", *RENDER, "--out", out])

@@ -363,8 +363,9 @@ def test_out_of_slice_raises():
     """Envmap gradients are in (they raised before): with "env_mips" among
     the params, render_loss_grad gives the JAX package's material and mip
     gradients, and fit_materials(optimize_env=True) takes a step that
-    equals JAX's (the Cornell box under a constant sky, 2 bounces). Sharded
-    fits (ROADMAP A11) still raise."""
+    equals JAX's (the Cornell box under a constant sky, 2 bounces). A fit
+    over a mesh (they raised before) takes the same steps: here a mesh of
+    this process alone, whose group is ended after."""
     js = jcornell.cornell_box().build(
         envmap=jht.Envmap.constant((0.6, 0.7, 0.9)))
     jc = jht.make_camera(**CAM)
@@ -395,8 +396,26 @@ def test_out_of_slice_raises():
                                      steps=1, optimize_env=True)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
     assert all(bool((m >= 0).all()) for m in params["env_mips"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tgrad.fit_materials(scene, cam, st, target, steps=1, mesh=object())
+    import torch.distributed as dist
+
+    from halogen_tpu_torch.parallel import sharding
+
+    assert sharding.init_distributed(device="cpu")
+    try:
+        sharded, s_losses = tgrad.fit_materials(
+            scene, cam, st, target, steps=2, optimize_env=True,
+            mesh=sharding.make_render_mesh())
+    finally:
+        dist.destroy_process_group()
+    again, a_losses = tgrad.fit_materials(scene, cam, st, target, steps=2,
+                                          optimize_env=True)
+    np.testing.assert_allclose(s_losses, a_losses, rtol=1e-6)
+    _assert_materials_close(
+        sharded["materials"],
+        interop.material_table_to_numpy(again["materials"]), rtol=1e-5)
+    for a, b in zip(sharded["env_mips"], again["env_mips"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-7,
+                                   rtol=1e-5)
 
 
 def test_gradient_route_imports_no_jax():

@@ -290,17 +290,19 @@ def test_deferred_miss_record():
 
 
 def test_out_of_slice_raises():
-    """Debug views are not ported yet; glass, envmaps, env NEE and
-    area-light NEE are."""
+    """Debug views render through the lockstep (they raised before); the
+    megakernel still refuses them, naming the lockstep. Glass, envmaps,
+    env NEE and area-light NEE are the kernel's."""
     glass = interop.scene_from_numpy(interop.scene_to_numpy(
         jcornell.glass_sphere_box().build()), device=CPU)
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)
     st = RenderSettings(debug_mode=DebugMode.ALBEDO)
     assert not mk.fused_supported(glass, st)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        trace_rays(glass, o, d, torch.full((4,), 10.0), 0, 1, st)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    out = trace_rays(glass, o, d, torch.full((4,), 10.0), 0, 1, st)
+    assert torch.isfinite(out.first_hit_t).all()  # the back wall
+    assert (out.first_hit_albedo > 0).any(dim=1).all()
+    with pytest.raises(NotImplementedError, match="lockstep integrator"):
         mk.trace_color_fused(glass, o, d, torch.tensor(10.0), 0, 1, st)
     st = RenderSettings(light_importance_sampling=True)
     assert mk.fused_supported(glass, st)

@@ -270,7 +270,8 @@ def test_renderer_matches_jax_renderer():
 
 def test_no_jax_in_the_port():
     """Importing the port (and driving it: a big scene's BVH routes, area-
-    light NEE, and the CLI) loads neither JAX nor the JAX package."""
+    light NEE, an HDRI file, a debug view, the CLI and a sharded render)
+    loads neither JAX nor the JAX package."""
     import subprocess
     import sys
 
@@ -290,9 +291,20 @@ def test_no_jax_in_the_port():
         "ht.render_frame(g, ht.make_camera(device='cpu'), st.replace(\n"
         "    light_importance_sampling=True))\n"
         "from halogen_tpu_torch.cli.main import main\n"
+        "from halogen_tpu_torch.parallel import sharding, scaling_bench\n"
+        "from halogen_tpu_torch.scene import hdr_io\n"
         "import halogen_tpu_torch.utils.profiling, halogen_tpu_torch.utils.debug\n"
         "import os, tempfile\n"
+        "sky = os.path.join(tempfile.mkdtemp(), 'sky.exr')\n"
+        "hdr_io.write_exr(sky, hdr_io.procedural_hdri(16))\n"
+        "e = meshes.outdoors_scene().build(envmap=hdr_io.load_envmap(sky),\n"
+        "                                  device='cpu')\n"
+        "ht.render_frame(b, ht.make_camera(device='cpu'), st.replace(\n"
+        "    debug_mode=ht.DebugMode.RAY_BOX_TESTS,\n"
+        "    intersector=ht.Intersector.PALLAS))\n"
         "out = os.path.join(tempfile.mkdtemp(), 'r.png')\n"
+        "main(['render', '--width', '4', '--spp', '1', '--bounces', '1',\n"
+        "      '--sharded', '--device', 'cpu', '--out', out])\n"
         "main(['render', '--width', '4', '--spp', '1', '--bounces', '1',\n"
         "      '--light-nee', '--device', 'cpu', '--out', out])\n"
         "main(['debug-sobol', '--width', '8', '--count', '100',\n"
