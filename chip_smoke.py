@@ -371,6 +371,30 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      equal to `render_frame`'s bit for bit, Mrays/s and seconds; and
      `parallel.scaling_bench` (strong and weak) on the one card, each
      record naming the card and its power limit;
+ 40. the wavefront scheduler (`RenderSettings.wavefront`) on the card:
+     the glass dragon under `Fused.OFF` (256x256, 4 spp, 12 bounces) and
+     `testing_scene(False)` in RAY_TRIANGLE_TESTS (512x512, 1 spp), each
+     frame with the flag off and on in turns: the images equal bit for
+     bit, and on one group every `TraceOut` field (the debug view's
+     per-ray test counts among them), B3's launches a frame and rays a launch over the bounces (the
+     wavefront's falling, never more launches), its host syncs (one a
+     bounce), ms a frame and one group's device busy time (the profiler's
+     CUDA activity alone, on a quarter of the frame); then a
+     `Fused.OFF` `render_loss_grad` step on the 64x64 metal dragon both
+     ways: the loss bit for bit, the gradients at rtol 1e-6, atol 1e-7;
+ 41. the port's scripts (`python -m halogen_tpu_torch.scripts.<name>`)
+     on the card at their default sizes, into a temporary directory, each
+     record naming the card: `hero_run` in full (512², 4096 spp over a
+     process group of one rank, then a sharded gradient step; its mean
+     radiance within 2% of the JAX package's recorded 0.2344),
+     `inverse_demo` (64², 80 steps: the held-out loss must fall),
+     `turntable` on the glass dragon (its strip and GIF, or without PIL
+     the strip as `.npz`),
+     `variance_bench` (the MSE lower with each NEE than without), and
+     `gen_goldens` (every frame within `tests/test_golden.py`'s MAE bound
+     of the JAX golden, and past its worst-pixel bound only where the
+     world-space lockstep on the card reproduces the pixel: phase 18's
+     rule); each one's kernel launches printed;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
@@ -389,8 +413,8 @@ main path, error, times, plain time, bound and library call (B2, B2b,
 B2c, B2c+n, B2b+d and B2+d are the record route's sweep, which their
 steps launch, with the replay and the recording forward beside them),
 the card's name and power limit, and {"ok": true, "device": {...}}.
-B3's record carries phase 37's results, the sky backward's phase 38's and
-B1d's phase 39's.
+B3's record carries phase 37's and phase 40's results, the sky
+backward's phase 38's and B1d's phases 39's and 41's.
 """
 
 import dataclasses
@@ -1381,6 +1405,332 @@ def phase39(dev, card: str) -> dict:
           f"| {card}", flush=True)
     return dict(two_ranks=two, two_ranks_s=ranks_s, one_rank=one,
                 scaling_bench=bench)
+
+
+def _launch_counts() -> dict:
+    """The kernels' launch counts since they were last set to 0."""
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import sky as skyk
+    from halogen_tpu_torch.kernels import traverse
+
+    return {"megakernel": mk.LAUNCHES, "recording": mk.RECORD_LAUNCHES,
+            "replay": adj.LAUNCHES, "sweep": adj.SWEEP_LAUNCHES,
+            "B3": traverse.LAUNCHES, "sky forward": skyk.FORWARD_LAUNCHES,
+            "sky backward": skyk.BACKWARD_LAUNCHES}
+
+
+def _zero_launch_counts() -> None:
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import sky as skyk
+    from halogen_tpu_torch.kernels import traverse
+
+    mk.LAUNCHES = mk.RECORD_LAUNCHES = adj.LAUNCHES = 0
+    adj.SWEEP_LAUNCHES = traverse.LAUNCHES = 0
+    skyk.FORWARD_LAUNCHES = skyk.BACKWARD_LAUNCHES = 0
+
+
+def _b3_rays(fn):
+    """(fn(), the rays of each B3 launch it made, in order)."""
+    from halogen_tpu_torch.kernels import traverse
+
+    plain, rays = traverse._launch, []
+
+    def launch(wbvh, origin, *args):
+        rays.append(origin.shape[0])
+        return plain(wbvh, origin, *args)
+
+    traverse._launch = launch
+    try:
+        out = fn()
+    finally:
+        traverse._launch = plain
+    return out, rays
+
+
+def _busy_ms(fn) -> dict:
+    """The device's busy time in `fn()` from `torch.profiler`'s CUDA
+    activity alone (no host events, to keep the profile of ~24,000
+    launches short), its device operations, and the seconds profiling
+    took."""
+    import torch
+    from halogen_tpu_torch.profile_frame import _self_device_us
+
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = [r for r in prof.key_averages() if _self_device_us(r) > 0]
+    return dict(group_busy_ms=sum(_self_device_us(r)
+                                  for r in on_device) / 1e3,
+                group_device_ops=sum(r.count for r in on_device),
+                profiler_s=time.perf_counter() - t0)
+
+
+def phase40(dev, card: str) -> dict:
+    """40. The wavefront scheduler on the card: the glass dragon under
+    `Fused.OFF` and the testing scene's triangle view, each frame with the
+    flag off and on in turns (the images equal bit for bit, B3's launches
+    and rays a launch, host syncs, ms and device busy time), then a
+    `Fused.OFF` gradient step on the metal dragon both ways."""
+    import numpy as np
+    import torch
+
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.diff import render_loss_grad
+    from halogen_tpu_torch.integrator import trace
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import traverse
+    from halogen_tpu_torch.scene import cornell, meshes, testing_scene
+    from halogen_tpu_torch.scene.material import Material
+
+    t40 = time.perf_counter()
+    D = ht.DebugMode
+    cases = {
+        "glass dragon, Fused.OFF, 256x256 4 spp 12 bounces": (
+            meshes.glass_dragon_scene().build(device=dev),
+            ht.make_camera(**DRAGON_CAM, device=dev),
+            ht.RenderSettings(width=256, height=256, samples_per_pixel=4,
+                              max_bounces=12, fused=ht.Fused.OFF)),
+        "testing_scene(False), RAY_TRIANGLE_TESTS, 512x512 1 spp": (
+            testing_scene.testing_scene(False).build(device=dev),
+            testing_scene.testing_scene_camera(device=dev),
+            ht.RenderSettings(width=512, height=512, samples_per_pixel=1,
+                              debug_mode=D.RAY_TRIANGLE_TESTS)),
+    }
+    out40 = {}
+    for name, (scene, cam, st) in cases.items():
+        flags = {"lockstep": st, "wavefront": st.replace(wavefront=True)}
+        res = {k: dict(ms=[]) for k in flags}
+        imgs = {}
+        # four frames in turns, each timed; the first of each way is its
+        # first on this scene, and counted
+        for key in ("lockstep", "wavefront", "wavefront", "lockstep"):
+            _zero_launch_counts()
+            trace.WAVEFRONT_SYNCS = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, rays = _b3_rays(
+                lambda: ht.render_frame(scene, cam, flags[key], 1))
+            torch.cuda.synchronize()
+            res[key]["ms"].append((time.perf_counter() - t0) * 1e3)
+            if key in imgs:
+                assert torch.equal(img, imgs[key]), (name, key,
+                                                     "not repeatable")
+                continue
+            imgs[key] = img
+            res[key].update(b3_launches=traverse.LAUNCHES, b3_rays=rays,
+                            megakernel_launches=mk.LAUNCHES,
+                            host_syncs=trace.WAVEFRONT_SYNCS)
+        # device busy time of one group (a quarter of the frame): the
+        # profiler takes ~0.5 ms a launch to process, ~24,000 a group
+        group = torch.arange(65536, device=dev)
+        # and that group's TraceOut both ways, field by field (the per-ray
+        # test counts of a debug view among them)
+        o, d, sidx, seed = trace.group_rays(cam, st, 1, group, 0, 1)
+        far = cam.far.expand(o.shape[0])
+        outs = [f(scene, o, d, far, sidx, seed, st) for f in (
+            trace.trace_rays, trace.trace_rays_wavefront)]
+        fields_apart = [k for k, a, b in zip(outs[0]._fields, *outs)
+                        if a is not None and not torch.equal(a, b)]
+        fields_compared = [k for k, a in zip(outs[0]._fields, outs[0])
+                           if a is not None]
+        for key, s in flags.items():
+            res[key].update(_busy_ms(
+                lambda: trace.render_pixels(scene, cam, s, 1, group, 0, 1)))
+        equal = bool(torch.equal(imgs["lockstep"], imgs["wavefront"]))
+        lock, wave = res["lockstep"], res["wavefront"]
+        per_group = st.max_bounces + 1
+        out40[name] = dict(bit_for_bit=equal, triangles=scene.num_triangles,
+                           group_fields_apart=fields_apart,
+                           **{k: {kk: vv for kk, vv in v.items()
+                                  if kk != "b3_rays"} | dict(
+                                      b3_rays_first_group=v["b3_rays"][
+                                          :per_group])
+                              for k, v in res.items()})
+        print(f"[40] {name} ({scene.num_triangles} triangles): the "
+              f"wavefront's image equal to the lockstep's bit for bit: "
+              f"{equal}; on one group of 65,536 rays the TraceOut fields "
+              f"{fields_compared} apart: {fields_apart}; B3 launches a "
+              f"frame {lock['b3_launches']} -> "
+              f"{wave['b3_launches']}; rays a B3 launch, the first group's "
+              f"bounces: lockstep {lock['b3_rays'][:per_group]}, wavefront "
+              f"{wave['b3_rays'][:per_group]}; host syncs a frame "
+              f"{lock['host_syncs']} -> {wave['host_syncs']}; ms a frame "
+              f"(lockstep, wavefront, wavefront, lockstep; the first two "
+              f"each way's first) "
+              f"{lock['ms'][0]:.1f}, {wave['ms'][0]:.1f}, "
+              f"{wave['ms'][1]:.1f}, {lock['ms'][1]:.1f}; device busy in "
+              f"one group of 65,536 rays {lock['group_busy_ms']:.2f} -> "
+              f"{wave['group_busy_ms']:.2f} ms, device operations "
+              f"{lock['group_device_ops']} -> {wave['group_device_ops']} "
+              f"(profiled in {lock['profiler_s']:.1f}, "
+              f"{wave['profiler_s']:.1f} s) | {card}", flush=True)
+        assert equal, f"{name}: the wavefront's image differs"
+        assert not fields_apart, (name, fields_apart)
+        assert lock["megakernel_launches"] == wave["megakernel_launches"] == 0
+        assert lock["host_syncs"] == 0 and wave["host_syncs"] > 0
+        first = wave["b3_rays"][:per_group]
+        assert all(a >= b for a, b in zip(first, first[1:])), first
+        assert first[-1] < first[0] and 0 < wave["b3_launches"] <= (
+            lock["b3_launches"]), (first, wave["b3_launches"])
+
+    # a Fused.OFF gradient step on the 64x64 metal dragon, both ways
+    box = cornell.cornell_box(with_spheres=False)
+    dverts, dfaces = meshes.dragon_mesh(3)
+    box.add_mesh(dverts, dfaces, Material.metal((0.9, 0.6, 0.5),
+                                                roughness=0.4),
+                 transform=meshes._scale_translate(0.55, (0.0, -0.45, 0.0)))
+    metal = box.build(device=dev)
+    mcam = ht.make_camera(**DRAGON_CAM, device=dev)
+    st_g = ht.RenderSettings(width=64, height=64, samples_per_pixel=4,
+                             max_bounces=12, fused=ht.Fused.OFF)
+    target = torch.zeros((64, 64, 3), device=dev)
+    steps, step_ms = {}, {}
+    for key in ("lockstep", "wavefront"):  # a warm-up step each
+        render_loss_grad({"materials": metal.materials}, metal, mcam,
+                         st_g.replace(wavefront=key == "wavefront"), target,
+                         1)
+    for key in ("lockstep", "wavefront", "wavefront", "lockstep"):
+        s = st_g.replace(wavefront=key == "wavefront")
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[key] = render_loss_grad({"materials": metal.materials}, metal,
+                                      mcam, s, target, 1)
+        torch.cuda.synchronize()
+        step_ms.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        assert mk.LAUNCHES == 0, "a Fused.OFF step launched the megakernel"
+    (loss_a, g_a), (loss_b, g_b) = steps["lockstep"], steps["wavefront"]
+    loss_equal = bool(torch.equal(loss_a, loss_b))
+    worst = {}
+    for f in dataclasses.fields(g_a["materials"]):
+        a = getattr(g_a["materials"], f.name).cpu().numpy()
+        b = getattr(g_b["materials"], f.name).cpu().numpy()
+        worst[f.name] = float(np.abs(a - b).max())
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7,
+                                   err_msg=f.name)
+    out40["metal dragon Fused.OFF step 64x64 4 spp"] = dict(
+        loss_bit_for_bit=loss_equal, loss=float(loss_a),
+        grads_max_abs_diff=worst, step_ms=step_ms)
+    print(f"[40] Fused.OFF render_loss_grad on the metal dragon "
+          f"({metal.num_triangles} triangles), 64x64 4 spp 12 bounces, "
+          f"flag off vs on (a trace that wants a gradient runs the "
+          f"lockstep): "
+          f"loss {float(loss_a):.8e} bit for bit {loss_equal}; gradients "
+          f"max |diff| {worst} (rtol 1e-6, atol 1e-7); step ms (lockstep, "
+          f"wavefront, wavefront, lockstep) {step_ms['lockstep'][0]:.1f}, "
+          f"{step_ms['wavefront'][0]:.1f}, {step_ms['wavefront'][1]:.1f}, "
+          f"{step_ms['lockstep'][1]:.1f}; phase 40 took "
+          f"{time.perf_counter() - t40:.1f} s | {card}", flush=True)
+    assert loss_equal, "the wavefront step's loss differs"
+    return out40
+
+
+# the one golden pixel past tests/test_golden.py's worst-pixel bound on
+# the card: testing_active's (row, column) (53, 26) moves by 1.84 against
+# a bound of 1.0 through every world-space route, the Fused.OFF lockstep
+# too, while the JAX golden comes from the CPU's local-space walk
+# (ROADMAP §C, "Spaces"; phase 18 holds the same scene's frame so)
+GOLDEN_PAST_WORST = {"testing_active": {(53, 26)}}
+
+# the JAX package's hero record (perf/hero_run.json, its
+# hero_dragons_4096spp line): the image's mean radiance, not a time
+JAX_HERO_MEAN_RADIANCE = 0.2344
+
+
+def phase41(card: str) -> dict:
+    """41. The port's scripts on the card at their default sizes, each
+    writing into a temporary directory: hero_run in full, inverse_demo,
+    turntable (the glass dragon), variance_bench and gen_goldens."""
+    import numpy as np
+
+    from halogen_tpu_torch.scripts import (
+        gen_goldens,
+        hero_run,
+        inverse_demo,
+        turntable,
+        variance_bench,
+    )
+
+    t41 = time.perf_counter()
+    out41 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {
+            "hero_run": (hero_run, ["--out-dir", tmp]),
+            "inverse_demo": (inverse_demo,
+                             ["--out-dir", os.path.join(tmp, "inverse")]),
+            "turntable": (turntable,
+                          ["--out", os.path.join(tmp, "turntable")]),
+            "variance_bench": (variance_bench,
+                               ["--out", os.path.join(tmp, "var.jsonl")]),
+            "gen_goldens": (gen_goldens,
+                            ["--out-dir", os.path.join(tmp, "golden")]),
+        }
+        for name, (module, argv) in runs.items():
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            rec = module.main(argv)
+            seconds = time.perf_counter() - t0
+            launches = _launch_counts()
+            out41[name] = dict(record=rec, seconds=seconds,
+                               launches=launches)
+            print(f"[41] python -m halogen_tpu_torch.scripts.{name} "
+                  f"{' '.join(argv)}: {seconds:.1f} s, launches {launches} "
+                  f"| {card}", flush=True)
+            recs = rec if isinstance(rec, list) else [rec]
+            assert all(r["device"] == card for r in recs), recs
+            assert launches["megakernel"] > 0, f"{name} did not launch"
+        hero = out41["hero_run"]["record"]
+        dev_hero = hero["mean_radiance"] / JAX_HERO_MEAN_RADIANCE - 1.0
+        out41["hero_run"]["mean_radiance_vs_jax"] = dev_hero
+        inv = out41["inverse_demo"]["record"]
+        tt = out41["turntable"]["record"]
+        written = [os.path.exists(p) for p in tt["written"]]
+        print(f"[41] hero_run: {hero['width']}² {hero['total_spp']} spp in "
+              f"{hero['render_s']:.2f} s = {hero['mrays_per_s']:.1f} "
+              f"Mrays/s; mean radiance {hero['mean_radiance']:.6f} against "
+              f"the JAX package's recorded {JAX_HERO_MEAN_RADIANCE} "
+              f"({dev_hero:+.3%}); inverse_demo held-out loss "
+              f"{inv['held_out_loss_before']:.6e} -> "
+              f"{inv['held_out_loss_after']:.6e}; turntable wrote "
+              f"{tt['written']}; variance reduction "
+              f"{[r['variance_reduction_x'] for r in out41['variance_bench']['record']]}"
+              f"; goldens within bounds "
+              f"{[r['within'] for r in out41['gen_goldens']['record']]}; "
+              f"phase 41 took {time.perf_counter() - t41:.1f} s | {card}",
+              flush=True)
+        assert hero["finite"] and np.isfinite(hero["grad_step_loss"])
+        assert abs(dev_hero) < 2e-2, "the hero image's mean radiance"
+        assert inv["held_out_loss_after"] < inv["held_out_loss_before"], (
+            "the inverse demo did not lower the held-out loss")
+        assert tt["finite"] and all(written) and min(tt["view_means"]) > 0
+        for r in out41["variance_bench"]["record"]:
+            assert r["mse_nee_on"] < r["mse_nee_off"], r
+        # a golden's worst pixel: only the pixels named in
+        # GOLDEN_PAST_WORST may pass it (ROADMAP §C, "Spaces": the JAX
+        # goldens come from the CPU's local-space walk); the MAE bound
+        # holds for every golden
+        past41 = {}
+        for r in out41["gen_goldens"]["record"]:
+            assert r["finite"] and r["mae"] < r["mae_tol"], r
+            img = np.load(os.path.join(tmp, "golden",
+                                       f"{r['name']}.npz"))["image"]
+            golden = np.load(gen_goldens.JAX_GOLDENS
+                             / f"{r['name']}.npz")["image"]
+            over = np.abs(img - golden).max(axis=-1) >= r["worst_tol"]
+            past = [tuple(p) for p in np.argwhere(over).tolist()]
+            assert r["within"] == (not past), (r, past)
+            if past:
+                past41[r["name"]] = past
+            assert set(past) <= GOLDEN_PAST_WORST.get(r["name"], set()), (
+                r, past)
+        out41["gen_goldens"]["past_worst_bound"] = past41
+        print(f"[41] gen_goldens: pixels past the worst bound {past41}, "
+              f"each of them named in GOLDEN_PAST_WORST", flush=True)
+    return out41
 
 
 def main() -> int:
@@ -4427,6 +4777,13 @@ def main() -> int:
     print(f"[39] phases 37-39 took {time.perf_counter() - t37:.1f} s",
           flush=True)
 
+    # --- 40-41. the wavefront scheduler, the scripts
+    t40 = time.perf_counter()
+    r40 = phase40(dev, card)
+    r41 = phase41(card)
+    print(f"[41] phases 40-41 took {time.perf_counter() - t40:.1f} s",
+          flush=True)
+
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
@@ -4852,6 +5209,10 @@ def main() -> int:
     by_name["B3"]["count_views"] = r37
     by_name["sky backward"]["hdri_2048"] = r38
     by_name["B1d"]["dragons_hero_sharded"] = r39
+    by_name["B3"]["wavefront"] = r40
+    by_name["B1d"]["scripts"] = {k: {kk: vv for kk, vv in v.items()
+                                     if kk != "record"}
+                                 for k, v in r41.items()}
     print(f"[24] chip_smoke took {time.perf_counter() - t_main:.1f} s "
           f"after its imports", flush=True)
     print(json.dumps({"kernels": kernels}))

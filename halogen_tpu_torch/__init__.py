@@ -15,10 +15,12 @@ fitting loop (`halogen_tpu_torch.diff`), on the card for every scene it
 renders (with area-light NEE through the record route alone: a step whose
 records pass the budget raises, ROADMAP A13); debug views; envmaps
 from HDR and EXR files (`scene.hdr_io`); rendering and fitting sharded
-over processes (`parallel`); and the command line, `python -m
-halogen_tpu_torch.cli`. The wavefront scheduler raises (see ROADMAP.md).
-The entry points build on the card unless the caller passes
-`device="cpu"`.
+over processes (`parallel`); the wavefront scheduler
+(`RenderSettings.wavefront`) wherever the lockstep integrator runs; the
+binary-FBX importer (`scene.fbx`); the command line, `python -m
+halogen_tpu_torch.cli`; and the JAX package's user-facing scripts,
+`python -m halogen_tpu_torch.scripts.<name>`. The entry points build on
+the card unless the caller passes `device="cpu"`.
 """
 
 from halogen_tpu_torch.config import (

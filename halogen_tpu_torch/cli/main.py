@@ -148,8 +148,10 @@ def _add_render_args(p: argparse.ArgumentParser):
     p.add_argument("--light-nee", dest="light_nee", action="store_true",
                    help="area-light importance sampling (NEE + MIS)")
     p.add_argument("--wavefront", action="store_true",
-                   help="wavefront scheduler (not ported, ROADMAP A12; "
-                   "ignored where the megakernel renders the scene)")
+                   help="wavefront scheduler: each bounce compacts the "
+                   "live rays and traces only their blocks, for the same "
+                   "image (where the lockstep runs: --device cpu, debug "
+                   "views; ignored where the megakernel renders)")
     p.add_argument("--prng", action="store_true",
                    help="PCG PRNG sampler ablation")
     p.add_argument("--no-rr", action="store_true",

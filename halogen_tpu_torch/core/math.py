@@ -47,6 +47,20 @@ def transform_dir(mat: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return d @ mat[:3, :3].T
 
 
+def transform_point_rows(mat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """`transform_point` of [N, 3] points as elementwise products summed
+    (x + y) + z: a row's bits do not depend on how many rows the call
+    holds (a BLAS product's can), so a ray batch compacted to fewer rows
+    gets the same bits."""
+    return transform_dir_rows(mat, p) + mat[:3, 3]
+
+
+def transform_dir_rows(mat: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """`transform_dir` of [N, 3] directions, as `transform_point_rows`."""
+    m = mat[:3, :3]
+    return d[:, 0:1] * m[:, 0] + d[:, 1:2] * m[:, 1] + d[:, 2:3] * m[:, 2]
+
+
 def dot_soa(a, b):
     """3-tuples of component tensors -> broadcast dot product."""
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]

@@ -42,8 +42,8 @@ from halogen_tpu_torch.core.math import (
     normalize,
     ray_aabb_soa,
     sphere_intersect_soa,
-    transform_dir,
-    transform_point,
+    transform_dir_rows,
+    transform_point_rows,
     triangle_intersect_soa,
 )
 from halogen_tpu_torch.core.types import HitRecord, SceneData
@@ -268,8 +268,8 @@ def intersect_bvh(scene: SceneData, origin: torch.Tensor,
         tri_off, bvh_off = tri_off_all[mi], bvh_off_all[mi]
         # Local-space ray, deliberately unnormalized so t stays world-scale
         # (compute:390-395)
-        lo_o = transform_point(w2l, origin)
-        lo_d = transform_dir(w2l, direction)
+        lo_o = transform_point_rows(w2l, origin)
+        lo_d = transform_dir_rows(w2l, direction)
         inv_d = _safe_inv(lo_d)
         stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
         sp = torch.ones((n,), dtype=torch.int64, device=dev)  # root pushed

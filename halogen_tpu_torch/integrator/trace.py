@@ -31,10 +31,19 @@ heatmaps; trace_ray_debug*, compute:819-863,952-982) render through the
 lockstep on every device, the CUDA megakernel never: on the card that is
 PyTorch plus the world-BVH traversal kernel above `brute_force_max_tris`,
 whose per-ray counts the views read.
+
+Wherever the lockstep runs (the CPU, `Fused.OFF`, the debug views),
+`settings.wavefront` selects the wavefront scheduler instead
+(`trace_rays_wavefront`): before each bounce the live rays are compacted
+to the front of the pool and only their blocks are bounced, for the same
+bits; a trace that wants a gradient runs the lockstep instead
+(`trace_rays_wavefront_diff`), which gives the same forward bits.
+Where the megakernel renders, the flag is ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -584,6 +593,12 @@ def trace_rays(scene: SceneData, origin: torch.Tensor,
                       counts=settings.debug_mode != DebugMode.NONE)
     for k in range(settings.max_bounces + 1):
         pool = _pool_bounce(scene, settings, pool, k, tape)
+    return _trace_out(scene, settings, pool)
+
+
+def _trace_out(scene: SceneData, settings: RenderSettings,
+               pool: Pool) -> TraceOut:
+    """The `TraceOut` of a pool after its last bounce."""
     cols = [pool.color, pool.miss_attenuation, pool.acc_roughness[:, None],
             pool.direction]
     if _use_nee(scene, settings):
@@ -593,6 +608,104 @@ def trace_rays(scene: SceneData, origin: torch.Tensor,
     return TraceOut(deferred_sky(scene, settings, outputs), outputs,
                     pool.tri_tests, pool.box_tests, pool.first_t,
                     pool.first_albedo, pool.first_normal)
+
+
+WAVEFRONT_SYNCS = 0  # the wavefront's host syncs since the count was set to 0
+
+
+def _pool_rows(fn, *pools: Pool) -> Pool:
+    """`fn` over the per-ray tensors of `pools` field by field (the medium
+    stack's fields too): a Pool of the results; absent fields stay None."""
+    def field(*vs):
+        if vs[0] is None:
+            return None
+        if isinstance(vs[0], MediumStack):
+            return MediumStack(*(fn(*(getattr(v, f.name) for v in vs))
+                                 for f in dataclasses.fields(MediumStack)))
+        return fn(*vs)
+    return Pool(*(field(*vs) for vs in zip(*pools)))
+
+
+def trace_rays_wavefront(scene: SceneData, origin: torch.Tensor,
+                         direction: torch.Tensor, far, sample_idx, seed,
+                         settings: RenderSettings) -> TraceOut:
+    """Wavefront scheduler (the JAX `trace_rays_wavefront`,
+    `trace.py:556-637`): before each bounce a stable compaction puts the
+    active rays first, in their original order, and only the whole blocks
+    of `settings.wavefront_block` rays that hold them are bounced, in one
+    `_pool_bounce` call (so on the card one launch of each intersection
+    kernel a bounce, on fewer rays); at the end every ray's results go
+    back to its slot. The pool is padded to whole blocks with inactive
+    lanes (far 0, zero sample index and seed), dropped at the end. Each
+    ray sees the lockstep's operations in another slot, so `TraceOut`
+    equals `trace_rays`' bit for bit. The number of live blocks is read
+    on the host once a bounce (`WAVEFRONT_SYNCS`); a bounce with no live
+    ray ends the loop. Forward only: `trace_rays_wavefront_diff` routes
+    a trace that wants a gradient to `trace_rays`."""
+    global WAVEFRONT_SYNCS
+    n = origin.shape[0]
+    dev = origin.device
+    block = max(min(settings.wavefront_block, n), 1)
+    pad = (-n) % block
+    far = torch.as_tensor(far, dtype=torch.float32, device=dev).expand(n)
+    sample_idx = sob._u32(sample_idx).to(dev).expand(n)
+    seed = sob._u32(seed).to(dev).expand(n)
+    if pad:
+        origin = torch.cat([origin, origin.new_zeros((pad, 3))])
+        direction = torch.cat([direction, direction.new_tensor(
+            [[0.0, 0.0, 1.0]]).expand(pad, 3)])
+        far = torch.cat([far, far.new_zeros(pad)])
+        sample_idx = torch.cat([sample_idx, sample_idx.new_zeros(pad)])
+        seed = torch.cat([seed, seed.new_zeros(pad)])
+    total = n + pad
+    pool = _make_pool(origin, direction, far, sample_idx, seed,
+                      scene.any_transmissive,
+                      counts=settings.debug_mode != DebugMode.NONE)
+    slot = torch.arange(total, device=dev)  # the original slot of each ray
+    pool = pool._replace(active=slot < n)
+    for k in range(settings.max_bounces + 1):
+        order = torch.argsort((~pool.active).to(torch.uint8), stable=True)
+        pool = _pool_rows(lambda a: a[order], pool)
+        slot = slot[order]
+        live = -(-int(pool.active.sum()) // block) * block
+        WAVEFRONT_SYNCS += 1
+        if live == 0:
+            break
+        sub = _pool_bounce(scene, settings,
+                           _pool_rows(lambda a: a[:live], pool), k)
+        pool = sub if live == total else _pool_rows(
+            lambda a, b: torch.cat([b, a[live:]]), pool, sub)
+    back = torch.empty_like(slot)
+    back[slot] = torch.arange(total, device=dev)
+    return _trace_out(scene, settings,
+                      _pool_rows(lambda a: a[back[:n]], pool))
+
+
+def _requires_grad(obj) -> bool:
+    """Whether a tensor of a scene's dataclasses, tuples and lists requires
+    a gradient."""
+    if isinstance(obj, torch.Tensor):
+        return obj.requires_grad
+    if dataclasses.is_dataclass(obj):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    return isinstance(obj, (tuple, list)) and any(map(_requires_grad, obj))
+
+
+def trace_rays_wavefront_diff(scene: SceneData, origin: torch.Tensor,
+                              direction: torch.Tensor, far, sample_idx,
+                              seed, settings: RenderSettings) -> TraceOut:
+    """Differentiable wavefront tracer (the JAX
+    `trace_rays_wavefront_diff`, a wavefront forward with the lockstep's
+    replay as its backward): `trace_rays_wavefront` where no gradient is
+    wanted, else `trace_rays` under autograd. Both forwards give the same
+    bits, so the loss is the wavefront's and the gradients the
+    lockstep's, from one forward."""
+    if torch.is_grad_enabled() and _requires_grad((scene, origin,
+                                                   direction)):
+        return trace_rays(scene, origin, direction, far, sample_idx, seed,
+                          settings)
+    return trace_rays_wavefront(scene, origin, direction, far, sample_idx,
+                                seed, settings)
 
 
 def debug_color(out: TraceOut, scene: SceneData, direction: torch.Tensor,
@@ -676,10 +789,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
     # `fused_supported` refuses debug views).
     debug = settings.debug_mode != DebugMode.NONE
     use_kernel = _uses_kernel(pix.device, settings)
-    if settings.wavefront and not (settings.fused != Fused.OFF
-                                   and mk.fused_supported(scene, settings)):
-        raise NotImplementedError(
-            "the wavefront scheduler is not ported yet (ROADMAP A12)")
+    # wherever the lockstep runs, the flag selects the wavefront scheduler
+    tracer = trace_rays_wavefront_diff if settings.wavefront else trace_rays
 
     spp_block = _spp_block(n, spp, settings.ray_chunk_size)
     groups = spp // spp_block
@@ -709,7 +820,7 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         else:
             o, d, sidx, seed = group_rays(camera, settings, frame, pix,
                                           lane0, spp_block)
-            out = trace_rays(scene, o, d, farb, sidx, seed, settings)
+            out = tracer(scene, o, d, farb, sidx, seed, settings)
             col = (debug_color(out, scene, d, farb, settings) if debug
                    else out.color)
         acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)

@@ -20,6 +20,9 @@ from halogen_tpu_torch.scene.material import Material
 from halogen_tpu_torch.scene.scene import Scene
 
 _ASSETS = pathlib.Path(__file__).parent / "assets"
+# where the reference keeps its FBX models (the JAX package's path), parsed
+# where a fixture is absent
+REFERENCE_MODELS = pathlib.Path("/root/reference/Assets/Models")
 
 
 # ---------------------------------------------------------------------------
@@ -187,9 +190,10 @@ def _scale_translate(s, t):
 def real_dragon_mesh():
     """The reference's actual Dragon_8k.fbx geometry (8,712 triangles,
     used by the Testing Scene's Dragon group), from the port's copy of the
-    committed npz fixture. Returns (verts [N,3] f32 normalized to a 2-unit
-    box, faces [M,3] i32)."""
-    return _real_mesh("dragon_8k.npz")
+    committed npz fixture, else parsed from the reference's FBX file
+    (`_real_mesh`). Returns (verts [N,3] f32 normalized to a 2-unit box,
+    faces [M,3] i32)."""
+    return _real_mesh("dragon_8k.npz", "Dragon_8k.fbx")
 
 
 def glass_dragon_scene(tris: int | None = None) -> Scene:
@@ -250,30 +254,37 @@ def dragons_hero_scene(n: int = 3, tris: int | None = None) -> Scene:
     return s
 
 
-def _real_mesh(fixture_name: str):
-    """A committed npz fixture of the package's assets. The JAX package
-    falls back to parsing the reference's FBX file when a fixture is
-    absent; the FBX importer is not ported (ROADMAP A12), so a missing
-    fixture raises FileNotFoundError."""
+def _real_mesh(fixture_name: str, fbx_name: str):
+    """A committed npz fixture of the package's assets, else the
+    reference's FBX model `REFERENCE_MODELS / fbx_name` parsed by
+    `scene/fbx.py` and normalized to a 2-unit box, as the JAX package's
+    `_real_mesh` does. Raises FileNotFoundError naming both paths where
+    neither exists."""
     fixture = _ASSETS / fixture_name
-    if not fixture.exists():
+    if fixture.exists():
+        data = np.load(fixture)
+        return data["verts"], data["faces"]
+    fbx_path = REFERENCE_MODELS / fbx_name
+    if not fbx_path.exists():
         raise FileNotFoundError(
-            f"mesh fixture {fixture} is missing (the FBX import that would "
-            "rebuild it is not ported: ROADMAP A12)")
-    data = np.load(fixture)
-    return data["verts"], data["faces"]
+            f"neither the mesh fixture {fixture} nor the FBX model "
+            f"{fbx_path} exists")
+    from halogen_tpu_torch.scene.fbx import load_fbx_geometry, normalized
+
+    v, f = load_fbx_geometry(str(fbx_path))
+    return normalized(v, 2.0).astype(np.float32), f
 
 
 def real_suzanne_mesh():
     """The reference's `Suzanne Final.fbx` (15,744 triangles, used by the
     Testing Scene's Suzanne group). Normalized to a 2-unit box."""
-    return _real_mesh("suzanne.npz")
+    return _real_mesh("suzanne.npz", "Suzanne Final.fbx")
 
 
 def real_closet_mesh():
     """The reference's `Closet_Solid.fbx` (540 triangles, the Testing
     Scene's Closet interior). Normalized to a 2-unit box."""
-    return _real_mesh("closet.npz")
+    return _real_mesh("closet.npz", "Closet_Solid.fbx")
 
 
 def suzanne_scene() -> Scene:

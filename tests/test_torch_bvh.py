@@ -81,9 +81,16 @@ def test_meshes_match_jax():
 
 
 def test_missing_fixture_raises(monkeypatch, tmp_path):
+    """Neither the fixture nor the reference's FBX model: the error names
+    both paths (with the model present, `tests/test_torch_fbx.py` parses
+    it)."""
     monkeypatch.setattr(tmeshes, "_ASSETS", tmp_path)
-    with pytest.raises(FileNotFoundError, match="A12"):
+    monkeypatch.setattr(tmeshes, "REFERENCE_MODELS", tmp_path / "Models")
+    with pytest.raises(FileNotFoundError, match="neither the mesh fixture"
+                       ) as err:
         tmeshes.real_dragon_mesh()
+    assert str(tmp_path / "dragon_8k.npz") in str(err.value)
+    assert str(tmp_path / "Models" / "Dragon_8k.fbx") in str(err.value)
 
 
 # --- the builder invariants of tests/test_bvh.py, on the port's builder

@@ -269,9 +269,10 @@ def test_renderer_matches_jax_renderer():
 
 
 def test_no_jax_in_the_port():
-    """Importing the port (and driving it: a big scene's BVH routes, area-
-    light NEE, an HDRI file, a debug view, the CLI and a sharded render)
-    loads neither JAX nor the JAX package."""
+    """Importing the port (and driving it: a wavefront frame, a big
+    scene's BVH routes, area-light NEE, an HDRI file, a debug view, the
+    CLI and a sharded render; the FBX importer and the scripts) loads
+    neither JAX nor the JAX package."""
     import subprocess
     import sys
 
@@ -283,6 +284,11 @@ def test_no_jax_in_the_port():
         "s = cornell.cornell_box().build(device='cpu')\n"
         "st = ht.RenderSettings(width=4, height=4, max_bounces=1)\n"
         "ht.render_frame(s, ht.make_camera(device='cpu'), st)\n"
+        "ht.render_frame(s, ht.make_camera(device='cpu'), st.replace(\n"
+        "    wavefront=True, wavefront_block=5))\n"
+        "import halogen_tpu_torch.scene.fbx\n"
+        "from halogen_tpu_torch.scripts import (gen_goldens, hero_run,\n"
+        "    inverse_demo, turntable, variance_bench)\n"
         "b = meshes.dragons_hero_scene(1, tris=320).build(device='cpu')\n"
         "for i in (ht.Intersector.AUTO, ht.Intersector.RAYLET):\n"
         "    ht.render_frame(b, ht.make_camera(device='cpu'), st.replace(\n"
