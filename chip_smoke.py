@@ -62,7 +62,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit
  13. the registers and spill bytes of every variant (the adjoints' with
      the transcript in shared and in device memory; those built before
      B1e must equal `RESOURCES_BEFORE_B1E`, but the two replay variants
-     of `RESOURCES_SINCE_SHARED_SWEEP`; the record route's forward
+     of `RESOURCES_SINCE_SHARED_SWEEP` and the five of
+     `RESOURCES_SINCE_DIVISION`; the record route's forward
      variants on both tiers and its sweeps printed, and no sweep may
      spill; B1e+d's light variants, whose shadow ray is an any-hit walk,
      B1e's brute-tier variants, whose shadow scan culls, and the light-NEE
@@ -395,6 +396,24 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      of the JAX golden, and past its worst-pixel bound only where the
      world-space lockstep on the card reproduces the pixel: phase 18's
      rule); each one's kernel launches printed;
+ 42. light-NEE gradient steps past the record budget, on the route that
+     records each group again in its backward ('rerecord',
+     `adjoint.record_plan`: the forward launches the plain B1e variant,
+     the backward a recording one and the sweep a group): the route
+     against the record route on the same step (256x256, 16 spp, two
+     launches under a budget of one launch's record) on B1e (Cornell
+     glossy), B1c+e (Cornell glossy under the sky with both NEEs, with
+     `env_mips`), B1b+e+d (the glass dragon) and B1e+d (the metal
+     dragon): loss, gradients and mips bit for bit; then, with the
+     default budget, `cornell_glossy_1024_256spp_fwd_bwd_light` (1,024
+     launches, 68.7 GB of records on the record route) and
+     `glass_dragon_1024_64spp_fwd_bwd_light` (256 launches, 31.7 GB):
+     seconds a step over 3 warm steps, a profiled step (busy ms, idle
+     share), peak memory, the launches, finite gradients, and two calls
+     of one frame bit for bit; a sharded light-NEE step over one
+     `nccl` rank past the budget, bit for bit with the same sharded step
+     on the record route and within phase 39's tolerance of
+     `render_loss_grad`; and a 3-step `fit_materials` past the budget;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
@@ -504,6 +523,15 @@ RESOURCES_BEFORE_B1E = {
 # forward variants, which the record switch must leave alone, are not here.
 RESOURCES_SINCE_SHARED_SWEEP = {
     "B2b+c+n": (124, 0), "B2b+c+n global": (128, 0),
+}
+# Where the bounce body's arithmetic changed since: a normalization and
+# Russian roulette's 1/p divide, as the plain version and the JAX package
+# do, where they multiplied by the reciprocal (csrc/geometry.cuh
+# `normalize3`, csrc/path_common.cuh); the hit's normal is normalized once,
+# for the winner. ptxas then allocates these one or two registers more.
+RESOURCES_SINCE_DIVISION = {
+    "B1b+c+d": (96, 0), "B2": (80, 0), "B2b global": (89, 0),
+    "B2b+c global": (89, 0), "B2c": (80, 0),
 }
 
 
@@ -1090,9 +1118,12 @@ def phase38(dev, card: str) -> dict:
 
     # the gradient step with the mips vs Fused.OFF (phase 15's rule, but
     # up to 1% of the pixels may round apart and be held out, not 0.1%:
-    # env NEE draws the 2000-radiance sun disc, and where a glossy lobe's
-    # pdf turns an ulp of direction into a change of its MIS weight
-    # (phase 17) a sample moves the pixel by more than 1e-4 of it)
+    # where the roughness-0.05 metal sphere's lobe sends a ray to the
+    # 2000-radiance sun, the continuation pdf at the rim of the lobe's
+    # support is either ~5e5 or 0, so an ulp of direction flips the sky's
+    # MIS weight between 1 and 0; the kernel's normalizations divide as
+    # the plain version's do, so no ulp parts them there:
+    # `perf/torch/hdri_parting.py`)
     st_g = st.replace(width=256, height=256)
     st_off = st_g.replace(fused=ht.Fused.OFF)
     p = {"materials": scene.materials, "env_mips": scene.env_mips}
@@ -1639,6 +1670,286 @@ GOLDEN_PAST_WORST = {"testing_active": {(53, 26)}}
 # the JAX package's hero record (perf/hero_run.json, its
 # hero_dragons_4096spp line): the image's mean radiance, not a time
 JAX_HERO_MEAN_RADIANCE = 0.2344
+
+
+def _light_step_scenes(dev) -> dict:
+    """Phase 42's scenes: name -> (scene, camera, settings beyond the
+    light-NEE flag); the sky one with both NEEs."""
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.scene import cornell, meshes
+    from halogen_tpu_torch.scene.envmap import Envmap
+    from halogen_tpu_torch.scene.material import Material
+
+    cam = ht.make_camera(**CAM, device=dev)
+    dcam = ht.make_camera(**DRAGON_CAM, device=dev)
+    box = cornell.cornell_box(with_spheres=False)
+    dverts, dfaces = meshes.dragon_mesh(3)
+    box.add_mesh(dverts, dfaces, Material.metal((0.9, 0.6, 0.5),
+                                                roughness=0.4),
+                 transform=meshes._scale_translate(0.55, (0.0, -0.45, 0.0)))
+    return {
+        "B1e": (cornell.cornell_box(glossy=True).build(device=dev), cam,
+                dict(max_bounces=6)),
+        "B1c+e": (cornell.cornell_box(glossy=True).build(
+            envmap=Envmap.gradient_sky(), device=dev), cam,
+            dict(max_bounces=4, use_envmap=True, env_importance_sampling=True,
+                 env_mip_level=0)),
+        "B1b+e+d": (meshes.glass_dragon_scene().build(device=dev), dcam,
+                    dict(max_bounces=12)),
+        "B1e+d": (box.build(device=dev), dcam, dict(max_bounces=6)),
+    }
+
+
+def phase42(dev, card: str) -> dict:
+    """42. Light-NEE gradient steps past the record budget: the route that
+    records each group again in its backward ('rerecord') against the
+    record route bit for bit on four variants, the two full-width steps
+    that the record route cannot hold, and a sharded step over one `nccl`
+    rank (see the module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.diff import fit_materials, render_loss_grad
+    from halogen_tpu_torch.diff.grad import material_params
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.parallel import sharding
+
+    t42 = time.perf_counter()
+    scenes = _light_step_scenes(dev)
+    counts = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.LAUNCHES,
+                      adj.SWEEP_LAUNCHES)
+    delta = lambda before: tuple(a - b for a, b in zip(counts(), before))
+
+    def step(sc, cm, st, frame, params=None):
+        params = params or {"materials": sc.materials}
+        tgt = torch.zeros((st.height, st.width, 3), device=dev)
+        return render_loss_grad(params, sc, cm, st, tgt, frame)
+
+    def bits(a, b) -> bool:
+        """Loss and every gradient of two steps equal bit for bit."""
+        (la, ga), (lb, gb) = a, b
+        same = torch.equal(la, lb)
+        for f in dataclasses.fields(ga["materials"]):
+            same &= torch.equal(getattr(ga["materials"], f.name),
+                                getattr(gb["materials"], f.name))
+        for x, y in zip(ga.get("env_mips", ()), gb.get("env_mips", ())):
+            same &= torch.equal(x, y)
+        return bool(same)
+
+    saved = adj.RECORD_BUDGET
+    variants = {}
+    try:
+        # the route against the record route on one step: two launches of
+        # 262144 rays, under a budget of both records, then of one
+        for name, (sc, cm, kw) in scenes.items():
+            st = ht.RenderSettings(width=256, height=256, samples_per_pixel=8,
+                                   ray_chunk_size=262144,
+                                   light_importance_sampling=True, **kw)
+            params = {"materials": sc.materials}
+            if st.use_envmap:
+                params["env_mips"] = sc.env_mips
+            one = adj.record_bytes(sc, st, 262144)
+            live = mk.live_record_bytes(dev)
+            adj.RECORD_BUDGET = live + 2 * one
+            assert adj.record_plan(sc, st, 262144, 2) == "recorded"
+            before = counts()
+            rec = step(sc, cm, st, 1, params)
+            n_rec = delta(before)
+            adj.RECORD_BUDGET = live + one
+            assert adj.record_plan(sc, st, 262144, 2) == "rerecord"
+            before = counts()
+            rer = step(sc, cm, st, 1, params)
+            n_re = delta(before)
+            assert mk.live_record_bytes(dev) == live
+            same = bits(rec, rer)
+            variants[name] = dict(bit_for_bit=same, launches_recorded=n_rec,
+                                  launches_rerecord=n_re, loss=float(rer[0]))
+            print(f"[42] {name} 256x256 8 spp {st.max_bounces} bounces, two "
+                  f"launches: the rerecord route (megakernel, recording, "
+                  f"replay, sweep) {n_re} vs the record route {n_rec}; loss, "
+                  f"gradients{' and mips' if st.use_envmap else ''} bit for "
+                  f"bit {same} | {card}", flush=True)
+            assert same, f"{name}: the rerecord route's bits differ"
+            assert n_rec == (2, 2, 0, 2) and n_re == (4, 2, 0, 2), (n_rec,
+                                                                   n_re)
+            assert float(rec[1]["materials"].albedo.abs().sum()) > 0
+
+        # phase 36's Cornell glossy light step (256x256, 256 spp, 64
+        # launches, 4.29 GB of records) on each route in turns: record,
+        # rerecord, rerecord, record
+        sc, cm, base = scenes["B1e"]
+        st = ht.RenderSettings(width=256, height=256, samples_per_pixel=256,
+                               ray_chunk_size=262144,
+                               light_importance_sampling=True, **base)
+        live = mk.live_record_bytes(dev)
+        budgets = {"recorded": None,
+                   "rerecord": live + adj.record_bytes(sc, st, 262144)}
+        turns = {"recorded": [], "rerecord": []}
+        first = {}
+        for route in ("recorded", "rerecord", "rerecord", "recorded"):
+            adj.RECORD_BUDGET = budgets[route]
+            assert adj.record_plan(sc, st, 262144, 64) == route
+            fn = lambda f, sc=sc, cm=cm, st=st: step(sc, cm, st, f)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_bytes = torch.cuda.memory_allocated()
+            _zero_launch_counts()
+            out = fn(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(3):
+                fn(f + 2)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / 3
+            n = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base_bytes
+            first.setdefault(route, out)
+            prof = _profile_step(lambda: fn(5), dt * 1e3)
+            turns[route].append(dict(step_ms=dt * 1e3, launches=n,
+                                     busy_ms=prof["busy_ms"],
+                                     idle_share=prof["idle_share"],
+                                     cuda_launches=prof["cuda_launches"],
+                                     peak_above_start_bytes=peak))
+            print(f"[42] cornell_glossy_256_fwd_bwd_light on '{route}': "
+                  f"{n} launches in 4 steps; step {dt * 1e3:.2f} ms; "
+                  f"{_profile_text(prof)}; peak memory above the step's "
+                  f"start {peak / 2**30:.3f} GiB | {card}", flush=True)
+        same = bits(first["recorded"], first["rerecord"])
+        assert same, "phase 36's light step: the routes' bits differ"
+        print(f"[42] cornell_glossy_256_fwd_bwd_light: the two routes' "
+              f"loss and gradients bit for bit {same}", flush=True)
+
+        # the full-width steps with the default budget (a quarter of the
+        # card): their records would not fit it, so they take the route
+        adj.RECORD_BUDGET = None
+        full = {
+            "cornell_glossy_1024_256spp_fwd_bwd_light": (
+                "B1e", dict(samples_per_pixel=256)),
+            "glass_dragon_1024_64spp_fwd_bwd_light": (
+                "B1b+e+d", dict(samples_per_pixel=64)),
+        }
+        steps = {}
+        for name, (variant, kw) in full.items():
+            sc, cm, base = scenes[variant]
+            st = ht.RenderSettings(width=1024, height=1024,
+                                   ray_chunk_size=262144,
+                                   light_importance_sampling=True,
+                                   **{**base, **kw})
+            launches = st.num_pixels * st.samples_per_pixel // 262144
+            one = adj.record_bytes(sc, st, 262144)
+            assert adj.record_plan(sc, st, 262144, launches) == "rerecord"
+            fn = lambda f, sc=sc, cm=cm, st=st: step(sc, cm, st, f)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_bytes = torch.cuda.memory_allocated()
+            _zero_launch_counts()
+            fn(0)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [fn(f + 1) for f in range(3)]
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / 3
+            n = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            assert (n["megakernel"] == 8 * launches
+                    and n["recording"] == n["sweep"] == 4 * launches
+                    and n["replay"] == 0), n
+            for loss, grads in outs:
+                assert bool(torch.isfinite(loss)), name
+                for f in dataclasses.fields(grads["materials"]):
+                    g = getattr(grads["materials"], f.name)
+                    assert bool(torch.isfinite(g.float()).all()), (name, f)
+            same = bits(outs[0], fn(1))
+            assert same, f"{name}: two calls gave other bits"
+            prof = _profile_step(lambda: fn(4), dt * 1e3)
+            mr = st.samples_per_pixel * st.num_pixels / dt / 1e6
+            steps[name] = dict(
+                step_s=dt, mrays_fwd_bwd=mr, launches=n, profile=prof,
+                peak_bytes=peak, peak_above_start_bytes=peak - base_bytes,
+                record_bytes_one_launch=one,
+                record_bytes_record_route=launches * one,
+                repeat_bit_for_bit=same)
+            print(f"[42] {name} {st.width}x{st.height} "
+                  f"{st.samples_per_pixel} spp {st.max_bounces} bounces "
+                  f"(rerecord; the record route would keep "
+                  f"{launches * one / 1e9:.1f} GB): {n} launches in 4 "
+                  f"steps; step {dt:.4f} s = {mr:.3f} Mrays/s (fwd+bwd); "
+                  f"{_profile_text(prof)}; peak memory {peak / 2**30:.3f} "
+                  f"GiB ({(peak - base_bytes) / 2**30:.3f} GiB above the "
+                  f"step's start; one launch's record "
+                  f"{one / 2**20:.1f} MiB); finite gradients; two calls "
+                  f"bit for bit {same} | {card}", flush=True)
+
+        # a sharded light-NEE step over one nccl rank past the budget
+        sc, cm, base = scenes["B1e"]
+        st = ht.RenderSettings(width=256, height=256, samples_per_pixel=16,
+                               ray_chunk_size=262144,
+                               light_importance_sampling=True, **base)
+        formed = sharding.init_distributed()
+        try:
+            mesh = sharding.make_render_mesh(1, 1)
+            zeros = torch.zeros((256, 256, 3), device=dev)
+            params = material_params(sc.materials)
+            live = mk.live_record_bytes(dev)
+            one = adj.record_bytes(sc, st, 262144)
+            shard = {}
+            for route, budget in (("recorded", live + 4 * one),
+                                  ("rerecord", live + one)):
+                adj.RECORD_BUDGET = budget
+                before = counts()
+                shard[route] = sharding.loss_and_grads_sharded(
+                    params, sc, cm, st, zeros, 1, mesh)
+                shard[route + "_launches"] = delta(before)
+        finally:
+            if formed:
+                dist.destroy_process_group()
+        adj.RECORD_BUDGET = live + one
+        ref_loss, ref_g = step(sc, cm, st, 1)
+        # a short fit past the budget: fit_materials takes the route too
+        before = counts()
+        _, fit_losses = fit_materials(sc, cm, st, zeros, steps=3)
+        fit_launches = delta(before)
+        print(f"[42] fit_materials, light NEE, 256x256 16 spp, 3 steps "
+              f"under a budget of one launch's record: losses "
+              f"{fit_losses}, launches (megakernel, recording, replay, "
+              f"sweep) {fit_launches} | {card}", flush=True)
+        assert np.isfinite(fit_losses).all()
+        assert fit_launches == (24, 12, 0, 12), fit_launches
+        (l_rec, g_rec), (l_re, g_re) = shard["recorded"], shard["rerecord"]
+        same = torch.equal(l_rec, l_re) and all(
+            torch.equal(g_rec[k], g_re[k]) for k in g_rec)
+        vs_ref = {k: float((g_re[k] - getattr(ref_g["materials"], k))
+                           .abs().max()) for k in g_re}
+        ref_bits = torch.equal(l_re, ref_loss) and all(
+            torch.equal(g_re[k], getattr(ref_g["materials"], k))
+            for k in g_re)
+        print(f"[42] loss_and_grads_sharded, light NEE, one nccl rank, "
+              f"256x256 16 spp (4 launches): rerecord launches "
+              f"{shard['rerecord_launches']} vs recorded "
+              f"{shard['recorded_launches']}, bit for bit {same}; vs "
+              f"render_loss_grad: loss {float(l_re):.8e} vs "
+              f"{float(ref_loss):.8e}, max |diff| {vs_ref}, bit for bit "
+              f"{ref_bits} | {card}", flush=True)
+        assert same, "the sharded rerecord step's bits differ"
+        assert shard["rerecord_launches"] == (8, 4, 0, 4)
+        np.testing.assert_allclose(float(l_re), float(ref_loss), rtol=1e-5)
+        for k in g_re:
+            np.testing.assert_allclose(
+                g_re[k].cpu().numpy(),
+                getattr(ref_g["materials"], k).cpu().numpy(),
+                atol=1e-4, rtol=1e-3, err_msg=k)
+    finally:
+        adj.RECORD_BUDGET = saved
+    print(f"[42] phase 42 took {time.perf_counter() - t42:.1f} s", flush=True)
+    return dict(variants=variants, steps=steps, cornell_256_turns=turns,
+                sharded=dict(bit_for_bit_with_record_route=same,
+                             vs_render_loss_grad_max_abs_diff=vs_ref,
+                             bit_for_bit_with_render_loss_grad=ref_bits,
+                             launches=shard["rerecord_launches"]),
+                fit_losses=fit_losses, fit_launches=fit_launches)
 
 
 def phase41(card: str) -> dict:
@@ -2217,13 +2528,15 @@ def main() -> int:
                         *adjoint_variants, *record_variants,
                         *sweep_variants, *probe_variants,
                         *light_record_variants, *light_sweep_variants}, res
-    expected = {**RESOURCES_BEFORE_B1E, **RESOURCES_SINCE_SHARED_SWEEP}
+    expected = {**RESOURCES_BEFORE_B1E, **RESOURCES_SINCE_SHARED_SWEEP,
+                **RESOURCES_SINCE_DIVISION}
     changed = {k: (v, res[k]) for k, v in expected.items()
                if tuple(res[k]) != v}
     print(f"[13] the {len(expected)} variants built before B1e keep their "
-          f"registers and spills (the forward variants all, the replay's "
+          f"registers and spills (the replay's "
           f"{sorted(RESOURCES_SINCE_SHARED_SWEEP)} as since the shared "
-          f"sweep): {not changed} {changed}", flush=True)
+          f"sweep, {sorted(RESOURCES_SINCE_DIVISION)} as since the bounce "
+          f"divides): {not changed} {changed}", flush=True)
     assert not changed, changed
     spilled = {k: res[k] for k in sweep_variants if res[k][1]}
     print(f"[13] the record route's kernels, both tiers: forward "
@@ -4784,6 +5097,9 @@ def main() -> int:
     print(f"[41] phases 40-41 took {time.perf_counter() - t40:.1f} s",
           flush=True)
 
+    # --- 42. light-NEE gradients past the record budget
+    r42 = phase42(dev, card)
+
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
@@ -5210,6 +5526,10 @@ def main() -> int:
     by_name["sky backward"]["hdri_2048"] = r38
     by_name["B1d"]["dragons_hero_sharded"] = r39
     by_name["B3"]["wavefront"] = r40
+    for name in ("B1e recording", "B1e+d recording", "B2+l"):
+        by_name[name]["rerecord_launches"] = {
+            k: v["launches"] for k, v in r42["steps"].items()}
+    by_name["B2+l"]["rerecord"] = r42
     by_name["B1d"]["scripts"] = {k: {kk: vv for kk, vv in v.items()
                                      if kk != "record"}
                                  for k, v in r41.items()}

@@ -12,8 +12,9 @@ estimation, with or without area-light next-event estimation, up to
 200,000 triangles (per-mesh and world BVHs, a world-BVH traversal kernel
 and the megakernel's BVH tier); material and envmap gradients and the
 fitting loop (`halogen_tpu_torch.diff`), on the card for every scene it
-renders (with area-light NEE through the record route alone: a step whose
-records pass the budget raises, ROADMAP A13); debug views; envmaps
+renders (with area-light NEE by recording alone: the forward records
+the transcript, or, where a step's records pass the budget, each group's
+backward records its launch again before it sweeps); debug views; envmaps
 from HDR and EXR files (`scene.hdr_io`); rendering and fitting sharded
 over processes (`parallel`); the wavefront scheduler
 (`RenderSettings.wavefront`) wherever the lockstep integrator runs; the

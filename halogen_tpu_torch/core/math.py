@@ -32,8 +32,19 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, as IEEE 754 asks and as XLA's and
+    CUDA's `sqrtf` give it. torch's float32 sqrt on the CPU is not: it
+    misses by an ulp on ~0.6% of inputs, which an NEE weight can grow
+    into percents of a ray's color. There the root is taken in float64,
+    whose rounding to float32 is the correctly rounded float32 root."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
-    n = torch.sqrt(dot(v, v))[..., None]
+    n = sqrt(dot(v, v))[..., None]
     return v / torch.clamp_min(n, eps) if eps else v / n
 
 
@@ -122,7 +133,7 @@ def sphere_intersect_soa(o, d, c, radius):
     b = 2.0 * dot_soa(oc, d)
     cq = dot_soa(oc, oc) - radius * radius
     disc = b * b - 4.0 * cq
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt(torch.clamp_min(disc, 0.0))
     t_near = (-b - sq) * 0.5
     t_far = (-b + sq) * 0.5
     inside = t_near < 0.0
@@ -141,12 +152,12 @@ def refract(incident: torch.Tensor, normal: torch.Tensor, n1, n2):
     """Snell refraction with total-internal-reflection handling
     (HalgoenCompute.compute:557-572). Returns (direction, tir_mask)."""
     cos_theta = torch.clamp_max(dot(-incident, normal), 1.0)
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     eta = n1 / n2
     tir = eta * sin_theta > 1.0
     r_perp = eta[..., None] * (incident + cos_theta[..., None] * normal)
     perp_len2 = dot(r_perp, r_perp)
-    r_par = -torch.sqrt(torch.abs(1.0 - perp_len2))[..., None] * normal
+    r_par = -sqrt(torch.abs(1.0 - perp_len2))[..., None] * normal
     refracted = r_perp + r_par
     reflected = reflect(incident, normal)
     return torch.where(tir[..., None], reflected, refracted), tir
@@ -163,7 +174,7 @@ def schlick_adjusted_specular(n1, n2, normal, incident, min_spec, max_spec):
     exiting = n1 > n2
     tir = exiting & (sin_t2 > 1.0)
     cos_x = torch.where(
-        exiting, torch.sqrt(torch.clamp_min(1.0 - sin_t2, 0.0)), cos_x)
+        exiting, sqrt(torch.clamp_min(1.0 - sin_t2, 0.0)), cos_x)
     x = 1.0 - cos_x
     ret = r0 + (1.0 - r0) * x * x * x * x * x
     out = min_spec + (max_spec - min_spec) * ret
@@ -189,7 +200,7 @@ def procedural_glossy_pdf(omega: torch.Tensor, mirror: torch.Tensor,
     disc = b * b - c
     eps = float(np.float32(1e-6))
     exists = (a1 > eps) & (disc >= 0.0)
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt(torch.clamp_min(disc, 0.0))
     a_safe = torch.clamp_min(a1, eps)
     total = torch.zeros_like(b)
     for t in (b - sq, b + sq):

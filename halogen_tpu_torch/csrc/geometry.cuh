@@ -41,10 +41,12 @@ __device__ __forceinline__ V3 mul3(V3 a, V3 b) {
   return {a.x * b.x, a.y * b.y, a.z * b.z};
 }
 
+// v / max(|v|, eps), divided as core/math.py normalize and the JAX package
+// divide: a multiply by the reciprocal rounds an ulp apart, which a
+// near-mirror lobe's pdf at its rim turns into a sky weight of 1 or 0
 __device__ __forceinline__ V3 normalize3(V3 v, float eps) {
-  float n = sqrtf(dot3(v, v));
-  float inv = 1.0f / fmaxf(n, eps);
-  return {v.x * inv, v.y * inv, v.z * inv};
+  const float n = fmaxf(sqrtf(dot3(v, v)), eps);
+  return {v.x / n, v.y / n, v.z / n};
 }
 
 __device__ __forceinline__ V3 sel3(bool c, V3 a, V3 b) { return c ? a : b; }

@@ -1131,13 +1131,13 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
   const float t_safe = fabsf(t) < INFINITY ? t : 0.0f;  // isfinite
   const V3 pos = {o.x + d.x * t_safe, o.y + d.y * t_safe,
                   o.z + d.z * t_safe};
-  const V3 tri_n = normalize3({tr_n.x * tr_s, tr_n.y * tr_s, tr_n.z * tr_s},
-                              1e-20f);
-  const V3 sph_n = normalize3({(pos.x - sp_c.x) * sp_orient,
-                               (pos.y - sp_c.y) * sp_orient,
-                               (pos.z - sp_c.z) * sp_orient},
-                              1e-20f);
-  const V3 normal = sel3(mesh_wins, tri_n, sph_n);
+  // the winner's normal alone normalized: the same bits as normalizing
+  // both (elementwise), with one normalization's divisions
+  const V3 normal = normalize3(
+      sel3(mesh_wins, V3{tr_n.x * tr_s, tr_n.y * tr_s, tr_n.z * tr_s},
+           V3{(pos.x - sp_c.x) * sp_orient, (pos.y - sp_c.y) * sp_orient,
+              (pos.z - sp_c.z) * sp_orient}),
+      1e-20f);
   const float orient = mesh_wins ? tr_s : sp_orient;
   const int mat_id = static_cast<int>(mesh_wins ? tr_mat : sp_mat);
   const float* m = sc.mat + mat_id * kMatStride;
@@ -1418,8 +1418,9 @@ __device__ __forceinline__ int path_bounce(const SceneView& sc,
       rec.survive = false;
       return kShadedEnded;
     }
-    const float inv_c = 1.0f / fmaxf(contribution, 1e-20f);
-    s.atten = {s.atten.x * inv_c, s.atten.y * inv_c, s.atten.z * inv_c};
+    // divided, as the JAX lockstep divides (`atten / safe_c`, trace.py:456)
+    const float c = fmaxf(contribution, 1e-20f);
+    s.atten = {s.atten.x / c, s.atten.y / c, s.atten.z / c};
   }
   return kShadedGoesOn;
 }

@@ -16,11 +16,17 @@ the forward launch records each path's transcript and the backward
 sweeps it; past the budget the backward replays the paths from their
 rays. A step never keeps a graph of every bounce. On the CPU and under
 `Fused.OFF` autograd runs through the lockstep integrator. With
-area-light NEE the card's backward is the record route alone (B2+l): the
-forward records the light term's factors beside the transcript, and the
-sweep gives d emission of each drawn light's material and d albedo and
-d specular of the shaded one; a step whose records pass the budget raises
-before any launch (a light-NEE replay is ROADMAP A13).
+area-light NEE, which no replay kernel covers, the card's backward is
+the sweep (B2+l): the forward records the light term's factors beside the
+transcript, and the sweep gives d emission of each drawn light's material
+and d albedo and d specular of the shaded one. Past the budget such a
+step records nothing forward, and each group's backward runs the
+recording forward again on the same pixels, sweeps and drops the record
+('rerecord', `adjoint.record_plan`): the record route's bits, one
+launch's record alive. `adjoint.RECORD_BUDGET` forces a route: None (a
+quarter of the card) records where the step fits, a budget of one
+launch's record rerecords, 0 replays (light NEE then raises: not even
+one launch's record fits).
 
 Envmap texels are parameters too (`"env_mips"`, a tuple of [H, W, 3] mips,
 finest first): they reach the image through the sky at the miss and, with

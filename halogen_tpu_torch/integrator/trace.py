@@ -56,6 +56,7 @@ from halogen_tpu_torch.core.math import (
     dot,
     procedural_glossy_pdf,
     reflect,
+    sqrt,
 )
 from halogen_tpu_torch.core.medium import MediumStack
 from halogen_tpu_torch.core.types import SceneData
@@ -482,10 +483,10 @@ def light_nee(scene: SceneData, settings: RenderSettings, carry: Pool, hit,
     # triangle branch: the direction to the sampled point
     wi_vec = ls["tri_point"] - hit.pos
     d2 = dot(wi_vec, wi_vec)
-    dist_t = torch.sqrt(torch.clamp_min(d2, 1e-12))
+    dist_t = sqrt(torch.clamp_min(d2, 1e-12))
     wi_t = wi_vec / dist_t[:, None]
     gn_hat = ls["gn"] / torch.clamp_min(
-        torch.sqrt(dot(ls["gn"], ls["gn"])), 1e-12)[:, None]
+        sqrt(dot(ls["gn"], ls["gn"])), 1e-12)[:, None]
     cos_l = torch.abs(dot(gn_hat, wi_t))
     pdf_sa_t = ls["pdf_area"] * d2 / torch.clamp_min(cos_l, 1e-6)
     ok_t = (cos_l > 1e-4) & (ls["pdf_area"] > 0.0) & (ls["idx"] != hit.tri)
@@ -493,20 +494,20 @@ def light_nee(scene: SceneData, settings: RenderSettings, carry: Pool, hit,
     # sphere branch: a uniform direction in the subtended cone
     dvec = ls["center"] - hit.pos
     dc2 = dot(dvec, dvec)
-    dc = torch.sqrt(torch.clamp_min(dc2, 1e-12))
+    dc = sqrt(torch.clamp_min(dc2, 1e-12))
     dhat = dvec / dc[:, None]
     r = ls["radius"]
     sin2max = r * r / torch.clamp_min(dc2, 1e-12)
     outside = sin2max < 1.0
-    cos_max = torch.sqrt(torch.clamp(1.0 - sin2max, 0.0, 1.0))
+    cos_max = sqrt(torch.clamp(1.0 - sin2max, 0.0, 1.0))
     cos_th = 1.0 - pu * (1.0 - cos_max)
-    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, 0.0, 1.0))
+    sin_th = sqrt(torch.clamp(1.0 - cos_th * cos_th, 0.0, 1.0))
     phi = pv * _TWO_PI
     # orthonormal basis around dhat
     y_up = (torch.abs(dhat[:, 1:2]) < 0.9).to(dhat.dtype)
     up = torch.cat([1.0 - y_up, y_up, torch.zeros_like(y_up)], dim=1)
     tang = cross(up, dhat)
-    tang = tang / torch.clamp_min(torch.sqrt(dot(tang, tang)),
+    tang = tang / torch.clamp_min(sqrt(dot(tang, tang)),
                                   1e-12)[:, None]
     bitan = cross(dhat, tang)
     wi_s = (dhat * cos_th[:, None] + tang * (sin_th * torch.cos(phi))[:, None]
@@ -516,7 +517,7 @@ def light_nee(scene: SceneData, settings: RenderSettings, carry: Pool, hit,
     # distance to the sphere's surface along wi_s
     proj = dc * cos_th
     under = r * r - dc2 * sin_th * sin_th
-    dist_s = proj - torch.sqrt(torch.clamp_min(under, 0.0))
+    dist_s = proj - sqrt(torch.clamp_min(under, 0.0))
     ok_s = outside & (solid > 1e-12) & (ls["idx"] != hit.sphere)
 
     wi = torch.where(is_tri[:, None], wi_t, wi_s)
@@ -770,12 +771,14 @@ def group_rays(camera: Camera, settings: RenderSettings, frame,
 def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
                   frame, pix: torch.Tensor, spp_offset: int = 0,
                   spp_count: int | None = None,
-                  record: bool | None = None) -> torch.Tensor:
+                  record: str | None = None) -> torch.Tensor:
     """Render flat pixel indices `pix` [n] -> [n, 3] radiance, averaged
     over spp lanes [spp_offset, spp_offset + spp_count). On the kernel
-    route `record` is the plan of the step this call belongs to
-    (`megakernel.records_wanted`): whether its launches record the
-    adjoint's transcript; None plans this call's groups."""
+    route `record` is the adjoint's route for the step this call belongs
+    to (`megakernel.grad_route`): whether its launches record the
+    adjoint's transcript ('recorded'), leave each group to be recorded
+    again in its backward ('rerecord'), or write their rays; None plans
+    this call's groups."""
     from halogen_tpu_torch.kernels import megakernel as mk
 
     n = pix.shape[0]
@@ -805,8 +808,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
                      else None)
         view = mk.pixel_view(camera, settings, frame, pix)
         if record is None:
-            record = mk.records_wanted(scene, settings, tables, pix.device,
-                                       n * spp_block, groups)
+            record = mk.grad_route(scene, settings, tables, pix.device,
+                                   n * spp_block, groups)
     else:
         farb = camera.far.expand(n * spp_block)
 
@@ -892,7 +895,8 @@ def render_pixel_chunks(scene: SceneData, camera: Camera,
                         spp_count: int | None = None) -> torch.Tensor:
     """`render_pixels` over flat pixel indices `pix` [n] in chunks of
     `ray_chunk_size` pixels, to bound live ray-state memory, with one
-    record plan for all their launches, made before the first: [n, 3]."""
+    adjoint route for all their launches, planned before the first:
+    [n, 3]."""
     n = pix.shape[0]
     chunk = min(settings.ray_chunk_size, n)
     n_chunks = -(-n // chunk)
@@ -903,9 +907,9 @@ def render_pixel_chunks(scene: SceneData, camera: Camera,
         spp = (settings.samples_per_pixel if spp_count is None
                else spp_count)
         spp_block = _spp_block(chunk, spp, settings.ray_chunk_size)
-        record = mk.records_wanted(scene, settings, None, pix.device,
-                                   chunk * spp_block,
-                                   n_chunks * (spp // spp_block))
+        record = mk.grad_route(scene, settings, None, pix.device,
+                               chunk * spp_block,
+                               n_chunks * (spp // spp_block))
     return torch.cat([render_pixels(scene, camera, settings, frame,
                                     pix[c * chunk:(c + 1) * chunk],
                                     spp_offset, spp_count, record=record)

@@ -26,14 +26,22 @@ sweep its transcript, and all three give the same bits:
     budget, and callers that bring rays without a record, replay
     (`transcript_route`). The sweep puts ray i on thread i % 128, as the
     replay does on both tiers, so the two give the same bits.
-With area-light NEE (B2+l) the record route is the only one: the
-forward's recording variant also records each hit's emission weight and
-the light term's factors and material, and the sweep adds the light's d
-emission under a third key (its material), beside d albedo and d
-specular of the shaded one. A step past `RECORD_BUDGET` raises before any
-launch (a light-NEE replay is ROADMAP A13), and a caller on a CUDA device
-that brings rays without a record gets the recording forward on them,
-then the sweep.
+With area-light NEE (B2+l) no replay kernel exists; the sweep is the
+only backward: the forward's recording variant also records each hit's
+emission weight and the light term's factors and material, and the sweep
+adds the light's d emission under a third key (its material), beside d
+albedo and d specular of the shaded one. Where the step's records pass
+`RECORD_BUDGET` the route is 'rerecord' (`record_plan`): the forward
+records nothing, and each group's backward runs the recording forward
+again on the same rays (a launch from pixels makes them again;
+`trace_grad_pixels`), sweeps its record and drops it, so a step keeps one
+launch's record where the record route keeps all of them, and gets the
+record route's bits. Only a launch whose own record passes the budget
+raises, before any launch. A caller on a CUDA device that brings rays
+without a record gets the recording forward on them, then the sweep. To
+force a route on the card set `RECORD_BUDGET`: None (a quarter of the
+card) or a large number records, a budget below the step's records but
+above one launch's rerecords, 0 replays (or, under light NEE, raises).
 
 With an envmap in use the kernel takes the cotangents of the path's
 outputs (`trace_grad_outputs`): of its color, of its miss attenuation and
@@ -76,7 +84,11 @@ import torch
 
 from halogen_tpu_torch.config import Intersector, RenderSettings
 from halogen_tpu_torch.core.types import MaterialTable, SceneData
-from halogen_tpu_torch.integrator.trace import _use_light_nee, _use_nee
+from halogen_tpu_torch.integrator.trace import (
+    _use_light_nee,
+    _use_nee,
+    group_rays,
+)
 from halogen_tpu_torch.kernels import megakernel as mk
 from halogen_tpu_torch.kernels import sky
 
@@ -100,7 +112,8 @@ SMEM_BUDGET = 48 * 1024
 # step of 256 spp (which therefore replays). On the brute tier the Cornell
 # 256x256, 256 spp step (6 bounces) keeps 2.4 GB, `envmap_1024`'s (4
 # bounces, env NEE) 4.1 GB; a 1024x1024, 256 spp Cornell step ~38 GB
-# replays.
+# replays, and with light NEE (68.7 GB) records each launch again in its
+# backward ('rerecord').
 RECORD_BUDGET = None
 RECORD_SHARE = 0.25
 
@@ -186,23 +199,26 @@ def record_plan(scene: SceneData, settings: RenderSettings, n_rays: int,
     of the scene's device) beside the records of earlier forwards still
     alive there (`megakernel.live_record_bytes`: several frames before one
     backward); else the replay's route (`transcript_route`). Area-light
-    NEE has no replay: past the budget its step raises
-    NotImplementedError, naming the step's bytes, the budget and ROADMAP
-    A13."""
+    NEE has no replay: past the budget its step takes 'rerecord' (each
+    group's backward records its launch again, sweeps it and drops it),
+    where one launch's record fits the budget beside those alive; where
+    even that does not fit it raises NotImplementedError, naming that
+    launch's bytes and the budget."""
     if adjoint_covers(scene, settings):
         budget = record_budget(scene.device) if budget is None else budget
-        step = launches * record_bytes(scene, settings, n_rays)
+        one = record_bytes(scene, settings, n_rays)
         live = mk.live_record_bytes(scene.device)
-        if step + live <= budget:
+        if launches * one + live <= budget:
             return "recorded"
         if _use_light_nee(scene, settings):
+            if one + live <= budget:
+                return "rerecord"
             raise NotImplementedError(
                 f"the area-light NEE adjoint (B2+l) records its transcript "
-                f"and has no replay (ROADMAP A13): this step's records take "
-                f"{step} bytes ({launches} launches of {n_rays} rays, "
-                f"{live} bytes of earlier records alive), past the record "
-                f"budget of {budget} bytes (adjoint.RECORD_BUDGET); render "
-                f"fewer rays a step")
+                f"and has no replay: one launch's record takes {one} bytes "
+                f"({n_rays} rays; {live} bytes of earlier records alive), "
+                f"past the record budget of {budget} bytes "
+                f"(adjoint.RECORD_BUDGET); set a smaller ray_chunk_size")
     return transcript_route(scene, settings)
 
 
@@ -254,8 +270,8 @@ def _launch(scene, origin, direction, far, sample_idx, seed, ct,
         return _sweep(scene, record, ct, settings, tables, gsky, records)
     if _use_light_nee(scene, settings):
         if route is not None:
-            raise ValueError("area-light NEE has no replay (ROADMAP A13): "
-                             "its adjoint takes the record route")
+            raise ValueError("area-light NEE has no replay kernel: its "
+                             "adjoint records the transcript and sweeps it")
         record_plan(scene, settings, origin.shape[0], 1)  # raises past it
         record = mk.empty_record(origin.shape[0], settings,
                                  _use_nee(scene, settings), origin.device,
@@ -740,6 +756,44 @@ def _outputs_backward(scene, origin, direction, far, sample_idx, seed, d_out,
                                    records[1].reshape(-1, 3),
                                    h * w).reshape(h, w, 3)
     return dmat, d_env
+
+
+def trace_grad_pixels(scene: SceneData, view: "mk.PixelView", lane0: int,
+                      spp_block: int, d_out, settings: RenderSettings,
+                      tables=None, env_tab=None, light_tab=None,
+                      want_env: bool = False):
+    """The 'rerecord' route's backward of one group of pixels (area-light
+    NEE past the record budget, `record_plan`): `trace_grad_outputs` of
+    the group's rays, `group_rays(view.camera, settings, view.frame,
+    view.pix, lane0, spp_block)`, from a record made here and dropped on
+    return. On a CUDA device the recording forward from pixels (the kernel
+    makes the same rays, so it writes the transcript the record route's
+    forward would have), then the sweep; on the CPU `group_rays`,
+    `record_transcript_reference` and `sweep_reference`."""
+    dev = view.pix.device
+    if dev.type == "cpu":
+        _check_covered(scene, settings)
+        o, d, sidx, seed = group_rays(view.camera, settings, view.frame,
+                                      view.pix, lane0, spp_block)
+        rec = record_transcript_reference(scene, o, d, view.camera.far,
+                                          sidx, seed, settings)
+        dmat, records = sweep_reference(scene, settings, rec, d_out)
+        d_env = None
+        if want_env and records is not None:
+            h, w = scene.env_cdf.pdf.shape
+            d_env = sky.scatter_texels(records[0].reshape(-1),
+                                       records[1].reshape(-1, 3),
+                                       h * w).reshape(h, w, 3)
+        return dmat, d_env
+    if dev.type != "cuda":
+        raise ValueError(f"no adjoint kernel for device {dev}")
+    rec = mk.empty_record(view.pix.shape[0] * spp_block, settings,
+                          _use_nee(scene, settings), dev,
+                          _use_light_nee(scene, settings))
+    mk.trace_pixels_outputs(scene, view, lane0, spp_block, settings, tables,
+                            env_tab, light_tab=light_tab, record=rec)
+    return _outputs_backward(scene, None, None, None, None, None, d_out,
+                             settings, tables, env_tab, want_env, rec)
 
 
 def trace_grad_fused_reference(scene: SceneData, origin, direction, far,

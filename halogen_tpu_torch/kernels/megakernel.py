@@ -19,7 +19,10 @@ Where a gradient follows on the adjoint's record route
 transcript the adjoint's sweep reads (`Record`, `empty_record`), so the
 backward does not trace the paths again; with area-light NEE the record
 also holds each hit's emission weight and the light term's factors and
-material (its recording variants are B2+l's forward).
+material (its recording variants are B2+l's forward). Past the budget a
+light-NEE launch from pixels records nothing, and its backward launches
+the recording variant again on the same pixels (`grad_route`
+'rerecord').
 It is compiled with `nvcc` for sm_90a at first use, into `_build/` beside
 this package, from the sources in the repository (rebuilt when the hash
 of any of them changes), and bound through ctypes. `load_library` builds
@@ -861,23 +864,34 @@ class _FusedDiff(torch.autograd.Function):
     want_rays) for a launch from pixels: the kernel then makes the rays
     and, where a backward may follow (`want_rays`), writes them out for
     the adjoint's replay (on both tiers). `aux` is (env_tab, light_tab,
-    record): the tables, either None, and whether the launch records the
-    adjoint's transcript (the record route, `adjoint.record_plan`; the
-    backward is then the sweep alone, and no rays are written)."""
+    route): the tables, either None, and the adjoint's route
+    (`grad_route`). On 'recorded' the launch records the adjoint's
+    transcript and the backward is the sweep alone; no rays are written.
+    On 'rerecord' (area-light NEE past the record budget) a launch from
+    pixels records and writes nothing: the group itself is kept, and its
+    backward records the launch again, then sweeps
+    (`adjoint.trace_grad_pixels`); explicit rays are kept as for the
+    replay, whose light-NEE backward is the recording forward and the
+    sweep."""
 
     @staticmethod
     def forward(ctx, scene, settings, aux, group, tri_tab, trin_tab,
                 sph_tab, mat_tab, origin, direction, far, sample_idx, seed,
                 *env_mips):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
-        env_tab, light_tab, record = aux
+        env_tab, light_tab, route = aux
         ctx.scene, ctx.settings, ctx.env_tab = scene, settings, env_tab
+        ctx.light_tab = light_tab
         ctx.n_env = len(env_mips)
+        ctx.group = None
         rec = None
-        if record:
+        if route == "recorded":
             n = (origin.shape[0] if group is None
                  else group[0].pix.shape[0] * group[2])
             dev = mat_tab.device
+            if dev.type != "cuda":
+                raise ValueError("the record route records on a CUDA "
+                                 "device; the plain versions record none")
             rec = empty_record(n, settings, _use_nee(scene, settings), dev,
                                _use_light_nee(scene, settings))
         if group is None:
@@ -886,7 +900,8 @@ class _FusedDiff(torch.autograd.Function):
                                       env_tab, light_tab, record=rec)
         else:
             view, lane0, spp_block, want_rays = group
-            want_rays = want_rays and rec is None
+            rerecord = want_rays and route == "rerecord"
+            want_rays = want_rays and rec is None and not rerecord
             out = trace_pixels_outputs(scene, view, lane0, spp_block,
                                        settings, tables, env_tab,
                                        write_rays=want_rays,
@@ -894,12 +909,16 @@ class _FusedDiff(torch.autograd.Function):
             if want_rays:
                 out, origin, direction, sample_idx, seed = out
                 far = view.camera.far
-        # the transcript, or the rays of this launch for the replay; not a
-        # graph of its bounces
+            if rerecord:
+                ctx.group = (view, lane0, spp_block)
+        # the transcript, the group, or the rays of this launch for the
+        # replay; not a graph of its bounces
         ctx.record_fields = None
         if rec is not None:
             ctx.record_fields = tuple(t is not None for t in rec)
             ctx.save_for_backward(*tables, *(t for t in rec if t is not None))
+        elif ctx.group is not None:
+            ctx.save_for_backward(*tables)
         elif origin is not None:
             ctx.save_for_backward(*tables, origin, direction, far,
                                   sample_idx, seed)
@@ -916,17 +935,22 @@ class _FusedDiff(torch.autograd.Function):
             rec = Record(*(next(it) if f else None
                            for f in ctx.record_fields))
             rays = (None,) * 5
-        origin, direction, far, sample_idx, seed = rays
         mat_tab = tables[3]
         want_env = ctx.n_env > 0 and ctx.needs_input_grad[13]
         d_mat = d_env0 = None
         if ctx.needs_input_grad[7] or want_env:  # mat_tab, env_mips[0]
             # grad_out may be an expanded view (stride 0) of the per-pixel
             # cotangent: the kernel reads dense columns
-            dmat, d_env0 = adj.trace_grad_outputs(
-                ctx.scene, origin, direction, far, sample_idx, seed,
-                grad_out.contiguous(), ctx.settings, tables=tuple(tables),
-                env_tab=ctx.env_tab, want_env=want_env, record=rec)
+            kw = dict(tables=tuple(tables), env_tab=ctx.env_tab,
+                      want_env=want_env)
+            if ctx.group is not None:
+                dmat, d_env0 = adj.trace_grad_pixels(
+                    ctx.scene, *ctx.group, grad_out.contiguous(),
+                    ctx.settings, light_tab=ctx.light_tab, **kw)
+            else:
+                dmat, d_env0 = adj.trace_grad_outputs(
+                    ctx.scene, *rays, grad_out.contiguous(), ctx.settings,
+                    record=rec, **kw)
             # [K, 12|13] columns onto _scene_tables' [K, 17] layout;
             # autograd chains col 9:12 through the rgb * intensity product
             d_mat = torch.zeros_like(mat_tab)
@@ -947,22 +971,22 @@ def _nee_mips(scene: SceneData, settings: RenderSettings) -> tuple:
     return scene.env_mips[:1] if _use_nee(scene, settings) else ()
 
 
-def records_wanted(scene: SceneData, settings: RenderSettings, tables,
-                   dev, n_rays: int, launches: int) -> bool:
+def grad_route(scene: SceneData, settings: RenderSettings, tables, dev,
+               n_rays: int, launches: int) -> str:
     """The plan of a step of `launches` differentiable launches of
-    `n_rays` rays each, made once before the first: whether they record
-    the adjoint's transcript. They do where a gradient may follow on a
-    CUDA device and the adjoint's plan takes the record route
-    (`adjoint.record_plan`: either tier, where the step's records fit its
-    budget beside those still alive)."""
+    `n_rays` rays each, made once before the first: where a gradient may
+    follow on a CUDA device, the adjoint's route (`adjoint.record_plan`):
+    'recorded' (the launches record the transcript), 'rerecord' (area-light
+    NEE past the budget: each group's backward records its launch again)
+    or the replay's; else 'rays' (the plain versions or no backward)."""
     from halogen_tpu_torch.kernels import adjoint as adj
 
     tables = tables if tables is not None else _scene_tables(scene)
-    return (torch.device(dev).type == "cuda" and torch.is_grad_enabled()
+    if (torch.device(dev).type == "cuda" and torch.is_grad_enabled()
             and any(t.requires_grad for t in (*tables,
-                                              *_nee_mips(scene, settings)))
-            and adj.record_plan(scene, settings, n_rays, launches)
-            == "recorded")
+                                              *_nee_mips(scene, settings)))):
+        return adj.record_plan(scene, settings, n_rays, launches)
+    return "rays"
 
 
 def trace_color_fused_diff(scene: SceneData, origin, direction, far,
@@ -975,7 +999,7 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
     kernel (`kernels/adjoint.py`) and the sky backward kernel
     (`kernels/sky.py`), or their plain versions on the CPU. Gradients
     reach the scene's material table through `_scene_tables(scene)` and
-    its envmap's mips. `record`: the step's plan (`records_wanted`), or
+    its envmap's mips. `record`: the step's route (`grad_route`), or
     None to plan this launch alone."""
     from halogen_tpu_torch.kernels import sky
 
@@ -986,8 +1010,7 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
     seed = torch.as_tensor(seed, device=dev)
     mips = _nee_mips(scene, settings)
     if record is None:
-        record = records_wanted(scene, settings, tables, dev,
-                                origin.shape[0], 1)
+        record = grad_route(scene, settings, tables, dev, origin.shape[0], 1)
     out = _FusedDiff.apply(scene, settings, (env_tab, light_tab, record),
                            None, *tables, origin, direction, far, sample_idx,
                            seed, *mips)
@@ -1001,19 +1024,23 @@ def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,
     """`trace_color_fused_diff` on the rays of one group of pixels (see
     `trace_pixels_outputs`): [N, 3] radiance from one kernel launch that
     makes its own rays, and the sky pass. Only where a gradient is wanted,
-    the launch records the adjoint's transcript (where `record`, the
-    step's plan, says so; None: plan this launch alone) or else writes its
-    rays out for the adjoint's replay."""
+    by `record`, the step's route (`grad_route`; None: plan this launch
+    alone), the launch records the adjoint's transcript ('recorded'),
+    keeps only the group for a backward that records it again
+    ('rerecord'), or else writes its rays out for the adjoint's replay. On
+    the CPU 'rerecord' runs through the plain versions too; 'recorded'
+    records on a CUDA device only."""
     from halogen_tpu_torch.kernels import sky
 
     tables = tables if tables is not None else _scene_tables(scene)
     mips = _nee_mips(scene, settings)
     want_rays = torch.is_grad_enabled() and any(
         t.requires_grad for t in (*tables, *mips))
-    record = want_rays and (
-        records_wanted(scene, settings, tables, view.pix.device,
-                       view.pix.shape[0] * spp_block, 1)
-        if record is None else record)
+    if not want_rays:
+        record = None
+    elif record is None:
+        record = grad_route(scene, settings, tables, view.pix.device,
+                            view.pix.shape[0] * spp_block, 1)
     out = _FusedDiff.apply(scene, settings, (env_tab, light_tab, record),
                            (view, lane0, spp_block, want_rays), *tables,
                            None, None, None, None, None, *mips)

@@ -31,7 +31,8 @@ with an envmap, each group's sky pass is one launch of the sky kernel
 With `--grad` the step is `diff.render_loss_grad` instead, on the
 adjoint's record route (each forward launch also records the transcript,
 and the backward is the sweep alone; past `adjoint.RECORD_BUDGET` the
-forward writes out its rays and the backward replays): for Cornell
+forward writes out its rays and the backward replays, or with light NEE
+records each group again and sweeps): for Cornell
 and glass at `bench.py`'s forward-plus-backward configuration, 256x256,
 256 spp, so 64 groups, each one megakernel launch and, in the backward,
 one adjoint launch; for the glass

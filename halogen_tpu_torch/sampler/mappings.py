@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from halogen_tpu_torch.core.math import sqrt
+
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
 
@@ -14,7 +16,7 @@ def unit_vector_from_2d(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     (HalogenRandom.hlsl:282-298). Returns [..., 3]."""
     theta = u * _TWO_PI
     cos_phi = 2.0 * v - 1.0
-    sin_phi = torch.sqrt(torch.clamp_min(1.0 - cos_phi * cos_phi, 0.0))
+    sin_phi = sqrt(torch.clamp_min(1.0 - cos_phi * cos_phi, 0.0))
     return torch.stack([sin_phi * torch.cos(theta), sin_phi * torch.sin(theta),
                         cos_phi], dim=-1)
 

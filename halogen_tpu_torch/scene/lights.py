@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from halogen_tpu_torch.core.math import cross, dot
+from halogen_tpu_torch.core.math import cross, dot, sqrt
 
 _LUM = np.asarray([0.2126, 0.7152, 0.0722], np.float32)
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -116,7 +116,7 @@ def sphere_cone_pdf(sel, center, radius, from_point) -> torch.Tensor:
     d2 = dot(d, d)
     sin2 = radius * radius / torch.clamp_min(d2, 1e-12)
     outside = sin2 < 1.0
-    cos_max = torch.sqrt(torch.clamp(1.0 - sin2, 0.0, 1.0))
+    cos_max = sqrt(torch.clamp(1.0 - sin2, 0.0, 1.0))
     solid = _TWO_PI * (1.0 - cos_max)
     return torch.where(outside & (solid > 1e-12),
                        sel / torch.clamp_min(solid, 1e-12), 0.0)
@@ -148,7 +148,7 @@ def sample_light(lights: LightTable, scene, u_sel, u1, u2) -> dict:
     tidx = torch.where(kind == 0, idx, 0)
     v = (scene.tri_verts_world[tidx] if scene.num_triangles
          else torch.zeros((n, 3, 3), device=dev))
-    su = torch.sqrt(torch.clamp(u1, 0.0, 1.0))
+    su = sqrt(torch.clamp(u1, 0.0, 1.0))
     b0 = 1.0 - su
     b1 = su * (1.0 - u2)
     b2 = su * u2

@@ -668,3 +668,66 @@ def test_two_frames_before_one_backward_share_the_budget(cuda_device):
         adj.RECORD_BUDGET = saved
     assert torch.equal(g_mixed, g_replay)
     assert float(g_mixed.abs().sum()) > 0
+
+
+# name: (scene, sky, settings beyond 32x32, 4 spp, two launches of 2048
+# rays): the light-NEE variants the record and rerecord routes share
+LIGHT_ROUTE_CASES = {
+    "B1e": ("cornell", False, dict(max_bounces=4)),
+    "B1c+e": ("cornell", True, dict(max_bounces=4, use_envmap=True,
+                                    env_importance_sampling=True,
+                                    env_mip_level=0)),
+    "B1e+d": ("metal_dragon", False, dict(max_bounces=6)),
+    "B1b+e+d": ("glass_dragon", False, dict(max_bounces=12)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LIGHT_ROUTE_CASES))
+def test_light_nee_rerecord_route_equals_the_record_route(cuda_device,
+                                                          case):
+    """A light-NEE step past the budget (one launch's record fits, the
+    step's two do not) records each group again in its backward: its
+    forward launches the plain B1e variant a group and records nothing,
+    its backward one recording launch and one sweep a group, and its loss
+    and gradients (materials, with the sky every mip) equal the record
+    route's bit for bit; the backward drops every record."""
+    name, env, kw = LIGHT_ROUTE_CASES[case]
+    scene, cam_kw = _scene(name, env, cuda_device)
+    cam = ht.make_camera(**cam_kw, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
+                           ray_chunk_size=2048,
+                           light_importance_sampling=True, **kw)
+    assert scene.lights is not None
+    target = torch.zeros((32, 32, 3), device=cuda_device)
+    params = {"materials": scene.materials}
+    if env:
+        params["env_mips"] = scene.env_mips
+    counts = lambda: (mk.LAUNCHES, mk.RECORD_LAUNCHES, adj.LAUNCHES,
+                      adj.SWEEP_LAUNCHES)
+    live0 = mk.live_record_bytes(cuda_device)
+    one = adj.record_bytes(scene, st, 2048)
+    saved = adj.RECORD_BUDGET
+    try:
+        adj.RECORD_BUDGET = live0 + 2 * one
+        assert adj.record_plan(scene, st, 2048, 2) == "recorded"
+        before = counts()
+        l_rec, g_rec = render_loss_grad(params, scene, cam, st, target, 1)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 0, 2)
+        adj.RECORD_BUDGET = live0 + one
+        assert adj.record_plan(scene, st, 2048, 2) == "rerecord"
+        before = counts()
+        l_re, g_re = render_loss_grad(params, scene, cam, st, target, 1)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (4, 2, 0, 2)
+        assert mk.live_record_bytes(cuda_device) == live0
+    finally:
+        adj.RECORD_BUDGET = saved
+    assert torch.equal(l_rec, l_re)
+    for f in FLOAT_MATERIAL_FIELDS:
+        assert torch.equal(getattr(g_rec["materials"], f),
+                           getattr(g_re["materials"], f)), f
+    assert float(g_rec["materials"].albedo.abs().sum()) > 0
+    if env:
+        for a, b in zip(g_rec["env_mips"], g_re["env_mips"]):
+            assert torch.equal(a, b)
+        assert float(g_rec["env_mips"][0].abs().sum()) > 0

@@ -439,8 +439,12 @@ def test_light_nee_frame_and_step_launch_the_kernels(cuda_device):
     one B2+l sweep a group (no replay), whose material gradients agree
     with `Fused.OFF`'s autograd through the lockstep (1e-3 of each
     column's largest + 1e-6; the cotangent is zero on the pixels whose
-    forwards part past 1e-4); `fit_materials` runs; and a step whose
-    records pass the budget raises naming ROADMAP A13 before any launch."""
+    forwards part past 1e-4); `fit_materials` runs; a step whose records
+    pass the budget while one launch's fits takes the route that records
+    each group again in its backward (a plain B1e a group forward, a
+    recording B1e and a sweep a group backward), with the record route's
+    bits, and `fit_materials` takes it too; and a budget below one
+    launch's record raises before any launch."""
     from halogen_tpu_torch.diff import fit_materials, render_loss_grad
     from halogen_tpu_torch.kernels import adjoint as adj
 
@@ -478,10 +482,25 @@ def test_light_nee_frame_and_step_launch_the_kernels(cuda_device):
     _, losses = fit_materials(scene, cam, st, target, steps=2)
     assert np.isfinite(losses).all()
     saved = adj.RECORD_BUDGET
-    adj.RECORD_BUDGET = 1
+    one = adj.record_bytes(scene, st, 2048)
+    adj.RECORD_BUDGET = mk.live_record_bytes(cuda_device) + one
     try:
         before = counts()
-        with pytest.raises(NotImplementedError, match="A13"):
+        _, g_r = render_loss_grad({"materials": scene.materials}, scene,
+                                  cam, st, target, 1)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (
+            4, 2, 0, 2)
+        for f in ("albedo", "specular", "emissive", "absorption"):
+            assert torch.equal(getattr(g_r["materials"], f),
+                               getattr(g_k["materials"], f)), f
+        before = counts()
+        _, losses = fit_materials(scene, cam, st, target, steps=2)
+        assert np.isfinite(losses).all()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (
+            8, 4, 0, 4)
+        adj.RECORD_BUDGET = 1
+        before = counts()
+        with pytest.raises(NotImplementedError, match="ray_chunk_size"):
             render_loss_grad({"materials": scene.materials}, scene, cam, st,
                              target, 1)
         assert counts() == before

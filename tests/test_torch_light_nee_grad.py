@@ -2,9 +2,10 @@
 the port's light-NEE lockstep against `jax.grad` of the JAX lockstep, at
 `tests/test_torch_grad.py`'s atol 1e-6, rtol 1e-5; and the fused
 adjoint's light-NEE route (B2+l), which records and sweeps and has no
-replay: on the CPU its entry points give the plain version's gradient,
-and they refuse a replay, or a step whose records pass the budget,
-naming ROADMAP A13 (on the card: `tests/test_torch_kernel_cuda.py`)."""
+replay: on the CPU its entry points give the plain version's gradient;
+they refuse a replay, and the plan records each launch again in its
+backward past the budget, raising only where one launch's record does
+not fit (on the card: `tests/test_torch_kernel_cuda.py`)."""
 
 import numpy as np
 import jax
@@ -55,11 +56,13 @@ def test_render_loss_grad_matches_jax():
 
 
 def test_adjoint_refuses_light_nee_naming_its_item():
-    """The fused adjoint covers light NEE (B2+l) on the record route only:
-    on the CPU its entry point gives the plain version's gradient (the
-    lockstep's light NEE, whose emitter gets a d emission), while a
-    light-NEE replay and a step whose records pass the budget are refused,
-    naming ROADMAP A13, before any launch."""
+    """The fused adjoint covers light NEE (B2+l) by recording only: on the
+    CPU its entry point gives the plain version's gradient (the lockstep's
+    light NEE, whose emitter gets a d emission); a light-NEE replay is
+    refused, and the plan takes the route that records each launch again
+    ('rerecord') where the step's records pass the budget but one
+    launch's fits, and refuses, before any launch, naming the launch's
+    bytes and `ray_chunk_size`, where even that does not fit."""
     scene = tcornell.cornell_box().build(device=CPU)
     st = tht.RenderSettings(width=4, height=4, light_importance_sampling=True)
     assert mk.fused_supported(scene, st) and adj.adjoint_covers(scene, st)
@@ -73,8 +76,13 @@ def test_adjoint_refuses_light_nee_naming_its_item():
     light = int(scene.tri_material[int(scene.lights.idx[0])])
     assert float(got[light, 0:3].abs().max()) > 0  # the panel's d emission
     before = mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES
-    with pytest.raises(ValueError, match="A13"):
+    with pytest.raises(ValueError, match="no replay"):
         adj._launch(*args[:7], st, None, route="global")
-    with pytest.raises(NotImplementedError, match="A13"):
+    one = adj.record_bytes(scene, st, 2)
+    live = mk.live_record_bytes(CPU)
+    assert adj.record_plan(scene, st, 2, 3, live + 3 * one) == "recorded"
+    assert adj.record_plan(scene, st, 2, 3, live + one) == "rerecord"
+    with pytest.raises(NotImplementedError, match="ray_chunk_size") as e:
         adj.record_plan(scene, st, 2, 1, budget=0)
+    assert str(one) in str(e.value)
     assert (mk.LAUNCHES, adj.LAUNCHES, adj.SWEEP_LAUNCHES) == before
