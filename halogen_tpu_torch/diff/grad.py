@@ -53,6 +53,7 @@ from halogen_tpu_torch.config import RenderSettings
 from halogen_tpu_torch.core.types import MaterialTable, SceneData
 from halogen_tpu_torch.integrator.camera import Camera
 from halogen_tpu_torch.integrator.trace import render_frame
+from halogen_tpu_torch.utils.profiling import annotate
 
 # Differentiable (float) fields of the material table; priority is a
 # structural int32 and stays out of the optimization surface.
@@ -252,29 +253,34 @@ def fit_materials(scene: SceneData, camera: Camera,
 
     losses = []
     for i in range(start, steps):
-        opt.zero_grad(set_to_none=True)
-        if mesh is None:
-            loss = render_loss(to_render_params(params), scene, camera,
-                               settings, target, i)
-            loss.backward()
-        else:
-            from halogen_tpu_torch.parallel.sharding import (
-                loss_and_grads_sharded,
-            )
+        with annotate("halogen.loop.step", i):
+            opt.zero_grad(set_to_none=True)
+            if mesh is None:
+                with annotate("halogen.loop.forward"):
+                    loss = render_loss(to_render_params(params), scene,
+                                       camera, settings, target, i)
+                with annotate("halogen.loop.backward"):
+                    loss.backward()
+            else:
+                from halogen_tpu_torch.parallel.sharding import (
+                    loss_and_grads_sharded,
+                )
 
-            loss, grads = loss_and_grads_sharded(params, scene, camera,
-                                                 settings, target, i, mesh)
-            for p, g in zip(_leaves(params), _leaves(grads)):
-                p.grad = g
-        opt.step()
-        # Projected gradient descent: stay inside the physical domain.
-        mp = params["material_params"]
-        with torch.no_grad():
-            for f, v in project_material_params(mp).items():
-                mp[f].copy_(v)
-            for m in params.get("env_mips", ()):
-                m.clamp_(min=0.0)
-        losses.append(float(loss.detach()))
+                loss, grads = loss_and_grads_sharded(
+                    params, scene, camera, settings, target, i, mesh)
+                for p, g in zip(_leaves(params), _leaves(grads)):
+                    p.grad = g
+            with annotate("halogen.loop.adam"):
+                opt.step()
+            # Projected gradient descent: stay inside the physical domain.
+            mp = params["material_params"]
+            with annotate("halogen.loop.project"), torch.no_grad():
+                for f, v in project_material_params(mp).items():
+                    mp[f].copy_(v)
+                for m in params.get("env_mips", ()):
+                    m.clamp_(min=0.0)
+            with annotate("halogen.loop.sync"):
+                losses.append(float(loss.detach()))
         if callback is not None:
             callback(i, params, losses[-1])
         if checkpoint_path and (i + 1) % checkpoint_every == 0:

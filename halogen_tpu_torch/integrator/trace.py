@@ -73,6 +73,7 @@ from halogen_tpu_torch.scene.envmap import (
     sample_env_packed,
 )
 from halogen_tpu_torch.scene.lights import sample_light, sphere_cone_pdf
+from halogen_tpu_torch.utils.profiling import annotate
 
 
 def _sampler_2d(settings: RenderSettings):
@@ -802,32 +803,36 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
         # megakernel forward, adjoint-kernel backward; the kernel makes
         # each group's rays itself, so a group is one launch (and the sky
         # pass where there is an envmap)
-        tables = mk._scene_tables(scene)
-        env_tab = mk.env_table(scene) if _use_nee(scene, settings) else None
-        light_tab = (mk.light_table(scene) if _use_light_nee(scene, settings)
-                     else None)
-        view = mk.pixel_view(camera, settings, frame, pix)
-        if record is None:
-            record = mk.grad_route(scene, settings, tables, pix.device,
-                                   n * spp_block, groups)
+        with annotate("halogen.wrap.prepare"):
+            tables = mk._scene_tables(scene)
+            env_tab = (mk.env_table(scene) if _use_nee(scene, settings)
+                       else None)
+            light_tab = (mk.light_table(scene)
+                         if _use_light_nee(scene, settings) else None)
+            view = mk.pixel_view(camera, settings, frame, pix)
+            if record is None:
+                record = mk.grad_route(scene, settings, tables, pix.device,
+                                       n * spp_block, groups)
     else:
         farb = camera.far.expand(n * spp_block)
 
-    acc = torch.zeros((n, 3), device=pix.device)
-    for g in range(groups):
-        lane0 = spp_offset + g * spp_block
-        if use_kernel:
-            col = mk.trace_color_pixels_diff(scene, view, lane0, spp_block,
-                                             settings, tables, env_tab,
-                                             light_tab, record=record)
-        else:
-            o, d, sidx, seed = group_rays(camera, settings, frame, pix,
-                                          lane0, spp_block)
-            out = tracer(scene, o, d, farb, sidx, seed, settings)
-            col = (debug_color(out, scene, d, farb, settings) if debug
-                   else out.color)
-        acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)
-    return acc / spp
+    with annotate("halogen.driver.pixels"):
+        acc = torch.zeros((n, 3), device=pix.device)
+        for g in range(groups):
+            lane0 = spp_offset + g * spp_block
+            if use_kernel:
+                col = mk.trace_color_pixels_diff(
+                    scene, view, lane0, spp_block, settings, tables, env_tab,
+                    light_tab, record=record)
+            else:
+                o, d, sidx, seed = group_rays(camera, settings, frame, pix,
+                                              lane0, spp_block)
+                with annotate("halogen.wrap.lockstep"):
+                    out = tracer(scene, o, d, farb, sidx, seed, settings)
+                col = (debug_color(out, scene, d, farb, settings) if debug
+                       else out.color)
+            acc = acc + col.reshape(n, spp_block, 3).sum(dim=1)
+        return acc / spp
 
 
 def _uses_kernel(device: torch.device, settings: RenderSettings) -> bool:
@@ -886,7 +891,8 @@ def render_frame(scene: SceneData, camera: Camera, settings: RenderSettings,
     n_chunks = -(-n_pixels // chunk)
     pix, inv = _pixel_order_on(w, h, n_chunks * chunk, device)
     img = render_pixel_chunks(scene, camera, settings, frame, pix)
-    return img[:n_pixels][inv].reshape(h, w, 3)
+    with annotate("halogen.driver.unpermute"):
+        return img[:n_pixels][inv].reshape(h, w, 3)
 
 
 def render_pixel_chunks(scene: SceneData, camera: Camera,
@@ -901,19 +907,20 @@ def render_pixel_chunks(scene: SceneData, camera: Camera,
     chunk = min(settings.ray_chunk_size, n)
     n_chunks = -(-n // chunk)
     record = None
-    if _uses_kernel(pix.device, settings):
-        from halogen_tpu_torch.kernels import megakernel as mk
+    with annotate("halogen.driver.chunks"):
+        if _uses_kernel(pix.device, settings):
+            from halogen_tpu_torch.kernels import megakernel as mk
 
-        spp = (settings.samples_per_pixel if spp_count is None
-               else spp_count)
-        spp_block = _spp_block(chunk, spp, settings.ray_chunk_size)
-        record = mk.grad_route(scene, settings, None, pix.device,
-                               chunk * spp_block,
-                               n_chunks * (spp // spp_block))
-    return torch.cat([render_pixels(scene, camera, settings, frame,
-                                    pix[c * chunk:(c + 1) * chunk],
-                                    spp_offset, spp_count, record=record)
-                      for c in range(n_chunks)])
+            spp = (settings.samples_per_pixel if spp_count is None
+                   else spp_count)
+            spp_block = _spp_block(chunk, spp, settings.ray_chunk_size)
+            record = mk.grad_route(scene, settings, None, pix.device,
+                                   chunk * spp_block,
+                                   n_chunks * (spp // spp_block))
+        return torch.cat([render_pixels(scene, camera, settings, frame,
+                                        pix[c * chunk:(c + 1) * chunk],
+                                        spp_offset, spp_count, record=record)
+                          for c in range(n_chunks)])
 
 
 @functools.lru_cache(maxsize=8)

@@ -80,6 +80,7 @@ from halogen_tpu_torch.integrator.trace import (
 )
 from halogen_tpu_torch.sampler import sobol as sob
 from halogen_tpu_torch.scene.envmap import _texel_direction, env_draw_table
+from halogen_tpu_torch.utils.profiling import annotate
 
 # Caps of the brute tier: the scene tables live in shared memory.
 MAX_TRIS = 128
@@ -875,9 +876,19 @@ class _FusedDiff(torch.autograd.Function):
     sweep."""
 
     @staticmethod
-    def forward(ctx, scene, settings, aux, group, tri_tab, trin_tab,
-                sph_tab, mat_tab, origin, direction, far, sample_idx, seed,
-                *env_mips):
+    def forward(ctx, *args):
+        with annotate("halogen.wrap.forward"):
+            return _FusedDiff._forward(ctx, *args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        with annotate("halogen.wrap.backward"):
+            return _FusedDiff._backward(ctx, grad_out)
+
+    @staticmethod
+    def _forward(ctx, scene, settings, aux, group, tri_tab, trin_tab,
+                 sph_tab, mat_tab, origin, direction, far, sample_idx, seed,
+                 *env_mips):
         tables = (tri_tab, trin_tab, sph_tab, mat_tab)
         env_tab, light_tab, route = aux
         ctx.scene, ctx.settings, ctx.env_tab = scene, settings, env_tab
@@ -925,7 +936,7 @@ class _FusedDiff(torch.autograd.Function):
         return out
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def _backward(ctx, grad_out):
         from halogen_tpu_torch.kernels import adjoint as adj
 
         tables, saved = ctx.saved_tensors[:4], ctx.saved_tensors[4:]

@@ -46,6 +46,7 @@ from halogen_tpu_torch.config import RenderSettings
 from halogen_tpu_torch.core.types import SceneData
 from halogen_tpu_torch.integrator.trace import _use_nee, deferred_sky
 from halogen_tpu_torch.scene.envmap import dir_to_equirect_uv, env_pdf
+from halogen_tpu_torch.utils.profiling import annotate
 
 TAPS = 8  # four bilinear taps in each of two mips
 MAX_MIPS = 16  # csrc/sky.cu kMaxMips
@@ -575,7 +576,17 @@ class SkyPass(torch.autograd.Function):
     attenuation's and the accumulated roughness's) and of every mip."""
 
     @staticmethod
-    def forward(ctx, scene, settings, outputs, *env_mips):
+    def forward(ctx, *args):
+        with annotate("halogen.wrap.sky"):
+            return SkyPass._forward(ctx, *args)
+
+    @staticmethod
+    def backward(ctx, grad_color):
+        with annotate("halogen.wrap.sky_backward"):
+            return SkyPass._backward(ctx, grad_color)
+
+    @staticmethod
+    def _forward(ctx, scene, settings, outputs, *env_mips):
         ctx.scene, ctx.settings = scene, settings
         ctx.save_for_backward(outputs, *env_mips)
         # the atlas and layout once for both passes (the saved mips cannot
@@ -585,7 +596,7 @@ class SkyPass(torch.autograd.Function):
                            ctx.launch_args)
 
     @staticmethod
-    def backward(ctx, grad_color):
+    def _backward(ctx, grad_color):
         outputs, *env_mips = ctx.saved_tensors
         ct = grad_color.contiguous()
         want_env = any(ctx.needs_input_grad[3:])

@@ -20,6 +20,7 @@ from halogen_tpu_torch.config import RenderSettings
 from halogen_tpu_torch.core.types import SceneData, target_device
 from halogen_tpu_torch.integrator.camera import Camera
 from halogen_tpu_torch.integrator.trace import render_frame
+from halogen_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +46,9 @@ def _blend(accum: torch.Tensor, frame: torch.Tensor,
            frame_count: torch.Tensor) -> torch.Tensor:
     """out = accum*(1-w) + frame*w, w = 1/FrameCount
     (AccumulationShader.shader:33, weight at HalogenRenderPass.cs:330)."""
-    w = 1.0 / frame_count.to(torch.float32)
-    return accum * (1.0 - w) + frame * w
+    with annotate("halogen.driver.blend"):
+        w = 1.0 / frame_count.to(torch.float32)
+        return accum * (1.0 - w) + frame * w
 
 
 def accumulate_step(state: RenderState, scene: SceneData, camera: Camera,
@@ -98,10 +100,11 @@ class Renderer:
     def step(self) -> np.ndarray:
         """Render/accumulate one frame (no-op once done); returns the
         current image."""
-        if not self.done:
-            self.state = accumulate_step(self.state, self.scene, self.camera,
-                                         self.settings)
-        return self.image
+        with annotate("halogen.driver.step", int(self.state.frame_count)):
+            if not self.done:
+                self.state = accumulate_step(self.state, self.scene,
+                                             self.camera, self.settings)
+            return self.image
 
     def render(self, frames: Optional[int] = None) -> np.ndarray:
         """Accumulate `frames` frames (default: max_accumulated_frames)."""
@@ -114,7 +117,8 @@ class Renderer:
 
     @property
     def image(self) -> np.ndarray:
-        return self.state.accum.cpu().numpy()
+        with annotate("halogen.driver.readback"):
+            return self.state.accum.cpu().numpy()
 
     def save_checkpoint(self, path: str):
         np.savez(path, accum=self.image,

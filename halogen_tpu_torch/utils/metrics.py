@@ -5,9 +5,8 @@ The reference's perf HUD + Debug.Log side channel
 (SURVEY.md §5.1/5.5): `HalogenDebugUI.cs:37-94` keeps a rolling 1-second
 window of per-frame ray counts (rays = SPP * W * H,
 `HalogenRenderFeature.cs:97`) and displays MRays/s plus the accumulated
-frame counter. `RaysMeter` reproduces that contract; `RenderStats`
-summarizes the integrator's intersection-work counters (the heatmap data,
-`HalgoenCompute.compute:192-193`) as scalars.
+frame counter. `RaysMeter` reproduces that contract; `RenderStats` is one
+frame's size, samples and wall time, logged as a line with its Mrays/s.
 """
 
 from __future__ import annotations
@@ -70,15 +69,13 @@ class RaysMeter:
 
 @dataclass
 class RenderStats:
-    """Scalar summary of one frame's intersection work + sampling state."""
+    """One frame's size, samples and wall time."""
 
     frame: int
     width: int
     height: int
     spp: int
     wall_s: float
-    tri_tests_mean: float = 0.0
-    box_tests_mean: float = 0.0
 
     @property
     def rays(self) -> int:
@@ -91,8 +88,7 @@ class RenderStats:
 
     def log(self, logger: logging.Logger | None = None):
         (logger or get_logger()).info(
-            "frame=%d %dx%d spp=%d %.3fs %.1f Mrays/s tri_tests=%.1f "
-            "box_tests=%.1f",
+            "frame=%d %dx%d spp=%d %.3fs %.1f Mrays/s",
             self.frame, self.width, self.height, self.spp, self.wall_s,
-            self.mrays_per_sec, self.tri_tests_mean, self.box_tests_mean,
+            self.mrays_per_sec,
         )

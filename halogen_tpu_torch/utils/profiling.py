@@ -1,26 +1,69 @@
 """Profiling hooks (PyTorch port of `halogen_tpu/utils/profiling.py`; the
 reference's ProfilingScope + RenderDoc workflow): a `torch.profiler` trace
-around render calls, a timed section that feeds the metrics logger (with
-the card's own time by CUDA events where there is a card), and named
-regions for the profiler's timeline."""
+around render calls, the program's named spans on the profiler's timeline,
+and one registry of the kernel modules' launch counters.
+
+Spans. `annotate(name)` opens a span where a profiler runs and costs one
+check of the profiler's state where none does. The program's spans are
+named `halogen.<layer>.<what>`, the layer one of
+
+- `driver`: the frame driver (`Renderer.step`, `render_frame`, the chunks
+  and groups of `render_pixels`, the blend, the image's copy to the host);
+- `wrap`: the kernel wrappers (the tables and views a launch reads, the
+  Autograd Functions around the megakernel and the sky pass, the lockstep
+  where it stands in for them);
+- `loop`: the fit loop (`fit_materials`: a step's forward, backward, Adam,
+  projection and the loss's copy to the host).
+
+A span is a `torch.profiler` CPU event of the function kind, not a user
+annotation, so the profiler makes no device row of it and the device's
+rows stay the kernels' and copies' own.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
-import time
 
 import torch
 
 from halogen_tpu_torch.utils.metrics import get_logger
+
+_OFF = contextlib.nullcontext()
+
+# name: (module, global). A launch count, or a count of calls that each
+# launch several passes (`*_calls`); `megakernel.recorded` counts the
+# launches among `megakernel.launches` that recorded the adjoint's
+# transcript, `trace.wavefront_syncs` the wavefront's host syncs.
+COUNTERS = {
+    "megakernel.launches": ("halogen_tpu_torch.kernels.megakernel",
+                            "LAUNCHES"),
+    "megakernel.recorded": ("halogen_tpu_torch.kernels.megakernel",
+                            "RECORD_LAUNCHES"),
+    "adjoint.replay_launches": ("halogen_tpu_torch.kernels.adjoint",
+                                "LAUNCHES"),
+    "adjoint.sweep_launches": ("halogen_tpu_torch.kernels.adjoint",
+                               "SWEEP_LAUNCHES"),
+    "sky.forward_launches": ("halogen_tpu_torch.kernels.sky",
+                             "FORWARD_LAUNCHES"),
+    "sky.backward_launches": ("halogen_tpu_torch.kernels.sky",
+                              "BACKWARD_LAUNCHES"),
+    "sky.order_calls": ("halogen_tpu_torch.kernels.sky", "ORDER_LAUNCHES"),
+    "sky.sum_calls": ("halogen_tpu_torch.kernels.sky", "SCATTER_LAUNCHES"),
+    "traverse.launches": ("halogen_tpu_torch.kernels.traverse", "LAUNCHES"),
+    "trace.wavefront_syncs": ("halogen_tpu_torch.integrator.trace",
+                              "WAVEFRONT_SYNCS"),
+}
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "halogen_trace"):
     """Capture a `torch.profiler` trace of the block (the CPU, and the
     card where there is one) and write it as a Chrome trace,
-    `log_dir/trace.json` (open in chrome://tracing or Perfetto). Yields
-    the profiler, whose `key_averages()` sums the time by operation.
+    `log_dir/trace.json` (open in chrome://tracing or Perfetto), where the
+    program's `halogen.*` spans lie above the device's rows. Yields the
+    profiler, whose `key_averages()` sums the time by operation and span.
 
     Usage:
         with profiling.trace("chiprun_out/trace"):
@@ -39,34 +82,18 @@ def trace(log_dir: str = "halogen_trace"):
     get_logger().info("profiler trace written to %s", path)
 
 
-@contextlib.contextmanager
-def timed(label: str, rays: int | None = None):
-    """Wall-time a block and log it, with Mrays/s when `rays` is given
-    (the HUD metric, HalogenRenderFeature.cs:97). Where there is a card the
-    block is bracketed by CUDA events on the current stream and the log
-    also gives the card's time; the exit waits for the card."""
-    cuda = torch.cuda.is_available()
-    if cuda:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if cuda:
-            end.record()
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        msg = f"{label}: {dt:.3f}s"
-        if cuda:
-            msg += f" (device {start.elapsed_time(end) / 1e3:.3f}s)"
-        if rays is not None:
-            msg += f" ({rays / dt / 1e6:.1f} Mrays/s)"
-        get_logger().info("%s", msg)
+def annotate(name: str, args: int | None = None):
+    """The span `name` on the profiler's timeline while a profiler runs
+    (`args`, an integer such as the frame or step index, is kept where the
+    profiler records inputs); else one shared empty context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if args is None:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return torch._C._profiler._RecordFunctionFast(name, [args], {})
 
 
-def annotate(name: str):
-    """Named region for the profiler's timeline
-    (`torch.profiler.record_function`)."""
-    return torch.profiler.record_function(name)
+def counts() -> dict:
+    """{name: value} of every counter of `COUNTERS`, read now."""
+    return {name: getattr(importlib.import_module(mod), attr)
+            for name, (mod, attr) in COUNTERS.items()}

@@ -144,7 +144,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
 def test_debug_and_profiling_utilities(tmp_path):
     """assert_finite walks tensors, dataclasses and NamedTuples;
     check_replay_determinism holds a render bitwise; trace writes a Chrome
-    trace; timed and annotate wrap a block."""
+    trace; annotate wraps a block."""
     import halogen_tpu_torch as ht
     from halogen_tpu_torch.scene import cornell
 
@@ -167,7 +167,7 @@ def test_debug_and_profiling_utilities(tmp_path):
         x = torch.ones(2, requires_grad=True)
         (x * 2).sum().backward()
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("frame"), profiling.timed("frame", rays=64):
+        with profiling.annotate("frame"):
             ht.render_frame(scene, cam, st, 1)
     assert (tmp_path / "trace" / "trace.json").exists()
     assert any(r.key == "frame" for r in prof.key_averages())
