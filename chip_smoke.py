@@ -414,6 +414,19 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      `nccl` rank past the budget, bit for bit with the same sharded step
      on the record route and within phase 39's tolerance of
      `render_loss_grad`; and a 3-step `fit_materials` past the budget;
+ 43. the chunk node's two small kernels (`megakernel._FusedChunk`, which
+     serves every group of a chunk): `lane_sum` (csrc/megakernel.cu,
+     through `halogen_lane_sum`) against `acc + col.reshape(n, spp_block,
+     3).sum(dim=1)` bit for bit at 262144 rays, rows of 10, 12 and 3
+     floats (the brute tier, env NEE, the sky pass's colour) and 1, 4 and
+     8 lanes a pixel, each timed against the plain sum; a Cornell fit
+     step's chunk record (Cornell glossy, 256x256, 256 spp, 6 bounces: 64
+     groups of 262144 rays) swept by `adjoint.sweep_chunk` against each
+     group's `_sweep` over its slice, summed last first, bit for bit, both
+     timed, `sum_groups`' device time profiled; then the launches a
+     Cornell fit step and a 512x512, 32-spp Cornell frame make: one chunk
+     node each, a `lane_sum` a group (64, 32), one `sum_groups` in the
+     fit;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
@@ -868,7 +881,7 @@ def _profile_step(fn, step_ms: float) -> dict:
            "megakernel_light_record<", "megakernel_bvh_light_record<",
            "adjoint_kernel<", "adjoint_sweep<",
            "traverse_kernel", "sky_forward", "sky_backward_taps",
-           "sky_radix_", "sky_reduce_texels")
+           "sky_radix_", "sky_reduce_texels", "lane_sum", "sum_groups")
     return dict(
         cuda_launches=sum(r.count for r in rows
                           if r.key.startswith("cudaLaunchKernel")),
@@ -2042,6 +2055,164 @@ def phase41(card: str) -> dict:
         print(f"[41] gen_goldens: pixels past the worst bound {past41}, "
               f"each of them named in GOLDEN_PAST_WORST", flush=True)
     return out41
+
+
+def phase43(dev, card: str) -> dict:
+    """43. The chunk node's `lane_sum` and `sum_groups` against their plain
+    versions at the Cornell cells' shapes, and their launches a Cornell
+    fit step and frame (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.diff import render_loss_grad
+    from halogen_tpu_torch.integrator.trace import _spp_block
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.profile_frame import _self_device_us
+    from halogen_tpu_torch.scene import cornell
+    from halogen_tpu_torch.utils import profiling
+
+    t43 = time.perf_counter()
+    lib = mk.load_library("megakernel")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(43)
+    n = 262144
+    lane = {}
+    for stride in (10, 12, 3):
+        for sb in (1, 4, 8):
+            n_pix = n // sb
+            # magnitudes over many octaves, so that another order of the
+            # adds shows in the bits
+            src = (torch.rand((n, stride), generator=gen, device=dev)
+                   * torch.exp(torch.randn((n, 1), generator=gen,
+                                           device=dev) * 4))
+            acc0 = torch.rand((n_pix, 3), generator=gen, device=dev)
+            acc = acc0.clone()
+
+            def kernel(acc=acc, src=src, stride=stride, n_pix=n_pix, sb=sb):
+                err = lib.halogen_lane_sum(src.data_ptr(), acc.data_ptr(),
+                                           stride, n_pix, sb, stream)
+                assert err == 0, err
+
+            def plain(acc0=acc0, src=src, n_pix=n_pix, sb=sb):
+                return acc0 + src[:, 0:3].reshape(n_pix, sb, 3).sum(dim=1)
+
+            kernel()
+            ref = plain()
+            torch.cuda.synchronize()
+            assert torch.equal(acc, ref), (stride, sb)
+            k_ms = [_cuda_ms(kernel, 50) for _ in range(3)]
+            p_ms = [_cuda_ms(plain, 50) for _ in range(3)]
+            # bytes: 12 a lane read, 12 a pixel read and 12 written
+            lane[f"{stride} floats a row, {sb} lanes"] = dict(
+                ms=float(np.mean(k_ms)), plain_ms=float(np.mean(p_ms)),
+                bound=_bound(n * 12 + n_pix * 24, 3 * n), bit_equal=True)
+    print(f"[43] lane_sum at {n} rays, bit for bit the plain sum; ms "
+          f"(kernel, plain): "
+          f"{ {k: (round(v['ms'], 4), round(v['plain_ms'], 4)) for k, v in lane.items()} } "
+          f"| {card}", flush=True)
+
+    # a Cornell fit step's chunk: 65536 pixels, 4 lanes a group, 64 groups
+    scene = cornell.cornell_box(glossy=True).build(device=dev)
+    cam = ht.make_camera(**CAM, device=dev)
+    st = ht.RenderSettings(width=256, height=256, samples_per_pixel=256,
+                           max_bounces=6, ray_chunk_size=262144)
+    pix = torch.arange(st.num_pixels, device=dev)
+    spp = st.samples_per_pixel
+    sb = _spp_block(pix.shape[0], spp, st.ray_chunk_size)
+    groups = spp // sb
+    assert (sb, groups) == (4, 64), (sb, groups)
+    tables = list(mk._scene_tables(scene))
+    tables[3] = tables[3].detach().requires_grad_()
+    img = mk.trace_color_chunk(scene, mk.pixel_view(cam, st, 1, pix), 0, sb,
+                               groups, spp, st, tables, None, None,
+                               "recorded")
+    node = img.grad_fn  # the chunk node's context: its record
+    mat_tab, *saved = node.saved_tensors
+    it = iter(saved)
+    rec = mk.Record(*(next(it) if f else None for f in node.record_fields))
+    mat_tab = mat_tab.detach()
+    tabs = (*tables[:3], mat_tab)
+    ct = torch.randn((rec.n, 3), generator=gen, device=dev)
+
+    def chunk():
+        return adj.sweep_chunk(scene, rec, ct, st, mat_tab, groups)
+
+    def sweeps():
+        return [adj._sweep(scene, mk.Record(*(None if t is None else t[g]
+                                              for t in rec)),
+                           ct, st, tabs, None, None)
+                for g in range(groups)]
+
+    def plain_sum(parts):
+        """The groups' [K, 12] summed as autograd adds those of one node a
+        group: the newest first."""
+        out = parts[-1]
+        for p in reversed(parts[:-1]):
+            out = out + p
+        return out
+
+    per_group = lambda: plain_sum(sweeps())
+    parts = sweeps()
+    got, ref = chunk(), plain_sum(parts)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    assert torch.equal(got, ref), err
+    assert float(got.abs().sum()) > 0
+    chunk_ms = [_cuda_ms(chunk, 3) for _ in range(3)]
+    plain_ms = [_cuda_ms(per_group, 3) for _ in range(3)]
+    sum_plain_ms = [_cuda_ms(lambda: plain_sum(parts), 20) for _ in range(3)]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    rows = {r.key: r for r in prof.key_averages()
+            if _self_device_us(r) > 0}
+    sg = [r for k, r in rows.items() if "sum_groups" in k]
+    assert len(sg) == 1 and sg[0].count == 1, list(rows)
+    sum_ms = _self_device_us(sg[0]) / 1e3
+    chunk_dev_ms = sum(_self_device_us(r) for r in rows.values()) / 1e3
+    k = scene.materials.count
+    sweep = dict(groups=groups, rays=rec.n, max_abs_err=err,
+                 ms=float(np.mean(chunk_ms)),
+                 plain_ms=float(np.mean(plain_ms)),
+                 chunk_device_ms=chunk_dev_ms, sum_groups_device_ms=sum_ms,
+                 sum_plain_ms=float(np.mean(sum_plain_ms)),
+                 bound=_bound(4 * 12 * k * (groups + 1), 12 * k * groups))
+    print(f"[43] sweep_chunk over a fit step's 64 groups of {rec.n} rays: "
+          f"bit for bit each group's _sweep summed last first; "
+          f"{sweep['ms']:.3f} ms (device {chunk_dev_ms:.3f} ms, sum_groups "
+          f"{sum_ms * 1e3:.2f} us) vs {sweep['plain_ms']:.3f} ms a group at "
+          f"a time | {card}", flush=True)
+    del img, node, saved, rec, it, parts
+
+    # the launches of a Cornell fit step and of a Cornell frame
+    names = ("megakernel.chunk_nodes", "megakernel.chunk_groups",
+             "megakernel.lane_sums", "adjoint.group_sums",
+             "megakernel.launches", "adjoint.sweep_launches")
+    st_f = ht.RenderSettings(width=512, height=512, samples_per_pixel=32,
+                             max_bounces=6, ray_chunk_size=262144)
+    target = torch.zeros((256, 256, 3), device=dev)
+    runs = {
+        "fit step": lambda: render_loss_grad({"materials": scene.materials},
+                                             scene, cam, st, target, 2),
+        "frame": lambda: ht.render_frame(scene, cam, st_f, 2)}
+    launches = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        c0 = profiling.counts()
+        fn()
+        torch.cuda.synchronize()
+        c1 = profiling.counts()
+        launches[name] = {k: c1[k] - c0[k] for k in names}
+    want = {"fit step": (1, 64, 64, 1, 64, 64), "frame": (1, 32, 32, 0, 32, 0)}
+    for name, w in want.items():
+        assert tuple(launches[name][k] for k in names) == w, (name, launches)
+    print(f"[43] launches {launches}; phase 43 took "
+          f"{time.perf_counter() - t43:.1f} s | {card}", flush=True)
+    return dict(lane=lane, sweep=sweep, launches=launches)
 
 
 def main() -> int:
@@ -5100,6 +5271,9 @@ def main() -> int:
     # --- 42. light-NEE gradients past the record budget
     r42 = phase42(dev, card)
 
+    # --- 43. the chunk node's lane_sum and sum_groups
+    r43 = phase43(dev, card)
+
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
@@ -5521,6 +5695,33 @@ def main() -> int:
                        record_bytes=v["record_bytes"])
                for k, v in steps36.items()},
         fit_held_out_loss=held36, fit_step_ms_median=fit36_ms))
+    # the chunk node's two small kernels (phase 43): lane_sum timed at a
+    # fit group's shape, sum_groups' device time in a fit step's backward
+    lane43, sweep43, launches43 = r43["lane"], r43["sweep"], r43["launches"]
+    fit_shape = lane43["10 floats a row, 4 lanes"]
+    bounds["lane_sum"] = fit_shape["bound"]
+    bounds["sum_groups"] = sweep43["bound"]
+    kernels.append(entry(
+        "lane_sum", "halogen_tpu/integrator/trace.py:800", mega,
+        {k: v["megakernel.lane_sums"] for k, v in launches43.items()}, 0.0,
+        fit_shape["ms"], fit_shape["plain_ms"], timed_shape=(
+            "262144 rays, 10 floats a row, 4 lanes a pixel (a Cornell fit "
+            "group)"), plain_version="acc + col.reshape(n, spp_block, 3)"
+        ".sum(dim=1)", bit_for_bit=True,
+        shapes={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                        bound_ms=v["bound"][0]) for k, v in lane43.items()},
+        main_path="every chunk node without a gradient through the sky"))
+    kernels.append(entry(
+        "sum_groups", "halogen_tpu/integrator/trace.py:802", adjs,
+        {k: v["adjoint.group_sums"] for k, v in launches43.items()},
+        sweep43["max_abs_err"], sweep43["sum_groups_device_ms"],
+        sweep43["sum_plain_ms"], device_ms=sweep43["sum_groups_device_ms"],
+        plain_version="autograd's sum of the groups' [K, 12], newest first",
+        bit_for_bit=True, groups=sweep43["groups"],
+        sweep_chunk_ms=sweep43["ms"],
+        sweep_chunk_device_ms=sweep43["chunk_device_ms"],
+        per_group_sweeps_ms=sweep43["plain_ms"],
+        main_path="the chunk node's backward (adjoint.sweep_chunk)"))
     by_name = {k["name"]: k for k in kernels}
     by_name["B3"]["count_views"] = r37
     by_name["sky backward"]["hdri_2048"] = r38

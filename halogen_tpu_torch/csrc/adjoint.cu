@@ -694,6 +694,21 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) out[a] = s[0];
 }
 
+// out[a] = the sum over groups of part[g, a], the last group first: the
+// order in which autograd adds up the cotangents of one node a group (it
+// runs the newest node first). Replaces no TPU kernel (autograd's sums a
+// group did this); one thread an entry, [groups, K * 12] floats read once,
+// a launch a chunk node's backward.
+__global__ void __launch_bounds__(kReduceThreads)
+    sum_groups(const float* part, int groups, int n_acc, float* out) {
+  const int a = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (a >= n_acc) return;
+  float sum = part[static_cast<size_t>(groups - 1) * n_acc + a];
+  for (int g = groups - 2; g >= 0; --g)
+    sum += part[static_cast<size_t>(g) * n_acc + a];
+  out[a] = sum;
+}
+
 template <bool kTransmissive, bool kSmem, bool kBvh>
 cudaError_t launch_env(int env, const Params& p, int blocks, size_t smem,
                        cudaStream_t st) {
@@ -866,5 +881,38 @@ extern "C" int halogen_adjoint_sweep(
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_blocks<<<n_acc, kReduceThreads, 0, st>>>(partial, blocks, n_acc, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The record route's backward of a chunk's `groups` launches (the chunk
+// node, kernels/megakernel.py `_FusedChunk`): group g is
+// halogen_adjoint_sweep over its slice of the record (buffers with a
+// leading group axis, as halogen_megakernel_chunk writes them), with the
+// same colour cotangent `ct` [n, 3] for every group, its block sums in
+// `part` [groups, K * 12] (each group reuses `partial`, on the stream in
+// turn), then `sum_groups` into `out` [K, 12]. No sky (env 0): a
+// gradient through the sky pass takes one node a group.
+extern "C" int halogen_adjoint_sweep_chunk(
+    const float* mat, const float* ct, float* rec_a, int* rec_word,
+    int* rec_end, float* rec_lq, float* partial, float* part, float* out,
+    int n, int num_materials, int max_bounces, int use_rr, int transmissive,
+    int light, int groups, void* stream) {
+  if (groups <= 0 || max_bounces < 0 || num_materials > kMaxMaterials)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t slot_rays = static_cast<size_t>(max_bounces + 1) * n;
+  const int n_acc = num_materials * n_grad(0);
+  for (int g = 0; g < groups; ++g) {
+    int err = halogen_adjoint_sweep(
+        mat, ct, nullptr, rec_a + 4 * slot_rays * g,
+        rec_word + slot_rays * g, nullptr, nullptr, nullptr,
+        rec_end + static_cast<size_t>(n) * g,
+        light ? rec_lq + 4 * slot_rays * g : nullptr, partial,
+        part + static_cast<size_t>(n_acc) * g, nullptr, nullptr, n,
+        num_materials, max_bounces, use_rr, transmissive, 0, light, stream);
+    if (err != 0) return err;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  sum_groups<<<(n_acc + kReduceThreads - 1) / kReduceThreads, kReduceThreads,
+               0, st>>>(part, groups, n_acc, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -419,6 +419,44 @@ cudaError_t launch_tier(const Params& p, bool bvh, bool light, bool record,
   return launch(megakernel<kTransmissive, kEnvNee>, p, smem, st);
 }
 
+constexpr int kLaneSumThreads = 256;
+
+// acc[q, c] += the sum of pixel q's spp_block lanes of channel c, read from
+// src[(q * spp_block + l) * stride + c]: the group's colours added into a
+// chunk's accumulator in the order of the plain
+// `acc + col.reshape(n, spp_block, 3).sum(dim=1)`, whose reduction on the
+// card keeps four partial sums, lane l in the (l % 4)th, and adds them in
+// order (for at most four lanes, the lanes in order). It replaces no TPU
+// kernel: the JAX package leaves the lanes' sum to XLA, the port's frame
+// driver did it in two torch ops a group. Bound by its bytes: 12 a lane
+// read, 24 a pixel read and written (a Cornell fit group: 4.7 MB, 1.4 us
+// at the card's bandwidth; it takes 5.1 us, PERF.md §5, its strided reads
+// touching most of each 40-byte row). One thread a pixel's channel; its
+// launches are the chunk node's groups (`megakernel.lane_sums`).
+__global__ void __launch_bounds__(kLaneSumThreads)
+    lane_sum(const float* src, int stride, int n_pix, int spp_block,
+             float* acc) {
+  const int i = blockIdx.x * kLaneSumThreads + threadIdx.x;
+  if (i >= 3 * n_pix) return;
+  const float* s = src + static_cast<size_t>(i / 3) * spp_block * stride +
+                   i % 3;
+  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < spp_block; ++l)
+    part[l & 3] += s[static_cast<size_t>(l) * stride];
+  acc[i] += ((part[0] + part[1]) + part[2]) + part[3];
+}
+
+cudaError_t launch_lane_sum(const float* src, int stride, int n_pix,
+                            int spp_block, float* acc, cudaStream_t st) {
+  if (src == nullptr || acc == nullptr || stride < 3 || spp_block <= 0)
+    return cudaErrorInvalidValue;
+  if (n_pix <= 0) return cudaSuccess;
+  const int blocks = (3 * n_pix + kLaneSumThreads - 1) / kLaneSumThreads;
+  lane_sum<<<blocks, kLaneSumThreads, 0, st>>>(src, stride, n_pix, spp_block,
+                                               acc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Rays: explicit (`cam` null; origin, direction, sample_idx and seed are
@@ -518,4 +556,66 @@ extern "C" int halogen_megakernel_launch(
     err = launch_tier<false, false>(p, bvh, light, record, smem, st);
   }
   return static_cast<int>(err);
+}
+
+// A chunk's `groups` launches from pixels in one call (the chunk node,
+// kernels/megakernel.py `_FusedChunk`): group g is halogen_megakernel_launch
+// from the camera block at lane lane0 + g * spp_block, with `counter[g]`
+// (`groups` int32 zeros; null: one ray a thread) and, where `rec_a` is not
+// null, its slice of the record, whose buffers carry a leading group axis
+// ([groups, B + 1, n] and so on, `rec_end` [groups, n]). Every group writes
+// the same `out` [n, 10 | 12], on the stream in turn; with `acc` ([n /
+// spp_block, 3], zeros before the first group) each group's colours are then
+// added into it (`lane_sum`), so the result is the chunk's sum over all its
+// lanes. Without `acc` the caller shades `out` between the groups (the sky
+// pass) and sums them with halogen_lane_sum: call once a group.
+extern "C" int halogen_megakernel_chunk(
+    const float* far, const float* tri, const float* trin, const float* sph,
+    const float* mat, const float* nodes, const float* env_tab, float* out,
+    const float* cam, const long long* pix, const int* frame, int* counter,
+    const float* light_rows, const float* light_dens, float* rec_a,
+    int* rec_word, float* rec_nq, float* rec_ngw, int* rec_texel,
+    int* rec_end, float* rec_lq, float* acc, int n, int num_tris,
+    int num_spheres, int num_materials, int max_bounces, int lim_d,
+    int lim_g, int lim_t, int sobol, int use_rr, int transmissive,
+    int env_nee, int env_h, int env_w, int use_bvh, int width, int height,
+    int spp_block, int lane0, int spp, int light_nee, int num_lights,
+    int groups, void* stream) {
+  if (cam == nullptr || groups < 0 || spp_block <= 0 || n % spp_block != 0 ||
+      max_bounces < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t slot_rays = static_cast<size_t>(max_bounces + 1) * n;
+  // a pointer to group g's slice of a record buffer of `per` elements a group
+  auto at = [](auto* base, size_t per, int g) {
+    return base == nullptr ? nullptr : base + per * g;
+  };
+  for (int g = 0; g < groups; ++g) {
+    int err = halogen_megakernel_launch(
+        nullptr, nullptr, far, nullptr, nullptr, tri, trin, sph, mat, nodes,
+        env_tab, out, cam, pix, frame, at(counter, 1, g), light_rows,
+        light_dens, at(rec_a, 4 * slot_rays, g), at(rec_word, slot_rays, g),
+        at(rec_nq, 4 * slot_rays, g), at(rec_ngw, 2 * slot_rays, g),
+        at(rec_texel, slot_rays, g), at(rec_end, static_cast<size_t>(n), g),
+        at(rec_lq, 4 * slot_rays, g), nullptr, n, num_tris, num_spheres,
+        num_materials, max_bounces, lim_d, lim_g, lim_t, sobol, use_rr,
+        transmissive, env_nee, env_h, env_w, use_bvh, width, height,
+        spp_block, lane0 + g * spp_block, spp, light_nee, num_lights, 0,
+        stream);
+    if (err != 0) return err;
+    if (acc != nullptr) {
+      cudaError_t e = launch_lane_sum(out, env_nee ? 12 : 10, n / spp_block,
+                                      spp_block, acc, st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// acc [n_pix, 3] += each pixel's sum over its spp_block lanes of `src`
+// [n_pix * spp_block, stride] (columns 0-2), as `lane_sum` adds them.
+extern "C" int halogen_lane_sum(const float* src, float* acc, int stride,
+                                int n_pix, int spp_block, void* stream) {
+  return static_cast<int>(launch_lane_sum(
+      src, stride, n_pix, spp_block, acc, static_cast<cudaStream_t>(stream)));
 }

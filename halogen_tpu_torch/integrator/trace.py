@@ -779,8 +779,11 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
     to (`megakernel.grad_route`): whether its launches record the
     adjoint's transcript ('recorded'), leave each group to be recorded
     again in its backward ('rerecord'), or write their rays; None plans
-    this call's groups."""
+    this call's groups. There all the groups go through one call of the
+    chunk node where `megakernel.chunk_serves` says so (no gradient, or
+    the 'recorded' route without a sky pass), else one node a group."""
     from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import sky
 
     n = pix.shape[0]
     spp = settings.samples_per_pixel if spp_count is None else spp_count
@@ -810,9 +813,19 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
             light_tab = (mk.light_table(scene)
                          if _use_light_nee(scene, settings) else None)
             view = mk.pixel_view(camera, settings, frame, pix)
-            if record is None:
+            want_grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (*tables,
+                                          *mk._nee_mips(scene, settings)))
+            if not want_grad:
+                record = None
+            elif record is None:
                 record = mk.grad_route(scene, settings, tables, pix.device,
                                        n * spp_block, groups)
+        if mk.chunk_serves(record, want_grad, sky.uses_sky(scene, settings)):
+            with annotate("halogen.driver.pixels"):
+                return mk.trace_color_chunk(
+                    scene, view, spp_offset, spp_block, groups, spp,
+                    settings, tables, env_tab, light_tab, record)
     else:
         farb = camera.far.expand(n * spp_block)
 

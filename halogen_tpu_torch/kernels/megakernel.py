@@ -42,6 +42,11 @@ as the Pallas wrapper does; on a CUDA device the sky kernel,
 this kernel forward, the adjoint kernel backward (`kernels/adjoint.py`),
 on every scene the kernel renders; the sky pass's backward kernel gives
 the envmap's cotangents and those the adjoint takes at the miss.
+`trace_color_chunk` is the frame driver's form of it for a chunk of
+pixels: one call, and under autograd one node (`_FusedChunk`), for all
+the chunk's launch groups, where `chunk_serves` says so (no gradient, or
+the record route without a sky pass); the C entry point loops over the
+groups, and the lanes' sums run in a kernel of this library.
 
 Scope (`fused_supported`, the JAX predicate without its refusal of
 area-light NEE): opaque and transmissive scenes, with or without an
@@ -96,6 +101,9 @@ N_OUTPUTS_NEE = 12
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 RECORD_LAUNCHES = 0  # of them, launches that recorded the transcript
+CHUNK_NODES = 0  # calls of the chunk node (`_FusedChunk`)
+CHUNK_GROUPS = 0  # the launch groups those calls served
+LANE_SUM_LAUNCHES = 0  # launches of `lane_sum`, one a group they served
 
 # The light-NEE probe (`light_probe`; csrc/path_common.cuh `LightProbe`):
 # the counters it keeps a ray, and its modes (which of the two shadow
@@ -123,9 +131,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # path_common.cuh; it and the traversal kernel include the walk in
 # bvh_traverse.cuh.
 LIBRARIES = {
-    "megakernel": {"halogen_megakernel_launch": (26, 23, 0)},
+    "megakernel": {"halogen_megakernel_launch": (26, 23, 0),
+                   "halogen_megakernel_chunk": (22, 23, 0),
+                   "halogen_lane_sum": (2, 3, 0)},
     "adjoint": {"halogen_adjoint_launch": (19, 15, 0),
-                "halogen_adjoint_sweep": (14, 7, 0)},
+                "halogen_adjoint_sweep": (14, 7, 0),
+                "halogen_adjoint_sweep_chunk": (9, 7, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
     "sky": {"halogen_sky_forward": (5, 6, 2),
             "halogen_sky_backward": (9, 8, 2),
@@ -326,7 +337,7 @@ class Record(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.end.shape[0]
+        return self.end.shape[-1]
 
 
 # Every record allocated and not yet freed: (a weak reference to the
@@ -344,26 +355,40 @@ def record_words(env_nee: bool, light_nee: bool) -> int:
     return 5 + (7 if env_nee else 0) + (4 if light_nee else 0)
 
 
+def _record_shapes(n: int, settings: RenderSettings, env_nee: bool,
+                   light_nee: bool, groups: int | None) -> tuple:
+    """(shape, dtype) of each field of a `Record`, or None where the
+    field is absent; with `groups`, a leading group axis on each."""
+    slots = settings.max_bounces + 1
+    lead = () if groups is None else (groups,)
+    f32, i32 = torch.float32, torch.int32
+    return (((*lead, slots, n, 4), f32), ((*lead, slots, n), i32),
+            ((*lead, n), i32),
+            ((*lead, slots, n, 4), f32) if env_nee else None,
+            ((*lead, slots, n, 2), f32) if env_nee else None,
+            ((*lead, slots, n), i32) if env_nee else None,
+            ((*lead, slots, n, 4), f32) if light_nee else None)
+
+
 def empty_record(n: int, settings: RenderSettings, env_nee: bool,
-                 device, light_nee: bool = False) -> Record:
+                 device, light_nee: bool = False,
+                 groups: int | None = None) -> Record:
     """Buffers of a `Record` of n rays and max_bounces + 1 slots (4 bytes
     a ray, and `record_words` a slot: 20 bytes, 48 with env NEE, 16 more
     with area-light NEE), counted by `live_record_bytes` until they are
-    freed."""
+    freed. With `groups`, the records of that many launches of n rays in
+    one: each buffer gets a leading group axis, so group g's record is
+    `Record(*(t[g] for t in rec))`, each of its buffers contiguous."""
+    rec = Record(*(None if w is None else torch.empty(w[0], dtype=w[1],
+                                                      device=device)
+                   for w in _record_shapes(n, settings, env_nee, light_nee,
+                                           groups)))
     slots = settings.max_bounces + 1
-    f32 = dict(dtype=torch.float32, device=device)
-    i32 = dict(dtype=torch.int32, device=device)
-    rec = Record(
-        torch.empty((slots, n, 4), **f32), torch.empty((slots, n), **i32),
-        torch.empty((n,), **i32),
-        torch.empty((slots, n, 4), **f32) if env_nee else None,
-        torch.empty((slots, n, 2), **f32) if env_nee else None,
-        torch.empty((slots, n), **i32) if env_nee else None,
-        torch.empty((slots, n, 4), **f32) if light_nee else None)
     _LIVE_RECORDS.append((StorageWeakRef(rec.a.untyped_storage()),
                           rec.a.device,
                           4 * n * (1 + slots * record_words(env_nee,
-                                                            light_nee))))
+                                                            light_nee))
+                          * (1 if groups is None else groups)))
     return rec
 
 
@@ -377,16 +402,12 @@ def live_record_bytes(device) -> int:
 
 
 def check_record(rec: Record, n: int, settings: RenderSettings,
-                 env_nee: bool, dev, light_nee: bool = False) -> None:
+                 env_nee: bool, dev, light_nee: bool = False,
+                 groups: int | None = None) -> None:
     """Raise unless `rec` is a `Record` of n rays for these settings on
-    `dev`: contiguous buffers of `empty_record`'s shapes and types."""
-    slots = settings.max_bounces + 1
-    f32, i32 = torch.float32, torch.int32
-    want = (((slots, n, 4), f32), ((slots, n), i32), ((n,), i32),
-            ((slots, n, 4), f32) if env_nee else None,
-            ((slots, n, 2), f32) if env_nee else None,
-            ((slots, n), i32) if env_nee else None,
-            ((slots, n, 4), f32) if light_nee else None)
+    `dev` (with `groups`, of that many launches): contiguous buffers of
+    `empty_record`'s shapes and types."""
+    want = _record_shapes(n, settings, env_nee, light_nee, groups)
     for name, t, w in zip(Record._fields, rec, want):
         if w is None:
             if t is not None:
@@ -630,6 +651,80 @@ def kernel_inputs(scene, origin, direction, far, sample_idx, seed,
             (n, *ints))
 
 
+class _Variant(NamedTuple):
+    """What selects and feeds the kernel variant beside the rays
+    (`_variant`): the BVH tier's nodes, env NEE's draw table and
+    area-light NEE's light table, each checked, or None where unused."""
+
+    bvh: bool
+    nodes: torch.Tensor | None
+    env_nee: bool
+    env_tab: torch.Tensor | None
+    env_hw: tuple
+    light_tab: LightRows | None
+
+    def ints(self) -> tuple:
+        """The int arguments of both C entry points that follow the
+        scalars: env NEE, its map's height and width, the BVH tier."""
+        return (int(self.env_nee), *self.env_hw, int(self.bvh))
+
+    def light_ints(self) -> tuple:
+        """Area-light NEE, and its light count."""
+        if self.light_tab is None:
+            return (0, 0)
+        return (1, self.light_tab.rows.shape[0])
+
+    def light_ptrs(self) -> tuple:
+        if self.light_tab is None:
+            return (None, None)
+        return tuple(t.data_ptr() for t in self.light_tab)
+
+
+def _variant(scene, settings: RenderSettings, tables, env_tab, light_tab,
+             dev) -> _Variant:
+    """Check the BVH tier's nodes and triangles, the env draw table and the
+    light table the scene and settings select, on `dev` (the tables made
+    where None is given)."""
+    bvh = uses_bvh(scene)
+    nodes = scene.wbvh.nodes if bvh else None
+    if bvh and (nodes.device != dev or nodes.dtype != torch.float32
+                or not nodes.is_contiguous() or nodes.data_ptr() % 16
+                or nodes.ndim != 2 or nodes.shape[1] != 8
+                or tables[0].shape != (scene.num_triangles, 12)
+                or tables[0].data_ptr() % 16):
+        raise ValueError("the world BVH's nodes and triangles must be "
+                         "contiguous, 16-byte aligned float32 [Nn, 8] and "
+                         f"[T, 12] tensors on {dev}")
+    env_nee = _use_nee(scene, settings)
+    env_hw = (0, 0)
+    if env_nee:
+        env_tab = env_tab if env_tab is not None else env_table(scene)
+        env_hw = tuple(scene.env_cdf.pdf.shape)
+        env_h, env_w = env_hw
+        if (env_tab.shape != (env_h * env_w, 16) or env_tab.device != dev
+                or env_tab.dtype != torch.float32
+                or not env_tab.is_contiguous() or env_tab.data_ptr() % 16):
+            raise ValueError("the env draw table must be a contiguous, "
+                             "16-byte aligned float32 "
+                             f"[{env_h * env_w}, 16] on {dev}")
+    if _use_light_nee(scene, settings):
+        light_tab = light_tab if light_tab is not None else light_table(scene)
+        n_lights = light_tab.rows.shape[0]
+        n_dens = scene.num_triangles + scene.num_spheres
+        rows, dens = light_tab
+        if (rows.shape != (n_lights, 16) or dens.shape != (n_dens,)
+                or any(t.device != dev or t.dtype != torch.float32
+                       or not t.is_contiguous() for t in light_tab)
+                or rows.data_ptr() % 16):
+            raise ValueError("the light table must be contiguous float32 "
+                             f"[L, 16] (16-byte aligned) and [{n_dens}] on "
+                             f"{dev}")
+    else:
+        light_tab = None
+    return _Variant(bvh, nodes, env_nee, env_tab if env_nee else None,
+                    env_hw, light_tab)
+
+
 def _launch(scene, origin, direction, far, sample_idx, seed,
             settings: RenderSettings, tables, env_tab=None, *,
             view: PixelView | None = None, lane0: int = 0,
@@ -684,46 +779,13 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
                     view.frame_word.data_ptr())
         cam_ints = (settings.width, settings.height, spp_block, lane0,
                     settings.samples_per_pixel)
-    bvh = uses_bvh(scene)
-    nodes = scene.wbvh.nodes if bvh else None
-    if bvh and (nodes.device != dev or nodes.dtype != torch.float32
-                or not nodes.is_contiguous() or nodes.data_ptr() % 16
-                or nodes.ndim != 2 or nodes.shape[1] != 8
-                or tables[0].shape != (scene.num_triangles, 12)
-                or tables[0].data_ptr() % 16):
-        raise ValueError("the world BVH's nodes and triangles must be "
-                         "contiguous, 16-byte aligned float32 [Nn, 8] and "
-                         f"[T, 12] tensors on {dev}")
-    env_nee = _use_nee(scene, settings)
-    env_h = env_w = 0
-    if env_nee:
-        env_tab = env_tab if env_tab is not None else env_table(scene)
-        env_h, env_w = scene.env_cdf.pdf.shape
-        if (env_tab.shape != (env_h * env_w, 16) or env_tab.device != dev
-                or env_tab.dtype != torch.float32
-                or not env_tab.is_contiguous() or env_tab.data_ptr() % 16):
-            raise ValueError("the env draw table must be a contiguous, "
-                             "16-byte aligned float32 "
-                             f"[{env_h * env_w}, 16] on {dev}")
-    light = _use_light_nee(scene, settings)
-    n_lights = 0
-    if light:
-        light_tab = light_tab if light_tab is not None else light_table(scene)
-        n_lights = light_tab.rows.shape[0]
-        n_dens = scene.num_triangles + scene.num_spheres
-        rows, dens = light_tab
-        if (rows.shape != (n_lights, 16) or dens.shape != (n_dens,)
-                or any(t.device != dev or t.dtype != torch.float32
-                       or not t.is_contiguous() for t in light_tab)
-                or rows.data_ptr() % 16):
-            raise ValueError("the light table must be contiguous float32 "
-                             f"[L, 16] (16-byte aligned) and [{n_dens}] on "
-                             f"{dev}")
+    v = _variant(scene, settings, tables, env_tab, light_tab, dev)
+    light = v.light_tab is not None
     if record is not None:
-        check_record(record, scalars[0], settings, env_nee, dev, light)
+        check_record(record, scalars[0], settings, v.env_nee, dev, light)
     if probe is not None:
         counts, mode = probe
-        if (not light or env_nee or record is not None
+        if (not light or v.env_nee or record is not None
                 or counts.shape != (scalars[0], PROBE_WORDS)
                 or counts.dtype != torch.int32 or counts.device != dev
                 or not counts.is_contiguous()
@@ -732,37 +794,49 @@ def _launch(scene, origin, direction, far, sample_idx, seed,
                              f"NEE, counters int32 [{scalars[0]}, "
                              f"{PROBE_WORDS}], a mode of PROBE_MODES")
     out = torch.empty(
-        (scalars[0], N_OUTPUTS_NEE if env_nee else N_OUTPUTS),
+        (scalars[0], N_OUTPUTS_NEE if v.env_nee else N_OUTPUTS),
         dtype=torch.float32, device=dev)
     # the next ray to hand out, zeroed on the stream before the launch
     counter = (torch.zeros(1, dtype=torch.int32, device=dev)
-               if refill and not (bvh and scene.any_transmissive) else None)
-    ptr = lambda t: None if t is None else t.data_ptr()
+               if refill and _refills(scene) else None)
     o, d, si, sd_ = rays
     lib = load_library("megakernel")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.halogen_megakernel_launch(
-            ptr(o), ptr(d), far_t.data_ptr(), ptr(si), ptr(sd_),
-            *(t.data_ptr() for t in tables), ptr(nodes),
-            env_tab.data_ptr() if env_nee else None, out.data_ptr(),
-            *cam_ptrs, ptr(counter),
-            *((light_tab.rows.data_ptr(), light_tab.dens.data_ptr())
-              if light else (None, None)),
-            *((ptr(t) for t in (record.a, record.word, record.nq,
-                                record.ngw, record.texel, record.end,
-                                record.lq))
-              if record is not None else (None,) * 7),
+            _ptr(o), _ptr(d), far_t.data_ptr(), _ptr(si), _ptr(sd_),
+            *(t.data_ptr() for t in tables), _ptr(v.nodes),
+            _ptr(v.env_tab), out.data_ptr(), *cam_ptrs, _ptr(counter),
+            *v.light_ptrs(), *_record_ptrs(record),
             probe[0].data_ptr() if probe is not None else None,
-            *scalars, int(env_nee), env_h, env_w, int(bvh), *cam_ints,
-            int(light), n_lights, probe[1] if probe is not None else 0,
-            stream)
+            *scalars, *v.ints(), *cam_ints, *v.light_ints(),
+            probe[1] if probe is not None else 0, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     if record is not None:
         RECORD_LAUNCHES += 1
     return (out, *rays) if view is not None and write_rays else out
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _record_ptrs(record: Record | None) -> tuple:
+    """The C entry points' seven record pointers (`Record`'s fields in the
+    order a, word, nq, ngw, texel, end, lq), None where absent."""
+    if record is None:
+        return (None,) * 7
+    return tuple(_ptr(t) for t in (record.a, record.word, record.nq,
+                                   record.ngw, record.texel, record.end,
+                                   record.lq))
+
+
+def _refills(scene: SceneData) -> bool:
+    """Whether launches on `scene` run persistent warps that refill from a
+    ray counter: all but the BVH tier's glass variants."""
+    return not (uses_bvh(scene) and scene.any_transmissive)
 
 
 def trace_color_fused_reference(scene: SceneData, origin, direction, far,
@@ -962,18 +1036,173 @@ class _FusedDiff(torch.autograd.Function):
                 dmat, d_env0 = adj.trace_grad_outputs(
                     ctx.scene, *rays, grad_out.contiguous(), ctx.settings,
                     record=rec, **kw)
-            # [K, 12|13] columns onto _scene_tables' [K, 17] layout;
-            # autograd chains col 9:12 through the rgb * intensity product
-            d_mat = torch.zeros_like(mat_tab)
-            d_mat[:, 9:12] = dmat[:, 0:3]   # emission, premultiplied
-            d_mat[:, 0:3] = dmat[:, 3:6]    # albedo rgb
-            d_mat[:, 4:7] = dmat[:, 6:9]    # specular
-            d_mat[:, 13:16] = dmat[:, 9:12]  # absorption
-            if dmat.shape[1] > 12:
-                d_mat[:, 8] = dmat[:, 12]   # roughness (the sky's level)
+            d_mat = _table_cotangent(dmat, mat_tab)
         d_env = [d_env0] + [None] * (ctx.n_env - 1) if ctx.n_env else []
         return (None, None, None, None, None, None, None, d_mat, None, None,
                 None, None, None, *d_env)
+
+
+def _table_cotangent(dmat: torch.Tensor,
+                     mat_tab: torch.Tensor) -> torch.Tensor:
+    """The adjoint's [K, 12|13] columns onto `_scene_tables`' [K, 17]
+    material table; autograd chains col 9:12 through the rgb * intensity
+    product."""
+    d_mat = torch.zeros_like(mat_tab)
+    d_mat[:, 9:12] = dmat[:, 0:3]   # emission, premultiplied
+    d_mat[:, 0:3] = dmat[:, 3:6]    # albedo rgb
+    d_mat[:, 4:7] = dmat[:, 6:9]    # specular
+    d_mat[:, 13:16] = dmat[:, 9:12]  # absorption
+    if dmat.shape[1] > 12:
+        d_mat[:, 8] = dmat[:, 12]   # roughness (the sky's level)
+    return d_mat
+
+
+def chunk_serves(route: str | None, want_grad: bool, sky: bool) -> bool:
+    """Whether a chunk of pixels on the kernel route renders all its
+    launch groups through one `_FusedChunk` call (True) or through one
+    `_FusedDiff` a group (False), by the adjoint's route (`grad_route`),
+    whether a gradient is wanted and whether a sky pass shades the
+    outputs: every chunk that wants no gradient, and a gradient's chunk on
+    the 'recorded' route without a sky. The replay routes and 'rerecord'
+    bound memory past the record budget a group at a time, and the sky
+    pass keeps each group's outputs for its backward: those keep a node a
+    group."""
+    return not want_grad or (route == "recorded" and not sky)
+
+
+class _FusedChunk(torch.autograd.Function):
+    """One node for all the launch groups of a chunk of pixels: what a
+    `_FusedDiff` a group and the sums of `integrator.trace.render_pixels`
+    give, [n, 3], each pixel's colour summed over the chunk's lanes and
+    divided by spp, from one call into the kernel library
+    (`halogen_megakernel_chunk`: each group's launch, then the lane sum,
+    `lane_sum`, which adds its colours into the chunk's accumulator in the
+    order of the plain sums). Where the sky pass shades the outputs (no
+    gradient then: `chunk_serves`), the sky forward runs on each group's
+    outputs between its launch and its lane sum.
+
+    On the 'recorded' route the groups record into one `Record` with a
+    leading group axis, and the backward is one call too
+    (`adjoint.sweep_chunk`): the colour's cotangent is the same for every
+    group, each group's sweep reads its record, and the groups' [K, 12]
+    are summed last first, the order in which autograd adds those of one
+    node a group. Scene, tables and view are checked once a chunk; one
+    output buffer and, in the backward, one block-sums buffer serve all
+    the groups in turn.
+
+    `chunk` is (view, spp_offset, spp_block, groups, spp): group g renders
+    lanes spp_offset + g * spp_block .. + spp_block of each pixel of
+    `view`, and spp divides the sum. `aux` is (env_tab, light_tab, route),
+    route 'recorded' where a gradient follows, else None."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        with annotate("halogen.wrap.forward"):
+            return _FusedChunk._forward(ctx, *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with annotate("halogen.wrap.backward"):
+            return _FusedChunk._backward(ctx, grad)
+
+    @staticmethod
+    def _forward(ctx, scene, settings, aux, chunk, *tables):
+        global LAUNCHES, RECORD_LAUNCHES, CHUNK_NODES, CHUNK_GROUPS
+        global LANE_SUM_LAUNCHES
+        from halogen_tpu_torch.kernels import sky
+
+        env_tab, light_tab, route = aux
+        view, spp_offset, spp_block, groups, spp = chunk
+        dev = view.pix.device
+        if view.block is None or dev.type != "cuda":
+            raise ValueError("the chunk node launches from pixels on a CUDA "
+                             "device")
+        with_sky = sky.uses_sky(scene, settings)
+        if not chunk_serves(route, route is not None, with_sky):
+            raise ValueError("the chunk node takes the 'recorded' route "
+                             "without a sky, or no gradient "
+                             f"(`chunk_serves`), not {route!r}")
+        tables, ints = _scene_inputs(scene, settings, tables, dev)
+        v = _variant(scene, settings, tables, env_tab, light_tab, dev)
+        n_pix = view.pix.shape[0]
+        n = n_pix * spp_block
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = torch.empty((n, N_OUTPUTS_NEE if v.env_nee else N_OUTPUTS),
+                          **f32)
+        acc = torch.zeros((n_pix, 3), **f32)
+        # each group's next ray to hand out, zeroed once
+        counter = (torch.zeros((groups,), dtype=torch.int32, device=dev)
+                   if _refills(scene) else None)
+        rec = (empty_record(n, settings, v.env_nee, dev,
+                            v.light_tab is not None, groups)
+               if route else None)
+        far_t = _far_word(view.camera.far, dev)
+        lib = load_library("megakernel")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch(g0: int, count: int, acc_ptr) -> None:
+            err = lib.halogen_megakernel_chunk(
+                far_t.data_ptr(), *(t.data_ptr() for t in tables),
+                _ptr(v.nodes), _ptr(v.env_tab), out.data_ptr(),
+                view.block.data_ptr(), view.pix.data_ptr(),
+                view.frame_word.data_ptr(),
+                None if counter is None else counter[g0:].data_ptr(),
+                *v.light_ptrs(), *_record_ptrs(rec), acc_ptr, n, *ints,
+                *v.ints(), settings.width, settings.height, spp_block,
+                spp_offset + g0 * spp_block, settings.samples_per_pixel,
+                *v.light_ints(), count, stream)
+            if err != 0:
+                raise RuntimeError(f"megakernel chunk launch failed: CUDA "
+                                   f"error {err}")
+
+        with torch.cuda.device(dev):
+            if not with_sky:
+                launch(0, groups, acc.data_ptr())
+            else:
+                sky_args = sky._kernel_args(scene, settings, out,
+                                            scene.env_mips)
+                for g in range(groups):
+                    launch(g, 1, None)
+                    color = sky.sky_forward(scene, settings, out, None,
+                                            sky_args)
+                    err = lib.halogen_lane_sum(color.data_ptr(),
+                                               acc.data_ptr(), 3, n_pix,
+                                               spp_block, stream)
+                    if err != 0:
+                        raise RuntimeError(f"lane sum launch failed: CUDA "
+                                           f"error {err}")
+        LAUNCHES += groups
+        LANE_SUM_LAUNCHES += groups
+        CHUNK_NODES += 1
+        CHUNK_GROUPS += groups
+        ctx.record_fields = None
+        if rec is not None:
+            RECORD_LAUNCHES += groups
+            ctx.scene, ctx.settings = scene, settings
+            ctx.chunk = (spp_block, groups, spp)
+            ctx.record_fields = tuple(t is not None for t in rec)
+            ctx.save_for_backward(tables[3],
+                                  *(t for t in rec if t is not None))
+        return acc / spp
+
+    @staticmethod
+    def _backward(ctx, grad):
+        from halogen_tpu_torch.kernels import adjoint as adj
+
+        if not ctx.needs_input_grad[7]:  # mat_tab
+            return (None,) * 8
+        mat_tab, *saved = ctx.saved_tensors
+        it = iter(saved)
+        rec = Record(*(next(it) if f else None for f in ctx.record_fields))
+        spp_block, groups, spp = ctx.chunk
+        # the cotangent of every lane's colour: that of the mean over spp
+        # (as the plain division's backward gives it), the same for every
+        # group, lanes pixel-major
+        g = grad / spp
+        ct = g[:, None, :].expand(g.shape[0], spp_block, 3).reshape(-1, 3)
+        dmat = adj.sweep_chunk(ctx.scene, rec, ct, ctx.settings, mat_tab,
+                               groups)
+        return (None,) * 7 + (_table_cotangent(dmat, mat_tab),)
 
 
 def _nee_mips(scene: SceneData, settings: RenderSettings) -> tuple:
@@ -1026,6 +1255,23 @@ def trace_color_fused_diff(scene: SceneData, origin, direction, far,
                            None, *tables, origin, direction, far, sample_idx,
                            seed, *mips)
     return sky.sky_color(scene, settings, out)
+
+
+def trace_color_chunk(scene: SceneData, view: PixelView, spp_offset: int,
+                      spp_block: int, groups: int, spp: int,
+                      settings: RenderSettings, tables, env_tab, light_tab,
+                      route: str | None) -> torch.Tensor:
+    """[n, 3] radiance of the pixels of `view` (CUDA only): each pixel's
+    colour summed over lanes spp_offset .. spp_offset + groups * spp_block
+    and divided by spp, from `groups` launches of `spp_block` lanes a
+    pixel, through one `_FusedChunk` (the sky pass included), as `groups`
+    calls of `trace_color_pixels_diff` and their sums give it. `route` is
+    the caller's resolved one: None where no gradient is wanted, else
+    'recorded' on a scene without a sky pass (`chunk_serves`), whose
+    launches record the adjoint's transcript for the backward's sweep."""
+    return _FusedChunk.apply(scene, settings, (env_tab, light_tab, route),
+                             (view, spp_offset, spp_block, groups, spp),
+                             *tables)
 
 
 def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,

@@ -33,18 +33,32 @@ from halogen_tpu_torch.utils.metrics import get_logger
 _OFF = contextlib.nullcontext()
 
 # name: (module, global). A launch count, or a count of calls that each
-# launch several passes (`*_calls`); `megakernel.recorded` counts the
-# launches among `megakernel.launches` that recorded the adjoint's
-# transcript, `trace.wavefront_syncs` the wavefront's host syncs.
+# launch several passes (`*_calls`, passes no other counter counts);
+# `megakernel.recorded` counts the launches among `megakernel.launches`
+# that recorded the adjoint's transcript, `megakernel.chunk_groups` the
+# launch groups among them that the chunk node's calls
+# (`megakernel.chunk_nodes`) served; `megakernel.lane_sums` and
+# `adjoint.group_sums` the launches of the chunk node's two small kernels
+# (`lane_sum` a group, `sum_groups` a backward), kept out of the
+# `*launches` names as the sweep's `reduce_blocks` is;
+# `trace.wavefront_syncs` the wavefront's host syncs.
 COUNTERS = {
     "megakernel.launches": ("halogen_tpu_torch.kernels.megakernel",
                             "LAUNCHES"),
     "megakernel.recorded": ("halogen_tpu_torch.kernels.megakernel",
                             "RECORD_LAUNCHES"),
+    "megakernel.chunk_nodes": ("halogen_tpu_torch.kernels.megakernel",
+                               "CHUNK_NODES"),
+    "megakernel.chunk_groups": ("halogen_tpu_torch.kernels.megakernel",
+                                "CHUNK_GROUPS"),
+    "megakernel.lane_sums": ("halogen_tpu_torch.kernels.megakernel",
+                             "LANE_SUM_LAUNCHES"),
     "adjoint.replay_launches": ("halogen_tpu_torch.kernels.adjoint",
                                 "LAUNCHES"),
     "adjoint.sweep_launches": ("halogen_tpu_torch.kernels.adjoint",
                                "SWEEP_LAUNCHES"),
+    "adjoint.group_sums": ("halogen_tpu_torch.kernels.adjoint",
+                           "GROUP_SUM_LAUNCHES"),
     "sky.forward_launches": ("halogen_tpu_torch.kernels.sky",
                              "FORWARD_LAUNCHES"),
     "sky.backward_launches": ("halogen_tpu_torch.kernels.sky",

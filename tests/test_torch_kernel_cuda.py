@@ -756,9 +756,9 @@ def test_refilling_launch_matches_plain(n, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("glass", [False, True])
 def test_grad_with_in_kernel_rays_equals_explicit_rays(glass, cuda_device):
-    """`render_loss_grad` through launches from pixels (the kernel writes
-    the rays it made for the adjoint) against the same groups with
-    explicit rays: the same [K, 12] bits, so the same gradients."""
+    """`render_loss_grad` through launches from pixels (the chunk node of
+    the record route) against the same groups with explicit rays (a node
+    a group): the same [K, 12] bits, so the same gradients."""
     from halogen_tpu_torch.diff import render_loss_grad
 
     scene = (cornell.glass_sphere_box() if glass
@@ -782,12 +782,13 @@ def test_grad_with_in_kernel_rays_equals_explicit_rays(glass, cuda_device):
                                          seed, settings, tables, env_tab,
                                          light_tab, record)
 
-    saved = mk.trace_color_pixels_diff
+    saved = mk.trace_color_pixels_diff, mk.chunk_serves
     mk.trace_color_pixels_diff = explicit
+    mk.chunk_serves = lambda *args: False
     try:
         _, g_exp = render_loss_grad(params, scene, cam, st, target, 3)
     finally:
-        mk.trace_color_pixels_diff = saved
+        mk.trace_color_pixels_diff, mk.chunk_serves = saved
     for f in ("albedo", "specular", "emissive", "absorption"):
         a, b = getattr(g_pix["materials"], f), getattr(g_exp["materials"], f)
         assert torch.equal(a, b), f

@@ -137,8 +137,8 @@ def test_fit_step_opens_the_loop_spans(tmp_path, monkeypatch):
 
 
 def _module_counters() -> set:
-    """(module, global) of every module-level `*LAUNCHES` and `*SYNCS`
-    integer of the port's sources."""
+    """(module, global) of every module-level `*LAUNCHES`, `*SYNCS`,
+    `*NODES` and `*GROUPS` integer of the port's sources."""
     found = set()
     for path in PKG.rglob("*.py"):
         mod = ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
@@ -148,7 +148,8 @@ def _module_counters() -> set:
                     isinstance(node.value.value, int):
                 for t in node.targets:
                     if isinstance(t, ast.Name) and \
-                            t.id.endswith(("LAUNCHES", "SYNCS")):
+                            t.id.endswith(("LAUNCHES", "SYNCS", "NODES",
+                                           "GROUPS")):
                         found.add((mod, t.id))
     return found
 
@@ -172,15 +173,15 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("sky", [False, True])
 def test_kernel_route_opens_the_wrapper_spans(sky, cuda_device):
-    """One fit step through the megakernel's record route: the wrappers'
-    spans, as many forwards as launches and the backward on autograd's
-    device thread; the sky pass's pair under an HDRI."""
-    from halogen_tpu_torch.kernels import megakernel as mk
-
+    """One fit step through the megakernel's record route, four launch
+    groups: the wrappers' spans, a forward and a backward (on autograd's
+    device thread) a node: without a sky one chunk node for the four
+    groups, under an HDRI a node a group and the sky pass's pair."""
     kw = dict(envmap=Envmap.gradient_sky()) if sky else {}
     scene, cam = _tiny(cuda_device, **kw)
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
-                           max_bounces=2, use_envmap=sky)
+                           max_bounces=2, use_envmap=sky,
+                           ray_chunk_size=1024)
     target = torch.full((32, 32, 3), 0.3, device=cuda_device)
     grad.fit_materials(scene, cam, st, target, steps=1)  # builds, warms
     before = profiling.counts()
@@ -189,12 +190,17 @@ def test_kernel_route_opens_the_wrapper_spans(sky, cuda_device):
         grad.fit_materials(scene, cam, st, target, steps=1)
         torch.cuda.synchronize()
     after = profiling.counts()
-    launches = after["megakernel.launches"] - before["megakernel.launches"]
-    assert launches > 0
+    delta = {k: after[k] - before[k] for k in after}
+    launches = delta["megakernel.launches"]
+    assert launches == 4
+    calls = delta["megakernel.chunk_nodes"]
+    assert (calls, delta["megakernel.chunk_groups"]) == ((0, 0) if sky
+                                                         else (1, 4))
+    nodes = launches if sky else calls
     assert len(_named(prof, "halogen.wrap.prepare")) > 0
-    assert len(_named(prof, "halogen.wrap.forward")) == launches
+    assert len(_named(prof, "halogen.wrap.forward")) == nodes
     back = _named(prof, "halogen.wrap.backward")
-    assert len(back) == launches
+    assert len(back) == nodes
     assert {e.thread for e in back} != \
         {e.thread for e in _named(prof, "halogen.loop.step")}
     n_sky = 0 if not sky else launches
