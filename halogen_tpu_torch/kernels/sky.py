@@ -30,7 +30,9 @@ True)` that of the ordering; `reduce_texels_model` that of the sums, tile
 for tile and addition for addition; `scatter_texels` on the CPU is
 `index_add_` in index order. A CUDA launch that fails raises; there is
 no fallback. `FORWARD_LAUNCHES`, `BACKWARD_LAUNCHES`, `ORDER_LAUNCHES`
-and `SCATTER_LAUNCHES` count the launches.
+and `SCATTER_LAUNCHES` count the launches, `ATLAS_BUILDS` the copies of
+the mips into an atlas (one a `SkyPass`, kept for its backward; one a
+chunk node's sky pass; one a plain taps call).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ FORWARD_LAUNCHES = 0  # sky forward launches since the count was set to 0
 BACKWARD_LAUNCHES = 0  # sky backward (taps) launches
 ORDER_LAUNCHES = 0  # orderings by texel (the radix passes of one call)
 SCATTER_LAUNCHES = 0  # per-texel sums (the levels of one call)
+ATLAS_BUILDS = 0  # copies of the mips into an atlas (`atlas`)
 
 
 def uses_sky(scene: SceneData, settings: RenderSettings) -> bool:
@@ -67,9 +70,14 @@ def uses_sky(scene: SceneData, settings: RenderSettings) -> bool:
 
 
 def atlas(env_mips) -> torch.Tensor:
-    """Every mip's texels, finest first: [sum H_l W_l, 3] float32."""
-    return torch.cat([m.reshape(-1, 3) for m in env_mips]).to(
-        torch.float32).contiguous()
+    """Every mip's texels, finest first: [sum H_l W_l, 3] float32, a new
+    copy (counted in `ATLAS_BUILDS`)."""
+    global ATLAS_BUILDS
+    with annotate("halogen.wrap.sky_atlas"):
+        tex = torch.cat([m.reshape(-1, 3) for m in env_mips]).to(
+            torch.float32).contiguous()
+    ATLAS_BUILDS += 1
+    return tex
 
 
 def split_mips(flat: torch.Tensor, env_mips) -> tuple:

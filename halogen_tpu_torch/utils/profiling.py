@@ -41,7 +41,9 @@ _OFF = contextlib.nullcontext()
 # `adjoint.group_sums` the launches of the chunk node's two small kernels
 # (`lane_sum` a group, `sum_groups` a backward), kept out of the
 # `*launches` names as the sweep's `reduce_blocks` is;
-# `trace.wavefront_syncs` the wavefront's host syncs.
+# `trace.wavefront_syncs` the wavefront's host syncs; `sky.atlas_builds`
+# the copies of the mips into one atlas (`sky.atlas`), no launch of the
+# port's own.
 COUNTERS = {
     "megakernel.launches": ("halogen_tpu_torch.kernels.megakernel",
                             "LAUNCHES"),
@@ -65,6 +67,7 @@ COUNTERS = {
                               "BACKWARD_LAUNCHES"),
     "sky.order_calls": ("halogen_tpu_torch.kernels.sky", "ORDER_LAUNCHES"),
     "sky.sum_calls": ("halogen_tpu_torch.kernels.sky", "SCATTER_LAUNCHES"),
+    "sky.atlas_builds": ("halogen_tpu_torch.kernels.sky", "ATLAS_BUILDS"),
     "traverse.launches": ("halogen_tpu_torch.kernels.traverse", "LAUNCHES"),
     "trace.wavefront_syncs": ("halogen_tpu_torch.integrator.trace",
                               "WAVEFRONT_SYNCS"),

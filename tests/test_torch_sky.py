@@ -28,6 +28,7 @@ from halogen_tpu_torch.config import RenderSettings
 from halogen_tpu_torch.kernels import sky
 from halogen_tpu_torch.scene import envmap as tenv
 from halogen_tpu_torch.scene import cornell
+from halogen_tpu_torch.utils import profiling
 
 ATOL, RTOL = 1e-6, 1e-5
 N = 512
@@ -149,6 +150,22 @@ def test_one_mip_has_four_taps():
     (ref,) = vjp(jnp.asarray(ct * reached[:, None]))
     _assert_sums_close(got.reshape(mip.shape), np.asarray(ref),
                        mag.reshape(mip.shape), "mip 0")
+
+
+def test_atlas_builds_count_each_copy_of_the_mips():
+    """`sky.atlas_builds` counts one a copy of the mips into an atlas: the
+    launch's checks (`_kernel_args`) make one, the plain taps another."""
+    mips = _maps()["gradient"]
+    d, level, ct = _rays(4, len(mips))
+    outputs = _outputs(d, level, np.random.default_rng(4))
+    scene = _scene(mips)
+    before = profiling.counts()["sky.atlas_builds"]
+    tex = sky._kernel_args(scene, ST, outputs, scene.env_mips)[0]
+    after_args = profiling.counts()["sky.atlas_builds"]
+    sky.sky_taps_reference(scene, ST, outputs, torch.from_numpy(ct))
+    after_taps = profiling.counts()["sky.atlas_builds"]
+    assert (after_args - before, after_taps - after_args) == (1, 1)
+    assert tex.shape == (sum(m.shape[0] * m.shape[1] for m in mips), 3)
 
 
 def test_scatter_skips_negative_keys_and_keeps_order():

@@ -138,7 +138,7 @@ def test_fit_step_opens_the_loop_spans(tmp_path, monkeypatch):
 
 def _module_counters() -> set:
     """(module, global) of every module-level `*LAUNCHES`, `*SYNCS`,
-    `*NODES` and `*GROUPS` integer of the port's sources."""
+    `*NODES`, `*GROUPS` and `*BUILDS` integer of the port's sources."""
     found = set()
     for path in PKG.rglob("*.py"):
         mod = ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
@@ -149,7 +149,7 @@ def _module_counters() -> set:
                 for t in node.targets:
                     if isinstance(t, ast.Name) and \
                             t.id.endswith(("LAUNCHES", "SYNCS", "NODES",
-                                           "GROUPS")):
+                                           "GROUPS", "BUILDS")):
                         found.add((mod, t.id))
     return found
 
@@ -161,6 +161,33 @@ def test_counts_names_every_counter():
     got = profiling.counts()
     assert set(got) == set(profiling.COUNTERS)
     assert all(isinstance(v, int) for v in got.values())
+
+
+def _sky_outputs(n: int, dev) -> torch.Tensor:
+    """[n, 10] megakernel outputs of paths that all reached the sky, their
+    directions spread over the sphere, the roughness mid-range."""
+    gen = torch.Generator().manual_seed(5)
+    out = torch.zeros((n, 10))
+    out[:, 0:3] = torch.rand((n, 3), generator=gen)
+    out[:, 3:6] = 1.0
+    out[:, 6] = 0.3
+    d = torch.randn((n, 3), generator=gen)
+    out[:, 7:10] = d / d.norm(dim=1, keepdim=True)
+    return out.to(dev)
+
+
+def test_the_atlas_span_nests_in_the_sky_pass():
+    from halogen_tpu_torch.kernels import sky
+
+    scene, _ = _tiny("cpu", envmap=Envmap.gradient_sky())
+    st = ht.RenderSettings(use_envmap=True)
+    out = _sky_outputs(64, "cpu")
+    before = profiling.counts()["sky.atlas_builds"]
+    with torch.profiler.profile(activities=ACTS) as prof:
+        sky.SkyPass.apply(scene, st, out, *scene.env_mips)
+    assert profiling.counts()["sky.atlas_builds"] - before == 1
+    got = _named(prof, "halogen.wrap.sky_atlas")
+    assert [_halogen_parents(e) for e in got] == [["halogen.wrap.sky"]]
 
 
 @pytest.fixture
@@ -208,5 +235,59 @@ def test_kernel_route_opens_the_wrapper_spans(sky, cuda_device):
     assert len(_named(prof, "halogen.wrap.sky_backward")) == n_sky
     assert after["sky.forward_launches"] - before["sky.forward_launches"] \
         == n_sky
+    assert not any(e.name.startswith("halogen.") for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.cuda
+def test_atlas_builds_one_a_sky_pass_and_one_a_chunk(cuda_device):
+    """On the card a `SkyPass` forward and backward copy the mips into one
+    atlas (the forward's, kept for the backward); a frame under the sky
+    one a chunk node (`_FusedChunk`), its span inside the node's forward;
+    a fit step one a launch group, inside the sky pass's span."""
+    from halogen_tpu_torch.kernels import sky
+
+    scene, cam = _tiny(cuda_device, envmap=Envmap.gradient_sky())
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
+                           max_bounces=2, use_envmap=True,
+                           ray_chunk_size=512)
+    out = _sky_outputs(1024, cuda_device).requires_grad_(True)
+    mips = [m.detach().clone().requires_grad_(True) for m in scene.env_mips]
+    sky.SkyPass.apply(scene, st, out, *mips)  # builds, warms
+    before = profiling.counts()
+    sky.SkyPass.apply(scene, st, out, *mips).sum().backward()
+    torch.cuda.synchronize()
+    after = profiling.counts()
+    assert after["sky.atlas_builds"] - before["sky.atlas_builds"] == 1
+    assert after["sky.backward_launches"] \
+        - before["sky.backward_launches"] == 1
+
+    acts = ACTS + [torch.profiler.ProfilerActivity.CUDA]
+    ht.render_frame(scene, cam, st, 0)
+    before = profiling.counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        ht.render_frame(scene, cam, st, 1)
+        torch.cuda.synchronize()
+    after = profiling.counts()
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta["megakernel.chunk_nodes"] == 2  # 1,024 pixels, 512 a chunk
+    assert delta["sky.atlas_builds"] == delta["megakernel.chunk_nodes"]
+    got = _named(prof, "halogen.wrap.sky_atlas")
+    assert len(got) == 2
+    assert all(_halogen_parents(e)[0] == "halogen.wrap.forward" for e in got)
+
+    target = torch.full((32, 32, 3), 0.3, device=cuda_device)
+    before = profiling.counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        grad.fit_materials(scene, cam, st, target, steps=1, optimize_env=True)
+        torch.cuda.synchronize()
+    after = profiling.counts()
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta["megakernel.launches"] == 8  # 2 chunks of 4 groups
+    assert delta["sky.atlas_builds"] == delta["megakernel.launches"]
+    assert delta["sky.backward_launches"] == delta["megakernel.launches"]
+    got = _named(prof, "halogen.wrap.sky_atlas")
+    assert len(got) == 8
+    assert all(_halogen_parents(e)[0] == "halogen.wrap.sky" for e in got)
     assert not any(e.name.startswith("halogen.") for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
