@@ -427,6 +427,18 @@ Phases, in order; the first that fails ends the run with a non-zero exit
      Cornell fit step and a 512x512, 32-spp Cornell frame make: one chunk
      node each, a `lane_sum` a group (64, 32), one `sum_groups` in the
      fit;
+ 44. the chunk node under the sky (`phase44`, runnable alone as phase
+     42): first the sums' add mode (`sky.scatter_texels(..., out=)`) at
+     the 4096-px sky's 11,182,080-texel atlas, bit for bit a non-zero
+     buffer + the fresh sums, the texels without a tap untouched; then a
+     gradient step of the materials and all 6 mips at `testing_fit`'s
+     size (the Testing Scene's active set, 480x270, 64 spp: 32 groups of
+     259,200 rays, the 4096-px procedural HDRI at mip 1), one chunk node
+     and a node a group (`chunk_serves` patched to False) in turns after
+     a warm step each: the image, every material field's and every mip's
+     gradient bit for bit, the atlases built (1 against 32) and alive
+     after the backward (0), `torch.cuda.max_memory_allocated`, ms a
+     step, the chunk nodes and launches;
  24. (run last) the work each launch shape of B1a-c, B2 and B2b needs, for
      their bounds, with the mean bounces of a ray and of each 32 rays'
      longest path.
@@ -2213,6 +2225,156 @@ def phase43(dev, card: str) -> dict:
     print(f"[43] launches {launches}; phase 43 took "
           f"{time.perf_counter() - t43:.1f} s | {card}", flush=True)
     return dict(lane=lane, sweep=sweep, launches=launches)
+
+
+def phase44(dev, card: str) -> dict:
+    """44. The chunk node under the sky at `testing_fit`'s size against a
+    node a group, and the sums' add mode (see the module docstring)."""
+    import weakref
+
+    import numpy as np
+    import torch
+
+    import halogen_tpu_torch as ht
+    from halogen_tpu_torch.diff.grad import (
+        FLOAT_MATERIAL_FIELDS,
+        render_with_params,
+        with_material_params,
+    )
+    from halogen_tpu_torch.integrator.trace import _spp_block
+    from halogen_tpu_torch.kernels import adjoint as adj
+    from halogen_tpu_torch.kernels import megakernel as mk
+    from halogen_tpu_torch.kernels import sky as skyk
+    from halogen_tpu_torch.scene import hdr_io, testing_scene
+    from halogen_tpu_torch.scene.envmap import Envmap
+    from halogen_tpu_torch.utils import profiling
+
+    t44 = time.perf_counter()
+    env = Envmap.from_equirect(hdr_io.procedural_hdri(4096))
+    scene = testing_scene.testing_scene(False).build(envmap=env, device=dev)
+    n_texels = sum(int(m.shape[0] * m.shape[1]) for m in scene.env_mips)
+    assert (len(scene.env_mips), n_texels) == (6, 11182080), n_texels
+
+    # the sums' add mode at the atlas: out + the fresh sums, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(44)
+    m = 259200 * skyk.TAPS
+    keys = torch.randint(-1, n_texels // 3, (m,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    wts = torch.randn((m, 3), generator=gen, device=dev)
+    buf = torch.randn((n_texels, 3), generator=gen, device=dev)
+    fresh = skyk.scatter_texels(keys, wts, n_texels)
+    added = skyk.scatter_texels(keys, wts, n_texels, out=buf.clone())
+    torch.cuda.synchronize()
+    hit = torch.zeros((n_texels,), dtype=torch.bool, device=dev)
+    hit[keys[keys >= 0].long()] = True
+    assert torch.equal(added, buf + fresh)
+    assert torch.equal(added[~hit], buf[~hit])
+    add_mode = dict(taps=m, texels_hit=int(hit.sum()), bit_equal=True)
+    print(f"[44] the sums' add mode at {n_texels} texels, {m} taps: "
+          f"bit for bit buffer + the fresh sums, {int((~hit).sum())} "
+          f"texels without a tap untouched | {card}", flush=True)
+    del keys, wts, buf, fresh, added, hit
+
+    spec = testing_scene.load_fixture()["cameras"][0]
+    world = np.asarray(spec["world"], np.float32).reshape(4, 4)
+    pos = world[:3, 3]
+    cam = ht.make_camera(position=tuple(pos), target=tuple(pos + world[:3, 2]),
+                         up=tuple(world[:3, 1]), fov_deg=spec["fov_deg"],
+                         aspect=480 / 270, near=spec["near"],
+                         far=spec["far"], device=dev)
+    st = ht.RenderSettings(width=480, height=270, samples_per_pixel=64,
+                           max_bounces=12, max_diffuse_bounces=4,
+                           max_glossy_bounces=4, max_transmission_bounces=12,
+                           filter_radius=1.0, use_envmap=True,
+                           env_mip_level=1, ray_chunk_size=262144)
+    sb = _spp_block(st.num_pixels, st.samples_per_pixel, st.ray_chunk_size)
+    groups = st.samples_per_pixel // sb
+    assert (sb, groups, adj.env_mode(scene, st)) == (2, 32, 1)
+    target = torch.full((270, 480, 3), 0.25, device=dev)
+    names = ("sky.atlas_builds", "megakernel.chunk_nodes",
+             "megakernel.launches", "sky.backward_launches")
+
+    def step(frame, chunk):
+        leaves = {f: getattr(scene.materials, f).detach().clone()
+                  .requires_grad_(True) for f in FLOAT_MATERIAL_FIELDS}
+        mips = [x.detach().clone().requires_grad_(True)
+                for x in scene.env_mips]
+        built, real, serves = [], skyk.atlas, mk.chunk_serves
+
+        def atlas(env_mips):
+            tex = real(env_mips)
+            built.append(weakref.ref(tex))
+            return tex
+
+        skyk.atlas = atlas
+        if not chunk:
+            mk.chunk_serves = lambda *args: False
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            c0 = profiling.counts()
+            t0 = time.perf_counter()
+            params = {"materials": with_material_params(scene.materials,
+                                                        leaves),
+                      "env_mips": tuple(mips)}
+            img = render_with_params(params, scene, cam, st, frame)
+            loss = ((img - target) ** 2).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            alive = sum(r() is not None for r in built)
+            c1 = profiling.counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            skyk.atlas, mk.chunk_serves = real, serves
+        return dict(img=img.detach(), d_mat={f: t.grad for f, t in
+                                             leaves.items()},
+                    d_env=[x.grad for x in mips], ms=ms, alive=alive,
+                    peak_gib=peak / 2**30, peak_step_gib=(peak - base) / 2**30,
+                    **{k: c1[k] - c0[k] for k in names})
+
+    def same(a, b):
+        return (torch.equal(a["img"], b["img"])
+                and all(torch.equal(a["d_mat"][f], b["d_mat"][f])
+                        for f in FLOAT_MATERIAL_FIELDS)
+                and all(torch.equal(x, y)
+                        for x, y in zip(a["d_env"], b["d_env"])))
+
+    step(1, True)  # builds, warms
+    step(1, False)
+    runs = {"chunk node": [], "a node a group": []}
+    for chunk in (True, False, False, True):
+        runs["chunk node" if chunk else "a node a group"].append(
+            step(2, chunk))
+    got, ref = runs["chunk node"][0], runs["a node a group"][0]
+    assert same(got, runs["chunk node"][1]), "the chunk node repeats"
+    equal = same(got, ref)
+    gaps = dict(
+        image=float((got["img"] - ref["img"]).abs().max()),
+        materials=max(float((got["d_mat"][f] - ref["d_mat"][f]).abs().max())
+                      for f in FLOAT_MATERIAL_FIELDS),
+        mips=max(float((x - y).abs().max())
+                 for x, y in zip(got["d_env"], ref["d_env"])))
+    summary = {k: [{kk: vv for kk, vv in r.items()
+                    if kk not in ("img", "d_mat", "d_env")} for r in v]
+               for k, v in runs.items()}
+    print(f"[44] a testing_fit step (480x270, 64 spp, {groups} groups, "
+          f"{n_texels} texels): the chunk node "
+          f"{'equals' if equal else 'DIFFERS FROM'} a node a group bit for "
+          f"bit (image, {len(FLOAT_MATERIAL_FIELDS)} material fields, 6 "
+          f"mips; largest gaps {gaps}); {summary} | {card}", flush=True)
+    assert equal, gaps
+    assert all(r["sky.atlas_builds"] == 1 and r["alive"] == 0
+               and r["megakernel.chunk_nodes"] == 1
+               for r in summary["chunk node"]), summary
+    assert all(r["sky.atlas_builds"] == groups
+               and r["megakernel.chunk_nodes"] == 0
+               for r in summary["a node a group"]), summary
+    assert sum(float(x.abs().sum()) for x in got["d_env"]) > 0
+    print(f"[44] phase 44 took {time.perf_counter() - t44:.1f} s | {card}",
+          flush=True)
+    return dict(add_mode=add_mode, steps=summary, bit_equal=equal, gaps=gaps)
 
 
 def main() -> int:
@@ -5274,6 +5436,9 @@ def main() -> int:
     # --- 43. the chunk node's lane_sum and sum_groups
     r43 = phase43(dev, card)
 
+    # --- 44. the chunk node under the sky
+    r44 = phase44(dev, card)
+
     # --- 24. the record of every kernel: bounds from the work each
     # launch shape needs on these inputs
     w_a = _path_work(scene, o, d, cam.far, sidx, seed, st_a)
@@ -5710,7 +5875,7 @@ def main() -> int:
         ".sum(dim=1)", bit_for_bit=True,
         shapes={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
                         bound_ms=v["bound"][0]) for k, v in lane43.items()},
-        main_path="every chunk node without a gradient through the sky"))
+        main_path="every chunk node"))
     kernels.append(entry(
         "sum_groups", "halogen_tpu/integrator/trace.py:802", adjs,
         {k: v["adjoint.group_sums"] for k, v in launches43.items()},
@@ -5731,6 +5896,7 @@ def main() -> int:
         by_name[name]["rerecord_launches"] = {
             k: v["launches"] for k, v in r42["steps"].items()}
     by_name["B2+l"]["rerecord"] = r42
+    by_name["sky backward"]["chunk_node_fit_step"] = r44
     by_name["B1d"]["scripts"] = {k: {kk: vv for kk, vv in v.items()
                                      if kk != "record"}
                                  for k, v in r41.items()}

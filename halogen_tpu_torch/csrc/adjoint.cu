@@ -697,8 +697,8 @@ __global__ void __launch_bounds__(kReduceThreads)
 // out[a] = the sum over groups of part[g, a], the last group first: the
 // order in which autograd adds up the cotangents of one node a group (it
 // runs the newest node first). Replaces no TPU kernel (autograd's sums a
-// group did this); one thread an entry, [groups, K * 12] floats read once,
-// a launch a chunk node's backward.
+// group did this); one thread an entry, [groups, K * 12|13] floats read
+// once, a launch a chunk node's backward.
 __global__ void __launch_bounds__(kReduceThreads)
     sum_groups(const float* part, int groups, int n_acc, float* out) {
   const int a = blockIdx.x * kReduceThreads + threadIdx.x;
@@ -889,26 +889,30 @@ extern "C" int halogen_adjoint_sweep(
 // halogen_adjoint_sweep over its slice of the record (buffers with a
 // leading group axis, as halogen_megakernel_chunk writes them), with the
 // same colour cotangent `ct` [n, 3] for every group, its block sums in
-// `part` [groups, K * 12] (each group reuses `partial`, on the stream in
-// turn), then `sum_groups` into `out` [K, 12]. No sky (env 0): a
-// gradient through the sky pass takes one node a group.
+// `part` [groups, K * n_grad] (each group reuses `partial`, on the stream
+// in turn), then `sum_groups` into `out` [K, n_grad]. `env` 0 (no sky) or
+// 1 (the sky at the miss: `gsky` [groups, n, 4], each group's cotangents
+// of the miss attenuation and the accumulated roughness, from the sky
+// pass's backward of its outputs; 13 columns). Env NEE (2) takes one node
+// a group: its records of the drawn texels are not kept here.
 extern "C" int halogen_adjoint_sweep_chunk(
-    const float* mat, const float* ct, float* rec_a, int* rec_word,
-    int* rec_end, float* rec_lq, float* partial, float* part, float* out,
-    int n, int num_materials, int max_bounces, int use_rr, int transmissive,
-    int light, int groups, void* stream) {
-  if (groups <= 0 || max_bounces < 0 || num_materials > kMaxMaterials)
+    const float* mat, const float* ct, const float* gsky, float* rec_a,
+    int* rec_word, int* rec_end, float* rec_lq, float* partial, float* part,
+    float* out, int n, int num_materials, int max_bounces, int use_rr,
+    int transmissive, int env, int light, int groups, void* stream) {
+  if (groups <= 0 || max_bounces < 0 || num_materials > kMaxMaterials ||
+      env < 0 || env > 1 || (env == 1 && gsky == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t slot_rays = static_cast<size_t>(max_bounces + 1) * n;
-  const int n_acc = num_materials * n_grad(0);
+  const int n_acc = num_materials * n_grad(env);
   for (int g = 0; g < groups; ++g) {
     int err = halogen_adjoint_sweep(
-        mat, ct, nullptr, rec_a + 4 * slot_rays * g,
-        rec_word + slot_rays * g, nullptr, nullptr, nullptr,
-        rec_end + static_cast<size_t>(n) * g,
+        mat, ct, env ? gsky + 4 * static_cast<size_t>(n) * g : nullptr,
+        rec_a + 4 * slot_rays * g, rec_word + slot_rays * g, nullptr,
+        nullptr, nullptr, rec_end + static_cast<size_t>(n) * g,
         light ? rec_lq + 4 * slot_rays * g : nullptr, partial,
         part + static_cast<size_t>(n_acc) * g, nullptr, nullptr, n,
-        num_materials, max_bounces, use_rr, transmissive, 0, light, stream);
+        num_materials, max_bounces, use_rr, transmissive, env, light, stream);
     if (err != 0) return err;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -38,8 +38,9 @@
 //     crosses lanes; a run inside a tile is written whole, the tile's first
 //     and last runs go to two carry slots, which the next launch reduces
 //     the same way, in tile order, until one tile is left. No searches, no
-//     work for an empty texel (a memset zeroes the output first), no float
-//     atomics: two calls give the same bits.
+//     work for an empty texel (a memset zeroes the output first; or each
+//     run is added to it, where a chunk node's groups sum into one
+//     gradient), no float atomics: two calls give the same bits.
 // The taps follow the footprint-packed lookup the plain version
 // differentiates (`pack_footprint`): above the first row's centre the
 // weight of the second row is 0, and the second row is min(y0 + 1, H - 1).
@@ -552,7 +553,8 @@ struct SumLevel {
   int* carry_keys;     // two slots a tile: its first and its last run
   float* carry_vals;
   int* count_out;      // the carries' number, 0 when this level is the last
-  float* out;          // [n_texels, 3], zeroed
+  float* out;          // [n_texels, 3], zeroed, or with `add` a sum to add to
+  bool add;            // out[t] += the run's sum, where it is written
 };
 
 // A lane's kSumItems consecutive keys and their weights, by 16-byte loads
@@ -700,9 +702,15 @@ __global__ void __launch_bounds__(kThreads) sky_reduce_texels(SumLevel p) {
                      : lane < 31 ? k_after : -1;
     if (k[i] < 0 || next == k[i]) continue;
     if (last || (k[i] != k_first && k[i] != k_last)) {
-      p.out[3 * static_cast<size_t>(k[i])] = rx;
-      p.out[3 * static_cast<size_t>(k[i]) + 1] = ry;
-      p.out[3 * static_cast<size_t>(k[i]) + 2] = rz;
+      float* o = p.out + 3 * static_cast<size_t>(k[i]);
+      if (p.add) {
+        rx = o[0] + rx;
+        ry = o[1] + ry;
+        rz = o[2] + rz;
+      }
+      o[0] = rx;
+      o[1] = ry;
+      o[2] = rz;
     } else {
       const int slot = 2 * tile + (k[i] == k_first ? 0 : 1);
       p.carry_keys[slot] = k[i];
@@ -851,20 +859,29 @@ static int sum_levels(int m) {
 // keys, *count of them (out is zeroed first); carry_keys / carry_vals hold
 // two buffers
 // of `cap` slots (ping-pong between levels; cap a multiple of 4, so that
-// both are 16-byte aligned), counts one int a level.
+// both are 16-byte aligned), counts one int a level. With `add`, out is
+// not zeroed and each texel's run is added to it, out[t] = out[t] + run:
+// a texel is written at one level only, once a call, so the texels
+// without a tap keep their value and the sums keep their order (a chunk
+// node's groups add into one gradient buffer, kernels/sky.py
+// `sky_backward_groups`).
 extern "C" int halogen_sky_sum(const int* keys, const int* idx,
                                const float* wts, const int* count,
                                int* carry_keys, float* carry_vals,
                                int* counts, float* out, int m, int cap,
-                               int n_levels, int n_texels, void* stream) {
+                               int n_levels, int n_texels, int add,
+                               void* stream) {
   if (m <= 0 || n_texels <= 0 || n_levels != sum_levels(m) ||
       cap % 4 != 0 || cap < 2 * ((m + kSumTile - 1) / kSumTile))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t zeroed = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(n_texels) * 3 * sizeof(float), st);
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  if (!add) {
+    const cudaError_t zeroed = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(n_texels) * 3 * sizeof(float), st);
+    if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  }
   SumLevel p;
+  p.add = add != 0;
   p.keys = keys;
   p.idx = idx;
   p.vals = wts;

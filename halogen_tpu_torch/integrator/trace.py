@@ -781,7 +781,8 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
     again in its backward ('rerecord'), or write their rays; None plans
     this call's groups. There all the groups go through one call of the
     chunk node where `megakernel.chunk_serves` says so (no gradient, or
-    the 'recorded' route without a sky pass), else one node a group."""
+    the 'recorded' route without env NEE), else one node a group."""
+    from halogen_tpu_torch.kernels import adjoint as adj
     from halogen_tpu_torch.kernels import megakernel as mk
     from halogen_tpu_torch.kernels import sky
 
@@ -813,15 +814,17 @@ def render_pixels(scene: SceneData, camera: Camera, settings: RenderSettings,
             light_tab = (mk.light_table(scene)
                          if _use_light_nee(scene, settings) else None)
             view = mk.pixel_view(camera, settings, frame, pix)
+            # the mips that the sky pass reads count too: a gradient of
+            # the sky alone still takes a node a group ('rays')
+            sky_mips = scene.env_mips if sky.uses_sky(scene, settings) else ()
             want_grad = torch.is_grad_enabled() and any(
-                t.requires_grad for t in (*tables,
-                                          *mk._nee_mips(scene, settings)))
+                t.requires_grad for t in (*tables, *sky_mips))
             if not want_grad:
                 record = None
             elif record is None:
                 record = mk.grad_route(scene, settings, tables, pix.device,
                                        n * spp_block, groups)
-        if mk.chunk_serves(record, want_grad, sky.uses_sky(scene, settings)):
+        if mk.chunk_serves(record, want_grad, adj.env_mode(scene, settings)):
             with annotate("halogen.driver.pixels"):
                 return mk.trace_color_chunk(
                     scene, view, spp_offset, spp_block, groups, spp,

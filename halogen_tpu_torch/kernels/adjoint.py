@@ -63,7 +63,8 @@ over rays). Rays on a CUDA device go to the kernels and rays on the CPU
 to the plain versions; a CUDA launch that fails raises, there is no
 fallback. `LAUNCHES` counts the replay kernel's launches, `SWEEP_LAUNCHES`
 the sweep's. `sweep_chunk` is the backward of the chunk node
-(`megakernel._FusedChunk`): every group's sweep of a chunk in one call,
+(`megakernel._FusedChunk`): every group's sweep of a chunk in one call
+(under the sky at the miss with each group's cotangents of the miss),
 and one `sum_groups` launch (`GROUP_SUM_LAUNCHES`) to add them up.
 `material_cotangents` maps the [K, 12|13] result onto a `MaterialTable`.
 
@@ -427,43 +428,52 @@ def _sweep(scene, record, ct, settings: RenderSettings, tables, gsky,
 
 
 def sweep_chunk(scene, record, ct, settings: RenderSettings, mat_tab,
-                groups: int) -> torch.Tensor:
+                groups: int, gsky: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """The record route's backward of a chunk's `groups` launches
     (`megakernel._FusedChunk`), in one call: `adjoint_sweep` over each
     group's slice of `record` (`megakernel.empty_record(..., groups)`),
     all with the colour cotangent `ct` [N, 3], each group's block sums
-    reduced into one [groups, K, 12] table (one block-sums buffer serving
-    the groups in turn), then the groups summed last first (the order in
-    which autograd adds the cotangents of one node a group): [K, 12]. No
-    sky: a gradient through the sky pass takes a node a group."""
+    reduced into one [groups, K, 12|13] table (one block-sums buffer
+    serving the groups in turn), then the groups summed last first (the
+    order in which autograd adds the cotangents of one node a group):
+    [K, 12], or [K, 13] with the sky at the miss, whose `gsky` [groups,
+    N, 4] holds each group's cotangents of the miss attenuation and the
+    accumulated roughness (`sky.sky_backward_groups`). Env NEE takes a
+    node a group."""
     global SWEEP_LAUNCHES, GROUP_SUM_LAUNCHES
     _check_covered(scene, settings)
-    if env_mode(scene, settings):
-        raise ValueError("the chunk's sweep takes no sky pass")
+    env = env_mode(scene, settings)
+    if env == 2:
+        raise ValueError("the chunk's sweep takes no env NEE")
     n, dev = record.n, record.end.device
     light = _use_light_nee(scene, settings)
     mk.check_record(record, n, settings, False, dev, light, groups)
     k = scene.materials.count
-    for name, t, shape in (("ct", ct, (n, 3)),
-                           ("material table", mat_tab, (k, 17))):
-        if (t.shape != shape or t.dtype != torch.float32
+    buffers = [("ct", ct, (n, 3)), ("material table", mat_tab, (k, 17))]
+    if env:
+        buffers.append(("gsky", gsky, (groups, n, 4)))
+    for name, t, shape in buffers:
+        if (t is None or t.shape != shape or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"{list(shape)} on {dev}")
+    cols = n_grad(scene, settings)
     f32 = dict(dtype=torch.float32, device=dev)
-    partial = torch.empty((-(-n // THREADS), k * N_GRAD), **f32)
-    part = torch.empty((groups, k * N_GRAD), **f32)
-    out = torch.empty((k, N_GRAD), **f32)
+    partial = torch.empty((-(-n // THREADS), k * cols), **f32)
+    part = torch.empty((groups, k * cols), **f32)
+    out = torch.empty((k, cols), **f32)
     lib = mk.load_library("adjoint")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.halogen_adjoint_sweep_chunk(
-            mat_tab.data_ptr(), ct.data_ptr(), record.a.data_ptr(),
+            mat_tab.data_ptr(), ct.data_ptr(),
+            gsky.data_ptr() if env else None, record.a.data_ptr(),
             record.word.data_ptr(), record.end.data_ptr(),
             None if record.lq is None else record.lq.data_ptr(),
             partial.data_ptr(), part.data_ptr(), out.data_ptr(), n, k,
             settings.max_bounces, int(settings.russian_roulette),
-            int(scene.any_transmissive), int(light), groups, stream)
+            int(scene.any_transmissive), env, int(light), groups, stream)
     if err != 0:
         raise RuntimeError(f"adjoint chunk sweep failed: CUDA error {err}")
     SWEEP_LAUNCHES += groups

@@ -45,7 +45,7 @@ the envmap's cotangents and those the adjoint takes at the miss.
 `trace_color_chunk` is the frame driver's form of it for a chunk of
 pixels: one call, and under autograd one node (`_FusedChunk`), for all
 the chunk's launch groups, where `chunk_serves` says so (no gradient, or
-the record route without a sky pass); the C entry point loops over the
+the record route without env NEE); the C entry point loops over the
 groups, and the lanes' sums run in a kernel of this library.
 
 Scope (`fused_supported`, the JAX predicate without its refusal of
@@ -136,12 +136,12 @@ LIBRARIES = {
                    "halogen_lane_sum": (2, 3, 0)},
     "adjoint": {"halogen_adjoint_launch": (19, 15, 0),
                 "halogen_adjoint_sweep": (14, 7, 0),
-                "halogen_adjoint_sweep_chunk": (9, 7, 0)},
+                "halogen_adjoint_sweep_chunk": (10, 8, 0)},
     "traverse": {"halogen_traverse_launch": (13, 1, 0)},
     "sky": {"halogen_sky_forward": (5, 6, 2),
             "halogen_sky_backward": (9, 8, 2),
             "halogen_sky_order": (8, 5, 0),
-            "halogen_sky_sum": (8, 4, 0)},
+            "halogen_sky_sum": (8, 5, 0)},
 }
 _HEADERS = ("path_common.cuh", "geometry.cuh", "bvh_traverse.cuh")
 
@@ -1057,17 +1057,20 @@ def _table_cotangent(dmat: torch.Tensor,
     return d_mat
 
 
-def chunk_serves(route: str | None, want_grad: bool, sky: bool) -> bool:
+def chunk_serves(route: str | None, want_grad: bool, env_mode: int) -> bool:
     """Whether a chunk of pixels on the kernel route renders all its
     launch groups through one `_FusedChunk` call (True) or through one
     `_FusedDiff` a group (False), by the adjoint's route (`grad_route`),
-    whether a gradient is wanted and whether a sky pass shades the
-    outputs: every chunk that wants no gradient, and a gradient's chunk on
-    the 'recorded' route without a sky. The replay routes and 'rerecord'
-    bound memory past the record budget a group at a time, and the sky
-    pass keeps each group's outputs for its backward: those keep a node a
-    group."""
-    return not want_grad or (route == "recorded" and not sky)
+    whether a gradient is wanted and the adjoint's sky variant
+    (`adjoint.env_mode`: 0 no sky, 1 the sky at the miss, 2 with env
+    NEE): every chunk that wants no gradient, and a gradient's chunk on
+    the 'recorded' route in modes 0 and 1, whose sweep variants
+    (`adjoint_sweep<T, 0|1, L>`) the chunk's sweep launches, area-light
+    NEE (L) included. The replay routes and 'rerecord' bound memory past
+    the record budget a group at a time, and env NEE's sweep writes each
+    group's records of its drawn texels for the finest mip's sums: those
+    keep a node a group."""
+    return not want_grad or (route == "recorded" and env_mode in (0, 1))
 
 
 class _FusedChunk(torch.autograd.Function):
@@ -1077,18 +1080,29 @@ class _FusedChunk(torch.autograd.Function):
     divided by spp, from one call into the kernel library
     (`halogen_megakernel_chunk`: each group's launch, then the lane sum,
     `lane_sum`, which adds its colours into the chunk's accumulator in the
-    order of the plain sums). Where the sky pass shades the outputs (no
-    gradient then: `chunk_serves`), the sky forward runs on each group's
-    outputs between its launch and its lane sum.
+    order of the plain sums). Where the sky pass shades the outputs, the
+    sky forward runs on each group's outputs between its launch and its
+    lane sum, on one atlas of the mips made once a call.
 
     On the 'recorded' route the groups record into one `Record` with a
     leading group axis, and the backward is one call too
     (`adjoint.sweep_chunk`): the colour's cotangent is the same for every
-    group, each group's sweep reads its record, and the groups' [K, 12]
+    group, each group's sweep reads its record, and the groups' [K, 12|13]
     are summed last first, the order in which autograd adds those of one
-    node a group. Scene, tables and view are checked once a chunk; one
-    output buffer and, in the backward, one block-sums buffer serve all
-    the groups in turn.
+    node a group. Under the sky (`chunk_serves`: the sky at the miss, no
+    env NEE) the mips are inputs after the tables, each group keeps its
+    own outputs ([groups, n, 10]), and the backward first runs the sky
+    pass's backward of every group, the last first
+    (`sky.sky_backward_groups`: each group's cotangents of the miss for
+    its sweep, and the groups' per-texel sums added into one gradient of
+    the mips), then the sweeps: the bits of a `_FusedDiff` and a `SkyPass`
+    a group, whose cotangents autograd adds in the same order. The atlas
+    and the kept outputs are dropped as the backward ends. Over several
+    chunks of a frame each chunk's sums are added as one, where a node a
+    group adds every group's in turn (the same sums, associated by chunk).
+    Scene, tables and view are checked once a chunk; one output buffer
+    (without a gradient through the sky) and, in the backward, one
+    block-sums buffer serve all the groups in turn.
 
     `chunk` is (view, spp_offset, spp_block, groups, spp): group g renders
     lanes spp_offset + g * spp_block .. + spp_block of each pixel of
@@ -1106,9 +1120,10 @@ class _FusedChunk(torch.autograd.Function):
             return _FusedChunk._backward(ctx, grad)
 
     @staticmethod
-    def _forward(ctx, scene, settings, aux, chunk, *tables):
+    def _forward(ctx, scene, settings, aux, chunk, *inputs):
         global LAUNCHES, RECORD_LAUNCHES, CHUNK_NODES, CHUNK_GROUPS
         global LANE_SUM_LAUNCHES
+        from halogen_tpu_torch.kernels import adjoint as adj
         from halogen_tpu_torch.kernels import sky
 
         env_tab, light_tab, route = aux
@@ -1117,17 +1132,23 @@ class _FusedChunk(torch.autograd.Function):
         if view.block is None or dev.type != "cuda":
             raise ValueError("the chunk node launches from pixels on a CUDA "
                              "device")
-        with_sky = sky.uses_sky(scene, settings)
-        if not chunk_serves(route, route is not None, with_sky):
+        if not chunk_serves(route, route is not None,
+                            adj.env_mode(scene, settings)):
             raise ValueError("the chunk node takes the 'recorded' route "
-                             "without a sky, or no gradient "
+                             "without env NEE, or no gradient "
                              f"(`chunk_serves`), not {route!r}")
-        tables, ints = _scene_inputs(scene, settings, tables, dev)
+        tables, ints = _scene_inputs(scene, settings, inputs[:4], dev)
+        mips = tuple(inputs[4:]) or scene.env_mips
+        with_sky = sky.uses_sky(scene, settings)
         v = _variant(scene, settings, tables, env_tab, light_tab, dev)
         n_pix = view.pix.shape[0]
         n = n_pix * spp_block
         f32 = dict(dtype=torch.float32, device=dev)
-        out = torch.empty((n, N_OUTPUTS_NEE if v.env_nee else N_OUTPUTS),
+        # under the sky with a gradient each group keeps its outputs for
+        # the sky's backward; else one buffer serves the groups in turn
+        keep = with_sky and route is not None
+        out = torch.empty(((groups,) if keep else ())
+                          + (n, N_OUTPUTS_NEE if v.env_nee else N_OUTPUTS),
                           **f32)
         acc = torch.zeros((n_pix, 3), **f32)
         # each group's next ray to hand out, zeroed once
@@ -1140,14 +1161,14 @@ class _FusedChunk(torch.autograd.Function):
         lib = load_library("megakernel")
         stream = torch.cuda.current_stream(dev).cuda_stream
 
-        def launch(g0: int, count: int, acc_ptr) -> None:
+        def launch(g0: int, count: int, acc_ptr, dst, g_rec) -> None:
             err = lib.halogen_megakernel_chunk(
                 far_t.data_ptr(), *(t.data_ptr() for t in tables),
-                _ptr(v.nodes), _ptr(v.env_tab), out.data_ptr(),
+                _ptr(v.nodes), _ptr(v.env_tab), dst.data_ptr(),
                 view.block.data_ptr(), view.pix.data_ptr(),
                 view.frame_word.data_ptr(),
                 None if counter is None else counter[g0:].data_ptr(),
-                *v.light_ptrs(), *_record_ptrs(rec), acc_ptr, n, *ints,
+                *v.light_ptrs(), *_record_ptrs(g_rec), acc_ptr, n, *ints,
                 *v.ints(), settings.width, settings.height, spp_block,
                 spp_offset + g0 * spp_block, settings.samples_per_pixel,
                 *v.light_ints(), count, stream)
@@ -1155,15 +1176,18 @@ class _FusedChunk(torch.autograd.Function):
                 raise RuntimeError(f"megakernel chunk launch failed: CUDA "
                                    f"error {err}")
 
+        sky_args = None
         with torch.cuda.device(dev):
             if not with_sky:
-                launch(0, groups, acc.data_ptr())
+                launch(0, groups, acc.data_ptr(), out, rec)
             else:
-                sky_args = sky._kernel_args(scene, settings, out,
-                                            scene.env_mips)
+                sky_args = sky._kernel_args(scene, settings,
+                                            out[0] if keep else out, mips)
                 for g in range(groups):
-                    launch(g, 1, None)
-                    color = sky.sky_forward(scene, settings, out, None,
+                    dst = out[g] if keep else out
+                    launch(g, 1, None, dst, None if rec is None else Record(
+                        *(None if t is None else t[g] for t in rec)))
+                    color = sky.sky_forward(scene, settings, dst, mips,
                                             sky_args)
                     err = lib.halogen_lane_sum(color.data_ptr(),
                                                acc.data_ptr(), 3, n_pix,
@@ -1181,18 +1205,23 @@ class _FusedChunk(torch.autograd.Function):
             ctx.scene, ctx.settings = scene, settings
             ctx.chunk = (spp_block, groups, spp)
             ctx.record_fields = tuple(t is not None for t in rec)
+            # the atlas, for the sky's backward; the saved mips hold it to
+            # their version
+            ctx.sky_args = sky_args if keep else None
             ctx.save_for_backward(tables[3],
-                                  *(t for t in rec if t is not None))
+                                  *(t for t in rec if t is not None),
+                                  *((out, *inputs[4:]) if keep else ()))
         return acc / spp
 
     @staticmethod
     def _backward(ctx, grad):
         from halogen_tpu_torch.kernels import adjoint as adj
+        from halogen_tpu_torch.kernels import sky
 
-        if not ctx.needs_input_grad[7]:  # mat_tab
-            return (None,) * 8
+        n_fields = sum(ctx.record_fields)
         mat_tab, *saved = ctx.saved_tensors
-        it = iter(saved)
+        rec_t, kept = saved[:n_fields], saved[n_fields:]
+        it = iter(rec_t)
         rec = Record(*(next(it) if f else None for f in ctx.record_fields))
         spp_block, groups, spp = ctx.chunk
         # the cotangent of every lane's colour: that of the mean over spp
@@ -1200,9 +1229,25 @@ class _FusedChunk(torch.autograd.Function):
         # group, lanes pixel-major
         g = grad / spp
         ct = g[:, None, :].expand(g.shape[0], spp_block, 3).reshape(-1, 3)
-        dmat = adj.sweep_chunk(ctx.scene, rec, ct, ctx.settings, mat_tab,
-                               groups)
-        return (None,) * 7 + (_table_cotangent(dmat, mat_tab),)
+        gsky, d_env = None, ()
+        if kept:
+            out, *mips = kept
+            want_env = any(ctx.needs_input_grad[8:])
+            gsky = torch.empty((groups, rec.n, 4), dtype=torch.float32,
+                               device=ct.device)
+            args = ctx.sky_args or sky._kernel_args(ctx.scene, ctx.settings,
+                                                    out[0], mips)
+            flat = sky.sky_backward_groups(ctx.scene, ctx.settings, out, ct,
+                                           gsky, args, mips, want_env)
+            d_env = (sky.split_mips(flat, mips) if want_env
+                     else (None,) * len(mips))
+            ctx.sky_args = None  # nothing sky-sized outlives the backward
+        d_mat = None
+        if ctx.needs_input_grad[7]:  # mat_tab
+            dmat = adj.sweep_chunk(ctx.scene, rec, ct, ctx.settings,
+                                   mat_tab, groups, gsky)
+            d_mat = _table_cotangent(dmat, mat_tab)
+        return (None,) * 7 + (d_mat, *d_env)
 
 
 def _nee_mips(scene: SceneData, settings: RenderSettings) -> tuple:
@@ -1267,11 +1312,16 @@ def trace_color_chunk(scene: SceneData, view: PixelView, spp_offset: int,
     pixel, through one `_FusedChunk` (the sky pass included), as `groups`
     calls of `trace_color_pixels_diff` and their sums give it. `route` is
     the caller's resolved one: None where no gradient is wanted, else
-    'recorded' on a scene without a sky pass (`chunk_serves`), whose
-    launches record the adjoint's transcript for the backward's sweep."""
+    'recorded' on a scene without env NEE (`chunk_serves`), whose
+    launches record the adjoint's transcript for the backward's sweep;
+    under the sky the gradient reaches the scene's mips too."""
+    from halogen_tpu_torch.kernels import sky
+
+    mips = (scene.env_mips if route is not None
+            and sky.uses_sky(scene, settings) else ())
     return _FusedChunk.apply(scene, settings, (env_tab, light_tab, route),
                              (view, spp_offset, spp_block, groups, spp),
-                             *tables)
+                             *tables, *mips)
 
 
 def trace_color_pixels_diff(scene: SceneData, view: PixelView, lane0: int,

@@ -21,7 +21,11 @@ by texel over the bits the atlas needs (`order_plan`), which drops the
 keys outside [0, n_texels) and keeps each texel's run in tap order; and
 the sums, a reduce-by-key over fixed tiles of the ordered taps whose
 runs that cross a tile go to carry slots, added in tile order by the
-next level. One int32 workspace holds both stages' buffers.
+next level. One int32 workspace holds both stages' buffers. The sums
+write a new [n_texels, 3] buffer, or add each texel's run into a given
+one (`scatter_texels(..., out=)`): the chunk node's backward,
+`sky_backward_groups`, adds its groups' sums into one gradient buffer,
+in the order in which autograd adds those of one `SkyPass` a group.
 
 On the CPU, and under `Fused.OFF`, the plain version runs:
 `deferred_sky` with torch autograd. `sky_taps_reference` is the plain
@@ -32,7 +36,8 @@ for tile and addition for addition; `scatter_texels` on the CPU is
 no fallback. `FORWARD_LAUNCHES`, `BACKWARD_LAUNCHES`, `ORDER_LAUNCHES`
 and `SCATTER_LAUNCHES` count the launches, `ATLAS_BUILDS` the copies of
 the mips into an atlas (one a `SkyPass`, kept for its backward; one a
-chunk node's sky pass; one a plain taps call).
+chunk node, kept for its backward where a gradient follows and dropped
+at its end; one a plain taps call).
 """
 
 from __future__ import annotations
@@ -258,7 +263,7 @@ def sky_taps_reference(scene: SceneData, settings: RenderSettings,
 def sky_backward(scene: SceneData, settings: RenderSettings,
                  outputs: torch.Tensor, ct: torch.Tensor, env_mips=None,
                  taps: bool = True, launch_args=None, order=None,
-                 stream=None):
+                 stream=None, out=None):
     """The backward's first step: (d_out [N, 4], keys [N * 8], weights
     [N * 8, 3]) as `sky_taps_reference` gives them; the kernel on a CUDA
     device, the plain version on the CPU. Without `taps` (no mip wants a
@@ -266,7 +271,9 @@ def sky_backward(scene: SceneData, settings: RenderSettings,
     None. `launch_args` as for `sky_forward`; with `order`, the workspace
     and `_Plan` of the scatter of these taps, the kernel also writes the
     ordering's first-pass digit counts there; `stream`, the current
-    stream's handle where the caller is in the rays' device context."""
+    stream's handle where the caller is in the rays' device context;
+    `out` (CUDA only), the buffers (d_out, keys, weights) to write, the
+    last two None without `taps`."""
     global BACKWARD_LAUNCHES
     env_mips = scene.env_mips if env_mips is None else tuple(env_mips)
     if outputs.device.type == "cpu":
@@ -279,11 +286,19 @@ def sky_backward(scene: SceneData, settings: RenderSettings,
         scene, settings, outputs, env_mips)
     n, dev = outputs.shape[0], outputs.device
     _check(ct, "ct", (n, 3), torch.float32, dev)
-    d_out = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    keys = wts = None
-    if taps:
-        keys = torch.empty((n * TAPS,), dtype=torch.int32, device=dev)
-        wts = torch.empty((n * TAPS, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        d_out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+        keys = wts = None
+        if taps:
+            keys = torch.empty((n * TAPS,), dtype=torch.int32, device=dev)
+            wts = torch.empty((n * TAPS, 3), dtype=torch.float32,
+                              device=dev)
+    else:
+        d_out, keys, wts = out
+        _check(d_out, "d_out", (n, 4), torch.float32, dev)
+        if taps:
+            _check(keys, "keys", (n * TAPS,), torch.int32, dev)
+            _check(wts, "wts", (n * TAPS, 3), torch.float32, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     hist, digit, n_texels = None, 0, 0
     if order is not None and taps:
@@ -395,17 +410,24 @@ def _order(keys: torch.Tensor, n_texels: int, stream: int, order=None,
 
 
 def _sums(ws: torch.Tensor, plan: _Plan, wts: torch.Tensor, n_texels: int,
-          stream: int) -> torch.Tensor:
+          stream: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """The per-texel sum kernels on a CUDA device, on `stream` (the current
     device's), over the ordering in the workspace `ws` (`_order`'s):
-    [n_texels, 3]."""
+    [n_texels, 3], or with `out` (a contiguous float32 [n_texels, 3]) each
+    texel's sum added into it, out[t] + sum, the texels without a tap left
+    as they were."""
     global SCATTER_LAUNCHES
-    out = torch.empty((n_texels, 3), dtype=torch.float32, device=ws.device)
+    add = out is not None
+    if add:
+        _check(out, "out", (n_texels, 3), torch.float32, ws.device)
+    else:
+        out = torch.empty((n_texels, 3), dtype=torch.float32,
+                          device=ws.device)
     o = {k: ws.data_ptr() + 4 * v for k, v in plan.offs.items()}
     err = _lib().halogen_sky_sum(
         o["keys"], o["idx"], wts.data_ptr(), o["count"], o["carry_keys"],
         o["carry_vals"], o["counts"], out.data_ptr(), plan.m, plan.cap,
-        plan.levels, n_texels, stream)
+        plan.levels, n_texels, int(add), stream)
     if err != 0:
         raise RuntimeError(f"sky sums launch failed: CUDA error {err}")
     SCATTER_LAUNCHES += 1
@@ -434,26 +456,34 @@ def order_texels(keys: torch.Tensor, n_texels: int):
             ws[plan.offs["idx"]:plan.offs["idx"] + c])
 
 
-def scatter_texels(keys: torch.Tensor, wts: torch.Tensor,
-                   n_texels: int) -> torch.Tensor:
+def scatter_texels(keys: torch.Tensor, wts: torch.Tensor, n_texels: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """[n_texels, 3]: per texel t the sum of wts[j] over the j with
     keys[j] == t (keys < 0 are skipped). On a CUDA device the ordering
     kernels, then the per-texel sum kernels, in a fixed order (two calls
     give the same bits; keys >= n_texels are dropped there); on the CPU
-    `index_add_`, in index order."""
+    `index_add_`, in index order. With `out` (contiguous float32
+    [n_texels, 3]) the sums are added into it and it is returned: on the
+    card each texel's whole sum at once, out[t] + sum (so out + the sums
+    into zeros, bit for bit); on the CPU `index_add_` into it."""
     _check_scatter(keys, wts, n_texels)
     m, dev = keys.shape[0], keys.device
+    if out is not None:
+        _check(out, "out", (n_texels, 3), torch.float32, dev)
     if dev.type == "cpu":
         keep = keys >= 0
-        return torch.zeros((n_texels, 3), dtype=torch.float32).index_add_(
-            0, keys[keep].to(torch.int64), wts[keep])
+        if out is None:
+            out = torch.zeros((n_texels, 3), dtype=torch.float32)
+        return out.index_add_(0, keys[keep].to(torch.int64), wts[keep])
     if dev.type != "cuda":
         raise ValueError(f"no scatter kernel for device {dev}")
     if m == 0:
-        return torch.zeros((n_texels, 3), dtype=torch.float32, device=dev)
+        return (out if out is not None else
+                torch.zeros((n_texels, 3), dtype=torch.float32, device=dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        return _sums(*_order(keys, n_texels, stream), wts, n_texels, stream)
+        return _sums(*_order(keys, n_texels, stream), wts, n_texels, stream,
+                     out)
 
 
 def reduce_texels_model(keys: torch.Tensor, vals: torch.Tensor,
@@ -576,6 +606,48 @@ def sky_backward_full(scene: SceneData, settings: RenderSettings,
         ordered = _order(keys, n_texels, stream, order, counted=True)
         out = _sums(*ordered, wts, n_texels, stream)
     return d_out, split_mips(out, env_mips)
+
+
+def sky_backward_groups(scene: SceneData, settings: RenderSettings,
+                        outputs: torch.Tensor, ct: torch.Tensor,
+                        d_out: torch.Tensor, launch_args, env_mips,
+                        want_env: bool) -> torch.Tensor | None:
+    """The sky pass's backward of a chunk node's groups
+    (`megakernel._FusedChunk`) on a CUDA device: for each group g of
+    `outputs` [G, n, C], the last first (the order in which autograd runs
+    one `SkyPass` a group), the taps kernel on its rows with the colour
+    cotangent `ct` [n, 3], which every group shares, into `d_out[g]` ([G,
+    n, 4]: the miss attenuation's and the accumulated roughness's
+    cotangents, which the adjoint's sweep takes); with `want_env` also the
+    ordering of its taps and their per-texel sums, added into one
+    [n_texels, 3] buffer zeroed once. That buffer is what autograd adds up
+    of one `SkyPass` a group, bit for bit (a texel's sums added in the
+    same order); returned, or None without `want_env`. `launch_args` is
+    `_kernel_args` of the chunk's forward (its atlas); one taps buffer and
+    one workspace serve the groups in turn."""
+    groups, n = outputs.shape[0], outputs.shape[1]
+    dev = outputs.device
+    if dev.type != "cuda":
+        raise ValueError("the chunk node's sky backward runs on a CUDA "
+                         "device")
+    _check(d_out, "d_out", (groups, n, 4), torch.float32, dev)
+    n_texels = int(launch_args[0].shape[0])
+    flat = keys = wts = order = None
+    if want_env:
+        flat = torch.zeros((n_texels, 3), dtype=torch.float32, device=dev)
+        keys = torch.empty((n * TAPS,), dtype=torch.int32, device=dev)
+        wts = torch.empty((n * TAPS, 3), dtype=torch.float32, device=dev)
+        order = _workspace(n * TAPS, n_texels, dev) if n else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for g in reversed(range(groups)):
+            sky_backward(scene, settings, outputs[g], ct, env_mips,
+                         taps=want_env, launch_args=launch_args, order=order,
+                         stream=stream, out=(d_out[g], keys, wts))
+            if order is not None:
+                _sums(*_order(keys, n_texels, stream, order, counted=True),
+                      wts, n_texels, stream, flat)
+    return flat
 
 
 class SkyPass(torch.autograd.Function):

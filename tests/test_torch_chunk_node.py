@@ -7,15 +7,18 @@ the layout of a chunk's record (a leading group axis, each group's slice
 contiguous, counted once with every group's bytes). On the card (marked
 `cuda`; imports no JAX): the chunk node's image equals that of a node a
 group bit for bit, its 'recorded' material gradients match theirs at the
-adjoint tests' tolerance, the replay and 'rerecord' routes and gradients
-through the sky still take a node a group, the counters read the groups
-a call of the benchmark's frames and fit, and a fit step's peak memory
-does not rise:
+adjoint tests' tolerance, and under an HDRI at the miss its image, the
+material table's and every mip's cotangents equal theirs bit for bit,
+from one atlas a call that the backward drops; the replay and 'rerecord'
+routes, env NEE and a gradient of the sky alone still take a node a
+group, the counters read the groups a call of the benchmark's frames and
+fit, and a fit step's peak memory does not rise:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_chunk_node.py -q
 """
 
 import contextlib
+import weakref
 
 import numpy as np
 import pytest
@@ -23,35 +26,47 @@ import torch
 
 import halogen_tpu_torch as ht
 from halogen_tpu_torch.diff import render_loss_grad
-from halogen_tpu_torch.diff.grad import FLOAT_MATERIAL_FIELDS
+from halogen_tpu_torch.diff.grad import (
+    FLOAT_MATERIAL_FIELDS,
+    render_with_params,
+    with_material_params,
+)
 from halogen_tpu_torch.integrator.trace import _spp_block
 from halogen_tpu_torch.kernels import adjoint as adj
 from halogen_tpu_torch.kernels import megakernel as mk
-from halogen_tpu_torch.scene import cornell
+from halogen_tpu_torch.kernels import sky
+from halogen_tpu_torch.scene import cornell, hdr_io
 from halogen_tpu_torch.scene.envmap import Envmap
 from halogen_tpu_torch.utils import profiling
 
 CAM = dict(position=(0, 0, 3.2), target=(0, 0, 0), fov_deg=40)
 
-# (route, gradient wanted, sky pass) -> the chunk node serves
+# (route, gradient wanted, the adjoint's env mode: 0 no sky, 1 the sky at
+# the miss, 2 with env NEE) -> the chunk node serves
 RULE = {
-    (None, False, False): True,
-    (None, False, True): True,
-    ("rays", False, True): True,
-    ("recorded", True, False): True,
-    ("recorded", True, True): False,
-    ("rerecord", True, False): False,
-    ("shared", True, False): False,
-    ("global", True, False): False,
-    ("shared", True, True): False,
+    (None, False, 0): True,
+    (None, False, 1): True,
+    (None, False, 2): True,
+    ("rays", False, 1): True,
+    ("recorded", True, 0): True,
+    ("recorded", True, 1): True,
+    ("recorded", True, 2): False,
+    ("rerecord", True, 0): False,
+    ("rerecord", True, 1): False,
+    ("shared", True, 0): False,
+    ("global", True, 0): False,
+    ("shared", True, 1): False,
+    ("global", True, 2): False,
+    ("rays", True, 1): False,
 }
 
 
 @pytest.mark.parametrize("case", sorted(RULE, key=str), ids=str)
 def test_chunk_serves_by_route_grad_and_sky(case):
     """Every chunk that wants no gradient, and a gradient's chunk on the
-    'recorded' route without a sky pass; the replay routes, 'rerecord' and
-    gradients through the sky keep a node a group."""
+    'recorded' route without a sky or with the sky at the miss; env NEE,
+    the replay routes, 'rerecord' and a gradient of the sky alone ('rays':
+    no table wants one, so nothing records) keep a node a group."""
     assert mk.chunk_serves(*case) is RULE[case]
 
 
@@ -279,7 +294,8 @@ def test_chunk_gradients_match_a_node_a_group(case, cuda_device):
 @pytest.mark.cuda
 def test_other_routes_keep_a_node_a_group(cuda_device):
     """The replay (RECORD_BUDGET = 0), 'rerecord' (light NEE with one
-    launch's record in the budget) and a gradient through the sky pass
+    launch's record in the budget), a gradient through the sky with env
+    NEE, and a gradient of the sky alone (no table wants one: 'rays')
     take a node a group: the chunk counters do not move."""
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=8,
                            max_bounces=4, ray_chunk_size=2048)
@@ -306,13 +322,91 @@ def test_other_routes_keep_a_node_a_group(cuda_device):
         adj.RECORD_BUDGET = saved
     scene = cornell.cornell_box(glossy=True).build(
         envmap=Envmap.gradient_sky(), device=cuda_device)
-    st_s = st.replace(use_envmap=True)
+    st_s = st.replace(use_envmap=True, env_importance_sampling=True)
+    assert adj.env_mode(scene, st_s) == 2
     before, sky_b = _chunk_counts(), profiling.counts()["sky.backward_launches"]
     render_loss_grad({"materials": scene.materials,
                       "env_mips": scene.env_mips}, scene, cam, st_s, target,
                      1)
     assert _delta(before) == (0, 0)
     assert profiling.counts()["sky.backward_launches"] - sky_b == 4
+    # the sky at the miss, its mips alone wanting a gradient
+    st_m = st.replace(use_envmap=True)
+    mips = [m.detach().clone().requires_grad_(True) for m in scene.env_mips]
+    before = _chunk_counts()
+    img = render_with_params({"env_mips": tuple(mips)}, scene, cam, st_m, 1)
+    ((img - target) ** 2).mean().backward()
+    assert _delta(before) == (0, 0)
+    assert all(m.grad is not None for m in mips)
+    assert sum(float(m.grad.abs().sum()) for m in mips) > 0
+
+
+def _sky_step(scene, cam, st, target, frame):
+    """One gradient step of the materials and every mip under the sky, as
+    `fit_materials(optimize_env=True)` takes it: (the image, the material
+    fields' gradients, the mips' gradients, the atlases built, the chunk
+    counters' moves, the atlases still alive after `backward()` while the
+    loss and its graph are)."""
+    leaves = {f: getattr(scene.materials, f).detach().clone()
+              .requires_grad_(True) for f in FLOAT_MATERIAL_FIELDS}
+    mips = [m.detach().clone().requires_grad_(True) for m in scene.env_mips]
+    built, real = [], sky.atlas
+
+    def atlas(env_mips):
+        tex = real(env_mips)
+        built.append(weakref.ref(tex))
+        return tex
+
+    sky.atlas = atlas
+    try:
+        before = _chunk_counts()
+        params = {"materials": with_material_params(scene.materials, leaves),
+                  "env_mips": tuple(mips)}
+        img = render_with_params(params, scene, cam, st, frame)
+        loss = ((img - target) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        alive = sum(r() is not None for r in built)
+        moved = _delta(before)
+    finally:
+        sky.atlas = real
+    return (img.detach(), {f: t.grad for f, t in leaves.items()},
+            [m.grad for m in mips], len(built), moved, alive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [2, 4])
+def test_sky_chunk_gradients_equal_a_node_a_group(groups, cuda_device):
+    """Under a 64-px HDRI at the miss, on the 'recorded' route, one chunk
+    node serves a fit step's groups with one atlas, dropped by the end of
+    its backward, and gives a node a group's image, material cotangents
+    and every mip's cotangent bit for bit, on two frames."""
+    env = Envmap.from_equirect(hdr_io.procedural_hdri(64))
+    scene = cornell.cornell_box(glossy=True).build(envmap=env,
+                                                   device=cuda_device)
+    cam = ht.make_camera(**CAM, device=cuda_device)
+    st = ht.RenderSettings(width=32, height=32, samples_per_pixel=2 * groups,
+                           max_bounces=4, use_envmap=True,
+                           ray_chunk_size=2048)
+    assert adj.env_mode(scene, st) == 1 and len(scene.env_mips) == 6
+    assert _spp_block(st.num_pixels, st.samples_per_pixel,
+                      st.ray_chunk_size) == 2
+    assert adj.record_plan(scene, st, 2048, groups) == "recorded"
+    target = torch.full((32, 32, 3), 0.25, device=cuda_device)
+    for frame in (1, 2):
+        img, d_mat, d_env, atlases, moved, alive = _sky_step(
+            scene, cam, st, target, frame)
+        assert (atlases, moved, alive) == (1, (1, groups), 0)
+        with _a_node_a_group():
+            ref = _sky_step(scene, cam, st, target, frame)
+        assert ref[3:5] == (groups, (0, 0))
+        assert torch.equal(img, ref[0])
+        for f in FLOAT_MATERIAL_FIELDS:
+            assert torch.equal(d_mat[f], ref[1][f]), f
+        for level, (got, want) in enumerate(zip(d_env, ref[2])):
+            assert torch.equal(got, want), level
+        assert float(d_mat["albedo"].abs().sum()) > 0
+        assert sum(float(m.abs().sum()) for m in d_env) > 0
 
 
 def _benchmark_step(dev, fit):

@@ -5,7 +5,8 @@ the backward's ordering against `torch.sort(stable=True)` (the same
 permutation, bit for bit) and its sums against `index_add_` in float64
 and against `reduce_texels_model` (the same bits), at the gradient sky's
 atlas (10,920 texels), a 512 x 1024 map's (698,880), a one-mip map's, and
-with no tap or none that reached the sky.
+with no tap or none that reached the sky; the sums' add mode bit for bit
+the buffer + the fresh sums.
 
 Needs an NVIDIA GPU with nvcc; skips without one. Imports no JAX:
 
@@ -132,6 +133,33 @@ def test_scatter_texels_sums_in_a_fixed_order(cuda_device):
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_texels", [7, 10920, 698880])
+def test_scatter_texels_adds_into_a_buffer(n_texels, cuda_device):
+    """The sums' add mode (`scatter_texels(..., out=)`, the chunk node's
+    groups summed into one gradient): into a non-zero buffer it gives the
+    buffer + the fresh sums bit for bit, and leaves the texels without a
+    tap as they were; twice in a row, the first result + the sums again."""
+    g = torch.Generator().manual_seed(n_texels)
+    m = 200003
+    keys = torch.randint(-1, max(n_texels // 2, 2), (m,), generator=g,
+                         dtype=torch.int32).to(cuda_device)
+    wts = (torch.randn((m, 3), generator=g)
+           * torch.exp(torch.randn((m, 1), generator=g) * 4)).to(cuda_device)
+    buf = torch.randn((n_texels, 3), generator=g).to(cuda_device)
+    fresh = sky.scatter_texels(keys, wts, n_texels)
+    out = buf.clone()
+    got = sky.scatter_texels(keys, wts, n_texels, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    assert torch.equal(got, buf + fresh)
+    hit = torch.zeros((n_texels,), dtype=torch.bool, device=cuda_device)
+    hit[keys[keys >= 0].long()] = True
+    assert (~hit).any() and torch.equal(got[~hit], buf[~hit])
+    twice = sky.scatter_texels(keys, wts, n_texels, out=got.clone())
+    assert torch.equal(twice, (buf + fresh) + fresh)
 
 
 def _big_envmap():

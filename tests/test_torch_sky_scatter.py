@@ -12,7 +12,11 @@ taps make many tiles and carry levels at small sizes; the kernel's own
 tile (512) is held at a larger size. Tolerance: 1e-5 of the texel's sum
 of magnitudes + 1e-6 (float32 sums of the same taps in another order).
 The kernels themselves are held to these models on the card
-(`tests/test_torch_sky_cuda.py`, `chip_smoke.py` phase 29).
+(`tests/test_torch_sky_cuda.py`, `chip_smoke.py` phase 29). The sums'
+add mode (a chunk node's groups summed into one gradient) has its plain
+version here, `index_add_` into the given buffer; the card's is held
+bit for bit to the buffer + the fresh sums in `test_torch_sky_cuda.py`
+(a file without JAX, as the card's machine has none).
 """
 
 import numpy as np
@@ -139,6 +143,38 @@ def test_order_plan_covers_the_atlas(n_texels, m, rng_seed):
         k, idx = k[order], idx[order]
     ordered, perm = sky.order_texels(keys, n_texels)
     assert torch.equal(ordered.long(), k) and torch.equal(perm.long(), idx)
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_texel", "no_tap"])
+def test_scatter_adds_into_a_given_buffer(case):
+    """`scatter_texels(..., out=)` on the CPU, the plain version of the
+    card's add mode: `index_add_` into the given buffer, returned. It
+    agrees with the buffer + the fresh sums (float32 sums of the same taps
+    in another association: 1e-5 of the magnitudes + 1e-6), equals them
+    where a texel takes one tap, and leaves the texels without a tap as
+    they were, bit for bit."""
+    rng = np.random.default_rng(23)
+    m, n_texels = {"ragged": (1537, 900), "one_texel": (4099, 5),
+                   "no_tap": (300, 64)}[case]
+    keys = rng.integers(-1, n_texels, m)
+    if case == "no_tap":
+        keys[:] = -1
+    keys = torch.from_numpy(keys.astype(np.int32))
+    wts = torch.from_numpy(rng.normal(size=(m, 3)).astype(np.float32))
+    buf = torch.from_numpy(rng.normal(size=(n_texels, 3)).astype(np.float32))
+    out = buf.clone()
+    got = sky.scatter_texels(keys, wts, n_texels, out=out)
+    assert got is out
+    ref = buf.double() + _index_add(keys, wts, n_texels)
+    mag = buf.double().abs() + _index_add(keys, wts.abs(), n_texels)
+    assert ((got.double() - ref).abs() <= 1e-5 * mag + 1e-6).all()
+    taps = _index_add(keys, torch.ones_like(wts), n_texels)[:, 0]
+    assert torch.equal(got[taps == 0], buf[taps == 0])
+    one = taps == 1
+    fresh = sky.scatter_texels(keys, wts, n_texels)
+    assert torch.equal(got[one], (buf + fresh)[one])
+    with pytest.raises(ValueError, match="out must be"):
+        sky.scatter_texels(keys, wts, n_texels, out=buf[:-1])
 
 
 def test_order_plan_of_the_two_atlases():

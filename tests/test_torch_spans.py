@@ -198,16 +198,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sky", [False, True])
+@pytest.mark.parametrize("sky", [False, True, "env NEE"])
 def test_kernel_route_opens_the_wrapper_spans(sky, cuda_device):
     """One fit step through the megakernel's record route, four launch
     groups: the wrappers' spans, a forward and a backward (on autograd's
-    device thread) a node: without a sky one chunk node for the four
-    groups, under an HDRI a node a group and the sky pass's pair."""
+    device thread) a node: without a sky, and under an HDRI at the miss
+    (the sky pass inside the node's pair), one chunk node for the four
+    groups; with env NEE a node a group and the sky pass's pair."""
     kw = dict(envmap=Envmap.gradient_sky()) if sky else {}
     scene, cam = _tiny(cuda_device, **kw)
     st = ht.RenderSettings(width=32, height=32, samples_per_pixel=4,
-                           max_bounces=2, use_envmap=sky,
+                           max_bounces=2, use_envmap=bool(sky),
+                           env_importance_sampling=sky == "env NEE",
                            ray_chunk_size=1024)
     target = torch.full((32, 32, 3), 0.3, device=cuda_device)
     grad.fit_materials(scene, cam, st, target, steps=1)  # builds, warms
@@ -221,20 +223,22 @@ def test_kernel_route_opens_the_wrapper_spans(sky, cuda_device):
     launches = delta["megakernel.launches"]
     assert launches == 4
     calls = delta["megakernel.chunk_nodes"]
-    assert (calls, delta["megakernel.chunk_groups"]) == ((0, 0) if sky
+    per_group = sky == "env NEE"
+    assert (calls, delta["megakernel.chunk_groups"]) == ((0, 0) if per_group
                                                          else (1, 4))
-    nodes = launches if sky else calls
+    nodes = launches if per_group else calls
     assert len(_named(prof, "halogen.wrap.prepare")) > 0
     assert len(_named(prof, "halogen.wrap.forward")) == nodes
     back = _named(prof, "halogen.wrap.backward")
     assert len(back) == nodes
     assert {e.thread for e in back} != \
         {e.thread for e in _named(prof, "halogen.loop.step")}
-    n_sky = 0 if not sky else launches
-    assert len(_named(prof, "halogen.wrap.sky")) == n_sky
-    assert len(_named(prof, "halogen.wrap.sky_backward")) == n_sky
-    assert after["sky.forward_launches"] - before["sky.forward_launches"] \
-        == n_sky
+    n_pass = launches if per_group else 0
+    assert len(_named(prof, "halogen.wrap.sky")) == n_pass
+    assert len(_named(prof, "halogen.wrap.sky_backward")) == n_pass
+    for kind in ("forward", "backward"):
+        name = f"sky.{kind}_launches"
+        assert after[name] - before[name] == (launches if sky else 0)
     assert not any(e.name.startswith("halogen.") for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
 
@@ -244,7 +248,8 @@ def test_atlas_builds_one_a_sky_pass_and_one_a_chunk(cuda_device):
     """On the card a `SkyPass` forward and backward copy the mips into one
     atlas (the forward's, kept for the backward); a frame under the sky
     one a chunk node (`_FusedChunk`), its span inside the node's forward;
-    a fit step one a launch group, inside the sky pass's span."""
+    a fit step of the sky too, one a chunk node for its forward and
+    backward, its span inside the node's forward."""
     from halogen_tpu_torch.kernels import sky
 
     scene, cam = _tiny(cuda_device, envmap=Envmap.gradient_sky())
@@ -284,10 +289,11 @@ def test_atlas_builds_one_a_sky_pass_and_one_a_chunk(cuda_device):
     after = profiling.counts()
     delta = {k: after[k] - before[k] for k in after}
     assert delta["megakernel.launches"] == 8  # 2 chunks of 4 groups
-    assert delta["sky.atlas_builds"] == delta["megakernel.launches"]
+    assert delta["megakernel.chunk_nodes"] == 2
+    assert delta["sky.atlas_builds"] == delta["megakernel.chunk_nodes"]
     assert delta["sky.backward_launches"] == delta["megakernel.launches"]
     got = _named(prof, "halogen.wrap.sky_atlas")
-    assert len(got) == 8
-    assert all(_halogen_parents(e)[0] == "halogen.wrap.sky" for e in got)
+    assert len(got) == 2
+    assert all(_halogen_parents(e)[0] == "halogen.wrap.forward" for e in got)
     assert not any(e.name.startswith("halogen.") for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
